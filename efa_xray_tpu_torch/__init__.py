@@ -1,0 +1,44 @@
+"""efa_xray_tpu_torch: the ensemble square-root filter in PyTorch and CUDA.
+
+The port of ``efa_xray_tpu`` (JAX, written for a TPU) to PyTorch on an
+NVIDIA Hopper GPU.  Module paths mirror the JAX package's; each module's
+docstring names its counterpart.  This first slice carries the localized
+EnSRF update end to end: ``EnsembleState`` -> ``ObservationBatch`` ->
+``EnSRF(..., device=...).update()``, with the tail's panel solve (kernel
+B1, ``ops/tail_solve.py``) and the fused body (kernel B2,
+``ops/ensrf_fused.py``) as CUDA kernels built from ``csrc/`` at first use.
+On CPU tensors the kernels' plain-torch versions run.  The package never
+imports JAX.
+"""
+
+from efa_xray_tpu_torch.assimilation.assimilation import Assimilation
+from efa_xray_tpu_torch.assimilation.ensrf import EnSRF
+from efa_xray_tpu_torch.config import FilterConfig
+from efa_xray_tpu_torch.observation.localization import (
+    gaspari_cohn,
+    haversine,
+)
+from efa_xray_tpu_torch.observation.observation import (
+    Observation,
+    ObservationBatch,
+)
+from efa_xray_tpu_torch.postprocess.postprocess import (
+    obs_assimilation_statistics,
+)
+from efa_xray_tpu_torch.state.ensemble import EnsembleState
+from efa_xray_tpu_torch.state.structure import StateStructure
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Assimilation",
+    "EnSRF",
+    "EnsembleState",
+    "FilterConfig",
+    "Observation",
+    "ObservationBatch",
+    "StateStructure",
+    "gaspari_cohn",
+    "haversine",
+    "obs_assimilation_statistics",
+]

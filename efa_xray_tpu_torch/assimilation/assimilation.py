@@ -1,0 +1,265 @@
+"""Assimilation driver layer: priors, inflation, state formatting.
+
+Counterpart of ``efa_xray_tpu/assimilation/assimilation.py``:
+``inflate_state`` :75 (scalar and per-dimension / per-variable dict
+forms), and the ``Assimilation`` base class with ``max_finite_radius``
+:212, ``build_taps`` :224, ``obs_arrays`` :245, ``apply_outlier_check``
+:297, ``_vertical_active`` :348, ``format_prior_state`` :492 (the fused
+``_format_prior_jit`` :48), ``format_posterior_state`` :526 and
+``record_diagnostics`` :611.
+
+Everything runs on one explicit device, the filter's: by default the
+prior state's.  Inflation from a file or an ``AdaptiveInflation``, custom
+forward operators and the module-level ``update`` driver are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from efa_xray_tpu_torch.assimilation.ensrf_core import ObsArrays, ObsDiagnostics
+from efa_xray_tpu_torch.config import FilterConfig
+from efa_xray_tpu_torch.observation import forward as _fwd
+from efa_xray_tpu_torch.observation.observation import (
+    Observation,
+    ObservationBatch,
+)
+from efa_xray_tpu_torch.state.ensemble import EnsembleState, _torch_dtype
+from efa_xray_tpu_torch.utils.validation import ValidationError
+
+InflationSpec = Union[None, float, dict]
+
+
+def inflate_state(state: EnsembleState, inflation: InflationSpec,
+                  verbose: bool = False) -> EnsembleState:
+    """Multiplicative prior-perturbation inflation (reference
+    ``efa_xray/assimilation/assimilation.py:52-118``).
+
+    * float: every variable's perturbations scaled by the factor;
+    * dict: dimension names (``validtime``/``lat``/``lon``/``x``/``y``)
+      map to 1-D per-element factors along that dimension; variable names
+      map to scalar factors for that variable (unknown ones are skipped).
+
+    Returns a new state.
+    """
+    if inflation is None:
+        return state
+    s = state.structure
+    data = state.data
+    if isinstance(inflation, (int, float)) and not isinstance(inflation, bool):
+        if verbose:
+            print(f"Inflating all variables by factor: {float(inflation):3.2f}")
+        mean = data.mean(dim=-1, keepdim=True)
+        return state.replace_data((data - mean) * float(inflation) + mean)
+    if isinstance(inflation, dict):
+        dim_axis = {"validtime": 1, "y": 2, "lat": 2, "x": 3, "lon": 3}
+        for k, v in inflation.items():
+            mean = data.mean(dim=-1, keepdim=True)
+            perts = data - mean
+            if k in dim_axis:
+                if verbose:
+                    print(f"Inflating all variables along {k} dimension")
+                arr = np.asarray(v, dtype=np.float64)
+                axis = dim_axis[k]
+                if arr.shape[0] != data.shape[axis]:
+                    raise ValidationError(
+                        f"inflation along {k} has length {arr.shape[0]}, "
+                        f"dimension has {data.shape[axis]}")
+                shape = [1] * 5
+                shape[axis] = arr.shape[0]
+                factor = torch.tensor(arr, dtype=data.dtype,
+                                      device=data.device).reshape(shape)
+                data = perts * factor + mean
+            else:
+                if not isinstance(v, (int, float)) or isinstance(v, bool):
+                    raise TypeError(
+                        f"Per-variable inflation for {k!r} must be a number, "
+                        f"got {type(v).__name__}")
+                if k not in s.var_names:
+                    print(f"Unable to find variable {k} to inflate.  Skipping...")
+                    continue
+                if verbose:
+                    print(f"Inflating variable {k} by factor: {float(v):3.2f}")
+                vi = s.var_index(k)
+                data = data.clone()
+                data[vi] = perts[vi] * float(v) + mean[vi]
+        return state.replace_data(data)
+    raise NotImplementedError(
+        f"inflation spec {type(inflation).__name__!r} is not ported yet "
+        "(file and AdaptiveInflation forms: ROADMAP A8)")
+
+
+class Assimilation:
+    """Base driver: holds the prior and obs, computes obs-space priors,
+    formats the state for the solver and back."""
+
+    def __init__(self, state: EnsembleState, obs, inflation: InflationSpec = None,
+                 verbose: bool = False, config: Optional[FilterConfig] = None,
+                 device=None):
+        from efa_xray_tpu_torch.utils.logging import verbose_logger
+        from efa_xray_tpu_torch.utils.validation import (
+            validate_obs,
+            validate_state,
+        )
+
+        self.log = verbose_logger(verbose)
+        self.device = state.device if device is None else torch.device(device)
+        self.prior = (state if state.device == self.device
+                      else state.to(self.device))
+        self._user_obs = obs if isinstance(obs, (list, tuple)) else None
+        self.obs = ObservationBatch.coerce(obs)
+        validate_state(state)
+        validate_obs(self.obs, state.structure)
+        self.verbose = verbose
+        self.inflation = inflation
+        self.config = config or FilterConfig(verbose=verbose)
+        self.is_inflated = False
+        self._taps = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _torch_dtype(self.config.dtype)
+
+    def max_finite_radius(self):
+        """Host-known bound on the finite per-ob radii (km) after the
+        ``default_radius`` substitution; None when no ob is localized."""
+        r = np.asarray(self.obs.localize_radius, dtype=np.float64)
+        if self.config.default_radius is not None:
+            r = np.where(np.isinf(r), float(self.config.default_radius), r)
+        finite = r[np.isfinite(r)]
+        return float(finite.max()) if finite.size else None
+
+    def build_taps(self) -> _fwd.ObsTaps:
+        if self._taps is None:
+            cfg = self.config
+            self._taps = _fwd.build_taps_cached(
+                self.prior.structure, self.obs.lats, self.obs.lons,
+                self.obs.times_s, self.obs.var_indices(self.prior.structure),
+                npt=cfg.npt, exact_match_km=cfg.exact_match_km,
+                metric=cfg.nearest_metric, time_weighting=cfg.time_weighting,
+                search=cfg.taps_search, device=self.device,
+            )
+        return self._taps
+
+    def obs_arrays(self) -> ObsArrays:
+        """Per-ob tensors on the filter's device, in one transfer.
+        QC-failed obs (out of the state's time range) are masked out."""
+        taps = self.build_taps()
+        radii = np.asarray(self.obs.localize_radius, dtype=np.float64).copy()
+        if self.config.default_radius is not None:
+            radii[np.isinf(radii)] = float(self.config.default_radius)
+        qc = np.asarray(taps.qc_ok) | np.asarray(self.obs.custom_operator)
+        assim = np.asarray(self.obs.assimilate_flags) & qc
+        # Vertical localization only for obs with a finite vertical
+        # coordinate; others get an infinite vertical radius.
+        verts = np.asarray(self.obs.verts, dtype=np.float64).copy()
+        vrad = np.asarray(self.obs.vert_radius, dtype=np.float64).copy()
+        vrad[~np.isfinite(verts)] = np.inf
+        verts[~np.isfinite(verts)] = 0.0
+        packed = np.stack([
+            np.asarray(self.obs.values, dtype=np.float64),
+            np.asarray(self.obs.errors, dtype=np.float64),
+            np.asarray(self.obs.lats, dtype=np.float64),
+            np.asarray(self.obs.lons, dtype=np.float64),
+            radii, verts, vrad, assim.astype(np.float64),
+        ])
+        p = torch.tensor(packed, device=self.device)
+        f = p.to(self.dtype)
+        return ObsArrays(values=f[0], errors=f[1], lats=f[2], lons=f[3],
+                         radii=f[4], assim=p[7] != 0, verts=f[5],
+                         vert_radii=f[6])
+
+    def apply_outlier_check(self, oa: ObsArrays, tail_mean, tail_perts):
+        """Innovation-based gross-error QC (``FilterConfig.outlier_threshold``):
+        flag obs with ``innov^2 > t^2 (var(ye) + R)`` under the forecast
+        prior, then reject them or inflate their R to put the innovation
+        at t sigma (``outlier_action``)."""
+        t = self.config.outlier_threshold
+        if t is None:
+            return oa
+        ddof = 1 if self.config.unbiased_variance else 0
+        m = tail_perts.shape[1]
+        varye = torch.sum(tail_perts * tail_perts, dim=1) / (m - ddof)
+        innov = oa.values - tail_mean
+        bad = innov * innov > (t * t) * (varye + oa.errors)
+        flagged = (oa.assim & bad).cpu().numpy().astype(bool)
+        self.obs.qc_outlier = flagged
+        n = int(flagged.sum())
+        action = self.config.outlier_action
+        if n and self.verbose:
+            self.log.info("Outlier check (t=%.2f) %s %d/%d obs", t,
+                          "rejected" if action == "reject" else "R-inflated",
+                          n, len(flagged))
+        if action == "inflate":
+            r_infl = torch.maximum(oa.errors, innov * innov / (t * t) - varye)
+            return oa._replace(errors=torch.where(bad, r_infl, oa.errors))
+        return oa._replace(assim=oa.assim & ~bad)
+
+    def _vertical_active(self) -> bool:
+        """Vertical localization is on when the state has per-variable
+        vertical coordinates and some ob asks for a finite vertical
+        radius."""
+        if self.prior.structure.var_verts is None:
+            return False
+        vr = np.asarray(self.obs.vert_radius, dtype=np.float64)
+        verts = np.asarray(self.obs.verts, dtype=np.float64)
+        return bool(np.any(np.isfinite(vr) & np.isfinite(verts)))
+
+    def inflate_state(self) -> None:
+        if self.is_inflated:
+            self.log.warning("State already inflated.  Skipping additional "
+                             "inflation.")
+            return
+        self.prior = inflate_state(self.prior, self.inflation,
+                                   verbose=self.verbose)
+        self.is_inflated = True
+
+    def format_prior_state(self):
+        """``(body_mean [Ns], body_perts [Ns, M], tail_mean [No],
+        tail_perts [No, M])`` in the config dtype: the state vector split
+        into mean and perturbations, and the obs-space priors (the tail)
+        from the taps."""
+        if self.inflation is not None:
+            if self.verbose:
+                self.log.info("Inflating Prior State")
+            self.inflate_state()
+        if self.obs.custom_operator.any():
+            raise NotImplementedError(
+                "custom forward operators are not ported yet")
+        if self.verbose:
+            self.log.info("Computing observation priors")
+        vect = self.prior.to_vect()
+        ye = _fwd.apply_taps_obj(vect, self.build_taps())
+        tail_mean = ye.mean(dim=1)
+        tail_perts = (ye - tail_mean[:, None]).to(self.dtype)
+        body_mean = vect.mean(dim=1)
+        body_perts = (vect - body_mean[:, None]).to(self.dtype)
+        return (body_mean.to(self.dtype), body_perts,
+                tail_mean.to(self.dtype), tail_perts)
+
+    def format_posterior_state(self, body_mean, body_perts):
+        """Rebuild an EnsembleState (prior dtype) from posterior mean and
+        perturbations."""
+        if self.verbose:
+            self.log.info("Formatting posterior")
+        data = (body_mean[:, None] + body_perts).to(self.prior.data.dtype)
+        return (EnsembleState(data.reshape(self.prior.structure.shape),
+                              self.prior.structure), self.obs)
+
+    def record_diagnostics(self, diags: ObsDiagnostics) -> None:
+        """Write the per-ob diagnostics onto the ObservationBatch as host
+        NumPy (one transfer), and onto the caller's Observation objects
+        when it passed those."""
+        host = [d.detach().cpu().numpy() for d in diags]
+        self.obs.prior_mean = host[0].astype(np.float64)
+        self.obs.prior_var = host[1].astype(np.float64)
+        self.obs.post_mean = host[2].astype(np.float64)
+        self.obs.post_var = host[3].astype(np.float64)
+        self.obs.assimilated = host[4].astype(bool)
+        if self._user_obs is not None and all(
+                isinstance(o, Observation) for o in self._user_obs):
+            self.obs.writeback(self._user_obs)

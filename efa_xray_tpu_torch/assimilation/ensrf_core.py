@@ -1,0 +1,572 @@
+"""The EnSRF update in plain torch: the reference B1 and B2 are held against.
+
+Counterpart of ``efa_xray_tpu/assimilation/ensrf_core.py``: the tuples
+:76-140, ``_ye_var`` :142, ``_loc_weights`` :164, ``ensrf_serial`` :194,
+``tail_scan`` :388, ``tail_scan_blocked`` :588 (plain branch and kernel
+branch), ``_block_recurrence`` :886, ``apply_obs_block`` :943,
+``ensrf_blocked_body`` :990 and ``ensrf_blocked`` :1148.  The module
+docstring there derives the exact two-phase (tail, then body in blocks)
+reformulation of the serial Whitaker-Hamill filter that these functions
+implement.
+
+Pure ensemble covariance only: the hybrid static column
+(``hybrid_alpha < 1``), cross-variable localization (``varloc``) and the
+stochastic-EnKF ``apply_rows`` are not ported yet (ROADMAP queue A, item
+7).  Vertical localization is.
+
+Every function runs eagerly on the device of its inputs.  The sequential
+per-ob loops stay Python loops over tensor ops: they are the plain
+reference, not the fast path (the kernels in :mod:`efa_xray_tpu_torch.ops`
+are).  No function reads a tensor back to the host inside its loop.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from efa_xray_tpu_torch.observation.localization import (
+    chordal_gc_weights,
+    gaspari_cohn,
+    haversine,
+    latlon_to_unit,
+)
+
+
+class ObsArrays(NamedTuple):
+    """Per-observation tensors consumed by the update.
+
+    ``radii = inf`` disables horizontal localization per ob and
+    ``vert_radii = inf`` vertical localization (``ensrf_core.py:76-105``).
+    """
+
+    values: torch.Tensor  # [No]
+    errors: torch.Tensor  # [No] observation error variance R
+    lats: torch.Tensor  # [No]
+    lons: torch.Tensor  # [No]
+    radii: torch.Tensor  # [No] GC halfwidth km; inf = no localization
+    assim: torch.Tensor  # bool [No] assimilate_this AND qc_ok
+    verts: Optional[torch.Tensor] = None  # [No] vertical coordinate
+    vert_radii: Optional[torch.Tensor] = None  # [No] vertical halfwidth
+
+    def with_default_verts(self) -> "ObsArrays":
+        v = self.values
+        verts = self.verts
+        vrad = self.vert_radii
+        if verts is None:
+            verts = torch.zeros_like(v)
+        if vrad is None:
+            vrad = torch.full_like(v, float("inf"))
+        return self._replace(verts=verts, vert_radii=vrad)
+
+
+class ObsDiagnostics(NamedTuple):
+    """Per-observation filter diagnostics."""
+
+    prior_mean: torch.Tensor
+    prior_var: torch.Tensor
+    post_mean: torch.Tensor
+    post_var: torch.Tensor
+    assimilated: torch.Tensor  # bool
+
+
+class TailSolution(NamedTuple):
+    """Phase-1 output: everything the state body needs, per observation."""
+
+    ye: torch.Tensor  # [No, M] the pre-update obs-space perturbation rows
+    gain_coef: torch.Tensor  # [No] innov / (kdenom (M-1)); 0 when skipped
+    sqrt_coef: torch.Tensor  # [No] beta / (kdenom (M-1)); 0 when skipped
+    tail_mean: torch.Tensor  # [No] posterior tail mean
+    tail_perts: torch.Tensor  # [No, M] posterior tail perts
+    diags: ObsDiagnostics
+
+
+def _pad(x: torch.Tensor, n: int, fill=0.0) -> torch.Tensor:
+    """Pad the leading axis of ``x`` with ``n`` entries of ``fill``."""
+    if n == 0:
+        return x
+    tail = torch.full((n,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, tail])
+
+
+def _ye_var(ye: torch.Tensor, unbiased: bool) -> torch.Tensor:
+    """Ensemble variance of an obs-space perturbation row: ddof 0
+    reproduces the reference's ``np.var``; ddof 1 when ``unbiased``."""
+    m = torch.mean(ye)
+    sq = (ye - m) ** 2
+    if unbiased:
+        return torch.sum(sq) / (ye.shape[0] - 1)
+    return torch.mean(sq)
+
+
+def _empty_diags(dtype, device) -> ObsDiagnostics:
+    z = torch.zeros((0,), dtype=dtype, device=device)
+    return ObsDiagnostics(z, z, z, z, torch.zeros((0,), dtype=torch.bool,
+                                                  device=device))
+
+
+def _loc_weights(row_lat, row_lon, ob_lat, ob_lon, radius, localize: bool,
+                 dtype, row_xyz=None, ob_xyz=None,
+                 row_vert=None, ob_vert=None, vert_radius=None):
+    """Gaspari-Cohn weights from one ob to a set of rows (None when
+    localization is off); chordal when unit vectors are given, times a
+    vertical GC factor when a row vertical coordinate is given."""
+    if not localize:
+        return None
+    if row_xyz is not None:
+        w = chordal_gc_weights(row_xyz, ob_xyz, radius).to(dtype)
+    else:
+        d = haversine((row_lat, row_lon), (ob_lat, ob_lon))
+        w = gaspari_cohn(d, radius).to(dtype)
+    if row_vert is not None:
+        w = w * gaspari_cohn(torch.abs(row_vert - ob_vert),
+                             vert_radius).to(dtype)
+    return w
+
+
+def _cast_obs(obs: ObsArrays, dtype) -> ObsArrays:
+    obs = obs.with_default_verts()
+    return ObsArrays(
+        values=obs.values.to(dtype), errors=obs.errors.to(dtype),
+        lats=obs.lats.to(dtype), lons=obs.lons.to(dtype),
+        radii=obs.radii.to(dtype), assim=obs.assim,
+        verts=obs.verts.to(dtype), vert_radii=obs.vert_radii.to(dtype),
+    )
+
+
+def _serial_step_scalars(tp, tm, i, values, errors, nens, unbiased):
+    ye = tp[i].clone()
+    mye = tm[i]
+    varye = _ye_var(ye, unbiased)
+    innov = values[i] - mye
+    kdenom = varye + errors[i]
+    scale = 1.0 / (kdenom * (nens - 1))
+    beta = 1.0 / (1.0 + torch.sqrt(errors[i] / kdenom))
+    return ye, mye, varye, innov, scale, beta
+
+
+# ---------------------------------------------------------------------------
+# Strategy 1: direct serial loop
+# ---------------------------------------------------------------------------
+
+
+def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
+                 body_lon, obs: ObsArrays, localize: bool = True,
+                 unbiased: bool = False, fast_geometry: bool = False,
+                 body_vert=None, vertical: bool = False):
+    """Serial EnSRF, one observation at a time over body and tail.
+
+    Returns ``(body_mean, body_perts, tail_mean, tail_perts, diags)``.
+    """
+    nens = body_perts.shape[1]
+    dtype = body_perts.dtype
+    device = body_perts.device
+    nobs = obs.values.shape[0]
+    if nobs == 0:
+        return (body_mean, body_perts, tail_mean, tail_perts,
+                _empty_diags(dtype, device))
+    if localize and fast_geometry:
+        body_xyz = latlon_to_unit(body_lat, body_lon).to(dtype)
+        tail_xyz = latlon_to_unit(obs.lats, obs.lons).to(dtype)
+    obs_raw = obs.with_default_verts()
+    obs = _cast_obs(obs, dtype)
+    vert_on = localize and vertical
+    bvert = body_vert.to(dtype) if vert_on else None
+    tvert = obs.verts if vert_on else None
+
+    bm, bp, tm, tp = body_mean, body_perts, tail_mean, tail_perts
+    pm, pv, om, ov = [], [], [], []
+    nan = torch.tensor(float("nan"), dtype=dtype, device=device)
+    for i in range(nobs):
+        ye, mye, varye, innov, scale, beta = _serial_step_scalars(
+            tp, tm, i, obs.values, obs.errors, nens, unbiased)
+        kcov_b = bp @ ye
+        kcov_t = tp @ ye
+        vkw_b = vkw_t = {}
+        if vert_on:
+            vkw_b = dict(row_vert=bvert, ob_vert=obs.verts[i],
+                         vert_radius=obs.vert_radii[i])
+            vkw_t = dict(row_vert=tvert, ob_vert=obs.verts[i],
+                         vert_radius=obs.vert_radii[i])
+        if localize and fast_geometry:
+            ob_xyz = latlon_to_unit(obs.lats[i], obs.lons[i]).to(dtype)
+            w_b = _loc_weights(None, None, None, None, obs.radii[i], True,
+                               dtype, row_xyz=body_xyz, ob_xyz=ob_xyz, **vkw_b)
+            w_t = _loc_weights(None, None, None, None, obs.radii[i], True,
+                               dtype, row_xyz=tail_xyz, ob_xyz=ob_xyz, **vkw_t)
+        else:
+            w_b = _loc_weights(body_lat, body_lon, obs.lats[i], obs.lons[i],
+                               obs.radii[i], localize, dtype, **vkw_b)
+            w_t = _loc_weights(obs_raw.lats, obs_raw.lons, obs.lats[i],
+                               obs.lons[i], obs.radii[i], localize, dtype,
+                               **vkw_t)
+        if localize:
+            kcov_b = kcov_b * w_b
+            kcov_t = kcov_t * w_t
+        kmat_b = kcov_b * scale
+        kmat_t = kcov_t * scale
+        a = obs.assim[i]
+        bm = torch.where(a, bm + kmat_b * innov, bm)
+        tm = torch.where(a, tm + kmat_t * innov, tm)
+        bp = torch.where(a, bp - (beta * kmat_b)[:, None] * ye[None, :], bp)
+        tp = torch.where(a, tp - (beta * kmat_t)[:, None] * ye[None, :], tp)
+        pm.append(mye)
+        pv.append(varye)
+        om.append(torch.where(a, tm[i], nan))
+        ov.append(torch.where(a, _ye_var(tp[i], unbiased), nan))
+    diags = ObsDiagnostics(torch.stack(pm), torch.stack(pv), torch.stack(om),
+                           torch.stack(ov), obs.assim)
+    return bm, bp, tm, tp, diags
+
+
+# ---------------------------------------------------------------------------
+# Strategy 2, phase 1: tail-only scan
+# ---------------------------------------------------------------------------
+
+
+def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
+              unbiased: bool = False, fast_geometry: bool = False,
+              vertical: bool = False) -> TailSolution:
+    """Serial filter on the observation-space tail only: the exact ``ye``
+    sequence and scalar coefficients of the full serial algorithm, plus
+    every per-ob diagnostic."""
+    nens = tail_perts.shape[1]
+    dtype = tail_perts.dtype
+    device = tail_perts.device
+    nobs = obs.values.shape[0]
+    if nobs == 0:
+        z = torch.zeros((0,), dtype=dtype, device=device)
+        return TailSolution(
+            ye=torch.zeros((0, nens), dtype=dtype, device=device),
+            gain_coef=z, sqrt_coef=z, tail_mean=tail_mean,
+            tail_perts=tail_perts, diags=_empty_diags(dtype, device))
+    tail_xyz = (latlon_to_unit(obs.lats, obs.lons).to(dtype)
+                if (localize and fast_geometry) else None)
+    obs_raw = obs.with_default_verts()
+    obs = _cast_obs(obs, dtype)
+    vert_on = localize and vertical
+    tm, tp = tail_mean, tail_perts
+    zero = torch.zeros((), dtype=dtype, device=device)
+    nan = torch.tensor(float("nan"), dtype=dtype, device=device)
+    ye_rows, gains, sqrts, pm, pv, om, ov = [], [], [], [], [], [], []
+    for i in range(nobs):
+        ye, mye, varye, innov, scale, beta = _serial_step_scalars(
+            tp, tm, i, obs.values, obs.errors, nens, unbiased)
+        kcov_t = tp @ ye
+        vkw = (dict(row_vert=obs.verts, ob_vert=obs.verts[i],
+                    vert_radius=obs.vert_radii[i]) if vert_on else {})
+        if localize and fast_geometry:
+            w_t = _loc_weights(
+                None, None, None, None, obs.radii[i], True, dtype,
+                row_xyz=tail_xyz,
+                ob_xyz=latlon_to_unit(obs.lats[i], obs.lons[i]).to(dtype),
+                **vkw)
+        else:
+            w_t = _loc_weights(obs_raw.lats, obs_raw.lons, obs.lats[i],
+                               obs.lons[i], obs.radii[i], localize, dtype,
+                               **vkw)
+        if localize:
+            kcov_t = kcov_t * w_t
+        kmat_t = kcov_t * scale
+        a = obs.assim[i]
+        tm = torch.where(a, tm + kmat_t * innov, tm)
+        tp = torch.where(a, tp - (beta * kmat_t)[:, None] * ye[None, :], tp)
+        ye_rows.append(ye)
+        gains.append(torch.where(a, innov * scale, zero))
+        sqrts.append(torch.where(a, beta * scale, zero))
+        pm.append(mye)
+        pv.append(varye)
+        om.append(torch.where(a, tm[i], nan))
+        ov.append(torch.where(a, _ye_var(tp[i], unbiased), nan))
+    return TailSolution(
+        ye=torch.stack(ye_rows), gain_coef=torch.stack(gains),
+        sqrt_coef=torch.stack(sqrts), tail_mean=tm, tail_perts=tp,
+        diags=ObsDiagnostics(torch.stack(pm), torch.stack(pv),
+                             torch.stack(om), torch.stack(ov), obs.assim),
+    )
+
+
+def panel_weights(pxyz, pob: ObsArrays, vertical: bool, dtype):
+    """Ob-ob weight matrix of one panel, ``w[i, j]`` = weight of ob i at
+    panel row j: chordal GC times the optional vertical GC (the build
+    ``ensrf_core._panel_solve_pallas`` :560-568 streams into B1)."""
+    w = chordal_gc_weights(pxyz[None, :, :], pxyz[:, None, :],
+                           pob.radii[:, None]).to(dtype)
+    if vertical:
+        w = w * gaspari_cohn(
+            torch.abs(pob.verts[:, None] - pob.verts[None, :]),
+            pob.vert_radii[:, None],
+        ).to(dtype)
+    return w
+
+
+def _panel_solve_kernel(tm, tp, pob: ObsArrays, pxyz, localize: bool,
+                        unbiased: bool, vertical: bool, dtype) -> TailSolution:
+    """Serial solve of one obs panel through B1
+    (:func:`efa_xray_tpu_torch.ops.tail_solve.tail_panel_solve`)."""
+    from efa_xray_tpu_torch.ops.tail_solve import tail_panel_solve
+
+    wmat = panel_weights(pxyz, pob, vertical, dtype) if localize else None
+    ptm, ptp, pye, pg, psq, ppm, ppv, pom, pov = tail_panel_solve(
+        tm, tp, pob.values, pob.errors, pob.assim, wmat, unbiased=unbiased)
+    return TailSolution(
+        ye=pye, gain_coef=pg, sqrt_coef=psq, tail_mean=ptm, tail_perts=ptp,
+        diags=ObsDiagnostics(ppm, ppv, pom, pov, pob.assim),
+    )
+
+
+# The in-kernel panel solve serves panels up to this many obs, the bound
+# of the JAX package's kernel (``ensrf_core.py:659``); larger panels keep
+# the kernel apply and solve each panel with the plain scan.
+MAX_KERNEL_PANEL = 1024
+
+
+def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
+                      localize: bool = True, unbiased: bool = False,
+                      fast_geometry: bool = False, vertical: bool = False,
+                      panel: int = 512, kernels: bool = False,
+                      max_radius_km=None) -> TailSolution:
+    """Panel-blocked phase 1: same outputs as :func:`tail_scan`, exact up
+    to fp reassociation.  Each panel of obs is solved serially on its own
+    rows, then applied to every row outside the panel with the body
+    operator; the in-panel rows are then overwritten by the exact panel
+    solution.
+
+    ``kernels=True`` routes the panel solve through B1
+    (:mod:`efa_xray_tpu_torch.ops.tail_solve`) and the out-of-panel apply
+    through B2 (:mod:`efa_xray_tpu_torch.ops.ensrf_fused`).  Their
+    weights are chordal, so this needs ``fast_geometry`` under
+    localization.  On CPU tensors the kernels' plain versions run.
+    ``max_radius_km`` lets B2 pick its cheaper angle form.
+    """
+    nens = tail_perts.shape[1]
+    dtype = tail_perts.dtype
+    nobs = obs.values.shape[0]
+    if kernels and localize and not fast_geometry:
+        raise ValueError("the kernel tail needs chordal geometry "
+                         "(fast_geometry) under localization")
+    solve_kernel = kernels and panel <= MAX_KERNEL_PANEL
+    obs = obs.with_default_verts()
+    if nobs == 0 or nobs <= panel:
+        if not (solve_kernel and nobs > 0):
+            return tail_scan(tail_mean, tail_perts, obs, localize=localize,
+                             unbiased=unbiased, fast_geometry=fast_geometry,
+                             vertical=vertical)
+        # One panel covers the batch: pad it to the full panel width
+        # (padded obs have assim=False and are exact no-ops) and slice
+        # every output back.
+        pad1 = panel - nobs
+        obs1 = _pad_obs(obs, pad1, dtype)
+        sol = _panel_solve_kernel(
+            _pad(tail_mean, pad1), _pad(tail_perts, pad1), obs1,
+            latlon_to_unit(obs1.lats, obs1.lons).to(dtype)
+            if localize else None,
+            localize=localize, unbiased=unbiased, vertical=vertical,
+            dtype=dtype,
+        )
+        cut = lambda x: x[:nobs]
+        return TailSolution(
+            ye=cut(sol.ye), gain_coef=cut(sol.gain_coef),
+            sqrt_coef=cut(sol.sqrt_coef), tail_mean=cut(sol.tail_mean),
+            tail_perts=cut(sol.tail_perts),
+            diags=ObsDiagnostics(*(cut(d) for d in sol.diags)),
+        )
+
+    npanels = -(-nobs // panel)
+    pad = npanels * panel - nobs
+    tm = _pad(tail_mean, pad)
+    tp = _pad(tail_perts, pad)
+    allo = _pad_obs(obs, pad, dtype)
+    ntot = nobs + pad
+    all_xyz = (latlon_to_unit(allo.lats, allo.lons).to(dtype)
+               if (localize and fast_geometry) else None)
+    row_idx = torch.arange(ntot, device=tm.device)
+
+    outs = []
+    for p in range(npanels):
+        base = p * panel
+        sl = slice(base, base + panel)
+        pob = ObsArrays(*(x[sl] for x in allo))
+        if solve_kernel:
+            sol = _panel_solve_kernel(
+                tm[sl], tp[sl], pob, all_xyz[sl] if localize else None,
+                localize=localize, unbiased=unbiased, vertical=vertical,
+                dtype=dtype)
+        else:
+            sol = tail_scan(tm[sl], tp[sl], pob, localize=localize,
+                            unbiased=unbiased, fast_geometry=fast_geometry,
+                            vertical=vertical)
+        if kernels:
+            from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
+
+            # The in-panel rows are overwritten right below, so the B2
+            # apply may touch them freely (no out-of-panel mask).
+            tm2, tp2 = fused_body(
+                tm, tp, allo.lats, allo.lons, sol, pob,
+                body_vert=allo.verts if (localize and vertical) else None,
+                localize=localize, block_size=min(128, panel),
+                vertical=localize and vertical, max_radius_km=max_radius_km,
+            )
+        else:
+            outside = ((row_idx < base) | (row_idx >= base + panel)).to(dtype)
+            if localize and fast_geometry:
+                w = chordal_gc_weights(all_xyz[:, None, :],
+                                       all_xyz[sl][None, :, :],
+                                       pob.radii[None, :]).to(dtype)
+            elif localize:
+                w = gaspari_cohn(
+                    haversine((allo.lats[:, None], allo.lons[:, None]),
+                              (pob.lats[None, :], pob.lons[None, :])),
+                    pob.radii[None, :]).to(dtype)
+            else:
+                w = torch.ones((ntot, panel), dtype=dtype, device=tm.device)
+            if localize and vertical:
+                w = w * gaspari_cohn(
+                    torch.abs(allo.verts[:, None] - pob.verts[None, :]),
+                    pob.vert_radii[None, :]).to(dtype)
+            w = w * outside[:, None]
+            tm2, tp2 = apply_obs_block(tm, tp, sol.ye, sol.gain_coef,
+                                       sol.sqrt_coef, w)
+        tm2[sl] = sol.tail_mean
+        tp2[sl] = sol.tail_perts
+        tm, tp = tm2, tp2
+        outs.append(sol)
+
+    cat = lambda xs: torch.cat(xs)[:nobs]
+    return TailSolution(
+        ye=cat([s.ye for s in outs]),
+        gain_coef=cat([s.gain_coef for s in outs]),
+        sqrt_coef=cat([s.sqrt_coef for s in outs]),
+        tail_mean=tm[:nobs],
+        tail_perts=tp[:nobs],
+        diags=ObsDiagnostics(*(cat([s.diags[k] for s in outs])
+                               for k in range(5))),
+    )
+
+
+def _pad_obs(obs: ObsArrays, pad: int, dtype) -> ObsArrays:
+    """Pad an ObsArrays with ``pad`` no-op obs: zero value, unit error,
+    infinite radii, not assimilated."""
+    obs = obs.with_default_verts()
+    f = lambda x, fill=0.0: _pad(x.to(dtype), pad, fill)
+    inf = float("inf")
+    return ObsArrays(
+        values=f(obs.values), errors=f(obs.errors, 1.0), lats=f(obs.lats),
+        lons=f(obs.lons), radii=f(obs.radii, inf),
+        assim=_pad(obs.assim, pad, False), verts=f(obs.verts),
+        vert_radii=f(obs.vert_radii, inf),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Strategy 2, phase 2: blocked state-body update
+# ---------------------------------------------------------------------------
+
+
+def _block_recurrence(d0, gram, w, sqrt_coef, panel: int = 8):
+    """Panel-blocked forward substitution of the within-block recurrence.
+
+    ``d0 [rows, B] = X_0 Y^T``, ``gram [B, B] = Y Y^T``, ``w [rows, B]``
+    (or None).  Returns ``(U, V)`` with ``U = [w_j d_j]`` and
+    ``V = [g_j U_j]``; ``d_j = d0_j - sum_{i<j} V_i G_ij``.
+    """
+    bsz = d0.shape[1]
+    u_done = v_done = None
+    for base in range(0, bsz, panel):
+        width = min(panel, bsz - base)
+        d_panel = d0[:, base:base + width]
+        if base > 0:
+            d_panel = d_panel - v_done @ gram[:base, base:base + width]
+        u_cols, v_cols = [], []
+        for t in range(width):
+            d_j = d_panel[:, t]
+            if t > 0:
+                v_p = torch.stack(v_cols, dim=1)
+                d_j = d_j - v_p @ gram[base:base + t, base + t]
+            u_j = d_j if w is None else w[:, base + t] * d_j
+            v_j = u_j * sqrt_coef[base + t]
+            u_cols.append(u_j)
+            v_cols.append(v_j)
+        u_slab = torch.stack(u_cols, dim=1)
+        v_slab = torch.stack(v_cols, dim=1)
+        u_done = u_slab if u_done is None else torch.cat([u_done, u_slab], 1)
+        v_done = v_slab if v_done is None else torch.cat([v_done, v_slab], 1)
+    return u_done, v_done
+
+
+def apply_obs_block(body_mean, body_perts, ye_block, gain_coef, sqrt_coef,
+                    w_block):
+    """Apply one block of B pre-solved obs to the state body: two matrix
+    products and a B-step recurrence.  ``w_block [rows, B]`` or None."""
+    y = ye_block.to(body_perts.dtype)
+    d0 = body_perts @ y.T
+    gram = y @ y.T
+    u, v = _block_recurrence(d0, gram, w_block, sqrt_coef)
+    return body_mean + u @ gain_coef, body_perts - v @ y
+
+
+def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
+                       tail: TailSolution, obs: ObsArrays,
+                       localize: bool = True, block_size: int = 32,
+                       fast_geometry: bool = False, body_vert=None,
+                       vertical: bool = False):
+    """Phase 2: sweep the pre-solved obs sequence over the body in
+    blocks.  Exact (up to fp reassociation) match of the serial filter."""
+    nobs = tail.ye.shape[0]
+    dtype = body_perts.dtype
+    if nobs == 0:
+        return body_mean, body_perts
+    nblocks = -(-nobs // block_size)
+    pad = nblocks * block_size - nobs
+    po = _pad_obs(obs, pad, dtype)
+    ye = _pad(tail.ye, pad)
+    gain = _pad(tail.gain_coef.to(dtype), pad)
+    sqrtc = _pad(tail.sqrt_coef.to(dtype), pad)
+    body_xyz = (latlon_to_unit(body_lat, body_lon).to(dtype)
+                if (localize and fast_geometry) else None)
+    bm, bp = body_mean, body_perts
+    for b in range(nblocks):
+        sl = slice(b * block_size, (b + 1) * block_size)
+        if localize and fast_geometry:
+            ob_xyz = latlon_to_unit(po.lats[sl], po.lons[sl]).to(dtype)
+            w = chordal_gc_weights(body_xyz[:, None, :], ob_xyz[None, :, :],
+                                   po.radii[sl][None, :]).to(dtype)
+        elif localize:
+            d = haversine((body_lat[:, None], body_lon[:, None]),
+                          (po.lats[sl][None, :], po.lons[sl][None, :]))
+            w = gaspari_cohn(d, po.radii[sl][None, :]).to(dtype)
+        else:
+            w = None
+        if localize and vertical:
+            w = w * gaspari_cohn(
+                torch.abs(body_vert.to(dtype)[:, None] - po.verts[sl][None, :]),
+                po.vert_radii[sl][None, :]).to(dtype)
+        bm, bp = apply_obs_block(bm, bp, ye[sl], gain[sl], sqrtc[sl], w)
+    return bm, bp
+
+
+def ensrf_blocked(body_mean, body_perts, tail_mean, tail_perts, body_lat,
+                  body_lon, obs: ObsArrays, localize: bool = True,
+                  block_size: int = 32, unbiased: bool = False,
+                  fast_geometry: bool = False, body_vert=None,
+                  vertical: bool = False, tail_panel: Optional[int] = None):
+    """Full blocked update: phase-1 tail + phase-2 body sweep.  Drop-in
+    equivalent of :func:`ensrf_serial`.  ``tail_panel`` selects the
+    panel-blocked phase 1 (None = plain per-ob scan)."""
+    if tail_panel:
+        tail = tail_scan_blocked(tail_mean, tail_perts, obs,
+                                 localize=localize, unbiased=unbiased,
+                                 fast_geometry=fast_geometry,
+                                 vertical=vertical, panel=tail_panel)
+    else:
+        tail = tail_scan(tail_mean, tail_perts, obs, localize=localize,
+                         unbiased=unbiased, fast_geometry=fast_geometry,
+                         vertical=vertical)
+    bm, bp = ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
+                                tail, obs, localize=localize,
+                                block_size=block_size,
+                                fast_geometry=fast_geometry,
+                                body_vert=body_vert, vertical=vertical)
+    return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags

@@ -1,0 +1,105 @@
+"""Converters between NumPy data and the port's objects.
+
+No JAX counterpart.  The system has no weights: what crosses between the
+JAX package and this one is data, so both are fed the same NumPy arrays.
+These functions take NumPy arrays and plain dicts, build the port's
+objects on an explicit device, and turn results back into NumPy.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from efa_xray_tpu_torch.assimilation.ensrf_core import (
+    ObsArrays,
+    ObsDiagnostics,
+    TailSolution,
+)
+from efa_xray_tpu_torch.observation.observation import ObservationBatch
+from efa_xray_tpu_torch.state.ensemble import EnsembleState, _torch_dtype
+
+
+def _tensor(x, dtype=None, device="cpu") -> torch.Tensor:
+    arr = np.array(x)  # a copy: torch refuses read-only NumPy buffers
+    t = torch.from_numpy(arr).to(device)
+    return t if dtype is None or t.dtype == torch.bool else t.to(dtype)
+
+
+def state_from_numpy(data: Dict[str, np.ndarray], coords: Dict, dtype=None,
+                     device="cpu", attrs: Optional[Dict] = None
+                     ) -> EnsembleState:
+    """``{var: (ntimes, ny, nx, nmems)}`` and ``{validtime, lat, lon,
+    mem}`` -> :class:`EnsembleState` on ``device``."""
+    fields = {k: torch.from_numpy(np.array(v)) for k, v in data.items()}
+    return EnsembleState.from_vardict(fields, coords, dtype=dtype,
+                                      device=device, attrs=attrs)
+
+
+def state_to_numpy(state: EnsembleState) -> np.ndarray:
+    """Dense ``[nvars, ntimes, ny, nx, nmems]`` NumPy array."""
+    return state.data.detach().cpu().numpy()
+
+
+def obs_batch_from_numpy(fields: Dict) -> ObservationBatch:
+    """An :class:`ObservationBatch` from a dict of its fields.  Required:
+    ``values, errors, lats, lons, times_s, obtypes``; the rest default
+    (unlocalized, assimilated, no vertical coordinate)."""
+    n = len(fields["values"])
+    f = dict(fields)
+    f.setdefault("localize_radius", np.full(n, np.inf))
+    f.setdefault("assimilate_flags", np.ones(n, bool))
+    f.setdefault("verts", np.full(n, np.nan))
+    f.setdefault("descriptions", [None] * n)
+    for k in ("values", "errors", "lats", "lons", "localize_radius", "verts"):
+        f[k] = np.asarray(f[k], dtype=np.float64)
+    f["assimilate_flags"] = np.asarray(f["assimilate_flags"], dtype=bool)
+    f["times_s"] = np.asarray(f["times_s"], dtype=np.int64)
+    f["obtypes"] = list(f["obtypes"])
+    return ObservationBatch(**f)
+
+
+def obs_arrays_from_numpy(values, errors, lats, lons, radii, assim,
+                          verts=None, vert_radii=None, dtype="float64",
+                          device="cpu") -> ObsArrays:
+    """:class:`ObsArrays` on ``device``; ``assim`` stays bool."""
+    dt = _torch_dtype(dtype)
+    t = lambda x: None if x is None else _tensor(x, dt, device)
+    return ObsArrays(values=t(values), errors=t(errors), lats=t(lats),
+                     lons=t(lons), radii=t(radii),
+                     assim=_tensor(np.asarray(assim, bool), None, device),
+                     verts=t(verts), vert_radii=t(vert_radii))
+
+
+def obs_arrays_to_numpy(obs: ObsArrays) -> Dict[str, np.ndarray]:
+    return {k: None if v is None else v.detach().cpu().numpy()
+            for k, v in obs._asdict().items()}
+
+
+def tail_solution_from_numpy(ye, gain_coef, sqrt_coef, tail_mean,
+                             tail_perts, prior_mean, prior_var, post_mean,
+                             post_var, assimilated, dtype="float64",
+                             device="cpu") -> TailSolution:
+    """:class:`TailSolution` on ``device`` from its NumPy fields."""
+    dt = _torch_dtype(dtype)
+    t = lambda x: _tensor(x, dt, device)
+    return TailSolution(
+        ye=t(ye), gain_coef=t(gain_coef), sqrt_coef=t(sqrt_coef),
+        tail_mean=t(tail_mean), tail_perts=t(tail_perts),
+        diags=ObsDiagnostics(t(prior_mean), t(prior_var), t(post_mean),
+                             t(post_var),
+                             _tensor(np.asarray(assimilated, bool), None,
+                                     device)))
+
+
+def tail_solution_to_numpy(tail: TailSolution) -> Dict[str, np.ndarray]:
+    """Flat dict of every field, diagnostics included (the keyword
+    arguments of :func:`tail_solution_from_numpy`)."""
+    out = {k: getattr(tail, k).detach().cpu().numpy()
+           for k in ("ye", "gain_coef", "sqrt_coef", "tail_mean",
+                     "tail_perts")}
+    for k, v in tail.diags._asdict().items():
+        out[k] = v.detach().cpu().numpy()
+    return out

@@ -1,0 +1,242 @@
+"""Observation records and the struct-of-arrays batch.
+
+Counterpart of ``efa_xray_tpu/observation/observation.py``:
+``Observation`` :26 (the record; its plotting and per-ob estimate helpers
+are not ported yet) and ``ObservationBatch`` :201 with ``coerce`` :283,
+``take`` :288, ``spatial_sort`` :307, ``var_indices`` :327 and
+``writeback`` :363.  All per-ob arrays are host NumPy; the filter moves
+them to its device at the assimilation boundary and writes its
+diagnostics back as NumPy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from efa_xray_tpu_torch.observation.localization import hilbert3d_np
+from efa_xray_tpu_torch.utils import timeutil
+
+
+class Observation:
+    """One point observation (reference parity:
+    ``efa_xray/observation/observation.py:17-36``)."""
+
+    def __init__(
+        self,
+        value=None,
+        obtype=None,
+        time=None,
+        error=None,
+        lat=None,
+        lon=None,
+        vert=None,
+        prior_mean=None,
+        post_mean=None,
+        prior_var=None,
+        post_var=None,
+        assimilate_this=False,
+        description=None,
+        localize_radius=None,
+        vert_localize_radius=None,
+        forward_operator=None,
+    ):
+        self.value = value
+        self.obtype = obtype
+        self.time = time
+        self.error = error  # observation error VARIANCE (R)
+        self.lat = lat
+        self.lon = lon
+        self.vert = vert
+        self.prior_mean = prior_mean
+        self.post_mean = post_mean
+        self.prior_var = prior_var
+        self.post_var = post_var
+        self.assimilate_this = assimilate_this
+        self.assimilated = False
+        # Set True by the filter when FilterConfig.outlier_threshold
+        # rejects this ob (innovation-based gross-error QC).
+        self.outlier = False
+        self.description = description
+        self.localize_radius = localize_radius
+        # Vertical GC halfwidth in the same units as ``vert`` (extension;
+        # the reference stores ``vert`` but never localizes on it).
+        self.vert_localize_radius = vert_localize_radius
+        # Optional custom H: a callable ``state -> ye[nmems]`` — the
+        # pluggable-operator hook the reference's docstring promises but
+        # never implements (``observation/observation.py:44-46``).  The
+        # port's filter does not evaluate these yet and raises on them.
+        self.forward_operator = forward_operator
+
+    def __repr__(self):
+        return (
+            f"Observation({self.obtype!r}, value={self.value}, "
+            f"lat={self.lat}, lon={self.lon}, time={self.time})"
+        )
+
+
+@dataclasses.dataclass
+class ObservationBatch:
+    """Struct-of-arrays view of N observations (all host NumPy; converted
+    to device arrays at the assimilation boundary)."""
+
+    values: np.ndarray  # float64 [N]
+    errors: np.ndarray  # float64 [N], observation error variance R
+    lats: np.ndarray  # float64 [N]
+    lons: np.ndarray  # float64 [N]
+    times_s: np.ndarray  # int64 [N] epoch seconds
+    obtypes: List[str]  # length N variable names
+    localize_radius: np.ndarray  # float64 [N]; np.inf == no localization
+    assimilate_flags: np.ndarray  # bool [N]
+    verts: np.ndarray  # float64 [N] vertical coordinate (NaN when absent)
+    descriptions: List[Optional[str]]
+    vert_radius: np.ndarray = None  # float64 [N] vertical halfwidth; inf = off
+    # True where the ob carries a custom forward_operator (its obtype need
+    # not name a state variable and it bypasses interpolation QC).
+    custom_operator: np.ndarray = None
+
+    # Result slots (filled by the filter)
+    prior_mean: Optional[np.ndarray] = None
+    prior_var: Optional[np.ndarray] = None
+    post_mean: Optional[np.ndarray] = None
+    post_var: Optional[np.ndarray] = None
+    assimilated: Optional[np.ndarray] = None
+    # True where FilterConfig.outlier_threshold rejected an otherwise-
+    # assimilable ob (innovation-based gross-error QC / background check).
+    qc_outlier: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.vert_radius is None:
+            self.vert_radius = np.full(len(self.values), np.inf, dtype=np.float64)
+        if self.custom_operator is None:
+            self.custom_operator = np.zeros(len(self.values), dtype=bool)
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    @property
+    def nobs(self) -> int:
+        return len(self.values)
+
+    @classmethod
+    def from_observations(cls, obs: Sequence[Observation]) -> "ObservationBatch":
+        n = len(obs)
+        radius = np.full(n, np.inf, dtype=np.float64)
+        vert_radius = np.full(n, np.inf, dtype=np.float64)
+        for i, ob in enumerate(obs):
+            if ob.localize_radius is not None:
+                radius[i] = float(ob.localize_radius)
+            if getattr(ob, "vert_localize_radius", None) is not None:
+                vert_radius[i] = float(ob.vert_localize_radius)
+        return cls(
+            values=np.asarray([ob.value for ob in obs], dtype=np.float64),
+            errors=np.asarray([ob.error for ob in obs], dtype=np.float64),
+            lats=np.asarray([ob.lat for ob in obs], dtype=np.float64),
+            lons=np.asarray([ob.lon for ob in obs], dtype=np.float64),
+            times_s=timeutil.to_epoch_seconds([ob.time for ob in obs]),
+            obtypes=[ob.obtype for ob in obs],
+            localize_radius=radius,
+            assimilate_flags=np.asarray(
+                [bool(ob.assimilate_this) for ob in obs], dtype=bool
+            ),
+            verts=np.asarray(
+                [np.nan if ob.vert is None else float(ob.vert) for ob in obs],
+                dtype=np.float64,
+            ),
+            descriptions=[ob.description for ob in obs],
+            vert_radius=vert_radius,
+            custom_operator=np.asarray(
+                [getattr(ob, "forward_operator", None) is not None for ob in obs],
+                dtype=bool,
+            ),
+            # carry result slots already present on the objects (the
+            # reference postprocess reads ob.assimilated, postprocess.py:29)
+            assimilated=np.asarray(
+                [bool(getattr(ob, "assimilated", False)) for ob in obs], dtype=bool
+            ),
+        )
+
+    @classmethod
+    def coerce(cls, obs) -> "ObservationBatch":
+        if isinstance(obs, ObservationBatch):
+            return obs
+        return cls.from_observations(list(obs))
+
+    def take(self, order) -> "ObservationBatch":
+        """Reordered copy: every per-ob array/list (including any filled
+        result slots) permuted by ``order``.  Device-resident result
+        slots stay device arrays (the gather happens on device — no host
+        sync)."""
+        order = np.asarray(order)
+
+        def perm(v):
+            if v is None:
+                return None
+            if isinstance(v, list):
+                return [v[i] for i in order]
+            return v[order]  # np stays np, a tensor stays a tensor
+
+        return dataclasses.replace(
+            self, **{f.name: perm(getattr(self, f.name))
+                     for f in dataclasses.fields(self)}
+        )
+
+    def spatial_sort(self) -> Tuple["ObservationBatch", np.ndarray]:
+        """``(sorted_batch, order)`` with obs in spherical-Hilbert
+        spatial-locality order.
+
+        Observation order is the CALLER's choice in a serial filter (the
+        analysis is weakly order-dependent; the reference demo shuffles
+        it, ``efa_demo.ipynb`` cell 11) — and spatially sorted obs are
+        the THROUGHPUT choice: the fused kernels cull (row-tile, obs
+        panel) pairs whose localization weights are provably zero, which
+        only engages when consecutive obs are spatially compact (measured
+        at the 500k-ob capacity point: random order 16.4 s, Hilbert
+        order 8.35 s — docs/recipes.md).  Diagnostics
+        come back in the sorted order; invert with
+        ``batch.take(np.argsort(order))``."""
+        order = np.argsort(hilbert3d_np(self.lats, self.lons),
+                           kind="stable")
+        return self.take(order), order
+
+    def var_indices(self, structure) -> np.ndarray:
+        """State-variable index per ob.  Custom-operator obs map to 0: their
+        interpolation taps are placeholders that compute_ob_priors
+        overrides, so their obtype need not name a state variable."""
+        return np.asarray(
+            [
+                0 if self.custom_operator[i] else structure.var_index(t)
+                for i, t in enumerate(self.obtypes)
+            ],
+            dtype=np.int32,
+        )
+
+    def materialize_diagnostics(self) -> None:
+        """Convert any tensor result slots to host float64/bool NumPy."""
+        for n in ("prior_mean", "prior_var", "post_mean", "post_var",
+                  "assimilated", "qc_outlier"):
+            v = getattr(self, n)
+            if isinstance(v, torch.Tensor):
+                dtype = bool if n in ("assimilated", "qc_outlier") else np.float64
+                setattr(self, n, v.detach().cpu().numpy().astype(dtype))
+
+    def writeback(self, obs: Sequence[Observation]) -> None:
+        """Copy filter diagnostics back onto user Observation objects,
+        mirroring the in-place attribute writes of the reference loop
+        (``efa_xray/assimilation/ensrf.py:66-70,144-149``)."""
+        self.materialize_diagnostics()
+        for i, ob in enumerate(obs):
+            ob.prior_mean = None if self.prior_mean is None else float(self.prior_mean[i])
+            ob.prior_var = None if self.prior_var is None else float(self.prior_var[i])
+            ob.outlier = (
+                False if self.qc_outlier is None else bool(self.qc_outlier[i])
+            )
+            if self.assimilated is not None and self.assimilated[i]:
+                ob.post_mean = float(self.post_mean[i])
+                ob.post_var = float(self.post_var[i])
+                ob.assimilated = True
+            else:
+                ob.assimilated = False

@@ -1,0 +1,105 @@
+"""Build and load the CUDA kernels of :mod:`efa_xray_tpu_torch.ops`.
+
+No JAX counterpart: the Pallas kernels were compiled by JAX itself.  Here
+the sources in ``efa_xray_tpu_torch/csrc/*.cu`` are compiled with ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface, at first
+use, and loaded with :mod:`ctypes`.  The library goes to
+``build/efa_xray_tpu_torch/`` beside the package, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads
+the existing file.  A failed build or load raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "efa_xray_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+# Seconds the last build took (0.0 when the library was already built).
+last_build_seconds = 0.0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of every C entry point; pointers and the stream as c_void_p.
+_SIGNATURES = {
+    "efa_tail_solve": [_P] * 6 + [_I, _I, _I] + [_P] * 10,
+    "efa_fused_body": [_P] * 7 + [_I] * 8 + [_P] * 3,
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libefa_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    global last_build_seconds
+    out = library_path()
+    if out.exists():
+        last_build_seconds = 0.0
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}")
+        # Atomic rename: a concurrent process never loads a partial file.
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    last_build_seconds = time.perf_counter() - t0
+    return out
+
+
+@functools.cache
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    handle = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

@@ -1,0 +1,375 @@
+"""B2: the fused EnSRF body, every obs block applied while a row tile stays
+on chip.
+
+Counterpart of ``efa_xray_tpu/ops/ensrf_pallas_fused.py``: the polynomial
+forms ``_asin2_poly_u`` :42, ``_arccos_poly`` :70, ``_gc_poly`` :86, the
+kernel ``_make_fused_kernel`` :117-416 (pure-ensemble branch), ``cull_masks``
+:425 and ``_fused_impl`` :493.
+
+:func:`fused_body` prepares the kernel operands as ``_fused_impl`` does (the
+per-block Gram tables, the per-ob table, the cull bits), then
+:func:`fused_apply` launches the CUDA kernel of
+``efa_xray_tpu_torch/csrc/ensrf_fused.cu`` on CUDA tensors, or runs
+:func:`fused_apply_plain`, the same computation in plain torch, on CPU
+tensors.  Weights are per row, which is exact for flat states and for
+gridded (vt > 1) states alike.  The hybrid static-column branch is not
+ported (ROADMAP queue B).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from efa_xray_tpu_torch.assimilation.ensrf_core import (
+    ObsArrays,
+    TailSolution,
+    _pad,
+)
+from efa_xray_tpu_torch.observation.localization import (
+    EARTH_RADIUS_KM,
+    latlon_to_unit,
+)
+from efa_xray_tpu_torch.ops import _build
+
+PANEL = 8
+# Rows of the per-ob table handed to the kernel (csrc/ensrf_fused.cu kTab).
+TABLE_ROWS = ("gain", "sqrt_coef", "ox", "oy", "oz", "invrad", "overt",
+              "invvrad")
+# Largest dynamic shared memory a CTA may use on Hopper (227 KB).
+MAX_SMEM_BYTES = 232448
+# The series angle form is valid while every radius is at most this (km).
+SERIES_MAX_RADIUS_KM = 5000.0
+
+# Launches of the CUDA kernel (not of the plain version).
+launches = 0
+
+_ASIN2 = (-0.0963332506, 0.1146914397, 0.0793335722, 0.1508451291,
+          0.3333070474, 2.0000001309)
+_ARCCOS = (0.0066700901, -0.0170881256, 0.0308918810, -0.0501743046,
+           0.0889789874, -0.2145988016, 1.5707963050)
+_GC_OUTER = (-0.0484752690, 0.1405191778, 0.0386425652, -0.3682243569,
+             0.3440689601, -0.1255802356, 0.0164935268)
+
+
+def _asin2_poly_u(u):
+    """``2 asin(s) / s`` as a polynomial in ``u = s^2`` (s <= 0.71)."""
+    p = torch.full_like(u, 0.1920979908)
+    for c in _ASIN2:
+        p = p * u + c
+    return p
+
+
+def _arccos_poly(x):
+    """A&S 4.4.46 arccos for x in [0, 1]."""
+    p = torch.full_like(x, -0.0012624911)
+    for c in _ARCCOS:
+        p = p * x + c
+    return torch.sqrt(torch.clamp(1.0 - x, min=0.0)) * p
+
+
+def _gc_poly(r, outer_form: str = "exact"):
+    inner = ((((-0.25 * r + 0.5) * r + 0.625) * r - 5.0 / 3.0) * r**2) + 1.0
+    if outer_form == "poly":
+        t = r - 1.5
+        outer = torch.full_like(r, 0.0332721029)
+        for c in _GC_OUTER:
+            outer = outer * t + c
+    else:
+        r_safe = torch.clamp(r, min=1e-12)
+        outer = (((((r / 12.0 - 0.5) * r + 0.625) * r + 5.0 / 3.0) * r - 5.0)
+                 * r + 4.0 - 2.0 / (3.0 * r_safe))
+    zero = torch.zeros_like(r)
+    return torch.where(r <= 1.0, inner, torch.where(r < 2.0, outer, zero))
+
+
+def pick_tile(block_size: int, nmems: int) -> int:
+    """Rows per CTA: 64, or 32 when 64 would overflow shared memory.
+    The cull bits are computed at this tile."""
+    return 64 if smem_bytes(64, block_size, nmems) <= MAX_SMEM_BYTES else 32
+
+
+def smem_bytes(tile: int, block_size: int, nmems: int) -> int:
+    """Shared memory of one CTA (mirrors ``smem_bytes`` in
+    ``csrc/ensrf_fused.cu``)."""
+    t, b, m = tile, block_size, nmems
+    return 4 * (t * (m | 1) + b * m + b * b + b * t + PANEL * t
+                + len(TABLE_ROWS) * b + 4 * t + t)
+
+
+# Culling-bound slack (rad): covers f32 arccos conditioning in the bound
+# against the kernel's polynomial angle (``ensrf_pallas_fused.py:422``).
+_CULL_MARGIN_RAD = 2e-3
+# Obs x tiles evaluated at once by the cull bound (bounds its memory).
+_CULL_CHUNK_ELEMS = 1 << 26
+
+
+def _tile_caps(body_xyz, tile):
+    """Per row tile: the cap centre [gtiles, 3] and angular radius."""
+    nrows = body_xyz.shape[0]
+    gtiles = max(1, -(-nrows // tile))
+    rpad = gtiles * tile - nrows
+    if rpad:
+        body_xyz = torch.cat([body_xyz, body_xyz[-1:].expand(rpad, 3)])
+    txyz = body_xyz.reshape(gtiles, tile, 3)
+    csum = torch.sum(txyz, dim=1)
+    cnorm = torch.sqrt(torch.sum(csum * csum, dim=1, keepdim=True))
+    fallback = torch.tensor([1.0, 0.0, 0.0], dtype=body_xyz.dtype,
+                            device=body_xyz.device)
+    center = torch.where(cnorm > 1e-6, csum / torch.clamp(cnorm, min=1e-6),
+                         fallback[None, :])
+    cosmin = torch.einsum("gtc,gc->gt", txyz, center).amin(dim=1)
+    cap = torch.arccos(torch.clamp(cosmin, -1.0, 1.0))
+    return center, cap
+
+
+def _alive_panels(ob_xyz, radii, assim, center, cap, nblocks, block_size,
+                  panel):
+    """``[g, nblocks, npanels]`` bool: panel may hold a nonzero weight."""
+    nobs = ob_xyz.shape[0]
+    g = center.shape[0]
+    ang = torch.arccos(torch.clamp(ob_xyz @ center.T, -1.0, 1.0))
+    support = 2.0 * torch.abs(radii) / EARTH_RADIUS_KM
+    alive = ang <= cap[None, :] + support[:, None] + _CULL_MARGIN_RAD
+    alive = alive & assim[:, None]
+    npanels = -(-block_size // panel)
+    # obs padded to the block grid, each block padded to the panel grid
+    full = torch.zeros((nblocks, npanels * panel, g), dtype=torch.bool,
+                       device=alive.device)
+    blocks = torch.zeros((nblocks * block_size, g), dtype=torch.bool,
+                         device=alive.device)
+    blocks[:nobs] = alive
+    full[:, :block_size] = blocks.reshape(nblocks, block_size, g)
+    return full.reshape(nblocks, npanels, panel, g).any(dim=2).permute(2, 0, 1)
+
+
+def cull_masks(body_xyz, ob_xyz, radii, assim, tile, nblocks, block_size,
+               panel: int = PANEL):
+    """``(mask [gtiles, nblocks], pmask [gtiles, nblocks, npanels])`` int32:
+    1 where a (row tile, obs block) pair, or one 8-ob panel of it, may have
+    a nonzero Gaspari-Cohn weight.  Zeros are provably dead and skipped
+    exactly (bound: ``ensrf_pallas_fused.cull_masks`` docstring)."""
+    center, cap = _tile_caps(body_xyz, tile)
+    pm = _alive_panels(ob_xyz, radii, assim, center, cap, nblocks,
+                       block_size, panel)
+    return pm.any(dim=2).to(torch.int32), pm.to(torch.int32)
+
+
+def cull_bits(body_xyz, ob_xyz, radii, assim, tile, nblocks, block_size,
+              panel: int = PANEL):
+    """The kernel's cull control: ``bits [gtiles, nblocks]`` int32 with
+    bit q set when panel q may be alive.  Same bound as :func:`cull_masks`,
+    evaluated over chunks of tiles so that its ``[nobs, tiles]`` angle
+    matrix stays bounded at any state size."""
+    center, cap = _tile_caps(body_xyz, tile)
+    gtiles = center.shape[0]
+    npanels = -(-block_size // panel)
+    shifts = torch.arange(npanels, device=center.device, dtype=torch.int64)
+    chunk = max(1, _CULL_CHUNK_ELEMS // max(1, nblocks * block_size))
+    out = []
+    for s in range(0, gtiles, chunk):
+        pm = _alive_panels(ob_xyz, radii, assim, center[s:s + chunk],
+                           cap[s:s + chunk], nblocks, block_size, panel)
+        v = torch.sum(pm.to(torch.int64) << shifts, dim=-1)
+        # bit 31 set: wrap to the int32 the kernel reads
+        out.append(torch.where(v >= 2**31, v - 2**32, v).to(torch.int32))
+    return torch.cat(out)
+
+
+def _weights_plain(tab, geom, lo, hi, vertical: bool, series: bool):
+    """Weights ``[rows, hi - lo]`` of obs lo..hi-1 of one block: the
+    kernel's chordal angle and Gaspari-Cohn forms."""
+    ox, oy, oz = (tab[k, lo:hi][None, :] for k in (2, 3, 4))
+    invrad = tab[5, lo:hi][None, :]
+    bx, by, bz, bv = (geom[k][:, None] for k in range(4))
+    dot = torch.clamp(ox * bx + oy * by + oz * bz, -1.0, 1.0)
+    if series:
+        su = (1.0 - dot) * 0.5
+        ang = torch.sqrt(su) * _asin2_poly_u(su)
+    else:
+        ang = 2.0 * _arccos_poly(torch.sqrt(torch.clamp((1.0 + dot) * 0.5,
+                                                        0.0, 1.0)))
+    dist = EARTH_RADIUS_KM * ang
+    one = torch.ones_like(dist)
+    w = torch.where(invrad > 0, _gc_poly(dist * invrad,
+                                         "poly" if series else "exact"), one)
+    if vertical:
+        ivr = tab[7, lo:hi][None, :]
+        rv = torch.abs(bv - tab[6, lo:hi][None, :]) * ivr
+        w = w * torch.where(ivr > 0, _gc_poly(rv), one)
+    return w
+
+
+def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
+                      localize: bool, vertical: bool, series: bool):
+    """Plain-torch B2 on prepared operands; returns ``(bm, bp)``."""
+    nrows = bp.shape[0]
+    nblocks, bsz, _ = y_b.shape
+    if bits is not None:
+        row_tile = torch.arange(nrows, device=bp.device) // tile
+    for b in range(nblocks):
+        y = y_b[b]
+        tab = tab_b[b]
+        d0 = bp @ y.T
+        u = torch.zeros_like(d0)
+        bw = bits[row_tile, b].to(torch.int64) if bits is not None else None
+        for base in range(0, bsz, PANEL):
+            width = min(PANEL, bsz - base)
+            alive = (((bw >> (base // PANEL)) & 1) != 0
+                     if bw is not None else None)
+            d_panel = d0[:, base:base + width]
+            if base > 0:
+                d_panel = d_panel - u[:, :base] @ ggt_b[b, base:base + width,
+                                                       :base].T
+            if localize:
+                w_panel = _weights_plain(tab, geom, base, base + width,
+                                         vertical, series)
+            for t in range(width):
+                j = base + t
+                d_j = d_panel[:, t]
+                if t > 0:
+                    d_j = d_j - u[:, base:j] @ ggt_b[b, j, base:j]
+                if localize:
+                    d_j = d_j * w_panel[:, t]
+                if alive is not None:
+                    d_j = torch.where(alive, d_j, torch.zeros_like(d_j))
+                u[:, j] = d_j
+        bm = bm + u @ tab[0]
+        bp = bp - (u * tab[1][None, :]) @ y
+    return bm, bp
+
+
+def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
+                     localize: bool, vertical: bool, series: bool,
+                     donate: bool = False):
+    """Launch B2 on CUDA float32 tensors.  ``donate=True`` updates
+    ``bm``/``bp`` in place (the JAX package donates these buffers)."""
+    global launches
+    nrows, nmems = bp.shape
+    nblocks, bsz, _ = y_b.shape
+    dev = bp.device
+    f32 = torch.float32
+    for t in (bm, bp, geom, y_b, ggt_b, tab_b):
+        if t.device != dev or t.dtype != f32:
+            raise ValueError("B2 takes float32 tensors on one CUDA device")
+    if (bm.shape != (nrows,) or geom.shape != (4, nrows)
+            or y_b.shape != (nblocks, bsz, nmems)
+            or ggt_b.shape != (nblocks, bsz, bsz)
+            or tab_b.shape != (nblocks, len(TABLE_ROWS), bsz)):
+        raise ValueError("B2 operand shapes disagree")
+    gtiles = -(-nrows // tile)
+    if bits is not None and (bits.device != dev or bits.dtype != torch.int32
+                             or bits.shape != (gtiles, nblocks)):
+        raise ValueError("B2 cull bits must be int32 [gtiles, nblocks]")
+    smem = smem_bytes(tile, bsz, nmems)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"B2 tile {tile} x block {bsz} x {nmems} members needs {smem} B "
+            f"of shared memory (> {MAX_SMEM_BYTES} B)")
+    if donate and bm.is_contiguous() and bp.is_contiguous():
+        out_m, out_p = bm, bp
+    else:
+        out_m = torch.empty(nrows, dtype=f32, device=dev)
+        out_p = torch.empty((nrows, nmems), dtype=f32, device=dev)
+    ins = [t.contiguous() for t in (bm, bp, geom, y_b, ggt_b, tab_b)]
+    cbits = bits.contiguous() if bits is not None else None
+    err = _build.lib().efa_fused_body(
+        *(t.data_ptr() for t in ins),
+        None if cbits is None else cbits.data_ptr(),
+        nrows, nmems, bsz, nblocks, tile, int(localize), int(vertical),
+        int(series), out_m.data_ptr(), out_p.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "B2 ensrf_fused launch")
+    launches += 1
+    return out_m, out_p
+
+
+def fused_apply(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
+                localize: bool, vertical: bool, series: bool,
+                donate: bool = False):
+    """B2 dispatch: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if bp.is_cuda:
+        return fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile,
+                                localize, vertical, series, donate)
+    if bp.device.type != "cpu":
+        raise ValueError(f"B2 runs on CUDA or CPU, not {bp.device}")
+    return fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile,
+                             localize, vertical, series)
+
+
+def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
+            obs: ObsArrays, body_vert=None, localize: bool = True,
+            block_size: int = 128, cull: bool = True, max_radius_km=None):
+    """Kernel operands for :func:`fused_apply`, as ``_fused_impl``
+    :564-704 builds them: a dict of ``geom, y_b, ggt_b, tab_b, bits, tile,
+    series``."""
+    dtype = body_perts.dtype
+    nrows, nmems = body_perts.shape
+    nobs = tail.ye.shape[0]
+    bsz = block_size
+    nblocks = max(1, -(-nobs // bsz))
+    pad = nblocks * bsz - nobs
+    obs = obs.with_default_verts()
+    inf = float("inf")
+    ye = _pad(tail.ye.to(dtype), pad)
+    gain = _pad(tail.gain_coef.to(dtype), pad)
+    sqrtc = _pad(tail.sqrt_coef.to(dtype), pad)
+    radii = _pad(obs.radii.to(dtype), pad, inf)
+    ob_xyz_raw = latlon_to_unit(obs.lats, obs.lons).to(dtype)
+    ob_xyz = _pad(ob_xyz_raw, pad)
+    overt = _pad(obs.verts.to(dtype), pad)
+    ovrad = _pad(obs.vert_radii.to(dtype), pad, inf)
+
+    y_b = ye.reshape(nblocks, bsz, nmems)
+    gram = torch.bmm(y_b, y_b.transpose(1, 2))
+    # ggt[blk, j, i] = (y_i . y_j) g_i
+    ggt_b = (gram * sqrtc.reshape(nblocks, bsz)[:, :, None]).transpose(1, 2)
+    zero = torch.zeros_like(radii)
+    invrad = torch.where(torch.isinf(radii), zero, 1.0 / torch.abs(radii))
+    invvrad = torch.where(torch.isinf(ovrad), zero, 1.0 / torch.abs(ovrad))
+    tab_b = torch.stack([gain, sqrtc, ob_xyz[:, 0], ob_xyz[:, 1],
+                         ob_xyz[:, 2], invrad, overt, invvrad])
+    tab_b = tab_b.reshape(len(TABLE_ROWS), nblocks, bsz).transpose(0, 1)
+
+    body_xyz = latlon_to_unit(body_lat, body_lon).to(dtype)
+    bvert = (torch.zeros(nrows, dtype=dtype, device=body_perts.device)
+             if body_vert is None else body_vert.to(dtype))
+    geom = torch.stack([body_xyz[:, 0], body_xyz[:, 1], body_xyz[:, 2], bvert])
+
+    tile = pick_tile(bsz, nmems)
+    npanels = -(-bsz // PANEL)
+    # An int32 holds 32 panel bits (block_size 256); larger blocks run
+    # without culling, as in the JAX package.
+    bits = None
+    if cull and localize and npanels <= 32:
+        bits = cull_bits(body_xyz, ob_xyz_raw, obs.radii.to(dtype), obs.assim,
+                         tile, nblocks, bsz)
+    series = (max_radius_km is not None
+              and float(max_radius_km) <= SERIES_MAX_RADIUS_KM)
+    return dict(geom=geom.contiguous(), y_b=y_b.contiguous(),
+                ggt_b=ggt_b.contiguous(), tab_b=tab_b.contiguous(),
+                bits=bits, tile=tile, series=series)
+
+
+def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
+               obs: ObsArrays, body_vert=None, localize: bool = True,
+               block_size: int = 128, vertical: bool = False,
+               cull: bool = True, max_radius_km=None, donate: bool = False):
+    """Phase 2 through B2: apply the pre-solved obs sequence ``tail`` to
+    the state body.  Drop-in for ``ensrf_core.ensrf_blocked_body`` with
+    chordal geometry.  ``max_radius_km`` (host-known bound on the finite
+    radii) selects the series angle form when <= 5000 km.
+    ``donate=True`` lets the kernel update the caller's buffers in place,
+    where the JAX package donates them
+    (``ensrf_blocked_body_pallas_fused_donating``)."""
+    if tail.ye.shape[0] == 0:
+        return body_mean, body_perts
+    ops = prepare(body_perts, body_lat, body_lon, tail, obs,
+                  body_vert=body_vert, localize=localize,
+                  block_size=block_size, cull=cull,
+                  max_radius_km=max_radius_km)
+    return fused_apply(body_mean.to(body_perts.dtype), body_perts,
+                       ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
+                       ops["bits"], ops["tile"], localize,
+                       localize and vertical, ops["series"], donate=donate)

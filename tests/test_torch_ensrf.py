@@ -1,0 +1,202 @@
+"""The slice end to end: the port's public API against the JAX package's on
+the same NumPy inputs (float64, CPU, where the kernels' plain versions
+run), the paths that must refuse, and the package's independence from
+JAX."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_demo_obs, make_demo_state
+from efa_xray_tpu.assimilation.ensrf import EnSRF as JEnSRF
+from efa_xray_tpu.config import FilterConfig as JConfig
+from efa_xray_tpu.observation import forward as jfwd
+from efa_xray_tpu.observation.observation import ObservationBatch as JBatch
+from efa_xray_tpu.postprocess.postprocess import (
+    obs_assimilation_statistics as j_stats,
+)
+from efa_xray_tpu.state.structure import StateStructure as JStructure
+from efa_xray_tpu_torch import EnSRF, FilterConfig, interop
+from efa_xray_tpu_torch import obs_assimilation_statistics as t_stats
+from efa_xray_tpu_torch.observation import forward as tfwd
+from efa_xray_tpu_torch.ops import ensrf_fused, tail_solve
+from efa_xray_tpu_torch.state.structure import StateStructure
+
+TOL = 1e-9
+_BATCH_FIELDS = ("values", "errors", "lats", "lons", "times_s", "obtypes",
+                 "localize_radius", "assimilate_flags", "verts",
+                 "descriptions", "vert_radius")
+
+
+def _pair(ntimes=1, nobs=19, seed=5, nvars=1, all_assim=False):
+    """The same state and obs, as JAX objects and as port objects."""
+    jstate = make_demo_state(nvars=nvars, ntimes=ntimes, ny=9, nx=11,
+                             nmems=12, seed=seed)
+    jbatch = JBatch.coerce(make_demo_obs(jstate, nobs=nobs, seed=seed + 1,
+                                         radius=600.0, all_assim=all_assim))
+    s = jstate.structure
+    data = np.asarray(jstate.data)
+    tstate = interop.state_from_numpy(
+        {name: data[i] for i, name in enumerate(s.var_names)},
+        {"validtime": s.times64(), "lat": s.lat, "lon": s.lon},
+        dtype="float64")
+    tbatch = interop.obs_batch_from_numpy(
+        {k: getattr(jbatch, k) for k in _BATCH_FIELDS})
+    return jstate, jbatch, tstate, tbatch
+
+
+def _compare_updates(jcfg, tcfg, **pair_kw):
+    jstate, jbatch, tstate, tbatch = _pair(**pair_kw)
+    jpost, jobs = JEnSRF(jstate, jbatch, config=jcfg, verbose=False).update()
+    tpost, tobs = EnSRF(tstate, tbatch, config=tcfg, verbose=False).update()
+    np.testing.assert_allclose(interop.state_to_numpy(tpost),
+                               np.asarray(jpost.data), rtol=TOL, atol=TOL)
+    jobs.materialize_diagnostics()
+    for name in ("prior_mean", "prior_var", "post_mean", "post_var"):
+        a, b = getattr(tobs, name), np.asarray(getattr(jobs, name))
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        np.testing.assert_allclose(a[~np.isnan(a)], b[~np.isnan(b)],
+                                   rtol=TOL, atol=TOL, err_msg=name)
+    np.testing.assert_array_equal(tobs.assimilated, jobs.assimilated)
+    return jpost, jobs, tpost, tobs, tstate
+
+
+@pytest.mark.parametrize("tail_panel,block_size", [(8, 4), (16, 3)])
+def test_update_kernel_route_matches_jax_pallas(tail_panel, block_size):
+    """vt = 1, blocked, fast geometry: the port's B1/B2 route (plain
+    versions on the CPU) against the JAX Pallas route (interpret mode)."""
+    kw = dict(localization="GC", dtype="float64", fast_geometry=True,
+              tail_panel=tail_panel, block_size=block_size)
+    jpost, jobs, tpost, tobs, tstate = _compare_updates(
+        JConfig(use_pallas=True, tail_pallas=True, **kw), FilterConfig(**kw))
+    assert tail_solve.launches == 0 and ensrf_fused.launches == 0
+    # obs-space statistics agree too
+    jdf = j_stats(make_demo_state(ntimes=1, ny=9, nx=11, nmems=12, seed=5),
+                  jpost, jobs)
+    tdf = t_stats(tstate, tpost, tobs)
+    for col in ("prior mean", "post mean", "prior variance", "post variance"):
+        np.testing.assert_allclose(tdf[col].to_numpy(), jdf[col].to_numpy(),
+                                   rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("method", ["serial", "blocked"])
+def test_update_plain_paths_match_jax(method):
+    """Serial, and exact-haversine blocked (the plain path on the CPU), on
+    a gridded vt > 1 state."""
+    kw = dict(localization="GC", dtype="float64", method=method,
+              block_size=5)
+    _compare_updates(JConfig(use_pallas=False, **kw), FilterConfig(**kw),
+                     ntimes=2, nvars=2)
+
+
+def test_update_with_inflation_and_outlier_check_matches_jax():
+    kw = dict(localization="GC", dtype="float64", fast_geometry=True,
+              tail_panel=8, block_size=4, outlier_threshold=1.5)
+    jstate, jbatch, tstate, tbatch = _pair(all_assim=True)
+    jpost, jobs = JEnSRF(jstate, jbatch, inflation=1.3, verbose=False,
+                         config=JConfig(use_pallas=True, tail_pallas=True,
+                                        **kw)).update()
+    tpost, tobs = EnSRF(tstate, tbatch, inflation=1.3, verbose=False,
+                        config=FilterConfig(**kw)).update()
+    np.testing.assert_allclose(interop.state_to_numpy(tpost),
+                               np.asarray(jpost.data), rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(tobs.qc_outlier, jobs.qc_outlier)
+    assert tobs.qc_outlier.any()
+
+
+@pytest.mark.parametrize("cfg,missing", [
+    (dict(hybrid_alpha=0.5, static_b_sigma=1.0, static_b_length=500.0),
+     "hybrid"),
+    (dict(variable_localization={"T2m:T2m": 0.5}), "B3"),
+    (dict(obs_chunk=8), "obs-chunked"),
+    (dict(obs_order="hilbert"), "A7"),
+    (dict(rtps_alpha=0.5), "RTPS"),
+])
+def test_unported_paths_raise(cfg, missing):
+    _, _, tstate, tbatch = _pair()
+    filt = EnSRF(tstate, tbatch, verbose=False,
+                 config=FilterConfig(dtype="float64", **cfg))
+    with pytest.raises(NotImplementedError, match=missing):
+        filt.update()
+
+
+def test_exact_haversine_raises_on_cuda_and_mesh_raises():
+    _, _, tstate, tbatch = _pair()
+    filt = EnSRF(tstate, tbatch, verbose=False,
+                 config=FilterConfig(dtype="float32", fast_geometry=False))
+    filt.device = torch.device("cuda")  # routing only; nothing runs
+    with pytest.raises(NotImplementedError, match="B4"):
+        filt._check_ported()
+    with pytest.raises(NotImplementedError, match="A10"):
+        EnSRF(tstate, tbatch, mesh=object())
+
+
+@pytest.mark.parametrize("grid", ["separable", "curvilinear"])
+def test_taps_match_jax(grid):
+    """Host separable search, and the exact full search (torch.topk) on a
+    grid that is not a lat x lon product."""
+    rng = np.random.default_rng(9)
+    lat1, lon1 = np.linspace(30, 50, 12), np.linspace(230, 250, 14)
+    lon, lat = np.meshgrid(lon1, lat1)
+    if grid == "curvilinear":
+        lat = lat + 0.3 * np.sin(np.radians(lon) * 7)
+    times = np.datetime64("2026-08-01T00") + np.arange(3) * np.timedelta64(6, "h")
+    args = (("T2m", "U"), times, lat, lon, 5)
+    js, ts = JStructure.build(*args), StateStructure.build(*args)
+    n = 17
+    olat, olon = rng.uniform(31, 49, n), rng.uniform(231, 249, n)
+    t0 = int((times[0] - np.datetime64("1970-01-01T00")) / np.timedelta64(1, "s"))
+    ot = t0 + rng.integers(-3600, 14 * 3600, n)
+    var = rng.integers(0, 2, n)
+    jt = jfwd.build_taps(js, olat, olon, ot, var)
+    tt = tfwd.build_taps(ts, olat, olon, ot, var)
+    np.testing.assert_array_equal(tt.rows, np.asarray(jt.rows))
+    np.testing.assert_allclose(tt.weights, np.asarray(jt.weights), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_array_equal(tt.qc_ok, jt.qc_ok)
+    assert not tt.qc_ok.all()  # some obs fall outside the time range
+
+
+def test_interop_roundtrip():
+    _, jbatch, tstate, tbatch = _pair()
+    o = dict(values=jbatch.values, errors=jbatch.errors, lats=jbatch.lats,
+             lons=jbatch.lons, radii=jbatch.localize_radius,
+             assim=jbatch.assimilate_flags)
+    back = interop.obs_arrays_to_numpy(interop.obs_arrays_from_numpy(**o))
+    for k, v in o.items():
+        np.testing.assert_array_equal(back[k], v)
+    assert back["verts"] is None
+    rng = np.random.default_rng(0)
+    fields = dict(ye=rng.normal(size=(4, 3)), gain_coef=rng.normal(size=4),
+                  sqrt_coef=rng.normal(size=4), tail_mean=rng.normal(size=4),
+                  tail_perts=rng.normal(size=(4, 3)),
+                  prior_mean=rng.normal(size=4), prior_var=rng.random(4),
+                  post_mean=rng.normal(size=4), post_var=rng.random(4),
+                  assimilated=rng.random(4) > 0.5)
+    back = interop.tail_solution_to_numpy(
+        interop.tail_solution_from_numpy(**fields))
+    for k, v in fields.items():
+        np.testing.assert_array_equal(back[k], v)
+    assert tstate.data.dtype == torch.float64
+    assert tstate.structure.nstate == 9 * 11
+    assert tbatch.nobs == jbatch.nobs
+
+
+def test_port_imports_without_jax():
+    """``import efa_xray_tpu_torch`` must not touch JAX or the JAX
+    package, not even lazily at import time."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import efa_xray_tpu_torch, efa_xray_tpu_torch.interop, "
+            "efa_xray_tpu_torch.ops.tail_solve, "
+            "efa_xray_tpu_torch.ops.ensrf_fused; "
+            "bad = [m for m, v in sys.modules.items() if v is not None "
+            "and m.split('.')[0] in ('jax', 'efa_xray_tpu')]; "
+            "assert not bad, bad")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
