@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-5
+    python3 chip_smoke.py             # phases 0-9
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
 
 Phases, each printing one line of results:
@@ -19,15 +19,26 @@ Phases, each printing one line of results:
    against the plain blocked update on the same tensors;
 5. the headline workload: 1e7 Hilbert-ordered rows x 80 x 10,000 obs at
    2000 km through the B1/B2 tail and the B2 body, timed with CUDA events,
-   a 20,000-row sample held against the plain body.
+   a 20,000-row sample held against the plain body;
+6. B3 (grid body) against its plain version at BASELINE config 3's shape
+   (a 90 x 180 global 2-degree grid, 80 groups, 30 members, 5,000 obs at
+   2000 km, a vertical table at 300 hPa), with and without a
+   cross-variable group factor, and at 80 members on a 45 x 90 grid;
+7. B4 (one obs block per launch) against its plain version at config 3's
+   shape and on a 1024 x 1024 grid x 80 members with 10,000 obs (vt = 1);
+8. the public API on config 3 as users build it (80 level-stacked
+   variables with their levels in ``var_verts``): (a) the default
+   ``FilterConfig`` through B4, (b) ``fast_geometry`` with cross-variable
+   localization through B3, each held against the plain blocked update;
+9. phase 4's workload at the default ``FilterConfig``, through B4.
 
 Then one JSON line describing each kernel and, last, the device line.
 
-``--profile`` replaces phases 2-5 with one warm headline update and one warm
-``EnSRF.update()`` under ``torch.profiler``: wall and device-busy time, the
-busy share, the device ops that take the most time, and the share of the
-headline's (row tile, obs block) pairs and 8-ob panels that the cull keeps
-alive.  Any
+``--profile`` replaces phases 2-9 with one warm headline update, one warm
+``EnSRF.update()`` on phase 4's workload and the two config-3 updates of
+phase 8 under ``torch.profiler``: wall and device-busy time, the busy share,
+the device ops that take the most time, and the share of the headline's
+(row tile, obs block) pairs and 8-ob panels that the cull keeps alive.  Any
 failure raises and exits non-zero; without a GPU the script exits non-zero
 before doing anything.  It never imports JAX.
 """
@@ -292,59 +303,139 @@ def _api_workload(nmems=80, nobs=10_000, seed=1):
     return {"T2m": field}, coords, batch
 
 
-def phase4():
-    """EnSRF.update() through the public API on the card."""
+def _check_api(label, state, batch, cfg, post, obs):
+    """Hold an ``EnSRF.update()`` result against the plain blocked update
+    (``ensrf_core.ensrf_blocked``) on the same tensors, and check its
+    diagnostics.  Returns ``(mean_err, incr_rms, inn_prior, inn_post)``."""
     import torch
 
-    from efa_xray_tpu_torch import EnSRF, EnsembleState, FilterConfig
+    from efa_xray_tpu_torch import EnSRF
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
-    from efa_xray_tpu_torch.ops import ensrf_fused, tail_solve
 
-    dev = torch.device("cuda")
+    dev = state.device
+    ref = EnSRF(state, batch, config=cfg, verbose=False)
+    bm, bp, tm, tp = ref.format_prior_state()
+    oa = ref.obs_arrays()
+    blat, blon = state.structure.row_latlon_device(torch.float32, dev)
+    vertical = cfg.localize and ref._vertical_active()
+    bvert = (torch.tensor(state.structure.row_vert(), dtype=torch.float32,
+                          device=dev) if vertical else None)
+    pbm, *_ = core.ensrf_blocked(
+        bm, bp, tm, tp, blat, blon, oa, localize=cfg.localize,
+        block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
+        body_vert=bvert, vertical=vertical, tail_panel=cfg.tail_panel,
+        **ref.varloc_kwargs())
+    post_mean = post.to_vect().mean(dim=1)
+    incr_rms = float(torch.sqrt(torch.mean((pbm - bm) ** 2)))
+    mean_err = float((post_mean - pbm).abs().max())
+    check(torch.isfinite(post.data).all().item(), f"{label}: posterior not "
+          "finite")
+    check(mean_err <= 1e-3 * incr_rms,
+          f"{label}: posterior mean differs from the plain update by "
+          f"{mean_err:.3e} > 1e-3 x increment RMS {incr_rms:.3e}")
+    pm, pv = obs.prior_mean, obs.prior_var
+    om, ov = obs.post_mean, obs.post_var
+    a = obs.assimilated
+    check(bool(a.all()), f"{label}: not every ob was assimilated")
+    check(all(np.isfinite(x[a]).all() for x in (pm, pv, om, ov)),
+          f"{label}: diagnostics not finite")
+    check(bool((ov[a] <= pv[a]).all()), f"{label}: post_var > prior_var")
+    inn_prior = float(np.mean(np.abs(batch.values - pm)))
+    inn_post = float(np.mean(np.abs(batch.values - om)))
+    check(inn_post < inn_prior, f"{label}: innovations did not shrink")
+    return mean_err, incr_rms, inn_prior, inn_post
+
+
+def _reset_counts():
+    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid, tail_solve
+
+    tail_solve.launches = 0
+    ensrf_fused.launches = 0
+    ensrf_grid.b3_launches = 0
+    ensrf_grid.b4_launches = 0
+
+
+def _counts():
+    """``(B1, B2, B3, B4)`` launches since the last :func:`_reset_counts`."""
+    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid, tail_solve
+
+    return (tail_solve.launches, ensrf_fused.launches, ensrf_grid.b3_launches,
+            ensrf_grid.b4_launches)
+
+
+def _timed_update(make_filter):
+    """One ``make_filter().update()``: wall seconds, and the seconds spent
+    in the tail (``tail_scan_blocked``) and in the body (``fused_body``,
+    ``grid_body`` or ``blocked_body``), each closed by a synchronize."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import ensrf as ensrf_mod
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    spent = {"tail": 0.0, "body": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    saved = [(mod, name, getattr(mod, name), key) for mod, name, key in (
+        (core, "tail_scan_blocked", "tail"), (ensrf_mod, "fused_body", "body"),
+        (ensrf_grid, "grid_body", "body"), (ensrf_grid, "blocked_body", "body"))]
+    for mod, name, fn, key in saved:
+        setattr(mod, name, timed(fn, key))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        make_filter().update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, fn, _ in saved:
+            setattr(mod, name, fn)
+    return wall, spent["tail"], spent["body"]
+
+
+def _api_state(dev):
+    """Phase 4's workload on the card: ``(state, batch)``."""
+    import torch
+
+    from efa_xray_tpu_torch import EnsembleState
+
     vardict, coords, batch = _api_workload()
     state = EnsembleState.from_vardict(
         {k: torch.from_numpy(v).to(dev) for k, v in vardict.items()}, coords,
         dtype="float32")
     check(state.device.type == "cuda", "state is not on the card")
+    return state, batch
+
+
+def phase4():
+    """EnSRF.update() through the public API on the card."""
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF, FilterConfig
+
+    dev = torch.device("cuda")
+    state, batch = _api_state(dev)
     cfg = FilterConfig(localization="GC", dtype="float32", fast_geometry=True)
 
-    tail_solve.launches = 0
-    ensrf_fused.launches = 0
+    _reset_counts()
     post, obs = EnSRF(state, batch, config=cfg, verbose=False,
                       device="cuda").update()
     torch.cuda.synchronize()
-    b1, b2 = tail_solve.launches, ensrf_fused.launches
+    b1, b2, _, _ = _counts()
     nobs = batch.nobs
     check(b1 == -(-nobs // cfg.tail_panel), f"B1 launched {b1} times")
     check(b2 >= -(-nobs // cfg.tail_panel) + 1, f"B2 launched {b2} times")
-
-    # The plain blocked update on the same tensors.
-    ref = EnSRF(state, batch, config=cfg, verbose=False, device="cuda")
-    bm, bp, tm, tp = ref.format_prior_state()
-    oa = ref.obs_arrays()
-    blat, blon = state.structure.row_latlon_device(torch.float32, dev)
-    pbm, pbp, *_ = core.ensrf_blocked(
-        bm, bp, tm, tp, blat, blon, oa, localize=True,
-        block_size=cfg.block_size, fast_geometry=True,
-        tail_panel=cfg.tail_panel)
-    prior_mean = bm
-    post_mean = post.to_vect().mean(dim=1)
-    incr_rms = float(torch.sqrt(torch.mean((pbm - prior_mean) ** 2)))
-    mean_err = float((post_mean - pbm).abs().max())
-    check(torch.isfinite(post.data).all().item(), "posterior not finite")
-    check(mean_err <= 1e-3 * incr_rms,
-          f"posterior mean differs from the plain update by {mean_err:.3e} "
-          f"> 1e-3 x increment RMS {incr_rms:.3e}")
-    pm, pv = obs.prior_mean, obs.prior_var
-    om, ov = obs.post_mean, obs.post_var
-    a = obs.assimilated
-    check(bool(a.all()), "not every ob was assimilated")
-    check(all(np.isfinite(x[a]).all() for x in (pm, pv, om, ov)),
-          "diagnostics not finite")
-    check(bool((ov[a] <= pv[a]).all()), "post_var > prior_var")
-    inn_prior = float(np.mean(np.abs(batch.values - pm)))
-    inn_post = float(np.mean(np.abs(batch.values - om)))
-    check(inn_post < inn_prior, "innovations did not shrink")
+    mean_err, incr_rms, inn_prior, inn_post = _check_api(
+        "phase 4", state, batch, cfg, post, obs)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -453,6 +544,294 @@ def phase5():
     return dict(seconds=sec)
 
 
+# Config 3's four quantities, each on 20 pressure levels from 1000 to 100
+# hPa (benchmarks/run_benchmarks.py:282-320).
+C3_QUANTITIES = ("T", "U", "V", "Q")
+C3_LEVELS = np.linspace(1000.0, 100.0, 20)
+
+
+def _grid_case(ny, nx, vt, nmems, nobs, seed, group_levels=None,
+               radius=2000.0):
+    """Operands of a body sweep over ``vt`` groups on a global ``ny x nx``
+    grid: a random state, obs at random places each observing a random
+    group (its level, 300 hPa vertical radius), their pre-solved sequence
+    from the B1/B2 tail, and a cross-variable factor per (group, ob) with
+    zeros in it."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.tensor(x, dtype=f32, device=dev)
+    lon, lat = np.meshgrid(np.linspace(0.0, 360.0, nx, endpoint=False),
+                           np.linspace(-89.0, 89.0, ny))
+    ngrid = ny * nx
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bm = 0.5 * torch.randn(vt * ngrid, generator=gen, device=dev)
+    bp = 5.0 * torch.randn(vt * ngrid, nmems, generator=gen, device=dev)
+    levels = (np.linspace(1000.0, 100.0, vt) if group_levels is None
+              else np.asarray(group_levels))
+    group = rng.integers(0, vt, nobs)
+    ye = (bp[torch.from_numpy(group * ngrid + rng.integers(0, ngrid, nobs))
+             .to(dev)] + 0.5 * torch.randn(nobs, nmems, generator=gen,
+                                           device=dev))
+    tm = ye.mean(1)
+    obs = core.ObsArrays(
+        values=tm + torch.randn(nobs, generator=gen, device=dev),
+        errors=torch.ones(nobs, device=dev),
+        lats=t(rng.uniform(-88.0, 88.0, nobs)),
+        lons=t(rng.uniform(0.0, 360.0, nobs)),
+        radii=torch.full((nobs,), radius, device=dev),
+        assim=torch.ones(nobs, dtype=torch.bool, device=dev),
+        verts=t(levels[group]), vert_radii=torch.full((nobs,), 300.0,
+                                                      device=dev))
+    tail = core.tail_scan_blocked(tm, ye - tm[:, None], obs, localize=True,
+                                  fast_geometry=True, vertical=True,
+                                  panel=512, kernels=True,
+                                  max_radius_km=radius)
+    # Four quantities: factor[ob quantity, group quantity], zeros included.
+    fac = rng.choice([0.0, 0.3, 1.0], (4, 4))
+    quantity = lambda g: g * 4 // vt
+    gf = t(fac[quantity(group)][:, quantity(np.arange(vt))].T)
+    body_vert = t(np.repeat(levels, ngrid))
+    return dict(bm=bm, bp=bp, lat=t(lat.ravel()), lon=t(lon.ravel()),
+                body_vert=body_vert, tail=tail, obs=obs, gf=gf, ngrid=ngrid,
+                vt=vt)
+
+
+def phase6():
+    """B3 against its plain version at config 3's shape."""
+    import torch
+
+    from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    bsz = 128
+    results = []
+    c3 = dict(ny=90, nx=180, vt=80, nmems=30, nobs=5000, seed=61,
+              group_levels=np.tile(C3_LEVELS, 4))
+    for label, dims, use_gf in (
+            ("config 3", c3, False),
+            ("config 3 + group factor", c3, True),
+            ("80 members, 45x90 grid, 20 groups",
+             dict(ny=45, nx=90, vt=20, nmems=80, nobs=1000, seed=62), False)):
+        c = _grid_case(**dims)
+        ops = ensrf_grid.grid_prepare(
+            c["bp"], c["body_vert"], c["tail"], c["obs"], c["ngrid"],
+            block_size=bsz, vertical=True,
+            group_factor=c["gf"] if use_gf else None)
+        nblocks = ops["y_b"].shape[0]
+        w = ensrf_grid.grid_weights(latlon_to_unit(c["lat"], c["lon"]),
+                                    ops["ob_xyz"], ops["radii"])
+        args = (c["bm"], c["bp"], w.reshape(nblocks, bsz, c["ngrid"]),
+                ops["table"], ops["y_b"], ops["ggt_b"], ops["coef_b"],
+                ops["vt"])
+        got = ensrf_grid.grid_apply(*args)
+        want = ensrf_grid.grid_apply_plain(*args)
+        torch.cuda.synchronize()
+        err = max(compare(f"B3 {label} mean", got[0], want[0]),
+                  compare(f"B3 {label} perts", got[1], want[1]))
+        k_ms = cuda_ms(lambda: ensrf_grid.grid_apply(*args), 3)
+        p_ms = cuda_ms(lambda: ensrf_grid.grid_apply_plain(*args), 1)
+        results.append(dict(label=label, max_abs_err=err, ms=k_ms,
+                            plain_ms=p_ms, nmems=dims["nmems"],
+                            tile=ensrf_grid.pick_tile(bsz, dims["nmems"])))
+        del c, ops, w, args, got, want
+    log("phase 6: B3 matches plain: " + "; ".join(
+        f"{r['label']} ({r['nmems']} members, tile {r['tile']}): err "
+        f"{r['max_abs_err']:.3e} kernel {r['ms']:.2f} ms plain "
+        f"{r['plain_ms']:.2f} ms" for r in results))
+    head = results[1]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in results),
+                ms=head["ms"], plain_ms=head["plain_ms"])
+
+
+def phase7():
+    """B4 against its plain version, four blocks in sequence."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    bsz, nblk = 128, 4
+    results = []
+    for label, dims, vertical in (
+            ("config 3 (vt 80, vertical table)",
+             dict(ny=90, nx=180, vt=80, nmems=30, nobs=5000, seed=71,
+                  group_levels=np.tile(C3_LEVELS, 4)), True),
+            ("1024x1024 x 80 members (vt 1)",
+             dict(ny=1024, nx=1024, vt=1, nmems=80, nobs=10_000, seed=72),
+             False)):
+        c = _grid_case(**dims)
+        tail, obs = c["tail"], c["obs"]
+        nrows = c["bp"].shape[0]
+        got = want = (c["bm"], c["bp"])
+        for b in range(nblk):
+            sl = slice(b * bsz, (b + 1) * bsz)
+            vt, w, table, ggt = ensrf_grid.block_operands(
+                c["lat"], c["lon"], tail.ye[sl], tail.sqrt_coef[sl],
+                obs.lats[sl], obs.lons[sl], obs.radii[sl], nrows,
+                body_vert=c["body_vert"], ob_vert=obs.verts[sl],
+                ob_vrad=obs.vert_radii[sl], vertical=vertical,
+                ngrid=c["ngrid"])
+            coef = torch.stack([tail.gain_coef[sl], tail.sqrt_coef[sl]])
+            ops = (w, table, tail.ye[sl].contiguous(), ggt.contiguous(), coef)
+            got = ensrf_grid.block_apply(*got, *ops, vt)
+            want = ensrf_grid.grid_apply_plain(
+                *want, w[None], None if table is None else table[:, None],
+                ops[2][None], ops[3][None], coef[None], vt)
+        torch.cuda.synchronize()
+        err = max(compare(f"B4 {label} mean", got[0], want[0]),
+                  compare(f"B4 {label} perts", got[1], want[1]))
+        args = (c["bm"], c["bp"], *ops, vt)
+        k_ms = cuda_ms(lambda: ensrf_grid.block_apply(*args), 5)
+        p_ms = cuda_ms(lambda: ensrf_grid.grid_apply_plain(
+            c["bm"], c["bp"], w[None],
+            None if table is None else table[:, None], ops[2][None],
+            ops[3][None], coef[None], vt), 1)
+        results.append(dict(label=label, max_abs_err=err, ms=k_ms,
+                            plain_ms=p_ms))
+        del c, tail, obs, got, want, ops, args, w
+    log(f"phase 7: B4 matches plain over {nblk} blocks: " + "; ".join(
+        f"{r['label']}: err {r['max_abs_err']:.3e}, one block: kernel "
+        f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms" for r in results))
+    head = results[0]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in results),
+                ms=head["ms"], plain_ms=head["plain_ms"])
+
+
+def _config3_workload(nmems=30, nobs=5000, seed=3):
+    """BASELINE config 3 as a user builds it: the four quantities on 20
+    levels as 80 level-stacked variables named like ``T_526``, each with
+    its level in ``var_verts``; one time; the 90 x 180 global 2-degree
+    grid; 30 members; 5,000 obs of random variables at 2000 km, each with
+    its variable's level and a 300 hPa vertical radius.  Returns
+    ``(state, batch, names)``."""
+    import torch
+
+    from efa_xray_tpu_torch import EnsembleState
+    from efa_xray_tpu_torch.observation.observation import ObservationBatch
+    from efa_xray_tpu_torch.state.structure import StateStructure
+    from efa_xray_tpu_torch.utils import timeutil
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    ny, nx = 90, 180
+    names = [f"{q}_{lev:.0f}" for q in C3_QUANTITIES for lev in C3_LEVELS]
+    verts = np.tile(C3_LEVELS, len(C3_QUANTITIES))
+    lon, lat = np.meshgrid(np.linspace(0.0, 360.0, nx, endpoint=False),
+                           np.linspace(-89.0, 89.0, ny))
+    times = np.array([np.datetime64("2026-08-01T00")])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    data = 5.0 * torch.randn((len(names), 1, ny, nx, nmems), generator=gen,
+                             device=dev)
+    state = EnsembleState.from_vardict(
+        {n: data[i] for i, n in enumerate(names)},
+        {"validtime": times, "lat": lat, "lon": lon,
+         "mem": np.arange(nmems)}, dtype="float32")
+    s = state.structure
+    state = EnsembleState(state.data, StateStructure.build(
+        s.var_names, s.times64(), s.lat, s.lon, nmems, var_verts=verts))
+    var = rng.integers(0, len(names), nobs)
+    batch = ObservationBatch(
+        values=rng.normal(0.0, 1.0, nobs), errors=np.ones(nobs),
+        lats=rng.uniform(-88.0, 88.0, nobs),
+        lons=rng.uniform(0.0, 358.0, nobs),
+        times_s=timeutil.to_epoch_seconds(np.repeat(times[0], nobs)),
+        obtypes=[names[v] for v in var],
+        localize_radius=np.full(nobs, 2000.0),
+        assimilate_flags=np.ones(nobs, bool), verts=verts[var],
+        descriptions=[None] * nobs, vert_radius=np.full(nobs, 300.0))
+    return state, batch, names
+
+
+def _config3_runs(names):
+    """Phase 8's two configurations: ``[(label, cfg, route)]``."""
+    from efa_xray_tpu_torch import FilterConfig
+
+    mid = len(C3_LEVELS) // 2
+    lev = lambda q: names[C3_QUANTITIES.index(q) * len(C3_LEVELS) + mid]
+    spec = {f"{lev('T')}:{lev('Q')}": 0.0, f"{lev('U')}:{lev('V')}": 0.5,
+            f"{lev('Q')}:{lev('T')}": 0.3}
+    return [("(a) default FilterConfig", FilterConfig(localization="GC"),
+             "B4"),
+            ("(b) fast_geometry + variable_localization",
+             FilterConfig(localization="GC", fast_geometry=True,
+                          variable_localization=spec), "B3")]
+
+
+def _api_phase(label, state, batch, cfg, route, expect):
+    """Drive ``EnSRF.update()`` on the card along ``route``, check the
+    launch counts against ``expect(b1, b2, b3, b4)``, hold the result
+    against the plain blocked update, and time a warm update with its
+    tail/body split.  Returns a dict of the numbers."""
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF
+
+    filt = EnSRF(state, batch, config=cfg, verbose=False)
+    check(filt._route(state.structure.nstate) == route,
+          f"{label}: routed to {filt._route(state.structure.nstate)}, not "
+          f"{route}")
+    _reset_counts()
+    post, obs = filt.update()
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(expect(*counts), f"{label}: launches B1-B4 {counts}")
+    mean_err, incr_rms, inn_prior, inn_post = _check_api(
+        label, state, batch, cfg, post, obs)
+    del post, obs, filt
+    wall, tail_s, body_s = _timed_update(
+        lambda: EnSRF(state, batch, config=cfg, verbose=False))
+    return dict(counts=counts, mean_err=mean_err, incr_rms=incr_rms,
+                inn=(inn_prior, inn_post), wall=wall, tail=tail_s,
+                body=body_s)
+
+
+def _api_line(r):
+    b1, b2, b3, b4 = r["counts"]
+    return (f"launches B1 {b1} B2 {b2} B3 {b3} B4 {b4}; posterior mean vs "
+            f"plain blocked: max abs diff {r['mean_err']:.3e} (increment RMS "
+            f"{r['incr_rms']:.3e}); mean |innov| {r['inn'][0]:.4f} -> "
+            f"{r['inn'][1]:.4f}; warm update wall {r['wall']:.3f} s (tail "
+            f"{r['tail']:.3f} s, body {r['body']:.3f} s)")
+
+
+def phase8():
+    """The public API on config 3: B4 at the defaults, B3 with varloc."""
+    state, batch, names = _config3_workload()
+    nblocks = -(-batch.nobs // 128)
+    expects = {
+        "B4": lambda b1, b2, b3, b4: (b4, b1, b2, b3) == (nblocks, 0, 0, 0),
+        "B3": lambda b1, b2, b3, b4: b3 >= 1 and (b1, b2, b4) == (0, 0, 0),
+    }
+    out = {}
+    for label, cfg, route in _config3_runs(names):
+        r = _api_phase(f"phase 8 {label}", state, batch, cfg, route,
+                       expects[route])
+        log(f"phase 8: EnSRF.update() config 3 (80 level variables x 90x180 "
+            f"x 30 members, {batch.nobs} obs, vertical 300 hPa) {label}, "
+            f"route {route}: " + _api_line(r))
+        out[route] = r
+    return dict(b3=out["B3"]["counts"][2], b4=out["B4"]["counts"][3])
+
+
+def phase9():
+    """Phase 4's workload at the default FilterConfig, through B4."""
+    import torch
+
+    from efa_xray_tpu_torch import FilterConfig
+
+    state, batch = _api_state(torch.device("cuda"))
+    nblocks = -(-batch.nobs // 128)
+    r = _api_phase(
+        "phase 9", state, batch, FilterConfig(localization="GC"), "B4",
+        lambda b1, b2, b3, b4: (b4, b1, b2, b3) == (nblocks, 0, 0, 0))
+    log(f"phase 9: EnSRF.update() 1024x1024x80, {batch.nobs} obs at the "
+        f"default FilterConfig: " + _api_line(r))
+
+
 def _profiled(label: str, fn, top: int = 8) -> None:
     """One warm run of ``fn`` under ``torch.profiler``: prints the wall
     time, the device time (union of the CUDA kernel and copy intervals),
@@ -490,11 +869,12 @@ def _profiled(label: str, fn, top: int = 8) -> None:
 
 
 def profile_phase():
-    """Where the time goes: one warm headline update and one warm API
-    update under ``torch.profiler``, and the headline's cull shares."""
+    """Where the time goes: one warm headline update, one warm API update
+    and the two config-3 updates of phase 8 under ``torch.profiler``, and
+    the headline's cull shares."""
     import torch
 
-    from efa_xray_tpu_torch import EnSRF, EnsembleState, FilterConfig
+    from efa_xray_tpu_torch import EnSRF, FilterConfig
     from efa_xray_tpu_torch.ops import ensrf_fused
 
     tail_phase, body_phase, w = _headline()
@@ -513,15 +893,17 @@ def profile_phase():
               lambda: body_phase(tail_phase()))
     del tail_phase, body_phase, w
 
-    dev = torch.device("cuda")
-    vardict, coords, batch = _api_workload()
-    state = EnsembleState.from_vardict(
-        {k: torch.from_numpy(v).to(dev) for k, v in vardict.items()}, coords,
-        dtype="float32")
+    state, batch = _api_state(torch.device("cuda"))
     cfg = FilterConfig(localization="GC", dtype="float32", fast_geometry=True)
     _profiled("API EnSRF.update() (1024 x 1024 x 80, 10k obs)",
               lambda: EnSRF(state, batch, config=cfg, verbose=False,
                             device="cuda").update())
+    del state, batch
+    state, batch, names = _config3_workload()
+    for label, cfg, route in _config3_runs(names):
+        _profiled(f"config 3 EnSRF.update() {label} ({route})",
+                  lambda: EnSRF(state, batch, config=cfg,
+                                verbose=False).update())
 
 
 def main() -> int:
@@ -541,6 +923,10 @@ def main() -> int:
     b2 = phase3()
     api = phase4()
     phase5()
+    b3 = phase6()
+    b4 = phase7()
+    c3 = phase8()
+    phase9()
     kernels = [
         dict(name="B1 tail panel solve", route="cuda",
              source="efa_xray_tpu_torch/csrc/tail_solve.cu",
@@ -550,6 +936,14 @@ def main() -> int:
              source="efa_xray_tpu_torch/csrc/ensrf_fused.cu",
              replaces="efa_xray_tpu/ops/ensrf_pallas_fused.py:117",
              launches=api["b2"], **b2),
+        dict(name="B3 grid body", route="cuda",
+             source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
+             replaces="efa_xray_tpu/ops/ensrf_pallas_fused.py:784",
+             launches=c3["b3"], **b3),
+        dict(name="B4 block apply", route="cuda",
+             source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
+             replaces="efa_xray_tpu/ops/ensrf_pallas.py:68",
+             launches=c3["b4"], **b4),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,8 +5,8 @@ Counterpart of ``efa_xray_tpu/assimilation/assimilation.py``:
 forms), and the ``Assimilation`` base class with ``max_finite_radius``
 :212, ``build_taps`` :224, ``obs_arrays`` :245, ``apply_outlier_check``
 :297, ``_vertical_active`` :348, ``format_prior_state`` :492 (the fused
-``_format_prior_jit`` :48), ``format_posterior_state`` :526 and
-``record_diagnostics`` :611.
+``_format_prior_jit`` :48), ``format_posterior_state`` :526,
+``varloc_kwargs`` :539 and ``record_diagnostics`` :611.
 
 Everything runs on one explicit device, the filter's: by default the
 prior state's.  Inflation from a file or an ``AdaptiveInflation``, custom
@@ -249,6 +249,40 @@ class Assimilation:
         data = (body_mean[:, None] + body_perts).to(self.prior.data.dtype)
         return (EnsembleState(data.reshape(self.prior.structure.shape),
                               self.prior.structure), self.obs)
+
+    def varloc_kwargs(self) -> dict:
+        """Cross-variable localization inputs from
+        ``FilterConfig.variable_localization`` (empty dict when off), as
+        tensors on the filter's device: the ``[nvars+1, nvars]`` factor
+        matrix (the extra all-ones row serves custom-operator obs, whose
+        observed variable is undefined), the state-variable index of each
+        row (rows are var-major) and the observed-variable index of each
+        ob."""
+        spec = self.config.variable_localization
+        if not spec:
+            return {}
+        st = self.prior.structure
+        names = list(st.var_names)
+        nv = len(names)
+        fac = np.ones((nv + 1, nv), dtype=np.float64)
+        for key, val in spec.items():
+            a, b = key.split(":") if isinstance(key, str) else key
+            for n in (a, b):
+                if n not in names:
+                    raise KeyError(
+                        f"variable_localization names unknown variable "
+                        f"{n!r} (state has {names})")
+            fac[names.index(a), names.index(b)] = float(val)
+        ob_var = self.obs.var_indices(st).astype(np.int64)
+        ob_var[np.asarray(self.obs.custom_operator, dtype=bool)] = nv
+        row_var = np.repeat(np.arange(nv, dtype=np.int64),
+                            st.ntimes * st.ngrid)
+        dev = self.device
+        return dict(
+            varloc=torch.tensor(fac, dtype=self.dtype, device=dev),
+            row_var=torch.from_numpy(row_var).to(dev),
+            ob_var=torch.from_numpy(ob_var).to(dev),
+        )
 
     def record_diagnostics(self, diags: ObsDiagnostics) -> None:
         """Write the per-ob diagnostics onto the ObservationBatch as host

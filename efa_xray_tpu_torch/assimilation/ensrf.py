@@ -1,20 +1,33 @@
 """EnSRF: the user-facing serial ensemble square-root filter.
 
 Counterpart of ``efa_xray_tpu/assimilation/ensrf.py``: the ``EnSRF`` class
-:42, its kernel selection ``_use_pallas`` :85 and ``_tail_pallas`` :129
-(here :meth:`EnSRF._use_kernels`), ``_update_impl`` :187 and the one-shot
-``_solve_once`` :338.
+:42, its kernel selection ``_grid_kernel_ok`` :70, ``_use_pallas`` :85 and
+``_tail_pallas`` :129 (here :meth:`EnSRF._grid_kernel_ok`,
+:meth:`EnSRF._use_kernels` and :meth:`EnSRF._tail_kernels`),
+``_update_impl`` :187 and the one-shot ``_solve_once`` :338.
 
-Routing of ``method="blocked"`` with ``fast_geometry=True`` or without
-localization, for any row layout: the panel-blocked tail
-(``ensrf_core.tail_scan_blocked``: B1 panel solves, B2 out-of-panel
-applies), then the body through B2.  On CUDA tensors those are the CUDA
-kernels; on CPU tensors their plain versions.  ``method="serial"`` runs
-the plain serial loop on any device (the JAX serial path has no kernel
-either).  Exact-haversine localization (``fast_geometry=False``) runs the
-plain blocked update on the CPU and raises on CUDA until its kernel (B4)
-is ported.  Paths whose kernels or modules are not ported raise
-``NotImplementedError`` rather than run a plain path on the card.
+Routing, branch for branch as the JAX package routes a TPU run
+(:meth:`EnSRF._route`):
+
+* ``method="serial"``: the plain serial loop on any device (the JAX serial
+  path has no kernel either);
+* ``method="blocked"``, gridded state with vt = nvars * ntimes > 1,
+  ``fast_geometry`` and localization: the body through B3, with
+  ``variable_localization`` carried in its per-(group, ob) table;
+* otherwise with ``fast_geometry`` or without localization: the body
+  through B2;
+* otherwise (exact haversine, the default ``FilterConfig``): the body
+  through B4, one launch per obs block;
+* ``variable_localization`` where B3 cannot carry it (a flat state, or
+  exact haversine): the plain blocked update, as the JAX package runs no
+  kernel there either.
+
+The tail goes through B1 and B2 where the JAX package's ``_tail_pallas``
+would (chordal or unlocalized, no ``variable_localization``), else through
+the plain panel-blocked scan.  On CUDA tensors the kernels run; on CPU
+tensors their plain versions.  Paths whose kernels or modules are not
+ported raise ``NotImplementedError`` rather than run a plain path on the
+card.
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ from efa_xray_tpu_torch.assimilation import ensrf_core as core
 from efa_xray_tpu_torch.assimilation.assimilation import Assimilation
 from efa_xray_tpu_torch.config import FilterConfig
 from efa_xray_tpu_torch.observation.observation import ObservationBatch
+from efa_xray_tpu_torch.ops import ensrf_grid
 from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
 from efa_xray_tpu_torch.state.ensemble import EnsembleState
 
@@ -54,13 +68,50 @@ class EnSRF(Assimilation):
         self.loc = loc if loc not in (None, False) else (config.localization
                                                          or False)
 
-    def _use_kernels(self) -> bool:
-        """The B1/B2 route: blocked method with chordal geometry or no
-        localization.  Its kernels run on CUDA tensors, their plain
-        versions on CPU tensors."""
+    def _grid_kernel_ok(self) -> bool:
+        """B3 eligibility: rows tile one spatial grid over vt > 1 groups,
+        chordal localization, no hybrid."""
         cfg = self.config
-        return cfg.method == "blocked" and (cfg.fast_geometry
-                                            or not cfg.localize)
+        st = self.prior.structure
+        vt = st.nvars * st.ntimes
+        return (cfg.localize and cfg.fast_geometry and vt > 1
+                and st.ngrid > 0 and st.nstate == vt * st.ngrid
+                and cfg.hybrid_alpha >= 1.0)
+
+    def _use_kernels(self) -> bool:
+        """The kernel route (``_use_pallas`` on a TPU): the blocked method;
+        with ``variable_localization`` only where B3 carries it.  Its
+        kernels run on CUDA tensors, their plain versions on CPU
+        tensors."""
+        cfg = self.config
+        ok = cfg.method == "blocked"
+        if cfg.variable_localization:
+            ok = ok and self._grid_kernel_ok()
+        return ok
+
+    def _tail_kernels(self) -> bool:
+        """B1/B2 for the tail (``_tail_pallas``): chordal or unlocalized,
+        no hybrid, no ``variable_localization``."""
+        cfg = self.config
+        return (cfg.hybrid_alpha >= 1.0 and not cfg.variable_localization
+                and (cfg.fast_geometry or not cfg.localize))
+
+    def _route(self, nrows: int) -> str:
+        """The body path of an update on ``nrows`` state rows: ``"serial"``,
+        ``"plain"`` (the plain blocked update), ``"B3"``, ``"B2"`` or
+        ``"B4"``."""
+        cfg = self.config
+        if cfg.method == "serial":
+            return "serial"
+        if not self._use_kernels():
+            return "plain"
+        st = self.prior.structure
+        if (self._grid_kernel_ok()
+                and nrows == st.nvars * st.ntimes * st.ngrid):
+            return "B3"
+        if cfg.fast_geometry or not cfg.localize:
+            return "B2"
+        return "B4"
 
     def _check_ported(self) -> None:
         cfg = self.config
@@ -68,19 +119,12 @@ class EnSRF(Assimilation):
         if cfg.hybrid_alpha < 1.0:
             missing.append("hybrid_alpha < 1 (the B2 hybrid static-column "
                            "branch, ROADMAP queue B)")
-        if cfg.variable_localization:
-            missing.append("variable_localization (kernel B3, ROADMAP "
-                           "queue B)")
         if cfg.obs_chunk:
             missing.append("obs_chunk (the obs-chunked driver, ROADMAP A6)")
         if cfg.obs_order is not None or cfg.spatial_sort:
             missing.append("obs_order / spatial_sort (ROADMAP A7)")
         if cfg.rtps_alpha > 0.0 or cfg.rtpp_alpha > 0.0:
             missing.append("RTPS/RTPP relaxation (ROADMAP A7)")
-        if (self.device.type == "cuda" and cfg.method == "blocked"
-                and cfg.localize and not cfg.fast_geometry):
-            missing.append("fast_geometry=False on CUDA (exact-haversine "
-                           "kernel B4, ROADMAP queue B)")
         if missing:
             raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
@@ -111,35 +155,57 @@ class EnSRF(Assimilation):
 
     def _solve_once(self, body_mean, body_perts, tail_mean, tail_perts,
                     body_lat, body_lon, obs, body_vert, vertical: bool):
-        """One full update (tail + body); ``(bm, bp, tm, tp, diags)``."""
+        """One full update (tail + body) along :meth:`_route`;
+        ``(bm, bp, tm, tp, diags)``."""
         cfg = self.config
-        if cfg.method == "serial":
+        vl = self.varloc_kwargs()
+        route = self._route(int(body_mean.shape[0]))
+        if route == "serial":
             return core.ensrf_serial(
                 body_mean, body_perts, tail_mean, tail_perts, body_lat,
                 body_lon, obs, localize=cfg.localize,
                 unbiased=cfg.unbiased_variance,
                 fast_geometry=cfg.fast_geometry, body_vert=body_vert,
-                vertical=vertical)
-        if not self._use_kernels():
+                vertical=vertical, **vl)
+        if route == "plain":
             return core.ensrf_blocked(
                 body_mean, body_perts, tail_mean, tail_perts, body_lat,
                 body_lon, obs, localize=cfg.localize,
                 block_size=cfg.block_size, unbiased=cfg.unbiased_variance,
                 fast_geometry=cfg.fast_geometry, body_vert=body_vert,
-                vertical=vertical)
+                vertical=vertical, **vl)
         max_radius = self.max_finite_radius()
         tail = core.tail_scan_blocked(
             tail_mean, tail_perts, obs, localize=cfg.localize,
             unbiased=cfg.unbiased_variance, fast_geometry=cfg.fast_geometry,
-            vertical=vertical, panel=cfg.tail_panel, kernels=True,
-            max_radius_km=max_radius)
-        # The filter owns the formatted prior: B2 updates it in place,
-        # where the JAX package donates it
-        # (ensrf_blocked_body_pallas_fused_donating).
-        bm, bp = fused_body(
-            body_mean, body_perts, body_lat, body_lon, tail, obs,
-            body_vert=body_vert if vertical else None,
-            localize=cfg.localize, block_size=cfg.block_size,
-            vertical=vertical, cull=cfg.cull, max_radius_km=max_radius,
-            donate=True)
+            vertical=vertical, panel=cfg.tail_panel,
+            kernels=self._tail_kernels(), max_radius_km=max_radius,
+            **({k: vl[k] for k in ("varloc", "ob_var")} if vl else {}))
+        # The filter owns the formatted prior: the body kernels update it
+        # in place, where the JAX package donates it.
+        st = self.prior.structure
+        bvert = body_vert if vertical else None
+        if route == "B3":
+            group_factor = None
+            if vl:
+                vt = st.nvars * st.ntimes
+                varg = torch.arange(vt, device=self.device) // st.ntimes
+                group_factor = vl["varloc"][vl["ob_var"]][:, varg].T
+            bm, bp = ensrf_grid.grid_body(
+                body_mean, body_perts, body_lat, body_lon, tail, obs,
+                ngrid=st.ngrid, body_vert=bvert, localize=cfg.localize,
+                block_size=cfg.block_size, vertical=vertical,
+                group_factor=group_factor, donate=True)
+        elif route == "B2":
+            bm, bp = fused_body(
+                body_mean, body_perts, body_lat, body_lon, tail, obs,
+                body_vert=bvert, localize=cfg.localize,
+                block_size=cfg.block_size, vertical=vertical, cull=cfg.cull,
+                max_radius_km=max_radius, donate=True)
+        else:
+            bm, bp = ensrf_grid.blocked_body(
+                body_mean, body_perts, body_lat, body_lon, tail, obs,
+                localize=cfg.localize, block_size=cfg.block_size,
+                fast_geometry=cfg.fast_geometry, body_vert=body_vert,
+                vertical=vertical, ngrid=st.ngrid, donate=True)
         return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags

@@ -10,9 +10,11 @@ reformulation of the serial Whitaker-Hamill filter that these functions
 implement.
 
 Pure ensemble covariance only: the hybrid static column
-(``hybrid_alpha < 1``), cross-variable localization (``varloc``) and the
-stochastic-EnKF ``apply_rows`` are not ported yet (ROADMAP queue A, item
-7).  Vertical localization is.
+(``hybrid_alpha < 1``) and the stochastic-EnKF ``apply_rows`` are not
+ported yet (ROADMAP queue A, items 7 and 9).  Vertical localization and
+cross-variable localization (``varloc``, ``row_var``, ``ob_var``: the
+factor ``varloc[ob_var, row_var]`` multiplies the gain like a
+Gaspari-Cohn weight) are.
 
 Every function runs eagerly on the device of its inputs.  The sequential
 per-ob loops stay Python loops over tensor ops: they are the plain
@@ -155,8 +157,14 @@ def _serial_step_scalars(tp, tm, i, values, errors, nens, unbiased):
 def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
                  body_lon, obs: ObsArrays, localize: bool = True,
                  unbiased: bool = False, fast_geometry: bool = False,
-                 body_vert=None, vertical: bool = False):
+                 body_vert=None, vertical: bool = False, varloc=None,
+                 row_var=None, ob_var=None):
     """Serial EnSRF, one observation at a time over body and tail.
+
+    ``varloc [nv(+1), nvars]`` with ``row_var [Ns]`` and ``ob_var [No]``
+    (integer indices) multiplies ob i's gain at row r by
+    ``varloc[ob_var[i], row_var[r]]``, on the tail rows by
+    ``varloc[ob_var[i], ob_var[r]]``.
 
     Returns ``(body_mean, body_perts, tail_mean, tail_perts, diags)``.
     """
@@ -167,6 +175,13 @@ def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
     if nobs == 0:
         return (body_mean, body_perts, tail_mean, tail_perts,
                 _empty_diags(dtype, device))
+    use_vl = varloc is not None
+    if use_vl:
+        if row_var is None or ob_var is None:
+            raise ValueError("varloc needs row_var and ob_var")
+        vl = varloc.to(dtype)
+        rvar = row_var.long()
+        ovar_all = ob_var.long()
     if localize and fast_geometry:
         body_xyz = latlon_to_unit(body_lat, body_lon).to(dtype)
         tail_xyz = latlon_to_unit(obs.lats, obs.lons).to(dtype)
@@ -205,6 +220,10 @@ def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
         if localize:
             kcov_b = kcov_b * w_b
             kcov_t = kcov_t * w_t
+        if use_vl:
+            fr = vl[ovar_all[i]]  # this ob's factor row [nvars]
+            kcov_b = kcov_b * fr[rvar]
+            kcov_t = kcov_t * fr[ovar_all]
         kmat_b = kcov_b * scale
         kmat_t = kcov_t * scale
         a = obs.assim[i]
@@ -228,14 +247,22 @@ def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
 
 def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
               unbiased: bool = False, fast_geometry: bool = False,
-              vertical: bool = False) -> TailSolution:
+              vertical: bool = False, varloc=None,
+              ob_var=None) -> TailSolution:
     """Serial filter on the observation-space tail only: the exact ``ye``
     sequence and scalar coefficients of the full serial algorithm, plus
-    every per-ob diagnostic."""
+    every per-ob diagnostic.  ``varloc``/``ob_var`` as in
+    :func:`ensrf_serial` (the tail rows are the obs rows)."""
     nens = tail_perts.shape[1]
     dtype = tail_perts.dtype
     device = tail_perts.device
     nobs = obs.values.shape[0]
+    use_vl = varloc is not None
+    if use_vl:
+        if ob_var is None:
+            raise ValueError("varloc needs ob_var")
+        vl = varloc.to(dtype)
+        ovar_all = ob_var.long()
     if nobs == 0:
         z = torch.zeros((0,), dtype=dtype, device=device)
         return TailSolution(
@@ -269,6 +296,8 @@ def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
                                **vkw)
         if localize:
             kcov_t = kcov_t * w_t
+        if use_vl:
+            kcov_t = kcov_t * vl[ovar_all[i]][ovar_all]
         kmat_t = kcov_t * scale
         a = obs.assim[i]
         tm = torch.where(a, tm + kmat_t * innov, tm)
@@ -327,7 +356,8 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                       localize: bool = True, unbiased: bool = False,
                       fast_geometry: bool = False, vertical: bool = False,
                       panel: int = 512, kernels: bool = False,
-                      max_radius_km=None) -> TailSolution:
+                      max_radius_km=None, varloc=None,
+                      ob_var=None) -> TailSolution:
     """Panel-blocked phase 1: same outputs as :func:`tail_scan`, exact up
     to fp reassociation.  Each panel of obs is solved serially on its own
     rows, then applied to every row outside the panel with the body
@@ -338,22 +368,26 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     (:mod:`efa_xray_tpu_torch.ops.tail_solve`) and the out-of-panel apply
     through B2 (:mod:`efa_xray_tpu_torch.ops.ensrf_fused`).  Their
     weights are chordal, so this needs ``fast_geometry`` under
-    localization.  On CPU tensors the kernels' plain versions run.
-    ``max_radius_km`` lets B2 pick its cheaper angle form.
+    localization, and they take no ``varloc``.  On CPU tensors the
+    kernels' plain versions run.  ``max_radius_km`` lets B2 pick its
+    cheaper angle form.
     """
     nens = tail_perts.shape[1]
     dtype = tail_perts.dtype
     nobs = obs.values.shape[0]
-    if kernels and localize and not fast_geometry:
+    use_vl = varloc is not None
+    if kernels and (use_vl or (localize and not fast_geometry)):
         raise ValueError("the kernel tail needs chordal geometry "
-                         "(fast_geometry) under localization")
+                         "(fast_geometry) under localization and no "
+                         "variable localization")
+    vkw = dict(varloc=varloc, ob_var=ob_var) if use_vl else {}
     solve_kernel = kernels and panel <= MAX_KERNEL_PANEL
     obs = obs.with_default_verts()
     if nobs == 0 or nobs <= panel:
         if not (solve_kernel and nobs > 0):
             return tail_scan(tail_mean, tail_perts, obs, localize=localize,
                              unbiased=unbiased, fast_geometry=fast_geometry,
-                             vertical=vertical)
+                             vertical=vertical, **vkw)
         # One panel covers the batch: pad it to the full panel width
         # (padded obs have assim=False and are exact no-ops) and slice
         # every output back.
@@ -383,6 +417,9 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     all_xyz = (latlon_to_unit(allo.lats, allo.lons).to(dtype)
                if (localize and fast_geometry) else None)
     row_idx = torch.arange(ntot, device=tm.device)
+    if use_vl:
+        vl = varloc.to(dtype)
+        ovarr = _pad(ob_var.long(), pad, 0)
 
     outs = []
     for p in range(npanels):
@@ -397,7 +434,9 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
         else:
             sol = tail_scan(tm[sl], tp[sl], pob, localize=localize,
                             unbiased=unbiased, fast_geometry=fast_geometry,
-                            vertical=vertical)
+                            vertical=vertical,
+                            **(dict(varloc=vl, ob_var=ovarr[sl]) if use_vl
+                               else {}))
         if kernels:
             from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
 
@@ -426,6 +465,9 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                 w = w * gaspari_cohn(
                     torch.abs(allo.verts[:, None] - pob.verts[None, :]),
                     pob.vert_radii[None, :]).to(dtype)
+            if use_vl:
+                # factor[r, j] = vl[panel_ob_var_j, row_ob_var_r]
+                w = w * vl[ovarr[sl]][:, ovarr].T
             w = w * outside[:, None]
             tm2, tp2 = apply_obs_block(tm, tp, sol.ye, sol.gain_coef,
                                        sol.sqrt_coef, w)
@@ -511,9 +553,11 @@ def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
                        tail: TailSolution, obs: ObsArrays,
                        localize: bool = True, block_size: int = 32,
                        fast_geometry: bool = False, body_vert=None,
-                       vertical: bool = False):
+                       vertical: bool = False, varloc=None, row_var=None,
+                       ob_var=None):
     """Phase 2: sweep the pre-solved obs sequence over the body in
-    blocks.  Exact (up to fp reassociation) match of the serial filter."""
+    blocks.  Exact (up to fp reassociation) match of the serial filter.
+    ``varloc``/``row_var``/``ob_var`` as in :func:`ensrf_serial`."""
     nobs = tail.ye.shape[0]
     dtype = body_perts.dtype
     if nobs == 0:
@@ -524,6 +568,13 @@ def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
     ye = _pad(tail.ye, pad)
     gain = _pad(tail.gain_coef.to(dtype), pad)
     sqrtc = _pad(tail.sqrt_coef.to(dtype), pad)
+    use_vl = varloc is not None
+    if use_vl:
+        if row_var is None or ob_var is None:
+            raise ValueError("varloc needs row_var and ob_var")
+        vl = varloc.to(dtype)
+        rvar = row_var.long()
+        ovar = _pad(ob_var.long(), pad, 0)
     body_xyz = (latlon_to_unit(body_lat, body_lon).to(dtype)
                 if (localize and fast_geometry) else None)
     bm, bp = body_mean, body_perts
@@ -543,6 +594,11 @@ def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
             w = w * gaspari_cohn(
                 torch.abs(body_vert.to(dtype)[:, None] - po.verts[sl][None, :]),
                 po.vert_radii[sl][None, :]).to(dtype)
+        if use_vl:
+            # factor[r, j] = vl[block_ob_var_j, row_var_r]: enters the
+            # recurrence exactly like a GC weight, so blocked == serial.
+            fmat = vl[ovar[sl]][:, rvar].T
+            w = fmat if w is None else w * fmat
         bm, bp = apply_obs_block(bm, bp, ye[sl], gain[sl], sqrtc[sl], w)
     return bm, bp
 
@@ -551,22 +607,27 @@ def ensrf_blocked(body_mean, body_perts, tail_mean, tail_perts, body_lat,
                   body_lon, obs: ObsArrays, localize: bool = True,
                   block_size: int = 32, unbiased: bool = False,
                   fast_geometry: bool = False, body_vert=None,
-                  vertical: bool = False, tail_panel: Optional[int] = None):
+                  vertical: bool = False, tail_panel: Optional[int] = None,
+                  varloc=None, row_var=None, ob_var=None):
     """Full blocked update: phase-1 tail + phase-2 body sweep.  Drop-in
-    equivalent of :func:`ensrf_serial`.  ``tail_panel`` selects the
-    panel-blocked phase 1 (None = plain per-ob scan)."""
+    equivalent of :func:`ensrf_serial` (``varloc`` included).
+    ``tail_panel`` selects the panel-blocked phase 1 (None = plain per-ob
+    scan)."""
+    vkw = dict(varloc=varloc, ob_var=ob_var) if varloc is not None else {}
     if tail_panel:
         tail = tail_scan_blocked(tail_mean, tail_perts, obs,
                                  localize=localize, unbiased=unbiased,
                                  fast_geometry=fast_geometry,
-                                 vertical=vertical, panel=tail_panel)
+                                 vertical=vertical, panel=tail_panel, **vkw)
     else:
         tail = tail_scan(tail_mean, tail_perts, obs, localize=localize,
                          unbiased=unbiased, fast_geometry=fast_geometry,
-                         vertical=vertical)
+                         vertical=vertical, **vkw)
     bm, bp = ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
                                 tail, obs, localize=localize,
                                 block_size=block_size,
                                 fast_geometry=fast_geometry,
-                                body_vert=body_vert, vertical=vertical)
+                                body_vert=body_vert, vertical=vertical,
+                                varloc=varloc, row_var=row_var,
+                                ob_var=ob_var)
     return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags

@@ -8,8 +8,8 @@ knobs that exist only for the TPU and its remote link: the host fast path
 timing-only ``mxu_bf16``.  The LETKF and adaptive-inflation knobs
 (``letkf_*``, ``adaptive_*``) and ``taps_topk`` (only the exact search is
 ported) come with the PRs that port them.  Fields of EnSRF variants that
-are not ported yet (hybrid covariance, RTPS/RTPP, cross-variable
-localization, the obs-chunked driver, obs ordering) stay, and
+are not ported yet (hybrid covariance, RTPS/RTPP, obs chunking, obs
+ordering) stay, and
 ``EnSRF`` raises ``NotImplementedError`` naming the pending work when one
 of them asks for an unported path.
 
@@ -183,8 +183,9 @@ class FilterConfig:
     # the gain exactly like a Gaspari-Cohn weight (per (row, ob)), works
     # with or without spatial localization, and composes with vertical
     # localization.  Not combinable with hybrid covariance (the static
-    # column would be untapered).  Not ported yet (kernel B3, ROADMAP
-    # queue B): a non-empty dict raises NotImplementedError.
+    # column would be untapered).  On gridded states with fast_geometry
+    # it rides kernel B3's per-(group, ob) table; elsewhere the plain
+    # blocked update carries it, as in the JAX package.
     variable_localization: Optional[dict] = None
     verbose: bool = False
 

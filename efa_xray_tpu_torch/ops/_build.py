@@ -2,8 +2,9 @@
 
 No JAX counterpart: the Pallas kernels were compiled by JAX itself.  Here
 the sources in ``efa_xray_tpu_torch/csrc/*.cu`` are compiled with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, at first
-use, and loaded with :mod:`ctypes`.  The library goes to
+for ``sm_90a``, one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, at first use; it is
+loaded with :mod:`ctypes`.  The library goes to
 ``build/efa_xray_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the existing file.  A failed build or load raises.
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "efa_xray_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 # Seconds the last build took (0.0 when the library was already built).
 last_build_seconds = 0.0
@@ -36,6 +37,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "efa_tail_solve": [_P] * 6 + [_I, _I, _I] + [_P] * 10,
     "efa_fused_body": [_P] * 7 + [_I] * 8 + [_P] * 3,
+    "efa_grid_body": [_P] * 7 + [_I] * 6 + [_P] * 3,
+    "efa_block_apply": [_P] * 7 + [_I] * 5 + [_P] * 3,
 }
 
 
@@ -61,6 +64,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libefa_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd) -> None:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}\n{res.stderr}")
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists."""
     global last_build_seconds
@@ -70,20 +80,25 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                             for src, obj in zip(sources(), objs))]
+        failed = []
+        for cmd, proc in procs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib_tmp = os.path.join(tmp, out.name)
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs])
         # Atomic rename: a concurrent process never loads a partial file.
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(lib_tmp, out)
     last_build_seconds = time.perf_counter() - t0
     return out
 

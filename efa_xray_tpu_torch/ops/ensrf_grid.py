@@ -1,0 +1,402 @@
+"""B3 and B4: the EnSRF body with weights streamed in per grid point.
+
+Counterpart of two JAX kernels that share one computation and differ in
+schedule and weight source:
+
+* B3, ``efa_xray_tpu/ops/ensrf_pallas_fused.py``: ``_make_fused_grid_kernel``
+  :784 and ``_fused_grid_impl`` :878.  Every obs block in one launch; exact
+  chordal Gaspari-Cohn weights per grid point; a per-(group, ob) table of
+  vertical factors (``_gc_poly``) times the optional cross-variable
+  ``group_factor``.  Here :func:`grid_body`.
+* B4, ``efa_xray_tpu/ops/ensrf_pallas.py``: ``_make_block_kernel`` :68,
+  ``apply_obs_block_pallas`` :142 and ``ensrf_blocked_body_pallas`` :316.
+  One launch per obs block; exact haversine (or chordal) weights per grid
+  point; the vertical factor as a ``[VT, B]`` table when the state has
+  VT > 1 groups, folded into per-row weights when VT = 1.  Here
+  :func:`apply_obs_block` and :func:`blocked_body`.
+
+The weights and tables are built outside the kernel with torch ops, as the
+JAX package builds them with XLA outside Pallas.  :func:`grid_apply` and
+:func:`block_apply` launch the CUDA kernel of
+``efa_xray_tpu_torch/csrc/ensrf_grid.cu`` on CUDA tensors, or run
+:func:`grid_apply_plain`, the same computation in plain torch, on CPU
+tensors.  Rows are ``(group, grid point)``: ``StateStructure.row_latlon``
+order, so the grid is the first ``ngrid`` rows' coordinates.
+
+B3's weight array holds ``nobs x ngrid`` floats.  :func:`grid_body` builds
+it, and launches the kernel, over chunks of blocks under
+``GRID_WEIGHT_BUDGET_BYTES``: the body sweep composes exactly over blocks
+(each block is a row-local update of the state the previous one left), so
+the chunks give the one-launch result.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from efa_xray_tpu_torch.assimilation.ensrf_core import (
+    ObsArrays,
+    TailSolution,
+    _pad,
+)
+from efa_xray_tpu_torch.observation.localization import (
+    chordal_gc_weights,
+    gaspari_cohn,
+    haversine,
+    latlon_to_unit,
+)
+from efa_xray_tpu_torch.ops import _build
+from efa_xray_tpu_torch.ops.ensrf_fused import MAX_SMEM_BYTES, PANEL, _gc_poly
+
+# Per-ob rows in the kernel's shared memory (csrc/ensrf_grid.cu kCoef).
+COEF_ROWS = 3
+# Bytes of B3 weights built at once (the temporaries of their build take
+# several times this).
+GRID_WEIGHT_BUDGET_BYTES = 1 << 29
+
+# Launches of the CUDA kernel (not of the plain version), per entry point.
+b3_launches = 0
+b4_launches = 0
+
+
+def smem_bytes(tile: int, block_size: int, nmems: int) -> int:
+    """Shared memory of one CTA (mirrors ``smem_bytes`` in
+    ``csrc/ensrf_grid.cu``)."""
+    t, b, m = tile, block_size, nmems
+    return 4 * (t * (m | 1) + b * m + b * b + b * t + PANEL * t
+                + COEF_ROWS * b + t)
+
+
+def pick_tile(block_size: int, nmems: int) -> int:
+    """Grid points per CTA: 64, or 32 when 64 would overflow shared
+    memory."""
+    return 64 if smem_bytes(64, block_size, nmems) <= MAX_SMEM_BYTES else 32
+
+
+def _gram_tables(y_b, sqrtc_b):
+    """``ggt[blk, j, i] = (y_i . y_j) sqrt_coef_i`` for ``y_b [nb, B, M]``."""
+    gram = torch.bmm(y_b, y_b.transpose(1, 2))
+    return (gram * sqrtc_b[:, :, None]).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# The shared computation: plain version and CUDA launch
+# ---------------------------------------------------------------------------
+
+
+def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int):
+    """Plain-torch body on prepared operands; returns ``(bm, bp)``.
+
+    ``bm [VT*G]``, ``bp [VT*G, M]``; ``w [nb, B, G]`` or None
+    (unlocalized); ``table [VT, nb, B]`` or None (ones); ``y_b [nb, B,
+    M]``; ``ggt_b [nb, B, B]``; ``coef_b [nb, 2, B]`` (gain, sqrt_coef).
+    """
+    nrows, nmems = bp.shape
+    g = nrows // vt
+    nblocks, bsz, _ = y_b.shape
+    x = bp.reshape(vt, g, nmems)
+    xm = bm.reshape(vt, g)
+    for b in range(nblocks):
+        y = y_b[b]
+        d0 = x @ y.T  # [VT, G, B]
+        u = torch.zeros_like(d0)
+        for base in range(0, bsz, PANEL):
+            width = min(PANEL, bsz - base)
+            d_panel = d0[..., base:base + width]
+            if base > 0:
+                d_panel = d_panel - u[..., :base] @ ggt_b[b, base:base + width,
+                                                         :base].T
+            if w is not None:
+                w_panel = w[b, base:base + width, :].T[None]  # [1, G, width]
+                if table is not None:
+                    w_panel = w_panel * table[:, b, None, base:base + width]
+            for t in range(width):
+                j = base + t
+                d_j = d_panel[..., t]
+                if t > 0:
+                    d_j = d_j - u[..., base:j] @ ggt_b[b, j, base:j]
+                if w is not None:
+                    d_j = d_j * w_panel[..., t]
+                u[..., j] = d_j
+        xm = xm + u @ coef_b[b, 0]
+        x = x - (u * coef_b[b, 1]) @ y
+    return xm.reshape(nrows), x.reshape(nrows, nmems)
+
+
+def _launch(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
+            donate: bool):
+    """Launch the kernel of ``csrc/ensrf_grid.cu`` through ``entry`` on
+    CUDA float32 tensors.  ``donate=True`` updates ``bm``/``bp`` in
+    place."""
+    global b3_launches, b4_launches
+    nrows, nmems = bp.shape
+    nblocks, bsz, _ = y_b.shape
+    dev = bp.device
+    f32 = torch.float32
+    ops = [t for t in (bm, bp, w, table, y_b, ggt_b, coef_b) if t is not None]
+    for t in ops:
+        if t.device != dev or t.dtype != f32:
+            raise ValueError(f"{entry} takes float32 tensors on one CUDA "
+                             "device")
+    if vt < 1 or nrows % vt:
+        raise ValueError(f"{entry}: {nrows} rows are not {vt} groups")
+    g = nrows // vt
+    if (bm.shape != (nrows,) or ggt_b.shape != (nblocks, bsz, bsz)
+            or coef_b.shape != (nblocks, 2, bsz)
+            or (w is not None and w.shape != (nblocks, bsz, g))
+            or (table is not None and table.shape != (vt, nblocks, bsz))):
+        raise ValueError(f"{entry} operand shapes disagree")
+    tile = pick_tile(bsz, nmems)
+    smem = smem_bytes(tile, bsz, nmems)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{entry}: tile {tile} x block {bsz} x {nmems} members needs "
+            f"{smem} B of shared memory (> {MAX_SMEM_BYTES} B)")
+    if donate and bm.is_contiguous() and bp.is_contiguous():
+        out_m, out_p = bm, bp
+    else:
+        out_m = torch.empty(nrows, dtype=f32, device=dev)
+        out_p = torch.empty((nrows, nmems), dtype=f32, device=dev)
+    ins = [None if t is None else t.contiguous()
+           for t in (bm, bp, w, table, y_b, ggt_b, coef_b)]
+    ptrs = [None if t is None else t.data_ptr() for t in ins]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.lib()
+    if entry == "B3":
+        err = lib.efa_grid_body(*ptrs, vt, g, nmems, bsz, nblocks, tile,
+                                out_m.data_ptr(), out_p.data_ptr(), stream)
+        _build.check(err, "B3 ensrf_grid launch")
+        b3_launches += 1
+    else:
+        err = lib.efa_block_apply(*ptrs, vt, g, nmems, bsz, tile,
+                                  out_m.data_ptr(), out_p.data_ptr(), stream)
+        _build.check(err, "B4 ensrf_grid launch")
+        b4_launches += 1
+    return out_m, out_p
+
+
+def _dispatch(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
+              donate: bool):
+    if bp.is_cuda:
+        return _launch(entry, bm, bp, w, table, y_b, ggt_b, coef_b, vt,
+                       donate)
+    if bp.device.type != "cpu":
+        raise ValueError(f"{entry} runs on CUDA or CPU, not {bp.device}")
+    return grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt)
+
+
+def grid_apply(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
+               donate: bool = False):
+    """B3 dispatch: one launch over all the blocks of ``y_b`` on CUDA
+    tensors, the plain version on CPU tensors."""
+    return _dispatch("B3", bm, bp, w, table, y_b, ggt_b, coef_b, vt, donate)
+
+
+def block_apply(bm, bp, w, table, y, ggt, coef, vt: int,
+                donate: bool = False):
+    """B4 dispatch for one block: ``w [B, G]`` or None, ``table [VT, B]``
+    or None, ``y [B, M]``, ``ggt [B, B]``, ``coef [2, B]``."""
+    return _dispatch("B4", bm, bp, None if w is None else w[None],
+                     None if table is None else table[:, None, :], y[None],
+                     ggt[None], coef[None], vt, donate)
+
+
+# ---------------------------------------------------------------------------
+# B3: every block in one launch
+# ---------------------------------------------------------------------------
+
+
+def grid_prepare(body_perts, body_vert, tail: TailSolution, obs: ObsArrays,
+                 ngrid: int, localize: bool = True, block_size: int = 128,
+                 vertical: bool = False, group_factor=None):
+    """B3's per-block operands, as ``_fused_grid_impl`` :921-973 builds
+    them: a dict of ``y_b, ggt_b, coef_b, table, ob_xyz, radii, vt``
+    (``ob_xyz``/``radii`` padded, for :func:`grid_weights`)."""
+    dtype = body_perts.dtype
+    nrows, nmems = body_perts.shape
+    if ngrid <= 0 or nrows % ngrid:
+        raise ValueError(f"{nrows} rows do not tile a grid of {ngrid}")
+    vt = nrows // ngrid
+    nobs = tail.ye.shape[0]
+    bsz = block_size
+    nblocks = max(1, -(-nobs // bsz))
+    pad = nblocks * bsz - nobs
+    obs = obs.with_default_verts()
+    inf = float("inf")
+    y_b = _pad(tail.ye.to(dtype), pad).reshape(nblocks, bsz, nmems)
+    gain = _pad(tail.gain_coef.to(dtype), pad)
+    sqrtc = _pad(tail.sqrt_coef.to(dtype), pad)
+    radii = _pad(obs.radii.to(dtype), pad, inf)
+    ob_xyz = _pad(latlon_to_unit(obs.lats, obs.lons).to(dtype), pad)
+    ggt_b = _gram_tables(y_b, sqrtc.reshape(nblocks, bsz))
+    coef_b = torch.stack([gain, sqrtc]).reshape(2, nblocks, bsz).transpose(0, 1)
+
+    table = None
+    if localize and vertical:
+        group_vert = body_vert.to(dtype).reshape(vt, ngrid)[:, 0]
+        overt = _pad(obs.verts.to(dtype), pad)
+        ovrad = _pad(obs.vert_radii.to(dtype), pad, inf)
+        off = torch.isinf(ovrad)
+        inv = torch.where(off, torch.zeros_like(ovrad), 1.0 / torch.abs(ovrad))
+        table = _gc_poly(torch.abs(group_vert[:, None] - overt[None, :])
+                         * inv[None, :])
+        table = torch.where(off[None, :], torch.ones_like(table), table)
+    if group_factor is not None:
+        if not localize:
+            raise ValueError("group_factor needs localize=True (the kernel "
+                             "applies the table inside the localization "
+                             "branch)")
+        gf = torch.cat([group_factor.to(dtype),
+                        torch.ones((vt, pad), dtype=dtype,
+                                   device=body_perts.device)], dim=1)
+        table = gf if table is None else table * gf
+    if table is not None:
+        table = table.reshape(vt, nblocks, bsz).contiguous()
+    return dict(y_b=y_b.contiguous(), ggt_b=ggt_b.contiguous(),
+                coef_b=coef_b.contiguous(), table=table, ob_xyz=ob_xyz,
+                radii=radii, vt=vt)
+
+
+def grid_weights(grid_xyz, ob_xyz, radii):
+    """Exact chordal Gaspari-Cohn weights ``[nobs, G]`` of the obs at every
+    grid point (``_fused_grid_impl`` :939-945)."""
+    return chordal_gc_weights(ob_xyz[:, None, :], grid_xyz[None, :, :],
+                              radii[:, None]).to(grid_xyz.dtype)
+
+
+def grid_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
+              obs: ObsArrays, ngrid: int, body_vert=None,
+              localize: bool = True, block_size: int = 128,
+              vertical: bool = False, group_factor=None,
+              donate: bool = False):
+    """Phase 2 through B3 for a state whose rows tile one grid of
+    ``ngrid`` points over VT groups.  Drop-in for
+    ``ensrf_core.ensrf_blocked_body`` with chordal geometry.
+    ``group_factor [VT, No]`` multiplies ob j's gain on group v
+    (cross-variable localization).  ``donate=True`` lets the kernel update
+    the caller's buffers in place."""
+    if tail.ye.shape[0] == 0:
+        return body_mean, body_perts
+    dtype = body_perts.dtype
+    ops = grid_prepare(body_perts, body_vert, tail, obs, ngrid,
+                       localize=localize, block_size=block_size,
+                       vertical=vertical, group_factor=group_factor)
+    nblocks = ops["y_b"].shape[0]
+    grid_xyz = (latlon_to_unit(body_lat[:ngrid], body_lon[:ngrid]).to(dtype)
+                if localize else None)
+    per_block = block_size * ngrid * body_perts.element_size()
+    chunk = max(1, GRID_WEIGHT_BUDGET_BYTES // per_block)
+    bm, bp = body_mean.to(dtype), body_perts
+    for lo in range(0, nblocks, chunk):
+        hi = min(nblocks, lo + chunk)
+        w = None
+        if localize:
+            sl = slice(lo * block_size, hi * block_size)
+            w = grid_weights(grid_xyz, ops["ob_xyz"][sl], ops["radii"][sl])
+            w = w.reshape(hi - lo, block_size, ngrid)
+        table = None if ops["table"] is None else ops["table"][:, lo:hi]
+        # Only the first launch may need fresh outputs; later ones update
+        # the buffers this call owns.
+        bm, bp = grid_apply(bm, bp, w, table, ops["y_b"][lo:hi],
+                            ops["ggt_b"][lo:hi], ops["coef_b"][lo:hi],
+                            ops["vt"], donate=donate or lo > 0)
+    return bm, bp
+
+
+# ---------------------------------------------------------------------------
+# B4: one block per launch
+# ---------------------------------------------------------------------------
+
+
+def block_operands(body_lat, body_lon, ye_block, sqrt_coef, ob_lat, ob_lon,
+                   radii, nrows: int, localize: bool = True,
+                   fast_geometry: bool = False, body_vert=None, ob_vert=None,
+                   ob_vrad=None, vertical: bool = False, ngrid=None):
+    """One block's operands, as ``apply_obs_block_pallas`` :176-245 builds
+    them: ``(vt, w [B, G] or None, table [VT, B] or None, ggt [B, B])``.
+    ``ngrid`` that does not divide the rows means a flat state (VT = 1)."""
+    dtype = ye_block.dtype
+    if ngrid is None or ngrid <= 0 or nrows % ngrid:
+        g, vt = nrows, 1
+    else:
+        g, vt = ngrid, nrows // ngrid
+    ggt = _gram_tables(ye_block[None], sqrt_coef[None].to(dtype))[0]
+    w = table = None
+    if localize:
+        grid_lat = body_lat[:g].to(dtype)
+        grid_lon = body_lon[:g].to(dtype)
+        rad = radii.to(dtype)
+        if fast_geometry:
+            w = grid_weights(latlon_to_unit(grid_lat, grid_lon),
+                             latlon_to_unit(ob_lat, ob_lon).to(dtype), rad)
+        else:
+            d = haversine((ob_lat[:, None].to(dtype), ob_lon[:, None].to(dtype)),
+                          (grid_lat[None, :], grid_lon[None, :]))
+            w = gaspari_cohn(d, rad[:, None]).to(dtype)
+        if vertical and vt > 1:
+            group_vert = body_vert.to(dtype).reshape(vt, g)[:, 0]
+            table = gaspari_cohn(
+                torch.abs(group_vert[:, None] - ob_vert[None, :].to(dtype)),
+                ob_vrad[None, :].to(dtype)).to(dtype)
+        elif vertical:  # vt == 1: levels vary per row
+            w = w * gaspari_cohn(
+                torch.abs(ob_vert[:, None].to(dtype)
+                          - body_vert.to(dtype)[None, :]),
+                ob_vrad[:, None].to(dtype)).to(dtype)
+    return vt, w, table, ggt
+
+
+def apply_obs_block(body_mean, body_perts, body_lat, body_lon, ye_block,
+                    gain_coef, sqrt_coef, ob_lat, ob_lon, radii,
+                    localize: bool = True, fast_geometry: bool = False,
+                    body_vert=None, ob_vert=None, ob_vrad=None,
+                    vertical: bool = False, ngrid=None,
+                    donate: bool = False):
+    """Apply one pre-solved obs block to the state body through B4 (the
+    counterpart of ``apply_obs_block_pallas``)."""
+    dtype = body_perts.dtype
+    y = ye_block.to(dtype)
+    vt, w, table, ggt = block_operands(
+        body_lat, body_lon, y, sqrt_coef, ob_lat, ob_lon, radii,
+        body_perts.shape[0], localize=localize, fast_geometry=fast_geometry,
+        body_vert=body_vert, ob_vert=ob_vert, ob_vrad=ob_vrad,
+        vertical=localize and vertical, ngrid=ngrid)
+    coef = torch.stack([gain_coef.to(dtype), sqrt_coef.to(dtype)])
+    return block_apply(body_mean.to(dtype), body_perts, w, table, y,
+                       ggt.contiguous(), coef, vt, donate=donate)
+
+
+def blocked_body(body_mean, body_perts, body_lat, body_lon,
+                 tail: TailSolution, obs: ObsArrays, localize: bool = True,
+                 block_size: int = 128, fast_geometry: bool = False,
+                 body_vert=None, vertical: bool = False, ngrid=None,
+                 donate: bool = False):
+    """Phase 2 through B4, one launch per obs block (the counterpart of
+    ``ensrf_blocked_body_pallas``).  Same contract as
+    ``ensrf_core.ensrf_blocked_body``."""
+    nobs = tail.ye.shape[0]
+    if nobs == 0:
+        return body_mean, body_perts
+    dtype = body_perts.dtype
+    nblocks = -(-nobs // block_size)
+    pad = nblocks * block_size - nobs
+    obs = obs.with_default_verts()
+    inf = float("inf")
+    ye = _pad(tail.ye.to(dtype), pad)
+    gain = _pad(tail.gain_coef.to(dtype), pad)
+    sqrtc = _pad(tail.sqrt_coef.to(dtype), pad)
+    lat = _pad(obs.lats.to(dtype), pad)
+    lon = _pad(obs.lons.to(dtype), pad)
+    radii = _pad(obs.radii.to(dtype), pad, inf)
+    overt = _pad(obs.verts.to(dtype), pad)
+    ovrad = _pad(obs.vert_radii.to(dtype), pad, inf)
+    bm, bp = body_mean, body_perts
+    for b in range(nblocks):
+        sl = slice(b * block_size, (b + 1) * block_size)
+        bm, bp = apply_obs_block(
+            bm, bp, body_lat, body_lon, ye[sl], gain[sl], sqrtc[sl], lat[sl],
+            lon[sl], radii[sl], localize=localize,
+            fast_geometry=fast_geometry, body_vert=body_vert,
+            ob_vert=overt[sl], ob_vrad=ovrad[sl], vertical=vertical,
+            ngrid=ngrid, donate=donate or b > 0)
+    return bm, bp

@@ -111,7 +111,7 @@ def test_update_with_inflation_and_outlier_check_matches_jax():
 @pytest.mark.parametrize("cfg,missing", [
     (dict(hybrid_alpha=0.5, static_b_sigma=1.0, static_b_length=500.0),
      "hybrid"),
-    (dict(variable_localization={"T2m:T2m": 0.5}), "B3"),
+    (dict(rtpp_alpha=0.5), "RTPP"),
     (dict(obs_chunk=8), "obs-chunked"),
     (dict(obs_order="hilbert"), "A7"),
     (dict(rtps_alpha=0.5), "RTPS"),
@@ -125,12 +125,16 @@ def test_unported_paths_raise(cfg, missing):
 
 
 def test_exact_haversine_raises_on_cuda_and_mesh_raises():
+    """Exact haversine on CUDA no longer raises: a CUDA-routed default
+    config selects B4 (routing only; nothing runs).  ``mesh=`` still
+    raises."""
     _, _, tstate, tbatch = _pair()
     filt = EnSRF(tstate, tbatch, verbose=False,
                  config=FilterConfig(dtype="float32", fast_geometry=False))
-    filt.device = torch.device("cuda")  # routing only; nothing runs
-    with pytest.raises(NotImplementedError, match="B4"):
-        filt._check_ported()
+    filt.device = torch.device("cuda")
+    filt._check_ported()
+    assert filt._route(tstate.structure.nstate) == "B4"
+    assert not filt._tail_kernels()
     with pytest.raises(NotImplementedError, match="A10"):
         EnSRF(tstate, tbatch, mesh=object())
 
@@ -192,7 +196,8 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import efa_xray_tpu_torch, efa_xray_tpu_torch.interop, "
             "efa_xray_tpu_torch.ops.tail_solve, "
-            "efa_xray_tpu_torch.ops.ensrf_fused; "
+            "efa_xray_tpu_torch.ops.ensrf_fused, "
+            "efa_xray_tpu_torch.ops.ensrf_grid; "
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and m.split('.')[0] in ('jax', 'efa_xray_tpu')]; "
             "assert not bad, bad")

@@ -139,14 +139,16 @@ def test_cull_bits_chunked_equals_whole(monkeypatch):
 
 @pytest.mark.parametrize("max_radius,atol", [(None, 1e-6), (900.0, 1e-5)])
 def test_b2_on_gridded_state_against_jax_b3(max_radius, atol):
-    """vt > 1: the port sends gridded states to B2 (per-row weights) until
-    B3 is ported; the JAX package uses B3, whose weights are the exact
-    chordal form (``_arccos_as(dot)`` + ``gaspari_cohn``).  B2's arccos
-    form (no radius bound given) is within 2e-8 rad of it, so weights
-    differ by ~1e-7 and the posterior by under 1e-6.  B2's series form
-    (radii <= 5000 km certified) also swaps the GC outer branch for a
-    polynomial fit within 2.2e-6 of it (``ensrf_pallas_fused.py:89-94``),
-    which on increments of a few K allows 1e-5.  Float64 throughout."""
+    """B2 on a gridded vt > 1 state, against the JAX package's B3.  The
+    public API sends such states to B3 (as the JAX package does), but B2's
+    per-row weights serve any row layout; this bounds how far its
+    polynomial weights sit from B3's exact chordal form
+    (``_arccos_as(dot)`` + ``gaspari_cohn``).  B2's arccos form (no
+    radius bound given) is within 2e-8 rad of it, so weights differ by
+    ~1e-7 and the posterior by under 1e-6.  B2's series form (radii <=
+    5000 km certified) also swaps the GC outer branch for a polynomial fit
+    within 2.2e-6 of it (``ensrf_pallas_fused.py:89-94``), which on
+    increments of a few K allows 1e-5.  Float64 throughout."""
     state = make_demo_state(ntimes=3, ny=7, nx=9, nmems=14, seed=15)
     obs = ObservationBatch.coerce(make_demo_obs(state, nobs=7, seed=16,
                                                 radius=900.0))
