@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-9
+    python3 chip_smoke.py             # phases 0-12
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
 
 Phases, each printing one line of results:
@@ -30,13 +30,29 @@ Phases, each printing one line of results:
    variables with their levels in ``var_verts``): (a) the default
    ``FilterConfig`` through B4, (b) ``fast_geometry`` with cross-variable
    localization through B3, each held against the plain blocked update;
-9. phase 4's workload at the default ``FilterConfig``, through B4.
+9. phase 4's workload at the default ``FilterConfig``, through B4;
+10. B2h (B2's hybrid static-column instantiation) against its plain version
+    at phase 3's shape with ``hybrid_alpha`` 0.5 and a per-row sigma: (a)
+    ``static_length`` 1000 km under 2000 km radii (and an odd row count),
+    (b) 3000 km, where the widened cull is live, (c) unlocalized, (d)
+    vertical localization;
+11. the hybrid path through the public API: phase 4's workload and config
+    3 (80 level variables) with ``fast_geometry``, ``hybrid_alpha`` 0.5, a
+    per-row ``static_b_sigma`` and ``static_b_length`` 1000 km, through B2h
+    and nothing else, held against the plain blocked hybrid update;
+12. P, the precision probe: ``probe()`` (each mode against a float64
+    oracle), each mode's kernel against its plain version, and
+    ``torch.matmul`` timed beside it.
 
-Then one JSON line describing each kernel and, last, the device line.
+Then one JSON line describing each kernel (its launches on the main path,
+its time, its plain version's, the least time the card could take for the
+same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-9 with one warm headline update, one warm
-``EnSRF.update()`` on phase 4's workload and the two config-3 updates of
-phase 8 under ``torch.profiler``: wall and device-busy time, the busy share,
+``--profile`` replaces phases 2-12 with one warm headline update, the
+warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
+phase 4's workload, and the two config-3 updates of phase 8 under
+``torch.profiler`` (about 25 minutes: the profiler slows the plain tails'
+small launches ~2.5x and then walks millions of events): wall and device-busy time, the busy share,
 the device ops that take the most time, and the share of the headline's
 (row tile, obs block) pairs and 8-ob panels that the cull keeps alive.  Any
 failure raises and exits non-zero; without a GPU the script exits non-zero
@@ -100,6 +116,63 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# TFLOP/s by operand type, and the HBM rate in TB/s.
+PEAK_TFLOPS = {"fp32": 67.0, "tf32": 495.0, "bf16": 989.0}
+HBM_TBPS = 3.35
+# Operations per (ob, row) pair of B2's weight chain (chordal angle,
+# Gaspari-Cohn, vertical factor), and what B2h's static column adds (its
+# Gaspari-Cohn and the sigma, mean and V terms), counted from
+# csrc/ensrf_fused.cu.
+B2_PAIR_OPS = 40
+B2H_PAIR_OPS = 25
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flop: float, nbyte: float, peak: str = "fp32") -> dict:
+    """The least time the card could take: the larger of ``flop`` at the
+    peak rate of ``peak`` and ``nbyte`` at the HBM rate."""
+    ops_ms = flop / (PEAK_TFLOPS[peak] * 1e12) * 1e3
+    bytes_ms = nbyte / (HBM_TBPS * 1e12) * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def body_flop(rows: int, nblocks: int, bsz: int, nmems: int) -> float:
+    """Operations of the dense body sweep (B3, B4) over ``rows`` rows and
+    ``nblocks`` blocks of ``bsz`` obs: D0 and the rank-B apply (4 M per
+    (ob, row)), the forward substitution (B per (ob, row) on average) and
+    the weight and mean terms (3 per (ob, row))."""
+    return float(rows) * nblocks * bsz * (4 * nmems + bsz + 3)
+
+
+def b2_flop(ops: dict, nrows: int, nmems: int, localize: bool,
+            hybrid: bool) -> float:
+    """Operations B2/B2h need on prepared operands ``ops``: as
+    :func:`body_flop`, but only over the 8-ob panels the cull keeps alive,
+    plus the per-pair weight chain (and B2h's static column)."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    nblocks, bsz, _ = ops["y_b"].shape
+    tile = ops["tile"]
+    gtiles = -(-nrows // tile)
+    npanels = -(-bsz // ensrf_fused.PANEL)
+    if ops["bits"] is None:
+        alive = gtiles * nblocks * npanels
+    else:
+        bits = ops["bits"].to(torch.int64) & 0xFFFFFFFF
+        alive = sum(int(((bits >> q) & 1).sum()) for q in range(npanels))
+    pair = ((B2_PAIR_OPS if localize or hybrid else 0)
+            + (B2H_PAIR_OPS if hybrid else 0))
+    return (alive * ensrf_fused.PANEL * (nrows / gtiles)
+            * (4 * nmems + bsz + 3 + pair))
 
 
 # ---------------------------------------------------------------------------
@@ -190,12 +263,18 @@ def phase2():
             errs_max = max(errs_max, compare(f"B1 {name} out{k}", a, b))
         times[name] = (cuda_ms(lambda: tail_solve.tail_panel_solve(*args), 10),
                        cuda_ms(lambda: tail_solve.tail_panel_solve_plain(*args), 3))
+        if w is not None:
+            # Per serial step: the [P, M] covariance product and rank-1
+            # update (4 P M), the weights and mean (4 P), the variances.
+            b1_bound = bound(p * (4 * p * m + 4 * p + 6 * m),
+                             nbytes(*args) + nbytes(*got))
     k_ms, p_ms = times["localized"]
     log(f"phase 2: B1 [512 x 80] f32 matches plain (max abs err "
         f"{errs_max:.3e}); localized kernel {k_ms:.3f} ms plain {p_ms:.3f} "
         f"ms; unlocalized kernel {times['unlocalized'][0]:.3f} ms plain "
-        f"{times['unlocalized'][1]:.3f} ms")
-    return dict(max_abs_err=errs_max, ms=k_ms, plain_ms=p_ms)
+        f"{times['unlocalized'][1]:.3f} ms; bound {b1_bound['bound_ms']:.4f} "
+        f"ms ({b1_bound['bound_by']})")
+    return dict(max_abs_err=errs_max, ms=k_ms, plain_ms=p_ms, **b1_bound)
 
 
 def _scattered(n, nobs, seed, dev):
@@ -265,17 +344,21 @@ def phase3():
                  if ops["bits"] is not None else 1.0)
         k_ms = cuda_ms(lambda: ensrf_fused.fused_apply(*args), 3)
         p_ms = cuda_ms(lambda: ensrf_fused.fused_apply_plain(*args), 1)
-        results.append(dict(rows=rows, cull=cull, radius=radius,
-                            form="series" if ops["series"] else "arccos",
-                            alive_tile_blocks=alive, max_abs_err=err,
-                            ms=k_ms, plain_ms=p_ms))
+        results.append(dict(
+            rows=rows, cull=cull, radius=radius,
+            form="series" if ops["series"] else "arccos",
+            alive_tile_blocks=alive, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+            **bound(b2_flop(ops, rows, m, True, False),
+                    nbytes(*args[:7]) + nbytes(*got))))
     log("phase 3: B2 matches plain: " + "; ".join(
         f"rows {r['rows']} cull {r['cull']} {r['form']} (alive tile-blocks "
         f"{r['alive_tile_blocks']:.3f}): err {r['max_abs_err']:.3e} kernel "
-        f"{r['ms']:.2f} ms plain {r['plain_ms']:.2f} ms" for r in results))
+        f"{r['ms']:.2f} ms plain {r['plain_ms']:.2f} ms bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']})" for r in results))
     head = results[0]
     return dict(max_abs_err=max(r["max_abs_err"] for r in results),
-                ms=head["ms"], plain_ms=head["plain_ms"])
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"])
 
 
 def _api_workload(nmems=80, nobs=10_000, seed=1):
@@ -324,7 +407,7 @@ def _check_api(label, state, batch, cfg, post, obs):
         bm, bp, tm, tp, blat, blon, oa, localize=cfg.localize,
         block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
         body_vert=bvert, vertical=vertical, tail_panel=cfg.tail_panel,
-        **ref.varloc_kwargs())
+        **ref.varloc_kwargs(), **ref._hybrid_kwargs(bm))
     post_mean = post.to_vect().mean(dim=1)
     incr_rms = float(torch.sqrt(torch.mean((pbm - bm) ** 2)))
     mean_err = float((post_mean - pbm).abs().max())
@@ -347,20 +430,46 @@ def _check_api(label, state, batch, cfg, post, obs):
 
 
 def _reset_counts():
-    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid, tail_solve
+    from efa_xray_tpu_torch.ops import (
+        ensrf_fused,
+        ensrf_grid,
+        precision_probe,
+        tail_solve,
+    )
 
     tail_solve.launches = 0
     ensrf_fused.launches = 0
+    ensrf_fused.hybrid_launches = 0
     ensrf_grid.b3_launches = 0
     ensrf_grid.b4_launches = 0
+    precision_probe.launches = 0
+    for mode in precision_probe.MODES:
+        precision_probe.launches_by_mode[mode] = 0
 
 
-def _counts():
-    """``(B1, B2, B3, B4)`` launches since the last :func:`_reset_counts`."""
-    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid, tail_solve
+def _counts() -> dict:
+    """Launches of each kernel since the last :func:`_reset_counts`."""
+    from efa_xray_tpu_torch.ops import (
+        ensrf_fused,
+        ensrf_grid,
+        precision_probe,
+        tail_solve,
+    )
 
-    return (tail_solve.launches, ensrf_fused.launches, ensrf_grid.b3_launches,
-            ensrf_grid.b4_launches)
+    return {"B1": tail_solve.launches, "B2": ensrf_fused.launches,
+            "B2h": ensrf_fused.hybrid_launches, "B3": ensrf_grid.b3_launches,
+            "B4": ensrf_grid.b4_launches, "P": precision_probe.launches}
+
+
+def _only(kernel: str, n=None):
+    """A check of :func:`_counts`: ``kernel`` launched ``n`` times (at
+    least once when ``n`` is None), every other kernel never."""
+    def ok(counts):
+        k = counts[kernel]
+        return ((k >= 1 if n is None else k == n)
+                and all(v == 0 for name, v in counts.items()
+                        if name != kernel))
+    return ok
 
 
 def _timed_update(make_filter):
@@ -430,10 +539,13 @@ def phase4():
     post, obs = EnSRF(state, batch, config=cfg, verbose=False,
                       device="cuda").update()
     torch.cuda.synchronize()
-    b1, b2, _, _ = _counts()
+    counts = _counts()
+    b1, b2 = counts["B1"], counts["B2"]
     nobs = batch.nobs
     check(b1 == -(-nobs // cfg.tail_panel), f"B1 launched {b1} times")
     check(b2 >= -(-nobs // cfg.tail_panel) + 1, f"B2 launched {b2} times")
+    check(counts["B2h"] == counts["B3"] == counts["B4"] == counts["P"] == 0,
+          f"phase 4: launches {counts}")
     mean_err, incr_rms, inn_prior, inn_post = _check_api(
         "phase 4", state, batch, cfg, post, obs)
 
@@ -635,17 +747,21 @@ def phase6():
                   compare(f"B3 {label} perts", got[1], want[1]))
         k_ms = cuda_ms(lambda: ensrf_grid.grid_apply(*args), 3)
         p_ms = cuda_ms(lambda: ensrf_grid.grid_apply_plain(*args), 1)
-        results.append(dict(label=label, max_abs_err=err, ms=k_ms,
-                            plain_ms=p_ms, nmems=dims["nmems"],
-                            tile=ensrf_grid.pick_tile(bsz, dims["nmems"])))
+        results.append(dict(
+            label=label, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+            nmems=dims["nmems"], tile=ensrf_grid.pick_tile(bsz, dims["nmems"]),
+            **bound(body_flop(c["bm"].numel(), nblocks, bsz, dims["nmems"]),
+                    nbytes(*args[:7]) + nbytes(*got))))
         del c, ops, w, args, got, want
     log("phase 6: B3 matches plain: " + "; ".join(
         f"{r['label']} ({r['nmems']} members, tile {r['tile']}): err "
         f"{r['max_abs_err']:.3e} kernel {r['ms']:.2f} ms plain "
-        f"{r['plain_ms']:.2f} ms" for r in results))
+        f"{r['plain_ms']:.2f} ms bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_by']})" for r in results))
     head = results[1]
     return dict(max_abs_err=max(r["max_abs_err"] for r in results),
-                ms=head["ms"], plain_ms=head["plain_ms"])
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"])
 
 
 def phase7():
@@ -690,15 +806,19 @@ def phase7():
             c["bm"], c["bp"], w[None],
             None if table is None else table[:, None], ops[2][None],
             ops[3][None], coef[None], vt), 1)
-        results.append(dict(label=label, max_abs_err=err, ms=k_ms,
-                            plain_ms=p_ms))
+        results.append(dict(
+            label=label, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+            **bound(body_flop(nrows, 1, bsz, dims["nmems"]),
+                    nbytes(*args[:7]) + nbytes(*got))))
         del c, tail, obs, got, want, ops, args, w
     log(f"phase 7: B4 matches plain over {nblk} blocks: " + "; ".join(
         f"{r['label']}: err {r['max_abs_err']:.3e}, one block: kernel "
-        f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms" for r in results))
+        f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})" for r in results))
     head = results[0]
     return dict(max_abs_err=max(r["max_abs_err"] for r in results),
-                ms=head["ms"], plain_ms=head["plain_ms"])
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"])
 
 
 def _config3_workload(nmems=30, nobs=5000, seed=3):
@@ -763,7 +883,7 @@ def _config3_runs(names):
 
 def _api_phase(label, state, batch, cfg, route, expect):
     """Drive ``EnSRF.update()`` on the card along ``route``, check the
-    launch counts against ``expect(b1, b2, b3, b4)``, hold the result
+    launch counts (:func:`_counts`) with ``expect``, hold the result
     against the plain blocked update, and time a warm update with its
     tail/body split.  Returns a dict of the numbers."""
     import torch
@@ -778,7 +898,7 @@ def _api_phase(label, state, batch, cfg, route, expect):
     post, obs = filt.update()
     torch.cuda.synchronize()
     counts = _counts()
-    check(expect(*counts), f"{label}: launches B1-B4 {counts}")
+    check(expect(counts), f"{label}: launches {counts}")
     mean_err, incr_rms, inn_prior, inn_post = _check_api(
         label, state, batch, cfg, post, obs)
     del post, obs, filt
@@ -790,8 +910,8 @@ def _api_phase(label, state, batch, cfg, route, expect):
 
 
 def _api_line(r):
-    b1, b2, b3, b4 = r["counts"]
-    return (f"launches B1 {b1} B2 {b2} B3 {b3} B4 {b4}; posterior mean vs "
+    launched = " ".join(f"{k} {v}" for k, v in r["counts"].items())
+    return (f"launches {launched}; posterior mean vs "
             f"plain blocked: max abs diff {r['mean_err']:.3e} (increment RMS "
             f"{r['incr_rms']:.3e}); mean |innov| {r['inn'][0]:.4f} -> "
             f"{r['inn'][1]:.4f}; warm update wall {r['wall']:.3f} s (tail "
@@ -802,10 +922,7 @@ def phase8():
     """The public API on config 3: B4 at the defaults, B3 with varloc."""
     state, batch, names = _config3_workload()
     nblocks = -(-batch.nobs // 128)
-    expects = {
-        "B4": lambda b1, b2, b3, b4: (b4, b1, b2, b3) == (nblocks, 0, 0, 0),
-        "B3": lambda b1, b2, b3, b4: b3 >= 1 and (b1, b2, b4) == (0, 0, 0),
-    }
+    expects = {"B4": _only("B4", nblocks), "B3": _only("B3")}
     out = {}
     for label, cfg, route in _config3_runs(names):
         r = _api_phase(f"phase 8 {label}", state, batch, cfg, route,
@@ -814,7 +931,7 @@ def phase8():
             f"x 30 members, {batch.nobs} obs, vertical 300 hPa) {label}, "
             f"route {route}: " + _api_line(r))
         out[route] = r
-    return dict(b3=out["B3"]["counts"][2], b4=out["B4"]["counts"][3])
+    return dict(b3=out["B3"]["counts"]["B3"], b4=out["B4"]["counts"]["B4"])
 
 
 def phase9():
@@ -825,11 +942,191 @@ def phase9():
 
     state, batch = _api_state(torch.device("cuda"))
     nblocks = -(-batch.nobs // 128)
-    r = _api_phase(
-        "phase 9", state, batch, FilterConfig(localization="GC"), "B4",
-        lambda b1, b2, b3, b4: (b4, b1, b2, b3) == (nblocks, 0, 0, 0))
+    r = _api_phase("phase 9", state, batch, FilterConfig(localization="GC"),
+                   "B4", _only("B4", nblocks))
     log(f"phase 9: EnSRF.update() 1024x1024x80, {batch.nobs} obs at the "
         f"default FilterConfig: " + _api_line(r))
+
+
+def phase10():
+    """B2h against its plain version at phase 3's shape."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    dev = torch.device("cuda")
+    n, m, nobs, alpha = 262_144, 80, 2048, 0.5
+    lat, lon, olat, olon, _ = _scattered(n, nobs, 101, dev)
+    gen = torch.Generator(device=dev).manual_seed(102)
+    rnd = lambda *shape: torch.rand(*shape, generator=gen, device=dev)
+    bm = 280.0 + 0.5 * torch.randn(n, generator=gen, device=dev)
+    bp = 5.0 * torch.randn(n, m, generator=gen, device=dev)
+    body_sigma = 2.0 + 2.0 * rnd(n)
+    body_vert = 100.0 + 900.0 * rnd(n)
+    tp0 = 5.0 * torch.randn(nobs, m, generator=gen, device=dev)
+    tm = tp0.mean(1) + 280.0
+    tp = tp0 - tp0.mean(1, keepdim=True)
+    obs = core.ObsArrays(
+        values=tm + torch.randn(nobs, generator=gen, device=dev),
+        errors=torch.ones(nobs, device=dev), lats=olat, lons=olon,
+        radii=torch.full((nobs,), 2000.0, device=dev),
+        assim=torch.ones(nobs, dtype=torch.bool, device=dev),
+        verts=100.0 + 900.0 * rnd(nobs),
+        vert_radii=torch.full((nobs,), 300.0, device=dev))
+    tail_sigma = 2.0 + 2.0 * rnd(nobs)
+    tails = {}
+    results = []
+    for label, rows, slen, localize, vertical in (
+            ("(a) L 1000 km, radius 2000 km", n, 1000.0, True, False),
+            ("(a) odd row count", n - 1, 1000.0, True, False),
+            ("(b) L 3000 km, radius 2000 km", n, 3000.0, True, False),
+            ("(c) unlocalized", n, 1000.0, False, False),
+            ("(d) vertical", n, 1000.0, True, True)):
+        key = (slen, localize, vertical)
+        if key not in tails:
+            tails[key] = core.tail_scan_blocked(
+                tm, tp, obs, localize=localize, fast_geometry=True,
+                vertical=vertical, panel=512, hybrid_alpha=alpha,
+                tail_sigma=tail_sigma, static_length=slen)
+        radius = 2000.0 if localize else None
+        ops = ensrf_fused.prepare(
+            bp[:rows], lat[:rows], lon[:rows], tails[key], obs,
+            body_vert=body_vert[:rows] if vertical else None,
+            localize=localize, block_size=128, max_radius_km=radius,
+            hybrid=True, body_sigma=body_sigma[:rows], static_length=slen)
+        args = (bm[:rows], bp[:rows], ops["geom"], ops["y_b"], ops["ggt_b"],
+                ops["tab_b"], ops["bits"], ops["tile"], localize, vertical,
+                ops["series"], True)
+        got = ensrf_fused.fused_apply(*args)
+        want = ensrf_fused.fused_apply_plain(*args)
+        torch.cuda.synchronize()
+        err = max(compare(f"B2h {label} mean", got[0], want[0]),
+                  compare(f"B2h {label} perts", got[1], want[1]))
+        check(float((got[0] - bm[:rows]).abs().max()) > 0.1,
+              f"B2h {label}: the mean did not move")
+        alive = (float((ops["bits"] != 0).float().mean())
+                 if ops["bits"] is not None else 1.0)
+        k_ms = cuda_ms(lambda: ensrf_fused.fused_apply(*args), 3)
+        p_ms = cuda_ms(lambda: ensrf_fused.fused_apply_plain(*args), 1)
+        results.append(dict(
+            label=label, alive_tile_blocks=alive, max_abs_err=err, ms=k_ms,
+            plain_ms=p_ms, form="series" if ops["series"] else "arccos",
+            **bound(b2_flop(ops, rows, m, localize, True),
+                    nbytes(*args[:7]) + nbytes(*got))))
+        del ops, args, got, want
+    log("phase 10: B2h (alpha 0.5, per-row sigma, 262,144 x 80 x 2048 obs) "
+        "matches plain: " + "; ".join(
+            f"{r['label']} {r['form']} (alive tile-blocks "
+            f"{r['alive_tile_blocks']:.3f}): err {r['max_abs_err']:.3e} "
+            f"kernel {r['ms']:.2f} ms plain {r['plain_ms']:.2f} ms bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})" for r in results))
+    head = results[0]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in results),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"])
+
+
+def _hybrid_config(nstate: int, seed: int):
+    """Phase 11's hybrid ``FilterConfig``: chordal localization at the
+    obs' radii, alpha 0.5, a static std drawn per state row in [2, 4] and a
+    1000 km static length."""
+    from efa_xray_tpu_torch import FilterConfig
+
+    sigma = np.random.default_rng(seed).uniform(2.0, 4.0, nstate)
+    return FilterConfig(localization="GC", fast_geometry=True,
+                        hybrid_alpha=0.5, static_b_sigma=sigma,
+                        static_b_length=1000.0)
+
+
+def phase11():
+    """The hybrid path through the public API, on phase 4's workload and
+    on config 3: B2h and no other kernel."""
+    import torch
+
+    state, batch = _api_state(torch.device("cuda"))
+    cfg = _hybrid_config(state.structure.nstate, 111)
+    r = _api_phase("phase 11 (a)", state, batch, cfg, "B2h", _only("B2h"))
+    log(f"phase 11: EnSRF.update() hybrid 1024x1024x80, {batch.nobs} obs "
+        f"(alpha 0.5, per-row sigma, L 1000 km, fast_geometry), route B2h: "
+        + _api_line(r))
+    del state, batch
+    state, batch, _ = _config3_workload()
+    r3 = _api_phase("phase 11 (b)", state, batch,
+                    _hybrid_config(state.structure.nstate, 112), "B2h",
+                    _only("B2h"))
+    log(f"phase 11: EnSRF.update() hybrid config 3 (80 level variables x "
+        f"90x180 x 30 members, {batch.nobs} obs, vertical 300 hPa), route "
+        f"B2h: " + _api_line(r3))
+    return dict(b2h=r["counts"]["B2h"])
+
+
+def _library_mm_ms(a, b, mode: str) -> float:
+    """Milliseconds of the ``torch.matmul`` that computes what P's mode
+    ``mode`` does: float32 with TF32 off ("ieee") or on ("tf32"), or on
+    bf16 inputs with a bf16 result ("bf16").  The TF32 switch is restored
+    afterwards."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
+        if mode == "bf16":
+            return cuda_ms(lambda: torch.matmul(a.bfloat16(), b.bfloat16()),
+                           10)
+        return cuda_ms(lambda: torch.matmul(a, b), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase12():
+    """P: ``probe()`` on the card, each mode against its plain version,
+    and the library product beside it."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import precision_probe as pp
+
+    dev = torch.device("cuda")
+    _reset_counts()
+    res = pp.probe(n=512, k=512, time_n=1024, device=dev)
+    torch.cuda.synchronize()
+    launched = dict(pp.launches_by_mode)
+    counts = _counts()
+    check(_only("P")(counts) and all(v >= 1 for v in launched.values()),
+          f"phase 12: launches {counts}, P by mode {launched}")
+    errs = [res[f"{mode}_rms_err_over_scale"] for mode in pp.MODES]
+    check(errs[0] < 1e-6 < errs[1] < errs[2] < 1e-2,
+          f"phase 12: rms errors over scale {errs} are not ieee < tf32 < "
+          "bf16 as the roundings predict")
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(121)
+    out = {}
+    for size in (512, 1024):
+        a = torch.randn(size, size, generator=gen, device=dev, dtype=f32)
+        b = torch.randn(size, size, generator=gen, device=dev, dtype=f32)
+        for mode in pp.MODES:
+            if size == 512:
+                out[mode] = dict(max_abs_err=compare(
+                    f"P {mode}", pp.mm(a, b, mode), pp.mm_plain(a, b, mode)))
+                continue
+            out[mode].update(
+                ms=cuda_ms(lambda: pp.mm(a, b, mode), 10),
+                plain_ms=cuda_ms(lambda: pp.mm_plain(a, b, mode), 10),
+                library_ms=_library_mm_ms(a, b, mode),
+                launches=launched[mode],
+                **bound(2.0 * size ** 3, nbytes(a, b) + size * size * 4,
+                        {"ieee": "fp32", "tf32": "tf32",
+                         "bf16": "bf16"}[mode]))
+    log(f"phase 12: P probe on {res['device']}: " + "; ".join(
+        f"{mode}: rms err / scale {res[f'{mode}_rms_err_over_scale']:.3e}, "
+        f"kernel vs plain max abs err {o['max_abs_err']:.3e}, 1024^3 kernel "
+        f"{o['ms']:.4f} ms plain {o['plain_ms']:.4f} ms torch.matmul "
+        f"{o['library_ms']:.4f} ms bound {o['bound_ms']:.4f} ms "
+        f"({o['bound_by']})" for mode, o in out.items())
+        + "; bitwise equal: " + ", ".join(
+            f"{k[:-len('_bitwise')]} {v}" for k, v in res.items()
+            if k.endswith("_bitwise")))
+    return out
 
 
 def _profiled(label: str, fn, top: int = 8) -> None:
@@ -869,9 +1166,10 @@ def _profiled(label: str, fn, top: int = 8) -> None:
 
 
 def profile_phase():
-    """Where the time goes: one warm headline update, one warm API update
-    and the two config-3 updates of phase 8 under ``torch.profiler``, and
-    the headline's cull shares."""
+    """Where the time goes: one warm headline update, the warm API update
+    of phase 4 and the hybrid one of phase 11 (a), and the two config-3
+    updates of phase 8 under ``torch.profiler``, and the headline's cull
+    shares."""
     import torch
 
     from efa_xray_tpu_torch import EnSRF, FilterConfig
@@ -898,6 +1196,10 @@ def profile_phase():
     _profiled("API EnSRF.update() (1024 x 1024 x 80, 10k obs)",
               lambda: EnSRF(state, batch, config=cfg, verbose=False,
                             device="cuda").update())
+    hybrid = _hybrid_config(state.structure.nstate, 111)
+    _profiled("API hybrid EnSRF.update() (1024 x 1024 x 80, 10k obs, B2h)",
+              lambda: EnSRF(state, batch, config=hybrid,
+                            verbose=False).update())
     del state, batch
     state, batch, names = _config3_workload()
     for label, cfg, route in _config3_runs(names):
@@ -927,24 +1229,37 @@ def main() -> int:
     b4 = phase7()
     c3 = phase8()
     phase9()
+    b2h = phase10()
+    hyb = phase11()
+    p = phase12()
+    # No single PyTorch call computes B1-B4 or B2h (a serial filter, a
+    # localized recurrence): their library_ms is null.
     kernels = [
         dict(name="B1 tail panel solve", route="cuda",
              source="efa_xray_tpu_torch/csrc/tail_solve.cu",
              replaces="efa_xray_tpu/ops/tail_solve_pallas.py:46",
-             launches=api["b1"], **b1),
+             launches=api["b1"], library_ms=None, **b1),
         dict(name="B2 fused body", route="cuda",
              source="efa_xray_tpu_torch/csrc/ensrf_fused.cu",
              replaces="efa_xray_tpu/ops/ensrf_pallas_fused.py:117",
-             launches=api["b2"], **b2),
+             launches=api["b2"], library_ms=None, **b2),
+        dict(name="B2h fused body, hybrid static column", route="cuda",
+             source="efa_xray_tpu_torch/csrc/ensrf_fused.cu",
+             replaces="efa_xray_tpu/ops/ensrf_pallas_fused.py:208",
+             launches=hyb["b2h"], library_ms=None, **b2h),
         dict(name="B3 grid body", route="cuda",
              source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
              replaces="efa_xray_tpu/ops/ensrf_pallas_fused.py:784",
-             launches=c3["b3"], **b3),
+             launches=c3["b3"], library_ms=None, **b3),
         dict(name="B4 block apply", route="cuda",
              source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
              replaces="efa_xray_tpu/ops/ensrf_pallas.py:68",
-             launches=c3["b4"], **b4),
-    ]
+             launches=c3["b4"], library_ms=None, **b4),
+    ] + [
+        dict(name=f"P precision probe ({mode})", route="cuda",
+             source="efa_xray_tpu_torch/csrc/precision_probe.cu",
+             replaces="benchmarks/precision_probe.py:29", **o)
+        for mode, o in p.items()]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

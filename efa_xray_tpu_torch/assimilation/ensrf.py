@@ -4,7 +4,8 @@ Counterpart of ``efa_xray_tpu/assimilation/ensrf.py``: the ``EnSRF`` class
 :42, its kernel selection ``_grid_kernel_ok`` :70, ``_use_pallas`` :85 and
 ``_tail_pallas`` :129 (here :meth:`EnSRF._grid_kernel_ok`,
 :meth:`EnSRF._use_kernels` and :meth:`EnSRF._tail_kernels`),
-``_update_impl`` :187 and the one-shot ``_solve_once`` :338.
+``_hybrid_kwargs`` :150, ``_update_impl`` :187 and the one-shot
+``_solve_once`` :338.
 
 Routing, branch for branch as the JAX package routes a TPU run
 (:meth:`EnSRF._route`):
@@ -12,22 +13,23 @@ Routing, branch for branch as the JAX package routes a TPU run
 * ``method="serial"``: the plain serial loop on any device (the JAX serial
   path has no kernel either);
 * ``method="blocked"``, gridded state with vt = nvars * ntimes > 1,
-  ``fast_geometry`` and localization: the body through B3, with
-  ``variable_localization`` carried in its per-(group, ob) table;
+  ``fast_geometry``, localization and no hybrid: the body through B3,
+  with ``variable_localization`` carried in its per-(group, ob) table;
 * otherwise with ``fast_geometry`` or without localization: the body
-  through B2;
+  through B2, or through its hybrid instantiation B2h when
+  ``hybrid_alpha < 1`` (gridded states too, with per-row weights);
 * otherwise (exact haversine, the default ``FilterConfig``): the body
   through B4, one launch per obs block;
 * ``variable_localization`` where B3 cannot carry it (a flat state, or
-  exact haversine): the plain blocked update, as the JAX package runs no
-  kernel there either.
+  exact haversine), and hybrid with exact haversine: the plain blocked
+  update, as the JAX package runs no kernel there either.
 
 The tail goes through B1 and B2 where the JAX package's ``_tail_pallas``
-would (chordal or unlocalized, no ``variable_localization``), else through
-the plain panel-blocked scan.  On CUDA tensors the kernels run; on CPU
-tensors their plain versions.  Paths whose kernels or modules are not
-ported raise ``NotImplementedError`` rather than run a plain path on the
-card.
+would (chordal or unlocalized, no hybrid, no ``variable_localization``),
+else through the plain panel-blocked scan.  On CUDA tensors the kernels
+run; on CPU tensors their plain versions.  Paths whose kernels or modules
+are not ported raise ``NotImplementedError`` rather than run a plain path
+on the card.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 from efa_xray_tpu_torch.assimilation import ensrf_core as core
 from efa_xray_tpu_torch.assimilation.assimilation import Assimilation
 from efa_xray_tpu_torch.config import FilterConfig
+from efa_xray_tpu_torch.observation import forward as _fwd
 from efa_xray_tpu_torch.observation.observation import ObservationBatch
 from efa_xray_tpu_torch.ops import ensrf_grid
 from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
@@ -80,11 +83,13 @@ class EnSRF(Assimilation):
 
     def _use_kernels(self) -> bool:
         """The kernel route (``_use_pallas`` on a TPU): the blocked method;
-        with ``variable_localization`` only where B3 carries it.  Its
-        kernels run on CUDA tensors, their plain versions on CPU
-        tensors."""
+        hybrid only with chordal geometry or no localization; with
+        ``variable_localization`` only where B3 carries it.  Its kernels
+        run on CUDA tensors, their plain versions on CPU tensors."""
         cfg = self.config
         ok = cfg.method == "blocked"
+        if cfg.hybrid_alpha < 1.0:
+            ok = ok and (cfg.fast_geometry or not cfg.localize)
         if cfg.variable_localization:
             ok = ok and self._grid_kernel_ok()
         return ok
@@ -98,8 +103,8 @@ class EnSRF(Assimilation):
 
     def _route(self, nrows: int) -> str:
         """The body path of an update on ``nrows`` state rows: ``"serial"``,
-        ``"plain"`` (the plain blocked update), ``"B3"``, ``"B2"`` or
-        ``"B4"``."""
+        ``"plain"`` (the plain blocked update), ``"B3"``, ``"B2"``,
+        ``"B2h"`` or ``"B4"``."""
         cfg = self.config
         if cfg.method == "serial":
             return "serial"
@@ -110,15 +115,26 @@ class EnSRF(Assimilation):
                 and nrows == st.nvars * st.ntimes * st.ngrid):
             return "B3"
         if cfg.fast_geometry or not cfg.localize:
-            return "B2"
+            return "B2h" if cfg.hybrid_alpha < 1.0 else "B2"
         return "B4"
+
+    def _hybrid_kwargs(self, body_mean) -> dict:
+        """Static-B inputs for ``hybrid_alpha < 1`` (empty dict otherwise):
+        the per-row sigma (``static_b_sigma``, a scalar or one value per
+        state row) and its interpolation to the obs with the state's
+        forward-operator taps."""
+        cfg = self.config
+        if cfg.hybrid_alpha >= 1.0:
+            return {}
+        bsig = core.sigma_rows(cfg.static_b_sigma, body_mean)
+        tsig = _fwd.apply_taps_obj(bsig[:, None], self.build_taps())[:, 0]
+        return dict(hybrid_alpha=float(cfg.hybrid_alpha), body_sigma=bsig,
+                    tail_sigma=tsig,
+                    static_length=float(cfg.static_b_length))
 
     def _check_ported(self) -> None:
         cfg = self.config
         missing = []
-        if cfg.hybrid_alpha < 1.0:
-            missing.append("hybrid_alpha < 1 (the B2 hybrid static-column "
-                           "branch, ROADMAP queue B)")
         if cfg.obs_chunk:
             missing.append("obs_chunk (the obs-chunked driver, ROADMAP A6)")
         if cfg.obs_order is not None or cfg.spatial_sort:
@@ -159,6 +175,7 @@ class EnSRF(Assimilation):
         ``(bm, bp, tm, tp, diags)``."""
         cfg = self.config
         vl = self.varloc_kwargs()
+        hkw = self._hybrid_kwargs(body_mean)
         route = self._route(int(body_mean.shape[0]))
         if route == "serial":
             return core.ensrf_serial(
@@ -166,20 +183,21 @@ class EnSRF(Assimilation):
                 body_lon, obs, localize=cfg.localize,
                 unbiased=cfg.unbiased_variance,
                 fast_geometry=cfg.fast_geometry, body_vert=body_vert,
-                vertical=vertical, **vl)
+                vertical=vertical, **hkw, **vl)
         if route == "plain":
             return core.ensrf_blocked(
                 body_mean, body_perts, tail_mean, tail_perts, body_lat,
                 body_lon, obs, localize=cfg.localize,
                 block_size=cfg.block_size, unbiased=cfg.unbiased_variance,
                 fast_geometry=cfg.fast_geometry, body_vert=body_vert,
-                vertical=vertical, **vl)
+                vertical=vertical, **hkw, **vl)
         max_radius = self.max_finite_radius()
         tail = core.tail_scan_blocked(
             tail_mean, tail_perts, obs, localize=cfg.localize,
             unbiased=cfg.unbiased_variance, fast_geometry=cfg.fast_geometry,
             vertical=vertical, panel=cfg.tail_panel,
             kernels=self._tail_kernels(), max_radius_km=max_radius,
+            **{k: v for k, v in hkw.items() if k != "body_sigma"},
             **({k: vl[k] for k in ("varloc", "ob_var")} if vl else {}))
         # The filter owns the formatted prior: the body kernels update it
         # in place, where the JAX package donates it.
@@ -196,12 +214,14 @@ class EnSRF(Assimilation):
                 ngrid=st.ngrid, body_vert=bvert, localize=cfg.localize,
                 block_size=cfg.block_size, vertical=vertical,
                 group_factor=group_factor, donate=True)
-        elif route == "B2":
+        elif route in ("B2", "B2h"):
             bm, bp = fused_body(
                 body_mean, body_perts, body_lat, body_lon, tail, obs,
                 body_vert=bvert, localize=cfg.localize,
                 block_size=cfg.block_size, vertical=vertical, cull=cfg.cull,
-                max_radius_km=max_radius, donate=True)
+                max_radius_km=max_radius, hybrid=route == "B2h",
+                body_sigma=hkw.get("body_sigma"),
+                static_length=hkw.get("static_length"), donate=True)
         else:
             bm, bp = ensrf_grid.blocked_body(
                 body_mean, body_perts, body_lat, body_lon, tail, obs,

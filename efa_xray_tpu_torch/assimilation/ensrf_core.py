@@ -9,12 +9,13 @@ docstring there derives the exact two-phase (tail, then body in blocks)
 reformulation of the serial Whitaker-Hamill filter that these functions
 implement.
 
-Pure ensemble covariance only: the hybrid static column
-(``hybrid_alpha < 1``) and the stochastic-EnKF ``apply_rows`` are not
-ported yet (ROADMAP queue A, items 7 and 9).  Vertical localization and
-cross-variable localization (``varloc``, ``row_var``, ``ob_var``: the
-factor ``varloc[ob_var, row_var]`` multiplies the gain like a
-Gaspari-Cohn weight) are.
+Vertical localization, cross-variable localization (``varloc``,
+``row_var``, ``ob_var``: the factor ``varloc[ob_var, row_var]`` multiplies
+the gain like a Gaspari-Cohn weight) and the hybrid ensemble-static
+covariance (``hybrid_alpha < 1``, Hamill & Snyder 2000: a fixed column
+``sigma_row sigma_ob GC(d, static_length)`` at exact haversine distance
+blended into the gain) are ported.  The stochastic-EnKF ``apply_rows``
+is not (ROADMAP queue A, item 9).
 
 Every function runs eagerly on the device of its inputs.  The sequential
 per-ob loops stay Python loops over tensor ops: they are the plain
@@ -74,14 +75,24 @@ class ObsDiagnostics(NamedTuple):
 
 
 class TailSolution(NamedTuple):
-    """Phase-1 output: everything the state body needs, per observation."""
+    """Phase-1 output: everything the state body needs, per observation.
+
+    In hybrid mode the ensemble coefficients carry the ``alpha`` factor
+    and two more per-ob scalars describe the fixed static column
+    ``s_j = (1-a) sigma_row sigma_ob gc_j / kdenom_j``: the body applies
+    ``mean += sigma_row (Gc @ static_gain)`` and
+    ``X -= [g_j (w_j o d_j) + sigma_row static_sqrt_j gc_j] Y``."""
 
     ye: torch.Tensor  # [No, M] the pre-update obs-space perturbation rows
-    gain_coef: torch.Tensor  # [No] innov / (kdenom (M-1)); 0 when skipped
-    sqrt_coef: torch.Tensor  # [No] beta / (kdenom (M-1)); 0 when skipped
+    gain_coef: torch.Tensor  # [No] [a] innov / (kdenom (M-1)); 0 when skipped
+    sqrt_coef: torch.Tensor  # [No] [a] beta / (kdenom (M-1)); 0 when skipped
     tail_mean: torch.Tensor  # [No] posterior tail mean
     tail_perts: torch.Tensor  # [No, M] posterior tail perts
     diags: ObsDiagnostics
+    # hybrid static-column scalars, None in pure-ensemble mode; 0 when
+    # skipped: (1-a) sigma_ob innov / kdenom and (1-a) sigma_ob beta / kdenom
+    static_gain: Optional[torch.Tensor] = None  # [No]
+    static_sqrt: Optional[torch.Tensor] = None  # [No]
 
 
 def _pad(x: torch.Tensor, n: int, fill=0.0) -> torch.Tensor:
@@ -128,6 +139,22 @@ def _loc_weights(row_lat, row_lon, ob_lat, ob_lon, radius, localize: bool,
     return w
 
 
+def sigma_rows(sigma, like: torch.Tensor) -> torch.Tensor:
+    """A static-B std, scalar or one per row, as a tensor shaped, typed
+    and placed like ``like``."""
+    return torch.as_tensor(sigma, dtype=like.dtype,
+                           device=like.device).expand(like.shape)
+
+
+def _check_hybrid(hybrid: bool, use_vl: bool, *needed) -> None:
+    if hybrid and any(x is None for x in needed):
+        raise ValueError("hybrid_alpha < 1 needs the static-B sigma(s) and "
+                         "static_length")
+    if hybrid and use_vl:
+        raise ValueError("varloc does not combine with hybrid covariance "
+                         "(the static column would be untapered)")
+
+
 def _cast_obs(obs: ObsArrays, dtype) -> ObsArrays:
     obs = obs.with_default_verts()
     return ObsArrays(
@@ -138,15 +165,21 @@ def _cast_obs(obs: ObsArrays, dtype) -> ObsArrays:
     )
 
 
-def _serial_step_scalars(tp, tm, i, values, errors, nens, unbiased):
+def _serial_step_scalars(tp, tm, i, values, errors, nens, unbiased,
+                         blend=None):
+    """``blend = (alpha, sigma_ob)`` mixes the static variance into
+    ``varye`` (hybrid mode)."""
     ye = tp[i].clone()
     mye = tm[i]
     varye = _ye_var(ye, unbiased)
     innov = values[i] - mye
+    if blend is not None:
+        alpha, sig_ob = blend
+        varye = alpha * varye + (1.0 - alpha) * sig_ob * sig_ob
     kdenom = varye + errors[i]
     scale = 1.0 / (kdenom * (nens - 1))
     beta = 1.0 / (1.0 + torch.sqrt(errors[i] / kdenom))
-    return ye, mye, varye, innov, scale, beta
+    return ye, mye, varye, innov, kdenom, scale, beta
 
 
 # ---------------------------------------------------------------------------
@@ -157,9 +190,20 @@ def _serial_step_scalars(tp, tm, i, values, errors, nens, unbiased):
 def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
                  body_lon, obs: ObsArrays, localize: bool = True,
                  unbiased: bool = False, fast_geometry: bool = False,
-                 body_vert=None, vertical: bool = False, varloc=None,
-                 row_var=None, ob_var=None):
+                 body_vert=None, vertical: bool = False,
+                 hybrid_alpha: float = 1.0, body_sigma=None, tail_sigma=None,
+                 static_length=None, varloc=None, row_var=None, ob_var=None):
     """Serial EnSRF, one observation at a time over body and tail.
+
+    ``hybrid_alpha < 1`` blends a static background covariance into the
+    gain, held fixed over the batch::
+
+        cov(row, ob) = alpha loc_w ens_cov
+                       + (1 - alpha) sigma(row) sigma(ob) GC(d, static_length)
+        var(ye)      = alpha var_ens(ye) + (1 - alpha) sigma(ob)^2
+
+    with ``body_sigma [Ns]`` / ``tail_sigma [No]`` (or scalars) and ``d``
+    the exact haversine distance.
 
     ``varloc [nv(+1), nvars]`` with ``row_var [Ns]`` and ``ob_var [No]``
     (integer indices) multiplies ob i's gain at row r by
@@ -172,10 +216,17 @@ def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
     dtype = body_perts.dtype
     device = body_perts.device
     nobs = obs.values.shape[0]
+    hybrid = hybrid_alpha < 1.0
+    use_vl = varloc is not None
+    _check_hybrid(hybrid, use_vl, body_sigma, tail_sigma, static_length)
     if nobs == 0:
         return (body_mean, body_perts, tail_mean, tail_perts,
                 _empty_diags(dtype, device))
-    use_vl = varloc is not None
+    if hybrid:
+        alpha = float(hybrid_alpha)
+        bsig = sigma_rows(body_sigma, body_mean.to(dtype))
+        tsig = sigma_rows(tail_sigma, tail_mean.to(dtype))
+        slen = float(static_length)
     if use_vl:
         if row_var is None or ob_var is None:
             raise ValueError("varloc needs row_var and ob_var")
@@ -195,8 +246,9 @@ def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
     pm, pv, om, ov = [], [], [], []
     nan = torch.tensor(float("nan"), dtype=dtype, device=device)
     for i in range(nobs):
-        ye, mye, varye, innov, scale, beta = _serial_step_scalars(
-            tp, tm, i, obs.values, obs.errors, nens, unbiased)
+        ye, mye, varye, innov, kdenom, scale, beta = _serial_step_scalars(
+            tp, tm, i, obs.values, obs.errors, nens, unbiased,
+            blend=(alpha, tsig[i]) if hybrid else None)
         kcov_b = bp @ ye
         kcov_t = tp @ ye
         vkw_b = vkw_t = {}
@@ -226,6 +278,17 @@ def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
             kcov_t = kcov_t * fr[ovar_all]
         kmat_b = kcov_b * scale
         kmat_t = kcov_t * scale
+        if hybrid:
+            # The fixed static column, added to the localized ensemble
+            # gain; kdenom already blends the variances.
+            gcb = _loc_weights(body_lat, body_lon, obs.lats[i], obs.lons[i],
+                               slen, True, dtype)
+            gct = _loc_weights(obs_raw.lats, obs_raw.lons, obs.lats[i],
+                               obs.lons[i], slen, True, dtype)
+            kmat_b = (alpha * kmat_b
+                      + (1.0 - alpha) * bsig * tsig[i] * gcb / kdenom)
+            kmat_t = (alpha * kmat_t
+                      + (1.0 - alpha) * tsig * tsig[i] * gct / kdenom)
         a = obs.assim[i]
         bm = torch.where(a, bm + kmat_b * innov, bm)
         tm = torch.where(a, tm + kmat_t * innov, tm)
@@ -247,17 +310,22 @@ def ensrf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
 
 def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
               unbiased: bool = False, fast_geometry: bool = False,
-              vertical: bool = False, varloc=None,
+              vertical: bool = False, hybrid_alpha: float = 1.0,
+              tail_sigma=None, static_length=None, varloc=None,
               ob_var=None) -> TailSolution:
     """Serial filter on the observation-space tail only: the exact ``ye``
     sequence and scalar coefficients of the full serial algorithm, plus
-    every per-ob diagnostic.  ``varloc``/``ob_var`` as in
-    :func:`ensrf_serial` (the tail rows are the obs rows)."""
+    every per-ob diagnostic.  ``hybrid_alpha < 1`` runs the hybrid blend
+    of :func:`ensrf_serial` on the tail rows and also returns the static
+    column's scalars.  ``varloc``/``ob_var`` as in :func:`ensrf_serial`
+    (the tail rows are the obs rows)."""
     nens = tail_perts.shape[1]
     dtype = tail_perts.dtype
     device = tail_perts.device
     nobs = obs.values.shape[0]
+    hybrid = hybrid_alpha < 1.0
     use_vl = varloc is not None
+    _check_hybrid(hybrid, use_vl, tail_sigma, static_length)
     if use_vl:
         if ob_var is None:
             raise ValueError("varloc needs ob_var")
@@ -268,7 +336,13 @@ def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
         return TailSolution(
             ye=torch.zeros((0, nens), dtype=dtype, device=device),
             gain_coef=z, sqrt_coef=z, tail_mean=tail_mean,
-            tail_perts=tail_perts, diags=_empty_diags(dtype, device))
+            tail_perts=tail_perts, diags=_empty_diags(dtype, device),
+            static_gain=z if hybrid else None,
+            static_sqrt=z if hybrid else None)
+    if hybrid:
+        alpha = float(hybrid_alpha)
+        tsig = sigma_rows(tail_sigma, tail_mean.to(dtype))
+        slen = float(static_length)
     tail_xyz = (latlon_to_unit(obs.lats, obs.lons).to(dtype)
                 if (localize and fast_geometry) else None)
     obs_raw = obs.with_default_verts()
@@ -277,10 +351,12 @@ def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
     tm, tp = tail_mean, tail_perts
     zero = torch.zeros((), dtype=dtype, device=device)
     nan = torch.tensor(float("nan"), dtype=dtype, device=device)
-    ye_rows, gains, sqrts, pm, pv, om, ov = [], [], [], [], [], [], []
+    ye_rows, gains, sqrts, sgains, ssqrts = [], [], [], [], []
+    pm, pv, om, ov = [], [], [], []
     for i in range(nobs):
-        ye, mye, varye, innov, scale, beta = _serial_step_scalars(
-            tp, tm, i, obs.values, obs.errors, nens, unbiased)
+        ye, mye, varye, innov, kdenom, scale, beta = _serial_step_scalars(
+            tp, tm, i, obs.values, obs.errors, nens, unbiased,
+            blend=(alpha, tsig[i]) if hybrid else None)
         kcov_t = tp @ ye
         vkw = (dict(row_vert=obs.verts, ob_vert=obs.verts[i],
                     vert_radius=obs.vert_radii[i]) if vert_on else {})
@@ -299,12 +375,24 @@ def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
         if use_vl:
             kcov_t = kcov_t * vl[ovar_all[i]][ovar_all]
         kmat_t = kcov_t * scale
+        if hybrid:
+            gct = _loc_weights(obs_raw.lats, obs_raw.lons, obs.lats[i],
+                               obs.lons[i], slen, True, dtype)
+            kmat_t = (alpha * kmat_t
+                      + (1.0 - alpha) * tsig * tsig[i] * gct / kdenom)
         a = obs.assim[i]
         tm = torch.where(a, tm + kmat_t * innov, tm)
         tp = torch.where(a, tp - (beta * kmat_t)[:, None] * ye[None, :], tp)
         ye_rows.append(ye)
-        gains.append(torch.where(a, innov * scale, zero))
-        sqrts.append(torch.where(a, beta * scale, zero))
+        if hybrid:
+            gains.append(torch.where(a, alpha * innov * scale, zero))
+            sqrts.append(torch.where(a, alpha * beta * scale, zero))
+            s_base = (1.0 - alpha) * tsig[i] / kdenom
+            sgains.append(torch.where(a, s_base * innov, zero))
+            ssqrts.append(torch.where(a, s_base * beta, zero))
+        else:
+            gains.append(torch.where(a, innov * scale, zero))
+            sqrts.append(torch.where(a, beta * scale, zero))
         pm.append(mye)
         pv.append(varye)
         om.append(torch.where(a, tm[i], nan))
@@ -314,6 +402,8 @@ def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
         sqrt_coef=torch.stack(sqrts), tail_mean=tm, tail_perts=tp,
         diags=ObsDiagnostics(torch.stack(pm), torch.stack(pv),
                              torch.stack(om), torch.stack(ov), obs.assim),
+        static_gain=torch.stack(sgains) if hybrid else None,
+        static_sqrt=torch.stack(ssqrts) if hybrid else None,
     )
 
 
@@ -356,7 +446,8 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                       localize: bool = True, unbiased: bool = False,
                       fast_geometry: bool = False, vertical: bool = False,
                       panel: int = 512, kernels: bool = False,
-                      max_radius_km=None, varloc=None,
+                      max_radius_km=None, hybrid_alpha: float = 1.0,
+                      tail_sigma=None, static_length=None, varloc=None,
                       ob_var=None) -> TailSolution:
     """Panel-blocked phase 1: same outputs as :func:`tail_scan`, exact up
     to fp reassociation.  Each panel of obs is solved serially on its own
@@ -370,24 +461,31 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     weights are chordal, so this needs ``fast_geometry`` under
     localization, and they take no ``varloc``.  On CPU tensors the
     kernels' plain versions run.  ``max_radius_km`` lets B2 pick its
-    cheaper angle form.
+    cheaper angle form.  The hybrid tail (``hybrid_alpha < 1``) is always
+    the plain branch, as in the JAX package: its out-of-panel apply adds
+    the static columns at exact haversine distance.
     """
     nens = tail_perts.shape[1]
     dtype = tail_perts.dtype
     nobs = obs.values.shape[0]
+    hybrid = hybrid_alpha < 1.0
     use_vl = varloc is not None
-    if kernels and (use_vl or (localize and not fast_geometry)):
+    if kernels and (hybrid or use_vl or (localize and not fast_geometry)):
         raise ValueError("the kernel tail needs chordal geometry "
-                         "(fast_geometry) under localization and no "
-                         "variable localization")
+                         "(fast_geometry) under localization, no hybrid "
+                         "static column and no variable localization")
     vkw = dict(varloc=varloc, ob_var=ob_var) if use_vl else {}
+    hkw = dict(hybrid_alpha=hybrid_alpha,
+               static_length=static_length) if hybrid else {}
+    _check_hybrid(hybrid, use_vl, tail_sigma, static_length)
     solve_kernel = kernels and panel <= MAX_KERNEL_PANEL
     obs = obs.with_default_verts()
     if nobs == 0 or nobs <= panel:
         if not (solve_kernel and nobs > 0):
             return tail_scan(tail_mean, tail_perts, obs, localize=localize,
                              unbiased=unbiased, fast_geometry=fast_geometry,
-                             vertical=vertical, **vkw)
+                             vertical=vertical, tail_sigma=tail_sigma,
+                             **hkw, **vkw)
         # One panel covers the batch: pad it to the full panel width
         # (padded obs have assim=False and are exact no-ops) and slice
         # every output back.
@@ -420,6 +518,9 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     if use_vl:
         vl = varloc.to(dtype)
         ovarr = _pad(ob_var.long(), pad, 0)
+    if hybrid:
+        tsig_all = _pad(sigma_rows(tail_sigma, tail_mean.to(dtype)), pad)
+        slen = float(static_length)
 
     outs = []
     for p in range(npanels):
@@ -435,6 +536,8 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
             sol = tail_scan(tm[sl], tp[sl], pob, localize=localize,
                             unbiased=unbiased, fast_geometry=fast_geometry,
                             vertical=vertical,
+                            tail_sigma=tsig_all[sl] if hybrid else None,
+                            **hkw,
                             **(dict(varloc=vl, ob_var=ovarr[sl]) if use_vl
                                else {}))
         if kernels:
@@ -469,8 +572,22 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                 # factor[r, j] = vl[panel_ob_var_j, row_ob_var_r]
                 w = w * vl[ovarr[sl]][:, ovarr].T
             w = w * outside[:, None]
+            static_mean = static_tilde = None
+            if hybrid:
+                # Static columns toward the out-of-panel obs rows (the
+                # panel's own rows were solved exactly above), at exact
+                # haversine distance: part of the covariance model.
+                gc = gaspari_cohn(
+                    haversine((allo.lats[:, None], allo.lons[:, None]),
+                              (pob.lats[None, :], pob.lons[None, :])),
+                    slen).to(dtype) * outside[:, None]
+                static_mean = tsig_all * (gc @ sol.static_gain)
+                static_tilde = (tsig_all[:, None] * gc
+                                * sol.static_sqrt[None, :])
             tm2, tp2 = apply_obs_block(tm, tp, sol.ye, sol.gain_coef,
-                                       sol.sqrt_coef, w)
+                                       sol.sqrt_coef, w,
+                                       static_mean=static_mean,
+                                       static_tilde=static_tilde)
         tm2[sl] = sol.tail_mean
         tp2[sl] = sol.tail_perts
         tm, tp = tm2, tp2
@@ -485,6 +602,8 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
         tail_perts=tp[:nobs],
         diags=ObsDiagnostics(*(cat([s.diags[k] for s in outs])
                                for k in range(5))),
+        static_gain=cat([s.static_gain for s in outs]) if hybrid else None,
+        static_sqrt=cat([s.static_sqrt for s in outs]) if hybrid else None,
     )
 
 
@@ -507,12 +626,15 @@ def _pad_obs(obs: ObsArrays, pad: int, dtype) -> ObsArrays:
 # ---------------------------------------------------------------------------
 
 
-def _block_recurrence(d0, gram, w, sqrt_coef, panel: int = 8):
+def _block_recurrence(d0, gram, w, sqrt_coef, panel: int = 8,
+                      static_tilde=None):
     """Panel-blocked forward substitution of the within-block recurrence.
 
     ``d0 [rows, B] = X_0 Y^T``, ``gram [B, B] = Y Y^T``, ``w [rows, B]``
-    (or None).  Returns ``(U, V)`` with ``U = [w_j d_j]`` and
-    ``V = [g_j U_j]``; ``d_j = d0_j - sum_{i<j} V_i G_ij``.
+    (or None), ``static_tilde [rows, B]`` the hybrid static columns
+    ``sigma_row static_sqrt_j gc_j`` (or None).  Returns ``(U, V)`` with
+    ``U = [w_j d_j]`` and ``V = [g_j U_j + static_tilde_j]``;
+    ``d_j = d0_j - sum_{i<j} V_i G_ij``.
     """
     bsz = d0.shape[1]
     u_done = v_done = None
@@ -529,6 +651,8 @@ def _block_recurrence(d0, gram, w, sqrt_coef, panel: int = 8):
                 d_j = d_j - v_p @ gram[base:base + t, base + t]
             u_j = d_j if w is None else w[:, base + t] * d_j
             v_j = u_j * sqrt_coef[base + t]
+            if static_tilde is not None:
+                v_j = v_j + static_tilde[:, base + t]
             u_cols.append(u_j)
             v_cols.append(v_j)
         u_slab = torch.stack(u_cols, dim=1)
@@ -539,27 +663,41 @@ def _block_recurrence(d0, gram, w, sqrt_coef, panel: int = 8):
 
 
 def apply_obs_block(body_mean, body_perts, ye_block, gain_coef, sqrt_coef,
-                    w_block):
+                    w_block, static_mean=None, static_tilde=None):
     """Apply one block of B pre-solved obs to the state body: two matrix
-    products and a B-step recurrence.  ``w_block [rows, B]`` or None."""
+    products and a B-step recurrence.  ``w_block [rows, B]`` or None.
+    Hybrid mode adds the static columns' summed mean pull ``static_mean
+    [rows]`` once and lets ``static_tilde [rows, B]`` ride the
+    recurrence."""
     y = ye_block.to(body_perts.dtype)
     d0 = body_perts @ y.T
     gram = y @ y.T
-    u, v = _block_recurrence(d0, gram, w_block, sqrt_coef)
-    return body_mean + u @ gain_coef, body_perts - v @ y
+    u, v = _block_recurrence(d0, gram, w_block, sqrt_coef,
+                             static_tilde=static_tilde)
+    body_mean = body_mean + u @ gain_coef
+    if static_mean is not None:
+        body_mean = body_mean + static_mean
+    return body_mean, body_perts - v @ y
 
 
 def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
                        tail: TailSolution, obs: ObsArrays,
                        localize: bool = True, block_size: int = 32,
                        fast_geometry: bool = False, body_vert=None,
-                       vertical: bool = False, varloc=None, row_var=None,
-                       ob_var=None):
+                       vertical: bool = False, hybrid: bool = False,
+                       body_sigma=None, static_length=None, varloc=None,
+                       row_var=None, ob_var=None):
     """Phase 2: sweep the pre-solved obs sequence over the body in
     blocks.  Exact (up to fp reassociation) match of the serial filter.
-    ``varloc``/``row_var``/``ob_var`` as in :func:`ensrf_serial`."""
+    ``hybrid=True`` also applies each ob's fixed static column (a
+    hybrid-mode ``tail``'s ``static_gain``/``static_sqrt`` times
+    ``body_sigma GC(d, static_length)`` at exact haversine distance)
+    through the same recurrence.  ``varloc``/``row_var``/``ob_var`` as in
+    :func:`ensrf_serial`."""
     nobs = tail.ye.shape[0]
     dtype = body_perts.dtype
+    _check_hybrid(hybrid, varloc is not None, body_sigma, static_length,
+                  tail.static_gain)
     if nobs == 0:
         return body_mean, body_perts
     nblocks = -(-nobs // block_size)
@@ -575,6 +713,12 @@ def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
         vl = varloc.to(dtype)
         rvar = row_var.long()
         ovar = _pad(ob_var.long(), pad, 0)
+    if hybrid:
+        # Padded obs carry zero static coefficients: their columns are 0.
+        sgain = _pad(tail.static_gain.to(dtype), pad)
+        ssqrt = _pad(tail.static_sqrt.to(dtype), pad)
+        bsig = sigma_rows(body_sigma, body_mean.to(dtype))
+        slen = float(static_length)
     body_xyz = (latlon_to_unit(body_lat, body_lon).to(dtype)
                 if (localize and fast_geometry) else None)
     bm, bp = body_mean, body_perts
@@ -599,7 +743,17 @@ def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
             # recurrence exactly like a GC weight, so blocked == serial.
             fmat = vl[ovar[sl]][:, rvar].T
             w = fmat if w is None else w * fmat
-        bm, bp = apply_obs_block(bm, bp, ye[sl], gain[sl], sqrtc[sl], w)
+        static_mean = static_tilde = None
+        if hybrid:
+            gc = gaspari_cohn(
+                haversine((body_lat[:, None], body_lon[:, None]),
+                          (po.lats[sl][None, :], po.lons[sl][None, :])),
+                slen).to(dtype)
+            static_mean = bsig * (gc @ sgain[sl])
+            static_tilde = bsig[:, None] * gc * ssqrt[sl][None, :]
+        bm, bp = apply_obs_block(bm, bp, ye[sl], gain[sl], sqrtc[sl], w,
+                                 static_mean=static_mean,
+                                 static_tilde=static_tilde)
     return bm, bp
 
 
@@ -608,26 +762,34 @@ def ensrf_blocked(body_mean, body_perts, tail_mean, tail_perts, body_lat,
                   block_size: int = 32, unbiased: bool = False,
                   fast_geometry: bool = False, body_vert=None,
                   vertical: bool = False, tail_panel: Optional[int] = None,
-                  varloc=None, row_var=None, ob_var=None):
+                  hybrid_alpha: float = 1.0, body_sigma=None,
+                  tail_sigma=None, static_length=None, varloc=None,
+                  row_var=None, ob_var=None):
     """Full blocked update: phase-1 tail + phase-2 body sweep.  Drop-in
-    equivalent of :func:`ensrf_serial` (``varloc`` included).
-    ``tail_panel`` selects the panel-blocked phase 1 (None = plain per-ob
-    scan)."""
+    equivalent of :func:`ensrf_serial` (the hybrid blend and ``varloc``
+    included).  ``tail_panel`` selects the panel-blocked phase 1 (None =
+    plain per-ob scan)."""
+    hkw = dict(hybrid_alpha=hybrid_alpha, tail_sigma=tail_sigma,
+               static_length=static_length)
     vkw = dict(varloc=varloc, ob_var=ob_var) if varloc is not None else {}
     if tail_panel:
         tail = tail_scan_blocked(tail_mean, tail_perts, obs,
                                  localize=localize, unbiased=unbiased,
                                  fast_geometry=fast_geometry,
-                                 vertical=vertical, panel=tail_panel, **vkw)
+                                 vertical=vertical, panel=tail_panel,
+                                 **hkw, **vkw)
     else:
         tail = tail_scan(tail_mean, tail_perts, obs, localize=localize,
                          unbiased=unbiased, fast_geometry=fast_geometry,
-                         vertical=vertical, **vkw)
+                         vertical=vertical, **hkw, **vkw)
     bm, bp = ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
                                 tail, obs, localize=localize,
                                 block_size=block_size,
                                 fast_geometry=fast_geometry,
                                 body_vert=body_vert, vertical=vertical,
+                                hybrid=hybrid_alpha < 1.0,
+                                body_sigma=body_sigma,
+                                static_length=static_length,
                                 varloc=varloc, row_var=row_var,
                                 ob_var=ob_var)
     return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags

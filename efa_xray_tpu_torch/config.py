@@ -8,8 +8,7 @@ knobs that exist only for the TPU and its remote link: the host fast path
 timing-only ``mxu_bf16``.  The LETKF and adaptive-inflation knobs
 (``letkf_*``, ``adaptive_*``) and ``taps_topk`` (only the exact search is
 ported) come with the PRs that port them.  Fields of EnSRF variants that
-are not ported yet (hybrid covariance, RTPS/RTPP, obs chunking, obs
-ordering) stay, and
+are not ported yet (RTPS/RTPP, obs chunking, obs ordering) stay, and
 ``EnSRF`` raises ``NotImplementedError`` naming the pending work when one
 of them asks for an unported path.
 
@@ -122,9 +121,9 @@ class FilterConfig:
     # parity); 0 is classic Optimal Interpolation with a Gaspari-Cohn
     # covariance model.  The static part is
     # sigma_s(x) sigma_s(y) GC(d, static_b_length), held fixed over the
-    # batch (standard hybrid-gain simplification).  Not ported yet
-    # (the B2 hybrid static-column branch, ROADMAP queue B): hybrid_alpha
-    # < 1 raises NotImplementedError.
+    # batch (standard hybrid-gain simplification).  With fast_geometry, or
+    # without localization, the blocked body runs kernel B2h (the static
+    # column inside B2); with exact haversine the plain blocked update.
     hybrid_alpha: float = 1.0
     # Static background std: scalar, or per-state-row array of nstate.
     static_b_sigma: Union[float, object, None] = None

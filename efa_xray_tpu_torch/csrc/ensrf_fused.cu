@@ -1,10 +1,11 @@
 // B2: the fused EnSRF body.  Every observation block is applied to a tile
 // of state rows while the tile stays on chip, so the state crosses device
-// memory once per update.
+// memory once per update.  B2h is its hybrid instantiation (template flag
+// kHybrid): the static background column rides the same recurrence.
 //
 // Replaces: efa_xray_tpu/ops/ensrf_pallas_fused.py, _make_fused_kernel
 // (launched by _fused_impl), with its helpers _asin2_poly_u, _arccos_poly
-// and _gc_poly.  The hybrid static-column branch is not ported.
+// and _gc_poly; B2h its hybrid branch (hybrid=True).
 //
 // What it computes, for a tile of rows X [T, M] (perturbations) and xm [T]
 // (mean), for each block of B pre-solved obs with rows Y [B, M]:
@@ -17,6 +18,16 @@
 // one int32 per (row tile, block) with bit q for the q-th 8-ob panel, skip
 // pairs whose weights are provably zero; skipping them is exact.
 //
+// B2h adds, per ob j and row r, the static column s_j = sigma_r GC(dist /
+// static_length) at the same chordal angle (computed even when
+// unlocalized), and then
+//   v_j = g_j u_j + ss_j s_j,  corrections against V with the RAW Gram,
+//   xm += sum_j (gain_j u_j + sg_j s_j)  (accumulated as the columns solve),
+//   X -= V^T Y.
+// Its wrapper culls at max(radius, static_length), so a skipped panel has
+// zero static columns too.  A padded ob (gain = g = sg = ss = 0) stays an
+// exact no-op: its v column is 0 and it adds 0 to the mean.
+//
 // What bounds it on an H100: with plain fp32 FMA, arithmetic.  Per alive
 // (tile, block) the two products take 2 T B M FMAs and the substitution
 // T B^2 / 2; the weight chain is ~40 operations per (ob, row) pair.  The
@@ -26,9 +37,12 @@
 // What the design does about it: a CTA owns T rows (64, or 32 for wide
 // ensembles) and loops over all blocks itself.  X, the block's Y and ggt,
 // the d0/U columns, the per-panel weights and the per-ob tables all live in
-// shared memory (~167 KB at T 64, B 128, M 80).  Each product thread keeps a
-// 4-wide register tile, so one shared load of X (or of the U column) feeds
-// four FMAs.  The forward substitution follows the Pallas kernel's panels
+// shared memory (~167 KB at T 64, B 128, M 80; B2h adds the sigma row, a
+// panel of static columns, the mean accumulator and three table rows,
+// 2T + 8T + 3B floats, ~171 KB: still one CTA per SM).  kHybrid is a
+// template parameter, so the pure instantiation carries none of it.  Each
+// product thread keeps a 4-wide register tile, so one shared load of X (or
+// of the U column) feeds four FMAs.  The forward substitution follows the Pallas kernel's panels
 // of 8 obs: the correction against earlier panels and the panel's weights
 // are computed in parallel over (ob, row) pairs, and only the short
 // within-panel chain runs one thread per row.  The X tile's row stride is
@@ -45,8 +59,10 @@ constexpr int kThreads = 256;
 constexpr int kPanel = 8;
 constexpr float kEarthRadiusKm = 6371.0f;
 // Rows of the per-ob table: gain, sqrt_coef, ob unit vector x/y/z,
-// 1/radius (0 = unlocalized), ob vertical coordinate, 1/vertical radius.
-constexpr int kTab = 8;
+// 1/radius (0 = unlocalized), ob vertical coordinate, 1/vertical radius;
+// B2h appends the static gain and sqrt scalars and 1/static_length.
+constexpr int kTabPure = 8;
+constexpr int kTabHybrid = 11;
 
 __device__ __forceinline__ float gc_exact(float r) {
   const float inner =
@@ -101,11 +117,11 @@ __device__ __forceinline__ float arccos_poly(float x) {
   return sqrtf(fmaxf(1.0f - x, 0.0f)) * p;
 }
 
-__device__ __forceinline__ float loc_weight(const float* tab, int B, int j,
+// Great-circle distance (km) from ob j to row r, by the chordal angle.
+__device__ __forceinline__ float chord_dist(const float* tab, int B, int j,
                                             const float* geo, int T, int r,
-                                            int vertical, int series) {
+                                            int series) {
   const float ox = tab[2 * B + j], oy = tab[3 * B + j], oz = tab[4 * B + j];
-  const float invrad = tab[5 * B + j];
   float dot = ox * geo[r] + oy * geo[T + r] + oz * geo[2 * T + r];
   dot = fminf(fmaxf(dot, -1.0f), 1.0f);
   float ang;
@@ -116,7 +132,14 @@ __device__ __forceinline__ float loc_weight(const float* tab, int B, int j,
     const float c = fminf(fmaxf((1.0f + dot) * 0.5f, 0.0f), 1.0f);
     ang = 2.0f * arccos_poly(sqrtf(c));
   }
-  const float dist = kEarthRadiusKm * ang;
+  return kEarthRadiusKm * ang;
+}
+
+__device__ __forceinline__ float loc_weight(const float* tab, int B, int j,
+                                            const float* geo, int T, int r,
+                                            float dist, int vertical,
+                                            int series) {
+  const float invrad = tab[5 * B + j];
   const float rr = dist * invrad;
   float w = invrad > 0.0f ? (series ? gc_poly(rr) : gc_exact(rr)) : 1.0f;
   if (vertical) {
@@ -129,26 +152,32 @@ __device__ __forceinline__ float loc_weight(const float* tab, int B, int j,
 
 // bm_out/bp_out may alias bm_in/bp_in (in-place update): a CTA reads its
 // own rows before the block loop and writes only those rows after it.
+template <bool kHybrid>
 __global__ void fused_body_kernel(
     const float* bm_in,  // [N]
     const float* bp_in,  // [N, M]
-    const float* __restrict__ geom,   // [4, N]: unit x, y, z, vertical
+    const float* __restrict__ geom,   // [kGeo, N]: unit x, y, z, vertical
+                                      // (, sigma for B2h)
     const float* __restrict__ y_b,    // [nb, B, M]
-    const float* __restrict__ ggt_b,  // [nb, B, B]
+    const float* __restrict__ ggt_b,  // [nb, B, B]; B2h: the raw Gram
     const float* __restrict__ tab_b,  // [nb, kTab, B]
     const int* __restrict__ bits,     // [gtiles, nb] or nullptr (no cull)
     int N, int M, int B, int nb, int T, int localize, int vertical,
     int series, float* bm_out, float* bp_out) {
+  constexpr int kTab = kHybrid ? kTabHybrid : kTabPure;
+  constexpr int kGeo = kHybrid ? 5 : 4;
   extern __shared__ float smem[];
   const int Ms = M | 1;
   float* Xs = smem;              // [T, Ms]
   float* Ys = Xs + T * Ms;       // [B, M]
   float* G = Ys + B * M;         // [B, B]
-  float* U = G + B * B;          // [B, T]  d0 columns, then u columns
+  float* U = G + B * B;          // [B, T]  d0 columns, then u (B2h: v)
   float* Wb = U + B * T;         // [kPanel, T]
   float* tab = Wb + kPanel * T;  // [kTab, B]
-  float* geo = tab + kTab * B;   // [4, T]
-  float* xm = geo + 4 * T;       // [T]
+  float* geo = tab + kTab * B;   // [kGeo, T]
+  float* xm = geo + kGeo * T;    // [T]
+  float* Sb = xm + T;            // B2h: [kPanel, T] static columns
+  float* macc = Sb + kPanel * T; // B2h: [T] mean accumulator
 
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
@@ -163,7 +192,7 @@ __global__ void fused_body_kernel(
   for (int r = tid; r < T; r += nth) {
     const bool in = r < nrows;
     xm[r] = in ? bm_in[r0 + r] : 0.0f;
-    for (int c = 0; c < 4; ++c) geo[c * T + r] = in ? geom[(long)c * N + r0 + r] : 0.0f;
+    for (int c = 0; c < kGeo; ++c) geo[c * T + r] = in ? geom[(long)c * N + r0 + r] : 0.0f;
   }
   __syncthreads();
 
@@ -181,6 +210,8 @@ __global__ void fused_body_kernel(
     for (int idx = tid; idx < B * M; idx += nth) Ys[idx] = yb[idx];
     for (int idx = tid; idx < B * B; idx += nth) G[idx] = gb[idx];
     for (int idx = tid; idx < kTab * B; idx += nth) tab[idx] = tb[idx];
+    if (kHybrid)
+      for (int r = tid; r < T; r += nth) macc[r] = 0.0f;
     __syncthreads();
 
     // D0 = X Y^T: each thread one row r and four obs j0..j0+3.
@@ -215,15 +246,21 @@ __global__ void fused_body_kernel(
         __syncthreads();
         continue;
       }
-      // Correction against the solved panels and the panel's weights,
-      // in parallel over (ob, row) pairs.
+      // Correction against the solved panels, the panel's weights and
+      // (B2h) its static columns, in parallel over (ob, row) pairs.
       for (int idx = tid; idx < width * T; idx += nth) {
         const int t = idx / T, r = idx - t * T;
         const int j = base + t;
         float corr = 0.f;
         for (int i = 0; i < base; ++i) corr += G[j * B + i] * U[i * T + r];
         U[j * T + r] -= corr;
-        if (localize) Wb[t * T + r] = loc_weight(tab, B, j, geo, T, r, vertical, series);
+        if (localize || kHybrid) {
+          const float dist = chord_dist(tab, B, j, geo, T, r, series);
+          if (localize)
+            Wb[t * T + r] = loc_weight(tab, B, j, geo, T, r, dist, vertical, series);
+          if (kHybrid)
+            Sb[t * T + r] = geo[4 * T + r] * gc_exact(dist * tab[10 * B + j]);
+        }
       }
       __syncthreads();
       // The within-panel chain, one thread per row.
@@ -234,17 +271,27 @@ __global__ void fused_body_kernel(
           for (int i = base; i < j; ++i) corr += G[j * B + i] * U[i * T + r];
           float d = U[j * T + r] - corr;
           if (localize) d *= Wb[t * T + r];
+          if (kHybrid) {
+            const float s = Sb[t * T + r];
+            macc[r] += tab[j] * d + tab[8 * B + j] * s;
+            d = tab[B + j] * d + tab[9 * B + j] * s;
+          }
           U[j * T + r] = d;
         }
       }
       __syncthreads();
     }
 
-    // xm += U^T gain;  X -= (g o U)^T Y.
+    // Pure: xm += U^T gain;  X -= (g o U)^T Y.
+    // B2h:  xm += macc;      X -= V^T Y.
     for (int r = tid; r < T; r += nth) {
-      float s = 0.f;
-      for (int j = 0; j < B; ++j) s += tab[j] * U[j * T + r];
-      xm[r] += s;
+      if (kHybrid) {
+        xm[r] += macc[r];
+      } else {
+        float s = 0.f;
+        for (int j = 0; j < B; ++j) s += tab[j] * U[j * T + r];
+        xm[r] += s;
+      }
     }
     for (int idx = tid; idx < T * M4; idx += nth) {
       const int r = idx / M4, mq = idx - r * M4;
@@ -252,7 +299,7 @@ __global__ void fused_body_kernel(
                 m3 = min(mq + 3 * M4, M - 1);
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
       for (int j = 0; j < B; ++j) {
-        const float gu = tab[B + j] * U[j * T + r];
+        const float gu = kHybrid ? U[j * T + r] : tab[B + j] * U[j * T + r];
         const float* yj = Ys + j * M;
         a0 += gu * yj[m0];
         a1 += gu * yj[m1];
@@ -277,10 +324,31 @@ __global__ void fused_body_kernel(
 
 // Dynamic shared memory for a tile of T rows, blocks of B obs, M members
 // (mirrored by efa_xray_tpu_torch.ops.ensrf_fused.smem_bytes).
-int smem_bytes(int T, int B, int M) {
+int smem_bytes(int T, int B, int M, bool hybrid) {
   const int Ms = M | 1;
-  return (int)sizeof(float) *
-         (T * Ms + B * M + B * B + B * T + kPanel * T + kTab * B + 4 * T + T);
+  const int pure = T * Ms + B * M + B * B + B * T + kPanel * T +
+                   kTabPure * B + 4 * T + T;
+  const int extra = hybrid ? T + kPanel * T + T + (kTabHybrid - kTabPure) * B
+                           : 0;
+  return (int)sizeof(float) * (pure + extra);
+}
+
+template <bool kHybrid>
+int launch(const float* bm_in, const float* bp_in, const float* geom,
+           const float* y_b, const float* ggt_b, const float* tab_b,
+           const int* bits, int N, int M, int B, int nb, int T, int localize,
+           int vertical, int series, float* bm_out, float* bp_out,
+           cudaStream_t stream) {
+  const int smem = smem_bytes(T, B, M, kHybrid);
+  cudaError_t e = cudaFuncSetAttribute(fused_body_kernel<kHybrid>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (N + T - 1) / T;
+  fused_body_kernel<kHybrid><<<tiles, kThreads, smem, stream>>>(
+      bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T, localize,
+      vertical, series, bm_out, bp_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -290,17 +358,12 @@ extern "C" {
 int efa_fused_body(const float* bm_in, const float* bp_in, const float* geom,
                    const float* y_b, const float* ggt_b, const float* tab_b,
                    const int* bits, int N, int M, int B, int nb, int T,
-                   int localize, int vertical, int series, float* bm_out,
-                   float* bp_out, void* stream) {
-  const int smem = smem_bytes(T, B, M);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_body_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int tiles = (N + T - 1) / T;
-  fused_body_kernel<<<tiles, kThreads, smem, (cudaStream_t)stream>>>(
-      bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T, localize,
-      vertical, series, bm_out, bp_out);
-  return (int)cudaGetLastError();
+                   int localize, int vertical, int series, int hybrid,
+                   float* bm_out, float* bp_out, void* stream) {
+  const auto run = hybrid ? &launch<true> : &launch<false>;
+  return run(bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T,
+             localize, vertical, series, bm_out, bp_out,
+             (cudaStream_t)stream);
 }
 
 }  // extern "C"

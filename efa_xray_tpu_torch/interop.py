@@ -3,7 +3,8 @@
 No JAX counterpart.  The system has no weights: what crosses between the
 JAX package and this one is data, so both are fed the same NumPy arrays.
 These functions take NumPy arrays and plain dicts, build the port's
-objects on an explicit device, and turn results back into NumPy.
+objects on a device, the card unless ``device`` names another (without a
+card, ``device="cpu"`` must be given), and turn results back into NumPy.
 """
 
 from __future__ import annotations
@@ -19,17 +20,21 @@ from efa_xray_tpu_torch.assimilation.ensrf_core import (
     TailSolution,
 )
 from efa_xray_tpu_torch.observation.observation import ObservationBatch
-from efa_xray_tpu_torch.state.ensemble import EnsembleState, _torch_dtype
+from efa_xray_tpu_torch.state.ensemble import (
+    EnsembleState,
+    _torch_dtype,
+    default_device,
+)
 
 
-def _tensor(x, dtype=None, device="cpu") -> torch.Tensor:
+def _tensor(x, dtype, device: torch.device) -> torch.Tensor:
     arr = np.array(x)  # a copy: torch refuses read-only NumPy buffers
     t = torch.from_numpy(arr).to(device)
     return t if dtype is None or t.dtype == torch.bool else t.to(dtype)
 
 
 def state_from_numpy(data: Dict[str, np.ndarray], coords: Dict, dtype=None,
-                     device="cpu", attrs: Optional[Dict] = None
+                     device=None, attrs: Optional[Dict] = None
                      ) -> EnsembleState:
     """``{var: (ntimes, ny, nx, nmems)}`` and ``{validtime, lat, lon,
     mem}`` -> :class:`EnsembleState` on ``device``."""
@@ -63,9 +68,10 @@ def obs_batch_from_numpy(fields: Dict) -> ObservationBatch:
 
 def obs_arrays_from_numpy(values, errors, lats, lons, radii, assim,
                           verts=None, vert_radii=None, dtype="float64",
-                          device="cpu") -> ObsArrays:
+                          device=None) -> ObsArrays:
     """:class:`ObsArrays` on ``device``; ``assim`` stays bool."""
     dt = _torch_dtype(dtype)
+    device = default_device(device)
     t = lambda x: None if x is None else _tensor(x, dt, device)
     return ObsArrays(values=t(values), errors=t(errors), lats=t(lats),
                      lons=t(lons), radii=t(radii),
@@ -81,9 +87,12 @@ def obs_arrays_to_numpy(obs: ObsArrays) -> Dict[str, np.ndarray]:
 def tail_solution_from_numpy(ye, gain_coef, sqrt_coef, tail_mean,
                              tail_perts, prior_mean, prior_var, post_mean,
                              post_var, assimilated, dtype="float64",
-                             device="cpu") -> TailSolution:
-    """:class:`TailSolution` on ``device`` from its NumPy fields."""
+                             device=None, static_gain=None,
+                             static_sqrt=None) -> TailSolution:
+    """:class:`TailSolution` on ``device`` from its NumPy fields (the
+    static-column scalars only in hybrid mode)."""
     dt = _torch_dtype(dtype)
+    device = default_device(device)
     t = lambda x: _tensor(x, dt, device)
     return TailSolution(
         ye=t(ye), gain_coef=t(gain_coef), sqrt_coef=t(sqrt_coef),
@@ -91,7 +100,9 @@ def tail_solution_from_numpy(ye, gain_coef, sqrt_coef, tail_mean,
         diags=ObsDiagnostics(t(prior_mean), t(prior_var), t(post_mean),
                              t(post_var),
                              _tensor(np.asarray(assimilated, bool), None,
-                                     device)))
+                                     device)),
+        static_gain=None if static_gain is None else t(static_gain),
+        static_sqrt=None if static_sqrt is None else t(static_sqrt))
 
 
 def tail_solution_to_numpy(tail: TailSolution) -> Dict[str, np.ndarray]:
@@ -99,7 +110,8 @@ def tail_solution_to_numpy(tail: TailSolution) -> Dict[str, np.ndarray]:
     arguments of :func:`tail_solution_from_numpy`)."""
     out = {k: getattr(tail, k).detach().cpu().numpy()
            for k in ("ye", "gain_coef", "sqrt_coef", "tail_mean",
-                     "tail_perts")}
+                     "tail_perts", "static_gain", "static_sqrt")
+           if getattr(tail, k) is not None}
     for k, v in tail.diags._asdict().items():
         out[k] = v.detach().cpu().numpy()
     return out

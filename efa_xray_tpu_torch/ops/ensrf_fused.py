@@ -3,8 +3,9 @@ on chip.
 
 Counterpart of ``efa_xray_tpu/ops/ensrf_pallas_fused.py``: the polynomial
 forms ``_asin2_poly_u`` :42, ``_arccos_poly`` :70, ``_gc_poly`` :86, the
-kernel ``_make_fused_kernel`` :117-416 (pure-ensemble branch), ``cull_masks``
-:425 and ``_fused_impl`` :493.
+kernel ``_make_fused_kernel`` :117-416 with its hybrid static-column
+branch (B2h: :208-219, :288-297, :350-362, :393-400), ``cull_masks`` :425
+and ``_fused_impl`` :493.
 
 :func:`fused_body` prepares the kernel operands as ``_fused_impl`` does (the
 per-block Gram tables, the per-ob table, the cull bits), then
@@ -12,8 +13,13 @@ per-block Gram tables, the per-ob table, the cull bits), then
 ``efa_xray_tpu_torch/csrc/ensrf_fused.cu`` on CUDA tensors, or runs
 :func:`fused_apply_plain`, the same computation in plain torch, on CPU
 tensors.  Weights are per row, which is exact for flat states and for
-gridded (vt > 1) states alike.  The hybrid static-column branch is not
-ported (ROADMAP queue B).
+gridded (vt > 1) states alike.
+
+Hybrid mode (``hybrid=True``) adds each ob's static column
+``s_j = sigma_row GC(d_j / static_length)`` at the kernel's chordal
+angle: the mean accumulates ``gain_j u_j + sgain_j s_j`` while the
+columns solve, the stored columns are ``v_j = sqrt_coef_j u_j + ssqrt_j
+s_j`` against the raw Gram matrix, and ``X -= V^T Y``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from efa_xray_tpu_torch.assimilation.ensrf_core import (
     ObsArrays,
     TailSolution,
     _pad,
+    sigma_rows,
 )
 from efa_xray_tpu_torch.observation.localization import (
     EARTH_RADIUS_KM,
@@ -32,16 +39,21 @@ from efa_xray_tpu_torch.observation.localization import (
 from efa_xray_tpu_torch.ops import _build
 
 PANEL = 8
-# Rows of the per-ob table handed to the kernel (csrc/ensrf_fused.cu kTab).
+# Rows of the per-ob table handed to the kernel (csrc/ensrf_fused.cu kTab);
+# hybrid mode appends HYBRID_ROWS.
 TABLE_ROWS = ("gain", "sqrt_coef", "ox", "oy", "oz", "invrad", "overt",
               "invvrad")
+HYBRID_ROWS = ("sgain", "ssqrt", "invslen")
 # Largest dynamic shared memory a CTA may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
-# The series angle form is valid while every radius is at most this (km).
+# The series angle form is valid while every angle the kernel evaluates
+# stays within 90 degrees: GC supports of 2 x 5000 km at most.
 SERIES_MAX_RADIUS_KM = 5000.0
 
-# Launches of the CUDA kernel (not of the plain version).
+# Launches of the CUDA kernel (not of the plain version): pure-ensemble
+# B2, and its hybrid instantiation B2h.
 launches = 0
+hybrid_launches = 0
 
 _ASIN2 = (-0.0963332506, 0.1146914397, 0.0793335722, 0.1508451291,
           0.3333070474, 2.0000001309)
@@ -82,18 +94,35 @@ def _gc_poly(r, outer_form: str = "exact"):
     return torch.where(r <= 1.0, inner, torch.where(r < 2.0, outer, zero))
 
 
-def pick_tile(block_size: int, nmems: int) -> int:
+def pick_tile(block_size: int, nmems: int, hybrid: bool = False) -> int:
     """Rows per CTA: 64, or 32 when 64 would overflow shared memory.
     The cull bits are computed at this tile."""
-    return 64 if smem_bytes(64, block_size, nmems) <= MAX_SMEM_BYTES else 32
+    return (64 if smem_bytes(64, block_size, nmems, hybrid) <= MAX_SMEM_BYTES
+            else 32)
 
 
-def smem_bytes(tile: int, block_size: int, nmems: int) -> int:
+def smem_bytes(tile: int, block_size: int, nmems: int,
+               hybrid: bool = False) -> int:
     """Shared memory of one CTA (mirrors ``smem_bytes`` in
-    ``csrc/ensrf_fused.cu``)."""
+    ``csrc/ensrf_fused.cu``).  Hybrid adds the sigma row, the static
+    columns of a panel, the mean accumulator and three table rows."""
     t, b, m = tile, block_size, nmems
-    return 4 * (t * (m | 1) + b * m + b * b + b * t + PANEL * t
-                + len(TABLE_ROWS) * b + 4 * t + t)
+    pure = (t * (m | 1) + b * m + b * b + b * t + PANEL * t
+            + len(TABLE_ROWS) * b + 4 * t + t)
+    extra = t + PANEL * t + t + len(HYBRID_ROWS) * b if hybrid else 0
+    return 4 * (pure + extra)
+
+
+def series_form(max_radius_km, static_length=None) -> bool:
+    """Whether the cheaper series angle form is exact enough: every finite
+    localization radius, and in hybrid mode the static length, at most
+    5000 km.  The JAX package looks at the radii alone, so a static
+    length above 5000 km evaluates its series outside the range it was
+    fitted on (ROADMAP queue C)."""
+    return (max_radius_km is not None
+            and float(max_radius_km) <= SERIES_MAX_RADIUS_KM
+            and (static_length is None
+                 or float(static_length) <= SERIES_MAX_RADIUS_KM))
 
 
 # Culling-bound slack (rad): covers f32 arccos conditioning in the bound
@@ -175,12 +204,11 @@ def cull_bits(body_xyz, ob_xyz, radii, assim, tile, nblocks, block_size,
     return torch.cat(out)
 
 
-def _weights_plain(tab, geom, lo, hi, vertical: bool, series: bool):
-    """Weights ``[rows, hi - lo]`` of obs lo..hi-1 of one block: the
-    kernel's chordal angle and Gaspari-Cohn forms."""
+def _dist_plain(tab, geom, lo, hi, series: bool):
+    """Distances (km) ``[rows, hi - lo]`` from every row to obs lo..hi-1
+    of one block: the kernel's chordal angle forms."""
     ox, oy, oz = (tab[k, lo:hi][None, :] for k in (2, 3, 4))
-    invrad = tab[5, lo:hi][None, :]
-    bx, by, bz, bv = (geom[k][:, None] for k in range(4))
+    bx, by, bz = (geom[k][:, None] for k in range(3))
     dot = torch.clamp(ox * bx + oy * by + oz * bz, -1.0, 1.0)
     if series:
         su = (1.0 - dot) * 0.5
@@ -188,20 +216,28 @@ def _weights_plain(tab, geom, lo, hi, vertical: bool, series: bool):
     else:
         ang = 2.0 * _arccos_poly(torch.sqrt(torch.clamp((1.0 + dot) * 0.5,
                                                         0.0, 1.0)))
-    dist = EARTH_RADIUS_KM * ang
+    return EARTH_RADIUS_KM * ang
+
+
+def _weights_plain(tab, geom, lo, hi, dist, vertical: bool, series: bool):
+    """Localization weights ``[rows, hi - lo]`` at ``dist``: the kernel's
+    Gaspari-Cohn forms, times the vertical factor."""
+    invrad = tab[5, lo:hi][None, :]
     one = torch.ones_like(dist)
     w = torch.where(invrad > 0, _gc_poly(dist * invrad,
                                          "poly" if series else "exact"), one)
     if vertical:
         ivr = tab[7, lo:hi][None, :]
-        rv = torch.abs(bv - tab[6, lo:hi][None, :]) * ivr
+        rv = torch.abs(geom[3][:, None] - tab[6, lo:hi][None, :]) * ivr
         w = w * torch.where(ivr > 0, _gc_poly(rv), one)
     return w
 
 
 def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
-                      localize: bool, vertical: bool, series: bool):
-    """Plain-torch B2 on prepared operands; returns ``(bm, bp)``."""
+                      localize: bool, vertical: bool, series: bool,
+                      hybrid: bool = False):
+    """Plain-torch B2 (B2h with ``hybrid``) on prepared operands; returns
+    ``(bm, bp)``.  In hybrid mode ``u`` holds the V columns."""
     nrows = bp.shape[0]
     nblocks, bsz, _ = y_b.shape
     if bits is not None:
@@ -211,6 +247,8 @@ def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
         tab = tab_b[b]
         d0 = bp @ y.T
         u = torch.zeros_like(d0)
+        if hybrid:
+            mean = torch.zeros_like(bm)
         bw = bits[row_tile, b].to(torch.int64) if bits is not None else None
         for base in range(0, bsz, PANEL):
             width = min(PANEL, bsz - base)
@@ -220,9 +258,14 @@ def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
             if base > 0:
                 d_panel = d_panel - u[:, :base] @ ggt_b[b, base:base + width,
                                                        :base].T
+            if localize or hybrid:
+                dist = _dist_plain(tab, geom, base, base + width, series)
             if localize:
-                w_panel = _weights_plain(tab, geom, base, base + width,
+                w_panel = _weights_plain(tab, geom, base, base + width, dist,
                                          vertical, series)
+            if hybrid:
+                s_panel = geom[4][:, None] * _gc_poly(
+                    dist * tab[10, base:base + width][None, :])
             for t in range(width):
                 j = base + t
                 d_j = d_panel[:, t]
@@ -230,20 +273,33 @@ def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                     d_j = d_j - u[:, base:j] @ ggt_b[b, j, base:j]
                 if localize:
                     d_j = d_j * w_panel[:, t]
-                if alive is not None:
+                if hybrid:
+                    s_j = s_panel[:, t]
+                    if alive is not None:
+                        zero = torch.zeros_like(d_j)
+                        d_j = torch.where(alive, d_j, zero)
+                        s_j = torch.where(alive, s_j, zero)
+                    mean = mean + tab[0, j] * d_j + tab[8, j] * s_j
+                    d_j = tab[1, j] * d_j + tab[9, j] * s_j
+                elif alive is not None:
                     d_j = torch.where(alive, d_j, torch.zeros_like(d_j))
                 u[:, j] = d_j
-        bm = bm + u @ tab[0]
-        bp = bp - (u * tab[1][None, :]) @ y
+        if hybrid:
+            bm = bm + mean
+            bp = bp - u @ y
+        else:
+            bm = bm + u @ tab[0]
+            bp = bp - (u * tab[1][None, :]) @ y
     return bm, bp
 
 
 def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                      localize: bool, vertical: bool, series: bool,
-                     donate: bool = False):
-    """Launch B2 on CUDA float32 tensors.  ``donate=True`` updates
-    ``bm``/``bp`` in place (the JAX package donates these buffers)."""
-    global launches
+                     hybrid: bool = False, donate: bool = False):
+    """Launch B2 (B2h with ``hybrid``) on CUDA float32 tensors.
+    ``donate=True`` updates ``bm``/``bp`` in place (the JAX package
+    donates these buffers)."""
+    global launches, hybrid_launches
     nrows, nmems = bp.shape
     nblocks, bsz, _ = y_b.shape
     dev = bp.device
@@ -251,16 +307,17 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
     for t in (bm, bp, geom, y_b, ggt_b, tab_b):
         if t.device != dev or t.dtype != f32:
             raise ValueError("B2 takes float32 tensors on one CUDA device")
-    if (bm.shape != (nrows,) or geom.shape != (4, nrows)
+    ntab = len(TABLE_ROWS) + (len(HYBRID_ROWS) if hybrid else 0)
+    if (bm.shape != (nrows,) or geom.shape != (5 if hybrid else 4, nrows)
             or y_b.shape != (nblocks, bsz, nmems)
             or ggt_b.shape != (nblocks, bsz, bsz)
-            or tab_b.shape != (nblocks, len(TABLE_ROWS), bsz)):
+            or tab_b.shape != (nblocks, ntab, bsz)):
         raise ValueError("B2 operand shapes disagree")
     gtiles = -(-nrows // tile)
     if bits is not None and (bits.device != dev or bits.dtype != torch.int32
                              or bits.shape != (gtiles, nblocks)):
         raise ValueError("B2 cull bits must be int32 [gtiles, nblocks]")
-    smem = smem_bytes(tile, bsz, nmems)
+    smem = smem_bytes(tile, bsz, nmems, hybrid)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"B2 tile {tile} x block {bsz} x {nmems} members needs {smem} B "
@@ -276,34 +333,46 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
         *(t.data_ptr() for t in ins),
         None if cbits is None else cbits.data_ptr(),
         nrows, nmems, bsz, nblocks, tile, int(localize), int(vertical),
-        int(series), out_m.data_ptr(), out_p.data_ptr(),
+        int(series), int(hybrid), out_m.data_ptr(), out_p.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "B2 ensrf_fused launch")
-    launches += 1
+    if hybrid:
+        hybrid_launches += 1
+    else:
+        launches += 1
     return out_m, out_p
 
 
 def fused_apply(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                 localize: bool, vertical: bool, series: bool,
-                donate: bool = False):
+                hybrid: bool = False, donate: bool = False):
     """B2 dispatch: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if bp.is_cuda:
         return fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile,
-                                localize, vertical, series, donate)
+                                localize, vertical, series, hybrid, donate)
     if bp.device.type != "cpu":
         raise ValueError(f"B2 runs on CUDA or CPU, not {bp.device}")
     return fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile,
-                             localize, vertical, series)
+                             localize, vertical, series, hybrid)
 
 
 def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
             obs: ObsArrays, body_vert=None, localize: bool = True,
-            block_size: int = 128, cull: bool = True, max_radius_km=None):
+            block_size: int = 128, cull: bool = True, max_radius_km=None,
+            hybrid: bool = False, body_sigma=None, static_length=None):
     """Kernel operands for :func:`fused_apply`, as ``_fused_impl``
     :564-704 builds them: a dict of ``geom, y_b, ggt_b, tab_b, bits, tile,
-    series``."""
+    series``.  Hybrid mode (a hybrid ``tail``, ``body_sigma`` scalar or
+    per row, ``static_length`` km) passes the raw Gram matrix, three more
+    table rows (``sgain``, ``ssqrt``, ``1/static_length``), the sigma row
+    as a fifth geometry row, and culls at ``max(radius, static_length)``
+    so that no live static column is skipped."""
+    if hybrid and (body_sigma is None or static_length is None
+                   or tail.static_gain is None):
+        raise ValueError("B2h needs body_sigma, static_length and a "
+                         "hybrid-mode TailSolution")
     dtype = body_perts.dtype
     nrows, nmems = body_perts.shape
     nobs = tail.ye.shape[0]
@@ -323,30 +392,46 @@ def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
 
     y_b = ye.reshape(nblocks, bsz, nmems)
     gram = torch.bmm(y_b, y_b.transpose(1, 2))
-    # ggt[blk, j, i] = (y_i . y_j) g_i
-    ggt_b = (gram * sqrtc.reshape(nblocks, bsz)[:, :, None]).transpose(1, 2)
+    if hybrid:
+        # The corrections run against the stored V columns, which already
+        # carry g_j and the static term: the raw Gram matrix.
+        ggt_b = gram.transpose(1, 2)
+    else:
+        # ggt[blk, j, i] = (y_i . y_j) g_i
+        ggt_b = (gram * sqrtc.reshape(nblocks, bsz)[:, :, None]).transpose(
+            1, 2)
     zero = torch.zeros_like(radii)
     invrad = torch.where(torch.isinf(radii), zero, 1.0 / torch.abs(radii))
     invvrad = torch.where(torch.isinf(ovrad), zero, 1.0 / torch.abs(ovrad))
-    tab_b = torch.stack([gain, sqrtc, ob_xyz[:, 0], ob_xyz[:, 1],
-                         ob_xyz[:, 2], invrad, overt, invvrad])
-    tab_b = tab_b.reshape(len(TABLE_ROWS), nblocks, bsz).transpose(0, 1)
+    rows = [gain, sqrtc, ob_xyz[:, 0], ob_xyz[:, 1], ob_xyz[:, 2], invrad,
+            overt, invvrad]
+    if hybrid:
+        rows += [_pad(tail.static_gain.to(dtype), pad),
+                 _pad(tail.static_sqrt.to(dtype), pad),
+                 torch.full_like(gain, 1.0 / float(static_length))]
+    tab_b = torch.stack(rows).reshape(len(rows), nblocks, bsz).transpose(0, 1)
 
     body_xyz = latlon_to_unit(body_lat, body_lon).to(dtype)
     bvert = (torch.zeros(nrows, dtype=dtype, device=body_perts.device)
              if body_vert is None else body_vert.to(dtype))
-    geom = torch.stack([body_xyz[:, 0], body_xyz[:, 1], body_xyz[:, 2], bvert])
+    geo_rows = [body_xyz[:, 0], body_xyz[:, 1], body_xyz[:, 2], bvert]
+    if hybrid:
+        geo_rows.append(sigma_rows(body_sigma, bvert))
+    geom = torch.stack(geo_rows)
 
-    tile = pick_tile(bsz, nmems)
+    tile = pick_tile(bsz, nmems, hybrid)
     npanels = -(-bsz // PANEL)
     # An int32 holds 32 panel bits (block_size 256); larger blocks run
     # without culling, as in the JAX package.
     bits = None
     if cull and localize and npanels <= 32:
-        bits = cull_bits(body_xyz, ob_xyz_raw, obs.radii.to(dtype), obs.assim,
+        cull_radii = obs.radii.to(dtype)
+        if hybrid:
+            # The static column's support ends at 2 x static_length.
+            cull_radii = torch.clamp(cull_radii, min=float(static_length))
+        bits = cull_bits(body_xyz, ob_xyz_raw, cull_radii, obs.assim,
                          tile, nblocks, bsz)
-    series = (max_radius_km is not None
-              and float(max_radius_km) <= SERIES_MAX_RADIUS_KM)
+    series = series_form(max_radius_km, static_length if hybrid else None)
     return dict(geom=geom.contiguous(), y_b=y_b.contiguous(),
                 ggt_b=ggt_b.contiguous(), tab_b=tab_b.contiguous(),
                 bits=bits, tile=tile, series=series)
@@ -355,21 +440,25 @@ def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
 def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
                obs: ObsArrays, body_vert=None, localize: bool = True,
                block_size: int = 128, vertical: bool = False,
-               cull: bool = True, max_radius_km=None, donate: bool = False):
-    """Phase 2 through B2: apply the pre-solved obs sequence ``tail`` to
-    the state body.  Drop-in for ``ensrf_core.ensrf_blocked_body`` with
-    chordal geometry.  ``max_radius_km`` (host-known bound on the finite
-    radii) selects the series angle form when <= 5000 km.
-    ``donate=True`` lets the kernel update the caller's buffers in place,
-    where the JAX package donates them
+               cull: bool = True, max_radius_km=None, hybrid: bool = False,
+               body_sigma=None, static_length=None, donate: bool = False):
+    """Phase 2 through B2 (B2h with ``hybrid``): apply the pre-solved obs
+    sequence ``tail`` to the state body.  Drop-in for
+    ``ensrf_core.ensrf_blocked_body`` with chordal geometry, the static
+    column's included.  ``max_radius_km`` (host-known bound on the finite
+    radii) selects the series angle form when it and ``static_length``
+    are <= 5000 km.  ``donate=True`` lets the kernel update the caller's
+    buffers in place, where the JAX package donates them
     (``ensrf_blocked_body_pallas_fused_donating``)."""
     if tail.ye.shape[0] == 0:
         return body_mean, body_perts
     ops = prepare(body_perts, body_lat, body_lon, tail, obs,
                   body_vert=body_vert, localize=localize,
                   block_size=block_size, cull=cull,
-                  max_radius_km=max_radius_km)
+                  max_radius_km=max_radius_km, hybrid=hybrid,
+                  body_sigma=body_sigma, static_length=static_length)
     return fused_apply(body_mean.to(body_perts.dtype), body_perts,
                        ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
                        ops["bits"], ops["tile"], localize,
-                       localize and vertical, ops["series"], donate=donate)
+                       localize and vertical, ops["series"], hybrid=hybrid,
+                       donate=donate)

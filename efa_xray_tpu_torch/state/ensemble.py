@@ -6,9 +6,10 @@ order (var, time, y, x), members last), ``ensemble_mean`` :218 and
 ``ensemble_perts`` :223.  Selection
 (``sel``/``isel``), arithmetic, sharding and netCDF I/O are not ported yet.
 
-The data lives in ONE tensor ``[nvars, ntimes, ny, nx, nmems]`` on an
-explicit device; :class:`~efa_xray_tpu_torch.state.structure.StateStructure`
-holds the host metadata.
+The data lives in ONE tensor ``[nvars, ntimes, ny, nx, nmems]`` on one
+device, the card unless the caller asks for another;
+:class:`~efa_xray_tpu_torch.state.structure.StateStructure` holds the host
+metadata.
 """
 
 from __future__ import annotations
@@ -21,6 +22,18 @@ import torch
 from efa_xray_tpu_torch.state.structure import StateMeta, StateStructure
 
 _COORD_NAMES = ("validtime", "lat", "lon", "mem", "x", "y", "location")
+
+
+def default_device(device=None) -> torch.device:
+    """``device``, or the card when it is None.  Without a card a missing
+    ``device`` raises: the CPU is used only when the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 def _unwrap(v):
@@ -51,8 +64,8 @@ class EnsembleState:
         ``lat``, ``lon`` and optionally ``mem``; other entries are kept as
         extra coordinates.  ``dtype`` defaults to float32 (a string such
         as ``"float64"`` or a torch dtype).  ``device`` defaults to the
-        device of the first variable when it is a tensor, else the CPU;
-        nothing else picks a device.
+        card, for NumPy arrays and tensors alike; without a card it must
+        be given (``device="cpu"``).
         """
         times = _unwrap(coorddict["validtime"])
         lat = np.asarray(_unwrap(coorddict["lat"]))
@@ -96,8 +109,7 @@ class EnsembleState:
                 coords=extra)
         structure = StateStructure.build(names, times, lat, lon, nmems,
                                          meta=meta)
-        if device is None:
-            device = fields[0].device
+        device = default_device(device)
         dtype = _torch_dtype(dtype or "float32")
         data = torch.stack([f.to(device=device, dtype=dtype) for f in fields])
         if tuple(data.shape) != structure.shape:

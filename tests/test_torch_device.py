@@ -1,0 +1,75 @@
+"""The port's entry points place their tensors on the card unless the
+caller asks for another device; without a card and without
+``device="cpu"`` they raise rather than carry on quietly on the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+from efa_xray_tpu_torch import EnsembleState, interop
+from efa_xray_tpu_torch.ops import precision_probe
+from efa_xray_tpu_torch.state.ensemble import default_device
+
+
+def _fields():
+    rng = np.random.default_rng(0)
+    times = np.array([np.datetime64("2026-08-01T00")])
+    lon, lat = np.meshgrid(np.linspace(0, 20, 5), np.linspace(30, 40, 4))
+    data = {"T2m": rng.normal(280, 3, (1, 4, 5, 6))}
+    return data, {"validtime": times, "lat": lat, "lon": lon}
+
+
+def _obs_kw():
+    return dict(values=np.ones(3), errors=np.ones(3), lats=np.zeros(3),
+                lons=np.zeros(3), radii=np.full(3, 500.0),
+                assim=np.ones(3, bool))
+
+
+def _tail_kw():
+    z = np.zeros(3)
+    return dict(ye=np.zeros((3, 2)), gain_coef=z, sqrt_coef=z, tail_mean=z,
+                tail_perts=np.zeros((3, 2)), prior_mean=z, prior_var=z,
+                post_mean=z, post_var=z, assimilated=np.ones(3, bool))
+
+
+_ENTRY_POINTS = {
+    "from_vardict numpy": lambda **kw: EnsembleState.from_vardict(
+        *_fields(), **kw),
+    "from_vardict tensors": lambda **kw: EnsembleState.from_vardict(
+        {k: torch.from_numpy(v) for k, v in _fields()[0].items()},
+        _fields()[1], **kw),
+    "state_from_numpy": lambda **kw: interop.state_from_numpy(*_fields(),
+                                                              **kw),
+    "obs_arrays_from_numpy": lambda **kw: interop.obs_arrays_from_numpy(
+        **_obs_kw(), **kw),
+    "tail_solution_from_numpy": lambda **kw:
+        interop.tail_solution_from_numpy(**_tail_kw(), **kw),
+    "precision_probe.probe": lambda **kw: precision_probe.probe(
+        n=16, k=16, time_n=16, reps=1, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_without_a_card_no_device_raises(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_device_cpu_runs_on_the_cpu(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = _ENTRY_POINTS[name](device="cpu")
+    tensors = {
+        EnsembleState: lambda o: [o.data],
+        dict: lambda o: [],
+    }.get(type(out), lambda o: [t for t in o if isinstance(t, torch.Tensor)])
+    for t in tensors(out):
+        assert t.device.type == "cpu"
+
+
+def test_the_card_is_the_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device() == torch.device("cuda")
+    assert default_device("cpu") == torch.device("cpu")
+    assert default_device(torch.device("cuda", 1)) == torch.device("cuda", 1)

@@ -43,7 +43,7 @@ def _pair(ntimes=1, nobs=19, seed=5, nvars=1, all_assim=False):
     tstate = interop.state_from_numpy(
         {name: data[i] for i, name in enumerate(s.var_names)},
         {"validtime": s.times64(), "lat": s.lat, "lon": s.lon},
-        dtype="float64")
+        dtype="float64", device="cpu")
     tbatch = interop.obs_batch_from_numpy(
         {k: getattr(jbatch, k) for k in _BATCH_FIELDS})
     return jstate, jbatch, tstate, tbatch
@@ -109,8 +109,6 @@ def test_update_with_inflation_and_outlier_check_matches_jax():
 
 
 @pytest.mark.parametrize("cfg,missing", [
-    (dict(hybrid_alpha=0.5, static_b_sigma=1.0, static_b_length=500.0),
-     "hybrid"),
     (dict(rtpp_alpha=0.5), "RTPP"),
     (dict(obs_chunk=8), "obs-chunked"),
     (dict(obs_order="hilbert"), "A7"),
@@ -170,7 +168,8 @@ def test_interop_roundtrip():
     o = dict(values=jbatch.values, errors=jbatch.errors, lats=jbatch.lats,
              lons=jbatch.lons, radii=jbatch.localize_radius,
              assim=jbatch.assimilate_flags)
-    back = interop.obs_arrays_to_numpy(interop.obs_arrays_from_numpy(**o))
+    back = interop.obs_arrays_to_numpy(
+        interop.obs_arrays_from_numpy(**o, device="cpu"))
     for k, v in o.items():
         np.testing.assert_array_equal(back[k], v)
     assert back["verts"] is None
@@ -182,7 +181,7 @@ def test_interop_roundtrip():
                   post_mean=rng.normal(size=4), post_var=rng.random(4),
                   assimilated=rng.random(4) > 0.5)
     back = interop.tail_solution_to_numpy(
-        interop.tail_solution_from_numpy(**fields))
+        interop.tail_solution_from_numpy(**fields, device="cpu"))
     for k, v in fields.items():
         np.testing.assert_array_equal(back[k], v)
     assert tstate.data.dtype == torch.float64
@@ -197,7 +196,8 @@ def test_port_imports_without_jax():
             "import efa_xray_tpu_torch, efa_xray_tpu_torch.interop, "
             "efa_xray_tpu_torch.ops.tail_solve, "
             "efa_xray_tpu_torch.ops.ensrf_fused, "
-            "efa_xray_tpu_torch.ops.ensrf_grid; "
+            "efa_xray_tpu_torch.ops.ensrf_grid, "
+            "efa_xray_tpu_torch.ops.precision_probe; "
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and m.split('.')[0] in ('jax', 'efa_xray_tpu')]; "
             "assert not bad, bad")

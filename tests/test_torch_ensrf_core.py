@@ -60,7 +60,7 @@ def _run(pkg, fn, vect, ye, row_lat, row_lon, obs, body_vert, **kw):
         out = getattr(jcore, fn)(*args, o, body_vert=bv, **kw)
     else:
         args = [torch.tensor(a) for a in arrays]
-        o = interop.obs_arrays_from_numpy(**obs)
+        o = interop.obs_arrays_from_numpy(**obs, device="cpu")
         bv = None if body_vert is None else torch.tensor(body_vert)
         out = getattr(tcore, fn)(*args, o, body_vert=bv, **kw)
     bm, bp, tm, tp, diags = out
@@ -102,7 +102,8 @@ def _tails(obs, ye, **kw):
         **{k.replace("kernels", "pallas_apply"): v for k, v in kw.items()},
         **(dict(interpret=True) if kw.get("kernels") else {}))
     t = tcore.tail_scan_blocked(torch.tensor(tm), torch.tensor(tp),
-                                interop.obs_arrays_from_numpy(**obs), **kw)
+                                interop.obs_arrays_from_numpy(
+                                    **obs, device="cpu"), **kw)
     return j, t
 
 
@@ -165,7 +166,7 @@ def test_tail_scan_blocked_equals_tail_scan_any_panel(kw):
                                                                  False))
     tm = torch.tensor(ye.mean(1))
     tp = torch.tensor(ye - ye.mean(1, keepdims=True))
-    o = interop.obs_arrays_from_numpy(**obs)
+    o = interop.obs_arrays_from_numpy(**obs, device="cpu")
     a = tcore.tail_scan(tm, tp, o, **kw)
     for panel in (4, 8, 23, 40):
         b = tcore.tail_scan_blocked(tm, tp, o, panel=panel, **kw)

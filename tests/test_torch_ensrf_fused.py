@@ -60,7 +60,7 @@ def _tail(ye, obs, localize):
     fields = {k: np.asarray(v) for k, v in jt._asdict().items()
               if k != "diags" and v is not None}
     fields.update({k: np.asarray(v) for k, v in jt.diags._asdict().items()})
-    return jt, interop.tail_solution_from_numpy(**fields)
+    return jt, interop.tail_solution_from_numpy(**fields, device="cpu")
 
 
 @pytest.mark.parametrize("localize,cull,max_radius,vertical", [
@@ -90,7 +90,8 @@ def test_b2_plain_matches_pallas_interpret(localize, cull, max_radius,
         vertical=vertical, cull=cull, max_radius_km=max_radius)
     got = ensrf_fused.fused_body(
         torch.tensor(bm), torch.tensor(bp), torch.tensor(lat),
-        torch.tensor(lon), tt, interop.obs_arrays_from_numpy(**obs),
+        torch.tensor(lon), tt,
+        interop.obs_arrays_from_numpy(**obs, device="cpu"),
         body_vert=None if body_vert is None else torch.tensor(body_vert),
         localize=localize, block_size=8, vertical=vertical, cull=cull,
         max_radius_km=max_radius)
@@ -170,7 +171,8 @@ def test_b2_on_gridded_state_against_jax_b3(max_radius, atol):
         tile=48, interpret=True, ngrid=s.ngrid)
     got = ensrf_fused.fused_body(
         torch.tensor(bm), torch.tensor(bp), torch.tensor(row_lat),
-        torch.tensor(row_lon), tt, interop.obs_arrays_from_numpy(**ob),
+        torch.tensor(row_lon), tt,
+        interop.obs_arrays_from_numpy(**ob, device="cpu"),
         localize=True, block_size=3, max_radius_km=max_radius)
     for a, b in zip(want, got):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,

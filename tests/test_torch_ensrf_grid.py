@@ -60,7 +60,7 @@ def _tail(ye, obs):
     fields = {k: np.asarray(v) for k, v in jt._asdict().items()
               if k != "diags" and v is not None}
     fields.update({k: np.asarray(v) for k, v in jt.diags._asdict().items()})
-    return jt, interop.tail_solution_from_numpy(**fields)
+    return jt, interop.tail_solution_from_numpy(**fields, device="cpu")
 
 
 def _t(x):
@@ -98,7 +98,8 @@ def test_b3_plain_matches_pallas_interpret(localize, vertical, group_factor):
         group_factor=None if gf is None else jnp.asarray(gf))
     got = ensrf_grid.grid_body(
         _t(bm), _t(bp), _t(lat), _t(lon), tt,
-        interop.obs_arrays_from_numpy(**obs), ngrid=ngrid, body_vert=_t(bv),
+        interop.obs_arrays_from_numpy(**obs, device="cpu"), ngrid=ngrid,
+        body_vert=_t(bv),
         localize=localize, block_size=4, vertical=vertical,
         group_factor=_t(gf))
     _assert_pair(got, want)
@@ -113,7 +114,7 @@ def test_b3_weight_chunks_equal_one_pass(monkeypatch):
     bp = prior - bm[:, None]
     _, tt = _tail(ye, obs)
     args = (_t(bm), _t(bp), _t(lat), _t(lon), tt,
-            interop.obs_arrays_from_numpy(**obs))
+            interop.obs_arrays_from_numpy(**obs, device="cpu"))
     kw = dict(ngrid=ngrid, body_vert=_t(bv), block_size=4, vertical=True)
     whole = ensrf_grid.grid_body(*args, **kw)
     calls = []
@@ -195,7 +196,8 @@ def test_b4_body_plain_matches_pallas_interpret(nvt, vertical, fast_geometry,
         tile=16, interpret=True, **common)
     got = ensrf_grid.blocked_body(
         _t(bm), _t(bp), _t(lat), _t(lon), tt,
-        interop.obs_arrays_from_numpy(**obs), body_vert=_t(bv), **common)
+        interop.obs_arrays_from_numpy(**obs, device="cpu"), body_vert=_t(bv),
+        **common)
     _assert_pair(got, want)
     assert ensrf_grid.b4_launches == 0
 

@@ -80,7 +80,8 @@ def _core_run(pkg, fn, setup, **kw):
     else:
         t = torch.tensor
         out = getattr(tcore, fn)(
-            *map(t, arrays), interop.obs_arrays_from_numpy(**obs),
+            *map(t, arrays),
+            interop.obs_arrays_from_numpy(**obs, device="cpu"),
             body_vert=None if bv is None else t(bv), varloc=t(fac),
             row_var=t(rvar), ob_var=t(ovar), **kw)
     bm, bp, tm, tp, diags = out
@@ -139,7 +140,8 @@ def test_tail_varloc_matches_jax(panel):
             varloc=jnp.asarray(fac), ob_var=jnp.asarray(ovar.astype(np.int32)),
             **jkw)
     t = tfn(torch.tensor(tm), torch.tensor(tp),
-            interop.obs_arrays_from_numpy(**obs), varloc=torch.tensor(fac),
+            interop.obs_arrays_from_numpy(**obs, device="cpu"),
+            varloc=torch.tensor(fac),
             ob_var=torch.tensor(ovar), **jkw)
     names = ("ye", "gain_coef", "sqrt_coef", "tail_mean", "tail_perts")
     _assert_same([getattr(t, n).numpy() for n in names]
@@ -153,7 +155,8 @@ def test_kernel_tail_refuses_varloc():
     with pytest.raises(ValueError, match="variable localization"):
         tcore.tail_scan_blocked(
             torch.tensor(ye.mean(1)), torch.tensor(ye),
-            interop.obs_arrays_from_numpy(**obs), fast_geometry=True,
+            interop.obs_arrays_from_numpy(**obs, device="cpu"),
+            fast_geometry=True,
             panel=4, kernels=True, varloc=torch.tensor(fac),
             ob_var=torch.tensor(ovar))
 
@@ -358,7 +361,7 @@ def test_flat_demo_state_default_config_matches_jax_b4():
     tstate = interop.state_from_numpy(
         {n: data[i] for i, n in enumerate(s.var_names)},
         {"validtime": s.times64(), "lat": s.lat, "lon": s.lon},
-        dtype="float64")
+        dtype="float64", device="cpu")
     tbatch = interop.obs_batch_from_numpy(
         {k: getattr(jbatch, k) for k in _BATCH_FIELDS})
     kw = dict(localization="GC", dtype="float64", block_size=4)
