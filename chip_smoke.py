@@ -5,6 +5,8 @@ Usage, from the root of a checkout::
 
     python3 chip_smoke.py             # phases 0-12
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
+    python3 chip_smoke.py --steps     # phases 0-1, then B2 with parts of its
+                                      # design switched off
 
 Phases, each printing one line of results:
 
@@ -13,7 +15,10 @@ Phases, each printing one line of results:
 1. build the CUDA kernels from ``efa_xray_tpu_torch/csrc``;
 2. B1 (tail panel solve) against its plain-torch version at 512 x 80;
 3. B2 (fused body) against its plain version at 262,144 rows x 80 x 2048
-   obs: cull on and off, both angle forms, an odd row count;
+   obs: cull on and off, both angle forms, an odd row count; then at
+   20,001 rows x 300 obs over the edges of its tiling (30, 50 and 80
+   members, blocks of 128, 100 and 50 obs, one alive panel per block, cull
+   off, unlocalized, vertical, the arccos form, in place);
 4. the public API: ``EnSRF(...).update()`` on a 1024 x 1024 global grid x
    80 members with 10,000 obs, through both kernels (launch counts), held
    against the plain blocked update on the same tensors;
@@ -35,14 +40,16 @@ Phases, each printing one line of results:
     at phase 3's shape with ``hybrid_alpha`` 0.5 and a per-row sigma: (a)
     ``static_length`` 1000 km under 2000 km radii (and an odd row count),
     (b) 3000 km, where the widened cull is live, (c) unlocalized, (d)
-    vertical localization;
+    vertical localization; then phase 3's edge cases in hybrid mode;
 11. the hybrid path through the public API: phase 4's workload and config
     3 (80 level variables) with ``fast_geometry``, ``hybrid_alpha`` 0.5, a
     per-row ``static_b_sigma`` and ``static_b_length`` 1000 km, through B2h
     and nothing else, held against the plain blocked hybrid update;
 12. P, the precision probe: ``probe()`` (each mode against a float64
-    oracle), each mode's kernel against its plain version, and
-    ``torch.matmul`` timed beside it.
+    oracle), each mode's kernel against its plain version at 512^2, [528,
+    144] @ [144, 272] and 1024^2, the tf32 mode against the product of
+    inputs rounded to nearest, and ``torch.matmul`` timed beside each mode
+    at 1024^3 and 4096^3.
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
@@ -52,11 +59,19 @@ same work and, for P, the library call's) and, last, the device line.
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
 ``torch.profiler`` (about 25 minutes: the profiler slows the plain tails'
-small launches ~2.5x and then walks millions of events): wall and device-busy time, the busy share,
-the device ops that take the most time, and the share of the headline's
-(row tile, obs block) pairs and 8-ob panels that the cull keeps alive.  Any
-failure raises and exits non-zero; without a GPU the script exits non-zero
-before doing anything.  It never imports JAX.
+small launches ~2.5x and then walks millions of events): wall and
+device-busy time, the busy share, the device ops that take the most time,
+and the share of the headline's (row tile, obs block) pairs and 8-ob
+panels that the cull keeps alive.
+
+``--steps`` replaces phases 2-12 with B2 timed on phase 3's workload and
+on the headline body with parts of its design switched off (dead panels
+solved instead of skipped, a tile of 64 rows with one or two Y buffers
+instead of 32 rows with two CTAs per SM), each variant held against the
+kernel's own result, and with P timed at each of its tile choices.
+
+Any failure raises and exits non-zero; without a GPU the script exits
+non-zero before doing anything.  It never imports JAX.
 """
 
 from __future__ import annotations
@@ -102,8 +117,10 @@ def compare(name: str, got, want) -> float:
     return float(err.max())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+def cuda_ms(fn, reps: int, inner: int = 1) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events;
+    each run is ``inner`` calls back to back (for calls so short that one
+    alone would time the host's launch path)."""
     import torch
 
     times = []
@@ -111,10 +128,11 @@ def cuda_ms(fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -298,15 +316,102 @@ def _scattered(n, nobs, seed, dev):
     return t(lat), t(lon), t(olat[oo]), t(olon[oo]), rng
 
 
-def phase3():
-    """B2 against its plain version at 262,144 rows x 80 x 2048 obs."""
+def _b2_edge_cases(hybrid: bool):
+    """B2 (B2h with ``hybrid``) against its plain version at small shapes
+    chosen for the edges of the kernel's tiling: 20,001 rows (a ragged last
+    tile), 300 obs (a padded last block), ensembles of 30, 50 and 80, block
+    sizes 128, 100 and 50 (a last panel narrower than 8 obs, copies of 4
+    bytes), cull words with one alive panel, cull off, unlocalized,
+    vertical localization, the arccos form, and an in-place update.
+    Returns ``(max abs err, labels)``."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
     from efa_xray_tpu_torch.ops import ensrf_fused
 
     dev = torch.device("cuda")
-    f32 = torch.float32
+    n, nobs = 20_001, 300
+    lat, lon, olat, olon, _ = _scattered(n, nobs, 31 + hybrid, dev)
+    gen = torch.Generator(device=dev).manual_seed(32 + hybrid)
+    rnd = lambda *shape: torch.rand(*shape, generator=gen, device=dev)
+    bm = 280.0 + 0.5 * torch.randn(n, generator=gen, device=dev)
+    body_sigma = 2.0 + 2.0 * rnd(n)
+    body_vert = 100.0 + 900.0 * rnd(n)
+    obs = core.ObsArrays(
+        values=280.0 + torch.randn(nobs, generator=gen, device=dev),
+        errors=torch.ones(nobs, device=dev), lats=olat, lons=olon,
+        radii=torch.full((nobs,), 2000.0, device=dev),
+        assim=rnd(nobs) > 0.1, verts=100.0 + 900.0 * rnd(nobs),
+        vert_radii=torch.full((nobs,), 300.0, device=dev))
+    tail_sigma = 2.0 + 2.0 * rnd(nobs)
+    slen = 1000.0
+    state, tails = {}, {}
+    for m in (30, 50, 80):
+        state[m] = 5.0 * torch.randn(n, m, generator=gen, device=dev)
+        tp0 = 5.0 * torch.randn(nobs, m, generator=gen, device=dev)
+        tails[m] = core.tail_scan_blocked(
+            tp0.mean(1) + 280.0, tp0 - tp0.mean(1, keepdim=True), obs,
+            localize=True, fast_geometry=True, panel=512,
+            **(dict(hybrid_alpha=0.5, tail_sigma=tail_sigma,
+                    static_length=slen) if hybrid else {}))
+    worst, labels = 0.0, []
+    for label, m, bsz, localize, vertical, radius, cull, one, donate in (
+            ("30 members", 30, 128, True, False, 2000.0, True, False, False),
+            ("50 members", 50, 128, True, False, 2000.0, True, False, False),
+            ("80 members, blocks of 100", 80, 100, True, False, 2000.0, True,
+             False, False),
+            ("30 members, blocks of 50", 30, 50, True, False, 2000.0, True,
+             False, False),
+            ("one alive panel per block", 80, 128, True, False, 2000.0, True,
+             True, False),
+            ("cull off", 80, 128, True, False, 2000.0, False, False, False),
+            ("unlocalized", 80, 128, False, False, None, False, False, False),
+            ("vertical", 80, 128, True, True, 2000.0, True, False, False),
+            ("arccos form", 80, 128, True, False, 6000.0, True, False, False),
+            ("in place", 80, 128, True, False, 2000.0, True, False, True)):
+        o = obs if radius is None else obs._replace(
+            radii=torch.full((nobs,), radius, device=dev))
+        ops = ensrf_fused.prepare(
+            state[m], lat, lon, tails[m], o,
+            body_vert=body_vert if vertical else None, localize=localize,
+            block_size=bsz, cull=cull, max_radius_km=radius, hybrid=hybrid,
+            body_sigma=body_sigma if hybrid else None,
+            static_length=slen if hybrid else None)
+        bits = ops["bits"]
+        if one:
+            tiles, blocks = bits.shape
+            npanels = -(-bsz // ensrf_fused.PANEL)
+            q = (torch.arange(tiles, device=dev)[:, None]
+                 + torch.arange(blocks, device=dev)[None, :]) % npanels
+            bits = (torch.ones_like(q) << q).to(torch.int32)
+        args = (ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"], bits,
+                ops["tile"], localize, vertical, ops["series"], hybrid)
+        want = ensrf_fused.fused_apply_plain(bm, state[m], *args)
+        gm, gp = (bm.clone(), state[m].clone()) if donate else (bm, state[m])
+        got = ensrf_fused.fused_apply(gm, gp, *args, donate=donate)
+        torch.cuda.synchronize()
+        name = f"{'B2h' if hybrid else 'B2'} edge case {label}"
+        if donate:
+            check(got[0].data_ptr() == gm.data_ptr()
+                  and got[1].data_ptr() == gp.data_ptr(),
+                  f"{name}: not updated in place")
+        check(float((want[1] - state[m]).abs().max()) > 1e-2,
+              f"{name}: the plain version did not move the state")
+        worst = max(worst, compare(f"{name} mean", got[0], want[0]),
+                    compare(f"{name} perts", got[1], want[1]))
+        labels.append(label)
+    return worst, labels
+
+
+def _b2_workload():
+    """Phase 3's workload on the card: 262,144 Hilbert-ordered rows x 80
+    members, 2048 obs at 2000 km, and their pre-solved sequence from the
+    B1/B2 tail.  Returns a dict of tensors."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+
+    dev = torch.device("cuda")
     n, m, nobs = 262_144, 80, 2048
     lat, lon, olat, olon, _ = _scattered(n, nobs, 21, dev)
     gen = torch.Generator(device=dev).manual_seed(22)
@@ -323,6 +428,21 @@ def phase3():
     tail = core.tail_scan_blocked(tm, tp, obs, localize=True,
                                   fast_geometry=True, panel=512, kernels=True,
                                   max_radius_km=2000.0)
+    return dict(n=n, m=m, nobs=nobs, lat=lat, lon=lon, bm=bm, bp=bp, obs=obs,
+                tail=tail)
+
+
+def phase3():
+    """B2 against its plain version at 262,144 rows x 80 x 2048 obs."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    dev = torch.device("cuda")
+    w = _b2_workload()
+    n, m, nobs = w["n"], w["m"], w["nobs"]
+    lat, lon, bm, bp, obs, tail = (w[k] for k in ("lat", "lon", "bm", "bp",
+                                                  "obs", "tail"))
     results = []
     for rows, cull, radius in ((n, True, 2000.0), (n, False, 2000.0),
                                (n, True, 6000.0), (n - 1, True, 2000.0)):
@@ -355,8 +475,12 @@ def phase3():
         f"{r['alive_tile_blocks']:.3f}): err {r['max_abs_err']:.3e} kernel "
         f"{r['ms']:.2f} ms plain {r['plain_ms']:.2f} ms bound "
         f"{r['bound_ms']:.3f} ms ({r['bound_by']})" for r in results))
+    edge_err, edge_labels = _b2_edge_cases(hybrid=False)
+    log(f"phase 3: B2 matches plain at 20,001 rows x 300 obs (max abs err "
+        f"{edge_err:.3e}): " + ", ".join(edge_labels))
     head = results[0]
-    return dict(max_abs_err=max(r["max_abs_err"] for r in results),
+    return dict(max_abs_err=max([edge_err] + [r["max_abs_err"]
+                                              for r in results]),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"])
 
@@ -473,9 +597,10 @@ def _only(kernel: str, n=None):
 
 
 def _timed_update(make_filter):
-    """One ``make_filter().update()``: wall seconds, and the seconds spent
-    in the tail (``tail_scan_blocked``) and in the body (``fused_body``,
-    ``grid_body`` or ``blocked_body``), each closed by a synchronize."""
+    """One ``make_filter().update()``: its result, wall seconds, and the
+    seconds spent in the tail (``tail_scan_blocked``) and in the body
+    (``fused_body``, ``grid_body`` or ``blocked_body``), each closed by a
+    synchronize."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf as ensrf_mod
@@ -502,13 +627,13 @@ def _timed_update(make_filter):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        make_filter().update()
+        out = make_filter().update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         for mod, name, fn, _ in saved:
             setattr(mod, name, fn)
-    return wall, spent["tail"], spent["body"]
+    return out, wall, spent["tail"], spent["body"]
 
 
 def _api_state(dev):
@@ -647,11 +772,20 @@ def phase5():
     err = max(compare("headline sample mean", bm2[sample], pm),
               compare("headline sample perts", bp2[sample], pp))
     check(bool(torch.isfinite(bm2).all()), "headline posterior not finite")
+    del ops, pm, pp
+    ops = ensrf_fused.prepare(w["bp"], w["lat"], w["lon"], tail, w["obs"],
+                              block_size=128, max_radius_km=w["radius"])
+    body_bound = bound(
+        b2_flop(ops, nstate, w["bp"].shape[1], True, False),
+        nbytes(w["bm"], w["bp"], ops["geom"], ops["y_b"], ops["ggt_b"],
+               ops["tab_b"], ops["bits"], bm2, bp2))
     log(f"phase 5: 1e7 x 80 x 10k obs at 2000 km: update {sec:.4f} s "
         f"(runs {', '.join(f'{r:.4f}' for r in runs)} s; tail B1+B2 "
         f"{', '.join(f'{t:.4f}' for t in tails)} s; body B2 "
         f"{', '.join(f'{b:.4f}' for b in bodies)} s), "
-        f"{nobs * nstate / sec:.4e} obs*points/s; setup {setup:.1f} s; "
+        f"{nobs * nstate / sec:.4e} obs*points/s; the body launch's bound "
+        f"{body_bound['bound_ms']:.1f} ms ({body_bound['bound_by']}) at tile "
+        f"{ops['tile']}; setup {setup:.1f} s; "
         f"20k-row sample vs plain body max abs err {err:.3e}")
     return dict(seconds=sec)
 
@@ -882,12 +1016,11 @@ def _config3_runs(names):
 
 
 def _api_phase(label, state, batch, cfg, route, expect):
-    """Drive ``EnSRF.update()`` on the card along ``route``, check the
-    launch counts (:func:`_counts`) with ``expect``, hold the result
-    against the plain blocked update, and time a warm update with its
-    tail/body split.  Returns a dict of the numbers."""
-    import torch
-
+    """Drive ``EnSRF.update()`` once on the card along ``route``, timed
+    with its tail/body split (the kernels are built and the device is warm
+    from the phases before), check the launch counts (:func:`_counts`)
+    with ``expect`` and hold the result against the plain blocked update.
+    Returns a dict of the numbers."""
     from efa_xray_tpu_torch import EnSRF
 
     filt = EnSRF(state, batch, config=cfg, verbose=False)
@@ -895,15 +1028,11 @@ def _api_phase(label, state, batch, cfg, route, expect):
           f"{label}: routed to {filt._route(state.structure.nstate)}, not "
           f"{route}")
     _reset_counts()
-    post, obs = filt.update()
-    torch.cuda.synchronize()
+    (post, obs), wall, tail_s, body_s = _timed_update(lambda: filt)
     counts = _counts()
     check(expect(counts), f"{label}: launches {counts}")
     mean_err, incr_rms, inn_prior, inn_post = _check_api(
         label, state, batch, cfg, post, obs)
-    del post, obs, filt
-    wall, tail_s, body_s = _timed_update(
-        lambda: EnSRF(state, batch, config=cfg, verbose=False))
     return dict(counts=counts, mean_err=mean_err, incr_rms=incr_rms,
                 inn=(inn_prior, inn_post), wall=wall, tail=tail_s,
                 body=body_s)
@@ -914,7 +1043,7 @@ def _api_line(r):
     return (f"launches {launched}; posterior mean vs "
             f"plain blocked: max abs diff {r['mean_err']:.3e} (increment RMS "
             f"{r['incr_rms']:.3e}); mean |innov| {r['inn'][0]:.4f} -> "
-            f"{r['inn'][1]:.4f}; warm update wall {r['wall']:.3f} s (tail "
+            f"{r['inn'][1]:.4f}; update wall {r['wall']:.3f} s (tail "
             f"{r['tail']:.3f} s, body {r['body']:.3f} s)")
 
 
@@ -1021,8 +1150,12 @@ def phase10():
             f"{r['alive_tile_blocks']:.3f}): err {r['max_abs_err']:.3e} "
             f"kernel {r['ms']:.2f} ms plain {r['plain_ms']:.2f} ms bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']})" for r in results))
+    edge_err, edge_labels = _b2_edge_cases(hybrid=True)
+    log(f"phase 10: B2h matches plain at 20,001 rows x 300 obs (max abs err "
+        f"{edge_err:.3e}): " + ", ".join(edge_labels))
     head = results[0]
-    return dict(max_abs_err=max(r["max_abs_err"] for r in results),
+    return dict(max_abs_err=max([edge_err] + [r["max_abs_err"]
+                                              for r in results]),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"])
 
@@ -1061,6 +1194,10 @@ def phase11():
     return dict(b2h=r["counts"]["B2h"])
 
 
+# P's products are timed as runs of this many calls back to back.
+P_INNER = 20
+
+
 def _library_mm_ms(a, b, mode: str) -> float:
     """Milliseconds of the ``torch.matmul`` that computes what P's mode
     ``mode`` does: float32 with TF32 off ("ieee") or on ("tf32"), or on
@@ -1073,15 +1210,17 @@ def _library_mm_ms(a, b, mode: str) -> float:
         torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
         if mode == "bf16":
             return cuda_ms(lambda: torch.matmul(a.bfloat16(), b.bfloat16()),
-                           10)
-        return cuda_ms(lambda: torch.matmul(a, b), 10)
+                           5, P_INNER)
+        return cuda_ms(lambda: torch.matmul(a, b), 5, P_INNER)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def phase12():
-    """P: ``probe()`` on the card, each mode against its plain version,
-    and the library product beside it."""
+    """P: ``probe()`` on the card, each mode against its plain version at
+    512^2, at a non-square size and at 1024^2, the tf32 mode against the
+    product of inputs rounded to nearest (and not of truncated ones), and
+    the library product beside it at 1024^3 and 4096^3."""
     import torch
 
     from efa_xray_tpu_torch.ops import precision_probe as pp
@@ -1100,29 +1239,56 @@ def phase12():
           "bf16 as the roundings predict")
     f32 = torch.float32
     gen = torch.Generator(device=dev).manual_seed(121)
-    out = {}
-    for size in (512, 1024):
-        a = torch.randn(size, size, generator=gen, device=dev, dtype=f32)
-        b = torch.randn(size, size, generator=gen, device=dev, dtype=f32)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=dev,
+                                      dtype=f32)
+    peak = {"ieee": "fp32", "tf32": "tf32", "bf16": "bf16"}
+    out = {mode: dict(max_abs_err=0.0) for mode in pp.MODES}
+    # A wrong swizzle or transpose cannot cancel out at a non-square size.
+    for n, k, m in ((512, 512, 512), (528, 144, 272), (1024, 1024, 1024)):
+        a, b = rand(n, k), rand(k, m)
         for mode in pp.MODES:
-            if size == 512:
-                out[mode] = dict(max_abs_err=compare(
-                    f"P {mode}", pp.mm(a, b, mode), pp.mm_plain(a, b, mode)))
-                continue
-            out[mode].update(
-                ms=cuda_ms(lambda: pp.mm(a, b, mode), 10),
-                plain_ms=cuda_ms(lambda: pp.mm_plain(a, b, mode), 10),
-                library_ms=_library_mm_ms(a, b, mode),
-                launches=launched[mode],
-                **bound(2.0 * size ** 3, nbytes(a, b) + size * size * 4,
-                        {"ieee": "fp32", "tf32": "tf32",
-                         "bf16": "bf16"}[mode]))
+            got = pp.mm(a, b, mode)
+            out[mode]["max_abs_err"] = max(
+                out[mode]["max_abs_err"],
+                compare(f"P {mode} [{n}, {k}] @ [{k}, {m}]", got,
+                        pp.mm_plain(a, b, mode)))
+            if mode == "tf32":
+                # cvt.rna, not the truncation wgmma applies to raw fp32
+                # bits: the kernel sits nearer the product of inputs
+                # rounded to nearest than that of truncated inputs.
+                chop = lambda x: (x.view(torch.int32) & ~0x1FFF).view(f32)
+                near = float((got - pp.round_tf32(a) @ pp.round_tf32(b))
+                             .abs().max())
+                far = float((got - chop(a) @ chop(b)).abs().max())
+                check(near < 0.1 * far,
+                      f"phase 12: tf32 at [{n}, {k}] @ [{k}, {m}] is "
+                      f"{near:.3e} from the rna-rounded product and "
+                      f"{far:.3e} from the truncated one")
+    for size in (1024, 4096):
+        a, b = rand(size, size), rand(size, size)
+        for mode in pp.MODES:
+            pp.mm(a, b, mode)  # warm-up
+            t = dict(ms=cuda_ms(lambda: pp.mm(a, b, mode), 5, P_INNER),
+                     plain_ms=cuda_ms(lambda: pp.mm_plain(a, b, mode), 5,
+                                      P_INNER),
+                     library_ms=_library_mm_ms(a, b, mode),
+                     **bound(2.0 * size ** 3, nbytes(a, b) + size * size * 4,
+                             peak[mode]))
+            if size == 1024:
+                out[mode].update(launches=launched[mode], **t)
+            else:
+                out[mode].update({f"{key}_{size}": v for key, v in t.items()})
+        del a, b
     log(f"phase 12: P probe on {res['device']}: " + "; ".join(
         f"{mode}: rms err / scale {res[f'{mode}_rms_err_over_scale']:.3e}, "
-        f"kernel vs plain max abs err {o['max_abs_err']:.3e}, 1024^3 kernel "
+        f"kernel vs plain max abs err {o['max_abs_err']:.3e} (512^2, "
+        f"[528, 144] @ [144, 272], 1024^2), 1024^3 kernel "
         f"{o['ms']:.4f} ms plain {o['plain_ms']:.4f} ms torch.matmul "
         f"{o['library_ms']:.4f} ms bound {o['bound_ms']:.4f} ms "
-        f"({o['bound_by']})" for mode, o in out.items())
+        f"({o['bound_by']}), 4096^3 kernel {o['ms_4096']:.4f} ms plain "
+        f"{o['plain_ms_4096']:.4f} ms torch.matmul "
+        f"{o['library_ms_4096']:.4f} ms bound {o['bound_ms_4096']:.4f} ms "
+        f"({o['bound_by_4096']})" for mode, o in out.items())
         + "; bitwise equal: " + ", ".join(
             f"{k[:-len('_bitwise')]} {v}" for k, v in res.items()
             if k.endswith("_bitwise")))
@@ -1208,30 +1374,129 @@ def profile_phase():
                                 verbose=False).update())
 
 
+def _b2_variants(label, bm, bp, lat, lon, tail, obs, radius, reps):
+    """Times B2 on one workload with parts of its design switched off or
+    chosen otherwise; each variant must give the kernel's own result.
+    ``no skip``: every panel of an alive block is marked alive (dead panels
+    then solve to exact zeros instead of being skipped); ``tile 64``: one
+    CTA of 64 rows per SM, with one Y buffer (the next block's Y is fetched
+    after this block and waited for) or two (it is prefetched)."""
+    import torch
+
+    from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    ops = ensrf_fused.prepare(bp, lat, lon, tail, obs, block_size=128,
+                              cull=True, max_radius_km=radius)
+    nblocks, bsz, nmems = ops["y_b"].shape
+    npanels = -(-bsz // ensrf_fused.PANEL)
+    check(ops["tile"] == 32 and ensrf_fused.pick_buffers(32, bsz, nmems) == 1,
+          f"steps {label}: the kernel's tile is {ops['tile']}")
+    bits = {32: ops["bits"], 64: ensrf_fused.cull_bits(
+        latlon_to_unit(lat, lon).to(bp.dtype),
+        latlon_to_unit(obs.lats, obs.lons).to(bp.dtype), obs.radii, obs.assim,
+        64, nblocks, bsz)}
+    full = {t: torch.where(b != 0, torch.full_like(b, (1 << npanels) - 1),
+                           torch.zeros_like(b)) for t, b in bits.items()}
+
+    def run(b, tile, ybufs):
+        return ensrf_fused.fused_apply_cuda(
+            bm, bp, ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"], b,
+            tile, True, False, ops["series"], ybufs=ybufs)
+
+    want = run(bits[32], 32, 1)
+    out = []
+    for name, b, tile, ybufs in (
+            ("tile 64, no skip, 1 Y buffer", full[64], 64, 1),
+            ("tile 64, no skip, 2 Y buffers", full[64], 64, 2),
+            ("tile 64, skip, 1 Y buffer", bits[64], 64, 1),
+            ("tile 64, skip, 2 Y buffers", bits[64], 64, 2),
+            ("tile 32 (2 CTAs per SM), no skip, 1 Y buffer", full[32], 32, 1),
+            ("tile 32, skip, 1 Y buffer (the kernel)", bits[32], 32, 1)):
+        got = run(b, tile, ybufs)
+        torch.cuda.synchronize()
+        compare(f"steps {label} {name} mean", got[0], want[0])
+        compare(f"steps {label} {name} perts", got[1], want[1])
+        del got
+        out.append((name, cuda_ms(lambda: run(b, tile, ybufs), reps)))
+    shares = []
+    for t, b in bits.items():
+        panels = sum(int(((b.to(torch.int64) >> q) & 1).sum())
+                     for q in range(npanels))
+        shares.append(f"tile {t}: alive tile-blocks "
+                      f"{float((b != 0).double().mean()):.4f}, alive panels "
+                      f"{panels / (b.numel() * npanels):.4f}")
+    log(f"steps {label}: " + "; ".join(shares) + "; "
+        + "; ".join(f"{name}: {ms:.2f} ms" for name, ms in out))
+
+
+def _p_variants():
+    """Times every tile choice of P's kernels at 1024^3 and 4096^3 (the
+    kernel picks by how many tiles the sizes give the card's 132 SMs)."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import precision_probe as pp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(122)
+    for size in (1024, 4096):
+        a = torch.randn(size, size, generator=gen, device=dev)
+        b = torch.randn(size, size, generator=gen, device=dev)
+        parts = []
+        for mode in pp.MODES:
+            want = pp.mm_cuda(a, b, mode)  # held against plain in phase 12
+            for variant in pp.VARIANTS[mode]:
+                compare(f"steps P {mode} {variant} {size}",
+                        pp.mm_cuda(a, b, mode, variant), want)
+                ms = cuda_ms(lambda: pp.mm_cuda(a, b, mode, variant), 5,
+                             P_INNER)
+                parts.append(f"{mode} {variant} {ms:.4f} ms")
+        log(f"steps P tiles at {size}^3: " + "; ".join(parts))
+
+
+def steps_phase():
+    """What the parts of B2's design buy, on phase 3's workload and on the
+    headline body; and P's tile choices."""
+    _p_variants()
+    w = _b2_workload()
+    _b2_variants("262,144 x 80 x 2048 obs", w["bm"], w["bp"], w["lat"],
+                 w["lon"], w["tail"], w["obs"], 2000.0, 5)
+    del w
+    tail_phase, _, w = _headline()
+    _b2_variants("headline body, 1e7 x 80 x 10k obs", w["bm"], w["bp"],
+                 w["lat"], w["lon"], tail_phase(), w["obs"], w["radius"], 2)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
     smi = phase0()
     phase1()
-    if "--profile" in sys.argv[1:]:
-        profile_phase()
+    if "--profile" in sys.argv[1:] or "--steps" in sys.argv[1:]:
+        profile_phase() if "--profile" in sys.argv[1:] else steps_phase()
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    b1 = phase2()
-    b2 = phase3()
-    api = phase4()
-    phase5()
-    b3 = phase6()
-    b4 = phase7()
-    c3 = phase8()
-    phase9()
-    b2h = phase10()
-    hyb = phase11()
-    p = phase12()
+    def timed(phase):
+        t0 = time.perf_counter()
+        out = phase()
+        log(f"{phase.__name__} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    b1 = timed(phase2)
+    b2 = timed(phase3)
+    api = timed(phase4)
+    timed(phase5)
+    b3 = timed(phase6)
+    b4 = timed(phase7)
+    c3 = timed(phase8)
+    timed(phase9)
+    b2h = timed(phase10)
+    hyb = timed(phase11)
+    p = timed(phase12)
     # No single PyTorch call computes B1-B4 or B2h (a serial filter, a
     # localized recurrence): their library_ms is null.
     kernels = [

@@ -29,29 +29,64 @@
 // exact no-op: its v column is 0 and it adds 0 to the mean.
 //
 // What bounds it on an H100: with plain fp32 FMA, arithmetic.  Per alive
-// (tile, block) the two products take 2 T B M FMAs and the substitution
-// T B^2 / 2; the weight chain is ~40 operations per (ob, row) pair.  The
-// state itself is read once and written once, and Y, the ggt tables and the
-// per-ob table (a few MB in all) are re-read by every CTA from the 50 MB L2.
+// 8-ob panel of an alive (tile, block) the two products take 2 x 8 T M FMAs
+// and the substitution 8 T x (obs of the alive panels before it); the weight
+// chain is ~40 operations per (ob, row) pair.  The state itself is read once
+// and written once; Y, the ggt tables and the per-ob table (a few MB in all)
+// are re-read by every CTA from the 50 MB L2.  A kernel only gets near the
+// FMA rate if each shared-memory load feeds many FMAs (the SM loads 32 words
+// a clock and does 128 FMAs), if dead panels cost nothing, and if the
+// reloads run under the arithmetic.
 //
-// What the design does about it: a CTA owns T rows (64, or 32 for wide
-// ensembles) and loops over all blocks itself.  X, the block's Y and ggt,
-// the d0/U columns, the per-panel weights and the per-ob tables all live in
-// shared memory (~167 KB at T 64, B 128, M 80; B2h adds the sigma row, a
-// panel of static columns, the mean accumulator and three table rows,
-// 2T + 8T + 3B floats, ~171 KB: still one CTA per SM).  kHybrid is a
-// template parameter, so the pure instantiation carries none of it.  Each
-// product thread keeps a 4-wide register tile, so one shared load of X (or
-// of the U column) feeds four FMAs.  The forward substitution follows the Pallas kernel's panels
-// of 8 obs: the correction against earlier panels and the panel's weights
-// are computed in parallel over (ob, row) pairs, and only the short
-// within-panel chain runs one thread per row.  The X tile's row stride is
-// odd, so a warp reading 32 rows at one column hits 32 banks.  Rows past
-// the end of the state (the ragged last tile) are zero and never written.
-// No tensor cores and no TF32: a later change measures those.
+// What the design does about it.  A CTA of 256 threads owns T rows and loops
+// over the alive blocks itself: 32 rows where two such CTAs fit an SM (80
+// members: ~101 KB each), so that one CTA's arithmetic covers the other's
+// waits and the cull bound, taken at the tile, is finer; else 64 rows, or
+// 32 where 64 overflow (256 members).  The wrapper picks.
+// 1. Register tiles.  D0: a thread owns 4 rows x 4 obs and reads X and Y as
+//    float4 along the members (8 16-byte loads per 64 FMAs).  Apply: a
+//    thread owns 4 rows x NC members (NC = 2, 4, 5, 8 or 16 by the ensemble
+//    size; member c + 16 i), reads one float4 of the U column and NC words
+//    of Y per ob (6 loads per 20 FMAs at 80 members).  X and Y rows are
+//    padded to 4 x odd words, and each Y panel is shifted by 4 more words,
+//    so that those loads spread over the banks.
+// 2. The cross-panel correction of panel q, G[panel q, :base] U[:base, T],
+//    is a product too: the alive panels before q are dealt over the warps
+//    (a split of the reduction), a thread owns 8 obs x 2 rows (12 loads per
+//    64 FMAs), the partial sums meet in shared memory and the pass that
+//    computes the panel's weights adds them up.  Only the 8 x 8 triangle
+//    inside the panel runs one thread per row, from registers (dealing it
+//    over 8 lanes a row by shuffle was measured and lost 7-17%: the kernel
+//    is bound by instruction throughput, not by that chain's latency).
+//    The mean increment is accumulated in that chain (both instantiations).
+// 3. Dead panels cost nothing: from the block's bits word the CTA lists its
+//    alive panels once; D0, the corrections, the solve and the apply run
+//    over that list only.  That is exact: a dead panel's u (and v) column is
+//    exactly 0, so it adds nothing to later corrections, to the mean or to
+//    X.  Obs past the end of the last block's last panel have zero Y rows
+//    and are never solved, so they too add exactly 0.
+// 4. Reloads run under arithmetic.  ggt is never resident: the 8 rows of
+//    the next alive panel stream into a two-slot ring (cp.async) while this
+//    panel solves.  Y and the table of the next alive block are fetched with
+//    cp.async too: with two CTAs on the SM into the one buffer, once this
+//    block's apply has read it (the other CTA computes meanwhile); with one
+//    CTA of 64 rows into a second buffer while this block computes, where
+//    that fits (~182 KB at B 128, M 80).  Measured at 80 members, the two
+//    CTAs of 32 rows win by ~10%, and the second buffer buys under 1%.
+// kHybrid is a template parameter, so the pure instantiation carries none of
+// the static column.  Rows past the end of the state (the ragged last tile)
+// are zero and never written.  No tensor cores and no TF32.
+//
+// Shared memory (floats; make_layout below, mirrored by ops/ensrf_fused.py
+// smem_bytes): X [T, Ys], Y [ybufs][Bp Ys + Bp / 2], U [Bp, T], partial sums
+// [16 x 256], ggt ring [2][8, Bp], weights [8, T] (B2h: + static columns
+// [8, T]), table [ybufs][kTab B], geometry [kGeo, T], mean [T], mean
+// increment [T], alive-panel lists [2][Bp / 8]; Ys = 4 (ceil(M / 4) | 1),
+// Bp = B rounded up to 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -150,10 +185,139 @@ __device__ __forceinline__ float loc_weight(const float* tab, int B, int j,
   return w;
 }
 
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copies of 16 bytes (both addresses 16-byte aligned) or of 4.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copies n floats; by 16 bytes when vec (n a multiple of 4, both aligned).
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int n, bool vec, int tid,
+                                           int nth) {
+  if (vec) {
+    for (int i = tid; i < (n >> 2); i += nth)
+      cp_async16(dst + 4 * i, src + 4 * i);
+  } else {
+    for (int i = tid; i < n; i += nth) cp_async4(dst + i, src + i);
+  }
+}
+
+// Which operands may be copied 16 bytes at a time.
+constexpr int kVecY = 1, kVecTab = 2, kVecG = 4;
+
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// Offsets (floats) of the arrays in dynamic shared memory.
+struct Layout {
+  int Ys, Bp, ysz, tabsz;
+  int x, y, u, scr, g, wb, sb, tab, geo, xm, macc, plist, total;
+};
+
+__host__ __device__ inline Layout make_layout(int T, int B, int M, int ybufs,
+                                              bool hybrid) {
+  Layout L;
+  L.Ys = 4 * (((M + 3) >> 2) | 1);
+  L.Bp = (B + kPanel - 1) / kPanel * kPanel;
+  L.ysz = L.Bp * L.Ys + 4 * (L.Bp / kPanel);
+  L.tabsz = round4((hybrid ? kTabHybrid : kTabPure) * B);
+  int o = 0;
+  L.x = o, o += T * L.Ys;
+  L.y = o, o += ybufs * L.ysz;
+  L.u = o, o += L.Bp * T;
+  L.scr = o, o += 16 * kThreads;
+  L.g = o, o += 2 * kPanel * L.Bp;
+  L.wb = o, o += kPanel * T;
+  L.sb = o, o += hybrid ? kPanel * T : 0;
+  L.tab = o, o += ybufs * L.tabsz;
+  L.geo = o, o += (hybrid ? 5 : 4) * T;
+  L.xm = o, o += T;
+  L.macc = o, o += T;
+  L.plist = o, o += round4(2 * (L.Bp / kPanel));
+  L.total = o;
+  return L;
+}
+
+// Row j of a Y buffer: rows are Ys apart and every panel of 8 starts 4
+// words later than the rows alone would put it, so that the rows of
+// different panels that a warp reads at once in D0 fall into different
+// banks.
+__device__ __forceinline__ int yrow(int j, int Ys) {
+  return j * Ys + 4 * (j >> 3);
+}
+
+// X[4 rows, NC members per thread] -= sum over the alive obs of u_j y_j.
+template <int NC>
+__device__ __forceinline__ void apply_tiles(float* Xs, const float* Ysm,
+                                            const float* U, const int* pl,
+                                            int na, int T, int Ys, int Mp,
+                                            int tid, int nth) {
+  for (int task = tid; task < (T >> 2) * 16; task += nth) {
+    const int cg = task & 15, rg = task >> 4;
+    for (int c0 = 0; c0 < Mp; c0 += 16 * NC) {
+      float acc[4][NC];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int i = 0; i < NC; ++i) acc[rr][i] = 0.0f;
+      for (int a = 0; a < na; ++a) {
+        const int jb = kPanel * pl[a];
+        const float* yp = Ysm + yrow(jb, Ys) + c0 + cg;
+        const float* up = U + jb * T + 4 * rg;
+#pragma unroll
+        for (int t = 0; t < kPanel; ++t) {
+          const float4 u = *reinterpret_cast<const float4*>(up + t * T);
+          float yv[NC];
+#pragma unroll
+          for (int i = 0; i < NC; ++i) yv[i] = yp[t * Ys + 16 * i];
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            acc[0][i] = fmaf(u.x, yv[i], acc[0][i]);
+            acc[1][i] = fmaf(u.y, yv[i], acc[1][i]);
+            acc[2][i] = fmaf(u.z, yv[i], acc[2][i]);
+            acc[3][i] = fmaf(u.w, yv[i], acc[3][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = c0 + cg + 16 * i;
+        if (c < Mp) {
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr)
+            Xs[(4 * rg + rr) * Ys + c] -= acc[rr][i];
+        }
+      }
+    }
+  }
+}
+
 // bm_out/bp_out may alias bm_in/bp_in (in-place update): a CTA reads its
 // own rows before the block loop and writes only those rows after it.
 template <bool kHybrid>
-__global__ void fused_body_kernel(
+__global__ void __launch_bounds__(kThreads) fused_body_kernel(
     const float* bm_in,  // [N]
     const float* bp_in,  // [N, M]
     const float* __restrict__ geom,   // [kGeo, N]: unit x, y, z, vertical
@@ -162,192 +326,345 @@ __global__ void fused_body_kernel(
     const float* __restrict__ ggt_b,  // [nb, B, B]; B2h: the raw Gram
     const float* __restrict__ tab_b,  // [nb, kTab, B]
     const int* __restrict__ bits,     // [gtiles, nb] or nullptr (no cull)
-    int N, int M, int B, int nb, int T, int localize, int vertical,
-    int series, float* bm_out, float* bp_out) {
+    int N, int M, int B, int nb, int T, int ybufs, int vec, int localize,
+    int vertical, int series, float* bm_out, float* bp_out) {
   constexpr int kTab = kHybrid ? kTabHybrid : kTabPure;
   constexpr int kGeo = kHybrid ? 5 : 4;
-  extern __shared__ float smem[];
-  const int Ms = M | 1;
-  float* Xs = smem;              // [T, Ms]
-  float* Ys = Xs + T * Ms;       // [B, M]
-  float* G = Ys + B * M;         // [B, B]
-  float* U = G + B * B;          // [B, T]  d0 columns, then u (B2h: v)
-  float* Wb = U + B * T;         // [kPanel, T]
-  float* tab = Wb + kPanel * T;  // [kTab, B]
-  float* geo = tab + kTab * B;   // [kGeo, T]
-  float* xm = geo + kGeo * T;    // [T]
-  float* Sb = xm + T;            // B2h: [kPanel, T] static columns
-  float* macc = Sb + kPanel * T; // B2h: [T] mean accumulator
+  extern __shared__ __align__(16) float smem[];
+  const Layout L = make_layout(T, B, M, ybufs, kHybrid);
+  const int Ys = L.Ys, Bp = L.Bp;
+  float* Xs = smem + L.x;      // [T, Ys]
+  float* Yb = smem + L.y;      // [ybufs][Bp rows, skewed]
+  float* U = smem + L.u;       // [Bp, T]  d0 columns, then u (B2h: v)
+  float* scr = smem + L.scr;   // [slices, kPanel, T] partial corrections
+  float* Gr = smem + L.g;      // [2][kPanel, Bp] ggt rows of a panel
+  float* Wb = smem + L.wb;     // [kPanel, T]
+  float* Sb = smem + L.sb;     // B2h: [kPanel, T] static columns
+  float* tabs = smem + L.tab;  // [ybufs][kTab, B]
+  float* geo = smem + L.geo;   // [kGeo, T]
+  float* xm = smem + L.xm;     // [T]
+  float* macc = smem + L.macc; // [T] mean increment of the block
+  int* plist = reinterpret_cast<int*>(smem + L.plist);  // [2][npanels]
 
   const int tid = threadIdx.x;
-  const int nth = blockDim.x;
+  const int nth = kThreads;
   const int tile = blockIdx.x;
   const long r0 = (long)tile * T;
   const int nrows = (int)min((long)T, (long)N - r0);
+  const int npanels = Bp / kPanel;
+  const int Mp = round4(M);
+  const int tsh = T == 64 ? 6 : 5;  // T is 32 or 64 (the launcher checks)
 
-  for (int idx = tid; idx < T * M; idx += nth) {
-    const int r = idx / M, m = idx - r * M;
-    Xs[r * Ms + m] = r < nrows ? bp_in[(r0 + r) * M + m] : 0.0f;
-  }
-  for (int r = tid; r < T; r += nth) {
-    const bool in = r < nrows;
-    xm[r] = in ? bm_in[r0 + r] : 0.0f;
-    for (int c = 0; c < kGeo; ++c) geo[c * T + r] = in ? geom[(long)c * N + r0 + r] : 0.0f;
-  }
+  // Zero everything once: the pad columns of X and Y, the Y rows past B and
+  // the rows of the ragged last tile are never written again.
+  for (int idx = tid; idx < (L.total >> 2); idx += nth)
+    reinterpret_cast<float4*>(smem)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
+  for (int idx = tid; idx < nrows * M; idx += nth) {
+    const int r = idx / M, m = idx - r * M;
+    Xs[r * Ys + m] = bp_in[(r0 + r) * M + m];
+  }
+  for (int r = tid; r < nrows; r += nth) {
+    xm[r] = bm_in[r0 + r];
+    for (int c = 0; c < kGeo; ++c) geo[c * T + r] = geom[(long)c * N + r0 + r];
+  }
 
-  const int J4 = (B + 3) / 4;
-  const int M4 = (M + 3) / 4;
-  const int npanels = (B + kPanel - 1) / kPanel;
-
-  for (int b = 0; b < nb; ++b) {
-    const int bw = bits ? bits[(long)tile * nb + b] : -1;
-    if (bw == 0) continue;  // every pair of this (tile, block) is dead
-
+  // The block's alive-panel word (all ones without a cull).
+  const unsigned pmask = npanels >= 32 ? 0xFFFFFFFFu : (1u << npanels) - 1u;
+  auto block_bits = [&](int b) -> unsigned {
+    return bits ? (unsigned)bits[(long)tile * nb + b] & pmask : 0xFFFFFFFFu;
+  };
+  auto next_alive = [&](int b) {
+    while (b < nb && block_bits(b) == 0u) ++b;
+    return b;
+  };
+  // Y and the table of block b into buffer buf, asynchronously.
+  auto fetch = [&](int b, int buf) {
     const float* yb = y_b + (long)b * B * M;
-    const float* gb = ggt_b + (long)b * B * B;
-    const float* tb = tab_b + (long)b * kTab * B;
-    for (int idx = tid; idx < B * M; idx += nth) Ys[idx] = yb[idx];
-    for (int idx = tid; idx < B * B; idx += nth) G[idx] = gb[idx];
-    for (int idx = tid; idx < kTab * B; idx += nth) tab[idx] = tb[idx];
-    if (kHybrid)
-      for (int r = tid; r < T; r += nth) macc[r] = 0.0f;
-    __syncthreads();
-
-    // D0 = X Y^T: each thread one row r and four obs j0..j0+3.
-    for (int idx = tid; idx < T * J4; idx += nth) {
-      const int r = idx % T, j0 = (idx / T) * 4;
-      const float* y0 = Ys + min(j0, B - 1) * M;
-      const float* y1 = Ys + min(j0 + 1, B - 1) * M;
-      const float* y2 = Ys + min(j0 + 2, B - 1) * M;
-      const float* y3 = Ys + min(j0 + 3, B - 1) * M;
-      const float* xr = Xs + r * Ms;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int m = 0; m < M; ++m) {
-        const float x = xr[m];
-        a0 += y0[m] * x;
-        a1 += y1[m] * x;
-        a2 += y2[m] * x;
-        a3 += y3[m] * x;
+    float* yd = Yb + buf * L.ysz;
+    if (vec & kVecY) {
+      const int c4 = M >> 2;
+      for (int idx = tid; idx < B * c4; idx += nth) {
+        const int j = idx / c4, c = idx - j * c4;
+        cp_async16(yd + yrow(j, Ys) + 4 * c, yb + (long)j * M + 4 * c);
       }
-      U[j0 * T + r] = a0;
-      if (j0 + 1 < B) U[(j0 + 1) * T + r] = a1;
-      if (j0 + 2 < B) U[(j0 + 2) * T + r] = a2;
-      if (j0 + 3 < B) U[(j0 + 3) * T + r] = a3;
+    } else {
+      for (int idx = tid; idx < B * M; idx += nth) {
+        const int j = idx / M, c = idx - j * M;
+        cp_async4(yd + yrow(j, Ys) + c, yb + (long)j * M + c);
+      }
     }
-    __syncthreads();
+    copy_async(tabs + buf * L.tabsz, tab_b + (long)b * kTab * B, kTab * B,
+               vec & kVecTab, tid, nth);
+  };
+  // Rows of panel q of block b's ggt, columns up to the panel's end, into
+  // ring slot `slot`, asynchronously.
+  auto fetch_g = [&](int b, int q, int slot) {
+    const int base = q * kPanel;
+    const int width = min(kPanel, B - base), ncol = base + width;
+    const float* gb = ggt_b + (long)b * B * B + (long)base * B;
+    float* gd = Gr + slot * kPanel * Bp;
+    if (vec & kVecG) {
+      const int c4 = ncol >> 2;
+      for (int idx = tid; idx < width * c4; idx += nth) {
+        const int t = idx / c4, c = idx - t * c4;
+        cp_async16(gd + t * Bp + 4 * c, gb + (long)t * B + 4 * c);
+      }
+    } else {
+      for (int idx = tid; idx < width * ncol; idx += nth) {
+        const int t = idx / ncol, c = idx - t * ncol;
+        cp_async4(gd + t * Bp + c, gb + (long)t * B + c);
+      }
+    }
+  };
 
-    for (int q = 0; q < npanels; ++q) {
+  const int RG = T >> 2, rgsh = tsh - 2;  // D0: groups of 4 rows
+  const int half = T >> 1;                // corrections: pairs of rows
+  const int KS = nth / half;              // slices of the reduction
+  const int ks = tid / half, rp = tid - ks * half;
+
+  int b = next_alive(0);
+  int cur = 0, par = 0;
+  if (b < nb) fetch(b, 0);
+  cp_async_commit();
+  while (b < nb) {
+    const unsigned bw = block_bits(b);
+    const int nxt = next_alive(b + 1);
+    const float* Ysm = Yb + cur * L.ysz;
+    const float* tab = tabs + cur * L.tabsz;
+    int* pl = plist + par * npanels;
+    // The alive panels of this block, in order.
+    const int na = bits ? __popc(bw) : npanels;
+    for (int q = tid; q < npanels; q += nth) {
+      if (!bits)
+        pl[q] = q;
+      else if ((bw >> q) & 1u)
+        pl[__popc(bw & ((1u << q) - 1u))] = q;
+    }
+    cp_async_wait_all();
+    // This block's Y and table have landed, every thread has left the
+    // block before, and the list is written.
+    __syncthreads();
+    if (ybufs == 2 && nxt < nb) fetch(nxt, cur ^ 1);
+    fetch_g(b, pl[0], 0);
+    cp_async_commit();
+    if (tid < T) macc[tid] = 0.0f;
+
+    // D0 = X Y^T over the alive panels: 4 rows x 4 obs per thread.
+    for (int task = tid; task < RG * 2 * na; task += nth) {
+      const int rgi = task & (RG - 1), h = task >> rgsh;
+      const int j0 = kPanel * pl[h >> 1] + 4 * (h & 1);
+      const float* xp = Xs + rgi * Ys;
+      const float* yp = Ysm + yrow(j0, Ys);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+      for (int m = 0; m < Mp; m += 4) {
+        float4 xv[4], yv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          xv[i] = *reinterpret_cast<const float4*>(xp + i * RG * Ys + m);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          yv[jj] = *reinterpret_cast<const float4*>(yp + jj * Ys + m);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float s = acc[i][jj];
+            s = fmaf(xv[i].x, yv[jj].x, s);
+            s = fmaf(xv[i].y, yv[jj].y, s);
+            s = fmaf(xv[i].z, yv[jj].z, s);
+            s = fmaf(xv[i].w, yv[jj].w, s);
+            acc[i][jj] = s;
+          }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          U[(j0 + jj) * T + rgi + i * RG] = acc[i][jj];
+    }
+    cp_async_wait_all();
+    __syncthreads();  // D0 is in U; the first panel's ggt rows have landed
+
+    for (int a = 0; a < na; ++a) {
+      const int q = pl[a];
       const int base = q * kPanel;
       const int width = min(kPanel, B - base);
-      const bool alive = !bits || ((bw >> q) & 1);
-      if (!alive) {
-        for (int idx = tid; idx < width * T; idx += nth) U[base * T + idx] = 0.0f;
-        __syncthreads();
-        continue;
+      const float* Gp = Gr + (a & 1) * kPanel * Bp;
+      // The correction against the alive panels before this one, G[panel,
+      // :base] U[:base, T]: slice ks sums every KS-th of them, 8 obs x 2
+      // rows per thread.
+      if (ks < a) {
+        float acc[kPanel][2];
+#pragma unroll
+        for (int t = 0; t < kPanel; ++t) acc[t][0] = acc[t][1] = 0.0f;
+        for (int e = ks; e < a; e += KS) {
+          const int ib = kPanel * pl[e];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i0 = ib + 4 * hh;
+            float2 uv[4];
+#pragma unroll
+            for (int ii = 0; ii < 4; ++ii)
+              uv[ii] = *reinterpret_cast<const float2*>(U + (i0 + ii) * T +
+                                                        2 * rp);
+#pragma unroll
+            for (int t = 0; t < kPanel; ++t) {
+              const float4 g =
+                  *reinterpret_cast<const float4*>(Gp + t * Bp + i0);
+              float s0 = acc[t][0], s1 = acc[t][1];
+              s0 = fmaf(g.x, uv[0].x, s0), s1 = fmaf(g.x, uv[0].y, s1);
+              s0 = fmaf(g.y, uv[1].x, s0), s1 = fmaf(g.y, uv[1].y, s1);
+              s0 = fmaf(g.z, uv[2].x, s0), s1 = fmaf(g.z, uv[2].y, s1);
+              s0 = fmaf(g.w, uv[3].x, s0), s1 = fmaf(g.w, uv[3].y, s1);
+              acc[t][0] = s0, acc[t][1] = s1;
+            }
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < kPanel; ++t)
+          *reinterpret_cast<float2*>(scr + (ks * kPanel + t) * T + 2 * rp) =
+              make_float2(acc[t][0], acc[t][1]);
       }
-      // Correction against the solved panels, the panel's weights and
-      // (B2h) its static columns, in parallel over (ob, row) pairs.
+      __syncthreads();
+      // The ring slot of the panel before this one is free: the next alive
+      // panel's rows stream in while this panel solves.
+      if (a + 1 < na) fetch_g(b, pl[a + 1], (a + 1) & 1);
+      cp_async_commit();
+      // The partial sums meet; the panel's weights and (B2h) its static
+      // columns, in parallel over (ob, row) pairs.
+      const int ns = min(a, KS);
       for (int idx = tid; idx < width * T; idx += nth) {
-        const int t = idx / T, r = idx - t * T;
+        const int t = idx >> tsh, r = idx & (T - 1);
         const int j = base + t;
-        float corr = 0.f;
-        for (int i = 0; i < base; ++i) corr += G[j * B + i] * U[i * T + r];
-        U[j * T + r] -= corr;
+        if (ns) {
+          float corr = 0.f;
+          for (int s = 0; s < ns; ++s) corr += scr[(s * kPanel + t) * T + r];
+          U[j * T + r] -= corr;
+        }
         if (localize || kHybrid) {
           const float dist = chord_dist(tab, B, j, geo, T, r, series);
           if (localize)
-            Wb[t * T + r] = loc_weight(tab, B, j, geo, T, r, dist, vertical, series);
+            Wb[t * T + r] =
+                loc_weight(tab, B, j, geo, T, r, dist, vertical, series);
           if (kHybrid)
             Sb[t * T + r] = geo[4 * T + r] * gc_exact(dist * tab[10 * B + j]);
         }
       }
       __syncthreads();
-      // The within-panel chain, one thread per row.
-      for (int r = tid; r < T; r += nth) {
-        for (int t = 0; t < width; ++t) {
-          const int j = base + t;
-          float corr = 0.f;
-          for (int i = base; i < j; ++i) corr += G[j * B + i] * U[i * T + r];
-          float d = U[j * T + r] - corr;
-          if (localize) d *= Wb[t * T + r];
-          if (kHybrid) {
-            const float s = Sb[t * T + r];
-            macc[r] += tab[j] * d + tab[8 * B + j] * s;
-            d = tab[B + j] * d + tab[9 * B + j] * s;
+      // The chain inside the panel, one thread per row, the solved columns
+      // in registers; the mean increment rides along.
+      if (tid < T) {
+        const int r = tid;
+        float ur[kPanel];
+        float mloc = 0.f;
+#pragma unroll
+        for (int t = 0; t < kPanel; ++t) {
+          ur[t] = 0.f;
+          if (t < width) {
+            const int j = base + t;
+            float corr = 0.f;
+#pragma unroll
+            for (int i = 0; i < t; ++i)
+              corr = fmaf(Gp[t * Bp + base + i], ur[i], corr);
+            float d = U[j * T + r] - corr;
+            if (localize) d *= Wb[t * T + r];
+            if (kHybrid) {
+              const float s = Sb[t * T + r];
+              mloc += tab[j] * d + tab[8 * B + j] * s;
+              d = tab[B + j] * d + tab[9 * B + j] * s;
+            } else {
+              mloc += tab[j] * d;
+            }
+            ur[t] = d;
+            U[j * T + r] = d;
           }
-          U[j * T + r] = d;
+        }
+        macc[r] += mloc;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+    }
+
+    if (!kHybrid) {
+      // U <- g o U on the alive panels, so that the apply is X -= U^T Y in
+      // both instantiations.
+      for (int idx = tid; idx < na * kPanel * RG; idx += nth) {
+        const int c = idx & (RG - 1), jt = idx >> rgsh;
+        const int j = kPanel * pl[jt >> 3] + (jt & 7);
+        if (j < B) {
+          const float g = tab[B + j];
+          float4* p = reinterpret_cast<float4*>(U + j * T + 4 * c);
+          float4 v = *p;
+          v.x *= g, v.y *= g, v.z *= g, v.w *= g;
+          *p = v;
         }
       }
       __syncthreads();
     }
+    if (Mp <= 32)
+      apply_tiles<2>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+    else if (Mp <= 64)
+      apply_tiles<4>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+    else if (Mp <= 80)
+      apply_tiles<5>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+    else if (Mp <= 128)
+      apply_tiles<8>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+    else
+      apply_tiles<16>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+    if (tid < T) xm[tid] += macc[tid];
 
-    // Pure: xm += U^T gain;  X -= (g o U)^T Y.
-    // B2h:  xm += macc;      X -= V^T Y.
-    for (int r = tid; r < T; r += nth) {
-      if (kHybrid) {
-        xm[r] += macc[r];
-      } else {
-        float s = 0.f;
-        for (int j = 0; j < B; ++j) s += tab[j] * U[j * T + r];
-        xm[r] += s;
-      }
+    if (ybufs == 2) {
+      cur ^= 1;
+    } else if (nxt < nb) {
+      __syncthreads();  // the one Y buffer is free only now
+      fetch(nxt, 0);
     }
-    for (int idx = tid; idx < T * M4; idx += nth) {
-      const int r = idx / M4, mq = idx - r * M4;
-      const int m0 = mq, m1 = min(mq + M4, M - 1), m2 = min(mq + 2 * M4, M - 1),
-                m3 = min(mq + 3 * M4, M - 1);
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int j = 0; j < B; ++j) {
-        const float gu = kHybrid ? U[j * T + r] : tab[B + j] * U[j * T + r];
-        const float* yj = Ys + j * M;
-        a0 += gu * yj[m0];
-        a1 += gu * yj[m1];
-        a2 += gu * yj[m2];
-        a3 += gu * yj[m3];
-      }
-      float* xr = Xs + r * Ms;
-      xr[m0] -= a0;
-      if (mq + M4 < M) xr[mq + M4] -= a1;
-      if (mq + 2 * M4 < M) xr[mq + 2 * M4] -= a2;
-      if (mq + 3 * M4 < M) xr[mq + 3 * M4] -= a3;
-    }
-    __syncthreads();
+    cp_async_commit();
+    par ^= 1;
+    b = nxt;
   }
+  cp_async_wait_all();
+  __syncthreads();
 
   for (int idx = tid; idx < nrows * M; idx += nth) {
     const int r = idx / M, m = idx - r * M;
-    bp_out[(r0 + r) * M + m] = Xs[r * Ms + m];
+    bp_out[(r0 + r) * M + m] = Xs[r * Ys + m];
   }
   for (int r = tid; r < nrows; r += nth) bm_out[r0 + r] = xm[r];
 }
 
-// Dynamic shared memory for a tile of T rows, blocks of B obs, M members
-// (mirrored by efa_xray_tpu_torch.ops.ensrf_fused.smem_bytes).
-int smem_bytes(int T, int B, int M, bool hybrid) {
-  const int Ms = M | 1;
-  const int pure = T * Ms + B * M + B * B + B * T + kPanel * T +
-                   kTabPure * B + 4 * T + T;
-  const int extra = hybrid ? T + kPanel * T + T + (kTabHybrid - kTabPure) * B
-                           : 0;
-  return (int)sizeof(float) * (pure + extra);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <bool kHybrid>
 int launch(const float* bm_in, const float* bp_in, const float* geom,
            const float* y_b, const float* ggt_b, const float* tab_b,
-           const int* bits, int N, int M, int B, int nb, int T, int localize,
-           int vertical, int series, float* bm_out, float* bp_out,
-           cudaStream_t stream) {
-  const int smem = smem_bytes(T, B, M, kHybrid);
+           const int* bits, int N, int M, int B, int nb, int T, int ybufs,
+           int localize, int vertical, int series, float* bm_out,
+           float* bp_out, cudaStream_t stream) {
+  const int npanels = (B + kPanel - 1) / kPanel;
+  if ((T != 32 && T != 64) || (ybufs != 1 && ybufs != 2) || N <= 0 ||
+      M <= 0 || B <= 0 || nb <= 0 || (bits && npanels > 32))
+    return (int)cudaErrorInvalidValue;
+  const int smem =
+      (int)sizeof(float) * make_layout(T, B, M, ybufs, kHybrid).total;
   cudaError_t e = cudaFuncSetAttribute(fused_body_kernel<kHybrid>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem);
   if (e != cudaSuccess) return (int)e;
+  const int vec = (M % 4 == 0 && aligned16(y_b) ? kVecY : 0) |
+                  (B % 4 == 0 && aligned16(tab_b) ? kVecTab : 0) |
+                  (B % 4 == 0 && aligned16(ggt_b) ? kVecG : 0);
   const int tiles = (N + T - 1) / T;
   fused_body_kernel<kHybrid><<<tiles, kThreads, smem, stream>>>(
-      bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T, localize,
-      vertical, series, bm_out, bp_out);
+      bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T, ybufs, vec,
+      localize, vertical, series, bm_out, bp_out);
   return (int)cudaGetLastError();
 }
 
@@ -355,14 +672,17 @@ int launch(const float* bm_in, const float* bp_in, const float* geom,
 
 extern "C" {
 
+// T: rows per CTA (32 or 64); ybufs: Y/table buffers in shared memory (2:
+// the next alive block is prefetched while this one computes; 1: it is
+// fetched when this block is done).
 int efa_fused_body(const float* bm_in, const float* bp_in, const float* geom,
                    const float* y_b, const float* ggt_b, const float* tab_b,
                    const int* bits, int N, int M, int B, int nb, int T,
-                   int localize, int vertical, int series, int hybrid,
-                   float* bm_out, float* bp_out, void* stream) {
+                   int ybufs, int localize, int vertical, int series,
+                   int hybrid, float* bm_out, float* bp_out, void* stream) {
   const auto run = hybrid ? &launch<true> : &launch<false>;
   return run(bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T,
-             localize, vertical, series, bm_out, bp_out,
+             ybufs, localize, vertical, series, bm_out, bp_out,
              (cudaStream_t)stream);
 }
 

@@ -6,12 +6,13 @@ Counterpart of ``benchmarks/precision_probe.py``: its kernel ``_make_kernel``
 unit takes f32 inputs ("default" single-pass bf16, explicit bf16, and
 "highest").  Here the three modes are Hopper's:
 
-* ``"ieee"``: plain fp32 FMA (what "highest" asks for);
-* ``"tf32"``: tensor cores with the inputs rounded to TF32 (10 mantissa
-  bits, to nearest, ties away from zero), fp32 accumulation: the
+* ``"ieee"``: plain fp32 FMA (what "highest" asks for), 8 x 8 register
+  tiles behind a ``cp.async`` ring;
+* ``"tf32"``: tensor cores (``wgmma``) with the inputs rounded to TF32 (10
+  mantissa bits, to nearest, ties away from zero), fp32 accumulation: the
   counterpart of the TPU's single-pass default;
-* ``"bf16"``: tensor cores with the inputs rounded to bf16 (to nearest
-  even), fp32 accumulation.
+* ``"bf16"``: tensor cores (``wgmma``) with the inputs rounded to bf16 (to
+  nearest even), fp32 accumulation.
 
 :func:`mm` launches the CUDA kernel of
 ``efa_xray_tpu_torch/csrc/precision_probe.cu`` on CUDA tensors, or runs
@@ -36,8 +37,18 @@ from efa_xray_tpu_torch.state.ensemble import default_device
 
 MODES = ("ieee", "tf32", "bf16")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
-# The CUDA kernel's tile: every size must be a multiple of it.
+# Every size must be a multiple of TILE; the kernels zero-fill and mask
+# their edge tiles beyond that (csrc/precision_probe.cu kSizeMultiple).
 TILE = 16
+# Padding of the rounded scratch copies the tensor-core modes read
+# (csrc/precision_probe.cu kRowPad, kKPad): rows of A and of B^T, and k.
+ROW_PAD = 128
+K_PAD = 64
+# Tile choices of the kernel (0: by the sizes); the others force one so
+# that the choice can be measured.
+VARIANTS = {"ieee": {"auto": 0, "128x128": 1, "128x64": 2, "64x64": 3},
+            "tf32": {"auto": 0, "128x128": 1, "64x128": 2},
+            "bf16": {"auto": 0, "128x128": 1, "64x128": 2}}
 
 # Launches of the CUDA kernel (not of the plain version), in all and by
 # mode.
@@ -81,24 +92,55 @@ def _check(a, b, mode):
                          f"@ {tuple(b.shape)}")
 
 
-def mm_cuda(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
-    """Launch P on CUDA float32 tensors whose sizes are multiples of 16."""
+def _ceil_to(x: int, multiple: int) -> int:
+    return -(-x // multiple) * multiple
+
+
+def scratch_shapes(n: int, k: int, m: int):
+    """Shapes of the rounded copies a tensor-core mode reads: A padded to
+    ``[ceil(n, 128), ceil(k, 64)]`` and B transposed and padded to
+    ``[ceil(m, 128), ceil(k, 64)]`` (mirrors ``run_tensor`` in the .cu)."""
+    kpad = _ceil_to(k, K_PAD)
+    return (_ceil_to(n, ROW_PAD), kpad), (_ceil_to(m, ROW_PAD), kpad)
+
+
+def mm_cuda(a: torch.Tensor, b: torch.Tensor, mode: str,
+            variant: str = "auto") -> torch.Tensor:
+    """Launch P on CUDA float32 tensors whose sizes are multiples of 16,
+    square or not.  ``variant`` forces one of the kernel's tile choices
+    (:data:`VARIANTS`)."""
     global launches
     _check(a, b, mode)
     n, k = a.shape
     m = b.shape[1]
-    if n % TILE or k % TILE or m % TILE:
-        raise ValueError(f"P needs sizes that are multiples of {TILE}, got "
-                         f"n={n}, k={k}, m={m}")
+    if n == 0 or k == 0 or m == 0 or n % TILE or k % TILE or m % TILE:
+        raise ValueError(f"P needs sizes that are positive multiples of "
+                         f"{TILE}, got n={n}, k={k}, m={m}")
+    if variant not in VARIANTS[mode]:
+        raise ValueError(f"unknown variant {variant!r} of mode {mode!r}; "
+                         f"expected one of {tuple(VARIANTS[mode])}")
     dev = a.device
     if (not a.is_cuda or b.device != dev or a.dtype != torch.float32
             or b.dtype != torch.float32):
         raise ValueError("P takes float32 tensors on one CUDA device")
     a, b = a.contiguous(), b.contiguous()
+    # The kernels copy 16 bytes at a time.
+    if a.data_ptr() % 16:
+        a = a.clone()
+    if b.data_ptr() % 16:
+        b = b.clone()
     c = torch.empty((n, m), dtype=torch.float32, device=dev)
+    ar = bt = None
+    if mode != "ieee":
+        sdtype = torch.bfloat16 if mode == "bf16" else torch.float32
+        sa, sb = scratch_shapes(n, k, m)
+        ar = torch.empty(sa, dtype=sdtype, device=dev)
+        bt = torch.empty(sb, dtype=sdtype, device=dev)
     err = _build.lib().efa_precision_mm(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), n, k, m, _MODE_ID[mode],
-        torch.cuda.current_stream(dev).cuda_stream)
+        a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        None if ar is None else ar.data_ptr(),
+        None if bt is None else bt.data_ptr(), n, k, m, _MODE_ID[mode],
+        VARIANTS[mode][variant], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"P precision_probe launch ({mode})")
     launches += 1
     launches_by_mode[mode] += 1

@@ -2,6 +2,8 @@
 kernel in interpret mode, in float64 (the CPU counterpart of
 ``efa_xray_tpu_torch.ops.ensrf_fused``'s CUDA kernel)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -177,3 +179,91 @@ def test_b2_on_gridded_state_against_jax_b3(max_radius, atol):
     for a, b in zip(want, got):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
                                    atol=atol)
+
+
+_CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "efa_xray_tpu_torch", "csrc", "ensrf_fused.cu")
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+@pytest.mark.parametrize("bsz,nmems", [(128, 30), (128, 80), (128, 256),
+                                       (64, 80)])
+def test_b2_shared_memory_fits_the_card(bsz, nmems, hybrid):
+    """The tile and the number of Y buffers the wrapper picks fit the 227
+    KB a CTA may use.  32 rows and one buffer where an SM holds two such
+    CTAs; else 64 rows (32 if 64 overflow) with two buffers if they fit."""
+    tile = ensrf_fused.pick_tile(bsz, nmems, hybrid)
+    assert tile in (32, 64)
+    ybufs = ensrf_fused.pick_buffers(tile, bsz, nmems, hybrid)
+    one = ensrf_fused.smem_bytes(tile, bsz, nmems, hybrid, 1)
+    two = ensrf_fused.smem_bytes(tile, bsz, nmems, hybrid, 2)
+    assert one < two
+    assert ensrf_fused.smem_bytes(tile, bsz, nmems, hybrid) == (
+        two if ybufs == 2 else one) <= ensrf_fused.MAX_SMEM_BYTES
+    small = ensrf_fused.smem_bytes(32, bsz, nmems, hybrid, 1)
+    if 2 * (small + 1024) <= 233472:
+        assert (tile, ybufs) == (32, 1)
+    else:
+        assert ybufs == (2 if two <= ensrf_fused.MAX_SMEM_BYTES else 1)
+        assert (tile == 32) == (ensrf_fused.smem_bytes(64, bsz, nmems,
+                                                       hybrid, 1)
+                                > ensrf_fused.MAX_SMEM_BYTES)
+    # Two CTAs per SM at every size here but 256 members.
+    assert (2 * (small + 1024) <= 233472) == (nmems != 256)
+
+
+def test_b2_shared_memory_mirrors_the_kernel_layout():
+    """``make_layout`` of ``csrc/ensrf_fused.cu`` by hand at T 64, B 128,
+    M 80: X 64 x 84, two Y buffers of 128 x 84 + 64, U 128 x 64, 16 x 256
+    partial sums, a ring of 2 x 8 x 128, weights 8 x 64, two tables of 8 x
+    128, geometry 4 x 64, mean and increment 2 x 64, lists 2 x 16; B2h adds
+    static columns 8 x 64, three table rows in each buffer and the sigma
+    row."""
+    pure = (64 * 84 + 2 * (128 * 84 + 64) + 128 * 64 + 16 * 256
+            + 2 * 8 * 128 + 8 * 64 + 2 * 8 * 128 + 4 * 64 + 2 * 64 + 32)
+    assert ensrf_fused.smem_bytes(64, 128, 80, False, 2) == 4 * pure
+    assert ensrf_fused.smem_bytes(64, 128, 80, True, 2) == 4 * (
+        pure + 8 * 64 + 2 * 3 * 128 + 64)
+    # A block of 12 obs is padded to two panels; 30 members to a row
+    # stride of 36 words (4 x odd).
+    small = (32 * 36 + (16 * 36 + 8) + 16 * 32 + 16 * 256 + 2 * 8 * 16
+             + 8 * 32 + 8 * 12 + 4 * 32 + 2 * 32 + 4)
+    assert ensrf_fused.smem_bytes(32, 12, 30, False, 1) == 4 * small
+    with open(_CU) as f:
+        src = f.read()
+    assert f"kThreads = {ensrf_fused.THREADS};" in src
+    assert f"kPanel = {ensrf_fused.PANEL};" in src
+    assert f"kTabPure = {len(ensrf_fused.TABLE_ROWS)};" in src
+    assert (f"kTabHybrid = "
+            f"{len(ensrf_fused.TABLE_ROWS) + len(ensrf_fused.HYBRID_ROWS)};"
+            in src)
+
+
+def test_b2_plain_is_the_same_at_either_tile_with_the_cull_on():
+    """The cull bits are computed at the tile, so another tile changes
+    their shape and not the result: tiles of 32 and 64 rows agree with
+    each other and with the unculled update."""
+    prior, ye, lat, lon, obs, _ = _workload(nstate=333, nobs=40, seed=11)
+    bm = torch.tensor(prior.mean(1))
+    bp = torch.tensor(prior - prior.mean(1)[:, None])
+    _, tt = _tail(ye, obs, True)
+    oa = interop.obs_arrays_from_numpy(**obs, device="cpu")
+    ops = ensrf_fused.prepare(bp, torch.tensor(lat), torch.tensor(lon), tt,
+                              oa, block_size=16, cull=True,
+                              max_radius_km=2000.0)
+    bxyz = latlon_to_unit(torch.tensor(lat), torch.tensor(lon))
+    oxyz = latlon_to_unit(oa.lats, oa.lons)
+    out = {}
+    for tile in (None, 32, 64):
+        bits = None if tile is None else ensrf_fused.cull_bits(
+            bxyz, oxyz, oa.radii, oa.assim, tile, ops["y_b"].shape[0], 16)
+        if bits is not None:
+            assert bits.shape == (-(-333 // tile), ops["y_b"].shape[0])
+            assert (bits == 0).any()  # the cull is live
+        out[tile] = ensrf_fused.fused_apply_plain(
+            bm, bp, ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
+            bits, tile or 64, True, False, ops["series"])
+    for tile in (32, 64):
+        for a, b in zip(out[tile], out[None]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=TOL,
+                                       atol=TOL)

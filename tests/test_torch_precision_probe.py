@@ -126,3 +126,46 @@ def test_probe_on_cpu_orders_the_modes():
                                 ("tf32", "bf16")))
     assert all(res[f"{m}_32_seconds"] > 0 for m in pp.MODES)
     assert res["device"] == "cpu"
+
+
+@pytest.mark.parametrize("n,k,m", [(16, 16, 16), (48, 64, 32),
+                                   (528, 144, 272), (144, 16, 400)])
+def test_mm_on_cpu_accepts_every_multiple_of_16(n, k, m):
+    """Square or not: the kernel masks its edge tiles, so the wrapper asks
+    for multiples of ``TILE`` = 16 and nothing more."""
+    assert pp.TILE == 16
+    a, b = (torch.from_numpy(x) for x in _inputs(n=n, k=k, m=m, seed=4))
+    for mode in pp.MODES:
+        got = pp.mm(a, b, mode)
+        assert got.shape == (n, m)
+        assert torch.equal(got, pp.mm_plain(a, b, mode))
+    assert pp.launches == 0
+
+
+@pytest.mark.parametrize("n,k,m,want", [
+    (16, 16, 16, ((128, 64), (128, 64))),
+    (528, 144, 272, ((640, 192), (384, 192))),
+    (1024, 1024, 1024, ((1024, 1024), (1024, 1024))),
+])
+def test_scratch_shapes_pad_rows_to_128_and_k_to_64(n, k, m, want):
+    """The rounded copies the tensor-core modes read: A as [n, k] and B
+    transposed to [m, k], both padded so that the kernel's tiles need no
+    masks (``kRowPad``, ``kKPad`` in ``csrc/precision_probe.cu``)."""
+    assert pp.scratch_shapes(n, k, m) == want
+    with open(os.path.join(_ROOT, "efa_xray_tpu_torch", "csrc",
+                           "precision_probe.cu")) as f:
+        src = f.read()
+    assert f"kRowPad = {pp.ROW_PAD};" in src
+    assert f"kKPad = {pp.K_PAD};" in src
+    assert f"kSizeMultiple = {pp.TILE};" in src
+
+
+def test_cuda_launcher_refuses_empty_sizes_and_unknown_variants():
+    a, b = (torch.from_numpy(x) for x in _inputs(n=16, k=32, m=16))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        pp.mm_cuda(torch.zeros(0, 32), b, "ieee")
+    with pytest.raises(ValueError, match="unknown variant"):
+        pp.mm_cuda(a, b, "tf32", variant="64x64")
+    for mode in pp.MODES:
+        assert pp.VARIANTS[mode]["auto"] == 0
+    assert pp.launches == 0
