@@ -47,9 +47,10 @@ Phases, each printing one line of results:
     and nothing else, held against the plain blocked hybrid update;
 12. P, the precision probe: ``probe()`` (each mode against a float64
     oracle), each mode's kernel against its plain version at 512^2, [528,
-    144] @ [144, 272] and 1024^2, the tf32 mode against the product of
-    inputs rounded to nearest, and ``torch.matmul`` timed beside each mode
-    at 1024^3 and 4096^3.
+    144] @ [144, 272], 1024^2 and [2064, 144] @ [144, 1296] (the size that
+    reaches the 128 x 128 tiles timed at 4096^3), the tf32 mode against the
+    product of inputs rounded to nearest, and ``torch.matmul`` timed beside
+    each mode at 1024^3 and 4096^3.
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
@@ -66,9 +67,8 @@ panels that the cull keeps alive.
 
 ``--steps`` replaces phases 2-12 with B2 timed on phase 3's workload and
 on the headline body with parts of its design switched off (dead panels
-solved instead of skipped, a tile of 64 rows with one or two Y buffers
-instead of 32 rows with two CTAs per SM), each variant held against the
-kernel's own result, and with P timed at each of its tile choices.
+solved instead of skipped, a tile of 64 rows instead of 32 rows with two
+CTAs per SM), each held against the kernel's own result.
 
 Any failure raises and exits non-zero; without a GPU the script exits
 non-zero before doing anything.  It never imports JAX.
@@ -319,9 +319,10 @@ def _scattered(n, nobs, seed, dev):
 def _b2_edge_cases(hybrid: bool):
     """B2 (B2h with ``hybrid``) against its plain version at small shapes
     chosen for the edges of the kernel's tiling: 20,001 rows (a ragged last
-    tile), 300 obs (a padded last block), ensembles of 30, 50 and 80, block
-    sizes 128, 100 and 50 (a last panel narrower than 8 obs, copies of 4
-    bytes), cull words with one alive panel, cull off, unlocalized,
+    tile), 300 obs (a padded last block), ensembles of 30, 50, 80, 128
+    (the tile of 64 rows, 8 members per thread in the apply) and 256 (one
+    CTA of 32 rows per SM, 16 members per thread), block sizes 128, 100
+    and 50 (a last panel narrower than 8 obs, copies of 4 bytes), cull words with one alive panel, cull off, unlocalized,
     vertical localization, the arccos form, and an in-place update.
     Returns ``(max abs err, labels)``."""
     import torch
@@ -346,7 +347,7 @@ def _b2_edge_cases(hybrid: bool):
     tail_sigma = 2.0 + 2.0 * rnd(nobs)
     slen = 1000.0
     state, tails = {}, {}
-    for m in (30, 50, 80):
+    for m in (30, 50, 80, 128, 256):
         state[m] = 5.0 * torch.randn(n, m, generator=gen, device=dev)
         tp0 = 5.0 * torch.randn(nobs, m, generator=gen, device=dev)
         tails[m] = core.tail_scan_blocked(
@@ -358,6 +359,10 @@ def _b2_edge_cases(hybrid: bool):
     for label, m, bsz, localize, vertical, radius, cull, one, donate in (
             ("30 members", 30, 128, True, False, 2000.0, True, False, False),
             ("50 members", 50, 128, True, False, 2000.0, True, False, False),
+            ("128 members, tile 64", 128, 128, True, False, 2000.0, True,
+             False, False),
+            ("256 members, one CTA per SM", 256, 128, True, False, 2000.0,
+             True, False, False),
             ("80 members, blocks of 100", 80, 100, True, False, 2000.0, True,
              False, False),
             ("30 members, blocks of 50", 30, 50, True, False, 2000.0, True,
@@ -378,6 +383,8 @@ def _b2_edge_cases(hybrid: bool):
             body_sigma=body_sigma if hybrid else None,
             static_length=slen if hybrid else None)
         bits = ops["bits"]
+        check(ops["tile"] == (64 if m == 128 else 32),
+              f"edge case {label}: tile {ops['tile']}")
         if one:
             tiles, blocks = bits.shape
             npanels = -(-bsz // ensrf_fused.PANEL)
@@ -1218,9 +1225,13 @@ def _library_mm_ms(a, b, mode: str) -> float:
 
 def phase12():
     """P: ``probe()`` on the card, each mode against its plain version at
-    512^2, at a non-square size and at 1024^2, the tf32 mode against the
-    product of inputs rounded to nearest (and not of truncated ones), and
-    the library product beside it at 1024^3 and 4096^3."""
+    512^2, at a non-square size, at 1024^2 and at a size whose 187 tiles of
+    128 x 128 fill the card, so that the ieee 128 x 128 kernel and the
+    two-warpgroup wgmma kernel that 4096^3 times are checked as well (with
+    ragged edges, and at a k short enough for the tolerance to hold), the
+    tf32 mode against the product of inputs rounded to nearest (and not of
+    truncated ones), and the library product beside it at 1024^3 and
+    4096^3."""
     import torch
 
     from efa_xray_tpu_torch.ops import precision_probe as pp
@@ -1244,7 +1255,8 @@ def phase12():
     peak = {"ieee": "fp32", "tf32": "tf32", "bf16": "bf16"}
     out = {mode: dict(max_abs_err=0.0) for mode in pp.MODES}
     # A wrong swizzle or transpose cannot cancel out at a non-square size.
-    for n, k, m in ((512, 512, 512), (528, 144, 272), (1024, 1024, 1024)):
+    for n, k, m in ((512, 512, 512), (528, 144, 272), (1024, 1024, 1024),
+                    (2064, 144, 1296)):
         a, b = rand(n, k), rand(k, m)
         for mode in pp.MODES:
             got = pp.mm(a, b, mode)
@@ -1282,7 +1294,8 @@ def phase12():
     log(f"phase 12: P probe on {res['device']}: " + "; ".join(
         f"{mode}: rms err / scale {res[f'{mode}_rms_err_over_scale']:.3e}, "
         f"kernel vs plain max abs err {o['max_abs_err']:.3e} (512^2, "
-        f"[528, 144] @ [144, 272], 1024^2), 1024^3 kernel "
+        f"[528, 144] @ [144, 272], 1024^2, [2064, 144] @ [144, 1296]), 1024^3 "
+        f"kernel "
         f"{o['ms']:.4f} ms plain {o['plain_ms']:.4f} ms torch.matmul "
         f"{o['library_ms']:.4f} ms bound {o['bound_ms']:.4f} ms "
         f"({o['bound_by']}), 4096^3 kernel {o['ms_4096']:.4f} ms plain "
@@ -1379,8 +1392,7 @@ def _b2_variants(label, bm, bp, lat, lon, tail, obs, radius, reps):
     chosen otherwise; each variant must give the kernel's own result.
     ``no skip``: every panel of an alive block is marked alive (dead panels
     then solve to exact zeros instead of being skipped); ``tile 64``: one
-    CTA of 64 rows per SM, with one Y buffer (the next block's Y is fetched
-    after this block and waited for) or two (it is prefetched)."""
+    CTA of 64 rows per SM."""
     import torch
 
     from efa_xray_tpu_torch.observation.localization import latlon_to_unit
@@ -1390,7 +1402,7 @@ def _b2_variants(label, bm, bp, lat, lon, tail, obs, radius, reps):
                               cull=True, max_radius_km=radius)
     nblocks, bsz, nmems = ops["y_b"].shape
     npanels = -(-bsz // ensrf_fused.PANEL)
-    check(ops["tile"] == 32 and ensrf_fused.pick_buffers(32, bsz, nmems) == 1,
+    check(ops["tile"] == 32,
           f"steps {label}: the kernel's tile is {ops['tile']}")
     bits = {32: ops["bits"], 64: ensrf_fused.cull_bits(
         latlon_to_unit(lat, lon).to(bp.dtype),
@@ -1399,26 +1411,24 @@ def _b2_variants(label, bm, bp, lat, lon, tail, obs, radius, reps):
     full = {t: torch.where(b != 0, torch.full_like(b, (1 << npanels) - 1),
                            torch.zeros_like(b)) for t, b in bits.items()}
 
-    def run(b, tile, ybufs):
+    def run(b, tile):
         return ensrf_fused.fused_apply_cuda(
             bm, bp, ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"], b,
-            tile, True, False, ops["series"], ybufs=ybufs)
+            tile, True, False, ops["series"])
 
-    want = run(bits[32], 32, 1)
+    want = run(bits[32], 32)
     out = []
-    for name, b, tile, ybufs in (
-            ("tile 64, no skip, 1 Y buffer", full[64], 64, 1),
-            ("tile 64, no skip, 2 Y buffers", full[64], 64, 2),
-            ("tile 64, skip, 1 Y buffer", bits[64], 64, 1),
-            ("tile 64, skip, 2 Y buffers", bits[64], 64, 2),
-            ("tile 32 (2 CTAs per SM), no skip, 1 Y buffer", full[32], 32, 1),
-            ("tile 32, skip, 1 Y buffer (the kernel)", bits[32], 32, 1)):
-        got = run(b, tile, ybufs)
+    for name, b, tile in (
+            ("tile 64, no skip", full[64], 64),
+            ("tile 64, skip", bits[64], 64),
+            ("tile 32 (2 CTAs per SM), no skip", full[32], 32),
+            ("tile 32, skip (the kernel)", bits[32], 32)):
+        got = run(b, tile)
         torch.cuda.synchronize()
         compare(f"steps {label} {name} mean", got[0], want[0])
         compare(f"steps {label} {name} perts", got[1], want[1])
         del got
-        out.append((name, cuda_ms(lambda: run(b, tile, ybufs), reps)))
+        out.append((name, cuda_ms(lambda: run(b, tile), reps)))
     shares = []
     for t, b in bits.items():
         panels = sum(int(((b.to(torch.int64) >> q) & 1).sum())
@@ -1430,34 +1440,9 @@ def _b2_variants(label, bm, bp, lat, lon, tail, obs, radius, reps):
         + "; ".join(f"{name}: {ms:.2f} ms" for name, ms in out))
 
 
-def _p_variants():
-    """Times every tile choice of P's kernels at 1024^3 and 4096^3 (the
-    kernel picks by how many tiles the sizes give the card's 132 SMs)."""
-    import torch
-
-    from efa_xray_tpu_torch.ops import precision_probe as pp
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(122)
-    for size in (1024, 4096):
-        a = torch.randn(size, size, generator=gen, device=dev)
-        b = torch.randn(size, size, generator=gen, device=dev)
-        parts = []
-        for mode in pp.MODES:
-            want = pp.mm_cuda(a, b, mode)  # held against plain in phase 12
-            for variant in pp.VARIANTS[mode]:
-                compare(f"steps P {mode} {variant} {size}",
-                        pp.mm_cuda(a, b, mode, variant), want)
-                ms = cuda_ms(lambda: pp.mm_cuda(a, b, mode, variant), 5,
-                             P_INNER)
-                parts.append(f"{mode} {variant} {ms:.4f} ms")
-        log(f"steps P tiles at {size}^3: " + "; ".join(parts))
-
-
 def steps_phase():
     """What the parts of B2's design buy, on phase 3's workload and on the
-    headline body; and P's tile choices."""
-    _p_variants()
+    headline body."""
     w = _b2_workload()
     _b2_variants("262,144 x 80 x 2048 obs", w["bm"], w["bp"], w["lat"],
                  w["lon"], w["tail"], w["obs"], 2000.0, 5)

@@ -68,19 +68,20 @@
 // 4. Reloads run under arithmetic.  ggt is never resident: the 8 rows of
 //    the next alive panel stream into a two-slot ring (cp.async) while this
 //    panel solves.  Y and the table of the next alive block are fetched with
-//    cp.async too: with two CTAs on the SM into the one buffer, once this
-//    block's apply has read it (the other CTA computes meanwhile); with one
-//    CTA of 64 rows into a second buffer while this block computes, where
-//    that fits (~182 KB at B 128, M 80).  Measured at 80 members, the two
-//    CTAs of 32 rows win by ~10%, and the second buffer buys under 1%.
+//    cp.async too, into the one buffer, once this block's apply has read it;
+//    with two CTAs on the SM the other one computes meanwhile.  Measured at
+//    80 members, the two CTAs of 32 rows beat one CTA of 64 rows by ~10%.
+//    (A second Y/table buffer for the 64-row CTA, prefetched in one commit
+//    group with the first ggt panel, was measured at under 1% and is not
+//    kept.)
 // kHybrid is a template parameter, so the pure instantiation carries none of
 // the static column.  Rows past the end of the state (the ragged last tile)
 // are zero and never written.  No tensor cores and no TF32.
 //
 // Shared memory (floats; make_layout below, mirrored by ops/ensrf_fused.py
-// smem_bytes): X [T, Ys], Y [ybufs][Bp Ys + Bp / 2], U [Bp, T], partial sums
+// smem_bytes): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp, T], partial sums
 // [16 x 256], ggt ring [2][8, Bp], weights [8, T] (B2h: + static columns
-// [8, T]), table [ybufs][kTab B], geometry [kGeo, T], mean [T], mean
+// [8, T]), table [kTab B], geometry [kGeo, T], mean [T], mean
 // increment [T], alive-panel lists [2][Bp / 8]; Ys = 4 (ceil(M / 4) | 1),
 // Bp = B rounded up to 8.
 
@@ -236,7 +237,7 @@ struct Layout {
   int x, y, u, scr, g, wb, sb, tab, geo, xm, macc, plist, total;
 };
 
-__host__ __device__ inline Layout make_layout(int T, int B, int M, int ybufs,
+__host__ __device__ inline Layout make_layout(int T, int B, int M,
                                               bool hybrid) {
   Layout L;
   L.Ys = 4 * (((M + 3) >> 2) | 1);
@@ -245,13 +246,13 @@ __host__ __device__ inline Layout make_layout(int T, int B, int M, int ybufs,
   L.tabsz = round4((hybrid ? kTabHybrid : kTabPure) * B);
   int o = 0;
   L.x = o, o += T * L.Ys;
-  L.y = o, o += ybufs * L.ysz;
+  L.y = o, o += L.ysz;
   L.u = o, o += L.Bp * T;
   L.scr = o, o += 16 * kThreads;
   L.g = o, o += 2 * kPanel * L.Bp;
   L.wb = o, o += kPanel * T;
   L.sb = o, o += hybrid ? kPanel * T : 0;
-  L.tab = o, o += ybufs * L.tabsz;
+  L.tab = o, o += L.tabsz;
   L.geo = o, o += (hybrid ? 5 : 4) * T;
   L.xm = o, o += T;
   L.macc = o, o += T;
@@ -260,7 +261,7 @@ __host__ __device__ inline Layout make_layout(int T, int B, int M, int ybufs,
   return L;
 }
 
-// Row j of a Y buffer: rows are Ys apart and every panel of 8 starts 4
+// Row j of the Y buffer: rows are Ys apart and every panel of 8 starts 4
 // words later than the rows alone would put it, so that the rows of
 // different panels that a warp reads at once in D0 fall into different
 // banks.
@@ -326,21 +327,21 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     const float* __restrict__ ggt_b,  // [nb, B, B]; B2h: the raw Gram
     const float* __restrict__ tab_b,  // [nb, kTab, B]
     const int* __restrict__ bits,     // [gtiles, nb] or nullptr (no cull)
-    int N, int M, int B, int nb, int T, int ybufs, int vec, int localize,
+    int N, int M, int B, int nb, int T, int vec, int localize,
     int vertical, int series, float* bm_out, float* bp_out) {
   constexpr int kTab = kHybrid ? kTabHybrid : kTabPure;
   constexpr int kGeo = kHybrid ? 5 : 4;
   extern __shared__ __align__(16) float smem[];
-  const Layout L = make_layout(T, B, M, ybufs, kHybrid);
+  const Layout L = make_layout(T, B, M, kHybrid);
   const int Ys = L.Ys, Bp = L.Bp;
   float* Xs = smem + L.x;      // [T, Ys]
-  float* Yb = smem + L.y;      // [ybufs][Bp rows, skewed]
+  float* Ysm = smem + L.y;     // [Bp rows, skewed]
   float* U = smem + L.u;       // [Bp, T]  d0 columns, then u (B2h: v)
   float* scr = smem + L.scr;   // [slices, kPanel, T] partial corrections
   float* Gr = smem + L.g;      // [2][kPanel, Bp] ggt rows of a panel
   float* Wb = smem + L.wb;     // [kPanel, T]
   float* Sb = smem + L.sb;     // B2h: [kPanel, T] static columns
-  float* tabs = smem + L.tab;  // [ybufs][kTab, B]
+  float* tab = smem + L.tab;   // [kTab, B]
   float* geo = smem + L.geo;   // [kGeo, T]
   float* xm = smem + L.xm;     // [T]
   float* macc = smem + L.macc; // [T] mean increment of the block
@@ -378,10 +379,10 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     while (b < nb && block_bits(b) == 0u) ++b;
     return b;
   };
-  // Y and the table of block b into buffer buf, asynchronously.
-  auto fetch = [&](int b, int buf) {
+  // Y and the table of block b, asynchronously.
+  auto fetch = [&](int b) {
     const float* yb = y_b + (long)b * B * M;
-    float* yd = Yb + buf * L.ysz;
+    float* yd = Ysm;
     if (vec & kVecY) {
       const int c4 = M >> 2;
       for (int idx = tid; idx < B * c4; idx += nth) {
@@ -394,7 +395,7 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
         cp_async4(yd + yrow(j, Ys) + c, yb + (long)j * M + c);
       }
     }
-    copy_async(tabs + buf * L.tabsz, tab_b + (long)b * kTab * B, kTab * B,
+    copy_async(tab, tab_b + (long)b * kTab * B, kTab * B,
                vec & kVecTab, tid, nth);
   };
   // Rows of panel q of block b's ggt, columns up to the panel's end, into
@@ -424,14 +425,12 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
   const int ks = tid / half, rp = tid - ks * half;
 
   int b = next_alive(0);
-  int cur = 0, par = 0;
-  if (b < nb) fetch(b, 0);
+  int par = 0;
+  if (b < nb) fetch(b);
   cp_async_commit();
   while (b < nb) {
     const unsigned bw = block_bits(b);
     const int nxt = next_alive(b + 1);
-    const float* Ysm = Yb + cur * L.ysz;
-    const float* tab = tabs + cur * L.tabsz;
     int* pl = plist + par * npanels;
     // The alive panels of this block, in order.
     const int na = bits ? __popc(bw) : npanels;
@@ -445,7 +444,6 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     // This block's Y and table have landed, every thread has left the
     // block before, and the list is written.
     __syncthreads();
-    if (ybufs == 2 && nxt < nb) fetch(nxt, cur ^ 1);
     fetch_g(b, pl[0], 0);
     cp_async_commit();
     if (tid < T) macc[tid] = 0.0f;
@@ -618,11 +616,9 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
       apply_tiles<16>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
     if (tid < T) xm[tid] += macc[tid];
 
-    if (ybufs == 2) {
-      cur ^= 1;
-    } else if (nxt < nb) {
-      __syncthreads();  // the one Y buffer is free only now
-      fetch(nxt, 0);
+    if (nxt < nb) {
+      __syncthreads();  // the Y buffer is free only now
+      fetch(nxt);
     }
     cp_async_commit();
     par ^= 1;
@@ -645,15 +641,14 @@ bool aligned16(const void* p) {
 template <bool kHybrid>
 int launch(const float* bm_in, const float* bp_in, const float* geom,
            const float* y_b, const float* ggt_b, const float* tab_b,
-           const int* bits, int N, int M, int B, int nb, int T, int ybufs,
-           int localize, int vertical, int series, float* bm_out,
+           const int* bits, int N, int M, int B, int nb, int T, int localize, int vertical, int series, float* bm_out,
            float* bp_out, cudaStream_t stream) {
   const int npanels = (B + kPanel - 1) / kPanel;
-  if ((T != 32 && T != 64) || (ybufs != 1 && ybufs != 2) || N <= 0 ||
+  if ((T != 32 && T != 64) || N <= 0 ||
       M <= 0 || B <= 0 || nb <= 0 || (bits && npanels > 32))
     return (int)cudaErrorInvalidValue;
   const int smem =
-      (int)sizeof(float) * make_layout(T, B, M, ybufs, kHybrid).total;
+      (int)sizeof(float) * make_layout(T, B, M, kHybrid).total;
   cudaError_t e = cudaFuncSetAttribute(fused_body_kernel<kHybrid>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem);
@@ -663,7 +658,7 @@ int launch(const float* bm_in, const float* bp_in, const float* geom,
                   (B % 4 == 0 && aligned16(ggt_b) ? kVecG : 0);
   const int tiles = (N + T - 1) / T;
   fused_body_kernel<kHybrid><<<tiles, kThreads, smem, stream>>>(
-      bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T, ybufs, vec,
+      bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T, vec,
       localize, vertical, series, bm_out, bp_out);
   return (int)cudaGetLastError();
 }
@@ -672,17 +667,15 @@ int launch(const float* bm_in, const float* bp_in, const float* geom,
 
 extern "C" {
 
-// T: rows per CTA (32 or 64); ybufs: Y/table buffers in shared memory (2:
-// the next alive block is prefetched while this one computes; 1: it is
-// fetched when this block is done).
+// T: rows per CTA (32 or 64).
 int efa_fused_body(const float* bm_in, const float* bp_in, const float* geom,
                    const float* y_b, const float* ggt_b, const float* tab_b,
                    const int* bits, int N, int M, int B, int nb, int T,
-                   int ybufs, int localize, int vertical, int series,
+                   int localize, int vertical, int series,
                    int hybrid, float* bm_out, float* bp_out, void* stream) {
   const auto run = hybrid ? &launch<true> : &launch<false>;
   return run(bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T,
-             ybufs, localize, vertical, series, bm_out, bp_out,
+             localize, vertical, series, bm_out, bp_out,
              (cudaStream_t)stream);
 }
 

@@ -22,9 +22,9 @@
 // from shared memory feeds many FMAs and loads run ahead of the arithmetic.
 //
 // What the design does about it.
-// ieee: a CTA owns a BM x BN tile of C (128 x 128, 128 x 64 or 64 x 64, by
-//   how many tiles the sizes give the 132 SMs), walks k in steps of 16
-//   through a three-stage cp.async ring (16-byte copies, zero-filled past
+// ieee: a CTA owns a BM x BN tile of C (128 x 128 once those tiles fill the
+//   132 SMs, else 128 x 64: measured at 1024^3 and 4096^3), walks k in steps
+//   of 16 through a three-stage cp.async ring (16-byte copies, zero-filled past
 //   the edges), and every thread keeps an 8 x 8 register tile: per four
 //   k-steps it reads eight float4 of A (row-major in shared memory, four k
 //   values of one row each) and eight float4 of B for 256 FMAs, one 16-byte
@@ -416,8 +416,7 @@ cudaError_t launch_wgmma(const void* ar, const void* bt, float* c, int n,
 
 template <bool kBf16>
 cudaError_t run_tensor(const float* a, const float* b, float* c, void* ar,
-                       void* bt, int n, int k, int m, int variant,
-                       cudaStream_t s) {
+                       void* bt, int n, int k, int m, cudaStream_t s) {
   using In = typename Rounded<kBf16>::type;
   const int npad = (n + kRowPad - 1) / kRowPad * kRowPad;
   const int mpad = (m + kRowPad - 1) / kRowPad * kRowPad;
@@ -430,8 +429,7 @@ cudaError_t run_tensor(const float* a, const float* b, float* c, void* ar,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // Two warpgroups (128 x 128 tiles) once those fill the card, else one.
-  const bool two = variant ? variant == 1
-                           : (npad / 128) * (mpad / 128) >= kNumSMs;
+  const bool two = (npad / 128) * (mpad / 128) >= kNumSMs;
   return two ? launch_wgmma<kBf16, 2>(ar, bt, c, n, m, kpad, s)
              : launch_wgmma<kBf16, 1>(ar, bt, c, n, m, kpad, s);
 }
@@ -442,32 +440,23 @@ extern "C" {
 
 // mode: 0 ieee, 1 tf32, 2 bf16.  ar and bt are scratch for the tensor-core
 // modes: ceil(n, 128) x ceil(k, 64) and ceil(m, 128) x ceil(k, 64) elements
-// of 4 bytes (tf32) or 2 (bf16); unused in mode 0.  variant 0 picks the tile
-// from the sizes; 1-3 force one (ieee: 128 x 128, 128 x 64, 64 x 64; tensor
-// modes: 1 two warpgroups, 2 one) so that the choice can be measured.
-// Returns a cudaError_t.
+// of 4 bytes (tf32) or 2 (bf16); unused in mode 0.  Returns a cudaError_t.
 int efa_precision_mm(const float* a, const float* b, float* c, void* ar,
-                     void* bt, int n, int k, int m, int mode, int variant,
+                     void* bt, int n, int k, int m, int mode,
                      void* stream) {
   if (n <= 0 || k <= 0 || m <= 0 || n % kSizeMultiple || k % kSizeMultiple ||
-      m % kSizeMultiple || mode < 0 || mode > 2 || variant < 0 || variant > 3)
+      m % kSizeMultiple || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == 1)
-    return (int)run_tensor<false>(a, b, c, ar, bt, n, k, m, variant, s);
+    return (int)run_tensor<false>(a, b, c, ar, bt, n, k, m, s);
   if (mode == 2)
-    return (int)run_tensor<true>(a, b, c, ar, bt, n, k, m, variant, s);
-  auto tiles = [&](int bm, int bn) {
-    return ((n + bm - 1) / bm) * ((m + bn - 1) / bn);
-  };
-  if (variant == 0)
-    // Measured: at 1024^3 the 128 tiles of 128 x 64 beat 256 of 64 x 64.
-    variant = tiles(128, 128) >= kNumSMs      ? 1
-              : tiles(128, 64) >= kNumSMs / 2 ? 2
-                                              : 3;
-  if (variant == 1) return (int)launch_ieee<128, 128>(a, b, c, n, k, m, s);
-  if (variant == 2) return (int)launch_ieee<128, 64>(a, b, c, n, k, m, s);
-  return (int)launch_ieee<64, 64>(a, b, c, n, k, m, s);
+    return (int)run_tensor<true>(a, b, c, ar, bt, n, k, m, s);
+  // Measured: 128 x 128 tiles win once they fill the card (4096^3); below
+  // that 128 x 64 (1024^3: 128 tiles) beat them and beat 64 x 64 too.
+  if (((n + 127) / 128) * ((m + 127) / 128) >= kNumSMs)
+    return (int)launch_ieee<128, 128>(a, b, c, n, k, m, s);
+  return (int)launch_ieee<128, 64>(a, b, c, n, k, m, s);
 }
 
 }  // extern "C"

@@ -36,10 +36,10 @@ _I = ctypes.c_int
 # argtypes of every C entry point; pointers and the stream as c_void_p.
 _SIGNATURES = {
     "efa_tail_solve": [_P] * 6 + [_I, _I, _I] + [_P] * 10,
-    "efa_fused_body": [_P] * 7 + [_I] * 10 + [_P] * 3,
+    "efa_fused_body": [_P] * 7 + [_I] * 9 + [_P] * 3,
     "efa_grid_body": [_P] * 7 + [_I] * 6 + [_P] * 3,
     "efa_block_apply": [_P] * 7 + [_I] * 5 + [_P] * 3,
-    "efa_precision_mm": [_P] * 5 + [_I] * 5 + [_P],
+    "efa_precision_mm": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 

@@ -99,63 +99,35 @@ def _gc_poly(r, outer_form: str = "exact"):
     return torch.where(r <= 1.0, inner, torch.where(r < 2.0, outer, zero))
 
 
-def _layout_floats(tile: int, block_size: int, nmems: int, hybrid: bool,
-                   ybufs: int) -> int:
-    """Floats of one CTA's shared memory (mirrors ``make_layout`` in
+def smem_bytes(tile: int, block_size: int, nmems: int,
+               hybrid: bool = False) -> int:
+    """Shared memory of one CTA (mirrors ``make_layout`` in
     ``csrc/ensrf_fused.cu``)."""
     t, b, m = tile, block_size, nmems
     ys = 4 * (-(-m // 4) | 1)        # row stride of X and Y: 4 x odd words
     bp = -(-b // PANEL) * PANEL      # obs rounded up to whole panels
     ntab = len(TABLE_ROWS) + (len(HYBRID_ROWS) if hybrid else 0)
     round4 = lambda x: (x + 3) & ~3
-    return (t * ys                               # X
-            + ybufs * (bp * ys + bp // 2)        # Y buffers, panels skewed
+    return 4 * (t * ys                           # X
+            + bp * ys + bp // 2                  # Y, panels skewed
             + bp * t                             # d0 / u columns
             + 16 * THREADS                       # partial corrections
             + 2 * PANEL * bp                     # ring of ggt panel rows
             + PANEL * t * (2 if hybrid else 1)   # weights (, static columns)
-            + ybufs * round4(ntab * b)           # per-ob tables
+            + round4(ntab * b)                   # per-ob table
             + (5 if hybrid else 4) * t           # row geometry (, sigma)
             + 2 * t                              # mean, its increment
             + round4(2 * (bp // PANEL)))         # alive-panel lists
 
 
-def smem_bytes(tile: int, block_size: int, nmems: int,
-               hybrid: bool = False, ybufs: int | None = None) -> int:
-    """Shared memory of one CTA (mirrors ``make_layout`` in
-    ``csrc/ensrf_fused.cu``).  ``ybufs`` is the number of Y/table buffers
-    (default: what :func:`pick_buffers` gives this tile)."""
-    if ybufs is None:
-        ybufs = pick_buffers(tile, block_size, nmems, hybrid)
-    return 4 * _layout_floats(tile, block_size, nmems, hybrid, ybufs)
-
-
-def _two_ctas_fit(block_size: int, nmems: int, hybrid: bool) -> bool:
-    """Whether an SM holds two CTAs of 32 rows with one Y buffer each."""
-    return (4 * _layout_floats(32, block_size, nmems, hybrid, 1)
-            <= TWO_CTA_SMEM_BYTES)
-
-
-def pick_buffers(tile: int, block_size: int, nmems: int,
-                 hybrid: bool = False) -> int:
-    """Y/table buffers of a CTA.  A tile of 32 rows that fits an SM twice
-    takes 1: the second CTA's arithmetic covers the fetch, and a second
-    buffer would cost that CTA its place.  Otherwise 2 (the next alive
-    block is prefetched while this one computes) where they fit, else 1."""
-    if tile == 32 and _two_ctas_fit(block_size, nmems, hybrid):
-        return 1
-    return (2 if 4 * _layout_floats(tile, block_size, nmems, hybrid, 2)
-            <= MAX_SMEM_BYTES else 1)
-
-
 def pick_tile(block_size: int, nmems: int, hybrid: bool = False) -> int:
     """Rows per CTA: 32 where two such CTAs fit an SM (measured faster
-    than one CTA of 64 rows with a prefetched Y: two CTAs hide each
-    other's waits and the cull is finer); else 64, or 32 when 64 would
-    overflow shared memory.  The cull bits are computed at this tile."""
-    if _two_ctas_fit(block_size, nmems, hybrid):
+    than one CTA of 64 rows: two CTAs hide each other's waits and the
+    cull is finer); else 64, or 32 when 64 would overflow shared memory.
+    The cull bits are computed at this tile."""
+    if smem_bytes(32, block_size, nmems, hybrid) <= TWO_CTA_SMEM_BYTES:
         return 32
-    return (64 if smem_bytes(64, block_size, nmems, hybrid, 1)
+    return (64 if smem_bytes(64, block_size, nmems, hybrid)
             <= MAX_SMEM_BYTES else 32)
 
 
@@ -341,13 +313,10 @@ def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
 
 def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                      localize: bool, vertical: bool, series: bool,
-                     hybrid: bool = False, donate: bool = False,
-                     ybufs: int | None = None):
+                     hybrid: bool = False, donate: bool = False):
     """Launch B2 (B2h with ``hybrid``) on CUDA float32 tensors.
     ``donate=True`` updates ``bm``/``bp`` in place (the JAX package
-    donates these buffers).  ``ybufs`` forces the number of Y/table
-    buffers (default :func:`pick_buffers`), so that the prefetch can be
-    measured."""
+    donates these buffers)."""
     global launches, hybrid_launches
     nrows, nmems = bp.shape
     nblocks, bsz, _ = y_b.shape
@@ -368,11 +337,7 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
         raise ValueError("B2 cull bits must be int32 [gtiles, nblocks]")
     if tile not in (32, 64):
         raise ValueError(f"B2 takes a tile of 32 or 64 rows, not {tile}")
-    if ybufs is None:
-        ybufs = pick_buffers(tile, bsz, nmems, hybrid)
-    elif ybufs not in (1, 2):
-        raise ValueError(f"B2 takes 1 or 2 Y buffers, not {ybufs}")
-    smem = smem_bytes(tile, bsz, nmems, hybrid, ybufs)
+    smem = smem_bytes(tile, bsz, nmems, hybrid)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"B2 tile {tile} x block {bsz} x {nmems} members needs {smem} B "
@@ -387,7 +352,7 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
     err = _build.lib().efa_fused_body(
         *(t.data_ptr() for t in ins),
         None if cbits is None else cbits.data_ptr(),
-        nrows, nmems, bsz, nblocks, tile, ybufs, int(localize),
+        nrows, nmems, bsz, nblocks, tile, int(localize),
         int(vertical), int(series), int(hybrid), out_m.data_ptr(),
         out_p.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,

@@ -44,11 +44,6 @@ TILE = 16
 # (csrc/precision_probe.cu kRowPad, kKPad): rows of A and of B^T, and k.
 ROW_PAD = 128
 K_PAD = 64
-# Tile choices of the kernel (0: by the sizes); the others force one so
-# that the choice can be measured.
-VARIANTS = {"ieee": {"auto": 0, "128x128": 1, "128x64": 2, "64x64": 3},
-            "tf32": {"auto": 0, "128x128": 1, "64x128": 2},
-            "bf16": {"auto": 0, "128x128": 1, "64x128": 2}}
 
 # Launches of the CUDA kernel (not of the plain version), in all and by
 # mode.
@@ -104,11 +99,9 @@ def scratch_shapes(n: int, k: int, m: int):
     return (_ceil_to(n, ROW_PAD), kpad), (_ceil_to(m, ROW_PAD), kpad)
 
 
-def mm_cuda(a: torch.Tensor, b: torch.Tensor, mode: str,
-            variant: str = "auto") -> torch.Tensor:
+def mm_cuda(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """Launch P on CUDA float32 tensors whose sizes are multiples of 16,
-    square or not.  ``variant`` forces one of the kernel's tile choices
-    (:data:`VARIANTS`)."""
+    square or not."""
     global launches
     _check(a, b, mode)
     n, k = a.shape
@@ -116,9 +109,6 @@ def mm_cuda(a: torch.Tensor, b: torch.Tensor, mode: str,
     if n == 0 or k == 0 or m == 0 or n % TILE or k % TILE or m % TILE:
         raise ValueError(f"P needs sizes that are positive multiples of "
                          f"{TILE}, got n={n}, k={k}, m={m}")
-    if variant not in VARIANTS[mode]:
-        raise ValueError(f"unknown variant {variant!r} of mode {mode!r}; "
-                         f"expected one of {tuple(VARIANTS[mode])}")
     dev = a.device
     if (not a.is_cuda or b.device != dev or a.dtype != torch.float32
             or b.dtype != torch.float32):
@@ -140,7 +130,7 @@ def mm_cuda(a: torch.Tensor, b: torch.Tensor, mode: str,
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if ar is None else ar.data_ptr(),
         None if bt is None else bt.data_ptr(), n, k, m, _MODE_ID[mode],
-        VARIANTS[mode][variant], torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"P precision_probe launch ({mode})")
     launches += 1
     launches_by_mode[mode] += 1

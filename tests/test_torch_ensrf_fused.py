@@ -189,24 +189,17 @@ _CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 @pytest.mark.parametrize("bsz,nmems", [(128, 30), (128, 80), (128, 256),
                                        (64, 80)])
 def test_b2_shared_memory_fits_the_card(bsz, nmems, hybrid):
-    """The tile and the number of Y buffers the wrapper picks fit the 227
-    KB a CTA may use.  32 rows and one buffer where an SM holds two such
-    CTAs; else 64 rows (32 if 64 overflow) with two buffers if they fit."""
+    """The tile the wrapper picks fits the 227 KB a CTA may use.  32 rows
+    where an SM holds two such CTAs; else 64 rows (32 if 64 overflow)."""
     tile = ensrf_fused.pick_tile(bsz, nmems, hybrid)
     assert tile in (32, 64)
-    ybufs = ensrf_fused.pick_buffers(tile, bsz, nmems, hybrid)
-    one = ensrf_fused.smem_bytes(tile, bsz, nmems, hybrid, 1)
-    two = ensrf_fused.smem_bytes(tile, bsz, nmems, hybrid, 2)
-    assert one < two
-    assert ensrf_fused.smem_bytes(tile, bsz, nmems, hybrid) == (
-        two if ybufs == 2 else one) <= ensrf_fused.MAX_SMEM_BYTES
-    small = ensrf_fused.smem_bytes(32, bsz, nmems, hybrid, 1)
+    assert (ensrf_fused.smem_bytes(tile, bsz, nmems, hybrid)
+            <= ensrf_fused.MAX_SMEM_BYTES)
+    small = ensrf_fused.smem_bytes(32, bsz, nmems, hybrid)
     if 2 * (small + 1024) <= 233472:
-        assert (tile, ybufs) == (32, 1)
+        assert tile == 32
     else:
-        assert ybufs == (2 if two <= ensrf_fused.MAX_SMEM_BYTES else 1)
-        assert (tile == 32) == (ensrf_fused.smem_bytes(64, bsz, nmems,
-                                                       hybrid, 1)
+        assert (tile == 32) == (ensrf_fused.smem_bytes(64, bsz, nmems, hybrid)
                                 > ensrf_fused.MAX_SMEM_BYTES)
     # Two CTAs per SM at every size here but 256 members.
     assert (2 * (small + 1024) <= 233472) == (nmems != 256)
@@ -214,21 +207,20 @@ def test_b2_shared_memory_fits_the_card(bsz, nmems, hybrid):
 
 def test_b2_shared_memory_mirrors_the_kernel_layout():
     """``make_layout`` of ``csrc/ensrf_fused.cu`` by hand at T 64, B 128,
-    M 80: X 64 x 84, two Y buffers of 128 x 84 + 64, U 128 x 64, 16 x 256
-    partial sums, a ring of 2 x 8 x 128, weights 8 x 64, two tables of 8 x
-    128, geometry 4 x 64, mean and increment 2 x 64, lists 2 x 16; B2h adds
-    static columns 8 x 64, three table rows in each buffer and the sigma
-    row."""
-    pure = (64 * 84 + 2 * (128 * 84 + 64) + 128 * 64 + 16 * 256
-            + 2 * 8 * 128 + 8 * 64 + 2 * 8 * 128 + 4 * 64 + 2 * 64 + 32)
-    assert ensrf_fused.smem_bytes(64, 128, 80, False, 2) == 4 * pure
-    assert ensrf_fused.smem_bytes(64, 128, 80, True, 2) == 4 * (
-        pure + 8 * 64 + 2 * 3 * 128 + 64)
+    M 80: X 64 x 84, Y 128 x 84 + 64, U 128 x 64, 16 x 256 partial sums, a
+    ring of 2 x 8 x 128, weights 8 x 64, a table of 8 x 128, geometry 4 x
+    64, mean and increment 2 x 64, lists 2 x 16; B2h adds static columns 8
+    x 64, three table rows and the sigma row."""
+    pure = (64 * 84 + (128 * 84 + 64) + 128 * 64 + 16 * 256
+            + 2 * 8 * 128 + 8 * 64 + 8 * 128 + 4 * 64 + 2 * 64 + 32)
+    assert ensrf_fused.smem_bytes(64, 128, 80, False) == 4 * pure
+    assert ensrf_fused.smem_bytes(64, 128, 80, True) == 4 * (
+        pure + 8 * 64 + 3 * 128 + 64)
     # A block of 12 obs is padded to two panels; 30 members to a row
     # stride of 36 words (4 x odd).
     small = (32 * 36 + (16 * 36 + 8) + 16 * 32 + 16 * 256 + 2 * 8 * 16
              + 8 * 32 + 8 * 12 + 4 * 32 + 2 * 32 + 4)
-    assert ensrf_fused.smem_bytes(32, 12, 30, False, 1) == 4 * small
+    assert ensrf_fused.smem_bytes(32, 12, 30, False) == 4 * small
     with open(_CU) as f:
         src = f.read()
     assert f"kThreads = {ensrf_fused.THREADS};" in src

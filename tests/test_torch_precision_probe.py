@@ -164,8 +164,10 @@ def test_cuda_launcher_refuses_empty_sizes_and_unknown_variants():
     a, b = (torch.from_numpy(x) for x in _inputs(n=16, k=32, m=16))
     with pytest.raises(ValueError, match="multiples of 16"):
         pp.mm_cuda(torch.zeros(0, 32), b, "ieee")
-    with pytest.raises(ValueError, match="unknown variant"):
+    # The kernel picks its tile from the sizes: the launcher takes no
+    # variant, and no mode but the three.
+    with pytest.raises(TypeError):
         pp.mm_cuda(a, b, "tf32", variant="64x64")
-    for mode in pp.MODES:
-        assert pp.VARIANTS[mode]["auto"] == 0
+    with pytest.raises(ValueError, match="unknown mode"):
+        pp.mm_cuda(a, b, "fp16")
     assert pp.launches == 0
