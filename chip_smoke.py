@@ -6,7 +6,9 @@ Usage, from the root of a checkout::
     python3 chip_smoke.py             # phases 0-12
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B2 with parts of its
-                                      # design switched off
+                                      # design switched off, and the grid
+                                      # kernel (B3, B4) at each tile beside
+                                      # the parent commit's
 
 Phases, each printing one line of results:
 
@@ -28,9 +30,15 @@ Phases, each printing one line of results:
 6. B3 (grid body) against its plain version at BASELINE config 3's shape
    (a 90 x 180 global 2-degree grid, 80 groups, 30 members, 5,000 obs at
    2000 km, a vertical table at 300 hPa), with and without a
-   cross-variable group factor, and at 80 members on a 45 x 90 grid;
+   cross-variable group factor, and at 80 members on a 45 x 90 grid, with
+   the CTAs per SM and the weight bytes the launch reads; then over the
+   edges of its tiling at small grids (grids of 527, 60 and 21 points, 30
+   to 256 members, blocks of 8 to 256 obs, no weights, no table, one
+   group, one block, in place, weight chunks);
 7. B4 (one obs block per launch) against its plain version at config 3's
-   shape and on a 1024 x 1024 grid x 80 members with 10,000 obs (vt = 1);
+   shape and on a 1024 x 1024 grid x 80 members with 10,000 obs (vt = 1),
+   the torch build of a block's operands timed apart; then phase 6's edge
+   cases through B4;
 8. the public API on config 3 as users build it (80 level-stacked
    variables with their levels in ``var_verts``): (a) the default
    ``FilterConfig`` through B4, (b) ``fast_geometry`` with cross-variable
@@ -68,7 +76,14 @@ panels that the cull keeps alive.
 ``--steps`` replaces phases 2-12 with B2 timed on phase 3's workload and
 on the headline body with parts of its design switched off (dead panels
 solved instead of skipped, a tile of 64 rows instead of 32 rows with two
-CTAs per SM), each held against the kernel's own result.
+CTAs per SM), each held against the kernel's own result; then with the
+grid kernel (B3 at config 3's shape and at 80 members, B4 at phase 7's
+shapes) at tiles of 32 and 64 points, with parts of it compiled out
+(``-DEFA_GRID_SKIP``: what the chain, the trailing update, D0 and the apply
+cost) and, where ``build/efa_xray_tpu_torch/parent/ensrf_grid.cu`` exists,
+the kernel of that file on the same operands.  Put the parent commit's source there with
+``git show <commit>:efa_xray_tpu_torch/csrc/ensrf_grid.cu`` (the directory
+is git-ignored).
 
 Any failure raises and exits non-zero; without a GPU the script exits
 non-zero before doing anything.  It never imports JAX.
@@ -604,17 +619,18 @@ def _only(kernel: str, n=None):
 
 
 def _timed_update(make_filter):
-    """One ``make_filter().update()``: its result, wall seconds, and the
-    seconds spent in the tail (``tail_scan_blocked``) and in the body
-    (``fused_body``, ``grid_body`` or ``blocked_body``), each closed by a
-    synchronize."""
+    """One ``make_filter().update()``: its result, wall seconds, and a
+    dict of the seconds spent in the tail (``tail_scan_blocked``), in the
+    body (``fused_body``, ``grid_body`` or ``blocked_body``) and, inside a
+    B4 body, in the blocks' torch operands (``block_operands``) and in the
+    kernel's launches (``block_apply``), each closed by a synchronize."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf as ensrf_mod
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
     from efa_xray_tpu_torch.ops import ensrf_grid
 
-    spent = {"tail": 0.0, "body": 0.0}
+    spent = {"tail": 0.0, "body": 0.0, "operands": 0.0, "kernel": 0.0}
 
     def timed(fn, key):
         def run(*a, **k):
@@ -628,7 +644,9 @@ def _timed_update(make_filter):
 
     saved = [(mod, name, getattr(mod, name), key) for mod, name, key in (
         (core, "tail_scan_blocked", "tail"), (ensrf_mod, "fused_body", "body"),
-        (ensrf_grid, "grid_body", "body"), (ensrf_grid, "blocked_body", "body"))]
+        (ensrf_grid, "grid_body", "body"), (ensrf_grid, "blocked_body", "body"),
+        (ensrf_grid, "block_operands", "operands"),
+        (ensrf_grid, "block_apply", "kernel"))]
     for mod, name, fn, key in saved:
         setattr(mod, name, timed(fn, key))
     try:
@@ -640,7 +658,7 @@ def _timed_update(make_filter):
     finally:
         for mod, name, fn, _ in saved:
             setattr(mod, name, fn)
-    return out, wall, spent["tail"], spent["body"]
+    return out, wall, spent
 
 
 def _api_state(dev):
@@ -804,12 +822,13 @@ C3_LEVELS = np.linspace(1000.0, 100.0, 20)
 
 
 def _grid_case(ny, nx, vt, nmems, nobs, seed, group_levels=None,
-               radius=2000.0):
+               radius=2000.0, kernels=True):
     """Operands of a body sweep over ``vt`` groups on a global ``ny x nx``
     grid: a random state, obs at random places each observing a random
     group (its level, 300 hPa vertical radius), their pre-solved sequence
-    from the B1/B2 tail, and a cross-variable factor per (group, ob) with
-    zeros in it."""
+    from the B1/B2 tail (the plain tail without ``kernels``: B1 holds a
+    512-ob panel up to ~100 members), and a cross-variable factor per
+    (group, ob) with zeros in it."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
@@ -842,7 +861,7 @@ def _grid_case(ny, nx, vt, nmems, nobs, seed, group_levels=None,
                                                       device=dev))
     tail = core.tail_scan_blocked(tm, ye - tm[:, None], obs, localize=True,
                                   fast_geometry=True, vertical=True,
-                                  panel=512, kernels=True,
+                                  panel=512, kernels=kernels,
                                   max_radius_km=radius)
     # Four quantities: factor[ob quantity, group quantity], zeros included.
     fac = rng.choice([0.0, 0.3, 1.0], (4, 4))
@@ -852,6 +871,134 @@ def _grid_case(ny, nx, vt, nmems, nobs, seed, group_levels=None,
     return dict(bm=bm, bp=bp, lat=t(lat.ravel()), lon=t(lon.ravel()),
                 body_vert=body_vert, tail=tail, obs=obs, gf=gf, ngrid=ngrid,
                 vt=vt)
+
+
+# Block sizes swept by the grid kernel's edge cases: under one panel's
+# width, ragged last panels, one to 32 panels.
+GRID_BLOCK_SWEEP = (8, 16, 24, 40, 64, 72, 96, 120, 136, 200, 256)
+
+
+def _grid_edge_cases(entry: str):
+    """B3 or B4 (``entry``) against the plain version at small grids chosen
+    for the edges of the kernel's tiling: a grid of 527 points (not a multiple of
+    the tile nor of 4: 4-byte weight copies, a ragged last tile), of 60 (a
+    multiple of 4: 16-byte copies into a ragged tile) and of 21 (under one
+    tile); ensembles of 30, 50, 80, 128 and 256; blocks of 100 and 50 obs
+    (a ragged last panel, 4-byte copies) and a sweep of block sizes; no
+    weights (unlocalized), no table, one group, one block, an in-place
+    update and, for B3, ``grid_body`` over more blocks than one weight
+    chunk holds.  Each case runs all its blocks through B3, or its first
+    block through B4, and checks the tile and the CTAs per SM the wrapper
+    planned for.  Returns ``(max abs err, labels)``."""
+    import torch
+
+    from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    wide = dict(ny=17, nx=31)
+    cases = [
+        # label, grid, vt, members, block, obs, weights, table, in place
+        ("G 527, 30 members", wide, 3, 30, 128, 300, True, True, False),
+        ("G 60", dict(ny=6, nx=10), 3, 30, 128, 300, True, True, False),
+        ("G 21 (under one tile)", dict(ny=3, nx=7), 3, 30, 128, 300, True,
+         True, False),
+        ("50 members", wide, 3, 50, 128, 300, True, True, False),
+        ("80 members", wide, 3, 80, 128, 300, True, True, False),
+        ("128 members", wide, 3, 128, 128, 300, True, True, False),
+        ("256 members", wide, 3, 256, 128, 300, True, True, False),
+        ("80 members, blocks of 100", wide, 3, 80, 100, 300, True, True,
+         False),
+        ("30 members, blocks of 50", wide, 3, 30, 50, 300, True, True, False),
+        ("w null", wide, 3, 30, 128, 300, False, False, False),
+        ("table null", wide, 3, 30, 128, 300, True, False, False),
+        ("vt 1", wide, 1, 30, 128, 300, True, False, False),
+        ("one block", wide, 3, 30, 128, 100, True, True, False),
+        ("in place", wide, 3, 80, 128, 300, True, True, True),
+    ] + [(f"blocks of {b}", wide, 3, 30, b, 300, True, True, False)
+         for b in GRID_BLOCK_SWEEP]
+    # The tile the wrapper must choose where the choice was measured.
+    tiles = {"G 527, 30 members": 64, "50 members": 64, "80 members": 64,
+             "128 members": 32, "256 members": 32, "blocks of 256": 32}
+    made = {}
+    worst = 0.0
+    labels = []
+    for label, grid, vt, m, bsz, nobs, weights, use_table, donate in cases:
+        key = (grid["ny"], grid["nx"], vt, m, nobs)
+        if key not in made:
+            made[key] = _grid_case(vt=vt, nmems=m, nobs=nobs, seed=63,
+                                   kernels=m <= 80, **grid)
+        c = made[key]
+        ops = ensrf_grid.grid_prepare(
+            c["bp"], c["body_vert"], c["tail"], c["obs"], c["ngrid"],
+            localize=weights, block_size=bsz, vertical=use_table,
+            group_factor=c["gf"] if use_table else None)
+        nblocks = ops["y_b"].shape[0]
+        w = None
+        if weights:
+            w = ensrf_grid.grid_weights(
+                latlon_to_unit(c["lat"], c["lon"]), ops["ob_xyz"],
+                ops["radii"]).reshape(nblocks, bsz, c["ngrid"])
+        tile = ensrf_grid.pick_tile(bsz, m)
+        planned = ensrf_grid.ctas_per_sm(tile, bsz, m)
+        on_card = ensrf_grid.ctas_per_sm_on_card(tile, bsz, m)
+        check(tile == tiles.get(label, tile) and 1 <= planned <= on_card,
+              f"grid edge case {label}: tile {tile}, {planned} CTAs per SM "
+              f"planned, {on_card} on the card")
+        args = plain = (w, ops["table"], ops["y_b"], ops["ggt_b"],
+                        ops["coef_b"])
+        run = ensrf_grid.grid_apply
+        if entry == "B4":  # the first block alone (the table is [VT, nb, B])
+            plain = tuple(None if t is None else (t[:, :1] if i == 1
+                                                  else t[:1])
+                          for i, t in enumerate(args))
+            args = tuple(None if t is None else (t[:, 0] if i == 1 else t[0])
+                         for i, t in enumerate(args))
+            run = ensrf_grid.block_apply
+        want = ensrf_grid.grid_apply_plain(c["bm"], c["bp"], *plain, vt)
+        gm, gp = ((c["bm"].clone(), c["bp"].clone()) if donate
+                  else (c["bm"], c["bp"]))
+        got = run(gm, gp, *args, vt, donate=donate)
+        torch.cuda.synchronize()
+        name = f"{entry} edge case {label}"
+        if donate:
+            check(got[0].data_ptr() == gm.data_ptr()
+                  and got[1].data_ptr() == gp.data_ptr(),
+                  f"{name}: not updated in place")
+        check(float((want[1] - c["bp"]).abs().max()) > 1e-2,
+              f"{name}: the plain version did not move the state")
+        worst = max(worst, compare(f"{name} mean", got[0], want[0]),
+                    compare(f"{name} perts", got[1], want[1]))
+        labels.append(label)
+    if entry == "B4":
+        return worst, labels
+
+    # grid_body building its weights over chunks of two blocks.
+    c = made[(17, 31, 3, 30, 300)]
+    ops = ensrf_grid.grid_prepare(c["bp"], c["body_vert"], c["tail"],
+                                  c["obs"], c["ngrid"], block_size=64,
+                                  vertical=True)
+    w = ensrf_grid.grid_weights(latlon_to_unit(c["lat"], c["lon"]),
+                                ops["ob_xyz"], ops["radii"])
+    want = ensrf_grid.grid_apply_plain(
+        c["bm"], c["bp"], w.reshape(-1, 64, c["ngrid"]), ops["table"],
+        ops["y_b"], ops["ggt_b"], ops["coef_b"], 3)
+    budget = ensrf_grid.GRID_WEIGHT_BUDGET_BYTES
+    before = ensrf_grid.b3_launches
+    try:
+        ensrf_grid.GRID_WEIGHT_BUDGET_BYTES = 2 * 64 * c["ngrid"] * 4
+        got = ensrf_grid.grid_body(
+            c["bm"], c["bp"], c["lat"], c["lon"], c["tail"], c["obs"],
+            c["ngrid"], body_vert=c["body_vert"], block_size=64,
+            vertical=True)
+    finally:
+        ensrf_grid.GRID_WEIGHT_BUDGET_BYTES = budget
+    check(ensrf_grid.b3_launches - before == 3,
+          f"grid_body over weight chunks: {ensrf_grid.b3_launches - before} "
+          "launches, not 3")
+    worst = max(worst, compare("B3 weight chunks mean", got[0], want[0]),
+                compare("B3 weight chunks perts", got[1], want[1]))
+    labels.append("5 blocks in weight chunks of 2")
+    return worst, labels
 
 
 def phase6():
@@ -888,19 +1035,33 @@ def phase6():
                   compare(f"B3 {label} perts", got[1], want[1]))
         k_ms = cuda_ms(lambda: ensrf_grid.grid_apply(*args), 3)
         p_ms = cuda_ms(lambda: ensrf_grid.grid_apply_plain(*args), 1)
+        tile = ensrf_grid.pick_tile(bsz, dims["nmems"])
+        moved = nbytes(*args[:7]) + nbytes(*got)
         results.append(dict(
             label=label, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-            nmems=dims["nmems"], tile=ensrf_grid.pick_tile(bsz, dims["nmems"]),
+            nmems=dims["nmems"], tile=tile,
+            ctas=ensrf_grid.ctas_per_sm_on_card(tile, bsz, dims["nmems"]),
+            moved=moved,
+            # Every CTA reads its [nb, B, tile] slab of the weights: once
+            # per group if no read found the slab in the L2.
+            w_reads=ops["vt"] * nbytes(w),
             **bound(body_flop(c["bm"].numel(), nblocks, bsz, dims["nmems"]),
-                    nbytes(*args[:7]) + nbytes(*got))))
+                    moved)))
         del c, ops, w, args, got, want
     log("phase 6: B3 matches plain: " + "; ".join(
-        f"{r['label']} ({r['nmems']} members, tile {r['tile']}): err "
+        f"{r['label']} ({r['nmems']} members, tile {r['tile']}, "
+        f"{r['ctas']} CTAs per SM): err "
         f"{r['max_abs_err']:.3e} kernel {r['ms']:.2f} ms plain "
         f"{r['plain_ms']:.2f} ms bound {r['bound_ms']:.3f} ms "
-        f"({r['bound_by']})" for r in results))
+        f"({r['bound_by']}; the bound counts {r['moved'] / 1e9:.3f} GB moved, "
+        f"the launch's weight reads are {r['w_reads'] / 1e9:.3f} GB if none "
+        f"hits the L2)" for r in results))
+    edge_err, edge_labels = _grid_edge_cases("B3")
+    log(f"phase 6: B3 matches plain at small grids (max abs err "
+        f"{edge_err:.3e}): " + ", ".join(edge_labels))
     head = results[1]
-    return dict(max_abs_err=max(r["max_abs_err"] for r in results),
+    return dict(max_abs_err=max([edge_err] + [r["max_abs_err"]
+                                              for r in results]),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"])
 
@@ -943,23 +1104,41 @@ def phase7():
                   compare(f"B4 {label} perts", got[1], want[1]))
         args = (c["bm"], c["bp"], *ops, vt)
         k_ms = cuda_ms(lambda: ensrf_grid.block_apply(*args), 5)
+        # The block's operands in torch (haversine weights at the full
+        # grid, the vertical table, ggt), apart from the kernel.
+        o_ms = cuda_ms(lambda: ensrf_grid.block_operands(
+            c["lat"], c["lon"], tail.ye[sl], tail.sqrt_coef[sl],
+            obs.lats[sl], obs.lons[sl], obs.radii[sl], nrows,
+            body_vert=c["body_vert"], ob_vert=obs.verts[sl],
+            ob_vrad=obs.vert_radii[sl], vertical=vertical,
+            ngrid=c["ngrid"]), 3)
+        tile = ensrf_grid.pick_tile(bsz, dims["nmems"])
         p_ms = cuda_ms(lambda: ensrf_grid.grid_apply_plain(
             c["bm"], c["bp"], w[None],
             None if table is None else table[:, None], ops[2][None],
             ops[3][None], coef[None], vt), 1)
         results.append(dict(
             label=label, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+            operands_ms=o_ms, tile=tile,
+            ctas=ensrf_grid.ctas_per_sm_on_card(tile, bsz, dims["nmems"]),
             **bound(body_flop(nrows, 1, bsz, dims["nmems"]),
                     nbytes(*args[:7]) + nbytes(*got))))
         del c, tail, obs, got, want, ops, args, w
     log(f"phase 7: B4 matches plain over {nblk} blocks: " + "; ".join(
-        f"{r['label']}: err {r['max_abs_err']:.3e}, one block: kernel "
+        f"{r['label']} (tile {r['tile']}, {r['ctas']} CTAs per SM): err "
+        f"{r['max_abs_err']:.3e}, one block: kernel "
         f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms bound "
-        f"{r['bound_ms']:.4f} ms ({r['bound_by']})" for r in results))
-    head = results[0]
-    return dict(max_abs_err=max(r["max_abs_err"] for r in results),
-                ms=head["ms"], plain_ms=head["plain_ms"],
-                bound_ms=head["bound_ms"], bound_by=head["bound_by"])
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}); its operands in torch "
+        f"(block_operands) {r['operands_ms']:.3f} ms" for r in results))
+    edge_err, edge_labels = _grid_edge_cases("B4")
+    log(f"phase 7: B4 matches plain at small grids (max abs err "
+        f"{edge_err:.3e}): " + ", ".join(edge_labels))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    config3, wide = results
+    return dict(config3=dict(max_abs_err=max(edge_err, config3["max_abs_err"]),
+                             **{k: config3[k] for k in keys}),
+                wide=dict(max_abs_err=wide["max_abs_err"],
+                          **{k: wide[k] for k in keys}))
 
 
 def _config3_workload(nmems=30, nobs=5000, seed=3):
@@ -1035,14 +1214,13 @@ def _api_phase(label, state, batch, cfg, route, expect):
           f"{label}: routed to {filt._route(state.structure.nstate)}, not "
           f"{route}")
     _reset_counts()
-    (post, obs), wall, tail_s, body_s = _timed_update(lambda: filt)
+    (post, obs), wall, spent = _timed_update(lambda: filt)
     counts = _counts()
     check(expect(counts), f"{label}: launches {counts}")
     mean_err, incr_rms, inn_prior, inn_post = _check_api(
         label, state, batch, cfg, post, obs)
     return dict(counts=counts, mean_err=mean_err, incr_rms=incr_rms,
-                inn=(inn_prior, inn_post), wall=wall, tail=tail_s,
-                body=body_s)
+                inn=(inn_prior, inn_post), wall=wall, **spent)
 
 
 def _api_line(r):
@@ -1051,7 +1229,10 @@ def _api_line(r):
             f"plain blocked: max abs diff {r['mean_err']:.3e} (increment RMS "
             f"{r['incr_rms']:.3e}); mean |innov| {r['inn'][0]:.4f} -> "
             f"{r['inn'][1]:.4f}; update wall {r['wall']:.3f} s (tail "
-            f"{r['tail']:.3f} s, body {r['body']:.3f} s)")
+            f"{r['tail']:.3f} s, body {r['body']:.3f} s"
+            + (f", of which the blocks' torch operands {r['operands']:.3f} s "
+               f"and the B4 launches {r['kernel']:.3f} s"
+               if r["counts"]["B4"] else "") + ")")
 
 
 def phase8():
@@ -1082,6 +1263,7 @@ def phase9():
                    "B4", _only("B4", nblocks))
     log(f"phase 9: EnSRF.update() 1024x1024x80, {batch.nobs} obs at the "
         f"default FilterConfig: " + _api_line(r))
+    return dict(b4=r["counts"]["B4"])
 
 
 def phase10():
@@ -1440,6 +1622,161 @@ def _b2_variants(label, bm, bp, lat, lon, tail, obs, radius, reps):
         + "; ".join(f"{name}: {ms:.2f} ms" for name, ms in out))
 
 
+# Where --steps looks for the parent commit's grid kernel (see the module
+# docstring): inside the git-ignored build directory.
+PARENT_GRID_SOURCE = os.path.join("build", "efa_xray_tpu_torch", "parent",
+                                  "ensrf_grid.cu")
+# The tile the parent's wrapper gave its kernel (64 points wherever they
+# fit its shared memory, as at every shape timed here).
+PARENT_GRID_TILE = 64
+
+
+# Parts of the grid kernel that a build with -DEFA_GRID_SKIP=<bits> leaves
+# out (csrc/ensrf_grid.cu), so that --steps can time what each costs.
+GRID_PARTS = {"the in-panel chain": 1, "the trailing update": 2,
+              "chain and update": 3, "the whole panel loop": 16, "D0": 4,
+              "the apply": 8, "all but loads, stores and fetches": 28}
+
+
+def _grid_libs():
+    """Builds of the grid kernel beside the port's own, one ``nvcc`` each,
+    all started together, in ``build/efa_xray_tpu_torch/variants``: one
+    per entry of ``GRID_PARTS`` and, under the name "parent", the source
+    at ``PARENT_GRID_SOURCE`` where that file exists.  Returns ``{name:
+    library}``."""
+    import ctypes
+
+    from efa_xray_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "efa_xray_tpu_torch", "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    own = str(_build.CSRC / "ensrf_grid.cu")
+    specs = {name: (own, [f"-DEFA_GRID_SKIP={bits}"])
+             for name, bits in GRID_PARTS.items()}
+    if os.path.exists(os.path.join(root, PARENT_GRID_SOURCE)):
+        specs["parent"] = (os.path.join(root, PARENT_GRID_SOURCE), [])
+    else:
+        log(f"steps: no {PARENT_GRID_SOURCE}; the parent's kernel is not "
+            "compared")
+    procs = {}
+    for i, (name, (src, flags)) in enumerate(specs.items()):
+        out = os.path.join(out_dir, f"libgrid_{i}.so")
+        procs[name] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o", out,
+             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"steps: nvcc failed for {name}:\n{text}")
+        libs[name] = ctypes.CDLL(out)
+        for fn_name in ("efa_grid_body", "efa_block_apply"):
+            fn = getattr(libs[name], fn_name)
+            fn.argtypes = _build._SIGNATURES[fn_name]
+            fn.restype = ctypes.c_int
+    return libs
+
+
+def _grid_variants(label, entry, libs, bm, bp, w, table, y_b, ggt_b, coef_b,
+                   vt, reps):
+    """Times the grid kernel through ``entry`` ("B3" or "B4") at each tile
+    the wrapper could give it, with the CTAs per SM the card holds, and the
+    parent commit's kernel (``libs["parent"]``, where built) on the same
+    operands; each must give the result at the wrapper's own tile.  Then
+    the kernel at the wrapper's tile with parts left out (``GRID_PARTS``;
+    wrong results, timed only)."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    nblocks, bsz, nmems = y_b.shape
+    ops = (w, table, y_b, ggt_b, coef_b)
+
+    def run(tile):
+        return ensrf_grid.grid_apply_cuda(entry, bm, bp, *ops, vt, tile=tile)
+
+    def run_lib(lib, tile):
+        out_m, out_p = torch.empty_like(bm), torch.empty_like(bp)
+        ptrs = [None if t is None else t.data_ptr() for t in (bm, bp, *ops)]
+        dims = (vt, bp.shape[0] // vt, nmems, bsz)
+        tail = (tile, out_m.data_ptr(), out_p.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        err = (lib.efa_grid_body(*ptrs, *dims, nblocks, *tail)
+               if entry == "B3" else lib.efa_block_apply(*ptrs, *dims, *tail))
+        check(err == 0, f"steps {label}: CUDA error {err}")
+        return out_m, out_p
+
+    want = run(None)
+    out = []
+    runs = [(f"tile {t} ({ensrf_grid.ctas_per_sm_on_card(t, bsz, nmems)} "
+             f"CTAs per SM)", lambda t=t: run(t)) for t in (32, 64)
+            if ensrf_grid.ctas_per_sm(t, bsz, nmems) >= 1]
+    if "parent" in libs:
+        runs.append((f"the parent's kernel (tile {PARENT_GRID_TILE})",
+                     lambda: run_lib(libs["parent"], PARENT_GRID_TILE)))
+    for name, fn in runs + runs[::-1]:
+        got = fn()
+        torch.cuda.synchronize()
+        compare(f"steps {label} {name} mean", got[0], want[0])
+        compare(f"steps {label} {name} perts", got[1], want[1])
+        del got
+        out.append((name, cuda_ms(fn, reps)))
+    tile = ensrf_grid.pick_tile(bsz, nmems)
+    log(f"steps {label} ({entry}, the wrapper takes tile {tile}): "
+        + "; ".join(f"{name}: {ms:.3f} ms" for name, ms in out))
+    whole = cuda_ms(lambda: run(None), reps)
+    parts = [(name, cuda_ms(lambda: run_lib(libs[name], tile), reps))
+             for name in GRID_PARTS]
+    log(f"steps {label} ({entry}) at tile {tile}, {whole:.3f} ms whole; "
+        "without " + "; without ".join(
+            f"{name}: {ms:.3f} ms" for name, ms in parts))
+
+
+def grid_steps_phase():
+    """The grid kernel at each tile, the parent commit's kernel beside it,
+    and the kernel with parts left out: B3 at config 3's shape and at 80
+    members, B4 at phase 7's two shapes."""
+    import torch
+
+    from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    libs = _grid_libs()
+    bsz = 128
+    for label, dims, b4_only in (
+            ("config 3 (80 groups x 16,200 x 30, 5,000 obs)",
+             dict(ny=90, nx=180, vt=80, nmems=30, nobs=5000, seed=61,
+                  group_levels=np.tile(C3_LEVELS, 4)), False),
+            ("80 members, 45x90 grid, 20 groups, 1,000 obs",
+             dict(ny=45, nx=90, vt=20, nmems=80, nobs=1000, seed=62), False),
+            ("1024x1024 x 80 members (vt 1), one block",
+             dict(ny=1024, nx=1024, vt=1, nmems=80, nobs=512, seed=72),
+             True)):
+        c = _grid_case(**dims)
+        vertical = dims["vt"] > 1
+        ops = ensrf_grid.grid_prepare(
+            c["bp"], c["body_vert"], c["tail"], c["obs"], c["ngrid"],
+            block_size=bsz, vertical=vertical,
+            group_factor=c["gf"] if vertical else None)
+        nblocks = 1 if b4_only else ops["y_b"].shape[0]
+        sl = slice(0, nblocks * bsz)
+        w = ensrf_grid.grid_weights(
+            latlon_to_unit(c["lat"], c["lon"]), ops["ob_xyz"][sl],
+            ops["radii"][sl]).reshape(nblocks, bsz, c["ngrid"])
+        table = ops["table"]
+        if not b4_only:
+            _grid_variants(label, "B3", libs, c["bm"], c["bp"], w, table,
+                           ops["y_b"], ops["ggt_b"], ops["coef_b"],
+                           ops["vt"], 3)
+        _grid_variants(label + ", first block", "B4", libs, c["bm"],
+                       c["bp"], w[:1],
+                       None if table is None else table[:, :1].contiguous(),
+                       ops["y_b"][:1], ops["ggt_b"][:1], ops["coef_b"][:1],
+                       ops["vt"], 5)
+        del c, ops, w, table
+
+
 def steps_phase():
     """What the parts of B2's design buy, on phase 3's workload and on the
     headline body."""
@@ -1450,6 +1787,8 @@ def steps_phase():
     tail_phase, _, w = _headline()
     _b2_variants("headline body, 1e7 x 80 x 10k obs", w["bm"], w["bp"],
                  w["lat"], w["lon"], tail_phase(), w["obs"], w["radius"], 2)
+    del tail_phase, w
+    grid_steps_phase()
 
 
 def main() -> int:
@@ -1478,7 +1817,7 @@ def main() -> int:
     b3 = timed(phase6)
     b4 = timed(phase7)
     c3 = timed(phase8)
-    timed(phase9)
+    wide = timed(phase9)
     b2h = timed(phase10)
     hyb = timed(phase11)
     p = timed(phase12)
@@ -1501,10 +1840,14 @@ def main() -> int:
              source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
              replaces="efa_xray_tpu/ops/ensrf_pallas_fused.py:784",
              launches=c3["b3"], library_ms=None, **b3),
-        dict(name="B4 block apply", route="cuda",
+        dict(name="B4 block apply (config 3's shape)", route="cuda",
              source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
              replaces="efa_xray_tpu/ops/ensrf_pallas.py:68",
-             launches=c3["b4"], library_ms=None, **b4),
+             launches=c3["b4"], library_ms=None, **b4["config3"]),
+        dict(name="B4 block apply (1024 x 1024 x 80, one group)",
+             route="cuda", source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
+             replaces="efa_xray_tpu/ops/ensrf_pallas.py:68",
+             launches=wide["b4"], library_ms=None, **b4["wide"]),
     ] + [
         dict(name=f"P precision probe ({mode})", route="cuda",
              source="efa_xray_tpu_torch/csrc/precision_probe.cu",

@@ -22,37 +22,262 @@
 // (absent: unlocalized) and the table absent meaning 1.
 //
 // What bounds it on an H100: with plain fp32 FMA, arithmetic.  Per (tile,
-// block) the two products take 2 T B M FMAs and the substitution T B^2 / 2.
-// The weights are read once per (group, tile, block): B T floats, coalesced
-// along the grid.  Y, ggt and the per-ob rows are re-read by every CTA from
-// the 50 MB L2.
+// block) the two products take 2 T B M FMAs and the substitution T B^2 / 2:
+// at 30 members and blocks of 128 the substitution is half of the work, and
+// no panel is ever dead (there is no cull).  The weights are read once per
+// (group, tile, block), B T floats; Y, ggt and the per-ob rows are re-read by
+// every CTA from the 50 MB L2.  An SM does 128 FMAs and loads 32 words of
+// shared memory a clock, so the products need register tiles, and the panel
+// loop (16 panels of 8 obs, each a short dependent chain between CTA-wide
+// barriers) needs other CTAs on the SM to fill its waits.
 //
-// What the design does about it: the layout of B2 (csrc/ensrf_fused.cu),
-// minus its in-kernel trigonometry and cull bits.  A CTA owns T points of one
-// group and loops over the blocks it is given; X, the block's Y and ggt, the
-// d0/U columns, the panel's weights and the per-ob rows live in shared memory
-// (~160 KB at T 64, B 128, M 80).  Product threads keep 4-wide register
-// tiles.  The forward substitution follows the Pallas kernel's panels of 8
-// obs: the correction against solved panels and the panel's weights run in
-// parallel over (ob, row) pairs, and only the in-panel chain runs one thread
-// per row.  The X tile's row stride is odd (no bank conflicts down a
-// column).  Points past the end of the grid (a ragged last tile) are zero,
-// their weights are never read and their rows never written, so any G is
-// exact without padding.  No tensor cores and no TF32: a later change
-// measures those.
+// What the design does about it (the layout of B2, csrc/ensrf_fused.cu,
+// without its trigonometry and cull, and with the weights as an operand to
+// stream).  A CTA of 256 threads owns T points of one group and loops over
+// the blocks it is given.
+// 1. Register tiles on 16-byte loads.  D0: a thread owns 4 rows x 4 obs and
+//    reads X and Y as float4 along the members (8 loads per 64 FMAs).
+//    Apply: 4 rows x 4 consecutive members per thread, U and Y as float4 (2
+//    loads per 16 FMAs); where that leaves threads free (30 members) the obs
+//    are split over slices of them, which subtract in turn.  X and Y rows
+//    are padded to 4 x odd words and each Y panel is shifted by 4 more
+//    words, so that D0's loads spread over the banks.
+// 2. The substitution looks right, not left: once the 8 obs of a panel are
+//    solved, every ob below loses its products with them, U[j, :] -= G[j,
+//    panel] U[panel, :], a rank-8 update with 4 obs x 4 rows per thread (24
+//    16-byte loads and stores per 128 FMAs).  It needs no partial sums and
+//    no pass to add them up, and its parallelism is widest at the first
+//    panels.  (Holding the update of the obs below a super-panel of 4
+//    panels back until it is solved, so that U is read and written once
+//    per 32 obs, was measured: equal at 30 members, 5% slower at 80.)  Only
+//    the 8 x 8 triangle inside the panel runs one thread per row: operands
+//    to registers first, then a chain of FMAs; the mean increment rides
+//    along in a register of that thread.  Two CTA-wide barriers per panel.
+// 3. Nothing resident that can stream.  A panel's ggt columns (its own rows
+//    and those below) and its 8 weight rows arrive through a ring of slots
+//    (cp.async), fetched kAhead panels ahead and across block boundaries by
+//    the warps that the in-panel chain leaves idle: the weights come from
+//    device memory, so their latency is this kernel's own to hide.  Y, the
+//    per-ob rows and the table row of the next block are fetched once this
+//    block's apply has read them.  Copies are 16 bytes wide where sizes and
+//    addresses allow (the vec flags), 4 bytes otherwise, so any G, B and M
+//    is exact without padding by the caller.
+// 4. Several CTAs per SM: with no [B, B] table a CTA of 64 points takes 75
+//    KB at 30 members (three fit an SM) and 112 KB at 80 (two fit); the
+//    register limit follows the CTA count (the kCtas template parameter).
+//    The wrapper picks the tile.
+// 5. CTAs are numbered tile-major: the VT groups of one grid tile are
+//    adjacent in launch order, so all but the first read of a weight slab
+//    come from the L2 (measured no faster than group-major order at 80
+//    groups x 254 tiles, where the CTAs in flight share slabs either way).
+// Points past the end of the grid (a ragged last tile) are zero, their
+// weights are never read and their rows never written.  No tensor cores and
+// no TF32.
+//
+// Shared memory (floats; make_layout below, mirrored by ops/ensrf_grid.py
+// smem_bytes): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp, T], ring [kSlots] of
+// ggt columns [Bp, 8] and of weight rows [8, T], per-ob rows [kCoef B], mean
+// [T]; Ys = 4 (ceil(M / 4) | 1), Bp = B rounded up to 8.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kPanel = 8;
 // Per-ob rows in shared memory: gain, sqrt_coef, table factor.
 constexpr int kCoef = 3;
+// Panels fetched ahead of the one being solved, and the slots of the ring
+// of ggt and weight panels.  (Two ahead measured no faster at equal CTAs
+// per SM; the third slot costs 6 KB at 64 points, and with it the third CTA
+// at 30 members and the second at 80.)
+constexpr int kAhead = 1;
+constexpr int kSlots = 1 + kAhead;
+// Parts of the kernel that a build with -DEFA_GRID_SKIP=<bits> leaves out,
+// to time what each costs (no profiler sees inside a kernel here): the
+// results of such a build are wrong.  0 in every build that is used.
+#ifndef EFA_GRID_SKIP
+#define EFA_GRID_SKIP 0
+#endif
+constexpr int kSkipChain = 1, kSkipUpdate = 2, kSkipD0 = 4, kSkipApply = 8,
+              kSkipPanels = 16;
+__host__ __device__ constexpr bool skips(int part) { return (EFA_GRID_SKIP & part) != 0; }
+// Shared memory of an SM, and what the system keeps of it for each CTA.
+constexpr int kSmSmemBytes = 233472;
+constexpr int kCtaReservedBytes = 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copies of 16 bytes (both addresses 16-byte aligned) or of 4.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copies n floats; by 16 bytes when vec (n a multiple of 4, both aligned).
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int n, bool vec, int tid) {
+  if (vec) {
+    for (int i = tid; i < (n >> 2); i += kThreads)
+      cp_async16(dst + 4 * i, src + 4 * i);
+  } else {
+    for (int i = tid; i < n; i += kThreads) cp_async4(dst + i, src + i);
+  }
+}
+
+// Copies `rows` rows of n floats, one warp per row: row i from src + i *
+// sstride to dst + doff(i).
+template <typename DstOffset>
+__device__ __forceinline__ void copy_rows_async(float* dst, DstOffset doff,
+                                                const float* src, long sstride,
+                                                int rows, int n, bool vec,
+                                                int tid) {
+  const int lane = tid & 31;
+  for (int i = tid >> 5; i < rows; i += kWarps) {
+    float* d = dst + doff(i);
+    const float* s = src + i * sstride;
+    if (vec) {
+      for (int c = lane; c < (n >> 2); c += 32)
+        cp_async16(d + 4 * c, s + 4 * c);
+    } else {
+      for (int c = lane; c < n; c += 32) cp_async4(d + c, s + c);
+    }
+  }
+}
+
+// Which operands may be copied 16 bytes at a time: Y rows (M), ggt rows
+// (B), the gain/sqrt_coef rows (2 B), the table row (B), the weight rows
+// (G), the state's rows in and out (M).
+constexpr int kVecY = 1, kVecG = 2, kVecC = 4, kVecT = 8, kVecW = 16,
+              kVecX = 32;
+
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// Offsets (floats) of the arrays in dynamic shared memory.
+struct Layout {
+  int Ys, Bp;
+  int x, y, u, g, w, cf, xm, total;
+};
+
+__host__ __device__ inline Layout make_layout(int T, int B, int M) {
+  Layout L;
+  L.Ys = 4 * (((M + 3) >> 2) | 1);
+  L.Bp = (B + kPanel - 1) / kPanel * kPanel;
+  int o = 0;
+  L.x = o, o += T * L.Ys;
+  L.y = o, o += L.Bp * L.Ys + 4 * (L.Bp / kPanel);
+  L.u = o, o += L.Bp * T;
+  L.g = o, o += kSlots * L.Bp * kPanel;
+  L.w = o, o += kSlots * kPanel * T;
+  L.cf = o, o += round4(kCoef * B);
+  L.xm = o, o += T;
+  L.total = o;
+  return L;
+}
+
+// CTAs per SM the launch plans for (mirrored by ops/ensrf_grid.py
+// ctas_per_sm): what fits by shared memory, at most 3.
+__host__ inline int ctas_per_sm(int smem) {
+  const int fit = kSmSmemBytes / (smem + kCtaReservedBytes);
+  return fit > 3 ? 3 : fit;
+}
+
+// Row j of the Y buffer: rows are Ys apart and every panel of 8 starts 4
+// words later than the rows alone would put it, so that the rows of
+// different panels that a warp reads at once in D0 fall into different
+// banks.
+__device__ __forceinline__ int yrow(int j, int Ys) {
+  return j * Ys + 4 * (j >> 3);
+}
+
+// X -= U^T Y over all Bp obs: a thread owns 4 rows x 4 consecutive members
+// and reads U and Y 16 bytes at a time (2 loads per 16 FMAs).  Where those
+// (T / 4) x (Mp / 4) tiles are at most half of the threads, the obs are
+// split over up to 4 slices of threads, which subtract in turn.  Ends on a
+// barrier.
+__device__ __forceinline__ void apply_tiles(float* Xs, const float* Ysm,
+                                            const float* U, int Bp, int T,
+                                            int Ys, int Mp, int tid) {
+  const int MQ = Mp >> 2;
+  const int ntasks = (T >> 2) * MQ;
+  const int npanels = Bp / kPanel;
+  const int nslices = 2 * ntasks <= kThreads ? min(kThreads / ntasks, 4) : 1;
+  const int slice = nslices > 1 ? tid / ntasks : 0;
+  const int q0 = slice * npanels / nslices;
+  const int q1 = (slice + 1) * npanels / nslices;
+  for (int t0 = 0; t0 < ntasks; t0 += kThreads) {  // one pass when sliced
+    const int task = nslices > 1 ? tid - slice * ntasks : t0 + tid;
+    const bool on = slice < nslices && task < ntasks;
+    const int rg = on ? task / MQ : 0;
+    const int mq = on ? task - rg * MQ : 0;
+    float4 acc[4];
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) acc[rr] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (on) {
+      for (int q = q0; q < q1; ++q) {
+        const int jb = kPanel * q;
+        const float* yp = Ysm + yrow(jb, Ys) + 4 * mq;
+        const float* up = U + jb * T + 4 * rg;
+#pragma unroll
+        for (int t = 0; t < kPanel; ++t) {
+          const float4 u = *reinterpret_cast<const float4*>(up + t * T);
+          const float4 y = *reinterpret_cast<const float4*>(yp + t * Ys);
+          const float ur[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            acc[rr].x = fmaf(ur[rr], y.x, acc[rr].x);
+            acc[rr].y = fmaf(ur[rr], y.y, acc[rr].y);
+            acc[rr].z = fmaf(ur[rr], y.z, acc[rr].z);
+            acc[rr].w = fmaf(ur[rr], y.w, acc[rr].w);
+          }
+        }
+      }
+    }
+    for (int s = 0; s < nslices; ++s) {
+      if (on && slice == s) {
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          float4* xp =
+              reinterpret_cast<float4*>(Xs + (4 * rg + rr) * Ys + 4 * mq);
+          float4 x = *xp;
+          x.x -= acc[rr].x, x.y -= acc[rr].y, x.z -= acc[rr].z,
+              x.w -= acc[rr].w;
+          *xp = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
 
 // bm_out/bp_out may alias bm_in/bp_in (in-place update): a CTA reads its
 // own rows before the block loop and writes only those rows after it.
-__global__ void grid_body_kernel(
+// kCtas: the CTAs per SM the register count is held to.
+template <int kCtas>
+__global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     const float* bm_in,  // [VT * G]
     const float* bp_in,  // [VT * G, M]
     const float* __restrict__ w,      // [nb, B, G] or nullptr (unlocalized)
@@ -60,167 +285,350 @@ __global__ void grid_body_kernel(
     const float* __restrict__ y_b,    // [nb, B, M]
     const float* __restrict__ ggt_b,  // [nb, B, B]
     const float* __restrict__ coef_b, // [nb, 2, B]: gain, sqrt_coef
-    int G, int M, int B, int nb, int T, float* bm_out, float* bp_out) {
-  extern __shared__ float smem[];
-  const int Ms = M | 1;
-  float* Xs = smem;              // [T, Ms]
-  float* Ys = Xs + T * Ms;       // [B, M]
-  float* Gs = Ys + B * M;        // [B, B]
-  float* U = Gs + B * B;         // [B, T]  d0 columns, then u columns
-  float* Wb = U + B * T;         // [kPanel, T]
-  float* cf = Wb + kPanel * T;   // [kCoef, B]
-  float* xm = cf + kCoef * B;    // [T]
+    int VT, int G, int M, int B, int nb, int T, int vec, float* bm_out,
+    float* bp_out) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L = make_layout(T, B, M);
+  const int Ys = L.Ys, Bp = L.Bp;
+  float* Xs = smem + L.x;     // [T, Ys]
+  float* Ysm = smem + L.y;    // [Bp rows, skewed]
+  float* U = smem + L.u;      // [Bp, T]  d0 columns, then u columns
+  float* Gr = smem + L.g;     // [kSlots][Bp, kPanel] ggt columns of a panel
+  float* Wr = smem + L.w;     // [kSlots][kPanel, T] weight rows of a panel
+  float* cf = smem + L.cf;    // [kCoef, B]
+  float* xm = smem + L.xm;    // [T]
 
   const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-  const int gtiles = (G + T - 1) / T;
-  const int v = blockIdx.x / gtiles;
-  const int tile = blockIdx.x - v * gtiles;
+  const int tile = blockIdx.x / VT;
+  const int v = blockIdx.x - tile * VT;
   const long g0 = (long)tile * T;
   const int npts = (int)min((long)T, (long)G - g0);
   const long row0 = (long)v * G + g0;
+  const int npanels = Bp / kPanel;
+  const int total_panels = nb * npanels;
+  const int Mp = round4(M);
+  const int tsh = T == 64 ? 6 : 5;  // T is 32 or 64 (the launcher checks)
+  const bool localize = w != nullptr;
 
-  for (int idx = tid; idx < T * M; idx += nth) {
-    const int r = idx / M, m = idx - r * M;
-    Xs[r * Ms + m] = r < npts ? bp_in[(row0 + r) * M + m] : 0.0f;
-  }
-  for (int r = tid; r < T; r += nth) xm[r] = r < npts ? bm_in[row0 + r] : 0.0f;
+  // Zero everything once: the pad columns of X and Y, the Y rows past B, the
+  // rows and weights of the ragged last tile are never written again.
+  for (int idx = tid; idx < (L.total >> 2); idx += kThreads)
+    reinterpret_cast<float4*>(smem)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
+  if (!table)
+    for (int j = tid; j < B; j += kThreads) cf[2 * B + j] = 1.0f;
+  copy_rows_async(Xs, [Ys](int r) { return r * Ys; }, bp_in + row0 * M, M,
+                  npts, M, vec & kVecX, tid);
+  for (int r = tid; r < npts; r += kThreads) xm[r] = bm_in[row0 + r];
 
-  const int J4 = (B + 3) / 4;
-  const int M4 = (M + 3) / 4;
-  const int npanels = (B + kPanel - 1) / kPanel;
-
-  for (int b = 0; b < nb; ++b) {
-    const float* yb = y_b + (long)b * B * M;
-    const float* gb = ggt_b + (long)b * B * B;
-    const float* cb = coef_b + (long)b * 2 * B;
-    const float* wb = w ? w + (long)b * B * G + g0 : nullptr;
-    for (int idx = tid; idx < B * M; idx += nth) Ys[idx] = yb[idx];
-    for (int idx = tid; idx < B * B; idx += nth) Gs[idx] = gb[idx];
-    for (int j = tid; j < B; j += nth) {
-      cf[j] = cb[j];
-      cf[B + j] = cb[B + j];
-      cf[2 * B + j] = table ? table[((long)v * nb + b) * B + j] : 1.0f;
-    }
-    __syncthreads();
-
-    // D0 = X Y^T: each thread one row r and four obs j0..j0+3.
-    for (int idx = tid; idx < T * J4; idx += nth) {
-      const int r = idx % T, j0 = (idx / T) * 4;
-      const float* y0 = Ys + min(j0, B - 1) * M;
-      const float* y1 = Ys + min(j0 + 1, B - 1) * M;
-      const float* y2 = Ys + min(j0 + 2, B - 1) * M;
-      const float* y3 = Ys + min(j0 + 3, B - 1) * M;
-      const float* xr = Xs + r * Ms;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int m = 0; m < M; ++m) {
-        const float x = xr[m];
-        a0 += y0[m] * x;
-        a1 += y1[m] * x;
-        a2 += y2[m] * x;
-        a3 += y3[m] * x;
+  // Y, the per-ob rows and the table row of block b, asynchronously.
+  auto fetch_block = [&](int b) {
+    copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
+                    y_b + (long)b * B * M, M, B, M, vec & kVecY, tid);
+    copy_async(cf, coef_b + (long)b * 2 * B, 2 * B, vec & kVecC, tid);
+    if (table)
+      copy_async(cf + 2 * B, table + ((long)v * nb + b) * B, B, vec & kVecT,
+                 tid);
+  };
+  // Panel q of block b into ring slot `slot`, asynchronously, by threads
+  // ft = 0 .. nft - 1: the panel's ggt columns from its own rows down (row j
+  // of the slot is ggt[j, base : base + 8]) and the weight rows of this
+  // tile's points.
+  auto fetch_panel = [&](int b, int q, int slot, int ft, int nft) {
+    const int base = q * kPanel;
+    const int width = min(kPanel, B - base), rows = B - base;
+    const float* gb = ggt_b + ((long)b * B + base) * B + base;
+    float* gd = Gr + (slot * Bp + base) * kPanel;
+    if (vec & kVecG) {  // B, and so the width, is a multiple of 4
+      const int psh = width >> 3;  // 16-byte pieces of a row: 1 << psh
+      for (int idx = ft; idx < (rows << psh); idx += nft) {
+        const int jr = idx >> psh, c = 4 * (idx & psh);
+        cp_async16(gd + jr * kPanel + c, gb + (long)jr * B + c);
       }
-      U[j0 * T + r] = a0;
-      if (j0 + 1 < B) U[(j0 + 1) * T + r] = a1;
-      if (j0 + 2 < B) U[(j0 + 2) * T + r] = a2;
-      if (j0 + 3 < B) U[(j0 + 3) * T + r] = a3;
-    }
-    __syncthreads();
-
-    for (int q = 0; q < npanels; ++q) {
-      const int base = q * kPanel;
-      const int width = min(kPanel, B - base);
-      // Correction against the solved panels and the panel's weights
-      // (grid weight times the group's table factor), in parallel over
-      // (ob, row) pairs.
-      for (int idx = tid; idx < width * T; idx += nth) {
-        const int t = idx / T, r = idx - t * T;
-        const int j = base + t;
-        float corr = 0.f;
-        for (int i = 0; i < base; ++i) corr += Gs[j * B + i] * U[i * T + r];
-        U[j * T + r] -= corr;
-        if (wb) Wb[t * T + r] = r < npts ? wb[(long)j * G + r] * cf[2 * B + j] : 0.0f;
+    } else {
+      for (int idx = ft; idx < rows * kPanel; idx += nft) {
+        const int jr = idx >> 3, c = idx & 7;
+        if (c < width) cp_async4(gd + jr * kPanel + c, gb + (long)jr * B + c);
       }
-      __syncthreads();
-      // The within-panel chain, one thread per row.
-      for (int r = tid; r < T; r += nth) {
-        for (int t = 0; t < width; ++t) {
-          const int j = base + t;
-          float corr = 0.f;
-          for (int i = base; i < j; ++i) corr += Gs[j * B + i] * U[i * T + r];
-          float d = U[j * T + r] - corr;
-          if (wb) d *= Wb[t * T + r];
-          U[j * T + r] = d;
+    }
+    if (localize) {
+      const float* wb = w + ((long)b * B + base) * G + g0;
+      float* wd = Wr + slot * kPanel * T;
+      if (vec & kVecW) {  // G, and so npts, is a multiple of 4
+        for (int idx = ft; idx < (width << (tsh - 2)); idx += nft) {
+          const int t = idx >> (tsh - 2), c = 4 * (idx & ((T >> 2) - 1));
+          if (c < npts) cp_async16(wd + t * T + c, wb + (long)t * G + c);
+        }
+      } else {
+        for (int idx = ft; idx < (width << tsh); idx += nft) {
+          const int t = idx >> tsh, r = idx & (T - 1);
+          if (r < npts) cp_async4(wd + t * T + r, wb + (long)t * G + r);
         }
       }
-      __syncthreads();
     }
+  };
+  // The panels are fetched in the order the CTA solves them, across block
+  // boundaries; every thread keeps the position, threads ft >= 0 copy.
+  int fb = 0, fq = 0, fslot = 0;
+  auto fetch_next = [&](int ft, int nft) {
+    if (fb < nb && ft >= 0) fetch_panel(fb, fq, fslot, ft, nft);
+    if (++fq == npanels) fq = 0, ++fb;
+    if (++fslot == kSlots) fslot = 0;
+  };
 
-    // xm += U^T gain;  X -= (sqrt_coef o U)^T Y.
-    for (int r = tid; r < T; r += nth) {
-      float s = 0.f;
-      for (int j = 0; j < B; ++j) s += cf[j] * U[j * T + r];
-      xm[r] += s;
-    }
-    for (int idx = tid; idx < T * M4; idx += nth) {
-      const int r = idx / M4, mq = idx - r * M4;
-      const int m0 = mq, m1 = min(mq + M4, M - 1), m2 = min(mq + 2 * M4, M - 1),
-                m3 = min(mq + 3 * M4, M - 1);
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int j = 0; j < B; ++j) {
-        const float gu = cf[B + j] * U[j * T + r];
-        const float* yj = Ys + j * M;
-        a0 += gu * yj[m0];
-        a1 += gu * yj[m1];
-        a2 += gu * yj[m2];
-        a3 += gu * yj[m3];
+  const int RG = T >> 2, rgsh = tsh - 2;  // D0: groups of 4 rows
+  // U[j, :] -= G[j, panel] U[panel, :] for jlo <= j < jhi (multiples of
+  // 4), the panel's ggt columns at Gp and its obs from `base` on: 4 obs x 4
+  // rows per thread, 8 deep.
+  auto update = [&](int jlo, int jhi, const float* Gp, int base) {
+    const int ntask = ((jhi - jlo) >> 2) << rgsh;
+    for (int task = tid; task < ntask; task += kThreads) {
+      const int rq = task & (RG - 1);
+      const int j0 = jlo + 4 * (task >> rgsh);
+      float* dp = U + j0 * T + 4 * rq;
+      const float* gp = Gp + j0 * kPanel;
+      const float* up = U + base * T + 4 * rq;
+      float4 acc[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        acc[a] = *reinterpret_cast<const float4*>(dp + a * T);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4 g4[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          g4[a] = *reinterpret_cast<const float4*>(gp + a * kPanel + 4 * h);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const float4 u =
+              *reinterpret_cast<const float4*>(up + (4 * h + ii) * T);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float g = ii == 0   ? g4[a].x
+                            : ii == 1 ? g4[a].y
+                            : ii == 2 ? g4[a].z
+                                      : g4[a].w;
+            acc[a].x = fmaf(-g, u.x, acc[a].x);
+            acc[a].y = fmaf(-g, u.y, acc[a].y);
+            acc[a].z = fmaf(-g, u.z, acc[a].z);
+            acc[a].w = fmaf(-g, u.w, acc[a].w);
+          }
+        }
       }
-      float* xr = Xs + r * Ms;
-      xr[m0] -= a0;
-      if (mq + M4 < M) xr[mq + M4] -= a1;
-      if (mq + 2 * M4 < M) xr[mq + 2 * M4] -= a2;
-      if (mq + 3 * M4 < M) xr[mq + 3 * M4] -= a3;
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        *reinterpret_cast<float4*>(dp + a * T) = acc[a];
+    }
+  };
+
+  fetch_block(0);
+  cp_async_commit();
+  for (int p = 0; p < kAhead; ++p) {
+    fetch_next(tid, kThreads);
+    cp_async_commit();
+  }
+  int cslot = 0;      // ring slot of the panel being solved
+  float macc = 0.0f;  // thread r < T: the block's mean increment of row r
+  for (int b = 0; b < nb; ++b) {
+    cp_async_wait<0>();
+    // X (first block), this block's Y and per-ob rows and its first panels
+    // have landed, and every thread has left the block before.
+    __syncthreads();
+
+    // D0 = X Y^T: 4 rows x 4 obs per thread.
+    for (int task = tid; task < RG * 2 * npanels && !skips(kSkipD0);
+         task += kThreads) {
+      const int rgi = task & (RG - 1), j0 = 4 * (task >> rgsh);
+      const float* xp = Xs + rgi * Ys;
+      const float* yp = Ysm + yrow(j0, Ys);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+      for (int m = 0; m < Mp; m += 4) {
+        float4 xv[4], yv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          xv[i] = *reinterpret_cast<const float4*>(xp + i * RG * Ys + m);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          yv[jj] = *reinterpret_cast<const float4*>(yp + jj * Ys + m);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float s = acc[i][jj];
+            s = fmaf(xv[i].x, yv[jj].x, s);
+            s = fmaf(xv[i].y, yv[jj].y, s);
+            s = fmaf(xv[i].z, yv[jj].z, s);
+            s = fmaf(xv[i].w, yv[jj].w, s);
+            acc[i][jj] = s;
+          }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          U[(j0 + jj) * T + rgi + i * RG] = acc[i][jj];
     }
     __syncthreads();
-  }
 
-  for (int idx = tid; idx < npts * M; idx += nth) {
-    const int r = idx / M, m = idx - r * M;
-    bp_out[(row0 + r) * M + m] = Xs[r * Ms + m];
+    // The forward substitution, panel by panel.  U holds, for the obs not
+    // yet solved, d0 less the products with every panel solved so far.
+    for (int q = 0; q < npanels && !skips(kSkipPanels); ++q) {
+      const int base = q * kPanel;
+      const int width = min(kPanel, B - base);
+      const float* Gp = Gr + cslot * Bp * kPanel;
+      const float* Wp = Wr + cslot * kPanel * T;
+      if (tid < T && !skips(kSkipChain)) {
+        // The chain inside the panel, one thread per row: operands to
+        // registers first (a store to U would hold back the loads behind
+        // it), then the 8 x 8 triangle; the mean increment rides along.
+        const int r = tid;
+        float d[kPanel], wt[kPanel], gn[kPanel];
+        float4 glo[kPanel], ghi[kPanel];
+#pragma unroll
+        for (int t = 0; t < kPanel; ++t) {
+          d[t] = gn[t] = 0.0f;
+          wt[t] = 1.0f;
+          glo[t] = ghi[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (t < width) {
+            const int j = base + t;
+            d[t] = U[j * T + r];
+            gn[t] = cf[j];
+            if (localize) wt[t] = Wp[t * T + r] * cf[2 * B + j];
+            if (t > 0)
+              glo[t] = *reinterpret_cast<const float4*>(Gp + j * kPanel);
+            if (t > 4)
+              ghi[t] = *reinterpret_cast<const float4*>(Gp + j * kPanel + 4);
+          }
+        }
+        float ur[kPanel];
+        float mloc = 0.f;
+#pragma unroll
+        for (int t = 0; t < kPanel; ++t) {
+          const float g[kPanel] = {glo[t].x, glo[t].y, glo[t].z, glo[t].w,
+                                   ghi[t].x, ghi[t].y, ghi[t].z, ghi[t].w};
+          float corr = 0.f;
+#pragma unroll
+          for (int i = 0; i < t; ++i) corr = fmaf(g[i], ur[i], corr);
+          ur[t] = (d[t] - corr) * wt[t];
+          mloc = fmaf(gn[t], ur[t], mloc);
+        }
+#pragma unroll
+        for (int t = 0; t < kPanel; ++t)
+          if (t < width) U[(base + t) * T + r] = ur[t];
+        macc += mloc;
+      }
+      // Meanwhile the other warps fetch the panel kAhead ahead into the
+      // slot that the panel before this one has left.
+      fetch_next(tid - T, kThreads - T);
+      cp_async_commit();
+      __syncthreads();
+
+      // The obs below the panel lose its products.
+      if (!skips(kSkipUpdate)) update(base + kPanel, Bp, Gp, base);
+      // The next panel's columns and weights have landed (the one fetched
+      // after it may still fly).
+      cp_async_wait<kAhead - 1>();
+      __syncthreads();
+      if (++cslot == kSlots) cslot = 0;
+    }
+
+    // U <- sqrt_coef o U, so that the apply is X -= U^T Y.
+    for (int idx = tid; idx < Bp * RG; idx += kThreads) {
+      const int c = idx & (RG - 1), j = idx >> rgsh;
+      if (j < B) {
+        const float g = cf[B + j];
+        float4* up = reinterpret_cast<float4*>(U + j * T + 4 * c);
+        float4 u = *up;
+        u.x *= g, u.y *= g, u.z *= g, u.w *= g;
+        *up = u;
+      }
+    }
+    if (tid < T) {
+      xm[tid] += macc;
+      macc = 0.0f;
+    }
+    __syncthreads();
+    if (!skips(kSkipApply))
+      apply_tiles(Xs, Ysm, U, Bp, T, Ys, Mp, tid);
+    else
+      __syncthreads();
+    // The apply ended on a barrier: Y and the per-ob rows are free.
+    if (b + 1 < nb) fetch_block(b + 1);
+    cp_async_commit();
   }
-  for (int r = tid; r < npts; r += nth) bm_out[row0 + r] = xm[r];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = tid & 31;
+  for (int r = tid >> 5; r < npts; r += kWarps) {
+    const float* xs = Xs + r * Ys;
+    float* out = bp_out + (row0 + r) * M;
+    if (vec & kVecX) {
+      for (int c = lane; c < (M >> 2); c += 32)
+        reinterpret_cast<float4*>(out)[c] =
+            reinterpret_cast<const float4*>(xs)[c];
+    } else {
+      for (int c = lane; c < M; c += 32) out[c] = xs[c];
+    }
+  }
+  for (int r = tid; r < npts; r += kThreads) bm_out[row0 + r] = xm[r];
 }
 
-// Dynamic shared memory for a tile of T points, blocks of B obs, M members
-// (mirrored by efa_xray_tpu_torch.ops.ensrf_grid.smem_bytes).
-int smem_bytes(int T, int B, int M) {
-  const int Ms = M | 1;
-  return (int)sizeof(float) *
-         (T * Ms + B * M + B * B + B * T + kPanel * T + kCoef * B + T);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int kCtas>
+int launch_as(const float* bm_in, const float* bp_in, const float* w,
+              const float* table, const float* y_b, const float* ggt_b,
+              const float* coef_b, int VT, int G, int M, int B, int nb, int T,
+              int smem, unsigned ctas, float* bm_out, float* bp_out,
+              cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      grid_body_kernel<kCtas>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(grid_body_kernel<kCtas>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const int vec =
+      (M % 4 == 0 && aligned16(y_b) ? kVecY : 0) |
+      (B % 4 == 0 && aligned16(ggt_b) ? kVecG : 0) |
+      (B % 2 == 0 && aligned16(coef_b) ? kVecC : 0) |
+      (B % 4 == 0 && aligned16(table) ? kVecT : 0) |
+      (G % 4 == 0 && aligned16(w) ? kVecW : 0) |
+      (M % 4 == 0 && aligned16(bp_in) && aligned16(bp_out) ? kVecX : 0);
+  grid_body_kernel<kCtas><<<ctas, kThreads, smem, stream>>>(
+      bm_in, bp_in, w, table, y_b, ggt_b, coef_b, VT, G, M, B, nb, T, vec,
+      bm_out, bp_out);
+  return (int)cudaGetLastError();
 }
 
 int launch(const float* bm_in, const float* bp_in, const float* w,
            const float* table, const float* y_b, const float* ggt_b,
            const float* coef_b, int VT, int G, int M, int B, int nb, int T,
            float* bm_out, float* bp_out, void* stream) {
-  const int smem = smem_bytes(T, B, M);
-  cudaError_t e = cudaFuncSetAttribute(
-      grid_body_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  if ((T != 32 && T != 64) || VT <= 0 || G <= 0 || M <= 0 || B <= 0 ||
+      nb <= 0 || nb > 0x7fffffff / ((B + kPanel - 1) / kPanel))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(float) * make_layout(T, B, M).total;
   const long ctas = (long)VT * ((G + T - 1) / T);
   if (ctas > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
-  grid_body_kernel<<<(unsigned)ctas, kThreads, smem, (cudaStream_t)stream>>>(
-      bm_in, bp_in, w, table, y_b, ggt_b, coef_b, G, M, B, nb, T, bm_out,
-      bp_out);
-  return (int)cudaGetLastError();
+  const auto run = ctas_per_sm(smem) >= 3 ? &launch_as<3> : &launch_as<2>;
+  return run(bm_in, bp_in, w, table, y_b, ggt_b, coef_b, VT, G, M, B, nb, T,
+             smem, (unsigned)ctas, bm_out, bp_out, (cudaStream_t)stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// B3: all nb blocks in one launch.
+// B3: all nb blocks in one launch.  T: grid points per CTA (32 or 64).
 int efa_grid_body(const float* bm_in, const float* bp_in, const float* w,
                   const float* table, const float* y_b, const float* ggt_b,
                   const float* coef_b, int VT, int G, int M, int B, int nb,
@@ -236,6 +644,30 @@ int efa_block_apply(const float* bm_in, const float* bp_in, const float* w,
                     float* bm_out, float* bp_out, void* stream) {
   return launch(bm_in, bp_in, w, table, y, ggt, coef, VT, G, M, B, 1, T,
                 bm_out, bp_out, stream);
+}
+
+// CTAs of the kernel that the card holds on one SM at this shape (by the
+// occupancy calculator, registers and shared memory included), or minus a
+// cudaError_t.
+int efa_grid_ctas_per_sm(int M, int B, int T) {
+  if ((T != 32 && T != 64) || M <= 0 || B <= 0) return -(int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(float) * make_layout(T, B, M).total;
+  const bool three = ctas_per_sm(smem) >= 3;
+  const void* fn = three ? (const void*)grid_body_kernel<3>
+                         : (const void*)grid_body_kernel<2>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = three ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &n, grid_body_kernel<3>, kThreads, smem)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &n, grid_body_kernel<2>, kThreads, smem);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // extern "C"

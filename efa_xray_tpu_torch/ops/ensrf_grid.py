@@ -50,6 +50,12 @@ from efa_xray_tpu_torch.ops.ensrf_fused import MAX_SMEM_BYTES, PANEL, _gc_poly
 
 # Per-ob rows in the kernel's shared memory (csrc/ensrf_grid.cu kCoef).
 COEF_ROWS = 3
+# Slots of the kernel's ring of ggt and weight panels (kSlots).
+RING_SLOTS = 2
+# Shared memory of an SM, and what the system keeps of it for each CTA
+# (kSmSmemBytes, kCtaReservedBytes).
+SM_SMEM_BYTES = 233472
+CTA_RESERVED_BYTES = 1024
 # Bytes of B3 weights built at once (the temporaries of their build take
 # several times this).
 GRID_WEIGHT_BUDGET_BYTES = 1 << 29
@@ -60,17 +66,35 @@ b4_launches = 0
 
 
 def smem_bytes(tile: int, block_size: int, nmems: int) -> int:
-    """Shared memory of one CTA (mirrors ``smem_bytes`` in
+    """Shared memory of one CTA (mirrors ``make_layout`` in
     ``csrc/ensrf_grid.cu``)."""
     t, b, m = tile, block_size, nmems
-    return 4 * (t * (m | 1) + b * m + b * b + b * t + PANEL * t
-                + COEF_ROWS * b + t)
+    ys = 4 * (-(-m // 4) | 1)        # row stride of X and Y: 4 x odd words
+    bp = -(-b // PANEL) * PANEL      # obs rounded up to whole panels
+    return 4 * (t * ys                           # X
+                + bp * ys + bp // 2              # Y, panels skewed
+                + bp * t                         # d0 / u columns
+                + RING_SLOTS * bp * PANEL        # ring of ggt panel columns
+                + RING_SLOTS * PANEL * t         # ring of weight panel rows
+                + ((COEF_ROWS * b + 3) & ~3)     # per-ob rows
+                + t)                             # mean
+
+
+def ctas_per_sm(tile: int, block_size: int, nmems: int) -> int:
+    """CTAs per SM the kernel plans for at this shape (mirrors
+    ``ctas_per_sm`` in ``csrc/ensrf_grid.cu``): what fits by shared
+    memory, at most 3 (from there on the kernel is compiled for 85
+    registers a thread); 0 when one CTA does not fit."""
+    return min(3, SM_SMEM_BYTES // (smem_bytes(tile, block_size, nmems)
+                                    + CTA_RESERVED_BYTES))
 
 
 def pick_tile(block_size: int, nmems: int) -> int:
-    """Grid points per CTA: 64, or 32 when 64 would overflow shared
-    memory."""
-    return 64 if smem_bytes(64, block_size, nmems) <= MAX_SMEM_BYTES else 32
+    """Grid points per CTA: 64 where at least two such CTAs share an SM
+    (three up to 36 members at blocks of 128, two up to 84: measured 23-28%
+    faster than the same number of CTAs of 32 points at 30 and at 80
+    members), else 32 (two CTAs up to 128 members, one beyond)."""
+    return 64 if ctas_per_sm(64, block_size, nmems) >= 2 else 32
 
 
 def _gram_tables(y_b, sqrtc_b):
@@ -123,11 +147,12 @@ def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int):
     return xm.reshape(nrows), x.reshape(nrows, nmems)
 
 
-def _launch(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
-            donate: bool):
-    """Launch the kernel of ``csrc/ensrf_grid.cu`` through ``entry`` on
-    CUDA float32 tensors.  ``donate=True`` updates ``bm``/``bp`` in
-    place."""
+def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
+                    vt: int, donate: bool = False, tile=None):
+    """Launch the kernel of ``csrc/ensrf_grid.cu`` through ``entry`` ("B3"
+    or "B4") on CUDA float32 tensors, at ``tile`` grid points per CTA
+    (:func:`pick_tile`'s when None).  ``donate=True`` updates ``bm``/``bp``
+    in place."""
     global b3_launches, b4_launches
     nrows, nmems = bp.shape
     nblocks, bsz, _ = y_b.shape
@@ -146,7 +171,8 @@ def _launch(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
             or (w is not None and w.shape != (nblocks, bsz, g))
             or (table is not None and table.shape != (vt, nblocks, bsz))):
         raise ValueError(f"{entry} operand shapes disagree")
-    tile = pick_tile(bsz, nmems)
+    if tile is None:
+        tile = pick_tile(bsz, nmems)
     smem = smem_bytes(tile, bsz, nmems)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
@@ -175,11 +201,19 @@ def _launch(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
     return out_m, out_p
 
 
+def ctas_per_sm_on_card(tile: int, block_size: int, nmems: int) -> int:
+    """CTAs of the built kernel that the card's occupancy calculator puts
+    on one SM at this shape (registers and shared memory included)."""
+    n = _build.lib().efa_grid_ctas_per_sm(nmems, block_size, tile)
+    _build.check(-n if n < 0 else 0, "ensrf_grid occupancy query")
+    return n
+
+
 def _dispatch(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
               donate: bool):
     if bp.is_cuda:
-        return _launch(entry, bm, bp, w, table, y_b, ggt_b, coef_b, vt,
-                       donate)
+        return grid_apply_cuda(entry, bm, bp, w, table, y_b, ggt_b, coef_b,
+                               vt, donate)
     if bp.device.type != "cpu":
         raise ValueError(f"{entry} runs on CUDA or CPU, not {bp.device}")
     return grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt)

@@ -202,13 +202,49 @@ def test_b4_body_plain_matches_pallas_interpret(nvt, vertical, fast_geometry,
     assert ensrf_grid.b4_launches == 0
 
 
-def test_kernel_shapes_fit_shared_memory():
-    """The tile choice keeps a CTA inside Hopper's 227 KB at the widths
-    the API uses (block 128, up to 80 members), and the mirror of the
-    kernel's shared-memory formula counts every buffer."""
-    for m in (10, 30, 80):
-        tile = ensrf_grid.pick_tile(128, m)
-        assert tile == 64
-        assert ensrf_grid.smem_bytes(tile, 128, m) <= ensrf_grid.MAX_SMEM_BYTES
-    assert ensrf_grid.smem_bytes(64, 128, 80) == 4 * (
-        64 * 81 + 128 * 80 + 128 * 128 + 128 * 64 + 8 * 64 + 3 * 128 + 64)
+@pytest.mark.parametrize("nmems", [10, 30, 50, 80, 128, 256])
+@pytest.mark.parametrize("block_size", [50, 100, 128, 256])
+def test_kernel_shapes_fit_shared_memory(block_size, nmems):
+    """The tile choice keeps a CTA inside Hopper's 227 KB and inside the
+    share of an SM that the planned number of CTAs leaves it, and the
+    mirror of the kernel's shared-memory layout counts every buffer.  The
+    one shape that no tile holds (256 obs x 256 members: Y alone is 260
+    KB) is refused by the launch wrapper with a ValueError."""
+    tile = ensrf_grid.pick_tile(block_size, nmems)
+    smem = ensrf_grid.smem_bytes(tile, block_size, nmems)
+    ys = 4 * (-(-nmems // 4) | 1)
+    bp = -(-block_size // 8) * 8
+    assert smem == 4 * (
+        tile * ys                      # X, rows padded to 4 x odd words
+        + bp * ys + 4 * (bp // 8)      # Y, each panel shifted by 4 words
+        + bp * tile                    # d0 / u columns
+        + 2 * bp * 8                   # two slots of ggt panel columns
+        + 2 * 8 * tile                 # two slots of weight panel rows
+        + -(-3 * block_size // 4) * 4  # gain, sqrt_coef, table factor
+        + tile)                        # mean
+    ctas = ensrf_grid.ctas_per_sm(tile, block_size, nmems)
+    if (block_size, nmems) == (256, 256):
+        assert tile == 32 and ctas == 0 and smem > ensrf_grid.MAX_SMEM_BYTES
+        return
+    assert tile in (32, 64)
+    assert smem <= ensrf_grid.MAX_SMEM_BYTES
+    # The CTAs planned for fit an SM, each with the 1 KB the system keeps.
+    assert 1 <= ctas <= 3
+    assert ctas * (smem + 1024) <= 233472
+    # 64 points are taken exactly where two such CTAs fit.
+    two_of_64 = 2 * (ensrf_grid.smem_bytes(64, block_size, nmems)
+                     + 1024) <= 233472
+    assert tile == (64 if two_of_64 else 32)
+
+
+def test_tile_rule_at_the_measured_shapes():
+    """Blocks of 128 obs: three CTAs of 64 points at 30 members, two at
+    80, and 256 members, which the kernel's first version refused, in one
+    CTA of 32 points."""
+    assert (ensrf_grid.pick_tile(128, 30),
+            ensrf_grid.ctas_per_sm(64, 128, 30)) == (64, 3)
+    assert (ensrf_grid.pick_tile(128, 80),
+            ensrf_grid.ctas_per_sm(64, 128, 80)) == (64, 2)
+    assert (ensrf_grid.pick_tile(128, 256),
+            ensrf_grid.ctas_per_sm(32, 128, 256)) == (32, 1)
+    assert ensrf_grid.smem_bytes(32, 128, 256) <= ensrf_grid.MAX_SMEM_BYTES
