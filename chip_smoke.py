@@ -3,19 +3,26 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-12
+    python3 chip_smoke.py             # phases 0-14
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
-    python3 chip_smoke.py --steps     # phases 0-1, then B2 with parts of its
-                                      # design switched off, and the grid
-                                      # kernel (B3, B4) at each tile beside
-                                      # the parent commit's
+    python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
+                                      # width and cluster, B2 with parts of
+                                      # its design switched off, and the
+                                      # grid kernel (B3, B4) at each tile,
+                                      # beside the parent commit's kernels
 
 Phases, each printing one line of results:
 
 0. environment: versions, the card (``nvidia-smi`` name and power limit);
    TF32 off for every torch product;
 1. build the CUDA kernels from ``efa_xray_tpu_torch/csrc``;
-2. B1 (tail panel solve) against its plain-torch version at 512 x 80;
+2. B1 (tail panel solve) and B1h (its hybrid instantiation) against the
+   serial plain-torch version over 14 edge cases: 512 x 80 chordal,
+   haversine + vertical, varloc, hybrid, unlocalized; 1024 x 80, 512 x
+   128, 512 x 256, 1024 x 256 (and hybrid), 30 members, a padded 300-ob
+   panel, unbiased, all obs skipped; kernel and plain ms, us per ob, the
+   bound, and the shared memory the wrapper plans against the kernel's
+   layout;
 3. B2 (fused body) against its plain version at 262,144 rows x 80 x 2048
    obs: cull on and off, both angle forms, an odd row count; then at
    20,001 rows x 300 obs over the edges of its tiling (30, 50 and 80
@@ -41,9 +48,11 @@ Phases, each printing one line of results:
    cases through B4;
 8. the public API on config 3 as users build it (80 level-stacked
    variables with their levels in ``var_verts``): (a) the default
-   ``FilterConfig`` through B4, (b) ``fast_geometry`` with cross-variable
-   localization through B3, each held against the plain blocked update;
-9. phase 4's workload at the default ``FilterConfig``, through B4;
+   ``FilterConfig``: tail B1 + B4, body B4; (b) ``fast_geometry`` with
+   cross-variable localization: tail B1 + B4, body B3; each held against
+   the plain blocked update, with the tail's seconds;
+9. phase 4's workload at the default ``FilterConfig``: tail B1 + B4, body
+   B4;
 10. B2h (B2's hybrid static-column instantiation) against its plain version
     at phase 3's shape with ``hybrid_alpha`` 0.5 and a per-row sigma: (a)
     ``static_length`` 1000 km under 2000 km radii (and an odd row count),
@@ -51,29 +60,37 @@ Phases, each printing one line of results:
     vertical localization; then phase 3's edge cases in hybrid mode;
 11. the hybrid path through the public API: phase 4's workload and config
     3 (80 level variables) with ``fast_geometry``, ``hybrid_alpha`` 0.5, a
-    per-row ``static_b_sigma`` and ``static_b_length`` 1000 km, through B2h
-    and nothing else, held against the plain blocked hybrid update;
+    per-row ``static_b_sigma`` and ``static_b_length`` 1000 km: tail B1h
+    and the plain hybrid apply, body B2h, held against the plain blocked
+    hybrid update;
 12. P, the precision probe: ``probe()`` (each mode against a float64
     oracle), each mode's kernel against its plain version at 512^2, [528,
     144] @ [144, 272], 1024^2 and [2064, 144] @ [144, 1296] (the size that
     reaches the 128 x 128 tiles timed at 4096^3), the tf32 mode against the
     product of inputs rounded to nearest, and ``torch.matmul`` timed beside
-    each mode at 1024^3 and 4096^3.
+    each mode at 1024^3 and 4096^3;
+13. a ``fast_geometry`` update at 128 members (B1 over a cluster, then B2);
+14. a float64 update on the card at a small shape: the plain route, no
+    kernel, near the float32 kernel update.
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
 same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-12 with one warm headline update, the
+``--profile`` replaces phases 2-14 with one warm headline update, the
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
-``torch.profiler`` (about 25 minutes: the profiler slows the plain tails'
-small launches ~2.5x and then walks millions of events): wall and
+``torch.profiler`` (the profiler walks every traced event): wall and
 device-busy time, the busy share, the device ops that take the most time,
 and the share of the headline's (row tile, obs block) pairs and 8-ob
 panels that the cull keeps alive.
 
-``--steps`` replaces phases 2-12 with B2 timed on phase 3's workload and
+``--steps`` replaces phases 2-14 with B1 at 512 x 80 and 1024 x 256 at
+sub-panels of 8 and 16 on one CTA and on each cluster that holds the
+panel, the parent commit's B1 beside them where
+``build/efa_xray_tpu_torch/parent/tail_solve.cu`` exists, and B1 at 512 x
+80 with parts compiled out (``-DEFA_TAIL_SKIP``); then B2 timed on phase
+3's workload and
 on the headline body with parts of its design switched off (dead panels
 solved instead of skipped, a tile of 64 rows instead of 32 rows with two
 CTAs per SM), each held against the kernel's own result; then with the
@@ -81,9 +98,9 @@ grid kernel (B3 at config 3's shape and at 80 members, B4 at phase 7's
 shapes) at tiles of 32 and 64 points, with parts of it compiled out
 (``-DEFA_GRID_SKIP``: what the chain, the trailing update, D0 and the apply
 cost) and, where ``build/efa_xray_tpu_torch/parent/ensrf_grid.cu`` exists,
-the kernel of that file on the same operands.  Put the parent commit's source there with
-``git show <commit>:efa_xray_tpu_torch/csrc/ensrf_grid.cu`` (the directory
-is git-ignored).
+the kernel of that file on the same operands.  Put the parent commit's
+sources there with ``git show <commit>:efa_xray_tpu_torch/csrc/<file>``
+(the directory is git-ignored).
 
 Any failure raises and exits non-zero; without a GPU the script exits
 non-zero before doing anything.  It never imports JAX.
@@ -252,8 +269,38 @@ def phase1():
         f"{_build.last_build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s")
 
 
-def phase2():
-    """B1 against its plain version on a 512-ob panel."""
+# B1's edge cases in phase 2: label, panel, members, geometry ("chordal",
+# "haversine", "unlocalized"), vertical, varloc, hybrid, unbiased, share of
+# obs assimilated.
+B1_CASES = (
+    ("512 x 80 chordal", 512, 80, "chordal", False, False, False, False, 0.9),
+    ("512 x 80 haversine + vertical", 512, 80, "haversine", True, False,
+     False, False, 0.9),
+    ("512 x 80 haversine + varloc", 512, 80, "haversine", False, True, False,
+     False, 0.9),
+    ("512 x 80 hybrid (B1h)", 512, 80, "haversine", False, False, True,
+     False, 0.9),
+    ("512 x 80 unlocalized", 512, 80, "unlocalized", False, False, False,
+     False, 0.9),
+    ("1024 x 80", 1024, 80, "chordal", False, False, False, False, 0.9),
+    ("512 x 128", 512, 128, "chordal", False, False, False, False, 0.9),
+    ("512 x 256", 512, 256, "chordal", False, False, False, False, 0.9),
+    ("1024 x 256", 1024, 256, "chordal", False, False, False, False, 0.9),
+    ("512 x 30", 512, 30, "chordal", False, False, False, False, 0.9),
+    ("1024 x 256 hybrid (B1h)", 1024, 256, "haversine", True, False, True,
+     False, 0.9),
+    ("300 x 50 (padded)", 300, 50, "haversine", False, False, False, False,
+     0.9),
+    ("512 x 80 unbiased", 512, 80, "chordal", False, False, False, True,
+     0.9),
+    ("512 x 80 all obs skipped", 512, 80, "chordal", False, False, False,
+     False, 0.0),
+)
+
+
+def _b1_case(p, m, geometry, vertical, varloc, hybrid, assim_share, seed):
+    """One panel on the card: the B1 (B1h) arguments, weights built as
+    ``tail_scan_blocked`` builds them.  Returns ``(args, kwargs)``."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
@@ -261,53 +308,104 @@ def phase2():
         hilbert3d_np,
         latlon_to_unit,
     )
-    from efa_xray_tpu_torch.ops import tail_solve
 
     dev = torch.device("cuda")
     f32 = torch.float32
-    p, m = 512, 80
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     lat = rng.uniform(20.0, 60.0, p)
     lon = rng.uniform(200.0, 280.0, p)
     o = np.argsort(hilbert3d_np(lat, lon), kind="stable")
     lat, lon = lat[o], lon[o]
     ye = rng.normal(280.0, 5.0, (p, m))
-    tm = torch.tensor(ye.mean(1), dtype=f32, device=dev)
-    tp = torch.tensor(ye - ye.mean(1, keepdims=True), dtype=f32, device=dev)
-    vals = tm + torch.tensor(rng.normal(0, 1.5, p), dtype=f32, device=dev)
-    errs = torch.tensor(rng.uniform(0.5, 2.0, p), dtype=f32, device=dev)
-    assim = torch.tensor(rng.random(p) > 0.1, device=dev)
+    t = lambda x: torch.tensor(x, dtype=f32, device=dev)
+    tm = t(ye.mean(1))
+    tp = t(ye - ye.mean(1, keepdims=True))
     pob = core.ObsArrays(
-        values=vals, errors=errs,
-        lats=torch.tensor(lat, dtype=f32, device=dev),
-        lons=torch.tensor(lon, dtype=f32, device=dev),
-        radii=torch.full((p,), 2000.0, dtype=f32, device=dev), assim=assim,
-    ).with_default_verts()
-    wmat = core.panel_weights(latlon_to_unit(pob.lats, pob.lons), pob,
-                              False, f32)
-    errs_max = 0.0
-    times = {}
-    for name, w in (("localized", wmat), ("unlocalized", None)):
-        args = (tm, tp, vals, errs, assim, w)
-        got = tail_solve.tail_panel_solve(*args)
-        want = tail_solve.tail_panel_solve_plain(*args)
+        values=tm + t(rng.normal(0, 1.5, p)), errors=t(rng.uniform(0.5, 2, p)),
+        lats=t(lat), lons=t(lon), radii=torch.full((p,), 2000.0, device=dev),
+        assim=torch.tensor(rng.random(p) < assim_share, device=dev),
+        verts=t(rng.uniform(200.0, 1000.0, p)),
+        vert_radii=torch.full((p,), 300.0, device=dev))
+    vkw = {}
+    if varloc:
+        vkw = dict(varloc=t(rng.choice([0.0, 0.3, 1.0], (5, 4))),
+                   ob_var=torch.tensor(rng.integers(0, 4, p), device=dev))
+    pxyz = (latlon_to_unit(pob.lats, pob.lons) if geometry == "chordal"
+            else None)
+    w = core.panel_weights(pxyz, pob, vertical, f32,
+                           localize=geometry != "unlocalized", **vkw)
+    kw = {}
+    if hybrid:
+        kw = dict(alpha=0.5, sigma=t(rng.uniform(2.0, 4.0, p)),
+                  static_gc=core.static_weights(pob, 1000.0, f32))
+    return (tm, tp, pob.values, pob.errors, pob.assim, w), kw
+
+
+def b1_flop(p: int, m: int, hybrid: bool) -> float:
+    """Operations of a serial solve of ``p`` obs on ``p`` rows: per step
+    the [P, M] covariance product and rank-1 update (4 P M), the weight,
+    mean and coefficient terms (4 P; B1h's static column 4 P more) and
+    the variance (6 M)."""
+    return float(p) * (4 * p * m + (8 if hybrid else 4) * p + 6 * m)
+
+
+def phase2():
+    """B1 and B1h against the serial plain version over the edge cases of
+    ``B1_CASES``, with the shared memory the wrapper plans checked against
+    the kernel's own layout."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import _build, tail_solve
+
+    rows, out = [], {}
+    for n, (label, p, m, geometry, vertical, varloc, hybrid, unbiased,
+            share) in enumerate(B1_CASES):
+        args, kw = _b1_case(p, m, geometry, vertical, varloc, hybrid, share,
+                            11 + n)
+        c = tail_solve.pick_cluster(p, m, tail_solve.DEFAULT_SUB, hybrid)
+        pp = tail_solve.padded_panel(p, tail_solve.DEFAULT_SUB, c)
+        planned = tail_solve.smem_bytes(pp // c, m, hybrid=hybrid)
+        built = _build.lib().efa_tail_solve_smem(
+            pp // c, m, tail_solve.DEFAULT_SUB, int(hybrid))
+        check(planned == built, f"B1 {label}: the wrapper plans {planned} B "
+              f"of shared memory, the kernel lays out {built}")
+        got = tail_solve.tail_panel_solve(*args, unbiased=unbiased, **kw)
+        want = tail_solve.tail_panel_solve_plain(*args, unbiased=unbiased,
+                                                 **kw)
         torch.cuda.synchronize()
-        for k, (a, b) in enumerate(zip(got, want)):
-            errs_max = max(errs_max, compare(f"B1 {name} out{k}", a, b))
-        times[name] = (cuda_ms(lambda: tail_solve.tail_panel_solve(*args), 10),
-                       cuda_ms(lambda: tail_solve.tail_panel_solve_plain(*args), 3))
-        if w is not None:
-            # Per serial step: the [P, M] covariance product and rank-1
-            # update (4 P M), the weights and mean (4 P), the variances.
-            b1_bound = bound(p * (4 * p * m + 4 * p + 6 * m),
-                             nbytes(*args) + nbytes(*got))
-    k_ms, p_ms = times["localized"]
-    log(f"phase 2: B1 [512 x 80] f32 matches plain (max abs err "
-        f"{errs_max:.3e}); localized kernel {k_ms:.3f} ms plain {p_ms:.3f} "
-        f"ms; unlocalized kernel {times['unlocalized'][0]:.3f} ms plain "
-        f"{times['unlocalized'][1]:.3f} ms; bound {b1_bound['bound_ms']:.4f} "
-        f"ms ({b1_bound['bound_by']})")
-    return dict(max_abs_err=errs_max, ms=k_ms, plain_ms=p_ms, **b1_bound)
+        check(len(got) == len(want) == (11 if hybrid else 9),
+              f"B1 {label}: {len(got)} outputs")
+        err = max(compare(f"B1 {label} out{k}", a, b)
+                  for k, (a, b) in enumerate(zip(got, want)))
+        moved = (float((want[1] - args[1]).abs().max())
+                 if share > 0 else 1.0)
+        check(moved > 1e-3 if share > 0 else
+              bool(torch.equal(got[1], args[1])),
+              f"B1 {label}: the tail did not move as it should")
+        k_ms = cuda_ms(lambda: tail_solve.tail_panel_solve(
+            *args, unbiased=unbiased, **kw), 10)
+        p_ms = cuda_ms(lambda: tail_solve.tail_panel_solve_plain(
+            *args, unbiased=unbiased, **kw), 1)
+        r = dict(label=label, cluster=c, max_abs_err=err, ms=k_ms,
+                 plain_ms=p_ms, us_per_ob=1e3 * k_ms / p,
+                 **bound(b1_flop(p, m, hybrid),
+                         nbytes(*args, kw.get("sigma"),
+                                kw.get("static_gc")) + nbytes(*got)))
+        rows.append(r)
+        if label == "512 x 80 chordal":
+            out["B1"] = r
+        if label == "512 x 80 hybrid (B1h)":
+            out["B1h"] = r
+        del args, kw, got, want
+    log("phase 2: B1/B1h match the serial plain version: " + "; ".join(
+        f"{r['label']} ({r['cluster']} CTA{'s' if r['cluster'] > 1 else ''})"
+        f": err {r['max_abs_err']:.3e} kernel {r['ms']:.3f} ms "
+        f"({r['us_per_ob']:.3f} us per ob) plain {r['plain_ms']:.1f} ms bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})" for r in rows))
+    worst = max(r["max_abs_err"] for r in rows)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    return {name: dict(max_abs_err=worst, **{k: r[k] for k in keys})
+            for name, r in out.items()}
 
 
 def _scattered(n, nobs, seed, dev):
@@ -507,14 +605,14 @@ def phase3():
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"])
 
 
-def _api_workload(nmems=80, nobs=10_000, seed=1):
+def _api_workload(nmems=80, nobs=10_000, seed=1, ny=1024):
     """The public-API workload of bench.py's phase_api: a 1024 x 1024
-    global grid, random obs with 2000 km radii."""
+    global grid (``ny`` x ``ny``), random obs with 2000 km radii."""
     from efa_xray_tpu_torch.observation.observation import ObservationBatch
     from efa_xray_tpu_torch.utils import timeutil
 
     rng = np.random.default_rng(seed)
-    ny = nx = 1024
+    nx = ny
     lat1d = np.linspace(-88, 88, ny)
     lon1d = np.arange(0, 360, 360 / nx)
     lon, lat = np.meshgrid(lon1d, lat1d)
@@ -584,6 +682,7 @@ def _reset_counts():
     )
 
     tail_solve.launches = 0
+    tail_solve.hybrid_launches = 0
     ensrf_fused.launches = 0
     ensrf_fused.hybrid_launches = 0
     ensrf_grid.b3_launches = 0
@@ -602,20 +701,31 @@ def _counts() -> dict:
         tail_solve,
     )
 
-    return {"B1": tail_solve.launches, "B2": ensrf_fused.launches,
+    return {"B1": tail_solve.launches, "B1h": tail_solve.hybrid_launches,
+            "B2": ensrf_fused.launches,
             "B2h": ensrf_fused.hybrid_launches, "B3": ensrf_grid.b3_launches,
             "B4": ensrf_grid.b4_launches, "P": precision_probe.launches}
 
 
-def _only(kernel: str, n=None):
-    """A check of :func:`_counts`: ``kernel`` launched ``n`` times (at
-    least once when ``n`` is None), every other kernel never."""
+def _only(**expect):
+    """A check of :func:`_counts`: each kernel named launched as many
+    times as given (at least once where None), every other kernel
+    never."""
     def ok(counts):
-        k = counts[kernel]
-        return ((k >= 1 if n is None else k == n)
-                and all(v == 0 for name, v in counts.items()
-                        if name != kernel))
+        return all(k >= 1 if name in expect and expect[name] is None
+                   else k == expect.get(name, 0)
+                   for name, k in counts.items())
     return ok
+
+
+def _tail_counts(nobs: int, panel: int, b4: bool) -> dict:
+    """What the kernel tail launches for ``nobs`` obs in panels of
+    ``panel``: B1 once per panel, and on the B4 apply one B4 launch per
+    block of 128 obs of every panel (a batch in one panel applies
+    nothing)."""
+    npanels = -(-nobs // panel)
+    per_panel = -(-panel // 128) if (b4 and npanels > 1) else 0
+    return dict(panels=npanels, b4=npanels * per_panel)
 
 
 def _timed_update(make_filter):
@@ -661,13 +771,14 @@ def _timed_update(make_filter):
     return out, wall, spent
 
 
-def _api_state(dev):
-    """Phase 4's workload on the card: ``(state, batch)``."""
+def _api_state(dev, **workload):
+    """Phase 4's workload on the card (``workload`` as
+    :func:`_api_workload` takes it): ``(state, batch)``."""
     import torch
 
     from efa_xray_tpu_torch import EnsembleState
 
-    vardict, coords, batch = _api_workload()
+    vardict, coords, batch = _api_workload(**workload)
     state = EnsembleState.from_vardict(
         {k: torch.from_numpy(v).to(dev) for k, v in vardict.items()}, coords,
         dtype="float32")
@@ -694,8 +805,7 @@ def phase4():
     nobs = batch.nobs
     check(b1 == -(-nobs // cfg.tail_panel), f"B1 launched {b1} times")
     check(b2 >= -(-nobs // cfg.tail_panel) + 1, f"B2 launched {b2} times")
-    check(counts["B2h"] == counts["B3"] == counts["B4"] == counts["P"] == 0,
-          f"phase 4: launches {counts}")
+    check(_only(B1=b1, B2=b2)(counts), f"phase 4: launches {counts}")
     mean_err, incr_rms, inn_prior, inn_post = _check_api(
         "phase 4", state, batch, cfg, post, obs)
 
@@ -822,13 +932,12 @@ C3_LEVELS = np.linspace(1000.0, 100.0, 20)
 
 
 def _grid_case(ny, nx, vt, nmems, nobs, seed, group_levels=None,
-               radius=2000.0, kernels=True):
+               radius=2000.0):
     """Operands of a body sweep over ``vt`` groups on a global ``ny x nx``
     grid: a random state, obs at random places each observing a random
     group (its level, 300 hPa vertical radius), their pre-solved sequence
-    from the B1/B2 tail (the plain tail without ``kernels``: B1 holds a
-    512-ob panel up to ~100 members), and a cross-variable factor per
-    (group, ob) with zeros in it."""
+    from the B1/B2 tail, and a cross-variable factor per (group, ob) with
+    zeros in it."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
@@ -861,7 +970,7 @@ def _grid_case(ny, nx, vt, nmems, nobs, seed, group_levels=None,
                                                       device=dev))
     tail = core.tail_scan_blocked(tm, ye - tm[:, None], obs, localize=True,
                                   fast_geometry=True, vertical=True,
-                                  panel=512, kernels=kernels,
+                                  panel=512, kernels=True,
                                   max_radius_km=radius)
     # Four quantities: factor[ob quantity, group quantity], zeros included.
     fac = rng.choice([0.0, 0.3, 1.0], (4, 4))
@@ -926,7 +1035,7 @@ def _grid_edge_cases(entry: str):
         key = (grid["ny"], grid["nx"], vt, m, nobs)
         if key not in made:
             made[key] = _grid_case(vt=vt, nmems=m, nobs=nobs, seed=63,
-                                   kernels=m <= 80, **grid)
+                                   **grid)
         c = made[key]
         ops = ensrf_grid.grid_prepare(
             c["bp"], c["body_vert"], c["tail"], c["obs"], c["ngrid"],
@@ -1239,7 +1348,11 @@ def phase8():
     """The public API on config 3: B4 at the defaults, B3 with varloc."""
     state, batch, names = _config3_workload()
     nblocks = -(-batch.nobs // 128)
-    expects = {"B4": _only("B4", nblocks), "B3": _only("B3")}
+    # The tail: B1 per panel, applied out of panel by B4 (exact haversine
+    # in (a), varloc in (b)).
+    tail = _tail_counts(batch.nobs, 512, True)
+    expects = {"B4": _only(B1=tail["panels"], B4=nblocks + tail["b4"]),
+               "B3": _only(B1=tail["panels"], B4=tail["b4"], B3=None)}
     out = {}
     for label, cfg, route in _config3_runs(names):
         r = _api_phase(f"phase 8 {label}", state, batch, cfg, route,
@@ -1259,11 +1372,12 @@ def phase9():
 
     state, batch = _api_state(torch.device("cuda"))
     nblocks = -(-batch.nobs // 128)
+    tail = _tail_counts(batch.nobs, 512, True)
     r = _api_phase("phase 9", state, batch, FilterConfig(localization="GC"),
-                   "B4", _only("B4", nblocks))
+                   "B4", _only(B1=tail["panels"], B4=nblocks + tail["b4"]))
     log(f"phase 9: EnSRF.update() 1024x1024x80, {batch.nobs} obs at the "
         f"default FilterConfig: " + _api_line(r))
-    return dict(b4=r["counts"]["B4"])
+    return dict(b4=r["counts"]["B4"], b1=r["counts"]["B1"])
 
 
 def phase10():
@@ -1368,7 +1482,9 @@ def phase11():
 
     state, batch = _api_state(torch.device("cuda"))
     cfg = _hybrid_config(state.structure.nstate, 111)
-    r = _api_phase("phase 11 (a)", state, batch, cfg, "B2h", _only("B2h"))
+    panels = _tail_counts(batch.nobs, 512, False)["panels"]
+    r = _api_phase("phase 11 (a)", state, batch, cfg, "B2h",
+                   _only(B1h=panels, B2h=None))
     log(f"phase 11: EnSRF.update() hybrid 1024x1024x80, {batch.nobs} obs "
         f"(alpha 0.5, per-row sigma, L 1000 km, fast_geometry), route B2h: "
         + _api_line(r))
@@ -1376,11 +1492,69 @@ def phase11():
     state, batch, _ = _config3_workload()
     r3 = _api_phase("phase 11 (b)", state, batch,
                     _hybrid_config(state.structure.nstate, 112), "B2h",
-                    _only("B2h"))
+                    _only(B1h=_tail_counts(batch.nobs, 512, False)["panels"],
+                          B2h=None))
     log(f"phase 11: EnSRF.update() hybrid config 3 (80 level variables x "
         f"90x180 x 30 members, {batch.nobs} obs, vertical 300 hPa), route "
         f"B2h: " + _api_line(r3))
-    return dict(b2h=r["counts"]["B2h"])
+    return dict(b2h=r["counts"]["B2h"], b1h=r["counts"]["B1h"])
+
+
+def phase13():
+    """A ``fast_geometry`` update at 128 members (a 1024 x 1024 grid, 2048
+    obs): B1 at 512 x 128 over a cluster, then B2."""
+    import torch
+
+    from efa_xray_tpu_torch import FilterConfig
+    from efa_xray_tpu_torch.ops import tail_solve
+
+    state, batch = _api_state(torch.device("cuda"), nmems=128, nobs=2048,
+                              seed=13)
+    panels = _tail_counts(batch.nobs, 512, False)["panels"]
+    r = _api_phase("phase 13", state, batch,
+                   FilterConfig(localization="GC", fast_geometry=True), "B2",
+                   _only(B1=panels, B2=None))
+    log(f"phase 13: EnSRF.update() 1024x1024x128, {batch.nobs} obs with "
+        f"fast_geometry (B1 over {tail_solve.pick_cluster(512, 128)} CTAs): "
+        + _api_line(r))
+
+
+def phase14():
+    """A float64 update on the card at a small shape (128 x 128 x 20, 500
+    obs): the plain blocked update and no kernel, within 1e-3 of the
+    increment RMS of the float32 update through B1 and B4."""
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF, FilterConfig
+
+    state, batch = _api_state(torch.device("cuda"), nmems=20, nobs=500,
+                              seed=14, ny=128)
+    cfg64 = FilterConfig(localization="GC", dtype="float64")
+    filt = EnSRF(state, batch, config=cfg64, verbose=False)
+    route = filt._route(state.structure.nstate)
+    check(route == "plain", f"phase 14: float64 routed to {route}")
+    _reset_counts()
+    t0 = time.perf_counter()
+    post64, obs64 = filt.update()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    check(_only()(counts), f"phase 14: launches {counts}")
+    post32, _ = EnSRF(state, batch, config=FilterConfig(localization="GC"),
+                      verbose=False).update()
+    m64 = post64.to_vect().mean(dim=1)
+    prior = state.to_vect().double().mean(dim=1)
+    incr_rms = float(torch.sqrt(torch.mean((m64 - prior) ** 2)))
+    diff = float((post32.to_vect().double().mean(dim=1) - m64).abs().max())
+    check(filt.dtype == torch.float64
+          and bool(torch.isfinite(post64.data).all())
+          and diff <= 1e-3 * incr_rms,
+          f"phase 14: update in {filt.dtype}, float32 differs "
+          f"by {diff:.3e} against an increment RMS of {incr_rms:.3e}")
+    log(f"phase 14: EnSRF.update() float64 on the card, 128x128x20, "
+        f"{batch.nobs} obs: route {route}, no kernel launched; posterior "
+        f"mean vs the float32 kernel update: max abs diff {diff:.3e} "
+        f"(increment RMS {incr_rms:.3e}); wall {wall:.3f} s")
 
 
 # P's products are timed as runs of this many calls back to back.
@@ -1424,7 +1598,7 @@ def phase12():
     torch.cuda.synchronize()
     launched = dict(pp.launches_by_mode)
     counts = _counts()
-    check(_only("P")(counts) and all(v >= 1 for v in launched.values()),
+    check(_only(P=None)(counts) and all(v >= 1 for v in launched.values()),
           f"phase 12: launches {counts}, P by mode {launched}")
     errs = [res[f"{mode}_rms_err_over_scale"] for mode in pp.MODES]
     check(errs[0] < 1e-6 < errs[1] < errs[2] < 1e-2,
@@ -1777,9 +1951,162 @@ def grid_steps_phase():
         del c, ops, w, table
 
 
+# Where --steps looks for the parent commit's B1 (see the module
+# docstring), and that kernel's C signature.
+PARENT_TAIL_SOURCE = os.path.join("build", "efa_xray_tpu_torch", "parent",
+                                  "tail_solve.cu")
+
+
+def _parent_tail_lib():
+    """The parent commit's B1 built from ``PARENT_TAIL_SOURCE`` (one
+    ``nvcc``), or None where that file does not exist."""
+    import ctypes
+
+    from efa_xray_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(root, PARENT_TAIL_SOURCE)
+    if not os.path.exists(src):
+        log(f"steps: no {PARENT_TAIL_SOURCE}; the parent's B1 is not timed")
+        return None
+    out = os.path.join(root, "build", "efa_xray_tpu_torch", "variants",
+                       "libtail_parent.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                          out, src], capture_output=True, text=True)
+    check(res.returncode == 0, f"steps: nvcc failed for the parent's B1:\n"
+          f"{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(out)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    lib.efa_tail_solve.argtypes = [P_] * 6 + [I_] * 3 + [P_] * 10
+    lib.efa_tail_solve.restype = ctypes.c_int
+    return lib
+
+
+# Parts of B1 that a build with -DEFA_TAIL_SKIP=<bits> leaves out
+# (csrc/tail_solve.cu), so that --steps can time what each costs.
+TAIL_PARTS = {"the warp's serial steps": 1, "the Gram pass": 2,
+              "the push into the cluster": 4, "the rank updates": 8,
+              "all but loads, stores, copies and barriers": 15}
+
+
+def _tail_part_libs():
+    """Builds of B1 with each entry of ``TAIL_PARTS`` left out, and one
+    with sub-panels of 16 (``"sub 16"``), one ``nvcc`` each, all started
+    together.  Returns ``{name: library}``."""
+    import ctypes
+
+    from efa_xray_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "efa_xray_tpu_torch", "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    flags = {name: f"-DEFA_TAIL_SKIP={bits}"
+             for name, bits in TAIL_PARTS.items()}
+    flags["sub 16"] = "-DEFA_TAIL_SUB16=1"
+    for i, (name, flag) in enumerate(flags.items()):
+        out = os.path.join(out_dir, f"libtail_{i}.so")
+        procs[name] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, flag, "-shared", "-o", out,
+             str(_build.CSRC / "tail_solve.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"steps: nvcc failed for {name}:\n{text}")
+        libs[name] = ctypes.CDLL(out)
+        libs[name].efa_tail_solve.argtypes = _build._SIGNATURES[
+            "efa_tail_solve"]
+        libs[name].efa_tail_solve.restype = ctypes.c_int
+    return libs
+
+
+def b1_steps_phase():
+    """B1 at sub-panels of 8 and 16 on one CTA and on each cluster that
+    holds the panel, and the parent commit's kernel where built, each held
+    against the serial plain version (512 x 80 localized, and 1024 x
+    256); then at 512 x 80 on one CTA and on 8 with parts left out
+    (``TAIL_PARTS``; wrong results, timed only)."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import _build, tail_solve
+
+    parent = _parent_tail_lib()
+    parts = _tail_part_libs()
+    sub16 = parts.pop("sub 16")
+
+    def with_lib(lib, fn):
+        saved = _build.lib
+        _build.lib = lambda: lib
+        try:
+            return fn()
+        finally:
+            _build.lib = saved
+
+    for label, p, m in (("512 x 80 chordal", 512, 80),
+                        ("1024 x 256 chordal", 1024, 256)):
+        args, _ = _b1_case(p, m, "chordal", False, False, False, 0.9, 201)
+        want = tail_solve.tail_panel_solve_plain(*args)
+        runs = []
+        for sub in tail_solve.SUBS:
+            for c in tail_solve.CLUSTERS:
+                pp = tail_solve.padded_panel(p, sub, c)
+                if (tail_solve.smem_bytes(pp // c, m, sub)
+                        <= tail_solve.MAX_SMEM_BYTES):
+                    run = (lambda sub=sub, c=c: tail_solve
+                           .tail_panel_solve_cuda(*args, sub=sub, cluster=c))
+                    if sub != tail_solve.DEFAULT_SUB:
+                        run = lambda run=run: with_lib(sub16, run)
+                    runs.append((f"sub {sub}, {c} CTA{'s' if c > 1 else ''}",
+                                 run))
+        # The parent's kernel held the whole slab in one CTA.
+        if parent is not None and 4 * (p * (m | 1) + p + m) <= 232448:
+
+            def run_parent():
+                outs = [torch.empty_like(args[0]), torch.empty_like(args[1]),
+                        torch.empty_like(args[1])] + [
+                            torch.empty_like(args[0]) for _ in range(6)]
+                am = args[4].to(torch.uint8)
+                err = parent.efa_tail_solve(
+                    *(t.data_ptr() for t in args[:4]), am.data_ptr(),
+                    args[5].data_ptr(), p, m, 0,
+                    *(t.data_ptr() for t in outs),
+                    torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"steps: the parent's B1: CUDA error {err}")
+                return outs
+
+            runs.append(("the parent's kernel", run_parent))
+        out = []
+        for name, fn in runs + runs[::-1]:
+            got = fn()
+            torch.cuda.synchronize()
+            for k, (a, b) in enumerate(zip(got, want)):
+                compare(f"steps B1 {label} {name} out{k}", a, b)
+            out.append((name, cuda_ms(fn, 10)))
+        log(f"steps B1 {label} (the wrapper takes sub "
+            f"{tail_solve.DEFAULT_SUB}, {tail_solve.pick_cluster(p, m)} "
+            "CTAs): " + "; ".join(f"{name}: {ms:.3f} ms" for name, ms in out))
+        if p == 512:
+            for c in (1, 8):
+                run = lambda c=c: tail_solve.tail_panel_solve_cuda(
+                    *args, cluster=c)
+                whole = cuda_ms(run, 10)
+                timed_parts = [
+                    (name, with_lib(lib, lambda: cuda_ms(run, 10)))
+                    for name, lib in parts.items()]
+                log(f"steps B1 {label} at sub {tail_solve.DEFAULT_SUB}, {c} "
+                    f"CTA{'s' if c > 1 else ''}: {whole:.3f} ms whole; "
+                    "without " + "; without ".join(
+                        f"{name}: {ms:.3f} ms" for name, ms in timed_parts))
+        del args, want
+
+
 def steps_phase():
-    """What the parts of B2's design buy, on phase 3's workload and on the
-    headline body."""
+    """What the parts of B1's and B2's design buy: B1 at each sub-panel
+    and cluster, then B2 on phase 3's workload and on the headline body,
+    then the grid kernel."""
+    b1_steps_phase()
     w = _b2_workload()
     _b2_variants("262,144 x 80 x 2048 obs", w["bm"], w["bp"], w["lat"],
                  w["lon"], w["tail"], w["obs"], 2000.0, 5)
@@ -1821,13 +2148,19 @@ def main() -> int:
     b2h = timed(phase10)
     hyb = timed(phase11)
     p = timed(phase12)
-    # No single PyTorch call computes B1-B4 or B2h (a serial filter, a
-    # localized recurrence): their library_ms is null.
+    timed(phase13)
+    timed(phase14)
+    # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
+    # a localized recurrence): their library_ms is null.
     kernels = [
         dict(name="B1 tail panel solve", route="cuda",
              source="efa_xray_tpu_torch/csrc/tail_solve.cu",
              replaces="efa_xray_tpu/ops/tail_solve_pallas.py:46",
-             launches=api["b1"], library_ms=None, **b1),
+             launches=api["b1"], library_ms=None, **b1["B1"]),
+        dict(name="B1h tail panel solve, hybrid static column",
+             route="cuda", source="efa_xray_tpu_torch/csrc/tail_solve.cu",
+             replaces="efa_xray_tpu/ops/tail_solve_pallas.py:46",
+             launches=hyb["b1h"], library_ms=None, **b1["B1h"]),
         dict(name="B2 fused body", route="cuda",
              source="efa_xray_tpu_torch/csrc/ensrf_fused.cu",
              replaces="efa_xray_tpu/ops/ensrf_pallas_fused.py:117",

@@ -97,9 +97,9 @@ class Assimilation:
     """Base driver: holds the prior and obs, computes obs-space priors,
     formats the state for the solver and back."""
 
-    def __init__(self, state: EnsembleState, obs, inflation: InflationSpec = None,
-                 verbose: bool = False, config: Optional[FilterConfig] = None,
-                 device=None):
+    def __init__(self, state: EnsembleState, obs, nproc: int = 1,
+                 inflation: InflationSpec = None, verbose: bool = False,
+                 config: Optional[FilterConfig] = None, device=None):
         from efa_xray_tpu_torch.utils.logging import verbose_logger
         from efa_xray_tpu_torch.utils.validation import (
             validate_obs,
@@ -115,6 +115,8 @@ class Assimilation:
         validate_state(state)
         validate_obs(self.obs, state.structure)
         self.verbose = verbose
+        # Accepted for the reference's signature; unused (one device).
+        self.nproc = nproc
         self.inflation = inflation
         self.config = config or FilterConfig(verbose=verbose)
         self.is_inflated = False

@@ -21,15 +21,21 @@ Routing, branch for branch as the JAX package routes a TPU run
 * otherwise (exact haversine, the default ``FilterConfig``): the body
   through B4, one launch per obs block;
 * ``variable_localization`` where B3 cannot carry it (a flat state, or
-  exact haversine), and hybrid with exact haversine: the plain blocked
-  update, as the JAX package runs no kernel there either.
+  exact haversine), hybrid with exact haversine, and ``dtype="float64"``
+  on the card: the plain blocked update, as the JAX package runs no kernel
+  there either (its tail is the plain per-ob panel scan; ROADMAP C).
 
-The tail goes through B1 and B2 where the JAX package's ``_tail_pallas``
-would (chordal or unlocalized, no hybrid, no ``variable_localization``),
-else through the plain panel-blocked scan.  On CUDA tensors the kernels
-run; on CPU tensors their plain versions.  Paths whose kernels or modules
-are not ported raise ``NotImplementedError`` rather than run a plain path
-on the card.
+On every kernel route the tail's panels are solved by B1 (B1h in hybrid
+mode) with weights built per panel, and applied out of panel by B2
+(chordal or unlocalized, no ``variable_localization``), by B4 (exact
+haversine or ``variable_localization``) or, in hybrid mode, by the plain
+apply with its static columns (``ensrf_core.tail_scan_blocked``).  The
+JAX package takes its tail kernel on the chordal runs only; the port's
+B1 carries the others' weights, the same function.  On CUDA tensors the
+kernels run; on CPU tensors their plain versions.  Paths whose kernels or
+modules are not ported raise ``NotImplementedError`` rather than run a
+plain path on the card, and so do ``matmul_precision`` settings below
+float32 (ROADMAP B-next 5).
 """
 
 from __future__ import annotations
@@ -48,14 +54,18 @@ from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
 from efa_xray_tpu_torch.state.ensemble import EnsembleState
 
 
+# The ``matmul_precision`` settings the port runs: full fp32 products.
+FULL_PRECISION = (None, "highest", "float32")
+
+
 class EnSRF(Assimilation):
     """``EnSRF(state, obs, config=..., device=...).update()`` returns
     ``(posterior_state, observations)`` with per-ob diagnostics recorded
     (reference ``efa_xray/assimilation/ensrf.py:8-151``).  ``device``
     defaults to the state's device."""
 
-    def __init__(self, state: EnsembleState, obs, inflation=None,
-                 verbose: bool = True, loc=False,
+    def __init__(self, state: EnsembleState, obs, nproc: int = 1,
+                 inflation=None, verbose: bool = True, loc=False,
                  config: Optional[FilterConfig] = None, device=None,
                  mesh=None):
         if config is None:
@@ -66,8 +76,8 @@ class EnSRF(Assimilation):
             raise NotImplementedError(
                 "mesh= (multi-device row sharding) is not ported yet "
                 "(ROADMAP A10)")
-        super().__init__(state, obs, inflation=inflation, verbose=verbose,
-                         config=config, device=device)
+        super().__init__(state, obs, nproc, inflation=inflation,
+                         verbose=verbose, config=config, device=device)
         self.loc = loc if loc not in (None, False) else (config.localization
                                                          or False)
 
@@ -82,12 +92,15 @@ class EnSRF(Assimilation):
                 and cfg.hybrid_alpha >= 1.0)
 
     def _use_kernels(self) -> bool:
-        """The kernel route (``_use_pallas`` on a TPU): the blocked method;
-        hybrid only with chordal geometry or no localization; with
-        ``variable_localization`` only where B3 carries it.  Its kernels
-        run on CUDA tensors, their plain versions on CPU tensors."""
+        """The kernel route (``_use_pallas`` on a TPU): the blocked method,
+        float32 on the card (the kernels' type; float64 runs them only as
+        their plain versions, on CPU tensors); hybrid only with chordal
+        geometry or no localization; with ``variable_localization`` only
+        where B3 carries it.  Its kernels run on CUDA tensors, their plain
+        versions on CPU tensors."""
         cfg = self.config
-        ok = cfg.method == "blocked"
+        ok = cfg.method == "blocked" and (self.device.type != "cuda"
+                                          or self.dtype == torch.float32)
         if cfg.hybrid_alpha < 1.0:
             ok = ok and (cfg.fast_geometry or not cfg.localize)
         if cfg.variable_localization:
@@ -95,11 +108,9 @@ class EnSRF(Assimilation):
         return ok
 
     def _tail_kernels(self) -> bool:
-        """B1/B2 for the tail (``_tail_pallas``): chordal or unlocalized,
-        no hybrid, no ``variable_localization``."""
-        cfg = self.config
-        return (cfg.hybrid_alpha >= 1.0 and not cfg.variable_localization
-                and (cfg.fast_geometry or not cfg.localize))
+        """The kernel tail (B1 or B1h, then B2, B4 or the plain hybrid
+        apply): on every kernel route."""
+        return self._use_kernels()
 
     def _route(self, nrows: int) -> str:
         """The body path of an update on ``nrows`` state rows: ``"serial"``,
@@ -141,6 +152,11 @@ class EnSRF(Assimilation):
             missing.append("obs_order / spatial_sort (ROADMAP A7)")
         if cfg.rtps_alpha > 0.0 or cfg.rtpp_alpha > 0.0:
             missing.append("RTPS/RTPP relaxation (ROADMAP A7)")
+        if cfg.matmul_precision not in FULL_PRECISION:
+            missing.append(
+                f"matmul_precision={cfg.matmul_precision!r} (every product "
+                "of the port is fp32; lower precisions are ROADMAP B-next "
+                "5)")
         if missing:
             raise NotImplementedError("not ported yet: " + "; ".join(missing))
 

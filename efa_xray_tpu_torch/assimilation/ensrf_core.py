@@ -407,39 +407,105 @@ def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
     )
 
 
-def panel_weights(pxyz, pob: ObsArrays, vertical: bool, dtype):
+def panel_weights(pxyz, pob: ObsArrays, vertical: bool, dtype,
+                  localize: bool = True, varloc=None, ob_var=None):
     """Ob-ob weight matrix of one panel, ``w[i, j]`` = weight of ob i at
-    panel row j: chordal GC times the optional vertical GC (the build
-    ``ensrf_core._panel_solve_pallas`` :560-568 streams into B1)."""
-    w = chordal_gc_weights(pxyz[None, :, :], pxyz[:, None, :],
-                           pob.radii[:, None]).to(dtype)
-    if vertical:
-        w = w * gaspari_cohn(
-            torch.abs(pob.verts[:, None] - pob.verts[None, :]),
-            pob.vert_radii[:, None],
-        ).to(dtype)
+    panel row j, exactly the factors :func:`tail_scan` applies to ob i's
+    covariances: chordal GC when unit vectors ``pxyz`` are given (the
+    build ``ensrf_core._panel_solve_pallas`` :560-568 streams into B1),
+    else GC of the exact haversine distance; times the vertical GC; times
+    ``varloc[ob_var_i, ob_var_j]``.  None when no factor applies."""
+    w = None
+    if localize:
+        if pxyz is not None:
+            w = chordal_gc_weights(pxyz[None, :, :], pxyz[:, None, :],
+                                   pob.radii[:, None]).to(dtype)
+        else:
+            w = gaspari_cohn(
+                haversine((pob.lats[None, :], pob.lons[None, :]),
+                          (pob.lats[:, None], pob.lons[:, None])),
+                pob.radii[:, None]).to(dtype)
+        if vertical:
+            w = w * gaspari_cohn(
+                torch.abs(pob.verts[:, None] - pob.verts[None, :]),
+                pob.vert_radii[:, None],
+            ).to(dtype)
+    if varloc is not None:
+        ov = ob_var.long()
+        fac = varloc.to(dtype)[ov][:, ov]
+        w = fac if w is None else w * fac
     return w
 
 
+def static_weights(pob: ObsArrays, static_length: float, dtype):
+    """The hybrid static correlation of one panel, ``gc[i, j] =
+    GC(haversine(ob i, row j), static_length)``, as :func:`tail_scan`
+    applies it."""
+    return gaspari_cohn(
+        haversine((pob.lats[None, :], pob.lons[None, :]),
+                  (pob.lats[:, None], pob.lons[:, None])),
+        float(static_length)).to(dtype)
+
+
 def _panel_solve_kernel(tm, tp, pob: ObsArrays, pxyz, localize: bool,
-                        unbiased: bool, vertical: bool, dtype) -> TailSolution:
-    """Serial solve of one obs panel through B1
-    (:func:`efa_xray_tpu_torch.ops.tail_solve.tail_panel_solve`)."""
+                        unbiased: bool, vertical: bool, dtype, varloc=None,
+                        ob_var=None, hybrid_alpha: float = 1.0,
+                        tail_sigma=None,
+                        static_length=None) -> TailSolution:
+    """Serial solve of one obs panel through B1, or B1h in hybrid mode
+    (:func:`efa_xray_tpu_torch.ops.tail_solve.tail_panel_solve`), with the
+    panel's weights built here once: chordal when ``pxyz`` is given, else
+    exact haversine."""
     from efa_xray_tpu_torch.ops.tail_solve import tail_panel_solve
 
-    wmat = panel_weights(pxyz, pob, vertical, dtype) if localize else None
-    ptm, ptp, pye, pg, psq, ppm, ppv, pom, pov = tail_panel_solve(
-        tm, tp, pob.values, pob.errors, pob.assim, wmat, unbiased=unbiased)
+    wmat = panel_weights(pxyz, pob, vertical, dtype, localize=localize,
+                         varloc=varloc, ob_var=ob_var)
+    hybrid = hybrid_alpha < 1.0
+    hkw = {}
+    if hybrid:
+        hkw = dict(alpha=float(hybrid_alpha), sigma=tail_sigma.to(dtype),
+                   static_gc=static_weights(pob, static_length, dtype))
+    out = tail_panel_solve(tm, tp, pob.values, pob.errors, pob.assim, wmat,
+                           unbiased=unbiased, **hkw)
+    ptm, ptp, pye, pg, psq, ppm, ppv, pom, pov = out[:9]
     return TailSolution(
         ye=pye, gain_coef=pg, sqrt_coef=psq, tail_mean=ptm, tail_perts=ptp,
         diags=ObsDiagnostics(ppm, ppv, pom, pov, pob.assim),
+        static_gain=out[9] if hybrid else None,
+        static_sqrt=out[10] if hybrid else None,
     )
+
+
+def _cut(sol: TailSolution, n: int) -> TailSolution:
+    """The first ``n`` obs of a panel's solution."""
+    cut = lambda x: None if x is None else x[:n]
+    return TailSolution(
+        ye=cut(sol.ye), gain_coef=cut(sol.gain_coef),
+        sqrt_coef=cut(sol.sqrt_coef), tail_mean=cut(sol.tail_mean),
+        tail_perts=cut(sol.tail_perts),
+        diags=ObsDiagnostics(*(cut(d) for d in sol.diags)),
+        static_gain=cut(sol.static_gain), static_sqrt=cut(sol.static_sqrt))
 
 
 # The in-kernel panel solve serves panels up to this many obs, the bound
 # of the JAX package's kernel (``ensrf_core.py:659``); larger panels keep
 # the kernel apply and solve each panel with the plain scan.
 MAX_KERNEL_PANEL = 1024
+# Obs per B4 launch in the tail's out-of-panel apply.
+TAIL_APPLY_BLOCK = 128
+
+
+def tail_apply_route(localize: bool, fast_geometry: bool, use_vl: bool,
+                     hybrid: bool) -> str:
+    """The out-of-panel apply of the kernel tail: ``"B2"`` (chordal or
+    unlocalized, no varloc, no hybrid), ``"B4"`` (exact haversine or
+    varloc, pure ensemble) or ``"plain"`` (hybrid: the static column at
+    exact haversine, which no kernel carries)."""
+    if hybrid:
+        return "plain"
+    if use_vl or (localize and not fast_geometry):
+        return "B4"
+    return "B2"
 
 
 def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
@@ -455,31 +521,34 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     operator; the in-panel rows are then overwritten by the exact panel
     solution.
 
-    ``kernels=True`` routes the panel solve through B1
-    (:mod:`efa_xray_tpu_torch.ops.tail_solve`) and the out-of-panel apply
-    through B2 (:mod:`efa_xray_tpu_torch.ops.ensrf_fused`).  Their
-    weights are chordal, so this needs ``fast_geometry`` under
-    localization, and they take no ``varloc``.  On CPU tensors the
-    kernels' plain versions run.  ``max_radius_km`` lets B2 pick its
-    cheaper angle form.  The hybrid tail (``hybrid_alpha < 1``) is always
-    the plain branch, as in the JAX package: its out-of-panel apply adds
-    the static columns at exact haversine distance.
+    ``kernels=True`` solves each panel through B1, with the panel's
+    weights (chordal or exact haversine, vertical, ``varloc``) built once
+    in torch, or through B1h in hybrid mode, and applies it out of panel
+    per :func:`tail_apply_route`: B2
+    (:mod:`efa_xray_tpu_torch.ops.ensrf_fused`) for chordal or unlocalized
+    runs without varloc, B4 (:func:`efa_xray_tpu_torch.ops.ensrf_grid.
+    apply_obs_block`, blocks of ``TAIL_APPLY_BLOCK`` obs on the tail rows
+    as a flat state) for exact haversine or varloc, and the plain
+    :func:`apply_obs_block` with its static columns in hybrid mode.  On
+    CPU tensors the kernels' plain versions run.  ``max_radius_km`` lets
+    B2 pick its cheaper angle form.  ``kernels=False`` is the plain
+    per-ob scan of each panel, the reference the kernel branch is held
+    against.
     """
     nens = tail_perts.shape[1]
     dtype = tail_perts.dtype
     nobs = obs.values.shape[0]
     hybrid = hybrid_alpha < 1.0
     use_vl = varloc is not None
-    if kernels and (hybrid or use_vl or (localize and not fast_geometry)):
-        raise ValueError("the kernel tail needs chordal geometry "
-                         "(fast_geometry) under localization, no hybrid "
-                         "static column and no variable localization")
+    if use_vl and ob_var is None:
+        raise ValueError("varloc needs ob_var")
     vkw = dict(varloc=varloc, ob_var=ob_var) if use_vl else {}
     hkw = dict(hybrid_alpha=hybrid_alpha,
                static_length=static_length) if hybrid else {}
     _check_hybrid(hybrid, use_vl, tail_sigma, static_length)
     solve_kernel = kernels and panel <= MAX_KERNEL_PANEL
     obs = obs.with_default_verts()
+    chordal = localize and fast_geometry
     if nobs == 0 or nobs <= panel:
         if not (solve_kernel and nobs > 0):
             return tail_scan(tail_mean, tail_perts, obs, localize=localize,
@@ -494,17 +563,15 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
         sol = _panel_solve_kernel(
             _pad(tail_mean, pad1), _pad(tail_perts, pad1), obs1,
             latlon_to_unit(obs1.lats, obs1.lons).to(dtype)
-            if localize else None,
+            if chordal else None,
             localize=localize, unbiased=unbiased, vertical=vertical,
             dtype=dtype,
-        )
-        cut = lambda x: x[:nobs]
-        return TailSolution(
-            ye=cut(sol.ye), gain_coef=cut(sol.gain_coef),
-            sqrt_coef=cut(sol.sqrt_coef), tail_mean=cut(sol.tail_mean),
-            tail_perts=cut(sol.tail_perts),
-            diags=ObsDiagnostics(*(cut(d) for d in sol.diags)),
-        )
+            **(dict(varloc=varloc, ob_var=_pad(ob_var.long(), pad1, 0))
+               if use_vl else {}),
+            **(dict(tail_sigma=_pad(sigma_rows(tail_sigma,
+                                               tail_mean.to(dtype)), pad1),
+                    **hkw) if hybrid else {}))
+        return _cut(sol, nobs)
 
     npanels = -(-nobs // panel)
     pad = npanels * panel - nobs
@@ -513,7 +580,7 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     allo = _pad_obs(obs, pad, dtype)
     ntot = nobs + pad
     all_xyz = (latlon_to_unit(allo.lats, allo.lons).to(dtype)
-               if (localize and fast_geometry) else None)
+               if chordal else None)
     row_idx = torch.arange(ntot, device=tm.device)
     if use_vl:
         vl = varloc.to(dtype)
@@ -521,26 +588,30 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     if hybrid:
         tsig_all = _pad(sigma_rows(tail_sigma, tail_mean.to(dtype)), pad)
         slen = float(static_length)
+    apply = (tail_apply_route(localize, fast_geometry, use_vl, hybrid)
+             if kernels else "plain")
+    # The B4 apply updates the tail in place once this call owns it.
+    owned = False
 
     outs = []
     for p in range(npanels):
         base = p * panel
         sl = slice(base, base + panel)
         pob = ObsArrays(*(x[sl] for x in allo))
+        pvkw = dict(varloc=vl, ob_var=ovarr[sl]) if use_vl else {}
         if solve_kernel:
             sol = _panel_solve_kernel(
-                tm[sl], tp[sl], pob, all_xyz[sl] if localize else None,
+                tm[sl], tp[sl], pob, all_xyz[sl] if chordal else None,
                 localize=localize, unbiased=unbiased, vertical=vertical,
-                dtype=dtype)
+                dtype=dtype, **pvkw,
+                **(dict(tail_sigma=tsig_all[sl], **hkw) if hybrid else {}))
         else:
             sol = tail_scan(tm[sl], tp[sl], pob, localize=localize,
                             unbiased=unbiased, fast_geometry=fast_geometry,
                             vertical=vertical,
                             tail_sigma=tsig_all[sl] if hybrid else None,
-                            **hkw,
-                            **(dict(varloc=vl, ob_var=ovarr[sl]) if use_vl
-                               else {}))
-        if kernels:
+                            **hkw, **pvkw)
+        if apply == "B2":
             from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
 
             # The in-panel rows are overwritten right below, so the B2
@@ -551,9 +622,28 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                 localize=localize, block_size=min(128, panel),
                 vertical=localize and vertical, max_radius_km=max_radius_km,
             )
+        elif apply == "B4":
+            from efa_xray_tpu_torch.ops import ensrf_grid
+
+            # As with B2, no out-of-panel mask: the tail rows are a flat
+            # state (vt = 1) with the obs' own places and levels.
+            tm2, tp2 = tm, tp
+            for lo in range(0, panel, TAIL_APPLY_BLOCK):
+                bl = slice(lo, min(panel, lo + TAIL_APPLY_BLOCK))
+                tm2, tp2 = ensrf_grid.apply_obs_block(
+                    tm2, tp2, allo.lats, allo.lons, sol.ye[bl],
+                    sol.gain_coef[bl], sol.sqrt_coef[bl], pob.lats[bl],
+                    pob.lons[bl], pob.radii[bl], localize=localize,
+                    fast_geometry=fast_geometry, body_vert=allo.verts,
+                    ob_vert=pob.verts[bl], ob_vrad=pob.vert_radii[bl],
+                    vertical=localize and vertical, ngrid=None,
+                    ob_row_factor=(vl[ovarr[sl][bl]][:, ovarr] if use_vl
+                                   else None),
+                    donate=owned)
+                owned = True
         else:
             outside = ((row_idx < base) | (row_idx >= base + panel)).to(dtype)
-            if localize and fast_geometry:
+            if chordal:
                 w = chordal_gc_weights(all_xyz[:, None, :],
                                        all_xyz[sl][None, :, :],
                                        pob.radii[None, :]).to(dtype)

@@ -86,10 +86,11 @@ class FilterConfig:
     obs_order: Optional[str] = None
     # What an f32 matrix product means.  On CUDA every product of the
     # port is plain fp32 FMA, no TF32 (the kernels use no tensor cores,
-    # and the plain products run with torch's TF32 switches off); mapping
-    # these values onto CUDA precisions is later work.  Accepted values as
-    # in the JAX package: None, "default", "high", "highest", "bfloat16",
-    # "tensorfloat32", "float32".
+    # and the plain products run with torch's TF32 switches off).  Accepted
+    # values as in the JAX package: None, "default", "high", "highest",
+    # "bfloat16", "tensorfloat32", "float32"; ``EnSRF.update()`` runs None,
+    # "highest" and "float32" and raises NotImplementedError on the lower
+    # ones until a kernel gives them a meaning (ROADMAP B-next 5).
     matmul_precision: Optional[str] = None
     # Fast chordal geometry for localization weights (unit-vector dot +
     # polynomial arccos; ~2e-8 rad error) instead of the exact haversine.

@@ -1,169 +1,595 @@
-// B1: exact serial EnSRF solve of one observation panel, one CTA per panel.
+// B1 and B1h: exact serial EnSRF solve of one observation panel, by
+// sub-panels, over a thread-block cluster.
 //
 // Replaces: efa_xray_tpu/ops/tail_solve_pallas.py, _make_tail_solve_kernel
 // (launched by tail_panel_solve_pallas), reached from
-// efa_xray_tpu/assimilation/ensrf_core.py::_panel_solve_pallas.
+// efa_xray_tpu/assimilation/ensrf_core.py::_panel_solve_pallas.  B1h, the
+// hybrid instantiation (kHybrid), has no TPU kernel: it carries the static
+// column of ensrf_core.tail_scan, which the JAX package solves with its
+// plain scan.
 //
 // What it computes, for each ob i of the panel in order (f = assim flag):
-//   ye = tp[i, :];  mu = mean(ye);  varye = sum((ye - mu)^2) / vden
+//   ye = tp[i, :];  varye_e = var(ye) (ddof 0, or 1 when unbiased)
+//   varye = varye_e, or alpha varye_e + (1 - alpha) sig_i^2 (B1h)
 //   innov = value_i - tm[i];  kdenom = varye + R_i
 //   scale = 1 / (kdenom (M - 1));  beta = 1 / (1 + sqrt(R_i / kdenom))
-//   kmat_j = (tp[j, :] . ye) * w[i, j] * scale          for every row j
+//   kmat_j = (tp[j, :] . ye) w[i, j] scale                  for every row j
+//   (B1h: kmat_j = alpha kmat_j + (1 - alpha) sig_j sig_i gc[i, j] / kdenom)
 //   tm[j] += (f innov) kmat_j;   tp[j, :] -= ((f beta) kmat_j) ye
-// and emits the ye sequence, gain/sqrt coefficients, and the prior and
-// posterior obs-space mean/variance (NaN where skipped; the posterior row i
-// is (1 - beta kmat_i) ye, so post_var = (1 - beta kmat_i)^2 varye).
+// and emits the ye sequence, the gain/sqrt coefficients (times alpha in
+// B1h), B1h's static-column scalars (1 - alpha) sig_i f {innov, beta} /
+// kdenom, and the prior and posterior obs-space mean and variance (NaN
+// where skipped; the posterior row i is (1 - beta kmat_i) ye, so post_var =
+// (1 - beta kmat_i)^2 varye_e).
 //
-// What bounds it on an H100: latency.  The P steps are a serial chain; each
-// step is a few thousand FMAs (P rows x M members), far below what one SM
-// can do per microsecond, so the time is the per-step chain of shared-memory
-// loads, one warp reduction and three __syncthreads.  Panels are sequential
-// in tail_scan_blocked anyway, so one CTA per panel loses nothing.
+// What bounds it on an H100: the serial chain, not arithmetic or bytes.  A
+// 512 x 80 panel is 42M FMAs (under a microsecond of the card, a third of a
+// millisecond of one SM) in 512 dependent steps.  One thread per row with
+// the slab in one CTA took 5.6 us a step: three CTA barriers, a reduction by
+// warp 0 while 15 warps waited, and the whole [P, M] slab streamed through
+// one SM's shared memory twice (480 KB a step); and a slab over 227 KB (512
+// obs x 112 members, or 1024 x 80) cannot sit in one CTA at all.
 //
-// What the design does about it: the [P, M] slab lives in dynamic shared
-// memory for the whole panel (512 x 80 x 4 B = 160 KB), so no step touches
-// device memory except for ob i's weight row, which is read coalesced from
-// global memory (the [P, P] matrix, 1 MB at P = 512, does not fit beside the
-// slab).  One thread owns each row: the dot product and the rank-1 update of
-// that row run in registers and shared memory with no cross-thread traffic.
-// The slab's row stride is padded to an odd number of words, so the threads
-// of a warp, which read 32 different rows at the same column, hit 32
-// different banks.  The Pallas kernel's one-hot matvecs (a Mosaic
-// workaround for dynamic row extraction) have no counterpart here: row i is
-// simply indexed.
-//
+// What the design does about it.
+// 1. Sub-panels (the right-looking form that won on B3/B4).  For each
+//    sub-panel of kSub obs (8 or 16): warp 0 of the CTA that owns its rows
+//    runs the kSub-step serial problem on those rows alone, with each
+//    step's sums (the shifted mean and variance and the kSub covariances)
+//    in one butterfly of shuffles and no CTA barrier; then every other row
+//    of the panel takes one rank-kSub update, ensrf_core._block_recurrence
+//    inside the panel: D0 = X Y^T, a kSub-step forward substitution against
+//    G = Y Y^T (B1h: plus the static column), xm += U gain, X -= V Y.  The
+//    slab crosses shared memory twice per sub-panel instead of twice per ob,
+//    and there are two barriers per sub-panel instead of three per ob.
+// 2. A cluster of 1, 2, 4 or 8 CTAs deals the rows out in equal blocks of
+//    whole sub-panels (the wrapper pads the panel).  The owner of a
+//    sub-panel writes its Y rows, G and coefficients into every CTA's
+//    shared memory (distributed shared memory), and each step ends at a
+//    cluster barrier.  Each CTA holds only its share of the slab, so every
+//    panel the JAX package takes to its kernel (P <= 1024) runs at every
+//    ensemble up to 256 members (the bound of the warp's solve, 8 members
+//    per lane): 1024 x 256 x 4 B is 128 KB a CTA at 8.  The wrapper picks
+//    the smallest cluster that fits (ops/tail_solve.py pick_cluster, from
+//    MIN_CLUSTER on); a shape none holds is refused there, before a launch.
+// 3. The weight rows w[i0:i0+kSub, own rows] (and B1h's static rows)
+//    stream through a two-slot cp.async ring, one sub-panel ahead.
+// 4. Where a CTA has fewer rows than threads, 2, 4 or 8 threads share a row
+//    in the rank update (strided members, D0 summed by shuffles).
+// 5. The warp's steps issue every member slot of the sub-panel's rows, so
+//    the solve is built for 3 slots a lane (up to 96 members) as well as 8:
+//    at 80 members that took B1 from 0.50 to 0.40 of the one-CTA kernel's
+//    time (PERF.md).
 // Plain fp32 FMA throughout; no tensor cores.
+//
+// Shared memory (floats; make_layout below, mirrored by ops/tail_solve.py
+// smem_bytes): weight ring [2][kSub][Pc] (and the static ring), Y [2][M]
+// [kSub] (transposed, so a row's kSub values are float4 loads), G [2][kSub]
+// [kSub], coefficients [2][4][kSub], the rows X [Pc][M | 1] (odd stride:
+// one thread per row reads 32 banks), tm, (sigma), value, error, flag [Pc].
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-
-__global__ void tail_solve_kernel(
-    const float* __restrict__ tm_in,   // [P]
-    const float* __restrict__ tp_in,   // [P, M]
-    const float* __restrict__ vals,    // [P]
-    const float* __restrict__ errs,    // [P]
-    const unsigned char* __restrict__ assim,  // [P] 0/1
-    const float* __restrict__ w,       // [P, P] w[i, j]; nullptr = no localization
-    int P, int M, int stride, int unbiased,
-    float* __restrict__ tm_out,        // [P]
-    float* __restrict__ tp_out,        // [P, M]
-    float* __restrict__ ye_out,        // [P, M]
-    float* __restrict__ gain_out,      // [P]
-    float* __restrict__ sqrt_out,      // [P]
-    float* __restrict__ pm_out,        // [P]
-    float* __restrict__ pv_out,        // [P]
-    float* __restrict__ om_out,        // [P]
-    float* __restrict__ ov_out) {      // [P]
-  extern __shared__ float smem[];
-  float* tp = smem;                 // [P, stride]
-  float* tm = tp + P * stride;      // [P]
-  float* ye = tm + P;               // [M]
-  __shared__ float sc[6];           // mye, varye, innov, scale, beta, f
-
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < P * M; idx += blockDim.x) {
-    int j = idx / M, m = idx - j * M;
-    tp[j * stride + m] = tp_in[idx];
-  }
-  for (int j = tid; j < P; j += blockDim.x) tm[j] = tm_in[j];
-  __syncthreads();
-
-  const float vden = unbiased ? (float)(M - 1) : (float)M;
-  const float nan = __int_as_float(0x7fc00000);
-
-  for (int i = 0; i < P; ++i) {
-    for (int m = tid; m < M; m += blockDim.x) {
-      float v = tp[i * stride + m];
-      ye[m] = v;
-      ye_out[i * M + m] = v;
-    }
-    __syncthreads();
-    if (tid < 32) {
-      float s = 0.f;
-      for (int m = tid; m < M; m += 32) s += ye[m];
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      const float mu = s / (float)M;
-      float q = 0.f;
-      for (int m = tid; m < M; m += 32) {
-        float d = ye[m] - mu;
-        q += d * d;
-      }
-      for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-      if (tid == 0) {
-        const float varye = q / vden;
-        const float mye = tm[i];
-        const float r = errs[i];
-        const float kdenom = varye + r;
-        sc[0] = mye;
-        sc[1] = varye;
-        sc[2] = vals[i] - mye;
-        sc[3] = 1.0f / (kdenom * (float)(M - 1));
-        sc[4] = 1.0f / (1.0f + sqrtf(r / kdenom));
-        sc[5] = assim[i] ? 1.0f : 0.0f;
-      }
-    }
-    __syncthreads();
-    const float mye = sc[0], varye = sc[1], innov = sc[2];
-    const float scale = sc[3], beta = sc[4], f = sc[5];
-    const float fi = f * innov, fb = f * beta;
-    for (int j = tid; j < P; j += blockDim.x) {
-      float* row = tp + j * stride;
-      float kcov = 0.f;
-      for (int m = 0; m < M; ++m) kcov += row[m] * ye[m];
-      const float wij = w ? w[(size_t)i * P + j] : 1.0f;
-      const float kmat = kcov * wij * scale;
-      tm[j] += fi * kmat;
-      const float c = fb * kmat;
-      for (int m = 0; m < M; ++m) row[m] -= c * ye[m];
-      if (j == i) {
-        const bool a = f != 0.0f;
-        const float shrink = 1.0f - beta * kmat;
-        gain_out[i] = fi * scale;
-        sqrt_out[i] = fb * scale;
-        pm_out[i] = mye;
-        pv_out[i] = varye;
-        om_out[i] = a ? mye + kmat * innov : nan;
-        ov_out[i] = a ? shrink * shrink * varye : nan;
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int idx = tid; idx < P * M; idx += blockDim.x) {
-    int j = idx / M, m = idx - j * M;
-    tp_out[idx] = tp[j * stride + m];
-  }
-  for (int j = tid; j < P; j += blockDim.x) tm_out[j] = tm[j];
+// Members per lane in the warp's solve, and so the largest ensemble; and
+// the fewer slots the solve is also built for (ensembles up to 96 members
+// then issue no work for empty slots).
+constexpr int kMaxLanes = 8;
+constexpr int kMaxMembers = 32 * kMaxLanes;
+constexpr int kFewLanes = 3;
+constexpr int kSlots = 2;
+// Per-ob scalars of a sub-panel: gain, sqrt_coef, static gain, static sqrt.
+constexpr int kCoef = 4;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxSmemBytes = 232448;
+// Parts of the kernel that a build with -DEFA_TAIL_SKIP=<bits> leaves out,
+// to time what each costs (no profiler sees inside a kernel here): the
+// results of such a build are wrong.  0 in every build that is used.
+#ifndef EFA_TAIL_SKIP
+#define EFA_TAIL_SKIP 0
+#endif
+constexpr int kSkipSteps = 1, kSkipGram = 2, kSkipPush = 4, kSkipUpdate = 8;
+// Sub-panels of 16 obs are built only with -DEFA_TAIL_SUB16=1 (for
+// timing): measured slower than 8 at every shape, and their unrolled steps
+// take most of the build.
+#ifndef EFA_TAIL_SUB16
+#define EFA_TAIL_SUB16 0
+#endif
+__host__ __device__ constexpr bool skips(int part) {
+  return (EFA_TAIL_SKIP & part) != 0;
 }
 
-// Dynamic shared memory the kernel needs for a [P, M] panel.
-int smem_bytes(int P, int M) {
-  const int stride = M | 1;
-  return (int)sizeof(float) * (P * stride + P + M);
+struct Layout {
+  int wring, gring, yt, g, coef, x, tm, sig, vals, errs, flags, total;
+};
+
+__host__ __device__ inline Layout make_layout(int Pc, int M, int sub,
+                                              bool hybrid) {
+  Layout L;
+  int o = 0;
+  L.wring = o;
+  o += kSlots * sub * Pc;
+  L.gring = o;
+  o += hybrid ? kSlots * sub * Pc : 0;
+  L.yt = o;
+  o += kSlots * M * sub;
+  L.g = o;
+  o += kSlots * sub * sub;
+  L.coef = o;
+  o += kSlots * kCoef * sub;
+  L.x = o;
+  o += Pc * (M | 1);
+  L.tm = o;
+  o += Pc;
+  L.sig = o;
+  o += hybrid ? Pc : 0;
+  L.vals = o;
+  o += Pc;
+  L.errs = o;
+  o += Pc;
+  L.flags = o;
+  o += Pc;
+  L.total = o;
+  return L;
+}
+
+int smem_bytes(int Pc, int M, int sub, bool hybrid) {
+  return (int)sizeof(float) * make_layout(Pc, M, sub, hybrid).total;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copy of 16 bytes (both addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct Args {
+  const float* tm_in;           // [P]
+  const float* tp_in;           // [P, M]
+  const float* vals;            // [P]
+  const float* errs;            // [P]
+  const unsigned char* assim;   // [P] 0/1
+  const float* w;               // [P, P] w[i, j]; nullptr = no localization
+  const float* gc;              // [P, P] static correlation (B1h)
+  const float* sig;             // [P] static std (B1h)
+  float alpha;
+  int P, M, unbiased, cluster, tpr;
+  float* tm_out;                // [P]
+  float* tp_out;                // [P, M]
+  float* ye_out;                // [P, M]
+  float* gain_out;              // [P] (each [P] below)
+  float* sqrt_out;
+  float* pm_out;
+  float* pv_out;
+  float* om_out;
+  float* ov_out;
+  float* sg_out;                // B1h
+  float* ss_out;                // B1h
+};
+
+// The shared arrays of one CTA.
+struct Smem {
+  float *wring, *gring, *yt, *g, *coef, *x, *tm, *sig, *vals, *errs, *flags;
+};
+
+__device__ __forceinline__ void cluster_sync(int C) {
+  if (C > 1) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// Warp 0 of the owning CTA: the serial solve of sub-panel k (obs and rows
+// k kSub .. k kSub + kSub - 1, local rows il0 ..), then its Gram matrix,
+// and the sub-panel's Y, G and coefficients pushed into every CTA.
+template <bool kHybrid, int kSub, int kLanes>
+__device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
+                               int slot, int Pc, int S, int rank) {
+  const int lane = threadIdx.x & 31;
+  const int M = a.M;
+  const float vden = a.unbiased ? (float)(M - 1) : (float)M;
+  const float nan = __int_as_float(0x7fc00000);
+  const float alpha = a.alpha;
+  float* rows = s.x + il0 * S;
+  const float* wslot = s.wring + slot * kSub * Pc + il0;
+  const float* gslot = s.gring + slot * kSub * Pc + il0;
+  float* ys = s.yt + slot * M * kSub;
+  float* coef = s.coef + slot * kCoef * kSub;
+
+  float tmv[kSub], sgr[kSub];
+#pragma unroll
+  for (int r = 0; r < kSub; ++r) {
+    tmv[r] = s.tm[il0 + r];
+    sgr[r] = kHybrid ? s.sig[il0 + r] : 0.f;
+  }
+  // The steps are unrolled, so every row and register index is fixed (a
+  // rolled loop timed within the spread between machines: PERF.md).
+  // Lane l holds members l, l + 32, ... of row t in registers; the slots
+  // past M are predicated off, not branched around, so that each step is
+  // one block of straight-line code.
+  const float inv_m = 1.f / (float)M, inv_vden = 1.f / vden;
+  const float inv_m1 = 1.f / (float)(M - 1);
+#pragma unroll
+  for (int t = 0; t < (skips(kSkipSteps) ? 0 : kSub); ++t) {
+    const int gi = k * kSub + t;
+    // Row t as it stands after the sub-panel's earlier obs (written by
+    // every lane: hence the __syncwarp); its sums are taken about its
+    // first member, so the variance does not cancel.
+    __syncwarp();
+    const float* yt = rows + t * S;
+    float ye[kLanes];
+#pragma unroll
+    for (int q = 0; q < kLanes; ++q) {
+      const int m = q * 32 + lane;
+      ye[q] = (m < M) ? yt[m] : 0.f;
+    }
+    const float c0 = yt[0];
+    float red[kSub + 2];
+#pragma unroll
+    for (int v = 0; v < kSub + 2; ++v) red[v] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kLanes; ++q) {
+      const int m = q * 32 + lane;
+      if (m < M) {
+        const float dv = ye[q] - c0;
+        red[kSub] += dv;
+        red[kSub + 1] += dv * dv;
+#pragma unroll
+        for (int r = 0; r < kSub; ++r) red[r] += rows[r * S + m] * ye[q];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int v = 0; v < kSub + 2; ++v)
+        red[v] += __shfl_xor_sync(0xffffffffu, red[v], o);
+    }
+    const float sd = red[kSub];
+    const float varye_e =
+        fmaxf(red[kSub + 1] - sd * sd * inv_m, 0.f) * inv_vden;
+    float mye = 0.f, sgt = 0.f;
+#pragma unroll
+    for (int r = 0; r < kSub; ++r) {
+      if (r == t) {
+        mye = tmv[r];
+        sgt = sgr[r];
+      }
+    }
+    const float varye =
+        kHybrid ? alpha * varye_e + (1.f - alpha) * sgt * sgt : varye_e;
+    const float r_err = s.errs[il0 + t];
+    const float innov = s.vals[il0 + t] - mye;
+    const float kdenom = varye + r_err;
+    // Reciprocals rounded to nearest (MUFU plus a correction), not the
+    // division routine: the chain of one step is what bounds the solve.
+    const float inv_kd = __frcp_rn(kdenom);
+    const float scale = inv_kd * inv_m1;
+    const float beta = __frcp_rn(1.f + __fsqrt_rn(r_err * inv_kd));
+    const float f = s.flags[il0 + t];
+    const float fi = f * innov, fb = f * beta;
+    const float sfac = kHybrid ? (1.f - alpha) * sgt * inv_kd : 0.f;
+    float kt = 0.f, cr[kSub];
+#pragma unroll
+    for (int r = 0; r < kSub; ++r) {
+      float km = red[r] * (a.w ? wslot[t * Pc + r] : 1.f) * scale;
+      if (kHybrid) km = alpha * km + sfac * sgr[r] * gslot[t * Pc + r];
+      if (r == t) kt = km;
+      tmv[r] += fi * km;
+      cr[r] = fb * km;
+    }
+#pragma unroll
+    for (int q = 0; q < kLanes; ++q) {
+      const int m = q * 32 + lane;
+      if (m < M) {
+        a.ye_out[(long)gi * M + m] = ye[q];
+        ys[m * kSub + t] = ye[q];
+#pragma unroll
+        for (int r = 0; r < kSub; ++r) rows[r * S + m] -= cr[r] * ye[q];
+      }
+    }
+    if (lane == 0) {
+      const float ens = kHybrid ? alpha : 1.f;
+      const float gain = ens * (fi * scale), sq = ens * (fb * scale);
+      const bool as = f != 0.f;
+      const float shrink = 1.f - beta * kt;
+      a.gain_out[gi] = gain;
+      a.sqrt_out[gi] = sq;
+      a.pm_out[gi] = mye;
+      a.pv_out[gi] = varye;
+      a.om_out[gi] = as ? mye + kt * innov : nan;
+      a.ov_out[gi] = as ? shrink * shrink * varye_e : nan;
+      coef[t] = gain;
+      coef[kSub + t] = sq;
+      coef[2 * kSub + t] = sfac * fi;
+      coef[3 * kSub + t] = sfac * fb;
+      if (kHybrid) {
+        a.sg_out[gi] = sfac * fi;
+        a.ss_out[gi] = sfac * fb;
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < kSub; ++r) s.tm[il0 + r] = tmv[r];
+  }
+  __syncwarp();
+  // G[p][t] = ye_p . ye_t for p < t, one pair per lane at a time.
+  float* g = s.g + slot * kSub * kSub;
+  constexpr int kPairs = kSub * (kSub - 1) / 2;
+  for (int e = lane; e < (skips(kSkipGram) ? 0 : kPairs); e += 32) {
+    int t = 1;
+    while (t * (t + 1) / 2 <= e) ++t;
+    const int p = e - t * (t - 1) / 2;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int m = 0;
+    for (; m + 4 <= M; m += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        acc[u] += ys[(m + u) * kSub + p] * ys[(m + u) * kSub + t];
+    }
+    for (; m < M; ++m) acc[0] += ys[m * kSub + p] * ys[m * kSub + t];
+    g[p * kSub + t] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  }
+  __syncwarp();
+  if (a.cluster > 1 && !skips(kSkipPush)) {
+    cg::cluster_group cl = cg::this_cluster();
+    const float4* y4 = reinterpret_cast<const float4*>(ys);
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    const float4* c4 = reinterpret_cast<const float4*>(coef);
+    for (int r = 0; r < a.cluster; ++r) {
+      if (r == rank) continue;
+      float4* dy = reinterpret_cast<float4*>(cl.map_shared_rank(ys, r));
+      float4* dg = reinterpret_cast<float4*>(cl.map_shared_rank(g, r));
+      float4* dc = reinterpret_cast<float4*>(cl.map_shared_rank(coef, r));
+      for (int e = lane; e < M * kSub / 4; e += 32) dy[e] = y4[e];
+      for (int e = lane; e < kSub * kSub / 4; e += 32) dg[e] = g4[e];
+      for (int e = lane; e < kCoef * kSub / 4; e += 32) dc[e] = c4[e];
+    }
+  }
+}
+
+// Every row of this CTA outside the sub-panel: one rank-kSub update.
+template <bool kHybrid, int kSub>
+__device__ void rank_update(const Args& a, const Smem& s, int skip0,
+                            int slot, int Pc, int S) {
+  const int M = a.M;
+  const int tpr = a.tpr;
+  const int tid = threadIdx.x;
+  const int groups = blockDim.x / tpr;
+  const int q = tid % tpr, grp = tid / tpr;
+  const float* wslot = s.wring + slot * kSub * Pc;
+  const float* gslot = s.gring + slot * kSub * Pc;
+  const float* ys = s.yt + slot * M * kSub;
+  const float* g = s.g + slot * kSub * kSub;
+  const float* coef = s.coef + slot * kCoef * kSub;
+  const int passes = (Pc + groups - 1) / groups;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int jl = pass * groups + grp;
+    const bool mine = jl < Pc && (jl < skip0 || jl >= skip0 + kSub);
+    float* x = s.x + jl * S;
+    float d[kSub];
+#pragma unroll
+    for (int t = 0; t < kSub; ++t) d[t] = 0.f;
+    if (mine) {
+      for (int m = q; m < M; m += tpr) {
+        const float xv = x[m];
+        const float4* y4 = reinterpret_cast<const float4*>(ys + m * kSub);
+#pragma unroll
+        for (int t4 = 0; t4 < kSub / 4; ++t4) {
+          const float4 y = y4[t4];
+          d[4 * t4] += xv * y.x;
+          d[4 * t4 + 1] += xv * y.y;
+          d[4 * t4 + 2] += xv * y.z;
+          d[4 * t4 + 3] += xv * y.w;
+        }
+      }
+    }
+    for (int o = 1; o < tpr; o <<= 1) {
+#pragma unroll
+      for (int t = 0; t < kSub; ++t)
+        d[t] += __shfl_xor_sync(0xffffffffu, d[t], o);
+    }
+    if (!mine) continue;
+    float v[kSub];
+    float mean = 0.f;
+    const float sj = kHybrid ? s.sig[jl] : 0.f;
+#pragma unroll
+    for (int t = 0; t < kSub; ++t) {
+      float dt = d[t];
+#pragma unroll
+      for (int p = 0; p < t; ++p) dt -= v[p] * g[p * kSub + t];
+      const float u = a.w ? wslot[t * Pc + jl] * dt : dt;
+      v[t] = coef[kSub + t] * u;
+      mean += coef[t] * u;
+      if (kHybrid) {
+        const float col = sj * gslot[t * Pc + jl];
+        v[t] += coef[3 * kSub + t] * col;
+        mean += coef[2 * kSub + t] * col;
+      }
+    }
+    if (q == 0) s.tm[jl] += mean;
+    for (int m = q; m < M; m += tpr) {
+      float acc = x[m];
+      const float4* y4 = reinterpret_cast<const float4*>(ys + m * kSub);
+#pragma unroll
+      for (int t4 = 0; t4 < kSub / 4; ++t4) {
+        const float4 y = y4[t4];
+        acc -= v[4 * t4] * y.x;
+        acc -= v[4 * t4 + 1] * y.y;
+        acc -= v[4 * t4 + 2] * y.z;
+        acc -= v[4 * t4 + 3] * y.w;
+      }
+      x[m] = acc;
+    }
+  }
+}
+
+template <bool kHybrid, int kSub>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    tail_solve_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int C = a.cluster;
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int P = a.P, M = a.M, S = M | 1, Pc = P / C, row0 = rank * Pc;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const Layout L = make_layout(Pc, M, kSub, kHybrid);
+  const Smem s{smem + L.wring, smem + L.gring, smem + L.yt,   smem + L.g,
+               smem + L.coef,  smem + L.x,     smem + L.tm,   smem + L.sig,
+               smem + L.vals,  smem + L.errs,  smem + L.flags};
+
+  // The weight rows of sub-panel k (and B1h's static rows) at this CTA's
+  // rows, into ring slot `slot`.
+  auto fetch = [&](int k, int slot) {
+    const int n4 = Pc / 4;
+    for (int e = tid; e < kSub * n4; e += nth) {
+      const int t = e / n4, c4 = e - t * n4;
+      const long src = (long)(k * kSub + t) * P + row0 + 4 * c4;
+      const int dst = slot * kSub * Pc + t * Pc + 4 * c4;
+      if (a.w) cp_async16(s.wring + dst, a.w + src);
+      if (kHybrid) cp_async16(s.gring + dst, a.gc + src);
+    }
+    cp_async_commit();
+  };
+
+  fetch(0, 0);
+  for (int idx = tid; idx < Pc * M; idx += nth) {
+    const int j = idx / M, m = idx - j * M;
+    s.x[j * S + m] = a.tp_in[(long)row0 * M + idx];
+  }
+  for (int j = tid; j < Pc; j += nth) {
+    s.tm[j] = a.tm_in[row0 + j];
+    s.vals[j] = a.vals[row0 + j];
+    s.errs[j] = a.errs[row0 + j];
+    s.flags[j] = a.assim[row0 + j] ? 1.f : 0.f;
+    if (kHybrid) s.sig[j] = a.sig[row0 + j];
+  }
+  // Every CTA of the cluster is running before any writes into another.
+  cluster_sync(C);
+
+  const int nsub = P / kSub, per_cta = Pc / kSub;
+  for (int k = 0; k < nsub; ++k) {
+    const int slot = k & 1;
+    // Sub-panel k's weights have landed; this CTA's update of sub-panel
+    // k - 1 is done (so the owner's rows are current and slot ^ 1 is free).
+    cp_async_wait_all();
+    __syncthreads();
+    if (k + 1 < nsub) fetch(k + 1, slot ^ 1);
+    const int owner = k / per_cta;
+    const int il0 = (k - owner * per_cta) * kSub;
+    if (rank == owner && tid < 32) {
+      if (M <= 32 * kFewLanes)
+        solve_subpanel<kHybrid, kSub, kFewLanes>(a, s, k, il0, slot, Pc, S,
+                                                 rank);
+      else
+        solve_subpanel<kHybrid, kSub, kMaxLanes>(a, s, k, il0, slot, Pc, S,
+                                                 rank);
+    }
+    cluster_sync(C);
+    if (!skips(kSkipUpdate))
+      rank_update<kHybrid, kSub>(a, s, rank == owner ? il0 : Pc, slot, Pc,
+                                 S);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < Pc * M; idx += nth) {
+    const int j = idx / M, m = idx - j * M;
+    a.tp_out[(long)row0 * M + idx] = s.x[j * S + m];
+  }
+  for (int j = tid; j < Pc; j += nth) a.tm_out[row0 + j] = s.tm[j];
+}
+
+template <bool kHybrid, int kSub>
+cudaError_t launch(const Args& a, int threads, int smem,
+                   cudaStream_t stream) {
+  auto kernel = tail_solve_kernel<kHybrid, kSub>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Shared memory of one CTA owning `rows` rows (for the wrapper's check).
+int efa_tail_solve_smem(int rows, int M, int sub, int hybrid) {
+  return smem_bytes(rows, M, sub, hybrid != 0);
+}
+
+// P must be a multiple of sub x cluster (the wrapper pads), gc and sig are
+// given exactly for B1h; returns a cudaError_t.
 int efa_tail_solve(const float* tm_in, const float* tp_in, const float* vals,
                    const float* errs, const unsigned char* assim,
-                   const float* w, int P, int M, int unbiased, float* tm_out,
-                   float* tp_out, float* ye_out, float* gain_out,
-                   float* sqrt_out, float* pm_out, float* pv_out,
-                   float* om_out, float* ov_out, void* stream) {
-  const int stride = M | 1;
-  const int smem = smem_bytes(P, M);
-  cudaError_t e = cudaFuncSetAttribute(
-      tail_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                   const float* w, const float* gc, const float* sig,
+                   float alpha, int P, int M, int unbiased, int sub,
+                   int cluster, float* tm_out, float* tp_out, float* ye_out,
+                   float* gain_out, float* sqrt_out, float* pm_out,
+                   float* pv_out, float* om_out, float* ov_out,
+                   float* sg_out, float* ss_out, void* stream) {
+  const bool hybrid = gc != nullptr;
+  if ((sub != 8 && sub != 16) ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      P <= 0 || P % (sub * cluster) != 0 || M < 2 || M > kMaxMembers ||
+      hybrid != (sig != nullptr) || (hybrid && (!sg_out || !ss_out)))
+    return (int)cudaErrorInvalidValue;
+  const int Pc = P / cluster;
+  const int smem = smem_bytes(Pc, M, sub, hybrid);
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  // One thread per row up to 512 rows; below 256 rows a CTA keeps 256
+  // threads and shares each row among 2, 4 or 8 of them.
+  const int threads = Pc >= kMaxThreads ? kMaxThreads : 256;
+  int tpr = 1;
+  while (tpr < 8 && Pc * tpr * 2 <= threads) tpr *= 2;
+  Args a{tm_in,  tp_in,  vals,   errs,     assim,    w,      gc,
+         sig,    alpha,  P,      M,        unbiased, cluster, tpr,
+         tm_out, tp_out, ye_out, gain_out, sqrt_out, pm_out, pv_out,
+         om_out, ov_out, sg_out, ss_out};
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (sub == 8) {
+    e = hybrid ? launch<true, 8>(a, threads, smem, s)
+               : launch<false, 8>(a, threads, smem, s);
+  } else {
+#if EFA_TAIL_SUB16
+    e = hybrid ? launch<true, 16>(a, threads, smem, s)
+               : launch<false, 16>(a, threads, smem, s);
+#else
+    return (int)cudaErrorInvalidValue;
+#endif
+  }
   if (e != cudaSuccess) return (int)e;
-  tail_solve_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
-      tm_in, tp_in, vals, errs, assim, w, P, M, stride, unbiased, tm_out,
-      tp_out, ye_out, gain_out, sqrt_out, pm_out, pv_out, om_out, ov_out);
   return (int)cudaGetLastError();
 }
 

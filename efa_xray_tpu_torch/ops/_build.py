@@ -33,9 +33,11 @@ last_build_seconds = 0.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of every C entry point; pointers and the stream as c_void_p.
 _SIGNATURES = {
-    "efa_tail_solve": [_P] * 6 + [_I, _I, _I] + [_P] * 10,
+    "efa_tail_solve": [_P] * 8 + [_F] + [_I] * 5 + [_P] * 12,
+    "efa_tail_solve_smem": [_I] * 4,
     "efa_fused_body": [_P] * 7 + [_I] * 9 + [_P] * 3,
     "efa_grid_body": [_P] * 7 + [_I] * 6 + [_P] * 3,
     "efa_block_apply": [_P] * 7 + [_I] * 5 + [_P] * 3,

@@ -345,10 +345,14 @@ def grid_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
 def block_operands(body_lat, body_lon, ye_block, sqrt_coef, ob_lat, ob_lon,
                    radii, nrows: int, localize: bool = True,
                    fast_geometry: bool = False, body_vert=None, ob_vert=None,
-                   ob_vrad=None, vertical: bool = False, ngrid=None):
+                   ob_vrad=None, vertical: bool = False, ngrid=None,
+                   ob_row_factor=None):
     """One block's operands, as ``apply_obs_block_pallas`` :176-245 builds
     them: ``(vt, w [B, G] or None, table [VT, B] or None, ggt [B, B])``.
-    ``ngrid`` that does not divide the rows means a flat state (VT = 1)."""
+    ``ngrid`` that does not divide the rows means a flat state (VT = 1).
+    ``ob_row_factor [B, rows]`` (flat states only) multiplies the weights
+    per (ob, row), as cross-variable localization does on the tail rows;
+    it is the weights when nothing else localizes."""
     dtype = ye_block.dtype
     if ngrid is None or ngrid <= 0 or nrows % ngrid:
         g, vt = nrows, 1
@@ -377,6 +381,11 @@ def block_operands(body_lat, body_lon, ye_block, sqrt_coef, ob_lat, ob_lon,
                 torch.abs(ob_vert[:, None].to(dtype)
                           - body_vert.to(dtype)[None, :]),
                 ob_vrad[:, None].to(dtype)).to(dtype)
+    if ob_row_factor is not None:
+        if vt != 1:
+            raise ValueError("ob_row_factor needs a flat state (VT = 1)")
+        fac = ob_row_factor.to(dtype)
+        w = fac if w is None else w * fac
     return vt, w, table, ggt
 
 
@@ -385,16 +394,18 @@ def apply_obs_block(body_mean, body_perts, body_lat, body_lon, ye_block,
                     localize: bool = True, fast_geometry: bool = False,
                     body_vert=None, ob_vert=None, ob_vrad=None,
                     vertical: bool = False, ngrid=None,
-                    donate: bool = False):
+                    ob_row_factor=None, donate: bool = False):
     """Apply one pre-solved obs block to the state body through B4 (the
-    counterpart of ``apply_obs_block_pallas``)."""
+    counterpart of ``apply_obs_block_pallas``); ``ob_row_factor`` as in
+    :func:`block_operands`."""
     dtype = body_perts.dtype
     y = ye_block.to(dtype)
     vt, w, table, ggt = block_operands(
         body_lat, body_lon, y, sqrt_coef, ob_lat, ob_lon, radii,
         body_perts.shape[0], localize=localize, fast_geometry=fast_geometry,
         body_vert=body_vert, ob_vert=ob_vert, ob_vrad=ob_vrad,
-        vertical=localize and vertical, ngrid=ngrid)
+        vertical=localize and vertical, ngrid=ngrid,
+        ob_row_factor=ob_row_factor)
     coef = torch.stack([gain_coef.to(dtype), sqrt_coef.to(dtype)])
     return block_apply(body_mean.to(dtype), body_perts, w, table, y,
                        ggt.contiguous(), coef, vt, donate=donate)

@@ -1,133 +1,327 @@
-"""B1: serial EnSRF solve of one observation-space tail panel.
+"""B1 and B1h: serial EnSRF solve of one observation-space tail panel.
 
 Counterpart of ``efa_xray_tpu/ops/tail_solve_pallas.py``
 (``tail_panel_solve_pallas`` :161, kernel ``_make_tail_solve_kernel`` :46).
 :func:`tail_panel_solve` launches the CUDA kernel of
 ``efa_xray_tpu_torch/csrc/tail_solve.cu`` on CUDA tensors and runs
 :func:`tail_panel_solve_plain`, the same computation in plain torch, on CPU
-tensors.  Outputs mean exactly what ``ensrf_core.tail_scan`` would give on
-the panel (chordal weights, pure ensemble), with the post-update
-diagnostics in closed form: row i right after ob i is
-``(1 - beta kmat_i) ye``.
+tensors.  Outputs mean exactly what ``ensrf_core.tail_scan`` gives on the
+panel when ``weights[i, j]`` is ob i's localization weight at panel row j
+(chordal or haversine Gaspari-Cohn, times the vertical and cross-variable
+factors), with the post-update diagnostics in closed form: row i right
+after ob i is ``(1 - beta kmat_i) ye``.
+
+B1h, the hybrid instantiation (``alpha < 1``, as B2h is B2's), adds the
+static column of ``tail_scan``: ``varye = alpha varye_ens + (1 - alpha)
+sigma_i^2``, ``kmat_j = alpha kmat_ens_j + (1 - alpha) sigma_j sigma_i
+static_gc[i, j] / kdenom``, the ensemble coefficients scaled by ``alpha``,
+and two more outputs, the static-column scalars ``static_gain`` and
+``static_sqrt``.
+
+The kernel's design (its source's header says more).  What bounds a serial
+panel solve on one SM is the chain of steps, not arithmetic: one thread
+per row takes three CTA barriers and a warp-0 reduction per ob, and
+streams the whole [P, M] slab through shared memory twice per ob.  The
+kernel solves sub-panels of ``sub`` obs (8; 16 in a timing build)
+instead: one warp runs the serial problem on the sub-panel's own rows in
+registers and shuffles, and every other row takes one rank-``sub`` update
+(``_block_recurrence`` of ``ensrf_core`` inside the panel).  The rows are
+dealt over a thread-block cluster of 1, 2, 4 or 8 CTAs (8 unless the
+caller asks: :func:`pick_cluster`), so any panel up to
+``MAX_PANEL`` obs runs at any ensemble up to ``MAX_MEMBERS``; the owner of
+a sub-panel writes its ``ye`` rows, Gram matrix and coefficients into every
+CTA's shared memory.  :func:`tail_panel_solve_subpanel_plain` mirrors that
+order of operations in plain torch (the tests hold it against the serial
+plain version).  :func:`smem_bytes` mirrors the kernel's ``make_layout``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from efa_xray_tpu_torch.assimilation.ensrf_core import _pad
 from efa_xray_tpu_torch.ops import _build
 
-# Launches of the CUDA kernel (not of the plain version).
+# Launches of the CUDA kernel (not of the plain version), pure ensemble
+# (B1) and hybrid (B1h).
 launches = 0
+hybrid_launches = 0
 
 # Largest dynamic shared memory a CTA may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
+# Largest panel and ensemble the kernel takes: the JAX package's panel
+# bound (``ensrf_core.py:659``), and 8 members per lane in the warp's
+# solve (csrc/tail_solve.cu kMaxLanes).
+MAX_PANEL = 1024
+MAX_MEMBERS = 256
+# Sub-panel widths the kernel's source has, the one the library is built
+# for (16 only in a build with -DEFA_TAIL_SUB16=1, which chip_smoke.py
+# --steps times: slower than 8 at every shape measured), and the cluster
+# sizes it launches (csrc/tail_solve.cu).
+SUBS = (8, 16)
+DEFAULT_SUB = 8
+CLUSTERS = (1, 2, 4, 8)
+# Smallest cluster the wrapper picks: the rows of a panel that fits one
+# CTA are still dealt over this many CTAs (at 512 x 80 on the card, 8 CTAs
+# took 1.00 ms against 1.30-1.37 ms on one; PERF.md section 6).
+MIN_CLUSTER = 8
+# Per-ob scalars the sub-panel's owner writes for the rank update: gain,
+# sqrt_coef and the two static-column scalars (kCoef).
+COEF_ROWS = 4
+SLOTS = 2
+
+
+def _check_hybrid(alpha, sigma, static_gc):
+    hybrid = alpha < 1.0
+    if hybrid and (sigma is None or static_gc is None):
+        raise ValueError("B1h (alpha < 1) needs sigma and static_gc")
+    return hybrid
 
 
 def tail_panel_solve_plain(tail_mean, tail_perts, values, errors, assim,
-                           weights=None, unbiased: bool = False):
-    """Plain-torch B1: ``(tm, tp, ye, gain, sqrt, pm, pv, om, ov)``.
-    ``weights[i, j]`` is the weight of ob i at panel row j (None = no
-    localization)."""
+                           weights=None, unbiased: bool = False,
+                           alpha: float = 1.0, sigma=None, static_gc=None):
+    """Plain-torch B1, serial: ``(tm, tp, ye, gain, sqrt, pm, pv, om,
+    ov)``, and with ``alpha < 1`` (B1h) also ``(static_gain,
+    static_sqrt)``.  ``weights[i, j]`` is the weight of ob i at panel row
+    j (None = no localization); ``sigma [P]`` the static std of each row,
+    ``static_gc[i, j]`` the static correlation of ob i with row j."""
     p, m = tail_perts.shape
     dtype = tail_perts.dtype
+    hybrid = _check_hybrid(alpha, sigma, static_gc)
     vden = (m - 1) if unbiased else m
     tm = tail_mean.to(dtype).clone()
     tp = tail_perts.clone()
     vals = values.to(dtype)
     errs = errors.to(dtype)
     f_all = assim.to(dtype)
+    if hybrid:
+        sig = sigma.to(dtype)
+        gc = static_gc.to(dtype)
     nan = torch.tensor(float("nan"), dtype=dtype, device=tp.device)
-    ye_rows, gain, sqrtc, pm, pv, om, ov = [], [], [], [], [], [], []
+    outs = [[] for _ in range(9)]
     for i in range(p):
         ye = tp[i].clone()
         mye = tm[i]
         mu = torch.sum(ye) / m
-        varye = torch.sum((ye - mu) ** 2) / vden
+        var_ens = torch.sum((ye - mu) ** 2) / vden
+        varye = var_ens
+        if hybrid:
+            varye = alpha * var_ens + (1.0 - alpha) * sig[i] * sig[i]
         innov = vals[i] - mye
         kdenom = varye + errs[i]
         scale = 1.0 / (kdenom * (m - 1))
         beta = 1.0 / (1.0 + torch.sqrt(errs[i] / kdenom))
         kcov = tp @ ye
         kmat = (kcov * weights[i] if weights is not None else kcov) * scale
+        ens = 1.0
+        if hybrid:
+            kmat = alpha * kmat + (1.0 - alpha) * sig * sig[i] * gc[i] / kdenom
+            ens = alpha
         f = f_all[i]
         tm = tm + (f * innov) * kmat
         tp = tp - ((f * beta) * kmat)[:, None] * ye[None, :]
         k_i = kmat[i]
         a = assim[i]
         shrink = 1.0 - beta * k_i
-        ye_rows.append(ye)
-        gain.append(f * innov * scale)
-        sqrtc.append(f * beta * scale)
-        pm.append(mye)
-        pv.append(varye)
-        om.append(torch.where(a, mye + k_i * innov, nan))
-        ov.append(torch.where(a, shrink * shrink * varye, nan))
+        s_base = ((1.0 - alpha) * sig[i] / kdenom) if hybrid else 0.0
+        for out, v in zip(outs, (
+                ye, ens * f * innov * scale, ens * f * beta * scale, mye,
+                varye, torch.where(a, mye + k_i * innov, nan),
+                torch.where(a, shrink * shrink * var_ens, nan),
+                f * s_base * innov, f * s_base * beta)):
+            out.append(v)
     st = torch.stack
-    return (tm, tp, st(ye_rows), st(gain), st(sqrtc), st(pm), st(pv),
-            st(om), st(ov))
+    res = (tm, tp, *(st(o) for o in outs[:7]))
+    return res + (st(outs[7]), st(outs[8])) if hybrid else res
 
 
-def smem_bytes(p: int, m: int) -> int:
-    """Shared memory the kernel needs for a [p, m] panel (odd row stride;
-    mirrors ``smem_bytes`` in ``csrc/tail_solve.cu``)."""
-    return 4 * (p * (m | 1) + p + m)
+def tail_panel_solve_subpanel_plain(tail_mean, tail_perts, values, errors,
+                                    assim, weights=None,
+                                    unbiased: bool = False,
+                                    alpha: float = 1.0, sigma=None,
+                                    static_gc=None,
+                                    sub: int = DEFAULT_SUB):
+    """Plain-torch B1 in the kernel's order of operations: per sub-panel
+    of ``sub`` obs, the serial solve on the sub-panel's own rows, then one
+    rank-``sub`` update of every other row (``D0 = X Y^T``, a forward
+    substitution against ``G = Y Y^T``, ``xm += U gain``, ``X -= V Y``).
+    Same inputs and returns as :func:`tail_panel_solve_plain`."""
+    p, m = tail_perts.shape
+    dtype = tail_perts.dtype
+    hybrid = _check_hybrid(alpha, sigma, static_gc)
+    tm = tail_mean.to(dtype).clone()
+    tp = tail_perts.clone()
+    sig = sigma.to(dtype) if hybrid else None
+    gc = static_gc.to(dtype) if hybrid else None
+    rows = torch.arange(p, device=tp.device)
+    parts = []
+    for i0 in range(0, p, sub):
+        i1 = min(p, i0 + sub)
+        own = slice(i0, i1)
+        w_own = None if weights is None else weights[own, own]
+        hkw = (dict(alpha=alpha, sigma=sig[own], static_gc=gc[own, own])
+               if hybrid else {})
+        res = tail_panel_solve_plain(tm[own], tp[own], values[own],
+                                     errors[own], assim[own], w_own,
+                                     unbiased, **hkw)
+        tm[own], tp[own] = res[0], res[1]
+        parts.append(res[2:])
+        ye, gain, sqrtc = res[2], res[3], res[4]
+        other = (rows < i0) | (rows >= i1)
+        x = tp[other]
+        d0 = x @ ye.T
+        gram = ye @ ye.T
+        u = torch.zeros_like(d0)
+        v = torch.zeros_like(d0)
+        mean = torch.zeros_like(tm[other])
+        for t in range(i1 - i0):
+            d = d0[:, t] - v[:, :t] @ gram[:t, t]
+            u[:, t] = d if weights is None else weights[i0 + t, other] * d
+            v[:, t] = sqrtc[t] * u[:, t]
+            mean = mean + gain[t] * u[:, t]
+            if hybrid:
+                col = sig[other] * gc[i0 + t, other]
+                v[:, t] = v[:, t] + res[10][t] * col
+                mean = mean + res[9][t] * col
+        tm[other] = tm[other] + mean
+        tp[other] = x - v @ ye
+    return (tm, tp) + tuple(torch.cat([q[k] for q in parts])
+                            for k in range(len(parts[0])))
+
+
+def smem_bytes(rows: int, m: int, sub: int = DEFAULT_SUB,
+               hybrid: bool = False) -> int:
+    """Shared memory of one CTA that owns ``rows`` rows of the panel
+    (mirrors ``make_layout`` in ``csrc/tail_solve.cu``): the weight ring
+    (and B1h's static ring), the sub-panel's ``ye`` rows, Gram matrix and
+    coefficients (two slots each), the rows at an odd stride, and the
+    per-row mean, value, error, flag (and sigma)."""
+    h = int(bool(hybrid))
+    return 4 * (SLOTS * sub * rows * (1 + h) + SLOTS * m * sub
+                + SLOTS * sub * sub + SLOTS * COEF_ROWS * sub
+                + rows * (m | 1) + rows * (4 + h))
+
+
+def padded_panel(p: int, sub: int, cluster: int) -> int:
+    """The panel the kernel runs: ``p`` rounded up to whole sub-panels in
+    every CTA of the cluster (padded obs are not assimilated)."""
+    unit = sub * cluster
+    return -(-p // unit) * unit
+
+
+def pick_cluster(p: int, m: int, sub: int = DEFAULT_SUB,
+                 hybrid: bool = False) -> int:
+    """CTAs the panel's rows are dealt over: the smallest cluster of
+    ``CLUSTERS``, from ``MIN_CLUSTER`` on, whose CTAs' shares of the slab
+    fit in shared memory.  Raises ``ValueError`` beyond ``MAX_PANEL`` obs,
+    ``MAX_MEMBERS`` members, or where no cluster holds the slab."""
+    if sub not in SUBS:
+        raise ValueError(f"B1 sub-panels are {SUBS} obs wide, not {sub}")
+    if not 1 <= p <= MAX_PANEL:
+        raise ValueError(f"B1 takes panels of 1 to {MAX_PANEL} obs, not {p}")
+    if not 2 <= m <= MAX_MEMBERS:
+        raise ValueError(f"B1 takes 2 to {MAX_MEMBERS} members, not {m}")
+    for c in CLUSTERS:
+        if c < MIN_CLUSTER:
+            continue
+        rows = padded_panel(p, sub, c) // c
+        if smem_bytes(rows, m, sub, hybrid) <= MAX_SMEM_BYTES:
+            return c
+    raise ValueError(
+        f"tail panel [{p}, {m}] does not fit the shared memory of "
+        f"{CLUSTERS[-1]} CTAs at sub-panels of {sub}")
+
+
+def _pad_square(x, n):
+    if n == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, n, 0, n))
+
+
+def _aligned(t):
+    """Contiguous, with a 16-byte-aligned start (the kernel copies the
+    weight rows 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
-                          weights=None, unbiased: bool = False):
-    """Launch B1 on CUDA tensors (float32); same returns as the plain
-    version.  Raises when the panel does not fit in shared memory."""
-    global launches
+                          weights=None, unbiased: bool = False,
+                          alpha: float = 1.0, sigma=None, static_gc=None,
+                          sub: int = DEFAULT_SUB, cluster=None):
+    """Launch B1 (B1h with ``alpha < 1``) on CUDA tensors (float32); same
+    returns as the plain version.  ``cluster`` overrides
+    :func:`pick_cluster`.  Raises on a shape the kernel does not take,
+    before any launch."""
+    global launches, hybrid_launches
     p, m = tail_perts.shape
     dev = tail_perts.device
     f32 = torch.float32
-    if smem_bytes(p, m) > MAX_SMEM_BYTES:
+    hybrid = _check_hybrid(alpha, sigma, static_gc)
+    c = pick_cluster(p, m, sub, hybrid) if cluster is None else cluster
+    if c not in CLUSTERS:
+        raise ValueError(f"B1 clusters are {CLUSTERS} CTAs, not {c}")
+    pp = padded_panel(p, sub, c)
+    if smem_bytes(pp // c, m, sub, hybrid) > MAX_SMEM_BYTES:
         raise ValueError(
-            f"tail panel [{p}, {m}] needs {smem_bytes(p, m)} B of shared "
-            f"memory, more than the {MAX_SMEM_BYTES} B a CTA may use: "
-            "use a smaller tail_panel")
+            f"tail panel [{p}, {m}] over {c} CTAs needs "
+            f"{smem_bytes(pp // c, m, sub, hybrid)} B of shared memory per "
+            f"CTA, more than the {MAX_SMEM_BYTES} B a CTA may use")
     ins = [tail_mean, tail_perts, values, errors]
-    if weights is not None:
-        ins.append(weights)
+    ins += [t for t in (weights, sigma, static_gc) if t is not None]
     for t in ins:
         if t.device != dev or t.dtype != f32:
             raise ValueError("B1 takes float32 tensors on one CUDA device")
-    if weights is not None and weights.shape != (p, p):
-        raise ValueError("B1 weights must be [P, P]")
-    tm_in = tail_mean.contiguous()
-    tp_in = tail_perts.contiguous()
-    vals = values.contiguous()
-    errs = errors.contiguous()
-    am = assim.to(device=dev, dtype=torch.uint8).contiguous()
-    w = weights.contiguous() if weights is not None else None
-    for t, n in ((tm_in, p), (vals, p), (errs, p), (am, p)):
-        if t.shape != (n,):
+    for t in (weights, static_gc):
+        if t is not None and t.shape != (p, p):
+            raise ValueError("B1 weights and static_gc must be [P, P]")
+    for t in (tail_mean, values, errors, assim, sigma):
+        if t is not None and t.shape != (p,):
             raise ValueError("B1 per-ob inputs must be [P]")
-    tm = torch.empty(p, dtype=f32, device=dev)
-    tp = torch.empty((p, m), dtype=f32, device=dev)
-    ye = torch.empty((p, m), dtype=f32, device=dev)
-    vec = [torch.empty(p, dtype=f32, device=dev) for _ in range(6)]
+    pad = pp - p
+    tm_in = _pad(tail_mean, pad).contiguous()
+    tp_in = _pad(tail_perts, pad).contiguous()
+    vals = _pad(values, pad).contiguous()
+    errs = _pad(errors, pad, 1.0).contiguous()
+    am = _pad(assim.to(device=dev, dtype=torch.uint8), pad, 0).contiguous()
+    w = None if weights is None else _aligned(_pad_square(weights, pad))
+    sig = gc = None
+    if hybrid:
+        sig = _pad(sigma, pad).contiguous()
+        gc = _aligned(_pad_square(static_gc, pad))
+    tm = torch.empty(pp, dtype=f32, device=dev)
+    tp = torch.empty((pp, m), dtype=f32, device=dev)
+    ye = torch.empty((pp, m), dtype=f32, device=dev)
+    vec = [torch.empty(pp, dtype=f32, device=dev)
+           for _ in range(8 if hybrid else 6)]
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = _build.lib().efa_tail_solve(
         tm_in.data_ptr(), tp_in.data_ptr(), vals.data_ptr(), errs.data_ptr(),
-        am.data_ptr(), None if w is None else w.data_ptr(), p, m,
-        int(bool(unbiased)), tm.data_ptr(), tp.data_ptr(), ye.data_ptr(),
-        *(v.data_ptr() for v in vec),
+        am.data_ptr(), ptr(w), ptr(gc), ptr(sig), float(alpha), pp, m,
+        int(bool(unbiased)), sub, c, tm.data_ptr(), tp.data_ptr(),
+        ye.data_ptr(), *(v.data_ptr() for v in vec[:6]),
+        *(ptr(v) for v in (vec[6:] if hybrid else (None, None))),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, "B1 tail_solve launch")
-    launches += 1
-    return (tm, tp, ye, *vec)
+    _build.check(err, "B1h tail_solve launch" if hybrid
+                 else "B1 tail_solve launch")
+    if hybrid:
+        hybrid_launches += 1
+    else:
+        launches += 1
+    return tuple(t[:p] for t in (tm, tp, ye, *vec))
 
 
 def tail_panel_solve(tail_mean, tail_perts, values, errors, assim,
-                     weights=None, unbiased: bool = False):
-    """B1 dispatch: the CUDA kernel for CUDA tensors, the plain version
+                     weights=None, unbiased: bool = False,
+                     alpha: float = 1.0, sigma=None, static_gc=None):
+    """B1/B1h dispatch: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
+    args = (tail_mean, tail_perts, values, errors, assim, weights, unbiased,
+            alpha, sigma, static_gc)
     if tail_perts.is_cuda:
-        return tail_panel_solve_cuda(tail_mean, tail_perts, values, errors,
-                                     assim, weights, unbiased)
+        return tail_panel_solve_cuda(*args)
     if tail_perts.device.type != "cpu":
         raise ValueError(f"B1 runs on CUDA or CPU, not {tail_perts.device}")
-    return tail_panel_solve_plain(tail_mean, tail_perts, values, errors,
-                                  assim, weights, unbiased)
+    return tail_panel_solve_plain(*args)

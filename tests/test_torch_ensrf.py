@@ -124,17 +124,75 @@ def test_unported_paths_raise(cfg, missing):
 
 def test_exact_haversine_raises_on_cuda_and_mesh_raises():
     """Exact haversine on CUDA no longer raises: a CUDA-routed default
-    config selects B4 (routing only; nothing runs).  ``mesh=`` still
-    raises."""
+    config selects B4, with the kernel tail (B1, then B4) (routing only;
+    nothing runs).  ``mesh=`` still raises."""
     _, _, tstate, tbatch = _pair()
     filt = EnSRF(tstate, tbatch, verbose=False,
                  config=FilterConfig(dtype="float32", fast_geometry=False))
     filt.device = torch.device("cuda")
     filt._check_ported()
     assert filt._route(tstate.structure.nstate) == "B4"
-    assert not filt._tail_kernels()
+    assert filt._tail_kernels()
     with pytest.raises(NotImplementedError, match="A10"):
         EnSRF(tstate, tbatch, mesh=object())
+
+
+@pytest.mark.parametrize("dtype,cuda,route", [
+    ("float64", True, "plain"), ("float32", True, "B4"),
+    ("float64", False, "B4")])
+def test_float64_on_the_card_routes_to_the_plain_update(dtype, cuda, route):
+    """The kernels take float32 only: a float64 update on the card runs
+    the plain blocked update, as the JAX package runs its kernels for
+    float32 only; on CPU tensors float64 keeps the kernel route, whose
+    plain versions the parity tests drive (routing only; nothing runs)."""
+    _, _, tstate, tbatch = _pair()
+    filt = EnSRF(tstate, tbatch, verbose=False,
+                 config=FilterConfig(dtype=dtype, localization="GC"))
+    if cuda:
+        filt.device = torch.device("cuda")
+    assert filt._route(tstate.structure.nstate) == route
+    assert filt._tail_kernels() == (route != "plain")
+
+
+@pytest.mark.parametrize("precision,runs", [
+    (None, True), ("highest", True), ("float32", True), ("default", False),
+    ("high", False), ("bfloat16", False), ("tensorfloat32", False)])
+def test_matmul_precision_runs_fp32_and_refuses_lower(precision, runs):
+    """Every product of the port is fp32: the settings that mean fp32 run
+    and match the default; the lower ones raise at ``update()`` until the
+    tensor-core work gives them a meaning (ROADMAP B-next 5)."""
+    _, _, tstate, tbatch = _pair()
+    cfg = FilterConfig(dtype="float64", localization="GC",
+                       matmul_precision=precision)
+    filt = EnSRF(tstate, tbatch, verbose=False, config=cfg)
+    if not runs:
+        with pytest.raises(NotImplementedError, match="B-next 5"):
+            filt.update()
+        return
+    post, _ = filt.update()
+    ref, _ = EnSRF(tstate, tbatch, verbose=False,
+                   config=FilterConfig(dtype="float64",
+                                       localization="GC")).update()
+    np.testing.assert_array_equal(interop.state_to_numpy(post),
+                                  interop.state_to_numpy(ref))
+
+
+def test_nproc_is_the_third_positional_argument():
+    """``EnSRF(state, obs, 1)`` is the reference's ``nproc=1``: accepted
+    and unused, so ``inflation`` stays None and the update is the
+    uninflated one."""
+    jstate, jbatch, tstate, tbatch = _pair()
+    filt = EnSRF(tstate, tbatch, 1, verbose=False,
+                 config=FilterConfig(dtype="float64", localization="GC"))
+    assert filt.inflation is None and filt.nproc == 1
+    jfilt = JEnSRF(jstate, jbatch, 1, verbose=False)
+    assert jfilt.inflation is None and jfilt.nproc == 1
+    post, _ = filt.update()
+    ref, _ = EnSRF(tstate, tbatch, verbose=False,
+                   config=FilterConfig(dtype="float64",
+                                       localization="GC")).update()
+    np.testing.assert_array_equal(interop.state_to_numpy(post),
+                                  interop.state_to_numpy(ref))
 
 
 @pytest.mark.parametrize("grid", ["separable", "curvilinear"])

@@ -183,14 +183,31 @@ def test_tail_scan_blocked_hybrid_matches_jax(panel, localize):
                                    atol=TOL)
 
 
-def test_kernel_tail_refuses_hybrid():
+def test_kernel_tail_refuses_hybrid(monkeypatch):
+    """The kernel tail once refused hybrid mode; B1h now solves its panels
+    (the plain hybrid apply stays): equal to the plain tail at 1e-10, with
+    B1h launched once per panel."""
     arrays, obs, _ = _toy(nobs=6)
-    with pytest.raises(ValueError, match="hybrid"):
-        tcore.tail_scan_blocked(
-            torch.tensor(arrays[2]), torch.tensor(arrays[3]),
-            interop.obs_arrays_from_numpy(**obs, device="cpu"),
-            fast_geometry=True, panel=4, kernels=True, hybrid_alpha=0.5,
-            tail_sigma=torch.ones(6), static_length=800.0)
+    calls = []
+    real = tail_solve.tail_panel_solve
+    monkeypatch.setattr(tail_solve, "tail_panel_solve",
+                        lambda *a, **k: (calls.append(k.get("alpha")),
+                                         real(*a, **k))[1])
+    run = lambda kernels: tcore.tail_scan_blocked(
+        torch.tensor(arrays[2]), torch.tensor(arrays[3]),
+        interop.obs_arrays_from_numpy(**obs, device="cpu"),
+        fast_geometry=True, panel=4, kernels=kernels, hybrid_alpha=0.5,
+        tail_sigma=torch.linspace(1.0, 2.0, 6), static_length=800.0)
+    got, want = run(True), run(False)
+    assert calls == [0.5, 0.5]
+    for name in ("ye", "gain_coef", "sqrt_coef", "tail_mean", "tail_perts",
+                 "static_gain", "static_sqrt"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   getattr(want, name).numpy(), rtol=1e-10,
+                                   atol=1e-10, err_msg=name)
+    for a, b in zip(got.diags, want.diags):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-10)
 
 
 # ---------------------------------------------------------------------------

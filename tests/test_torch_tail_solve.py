@@ -85,12 +85,30 @@ def test_panel_weights_match_jax(vertical):
                                atol=TOL)
 
 
-def test_b1_refuses_a_panel_beyond_shared_memory():
-    """The JAX package allows 1024-ob panels; at 80 members that slab is
-    more than a CTA's shared memory, so the CUDA path must refuse it."""
-    assert tail_solve.smem_bytes(512, 80) <= tail_solve.MAX_SMEM_BYTES
+def test_b1_sizing_takes_every_reference_panel(monkeypatch):
+    """The JAX package takes panels up to 1024 obs to its kernel at any
+    ensemble; the cluster sizing holds 1024 x 80, 512 x 256 and 1024 x
+    256 (B1 and B1h, sub-panels of 8 and 16) within a CTA's shared memory,
+    and the CUDA path refuses more than 256 members, or a panel over 1024,
+    before it launches anything."""
+    for p, m in ((1024, 80), (512, 256), (1024, 256)):
+        for sub in tail_solve.SUBS:
+            for hybrid in (False, True):
+                c = tail_solve.pick_cluster(p, m, sub, hybrid)
+                pp = tail_solve.padded_panel(p, sub, c)
+                assert pp == p and c in tail_solve.CLUSTERS
+                assert (tail_solve.smem_bytes(pp // c, m, sub, hybrid)
+                        <= tail_solve.MAX_SMEM_BYTES)
     assert tail_solve.smem_bytes(1024, 80) > tail_solve.MAX_SMEM_BYTES
-    x = torch.zeros(1024, 80)
-    with pytest.raises(ValueError, match="shared"):
-        tail_solve.tail_panel_solve_cuda(x[:, 0], x, x[:, 0], x[:, 0],
-                                         x[:, 0] > 0)
+    assert tail_solve.pick_cluster(1024, 80) > 1
+
+    def no_build():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(tail_solve._build, "lib", no_build)
+    for p, m in ((512, 257), (1025, 80)):
+        x = torch.zeros(p, m)
+        with pytest.raises(ValueError, match="B1 takes"):
+            tail_solve.tail_panel_solve_cuda(x[:, 0], x, x[:, 0], x[:, 0],
+                                             x[:, 0] > 0)
+    assert tail_solve.launches == 0

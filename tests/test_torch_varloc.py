@@ -150,15 +150,30 @@ def test_tail_varloc_matches_jax(panel):
                  + [np.asarray(d) for d in j.diags])
 
 
-def test_kernel_tail_refuses_varloc():
+def test_kernel_tail_refuses_varloc(monkeypatch):
+    """The kernel tail once refused ``varloc``; B1 now carries it in its
+    panel weights and B4 in its per-(ob, row) factor: the chordal kernel
+    tail equals the plain one at 1e-10, through B1 and B4."""
     prior, ye, lat, lon, rvar, ovar, obs, bv, fac = _core_setup()
-    with pytest.raises(ValueError, match="variable localization"):
-        tcore.tail_scan_blocked(
-            torch.tensor(ye.mean(1)), torch.tensor(ye),
-            interop.obs_arrays_from_numpy(**obs, device="cpu"),
-            fast_geometry=True,
-            panel=4, kernels=True, varloc=torch.tensor(fac),
-            ob_var=torch.tensor(ovar))
+    calls = []
+    for module, name in ((tail_solve, "tail_panel_solve"),
+                         (ensrf_grid, "block_apply")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _r=real, _n=name, **k:
+                            (calls.append(_n), _r(*a, **k))[1])
+    run = lambda kernels: tcore.tail_scan_blocked(
+        torch.tensor(ye.mean(1)), torch.tensor(ye - ye.mean(1)[:, None]),
+        interop.obs_arrays_from_numpy(**obs, device="cpu"),
+        fast_geometry=True, panel=4, kernels=kernels,
+        varloc=torch.tensor(fac), ob_var=torch.tensor(ovar))
+    got, want = run(True), run(False)
+    assert calls.count("tail_panel_solve") == 4
+    assert calls.count("block_apply") == 4
+    names = ("ye", "gain_coef", "sqrt_coef", "tail_mean", "tail_perts")
+    _assert_same([getattr(got, n).numpy() for n in names]
+                 + [d.numpy() for d in got.diags],
+                 [getattr(want, n).numpy() for n in names]
+                 + [d.numpy() for d in want.diags], tol=1e-10)
 
 
 # ---------------------------------------------------------------------------
@@ -313,10 +328,10 @@ def test_routing_selects_the_jax_kernel(monkeypatch, kw, flat, route):
             "B2": {"fused_apply"}}[route]
     body = set(calls) - {"tail_panel_solve"}
     assert body == want, calls
-    # The B1 tail where the JAX package's _tail_pallas takes it, else the
-    # plain panel scan.
-    assert ("tail_panel_solve" in calls) == (
-        route in ("B2", "B3") and "variable_localization" not in kw)
+    # The B1 tail on every kernel route, the plain panel scan on the
+    # others.
+    assert ("tail_panel_solve" in calls) == (route not in ("serial",
+                                                            "plain"))
     # The JAX package on the same configuration.
     jfilt = JEnSRF(jstate, jbatch, verbose=False,
                    config=JConfig(use_pallas=True, **base))
@@ -325,8 +340,12 @@ def test_routing_selects_the_jax_kernel(monkeypatch, kw, flat, route):
     else:
         assert jfilt._use_pallas()
         assert jfilt._grid_kernel_ok() == (route == "B3")
+        # The JAX package takes its tail kernel on the chordal runs
+        # without varloc only; the port's B1 carries every kernel route.
         jtail = jfilt._tail_pallas(interpret=False)
-        assert jtail == filt._tail_kernels()
+        assert jtail == (route in ("B2", "B3")
+                         and "variable_localization" not in kw)
+        assert filt._tail_kernels()
 
 
 def test_varloc_kwargs_match_jax():
