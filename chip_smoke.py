@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-14
+    python3 chip_smoke.py             # phases 0-17
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
                                       # width and cluster, B2 with parts of
@@ -71,13 +71,35 @@ Phases, each printing one line of results:
     each mode at 1024^3 and 4096^3;
 13. a ``fast_geometry`` update at 128 members (B1 over a cluster, then B2);
 14. a float64 update on the card at a small shape: the plain route, no
-    kernel, near the float32 kernel update.
+    kernel, near the float32 kernel update;
+15. the options of ROADMAP A7 on the card: phase 4's workload with and
+    without ``obs_order="hilbert"`` (B2's body launch timed alone, and the
+    shares of (row tile, obs block) pairs and 8-ob panels the cull keeps
+    alive; the batch back in the caller's order), ``spatial_sort`` on a
+    flat state of 262,144 shuffled rows (B2 with a row order) against the
+    same update without it, and ``rtps_alpha`` / ``rtpp_alpha`` 0.5 against
+    the plain update relaxed by the plain formula;
+16. ``obs_chunk`` on the card: chunked against one-shot through B2 (phase
+    4's workload, chunks of 4,096), B3 (config 3 with ``fast_geometry``)
+    and B4 (config 3 at the default config), with the launches and the
+    peak memory, and one-shot batches of 40,000 and 160,000 obs on phase
+    4's grid beside a chunked one;
+17. the production cycle of BASELINE config 13 at the published defaults
+    of ``benchmarks/cycled_production.py`` (320 x 320 L96-2d, 40 members,
+    8,000 off-grid obs at 500 km with a 0.3 network bias, 20 cycles, float32):
+    the forecast, the obs, online bias correction, ``EnSRF.update()`` with
+    ``fast_geometry``, the outlier check and adaptive inflation (evolved
+    std, damping 0.7, cap 1.7), and the verification, each cycle's phase
+    seconds and its B1/B2 launches; cycle 0 held against the plain update,
+    the colored Anderson update against the per-ob scan in color order, and
+    the forecast against float64 on the CPU; every cycle's analysis finite,
+    below its forecast's RMSE, and its inflation within its bounds.
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
 same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-14 with one warm headline update, the
+``--profile`` replaces phases 2-17 with one warm headline update, the
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
 ``torch.profiler`` (the profiler walks every traced event): wall and
@@ -85,7 +107,7 @@ device-busy time, the busy share, the device ops that take the most time,
 and the share of the headline's (row tile, obs block) pairs and 8-ob
 panels that the cull keeps alive.
 
-``--steps`` replaces phases 2-14 with B1 at 512 x 80 and 1024 x 256 at
+``--steps`` replaces phases 2-17 with B1 at 512 x 80 and 1024 x 256 at
 sub-panels of 8 and 16 on one CTA and on each cluster that holds the
 panel, the parent commit's B1 beside them where
 ``build/efa_xray_tpu_torch/parent/tail_solve.cu`` exists, and B1 at 512 x
@@ -630,28 +652,43 @@ def _api_workload(nmems=80, nobs=10_000, seed=1, ny=1024):
     return {"T2m": field}, coords, batch
 
 
-def _check_api(label, state, batch, cfg, post, obs):
-    """Hold an ``EnSRF.update()`` result against the plain blocked update
-    (``ensrf_core.ensrf_blocked``) on the same tensors, and check its
-    diagnostics.  Returns ``(mean_err, incr_rms, inn_prior, inn_post)``."""
+def _plain_update(state, batch, cfg, inflation=None):
+    """The plain blocked update (``ensrf_core.ensrf_blocked``) of what
+    ``EnSRF(state, batch, inflation=inflation, config=cfg).update()``
+    computes, on the same tensors, the outlier check included: ``(prior
+    mean, prior perturbations, posterior mean, posterior
+    perturbations)``."""
     import torch
 
     from efa_xray_tpu_torch import EnSRF
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
 
     dev = state.device
-    ref = EnSRF(state, batch, config=cfg, verbose=False)
+    ref = EnSRF(state, batch, inflation=inflation, config=cfg, verbose=False)
     bm, bp, tm, tp = ref.format_prior_state()
-    oa = ref.obs_arrays()
+    oa = ref.apply_outlier_check(ref.obs_arrays(), tm, tp)
     blat, blon = state.structure.row_latlon_device(torch.float32, dev)
     vertical = cfg.localize and ref._vertical_active()
     bvert = (torch.tensor(state.structure.row_vert(), dtype=torch.float32,
                           device=dev) if vertical else None)
-    pbm, *_ = core.ensrf_blocked(
+    pbm, pbp, *_ = core.ensrf_blocked(
         bm, bp, tm, tp, blat, blon, oa, localize=cfg.localize,
         block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
         body_vert=bvert, vertical=vertical, tail_panel=cfg.tail_panel,
         **ref.varloc_kwargs(), **ref._hybrid_kwargs(bm))
+    return bm, bp, pbm, pbp
+
+
+def _check_api(label, state, batch, cfg, post, obs, inflation=None,
+               plain=None):
+    """Hold an ``EnSRF.update()`` result against the plain blocked update
+    (:func:`_plain_update`, or ``plain`` when it is given) on the same
+    tensors, and check its diagnostics: every ob assimilated but those the
+    outlier check flagged.  Returns ``(mean_err, incr_rms, inn_prior,
+    inn_post)``."""
+    import torch
+
+    bm, _, pbm, _ = plain or _plain_update(state, batch, cfg, inflation)
     post_mean = post.to_vect().mean(dim=1)
     incr_rms = float(torch.sqrt(torch.mean((pbm - bm) ** 2)))
     mean_err = float((post_mean - pbm).abs().max())
@@ -663,12 +700,15 @@ def _check_api(label, state, batch, cfg, post, obs):
     pm, pv = obs.prior_mean, obs.prior_var
     om, ov = obs.post_mean, obs.post_var
     a = obs.assimilated
-    check(bool(a.all()), f"{label}: not every ob was assimilated")
+    rejected = (np.zeros(batch.nobs, bool) if obs.qc_outlier is None
+                else np.asarray(obs.qc_outlier, bool))
+    check(bool((a == ~rejected).all()),
+          f"{label}: not every ob the outlier check kept was assimilated")
     check(all(np.isfinite(x[a]).all() for x in (pm, pv, om, ov)),
           f"{label}: diagnostics not finite")
     check(bool((ov[a] <= pv[a]).all()), f"{label}: post_var > prior_var")
-    inn_prior = float(np.mean(np.abs(batch.values - pm)))
-    inn_post = float(np.mean(np.abs(batch.values - om)))
+    inn_prior = float(np.mean(np.abs(batch.values - pm)[a]))
+    inn_post = float(np.mean(np.abs(batch.values - om)[a]))
     check(inn_post < inn_prior, f"{label}: innovations did not shrink")
     return mean_err, incr_rms, inn_prior, inn_post
 
@@ -733,14 +773,18 @@ def _timed_update(make_filter):
     dict of the seconds spent in the tail (``tail_scan_blocked``), in the
     body (``fused_body``, ``grid_body`` or ``blocked_body``) and, inside a
     B4 body, in the blocks' torch operands (``block_operands``) and in the
-    kernel's launches (``block_apply``), each closed by a synchronize."""
+    kernel's launches (``block_apply``), and in the adaptive-inflation
+    learning (``maybe_update_adaptive_inflation``), each closed by a
+    synchronize."""
     import torch
 
+    from efa_xray_tpu_torch.assimilation import assimilation as assim_mod
     from efa_xray_tpu_torch.assimilation import ensrf as ensrf_mod
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
     from efa_xray_tpu_torch.ops import ensrf_grid
 
-    spent = {"tail": 0.0, "body": 0.0, "operands": 0.0, "kernel": 0.0}
+    spent = {"tail": 0.0, "body": 0.0, "operands": 0.0, "kernel": 0.0,
+             "learn": 0.0}
 
     def timed(fn, key):
         def run(*a, **k):
@@ -756,7 +800,8 @@ def _timed_update(make_filter):
         (core, "tail_scan_blocked", "tail"), (ensrf_mod, "fused_body", "body"),
         (ensrf_grid, "grid_body", "body"), (ensrf_grid, "blocked_body", "body"),
         (ensrf_grid, "block_operands", "operands"),
-        (ensrf_grid, "block_apply", "kernel"))]
+        (ensrf_grid, "block_apply", "kernel"),
+        (assim_mod.Assimilation, "maybe_update_adaptive_inflation", "learn"))]
     for mod, name, fn, key in saved:
         setattr(mod, name, timed(fn, key))
     try:
@@ -781,8 +826,9 @@ def _api_state(dev, **workload):
     vardict, coords, batch = _api_workload(**workload)
     state = EnsembleState.from_vardict(
         {k: torch.from_numpy(v).to(dev) for k, v in vardict.items()}, coords,
-        dtype="float32")
-    check(state.device.type == "cuda", "state is not on the card")
+        dtype="float32", device=dev)
+    check(state.device.type == torch.device(dev).type,
+          f"state is not on {dev}")
     return state, batch
 
 
@@ -1557,6 +1603,525 @@ def phase14():
         f"(increment RMS {incr_rms:.3e}); wall {wall:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# The cycled production filter (BASELINE config 13) and its options
+# ---------------------------------------------------------------------------
+
+
+def _popcount_share(bits, npanels: int) -> float:
+    """Share of the 8-ob panels that cull bits ``bits`` keep alive."""
+    import torch
+
+    b = bits.to(torch.int64) & 0xFFFFFFFF
+    alive = sum(int(((b >> q) & 1).sum()) for q in range(npanels))
+    return alive / (b.numel() * npanels)
+
+
+def _b2_body_stats(state, batch, cfg):
+    """B2's body launch of ``EnSRF(state, batch, config=cfg).update()`` on
+    its own: the kernel's ms (CUDA events, median of 3, on a copy of the
+    prior), and the shares of (row tile, obs block) pairs and of 8-ob
+    panels that the cull keeps alive, in the order the update runs (sorted
+    obs with ``obs_order``, sorted rows with ``spatial_sort``)."""
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    filt = EnSRF(state, batch, config=cfg, verbose=False)
+    bm, bp, tm, tp = filt.format_prior_state()
+    oa = filt.obs_arrays()
+    blat, blon = state.structure.row_latlon_device(torch.float32,
+                                                   state.device)
+    if cfg.spatial_sort:
+        order, _ = state.structure.spatial_order_device(state.device)
+        bm, bp, blat, blon = (x[order] for x in (bm, bp, blat, blon))
+    tail = filt._kernel_tail(tm, tp, oa, False, {}, {})
+    ops = ensrf_fused.prepare(bp, blat, blon, tail, oa,
+                              block_size=cfg.block_size, cull=cfg.cull,
+                              max_radius_km=filt.max_finite_radius())
+    ms = cuda_ms(lambda: ensrf_fused.fused_apply(
+        bm, bp, ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
+        ops["bits"], ops["tile"], True, False, ops["series"]), 3)
+    npanels = -(-cfg.block_size // ensrf_fused.PANEL)
+    return dict(ms=ms, pairs=float((ops["bits"] != 0).float().mean()),
+                panels=_popcount_share(ops["bits"], npanels))
+
+
+def _perts_err(label, post, want_perts, prior_perts):
+    """Max abs error of the posterior's perturbations against
+    ``want_perts``; raises beyond 1e-3 x the RMS of their increment."""
+    import torch
+
+    v = post.to_vect()
+    got = v - v.mean(dim=1, keepdim=True)
+    incr_rms = float(torch.sqrt(torch.mean((want_perts - prior_perts) ** 2)))
+    err = float((got - want_perts).abs().max())
+    check(err <= 1e-3 * incr_rms,
+          f"{label}: perturbations differ from the plain formula by "
+          f"{err:.3e} > 1e-3 x increment RMS {incr_rms:.3e}")
+    return err, incr_rms
+
+
+def _flat_scattered_state(dev, n, nmems, nobs, radius, seed):
+    """A flat state (one location axis) of ``n`` scattered points in
+    random order, ``nmems`` members, and ``nobs`` random obs at
+    ``radius``: ``(state, batch)``."""
+    import torch
+
+    from efa_xray_tpu_torch import EnsembleState
+    from efa_xray_tpu_torch.observation.observation import ObservationBatch
+    from efa_xray_tpu_torch.utils import timeutil
+
+    rng = np.random.default_rng(seed)
+    lat = rng.uniform(-88.0, 88.0, n)
+    lon = rng.uniform(0.0, 360.0, n)
+    times = np.array([np.datetime64("2026-08-01T00")])
+    field = torch.from_numpy(rng.normal(280, 5, (1, n, nmems)).astype(
+        np.float32)).to(dev)
+    state = EnsembleState.from_vardict({"T2m": field}, {
+        "validtime": times, "lat": lat, "lon": lon}, dtype="float32",
+        device=dev)
+    batch = ObservationBatch(
+        values=rng.normal(280, 5, nobs), errors=np.ones(nobs),
+        lats=rng.uniform(-85, 85, nobs), lons=rng.uniform(0, 360, nobs),
+        times_s=timeutil.to_epoch_seconds(np.repeat(times[0], nobs)),
+        obtypes=["T2m"] * nobs, localize_radius=np.full(nobs, radius),
+        assimilate_flags=np.ones(nobs, bool), verts=np.full(nobs, np.nan),
+        descriptions=[None] * nobs)
+    return state, batch
+
+
+def phase15(dev="cuda", ny=1024, nobs=10_000, nmems=80, flat_n=262_144,
+            flat_obs=2048):
+    """A7 on the card: phase 4's workload with and without
+    ``obs_order="hilbert"`` (B2's body ms and the cull's alive shares),
+    ``spatial_sort`` on a flat state of shuffled rows, and RTPS/RTPP,
+    each held against the plain update."""
+    import dataclasses
+
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF, FilterConfig
+    from efa_xray_tpu_torch.assimilation.adaptive_inflation import (
+        row_spread,
+        rtpp,
+        rtps,
+    )
+
+    state, batch = _api_state(dev, ny=ny, nobs=nobs, nmems=nmems)
+    base = FilterConfig(localization="GC", fast_geometry=True)
+    panels = _tail_counts(batch.nobs, base.tail_panel, False)["panels"]
+    plain = _plain_update(state, batch, base)
+    out = {}
+    for order in (None, "hilbert"):
+        cfg = dataclasses.replace(base, obs_order=order)
+        _reset_counts()
+        (post, obs), wall, spent = _timed_update(
+            lambda: EnSRF(state, batch, config=cfg, verbose=False))
+        counts = _counts()
+        check(_only(B1=panels, B2=panels + 1)(counts),
+              f"phase 15 obs_order={order}: launches {counts}")
+        check(np.array_equal(obs.values, batch.values)
+              and np.array_equal(obs.lats, batch.lats),
+              f"phase 15 obs_order={order}: batch not in the caller's order")
+        mean_err, incr_rms, *_ = _check_api(
+            f"phase 15 obs_order={order}", state, batch, cfg, post, obs,
+            plain=plain if order is None else None)
+        body = _b2_body_stats(state, batch, cfg)
+        out[order] = body
+        log(f"phase 15 (a): EnSRF.update() {ny}x{ny}x{nmems}, {batch.nobs} obs, "
+            f"fast_geometry, obs_order={order}: launches B1 "
+            f"{counts['B1']} B2 {counts['B2']}; wall {wall:.3f} s (tail "
+            f"{spent['tail']:.3f} s, body {spent['body']:.3f} s); B2 body "
+            f"launch {body['ms']:.2f} ms, cull alive: (tile, block) pairs "
+            f"{body['pairs']:.4f}, 8-ob panels {body['panels']:.4f}; "
+            f"posterior mean vs plain max abs diff {mean_err:.3e} "
+            f"(increment RMS {incr_rms:.3e}); batch in the caller's order")
+
+    fstate, fbatch = _flat_scattered_state(dev, flat_n, nmems, flat_obs,
+                                           1000.0, 151)
+    posts, bodies = [], {}
+    for sort in (False, True):
+        cfg = FilterConfig(localization="GC", fast_geometry=True,
+                           obs_order="hilbert", spatial_sort=sort)
+        _reset_counts()
+        post, obs = EnSRF(fstate, fbatch, config=cfg, verbose=False).update()
+        counts = _counts()
+        check(_only(B1=None, B2=None)(counts),
+              f"phase 15 spatial_sort={sort}: launches {counts}")
+        posts.append(post)
+        bodies[sort] = _b2_body_stats(fstate, fbatch, cfg)
+    err = compare("phase 15 spatial_sort", posts[1].data, posts[0].data)
+    log(f"phase 15 (b): EnSRF.update() flat state of {flat_n} shuffled "
+        f"rows x {nmems}, {flat_obs} obs at 1000 km, obs_order=hilbert: "
+        f"spatial_sort=True vs False max abs diff {err:.3e}; B2 body launch "
+        + "; ".join(f"spatial_sort={k}: {v['ms']:.2f} ms, alive pairs "
+                    f"{v['pairs']:.4f}, panels {v['panels']:.4f}"
+                    for k, v in bodies.items()))
+
+    bm, bp, pbm, pbp = plain
+    want = {"rtps_alpha": rtps(row_spread(bp), pbp, 0.5),
+            "rtpp_alpha": rtpp(bp, pbp, 0.5)}
+    for key, want_perts in want.items():
+        cfg = dataclasses.replace(base, **{key: 0.5})
+        _reset_counts()
+        post, obs = EnSRF(state, batch, config=cfg, verbose=False).update()
+        counts = _counts()
+        check(_only(B1=panels, B2=panels + 1)(counts),
+              f"phase 15 {key}: launches {counts}")
+        mean_err, incr_rms, *_ = _check_api(f"phase 15 {key}", state, batch,
+                                            cfg, post, obs, plain=plain)
+        perr, pincr = _perts_err(f"phase 15 {key}", post, want_perts, bp)
+        log(f"phase 15 (c): EnSRF.update() {ny}x{ny}x{nmems}, {batch.nobs} obs, "
+            f"{key}=0.5: launches B1 {counts['B1']} B2 {counts['B2']}; vs "
+            f"the plain update relaxed by the plain formula: mean max abs "
+            f"diff {mean_err:.3e} (increment RMS {incr_rms:.3e}), "
+            f"perturbations {perr:.3e} (increment RMS {pincr:.3e})")
+    return out
+
+
+def _api_batch(nobs, seed, ny=1024):
+    """Random obs over phase 4's grid at 2000 km (a batch of another
+    size for the chunk sweep)."""
+    from efa_xray_tpu_torch.observation.observation import ObservationBatch
+    from efa_xray_tpu_torch.utils import timeutil
+
+    rng = np.random.default_rng(seed)
+    t0 = np.datetime64("2026-08-01T00")
+    return ObservationBatch(
+        values=rng.normal(280, 5, nobs), errors=np.ones(nobs),
+        lats=rng.uniform(-85, 85, nobs), lons=rng.uniform(0, 360, nobs),
+        times_s=timeutil.to_epoch_seconds(np.repeat(t0, nobs)),
+        obtypes=["T2m"] * nobs, localize_radius=np.full(nobs, 2000.0),
+        assimilate_flags=np.ones(nobs, bool), verts=np.full(nobs, np.nan),
+        descriptions=[None] * nobs)
+
+
+def _peak_update(state, batch, cfg):
+    """One update: ``(post, obs, wall seconds, peak GB allocated, launch
+    counts)``."""
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    post, obs = EnSRF(state, batch, config=cfg, verbose=False).update()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (post, obs, wall, torch.cuda.max_memory_allocated() / 1e9,
+            _counts())
+
+
+def phase16(dev="cuda", ny=1024, nobs=10_000, nmems=80,
+            sweep=(40_000, 160_000), chunk=4096, c3_chunk=2048):
+    """``obs_chunk`` on the card: chunked against one-shot through B2
+    (phase 4's workload), B3 (config 3, ``fast_geometry``) and B4 (config
+    3, the default config), with the launches and the peak memory; then
+    one-shot batches of growing size on phase 4's grid beside a chunked
+    one."""
+    import dataclasses
+
+    import torch
+
+    from efa_xray_tpu_torch import FilterConfig
+
+    def run(label, state, batch, cfg, n_chunk, expect):
+        one = _peak_update(state, batch, cfg)
+        many = _peak_update(state, batch,
+                            dataclasses.replace(cfg, obs_chunk=n_chunk))
+        for name, r, ok in (("one-shot", one, expect[0]),
+                            ("chunked", many, expect[1])):
+            check(ok(r[4]), f"phase 16 {label} {name}: launches {r[4]}")
+        err = compare(f"phase 16 {label} chunked vs one-shot",
+                      many[0].data, one[0].data)
+        for k in ("prior_mean", "prior_var", "post_mean", "post_var"):
+            compare(f"phase 16 {label} {k}",
+                    torch.from_numpy(getattr(many[1], k)),
+                    torch.from_numpy(getattr(one[1], k)))
+        fmt = lambda c: " ".join(f"{k} {v}" for k, v in c.items() if v)
+        log(f"phase 16: {label}, {batch.nobs} obs in chunks of {n_chunk}: "
+            f"chunked vs one-shot max abs diff {err:.3e}; launches one-shot "
+            f"{fmt(one[4])}, chunked {fmt(many[4])}; wall {one[2]:.3f} / "
+            f"{many[2]:.3f} s; peak allocated {one[3]:.2f} / {many[3]:.2f} "
+            "GB")
+
+    state, batch = _api_state(dev, ny=ny, nobs=nobs, nmems=nmems)
+    cfg = FilterConfig(localization="GC", fast_geometry=True)
+    p1 = _tail_counts(batch.nobs, 512, False)["panels"]
+    nch = -(-batch.nobs // chunk)
+    p2 = nch * chunk // 512
+    run(f"B2, {ny}x{ny}x{nmems}", state, batch, cfg, chunk,
+        (_only(B1=p1, B2=p1 + 1), _only(B1=p2, B2=p2 + nch)))
+
+    sizes = []
+    for n in sweep:
+        big = _api_batch(n, 160 + len(sizes), ny=ny)
+        one = _peak_update(state, big, cfg)
+        check(bool(torch.isfinite(one[0].data).all()),
+              f"phase 16: one-shot {n} obs not finite")
+        sizes.append((n, one[2], one[3]))
+        del one
+    many = _peak_update(state, big, dataclasses.replace(cfg,
+                                                        obs_chunk=16_384))
+    check(bool(torch.isfinite(many[0].data).all()),
+          f"phase 16: chunked {sweep[-1]} obs not finite")
+    log(f"phase 16: one-shot B2 updates on {ny}x{ny}x{nmems}: "
+        + ", ".join(f"{n} obs {w:.3f} s peak {g:.2f} GB"
+                    for n, w, g in sizes)
+        + f" (largest one-shot run: {sizes[-1][0]} obs); chunked (16384) at "
+        f"{sweep[-1]} obs {many[2]:.3f} s peak {many[3]:.2f} GB")
+    del state, batch, big, many
+
+    state, batch, _ = _config3_workload()
+    q1 = _tail_counts(batch.nobs, 512, True)
+    nch3 = -(-batch.nobs // c3_chunk)
+    q2 = _tail_counts(nch3 * c3_chunk, 512, True)
+    b3_ok = lambda panels, least: (
+        lambda c: _only(B1=panels, B2=panels, B3=None)(c)
+        and c["B3"] >= least)
+    run("B3, config 3 fast_geometry", state, batch,
+        FilterConfig(localization="GC", fast_geometry=True), c3_chunk,
+        (b3_ok(q1["panels"], 1), b3_ok(q2["panels"], nch3)))
+    nb = -(-batch.nobs // 128)
+    run("B4, config 3 default", state, batch,
+        FilterConfig(localization="GC"), c3_chunk,
+        (_only(B1=q1["panels"], B4=nb + q1["b4"]),
+         _only(B1=q2["panels"],
+               B4=nch3 * -(-c3_chunk // 128) + q2["b4"])))
+
+
+# Config 13's published defaults (benchmarks/cycled_production.py's
+# argparse): grid, members, obs, radius (km), ob bias, inflation damping
+# and cap, bias-correction rate, cycles.
+CONFIG13 = dict(ny=320, nx=320, nmems=40, nobs=8000, radius=500.0,
+                ob_bias=0.3, damp=0.7, adaptive_max=1.7, bias_alpha=0.2,
+                cycles=20)
+
+
+def _check_colored_inflation(adapt0, adapt, out, cfg, dev):
+    """On cycle 0's innovations: the colored Anderson update on the card
+    against the per-ob scan in color order, both from the pre-update
+    fields ``adapt0`` in float64, and the fields the update learned
+    (``adapt``) against the colored update, damped; returns the max abs
+    differences of the mean and std fields and the colors."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import adaptive_inflation as ai
+
+    s = adapt0.structure
+    f64 = torch.float64
+    t = lambda x: torch.as_tensor(np.array(x, np.float64), dtype=f64,
+                                  device=dev)
+    innov = out.values - out.prior_mean
+    coloring = ai.build_obs_coloring(s.lat.ravel(), s.lon.ravel(), out.lats,
+                                     out.lons, out.localize_radius,
+                                     device=dev)
+    check(coloring is not None, "phase 17: the network did not color")
+    order, sizes, row_ob = coloring
+    attrs, use = ai.pack_color_tables(order, sizes, out.lats, out.lons,
+                                      out.localize_radius, innov,
+                                      out.prior_var, out.errors,
+                                      out.assimilated)
+    lam = t(adapt0.mean["X"].reshape(1, 1, -1))
+    sd = t(np.maximum(adapt0.std["X"].reshape(1, 1, -1), 1e-4))
+    kw = dict(lambda_min=cfg.adaptive_min, lambda_max=cfg.adaptive_max,
+              evolve_sd=True, sd_min=cfg.adaptive_sd_min)
+    glat, glon = t(s.lat.ravel()), t(s.lon.ravel())
+    colored = ai.update_inflation_rows_colored(
+        lam, sd, glat, glon, row_ob, t(attrs), torch.as_tensor(use,
+                                                                device=dev),
+        **kw)
+    o = lambda a: t(np.asarray(a, np.float64)[order])
+    scan = ai.update_inflation_rows(
+        lam, sd, glat, glon, o(out.lats), o(out.lons),
+        o(out.localize_radius), o(innov), o(out.prior_var), o(out.errors),
+        torch.as_tensor(np.asarray(out.assimilated)[order], device=dev),
+        **kw)
+    errs = [compare(f"phase 17 colored vs scan {k}", a, b)
+            for k, a, b in zip(("mean", "std"), colored, scan)]
+    damped = torch.clamp(1.0 + cfg.adaptive_damp * (colored[0] - 1.0),
+                         min=cfg.adaptive_min)
+    compare("phase 17 learned mean vs the colored update",
+            t(adapt.mean["X"].reshape(1, 1, -1)), damped)
+    compare("phase 17 learned std vs the colored update",
+            t(adapt.std["X"].reshape(1, 1, -1)), colored[1])
+    return errs, len(sizes)
+
+
+def phase17(dev="cuda", ny=None, nx=None, nmems=None, nobs=None,
+            radius=None, cycles=None):
+    """The production cycle of BASELINE config 13 at its published
+    defaults (``CONFIG13``; arguments cut it down): the L96-2d forecast,
+    synthetic obs of the truth with a network bias, online bias
+    correction, ``EnSRF.update()`` with ``fast_geometry``, the outlier
+    check and Anderson adaptive inflation (evolved std, damping, a cap),
+    and the verification, in float32 through the public API."""
+    import dataclasses
+
+    import torch
+
+    from efa_xray_tpu_torch import (
+        AdaptiveInflation,
+        EnSRF,
+        EnsembleState,
+        FilterConfig,
+    )
+    from efa_xray_tpu_torch.models import l96_2d
+    from efa_xray_tpu_torch.observation import forward as fwd
+    from efa_xray_tpu_torch.observation.bias import BiasCorrection
+    from efa_xray_tpu_torch.observation.observation import ObservationBatch
+    from efa_xray_tpu_torch.postprocess.verification import crps
+    from efa_xray_tpu_torch.state.structure import StateStructure
+    from efa_xray_tpu_torch.utils import timeutil
+
+    p = dict(CONFIG13)
+    p.update({k: v for k, v in dict(ny=ny, nx=nx, nmems=nmems, nobs=nobs,
+                                    radius=radius, cycles=cycles).items()
+              if v is not None})
+    ny, nx, nmems, nobs = p["ny"], p["nx"], p["nmems"], p["nobs"]
+    sync = (torch.cuda.synchronize if torch.device(dev).type == "cuda"
+            else (lambda: None))
+    t0 = time.perf_counter()
+    truth, ens = l96_2d.spinup_ensemble(ny=ny, nx=nx, nmems=nmems, seed=3,
+                                        device=dev, dtype=torch.float32)
+    sync()
+    spinup = time.perf_counter() - t0
+    # The forecast on the card against float64 on the CPU, 4 steps.
+    start = ens[:8]
+    ferr = compare("phase 17 L96-2d forecast, card vs float64 CPU",
+                   l96_2d.integrate(start, nsteps=4),
+                   l96_2d.integrate(start.double().cpu(), nsteps=4).to(dev))
+
+    lat, lon = l96_2d.grid_latlon(ny, nx)
+    times = np.datetime64("2026-08-01T00:00:00") + np.arange(1)
+    structure = StateStructure.build(["X"], times, lat, lon, nmems)
+    rng = np.random.default_rng(11)
+    ob_lats = rng.uniform(-58.0, 58.0, nobs)
+    ob_lons = rng.uniform(0.0, 360.0, nobs)
+    times_s = timeutil.to_epoch_seconds(np.repeat(times[0], nobs))
+    taps = fwd.build_taps_cached(structure, ob_lats, ob_lons, times_s,
+                                 np.zeros(nobs, dtype=np.int32), device=dev)
+    cfg = FilterConfig(localization="GC", dtype="float32",
+                       fast_geometry=True, outlier_threshold=4.0,
+                       adaptive_sd_evolve=True, adaptive_sd_min=0.15,
+                       adaptive_damp=p["damp"],
+                       adaptive_max=p["adaptive_max"])
+    as_state = lambda e: EnsembleState(
+        e.permute(1, 2, 0)[None, None].contiguous(), structure)
+    adapt = AdaptiveInflation(as_state(ens), ("adaptive", None, (1.0, 0.6)))
+    bias = BiasCorrection(alpha=p["bias_alpha"])
+
+    def make_batch(values):
+        return ObservationBatch(
+            values=values, errors=np.ones(nobs), lats=ob_lats,
+            lons=ob_lons, times_s=times_s, obtypes=["X"] * nobs,
+            localize_radius=np.full(nobs, p["radius"]),
+            assimilate_flags=np.ones(nobs, bool), verts=np.full(nobs, np.nan),
+            descriptions=[None] * nobs)
+
+    rows = []
+    for c in range(p["cycles"]):
+        ph = {}
+        t0 = time.perf_counter()
+        truth = l96_2d.integrate(truth, nsteps=4)
+        ens = l96_2d.integrate(ens, nsteps=4)
+        sync()
+        ph["forecast"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        ye_t = fwd.apply_taps_obj(truth.reshape(-1, 1), taps)[:, 0]
+        raw = (ye_t.double().cpu().numpy() + rng.normal(0.0, 1.0, nobs)
+               + p["ob_bias"])
+        batch = bias.correct(make_batch(raw))
+        ph["obgen"] = time.perf_counter() - t0
+
+        fmean = ens.mean(dim=0)
+        rmse_f = float(torch.sqrt(torch.mean((fmean - truth) ** 2)))
+        if c == 0:
+            adapt0 = AdaptiveInflation.from_fields(
+                structure, adapt.mean, adapt.std, device=dev)
+        state = as_state(ens)
+        _reset_counts()
+        (post, out), ph["update"], spent = _timed_update(
+            lambda: EnSRF(state, batch, inflation=adapt, config=cfg,
+                          verbose=False))
+        counts = _counts()
+        check(_only(B1=None, B2=None)(counts),
+              f"phase 17 cycle {c}: launches {counts}")
+
+        t0 = time.perf_counter()
+        bias.update(dataclasses.replace(out, values=raw))
+        nrej = int(np.sum(out.qc_outlier))
+        ph["bias_qc"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        amean = post.data[0, 0].mean(dim=-1)
+        aspread = post.data[0, 0].std(dim=-1, unbiased=False)
+        rmse = float(torch.sqrt(torch.mean((amean - truth) ** 2)))
+        spread = float(torch.sqrt(torch.mean(aspread ** 2)))
+        _, cval = crps(post, batch)
+        ph["verify"] = time.perf_counter() - t0
+
+        lam = adapt.mean["X"]
+        check(bool(torch.isfinite(post.data).all()),
+              f"phase 17 cycle {c}: posterior not finite")
+        check(rmse < rmse_f, f"phase 17 cycle {c}: analysis RMSE {rmse:.4f} "
+              f"not below the forecast's {rmse_f:.4f}")
+        check(cfg.adaptive_min - 1e-9 <= lam.min()
+              and lam.max() <= cfg.adaptive_max + 1e-9,
+              f"phase 17 cycle {c}: inflation in [{lam.min()}, "
+              f"{lam.max()}]")
+        if c == 0:
+            mean_err, incr_rms, *_ = _check_api(
+                "phase 17 cycle 0", state, batch, cfg, post, out,
+                inflation=adapt0)
+            (cm, cs), ncolors = _check_colored_inflation(adapt0, adapt,
+                                                         out, cfg, dev)
+            log(f"phase 17 cycle 0 checks: posterior mean vs the plain "
+                f"update max abs diff {mean_err:.3e} (increment RMS "
+                f"{incr_rms:.3e}); colored Anderson ({ncolors} colors) vs "
+                f"the per-ob scan in color order, float64 on the device: "
+                f"mean {cm:.3e}, std {cs:.3e}; L96-2d 4 steps vs float64 "
+                f"CPU {ferr:.3e}; spin-up {spinup:.2f} s")
+        ens = post.data[0, 0].permute(2, 0, 1).contiguous()
+        rows.append(dict(cycle=c, rmse_f=rmse_f, rmse=rmse, spread=spread,
+                         crps=cval, qc_rejected=nrej,
+                         est_bias=bias.offset_for("X"),
+                         lam_min=float(lam.min()), lam_max=float(lam.max()),
+                         B1=counts["B1"], B2=counts["B2"], **ph,
+                         **{f"update_{k}": spent[k]
+                            for k in ("tail", "body", "learn")}))
+        log("phase 17 cycle " + json.dumps(rows[-1]))
+
+    late = rows[-3:]
+    keys = ("forecast", "obgen", "update", "bias_qc", "verify")
+    late_mean = {k: statistics.mean(r[k] for r in late) for k in keys}
+    late_update = {k: statistics.mean(r[f"update_{k}"] for r in late)
+                   for k in ("tail", "body", "learn")}
+    half = rows[len(rows) // 2:]
+    mean_of = lambda k: statistics.mean(r[k] for r in half)
+    summary = dict(
+        ngrid=ny * nx, nmems=nmems, nobs=nobs, cycles=p["cycles"],
+        late_cycle_phases_seconds=late_mean,
+        late_cycle_total_seconds=sum(late_mean.values()),
+        late_cycle_update_split_seconds=late_update,
+        mean_rmse_2nd_half=mean_of("rmse"),
+        mean_spread_2nd_half=mean_of("spread"),
+        spread_over_rmse_2nd_half=mean_of("spread") / mean_of("rmse"),
+        mean_crps_2nd_half=mean_of("crps"),
+        ob_bias_true=p["ob_bias"], ob_bias_estimated_final=rows[-1]["est_bias"],
+        qc_rejected_total=sum(r["qc_rejected"] for r in rows),
+        inflation_field_minmax=[rows[-1]["lam_min"], rows[-1]["lam_max"]],
+        launches_per_cycle={"B1": sorted({r["B1"] for r in rows}),
+                            "B2": sorted({r["B2"] for r in rows})})
+    log("phase 17: config 13 cycled production " + json.dumps(summary))
+    return summary
+
+
 # P's products are timed as runs of this many calls back to back.
 P_INNER = 20
 
@@ -2150,6 +2715,9 @@ def main() -> int:
     p = timed(phase12)
     timed(phase13)
     timed(phase14)
+    timed(phase15)
+    timed(phase16)
+    timed(phase17)
     # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
     # a localized recurrence): their library_ms is null.
     kernels = [

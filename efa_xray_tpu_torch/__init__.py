@@ -7,10 +7,17 @@ EnSRF update end to end: ``EnsembleState`` -> ``ObservationBatch`` ->
 ``EnSRF(..., device=...).update()``, with the tail's panel solve (kernel
 B1, ``ops/tail_solve.py``) and the fused body (kernel B2,
 ``ops/ensrf_fused.py``) as CUDA kernels built from ``csrc/`` at first use.
-On CPU tensors the kernels' plain-torch versions run.  The package never
-imports JAX.
+On CPU tensors the kernels' plain-torch versions run.  The cycled
+production filter rides on it: ``AdaptiveInflation`` (Anderson 2009,
+learned on the filter's device), RTPS/RTPP, ``obs_order``,
+``spatial_sort``, ``obs_chunk``, ``observation.bias.BiasCorrection``,
+``postprocess.verification`` and the Lorenz-96 models in ``models``.  The
+package never imports JAX.
 """
 
+from efa_xray_tpu_torch.assimilation.adaptive_inflation import (
+    AdaptiveInflation,
+)
 from efa_xray_tpu_torch.assimilation.assimilation import Assimilation
 from efa_xray_tpu_torch.assimilation.ensrf import EnSRF
 from efa_xray_tpu_torch.config import FilterConfig
@@ -31,6 +38,7 @@ from efa_xray_tpu_torch.state.structure import StateStructure
 __version__ = "0.1.0"
 
 __all__ = [
+    "AdaptiveInflation",
     "Assimilation",
     "EnSRF",
     "EnsembleState",

@@ -1,17 +1,24 @@
 """Assimilation driver layer: priors, inflation, state formatting.
 
 Counterpart of ``efa_xray_tpu/assimilation/assimilation.py``:
-``inflate_state`` :75 (scalar and per-dimension / per-variable dict
-forms), and the ``Assimilation`` base class with ``max_finite_radius``
-:212, ``build_taps`` :224, ``obs_arrays`` :245, ``apply_outlier_check``
-:297, ``_vertical_active`` :348, ``format_prior_state`` :492 (the fused
+``inflate_state`` :75 (scalar, per-dimension / per-variable dict and
+``AdaptiveInflation`` forms), and the ``Assimilation`` base class with the
+``obs_order`` sort :201-208, ``max_finite_radius`` :212, ``build_taps``
+:224, ``obs_arrays`` :245, ``apply_outlier_check`` :297,
+``_vertical_active`` :348, ``format_prior_state`` :492 (the fused
 ``_format_prior_jit`` :48), ``format_posterior_state`` :526,
-``varloc_kwargs`` :539 and ``record_diagnostics`` :611.
+``varloc_kwargs`` :539, ``maybe_update_adaptive_inflation`` :576 and
+``record_diagnostics`` :611.
 
 Everything runs on one explicit device, the filter's: by default the
-prior state's.  Inflation from a file or an ``AdaptiveInflation``, custom
-forward operators and the module-level ``update`` driver are not ported
-yet.
+prior state's.  With ``obs_order="hilbert"`` the filter assimilates a
+sorted copy of the batch (``_batch``) and every update hands back the
+caller's order: the JAX package restores it from ``self.obs``, which its
+first update has already restored, so that a second ``update()`` of one
+filter reorders a batch that is no longer sorted (ROADMAP C, faults of
+the reference); here the sorted copy is never reordered.  Inflation from
+a file (netCDF I/O, ROADMAP A11), custom forward operators and the
+module-level ``update`` driver are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from efa_xray_tpu_torch.observation.observation import (
 from efa_xray_tpu_torch.state.ensemble import EnsembleState, _torch_dtype
 from efa_xray_tpu_torch.utils.validation import ValidationError
 
-InflationSpec = Union[None, float, dict]
+InflationSpec = Union[None, float, dict, "AdaptiveInflation"]
 
 
 def inflate_state(state: EnsembleState, inflation: InflationSpec,
@@ -42,12 +49,23 @@ def inflate_state(state: EnsembleState, inflation: InflationSpec,
     * float: every variable's perturbations scaled by the factor;
     * dict: dimension names (``validtime``/``lat``/``lon``/``x``/``y``)
       map to 1-D per-element factors along that dimension; variable names
-      map to scalar factors for that variable (unknown ones are skipped).
+      map to scalar factors for that variable (unknown ones are skipped);
+    * an ``AdaptiveInflation``: its mean field, as ``sqrt(lambda)`` on the
+      perturbations.
 
-    Returns a new state.
+    The str form (an inflation file) raises ``NotImplementedError``: it
+    needs netCDF I/O (ROADMAP A11).  Returns a new state.
     """
     if inflation is None:
         return state
+    from efa_xray_tpu_torch.assimilation.adaptive_inflation import (
+        AdaptiveInflation,
+    )
+
+    if isinstance(inflation, AdaptiveInflation):
+        if verbose:
+            print("Applying adaptive inflation mean field")
+        return inflation.inflate_state(state)
     s = state.structure
     data = state.data
     if isinstance(inflation, (int, float)) and not isinstance(inflation, bool):
@@ -88,9 +106,11 @@ def inflate_state(state: EnsembleState, inflation: InflationSpec,
                 data = data.clone()
                 data[vi] = perts[vi] * float(v) + mean[vi]
         return state.replace_data(data)
-    raise NotImplementedError(
-        f"inflation spec {type(inflation).__name__!r} is not ported yet "
-        "(file and AdaptiveInflation forms: ROADMAP A8)")
+    if isinstance(inflation, str):
+        raise NotImplementedError(
+            f"inflation from the file {inflation!r} needs netCDF I/O, which "
+            "is not ported yet (ROADMAP A11)")
+    raise TypeError(f"Unsupported inflation spec: {type(inflation)!r}")
 
 
 class Assimilation:
@@ -119,6 +139,14 @@ class Assimilation:
         self.nproc = nproc
         self.inflation = inflation
         self.config = config or FilterConfig(verbose=verbose)
+        # The batch in assimilation order: obs_order="hilbert" sorts it
+        # once; record_diagnostics hands the caller's order back as
+        # self.obs on every update.
+        self._obs_unsort = None
+        if self.config.obs_order == "hilbert" and self.obs.nobs > 1:
+            self.obs, order = self.obs.spatial_sort()
+            self._obs_unsort = np.argsort(order)
+        self._batch = self.obs
         self.is_inflated = False
         self._taps = None
 
@@ -129,7 +157,7 @@ class Assimilation:
     def max_finite_radius(self):
         """Host-known bound on the finite per-ob radii (km) after the
         ``default_radius`` substitution; None when no ob is localized."""
-        r = np.asarray(self.obs.localize_radius, dtype=np.float64)
+        r = np.asarray(self._batch.localize_radius, dtype=np.float64)
         if self.config.default_radius is not None:
             r = np.where(np.isinf(r), float(self.config.default_radius), r)
         finite = r[np.isfinite(r)]
@@ -137,10 +165,10 @@ class Assimilation:
 
     def build_taps(self) -> _fwd.ObsTaps:
         if self._taps is None:
-            cfg = self.config
+            cfg, b = self.config, self._batch
             self._taps = _fwd.build_taps_cached(
-                self.prior.structure, self.obs.lats, self.obs.lons,
-                self.obs.times_s, self.obs.var_indices(self.prior.structure),
+                self.prior.structure, b.lats, b.lons, b.times_s,
+                b.var_indices(self.prior.structure),
                 npt=cfg.npt, exact_match_km=cfg.exact_match_km,
                 metric=cfg.nearest_metric, time_weighting=cfg.time_weighting,
                 search=cfg.taps_search, device=self.device,
@@ -151,22 +179,23 @@ class Assimilation:
         """Per-ob tensors on the filter's device, in one transfer.
         QC-failed obs (out of the state's time range) are masked out."""
         taps = self.build_taps()
-        radii = np.asarray(self.obs.localize_radius, dtype=np.float64).copy()
+        b = self._batch
+        radii = np.asarray(b.localize_radius, dtype=np.float64).copy()
         if self.config.default_radius is not None:
             radii[np.isinf(radii)] = float(self.config.default_radius)
-        qc = np.asarray(taps.qc_ok) | np.asarray(self.obs.custom_operator)
-        assim = np.asarray(self.obs.assimilate_flags) & qc
+        qc = np.asarray(taps.qc_ok) | np.asarray(b.custom_operator)
+        assim = np.asarray(b.assimilate_flags) & qc
         # Vertical localization only for obs with a finite vertical
         # coordinate; others get an infinite vertical radius.
-        verts = np.asarray(self.obs.verts, dtype=np.float64).copy()
-        vrad = np.asarray(self.obs.vert_radius, dtype=np.float64).copy()
+        verts = np.asarray(b.verts, dtype=np.float64).copy()
+        vrad = np.asarray(b.vert_radius, dtype=np.float64).copy()
         vrad[~np.isfinite(verts)] = np.inf
         verts[~np.isfinite(verts)] = 0.0
         packed = np.stack([
-            np.asarray(self.obs.values, dtype=np.float64),
-            np.asarray(self.obs.errors, dtype=np.float64),
-            np.asarray(self.obs.lats, dtype=np.float64),
-            np.asarray(self.obs.lons, dtype=np.float64),
+            np.asarray(b.values, dtype=np.float64),
+            np.asarray(b.errors, dtype=np.float64),
+            np.asarray(b.lats, dtype=np.float64),
+            np.asarray(b.lons, dtype=np.float64),
             radii, verts, vrad, assim.astype(np.float64),
         ])
         p = torch.tensor(packed, device=self.device)
@@ -189,7 +218,7 @@ class Assimilation:
         innov = oa.values - tail_mean
         bad = innov * innov > (t * t) * (varye + oa.errors)
         flagged = (oa.assim & bad).cpu().numpy().astype(bool)
-        self.obs.qc_outlier = flagged
+        self._batch.qc_outlier = flagged
         n = int(flagged.sum())
         action = self.config.outlier_action
         if n and self.verbose:
@@ -207,8 +236,8 @@ class Assimilation:
         radius."""
         if self.prior.structure.var_verts is None:
             return False
-        vr = np.asarray(self.obs.vert_radius, dtype=np.float64)
-        verts = np.asarray(self.obs.verts, dtype=np.float64)
+        vr = np.asarray(self._batch.vert_radius, dtype=np.float64)
+        verts = np.asarray(self._batch.verts, dtype=np.float64)
         return bool(np.any(np.isfinite(vr) & np.isfinite(verts)))
 
     def inflate_state(self) -> None:
@@ -229,7 +258,7 @@ class Assimilation:
             if self.verbose:
                 self.log.info("Inflating Prior State")
             self.inflate_state()
-        if self.obs.custom_operator.any():
+        if self._batch.custom_operator.any():
             raise NotImplementedError(
                 "custom forward operators are not ported yet")
         if self.verbose:
@@ -275,8 +304,8 @@ class Assimilation:
                         f"variable_localization names unknown variable "
                         f"{n!r} (state has {names})")
             fac[names.index(a), names.index(b)] = float(val)
-        ob_var = self.obs.var_indices(st).astype(np.int64)
-        ob_var[np.asarray(self.obs.custom_operator, dtype=bool)] = nv
+        ob_var = self._batch.var_indices(st).astype(np.int64)
+        ob_var[np.asarray(self._batch.custom_operator, dtype=bool)] = nv
         row_var = np.repeat(np.arange(nv, dtype=np.int64),
                             st.ntimes * st.ngrid)
         dev = self.device
@@ -286,16 +315,41 @@ class Assimilation:
             ob_var=torch.from_numpy(ob_var).to(dev),
         )
 
+    def maybe_update_adaptive_inflation(self) -> None:
+        """Learn the ``AdaptiveInflation`` fields from this batch's
+        innovations (Anderson 2009) on the filter's device, when
+        ``FilterConfig.adaptive_inflation_update`` asks for it.  Call after
+        :meth:`record_diagnostics`: it reads the recorded prior means and
+        variances, in the caller's order."""
+        from efa_xray_tpu_torch.assimilation.adaptive_inflation import (
+            AdaptiveInflation,
+        )
+
+        cfg = self.config
+        if not (cfg.adaptive_inflation_update
+                and isinstance(self.inflation, AdaptiveInflation)):
+            return
+        b = self.obs
+        self.inflation.update_inflation(
+            b.lats, b.lons, b.localize_radius, b.values - b.prior_mean,
+            b.prior_var, b.errors, assimilated=b.assimilated,
+            lambda_min=cfg.adaptive_min, lambda_max=cfg.adaptive_max,
+            evolve_sd=cfg.adaptive_sd_evolve, sd_min=cfg.adaptive_sd_min,
+            damp=cfg.adaptive_damp, device=self.device)
+
     def record_diagnostics(self, diags: ObsDiagnostics) -> None:
         """Write the per-ob diagnostics onto the ObservationBatch as host
-        NumPy (one transfer), and onto the caller's Observation objects
+        NumPy (one transfer), hand it back in the caller's order as
+        ``self.obs``, and write it onto the caller's Observation objects
         when it passed those."""
         host = [d.detach().cpu().numpy() for d in diags]
-        self.obs.prior_mean = host[0].astype(np.float64)
-        self.obs.prior_var = host[1].astype(np.float64)
-        self.obs.post_mean = host[2].astype(np.float64)
-        self.obs.post_var = host[3].astype(np.float64)
-        self.obs.assimilated = host[4].astype(bool)
+        b = self._batch
+        b.prior_mean = host[0].astype(np.float64)
+        b.prior_var = host[1].astype(np.float64)
+        b.post_mean = host[2].astype(np.float64)
+        b.post_var = host[3].astype(np.float64)
+        b.assimilated = host[4].astype(bool)
+        self.obs = b if self._obs_unsort is None else b.take(self._obs_unsort)
         if self._user_obs is not None and all(
                 isinstance(o, Observation) for o in self._user_obs):
             self.obs.writeback(self._user_obs)

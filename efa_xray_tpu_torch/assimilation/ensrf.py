@@ -4,8 +4,10 @@ Counterpart of ``efa_xray_tpu/assimilation/ensrf.py``: the ``EnSRF`` class
 :42, its kernel selection ``_grid_kernel_ok`` :70, ``_use_pallas`` :85 and
 ``_tail_pallas`` :129 (here :meth:`EnSRF._grid_kernel_ok`,
 :meth:`EnSRF._use_kernels` and :meth:`EnSRF._tail_kernels`),
-``_hybrid_kwargs`` :150, ``_update_impl`` :187 and the one-shot
-``_solve_once`` :338.
+``_hybrid_kwargs`` :150, ``_update_impl`` :187 (with RTPS/RTPP
+:208-223, :324-331, and the adaptive-inflation learning :334), the
+one-shot ``_solve_once`` :338, the obs-chunked ``_solve_obs_chunked``
+:522 and ``_body_apply`` :618.
 
 Routing, branch for branch as the JAX package routes a TPU run
 (:meth:`EnSRF._route`):
@@ -32,10 +34,17 @@ haversine or ``variable_localization``) or, in hybrid mode, by the plain
 apply with its static columns (``ensrf_core.tail_scan_blocked``).  The
 JAX package takes its tail kernel on the chordal runs only; the port's
 B1 carries the others' weights, the same function.  On CUDA tensors the
-kernels run; on CPU tensors their plain versions.  Paths whose kernels or
-modules are not ported raise ``NotImplementedError`` rather than run a
-plain path on the card, and so do ``matmul_precision`` settings below
-float32 (ROADMAP B-next 5).
+kernels run; on CPU tensors their plain versions.
+
+``spatial_sort`` hands B2 (B2h) the structure's Hilbert row order.
+``obs_chunk`` solves the tail once over the whole batch, padded to whole
+chunks with no-op obs, then sweeps the body chunk by chunk along the same
+route; it refuses hybrid covariance and ``variable_localization`` with a
+``ValueError``, as the JAX package does.  The JAX package's automatic
+chunking of batches over 131072 obs on a TPU is left out: ``obs_chunk=None``
+is one shot.  ``mesh=`` and ``matmul_precision`` settings below float32
+(ROADMAP A10, B-next 5) raise ``NotImplementedError`` rather than run a
+plain path on the card.
 """
 
 from __future__ import annotations
@@ -45,6 +54,11 @@ from typing import Optional, Tuple
 import torch
 
 from efa_xray_tpu_torch.assimilation import ensrf_core as core
+from efa_xray_tpu_torch.assimilation.adaptive_inflation import (
+    row_spread,
+    rtpp,
+    rtps,
+)
 from efa_xray_tpu_torch.assimilation.assimilation import Assimilation
 from efa_xray_tpu_torch.config import FilterConfig
 from efa_xray_tpu_torch.observation import forward as _fwd
@@ -144,24 +158,15 @@ class EnSRF(Assimilation):
                     static_length=float(cfg.static_b_length))
 
     def _check_ported(self) -> None:
-        cfg = self.config
-        missing = []
-        if cfg.obs_chunk:
-            missing.append("obs_chunk (the obs-chunked driver, ROADMAP A6)")
-        if cfg.obs_order is not None or cfg.spatial_sort:
-            missing.append("obs_order / spatial_sort (ROADMAP A7)")
-        if cfg.rtps_alpha > 0.0 or cfg.rtpp_alpha > 0.0:
-            missing.append("RTPS/RTPP relaxation (ROADMAP A7)")
-        if cfg.matmul_precision not in FULL_PRECISION:
-            missing.append(
-                f"matmul_precision={cfg.matmul_precision!r} (every product "
-                "of the port is fp32; lower precisions are ROADMAP B-next "
-                "5)")
-        if missing:
-            raise NotImplementedError("not ported yet: " + "; ".join(missing))
+        mp = self.config.matmul_precision
+        if mp not in FULL_PRECISION:
+            raise NotImplementedError(
+                f"not ported yet: matmul_precision={mp!r} (every product of "
+                "the port is fp32; lower precisions are ROADMAP B-next 5)")
 
     def update(self) -> Tuple[EnsembleState, ObservationBatch]:
-        """Assimilate all observations; return ``(posterior, observations)``."""
+        """Assimilate all observations; return ``(posterior, observations)``
+        with the observations in the caller's order."""
         self._check_ported()
         cfg = self.config
         if self.verbose:
@@ -178,12 +183,47 @@ class EnSRF(Assimilation):
                                      dtype=self.dtype, device=self.device)
         if self.verbose:
             self.log.info("Beginning observation loop (%s)", cfg.method)
-        bm, bp, tm, tp, diags = self._solve_once(
-            body_mean, body_perts, tail_mean, tail_perts, body_lat, body_lon,
-            obs, body_vert, vertical)
+        # The body kernels update the prior in place: RTPS takes the prior
+        # spread and RTPP a copy of the prior perturbations first.
+        prior_spread = (row_spread(body_perts) if cfg.rtps_alpha > 0.0
+                        else None)
+        prior_perts = body_perts.clone() if cfg.rtpp_alpha > 0.0 else None
+        nobs = int(obs.values.shape[0])
+        chunk = int(cfg.obs_chunk or 0)
+        if chunk and nobs > chunk:
+            if cfg.hybrid_alpha < 1.0 or cfg.variable_localization:
+                raise ValueError(
+                    "obs_chunk does not combine with hybrid covariance or "
+                    "variable localization (the chunked body sweep carries "
+                    "no per-row static/var inputs)")
+            bm, bp, tm, tp, diags = self._solve_obs_chunked(
+                body_mean, body_perts, tail_mean, tail_perts, body_lat,
+                body_lon, obs, body_vert, vertical, chunk)
+        else:
+            bm, bp, tm, tp, diags = self._solve_once(
+                body_mean, body_perts, tail_mean, tail_perts, body_lat,
+                body_lon, obs, body_vert, vertical)
+        if prior_spread is not None:
+            bp = rtps(prior_spread, bp, cfg.rtps_alpha)
+        if prior_perts is not None:
+            bp = rtpp(prior_perts, bp, cfg.rtpp_alpha)
         self.record_diagnostics(diags)
+        self.maybe_update_adaptive_inflation()
         self.post, _ = self.format_posterior_state(bm, bp)
         return self.post, self.obs
+
+    def _kernel_tail(self, tail_mean, tail_perts, obs, vertical: bool,
+                     hkw: dict, vl: dict) -> core.TailSolution:
+        """Phase 1 of a kernel route: ``tail_scan_blocked(kernels=True)``."""
+        cfg = self.config
+        return core.tail_scan_blocked(
+            tail_mean, tail_perts, obs, localize=cfg.localize,
+            unbiased=cfg.unbiased_variance, fast_geometry=cfg.fast_geometry,
+            vertical=vertical, panel=cfg.tail_panel,
+            kernels=self._tail_kernels(),
+            max_radius_km=self.max_finite_radius(),
+            **{k: v for k, v in hkw.items() if k != "body_sigma"},
+            **({k: vl[k] for k in ("varloc", "ob_var")} if vl else {}))
 
     def _solve_once(self, body_mean, body_perts, tail_mean, tail_perts,
                     body_lat, body_lon, obs, body_vert, vertical: bool):
@@ -207,41 +247,95 @@ class EnSRF(Assimilation):
                 block_size=cfg.block_size, unbiased=cfg.unbiased_variance,
                 fast_geometry=cfg.fast_geometry, body_vert=body_vert,
                 vertical=vertical, **hkw, **vl)
-        max_radius = self.max_finite_radius()
-        tail = core.tail_scan_blocked(
-            tail_mean, tail_perts, obs, localize=cfg.localize,
-            unbiased=cfg.unbiased_variance, fast_geometry=cfg.fast_geometry,
-            vertical=vertical, panel=cfg.tail_panel,
-            kernels=self._tail_kernels(), max_radius_km=max_radius,
-            **{k: v for k, v in hkw.items() if k != "body_sigma"},
-            **({k: vl[k] for k in ("varloc", "ob_var")} if vl else {}))
-        # The filter owns the formatted prior: the body kernels update it
-        # in place, where the JAX package donates it.
+        tail = self._kernel_tail(tail_mean, tail_perts, obs, vertical, hkw,
+                                 vl)
+        bm, bp = self._body_apply(route, body_mean, body_perts, body_lat,
+                                  body_lon, tail, obs, body_vert, vertical,
+                                  hkw, vl)
+        return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
+
+    def _body_apply(self, route: str, bm, bp, body_lat, body_lon, tail, obs,
+                    body_vert, vertical: bool, hkw: dict, vl: dict):
+        """Phase 2: apply a pre-solved obs sequence to the state body along
+        ``route`` (B3, B2/B2h, B4, or the plain blocked body for the
+        ``"plain"`` and ``"serial"`` routes).  The filter owns the formatted
+        prior: the body kernels update it in place, where the JAX package
+        donates it."""
+        cfg = self.config
         st = self.prior.structure
         bvert = body_vert if vertical else None
+        if route in ("plain", "serial"):
+            return core.ensrf_blocked_body(
+                bm, bp, body_lat, body_lon, tail, obs, localize=cfg.localize,
+                block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
+                body_vert=body_vert, vertical=vertical)
         if route == "B3":
             group_factor = None
             if vl:
                 vt = st.nvars * st.ntimes
                 varg = torch.arange(vt, device=self.device) // st.ntimes
                 group_factor = vl["varloc"][vl["ob_var"]][:, varg].T
-            bm, bp = ensrf_grid.grid_body(
-                body_mean, body_perts, body_lat, body_lon, tail, obs,
-                ngrid=st.ngrid, body_vert=bvert, localize=cfg.localize,
+            return ensrf_grid.grid_body(
+                bm, bp, body_lat, body_lon, tail, obs, ngrid=st.ngrid,
+                body_vert=bvert, localize=cfg.localize,
                 block_size=cfg.block_size, vertical=vertical,
                 group_factor=group_factor, donate=True)
-        elif route in ("B2", "B2h"):
-            bm, bp = fused_body(
-                body_mean, body_perts, body_lat, body_lon, tail, obs,
-                body_vert=bvert, localize=cfg.localize,
-                block_size=cfg.block_size, vertical=vertical, cull=cfg.cull,
-                max_radius_km=max_radius, hybrid=route == "B2h",
-                body_sigma=hkw.get("body_sigma"),
-                static_length=hkw.get("static_length"), donate=True)
-        else:
-            bm, bp = ensrf_grid.blocked_body(
-                body_mean, body_perts, body_lat, body_lon, tail, obs,
+        if route in ("B2", "B2h"):
+            row_order = inv_order = None
+            if cfg.spatial_sort:
+                row_order, inv_order = st.spatial_order_device(self.device)
+            return fused_body(
+                bm, bp, body_lat, body_lon, tail, obs, body_vert=bvert,
                 localize=cfg.localize, block_size=cfg.block_size,
-                fast_geometry=cfg.fast_geometry, body_vert=body_vert,
-                vertical=vertical, ngrid=st.ngrid, donate=True)
-        return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
+                vertical=vertical, cull=cfg.cull,
+                max_radius_km=self.max_finite_radius(),
+                hybrid=route == "B2h", body_sigma=hkw.get("body_sigma"),
+                static_length=hkw.get("static_length"), donate=True,
+                row_order=row_order, inv_order=inv_order)
+        return ensrf_grid.blocked_body(
+            bm, bp, body_lat, body_lon, tail, obs, localize=cfg.localize,
+            block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
+            body_vert=body_vert, vertical=vertical, ngrid=st.ngrid,
+            donate=True)
+
+    def _solve_obs_chunked(self, body_mean, body_perts, tail_mean,
+                           tail_perts, body_lat, body_lon, obs, body_vert,
+                           vertical: bool, chunk: int):
+        """The batch padded to whole chunks of ``chunk`` obs: phase 1 once
+        over all of it (the kernel tail on kernel routes, the plain per-ob
+        scan on the plain and serial routes, as the JAX package), then
+        phase 2 chunk by chunk along :meth:`_route`.  The padding obs have
+        an infinite radius, unit error and ``assim=False``: their
+        coefficients are 0, the body cull never keeps them alive and the
+        angle form reads the finite radii only, so they are exact no-ops.
+        Equal to the one-shot update up to fp reassociation;
+        ``(bm, bp, tm, tp, diags)`` over the caller's obs."""
+        cfg = self.config
+        dtype = self.dtype
+        nobs = int(obs.values.shape[0])
+        nchunks = -(-nobs // chunk)
+        pad = nchunks * chunk - nobs
+        obs_p = core._pad_obs(obs, pad, dtype)
+        tm_p = core._pad(tail_mean.to(dtype), pad)
+        tp_p = core._pad(tail_perts.to(dtype), pad)
+        route = self._route(int(body_mean.shape[0]))
+        if route in ("plain", "serial"):
+            tail = core.tail_scan(
+                tm_p, tp_p, obs_p, localize=cfg.localize,
+                unbiased=cfg.unbiased_variance,
+                fast_geometry=cfg.fast_geometry, vertical=vertical)
+        else:
+            tail = self._kernel_tail(tm_p, tp_p, obs_p, vertical, {}, {})
+        bm, bp = body_mean, body_perts
+        for lo in range(0, nchunks * chunk, chunk):
+            sl = slice(lo, lo + chunk)
+            tail_i = tail._replace(
+                ye=tail.ye[sl], gain_coef=tail.gain_coef[sl],
+                sqrt_coef=tail.sqrt_coef[sl])
+            obs_i = core.ObsArrays(*(x[sl] for x in obs_p))
+            bm, bp = self._body_apply(route, bm, bp, body_lat, body_lon,
+                                      tail_i, obs_i, body_vert, vertical,
+                                      {}, {})
+        diags = core.ObsDiagnostics(*(d[:nobs] for d in tail.diags))
+        return (bm, bp, tail.tail_mean[:nobs], tail.tail_perts[:nobs],
+                diags)

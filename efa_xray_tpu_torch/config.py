@@ -5,12 +5,10 @@ knobs that exist only for the TPU and its remote link: the host fast path
 (``small_host``, ``small_host_threshold``), the Pallas selections
 (``use_pallas``, ``tail_pallas``: here the device decides, see
 ``EnSRF._use_kernels``), the TPU row tile (``pallas_tile``) and the
-timing-only ``mxu_bf16``.  The LETKF and adaptive-inflation knobs
-(``letkf_*``, ``adaptive_*``) and ``taps_topk`` (only the exact search is
-ported) come with the PRs that port them.  Fields of EnSRF variants that
-are not ported yet (RTPS/RTPP, obs chunking, obs ordering) stay, and
-``EnSRF`` raises ``NotImplementedError`` naming the pending work when one
-of them asks for an unported path.
+timing-only ``mxu_bf16``.  The LETKF knobs (``letkf_*``) and ``taps_topk``
+(only the exact search is ported) come with the PRs that port them.  The
+adaptive-inflation knobs (``adaptive_*``, :262-291) are here.  ``obs_chunk``
+has no automatic threshold: None runs the batch in one shot.
 
 The reference configures everything through loose kwargs and a polymorphic
 ``inflation`` argument (``efa_xray/assimilation/ensrf.py:28``,
@@ -68,9 +66,13 @@ class FilterConfig:
     # run; "float64" for parity studies on the CPU).
     dtype: str = "float32"
     # Process the observation batch in sequential chunks of this many obs
-    # (EnSRF, single device; efa_xray_tpu/assimilation/ensrf.py:522).  The
-    # chunked driver is not ported yet (ROADMAP A6): None or 0 runs the
-    # batch in one shot, a positive value raises NotImplementedError.
+    # (EnSRF, single device; efa_xray_tpu/assimilation/ensrf.py:522): the
+    # tail is solved once over the whole batch, then the body is swept
+    # chunk by chunk through the kernel of the update's route.  Exact up to
+    # fp reassociation.  None or 0 runs the batch in one shot (the JAX
+    # package's automatic 131072-ob threshold on a TPU is not carried
+    # over).  Raises ValueError with hybrid covariance or
+    # variable_localization.
     obs_chunk: Optional[int] = None
     # Assimilation-order policy for the observation batch.  None =
     # caller's order (reference parity: the localized serial analysis is
@@ -78,8 +80,7 @@ class FilterConfig:
     # "hilbert" = assimilate in spherical-Hilbert spatial-locality order
     # and return diagnostics/writeback in the CALLER's order: spatially
     # compact obs panels are what lets the fused kernels' localization
-    # culling engage.  Not ported yet (ROADMAP A7): "hilbert" raises
-    # NotImplementedError.  Equivalent to the caller pre-sorting with
+    # culling engage.  Equivalent to the caller pre-sorting with
     # ``ObservationBatch.spatial_sort()`` (the reference demo shuffles
     # its obs order, ``efa_demo.ipynb`` cell 11 — order is a free
     # choice).
@@ -108,8 +109,8 @@ class FilterConfig:
     # coherent; obs order is part of the serial algorithm's definition, so
     # sorting obs is left to the caller (see
     # observation.localization.spatial_sort_order and
-    # observation.thinning.sort_spatially).  Not ported yet (ROADMAP A7):
-    # True raises NotImplementedError.
+    # observation.thinning.sort_spatially).  The permutation is cached on
+    # the state structure per device (StateStructure.spatial_order_device).
     spatial_sort: bool = False
     # False reproduces the reference's np.var (ddof=0) in the gain
     # denominator against a ddof=1 covariance (ensrf.py:69,95) — weakly
@@ -133,8 +134,7 @@ class FilterConfig:
     # Relaxation-to-prior-spread posterior inflation (Whitaker & Hamill
     # 2012): after the analysis, each row's posterior spread relaxes toward
     # the background spread by this fraction.  0 = off (reference parity);
-    # 1 = restore prior spread exactly.  Not ported yet (ROADMAP A7):
-    # a value > 0 raises NotImplementedError.
+    # 1 = restore prior spread exactly.
     rtps_alpha: float = 0.0
     # Relaxation-to-prior-perturbations posterior inflation (Zhang, Snyder
     # & Sun 2004): posterior perturbations blend member-wise with the prior
@@ -144,9 +144,30 @@ class FilterConfig:
     # composing them has no established semantics).  Note: RTPP keeps a
     # copy of the prior perturbation matrix alive through the update, so
     # on the buffer-donating paths peak HBM gains one [Nstate, Nmems]
-    # buffer.  Not ported yet (ROADMAP A7): a value > 0 raises
-    # NotImplementedError.
+    # buffer.
     rtpp_alpha: float = 0.0
+    # When ``inflation`` is an AdaptiveInflation instance, update its mean
+    # field from this batch's innovations after the analysis (Anderson
+    # 2009), on the filter's device, so the next cycle's prior inflation
+    # has learned from the data.
+    adaptive_inflation_update: bool = True
+    # Evolve the inflation std alongside the mean (Anderson 2009 section 4
+    # posterior-density refit, floored at ``adaptive_sd_min``).  Off =
+    # the std held fixed.
+    adaptive_sd_evolve: bool = False
+    adaptive_sd_min: float = 0.05
+    # Per-update relaxation of the learned inflation mean toward 1 (DART's
+    # inflation damping): lambda <- 1 + damp (lambda - 1).  1.0 = off.
+    # Residual ob bias or model error makes innovations exceed their
+    # expected variance systematically, and an undamped field ratchets
+    # upward there.
+    adaptive_damp: float = 1.0
+    # Bounds on the learned inflation mean (DART's inf_lower_bound /
+    # inf_upper_bound): points that no ob tests closely integrate the
+    # network's excess innovations multiplicatively, which damping alone
+    # does not contain.
+    adaptive_min: float = 1.0
+    adaptive_max: float = 1e6
     # Innovation-based gross-error QC ("background check" / first-guess
     # check; DART's ``outlier_threshold``, GSI's gross check — standard
     # operational-DA QC the reference never had: its only gate is the

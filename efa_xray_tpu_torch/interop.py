@@ -5,6 +5,9 @@ JAX package and this one is data, so both are fed the same NumPy arrays.
 These functions take NumPy arrays and plain dicts, build the port's
 objects on a device, the card unless ``device`` names another (without a
 card, ``device="cpu"`` must be given), and turn results back into NumPy.
+A cycle's state crosses too: adaptive-inflation fields through
+:func:`adaptive_inflation_from_numpy`, and a ``BiasCorrection`` through its
+own ``to_dict`` / ``from_dict``.
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from efa_xray_tpu_torch.assimilation.adaptive_inflation import (
+    AdaptiveInflation,
+)
 from efa_xray_tpu_torch.assimilation.ensrf_core import (
     ObsArrays,
     ObsDiagnostics,
@@ -115,3 +121,16 @@ def tail_solution_to_numpy(tail: TailSolution) -> Dict[str, np.ndarray]:
     for k, v in tail.diags._asdict().items():
         out[k] = v.detach().cpu().numpy()
     return out
+
+
+def adaptive_inflation_from_numpy(state: EnsembleState, mean: Dict,
+                                  std: Dict,
+                                  device=None) -> AdaptiveInflation:
+    """An :class:`AdaptiveInflation` on ``state``'s grid from ``{var:
+    [ntimes, ny, nx]}`` mean and std fields (e.g. ``np.asarray`` of a JAX
+    ``AdaptiveInflation``'s dicts mid-cycle), updating on ``device``
+    (``state``'s unless given)."""
+    return AdaptiveInflation.from_fields(
+        state.structure, mean, std,
+        device=state.device if device is None else device)
+

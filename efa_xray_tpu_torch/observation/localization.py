@@ -3,7 +3,8 @@
 Counterpart of ``efa_xray_tpu/observation/localization.py``:
 ``gaspari_cohn`` :27, ``haversine`` :51, ``latlon_to_unit`` :95,
 ``_arccos_as`` :103, ``chordal_gc_weights`` :122, ``morton3d_keys`` /
-``hilbert3d_keys`` :142-216, ``EARTH_RADIUS_KM`` :24; plus the NumPy Hilbert
+``hilbert3d_keys`` :142-198, ``spatial_sort_order`` :216,
+``EARTH_RADIUS_KM`` :24; plus the NumPy Hilbert
 key of ``efa_xray_tpu/observation/thinning.py:236`` (``_hilbert3d_np``),
 which ``ObservationBatch.spatial_sort`` and the benchmark workload use.
 
@@ -147,6 +148,15 @@ def hilbert3d_keys(xyz, bits: int = 10):
         for i in range(3):
             key = (key << 1) | ((X[i] >> b) & 1)
     return key
+
+
+def spatial_sort_order(lat, lon, bits: int = 10):
+    """Permutation (int64 tensor) ordering points by spherical Hilbert key.
+    State row order is a free, exact choice (the update is row-local);
+    sorted rows give the body kernel's row tiles compact caps, so that its
+    cull bites."""
+    return torch.argsort(hilbert3d_keys(latlon_to_unit(lat, lon), bits=bits),
+                         stable=True)
 
 
 def hilbert3d_np(lats, lons, bits: int = 10) -> np.ndarray:

@@ -462,7 +462,8 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
                obs: ObsArrays, body_vert=None, localize: bool = True,
                block_size: int = 128, vertical: bool = False,
                cull: bool = True, max_radius_km=None, hybrid: bool = False,
-               body_sigma=None, static_length=None, donate: bool = False):
+               body_sigma=None, static_length=None, donate: bool = False,
+               row_order=None, inv_order=None):
     """Phase 2 through B2 (B2h with ``hybrid``): apply the pre-solved obs
     sequence ``tail`` to the state body.  Drop-in for
     ``ensrf_core.ensrf_blocked_body`` with chordal geometry, the static
@@ -470,9 +471,29 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
     radii) selects the series angle form when it and ``static_length``
     are <= 5000 km.  ``donate=True`` lets the kernel update the caller's
     buffers in place, where the JAX package donates them
-    (``ensrf_blocked_body_pallas_fused_donating``)."""
+    (``ensrf_blocked_body_pallas_fused_donating``).
+
+    ``row_order`` with its inverse ``inv_order`` permutes the rows before
+    the kernel and back after it, as ``_fused_impl`` :643-660 and :776-779
+    do for ``spatial_sort``: the update is row-local, so the result is the
+    same, and rows in spatial order give the kernel's tiles compact caps
+    for the cull.  The kernel then updates the permuted copies, never the
+    caller's buffers."""
     if tail.ye.shape[0] == 0:
         return body_mean, body_perts
+    if row_order is not None:
+        take = lambda x: None if x is None else x[row_order]
+        if hybrid:
+            body_sigma = sigma_rows(body_sigma,
+                                    body_mean.to(body_perts.dtype))
+        bm, bp = fused_body(
+            take(body_mean), take(body_perts), take(body_lat),
+            take(body_lon), tail, obs, body_vert=take(body_vert),
+            localize=localize, block_size=block_size, vertical=vertical,
+            cull=cull, max_radius_km=max_radius_km, hybrid=hybrid,
+            body_sigma=take(body_sigma), static_length=static_length,
+            donate=True)
+        return bm[inv_order], bp[inv_order]
     ops = prepare(body_perts, body_lat, body_lon, tail, obs,
                   body_vert=body_vert, localize=localize,
                   block_size=block_size, cull=cull,

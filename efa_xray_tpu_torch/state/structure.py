@@ -3,8 +3,8 @@
 Counterpart of ``efa_xray_tpu/state/structure.py``: ``StateMeta`` :45,
 ``StateStructure`` :78 with ``build`` :113, the size accessors :136-179,
 ``flat_index`` :257, ``row_latlon`` :262, ``row_vert`` :274 and
-``row_latlon_device`` :202, which here caches per dtype AND device.
-``subset`` and ``spatial_order_device`` are not ported yet.
+``row_latlon_device`` :202 and ``spatial_order_device`` :227, which here
+cache per device (and dtype).  ``subset`` is not ported yet.
 
 Canonical dense layout: ``data[var, time, y, x, member]``; the flattened
 state vector is C-order over ``(var, time, y, x)`` with members last (the
@@ -186,6 +186,28 @@ class StateStructure:
             reps = self.nvars * self.ntimes
             cache[key] = ((glat, glon) if reps == 1
                           else (glat.repeat(reps), glon.repeat(reps)))
+        return cache[key]
+
+    def spatial_order_device(self, device):
+        """``(order, inverse)`` int64 tensors on ``device``: the permutation
+        sorting the state rows into spherical Hilbert order (from float32
+        row coordinates, as the JAX package builds it) and its inverse.
+        Pure geometry, cached on the structure per device."""
+        key = str(torch.device(device))
+        cache = self.__dict__.get("_spatial_order_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_spatial_order_cache", cache)
+        if key not in cache:
+            from efa_xray_tpu_torch.observation.localization import (
+                spatial_sort_order,
+            )
+
+            lat, lon = self.row_latlon_device(torch.float32, device)
+            order = spatial_sort_order(lat, lon)
+            inv = torch.empty_like(order)
+            inv[order] = torch.arange(order.shape[0], device=order.device)
+            cache[key] = (order, inv)
         return cache[key]
 
     # --- flattened-row geometry -----------------------------------------

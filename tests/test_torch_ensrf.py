@@ -108,18 +108,22 @@ def test_update_with_inflation_and_outlier_check_matches_jax():
     assert tobs.qc_outlier.any()
 
 
-@pytest.mark.parametrize("cfg,missing", [
-    (dict(rtpp_alpha=0.5), "RTPP"),
-    (dict(obs_chunk=8), "obs-chunked"),
-    (dict(obs_order="hilbert"), "A7"),
-    (dict(rtps_alpha=0.5), "RTPS"),
+@pytest.mark.parametrize("kw,missing", [
+    (dict(inflation="prior_inflation.nc"), "A11"),
+    (dict(config=FilterConfig(dtype="float64",
+                              matmul_precision="bfloat16")), "B-next 5"),
+    (dict(config=FilterConfig(dtype="float64", matmul_precision="high")),
+     "B-next 5"),
+    (dict(mesh=object()), "A10"),
 ])
-def test_unported_paths_raise(cfg, missing):
+def test_unported_paths_raise(kw, missing):
+    """What is still not ported raises, naming its ROADMAP item: inflation
+    from a file (netCDF I/O), products below fp32, ``mesh=``.  (RTPS/RTPP,
+    ``obs_order``, ``spatial_sort`` and ``obs_chunk`` run:
+    ``tests/test_torch_ensrf_options.py``.)"""
     _, _, tstate, tbatch = _pair()
-    filt = EnSRF(tstate, tbatch, verbose=False,
-                 config=FilterConfig(dtype="float64", **cfg))
     with pytest.raises(NotImplementedError, match=missing):
-        filt.update()
+        EnSRF(tstate, tbatch, verbose=False, **kw).update()
 
 
 def test_exact_haversine_raises_on_cuda_and_mesh_raises():
