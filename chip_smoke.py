@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-17
+    python3 chip_smoke.py             # phases 0-20
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
                                       # width and cluster, B2 with parts of
@@ -93,13 +93,34 @@ Phases, each printing one line of results:
     seconds and its B1/B2 launches; cycle 0 held against the plain update,
     the colored Anderson update against the per-ob scan in color order, and
     the forecast against float64 on the CPU; every cycle's analysis finite,
-    below its forecast's RMSE, and its inflation within its bounds.
+    below its forecast's RMSE, and its inflation within its bounds;
+18. the stochastic EnKF at BASELINE config 11 through ``EnKF(...).update()``
+    (a 361 x 720 0.5-degree grid, 40 members, 2,000 obs at grid points,
+    2000 km, ``fast_geometry``, blocks of 128, seed 6): the warm blocked
+    update with its tail/body split, the serial update and a float64 one
+    with the same draws (RMS gaps gated at 1e-3 of the increment RMS), the
+    default config, and no kernel launched (plain torch, as the JAX
+    package runs it without Pallas);
+19. the LETKF through ``LETKF(...).update()`` at BASELINE config 6 (the
+    same grid, patches of 8, k 64, chunks of 512): top-k exact and host
+    (the host build timed; the same analysis), Newton-Schulz and eigh,
+    float32 and float64 (the max gap gated outside the few patches whose
+    k-th ob differs between the two), the unlocalized LETKF against the
+    unlocalized EnSRF (mean and per-row variance), and what the
+    Newton-Schulz exit test's host reads cost; then config 9 (config 3's 80
+    level variables, 30 members, 5,000 obs, 300 hPa vertical).  For each:
+    seconds split into select, solve and apply, Newton-Schulz iterations
+    per chunk, host syncs per update and peak memory;
+20. the LETKF at BASELINE config 7's full size through
+    ``letkf_core.letkf_update``: 4,194,304 scattered points x 80 members x
+    10,000 obs in the port's Hilbert order, top-k exact and host (the same
+    analysis), seconds, obs x points per second and peak memory.
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
 same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-17 with one warm headline update, the
+``--profile`` replaces phases 2-20 with one warm headline update, the
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
 ``torch.profiler`` (the profiler walks every traced event): wall and
@@ -107,7 +128,7 @@ device-busy time, the busy share, the device ops that take the most time,
 and the share of the headline's (row tile, obs block) pairs and 8-ob
 panels that the cull keeps alive.
 
-``--steps`` replaces phases 2-17 with B1 at 512 x 80 and 1024 x 256 at
+``--steps`` replaces phases 2-20 with B1 at 512 x 80 and 1024 x 256 at
 sub-panels of 8 and 16 on one CTA and on each cluster that holds the
 panel, the parent commit's B1 beside them where
 ``build/efa_xray_tpu_torch/parent/tail_solve.cu`` exists, and B1 at 512 x
@@ -768,6 +789,45 @@ def _tail_counts(nobs: int, panel: int, b4: bool) -> dict:
     return dict(panels=npanels, b4=npanels * per_panel)
 
 
+def _syncer(dev):
+    import torch
+
+    return (torch.cuda.synchronize if torch.device(dev).type == "cuda"
+            else (lambda: None))
+
+
+def _spans(run, patches, sync):
+    """``run()`` with each ``(module, name, key)`` of ``patches`` wrapped
+    in a synchronize on both sides: ``(result, wall seconds, {key: summed
+    seconds})``."""
+    spent = {key: 0.0 for _, _, key in patches}
+
+    def timed(fn, key):
+        def wrapped(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    saved = [(mod, name, getattr(mod, name), key)
+             for mod, name, key in patches]
+    for mod, name, fn, key in saved:
+        setattr(mod, name, timed(fn, key))
+    try:
+        sync()
+        t0 = time.perf_counter()
+        out = run()
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, fn, _ in saved:
+            setattr(mod, name, fn)
+    return out, wall, spent
+
+
 def _timed_update(make_filter):
     """One ``make_filter().update()``: its result, wall seconds, and a
     dict of the seconds spent in the tail (``tail_scan_blocked``), in the
@@ -785,34 +845,14 @@ def _timed_update(make_filter):
 
     spent = {"tail": 0.0, "body": 0.0, "operands": 0.0, "kernel": 0.0,
              "learn": 0.0}
-
-    def timed(fn, key):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[key] += time.perf_counter() - t0
-            return out
-        return run
-
-    saved = [(mod, name, getattr(mod, name), key) for mod, name, key in (
+    out, wall, timed = _spans(lambda: make_filter().update(), [
         (core, "tail_scan_blocked", "tail"), (ensrf_mod, "fused_body", "body"),
         (ensrf_grid, "grid_body", "body"), (ensrf_grid, "blocked_body", "body"),
         (ensrf_grid, "block_operands", "operands"),
         (ensrf_grid, "block_apply", "kernel"),
-        (assim_mod.Assimilation, "maybe_update_adaptive_inflation", "learn"))]
-    for mod, name, fn, key in saved:
-        setattr(mod, name, timed(fn, key))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = make_filter().update()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for mod, name, fn, _ in saved:
-            setattr(mod, name, fn)
+        (assim_mod.Assimilation, "maybe_update_adaptive_inflation", "learn")],
+        torch.cuda.synchronize)
+    spent.update(timed)
     return out, wall, spent
 
 
@@ -1296,7 +1336,8 @@ def phase7():
                           **{k: wide[k] for k in keys}))
 
 
-def _config3_workload(nmems=30, nobs=5000, seed=3):
+def _config3_workload(nmems=30, nobs=5000, seed=3, dev="cuda", ny=90,
+                      nx=180):
     """BASELINE config 3 as a user builds it: the four quantities on 20
     levels as 80 level-stacked variables named like ``T_526``, each with
     its level in ``var_verts``; one time; the 90 x 180 global 2-degree
@@ -1310,9 +1351,8 @@ def _config3_workload(nmems=30, nobs=5000, seed=3):
     from efa_xray_tpu_torch.state.structure import StateStructure
     from efa_xray_tpu_torch.utils import timeutil
 
-    dev = torch.device("cuda")
+    dev = torch.device(dev)
     rng = np.random.default_rng(seed)
-    ny, nx = 90, 180
     names = [f"{q}_{lev:.0f}" for q in C3_QUANTITIES for lev in C3_LEVELS]
     verts = np.tile(C3_LEVELS, len(C3_QUANTITIES))
     lon, lat = np.meshgrid(np.linspace(0.0, 360.0, nx, endpoint=False),
@@ -1324,7 +1364,7 @@ def _config3_workload(nmems=30, nobs=5000, seed=3):
     state = EnsembleState.from_vardict(
         {n: data[i] for i, n in enumerate(names)},
         {"validtime": times, "lat": lat, "lon": lon,
-         "mem": np.arange(nmems)}, dtype="float32")
+         "mem": np.arange(nmems)}, dtype="float32", device=dev)
     s = state.structure
     state = EnsembleState(state.data, StateStructure.build(
         s.var_names, s.times64(), s.lat, s.lon, nmems, var_verts=verts))
@@ -1983,8 +2023,7 @@ def phase17(dev="cuda", ny=None, nx=None, nmems=None, nobs=None,
                                     radius=radius, cycles=cycles).items()
               if v is not None})
     ny, nx, nmems, nobs = p["ny"], p["nx"], p["nmems"], p["nobs"]
-    sync = (torch.cuda.synchronize if torch.device(dev).type == "cuda"
-            else (lambda: None))
+    sync = _syncer(dev)
     t0 = time.perf_counter()
     truth, ens = l96_2d.spinup_ensemble(ny=ny, nx=nx, nmems=nmems, seed=3,
                                         device=dev, dtype=torch.float32)
@@ -2120,6 +2159,483 @@ def phase17(dev="cuda", ny=None, nx=None, nmems=None, nobs=None,
                             "B2": sorted({r["B2"] for r in rows})})
     log("phase 17: config 13 cycled production " + json.dumps(summary))
     return summary
+
+
+# ---------------------------------------------------------------------------
+# The other two solvers: the stochastic EnKF and the LETKF (ROADMAP A9)
+# ---------------------------------------------------------------------------
+
+# BASELINE configs 11 and 6 (``benchmarks/run_benchmarks.py:858-912`` and
+# ``:616-641``): a 0.5-degree global grid, 40 members, 2,000 obs at
+# random grid points, R = 1, 2000 km.
+CONFIG11 = dict(ny=361, nx=720, nmems=40, nobs=2000, radius=2000.0, seed=6,
+                block=128)
+CONFIG6 = dict(ny=361, nx=720, nmems=40, nobs=2000, radius=2000.0, seed=2,
+               patch=8, k=64, chunk=512)
+# BASELINE config 7 (``:644-682``): scattered points in Hilbert order.
+CONFIG7 = dict(npts=4_194_304, nmems=80, nobs=10_000, radius=2000.0, seed=4,
+               patch=8, k=64, chunk=512)
+# The solvers' f32 gates: a posterior within this share of the increment
+# RMS of another computation of the same analysis.
+SOLVER_GATE = 1e-3
+
+
+def _half_degree_workload(dev, ny, nx, nmems, nobs, radius, seed, **_):
+    """Configs 6 and 11 as a user builds them: the prior N(280, 5) drawn
+    on the device, ``nobs`` obs at grid points drawn with replacement
+    (duplicates give equal chord dots), each the ensemble mean there plus
+    N(0, 1), R = 1.  Returns ``(state, batch)``."""
+    import torch
+
+    from efa_xray_tpu_torch import EnsembleState
+    from efa_xray_tpu_torch.observation.observation import ObservationBatch
+    from efa_xray_tpu_torch.utils import timeutil
+
+    rng = np.random.default_rng(seed)
+    lon, lat = np.meshgrid(np.arange(nx) * (360.0 / nx),
+                           np.linspace(-90.0, 90.0, ny))
+    times = np.array([np.datetime64("2026-08-01T00")])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    data = 280.0 + 5.0 * torch.randn((1, ny, nx, nmems), generator=gen,
+                                     device=dev)
+    rows = rng.integers(0, ny * nx, nobs)
+    at = data.reshape(-1, nmems)[torch.from_numpy(rows).to(dev)]
+    values = at.double().mean(dim=1).cpu().numpy() + rng.normal(0, 1, nobs)
+    state = EnsembleState.from_vardict(
+        {"T2m": data}, {"validtime": times, "lat": lat, "lon": lon,
+                        "mem": np.arange(nmems)}, dtype="float32",
+        device=dev)
+    batch = ObservationBatch(
+        values=values, errors=np.ones(nobs), lats=lat.ravel()[rows],
+        lons=lon.ravel()[rows],
+        times_s=timeutil.to_epoch_seconds(np.repeat(times[0], nobs)),
+        obtypes=["T2m"] * nobs, localize_radius=np.full(nobs, radius),
+        assimilate_flags=np.ones(nobs, bool), verts=np.full(nobs, np.nan),
+        descriptions=[None] * nobs)
+    return state, batch
+
+
+def _as_float64(state):
+    """The same prior held in float64 (an exact copy), so that a float64
+    update's posterior is not rounded back to float32."""
+    from efa_xray_tpu_torch import EnsembleState
+
+    return EnsembleState(state.data.double(), state.structure)
+
+
+def _posterior_gap(label, got, want, prior, gate=SOLVER_GATE):
+    """How far posterior ``got`` lies from ``want`` (two EnsembleStates of
+    one analysis), against the increment of ``want`` from ``prior``: the
+    RMS and max abs gaps of the mean and of the perturbations, and the
+    RMS of each increment.  Raises when an RMS gap exceeds ``gate`` times
+    its increment RMS.  (The max gap of a float32 mean near 280 carries
+    the rounding of every ob's update at that scale, ~1.5e-5 each, and is
+    printed, not gated.)"""
+    import torch
+
+    def split(s):
+        v = s.to_vect().double()
+        m = v.mean(dim=1)
+        return m, v - m[:, None]
+
+    rms = lambda x: float(torch.sqrt(torch.mean(x * x)))
+    gm, gp = split(got)
+    wm, wp = split(want)
+    pm, pp = split(prior)
+    out = dict(mean_rms=rms(gm - wm), mean_max=float((gm - wm).abs().max()),
+               mean_incr_rms=rms(wm - pm), perts_rms=rms(gp - wp),
+               perts_max=float((gp - wp).abs().max()),
+               perts_incr_rms=rms(wp - pp))
+    check(bool(torch.isfinite(got.data).all()), f"{label}: not finite")
+    check(out["mean_rms"] <= gate * out["mean_incr_rms"]
+          and out["perts_rms"] <= gate * out["perts_incr_rms"],
+          f"{label}: RMS gaps {json.dumps(out)} above {gate} x the "
+          "increment RMS")
+    return out
+
+
+def _innovations(label, batch, obs, var_shrinks=True):
+    """Mean |innovation| before and after; raises unless every ob was
+    assimilated, the mean |innovation| shrank and (``var_shrinks``) no
+    ob's posterior variance exceeds its prior's."""
+    a = obs.assimilated
+    check(bool(a.all()), f"{label}: not every ob assimilated")
+    check(all(np.isfinite(x).all() for x in (obs.prior_mean, obs.post_mean,
+                                              obs.prior_var, obs.post_var)),
+          f"{label}: diagnostics not finite")
+    inn0 = float(np.mean(np.abs(batch.values - obs.prior_mean)))
+    inn1 = float(np.mean(np.abs(batch.values - obs.post_mean)))
+    check(inn1 < inn0, f"{label}: innovations did not shrink")
+    if var_shrinks:
+        check(bool((obs.post_var <= obs.prior_var * (1 + 1e-5)).all()),
+              f"{label}: post_var > prior_var")
+    return inn0, inn1
+
+
+def phase18(dev="cuda", **cut):
+    """The stochastic EnKF at BASELINE config 11 through
+    ``EnKF(...).update()``: ``fast_geometry``, blocks of 128, seed 6.  The
+    blocked update (warm, its tail/body split), the serial one with the
+    same draws, the float64 update on the device with the same draws, and
+    the default config (exact haversine); no kernel may launch."""
+    import dataclasses
+
+    import torch
+
+    from efa_xray_tpu_torch import EnKF, FilterConfig
+    from efa_xray_tpu_torch.assimilation import enkf as tenkf
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+
+    p = dict(CONFIG11, **cut)
+    sync = _syncer(dev)
+    state, batch = _half_degree_workload(dev, **p)
+    cfg = FilterConfig(localization="GC", fast_geometry=True,
+                       block_size=p["block"])
+    run = lambda c: (lambda: EnKF(state, batch, config=c, verbose=False,
+                                  seed=p["seed"]).update())
+    split = [(tenkf, "enkf_tail_scan", "tail"),
+             (core, "ensrf_blocked_body", "body")]
+    _reset_counts()
+    _, cold, _ = _spans(run(cfg), [], sync)
+    (post, obs), wall, spent = _spans(run(cfg), split, sync)
+    counts = _counts()
+    check(_only()(counts), f"phase 18: the EnKF launched {counts}")
+    inn = _innovations("phase 18", batch, obs, var_shrinks=False)
+    (post_s, _), wall_s, _ = _spans(
+        run(dataclasses.replace(cfg, method="serial")), [], sync)
+    gap_s = _posterior_gap("phase 18 blocked vs serial", post, post_s, state)
+    # The float64 update (of the prior held in float64) draws the float32
+    # table, upcast: the same eps.
+    draw = tenkf.draw_ob_perturbations
+    tenkf.draw_ob_perturbations = (
+        lambda seed, errors, nmems, scale=True:
+        draw(seed, errors.float(), nmems, scale).to(errors.dtype))
+    try:
+        (post64, _), wall64, _ = _spans(
+            lambda: EnKF(_as_float64(state), batch, verbose=False,
+                         seed=p["seed"],
+                         config=dataclasses.replace(cfg, dtype="float64"))
+            .update(), [], sync)
+    finally:
+        tenkf.draw_ob_perturbations = draw
+    gap64 = _posterior_gap("phase 18 float32 vs float64", post, post64, state)
+    cfg_d = FilterConfig(localization="GC", block_size=p["block"])
+    (post_d, obs_d), wall_d, spent_d = _spans(run(cfg_d), split, sync)
+    counts_d = _counts()
+    check(_only()(counts_d), f"phase 18 default: launches {counts_d}")
+    inn_d = _innovations("phase 18 default", batch, obs_d, var_shrinks=False)
+    out = dict(
+        ngrid=p["ny"] * p["nx"], nmems=p["nmems"], nobs=p["nobs"],
+        cold_s=cold, warm_s=wall, tail_s=spent["tail"], body_s=spent["body"],
+        serial_s=wall_s, float64_s=wall64, default_s=wall_d,
+        default_tail_s=spent_d["tail"], default_body_s=spent_d["body"],
+        b_launches=counts, mean_abs_innov=inn, default_mean_abs_innov=inn_d,
+        blocked_vs_serial=gap_s, f32_vs_f64=gap64,
+        gate=SOLVER_GATE,
+        obs_points_per_sec=p["nobs"] * p["ny"] * p["nx"] / wall)
+    log("phase 18: EnKF config 11 " + json.dumps(out))
+    return out
+
+
+# The LETKF's parts, each closed by a synchronize when split.
+def _letkf_split():
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+
+    return [(tl, "_select_chunk", "select"),
+            (tl, "select_local_obs", "select"),
+            (tl, "_local_precision", "solve"), (tl, "_solve_chunk", "solve"),
+            (tl, "_apply_chunk", "apply"),
+            (tl, "host_select_candidates", "host_build")]
+
+
+def _letkf_runs(label, state, batch, cfg, sync, prior_var_check=True):
+    """``LETKF(state, batch, config=cfg).update()`` cold, warm (wall, peak
+    memory, Newton-Schulz iterations per chunk, host syncs), and warm
+    again split into select / solve / apply.  Returns ``(post, numbers)``."""
+    import torch
+
+    from efa_xray_tpu_torch import LETKF
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+
+    run = lambda: LETKF(state, batch, config=cfg).update()
+    _reset_counts()
+    _, cold, cold_spent = _spans(run, [(tl, "host_select_candidates",
+                                        "host_build")], sync)
+    tl.reset_counts()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    (post, obs), wall, _ = _spans(run, [], sync)
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if torch.cuda.is_available() else None)
+    ns = dict(calls=tl.ns_calls, iterations=tl.ns_iterations,
+              per_chunk=tl.ns_iterations / max(tl.ns_calls, 1),
+              max=tl.ns_max_iterations, host_syncs=tl.host_syncs)
+    _, wall_split, spent = _spans(run, _letkf_split(), sync)
+    counts = _counts()
+    check(_only()(counts), f"{label}: launches {counts}")
+    inn = _innovations(label, batch, obs, var_shrinks=prior_var_check)
+    return post, dict(cold_s=cold, host_build_s=cold_spent["host_build"],
+                      warm_s=wall, peak_gb=peak, newton_schulz=ns,
+                      split_wall_s=wall_split,
+                      **{f"{k}_s": v for k, v in spent.items()
+                         if k != "host_build"},
+                      mean_abs_innov=inn)
+
+
+def _ns_sync_cost(dev, nmems=40, chunk=512, reps=5):
+    """What the Newton-Schulz exit test's host reads cost: one chunk of
+    ``chunk`` SPD ``[nmems, nmems]`` systems (LETKF-shaped, eigenvalues in
+    [M-1, 40 (M-1)]) through ``letkf_core._invsqrt_newton_schulz``, against
+    the same iterations with no read.  Median seconds of each, closed by a
+    synchronize, and the iterations."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+
+    sync = _syncer(dev)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, _ = torch.linalg.qr(torch.randn((chunk, nmems, nmems), generator=gen,
+                                       device=dev))
+    ev = (nmems - 1) * (1.0 + 39.0 * torch.rand((chunk, nmems),
+                                                generator=gen, device=dev))
+    a = (q * ev[:, None, :]) @ q.transpose(1, 2)
+    tl.reset_counts()
+    tl._invsqrt_newton_schulz(a, 30)
+    iters = tl.ns_iterations
+    eye = torch.eye(nmems, device=dev)
+
+    def fixed():
+        c = torch.clamp(torch.amax(a.abs().sum(-1), -1), min=1e-30)
+        y, z = a / c[:, None, None], eye.expand(a.shape)
+        for _ in range(iters):
+            zy = z @ y
+            torch.amax(torch.abs(zy - eye))
+            t = 1.5 * eye - 0.5 * zy
+            y, z = y @ t, t @ z
+        return z
+
+    def med(fn):
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    return dict(iterations=iters, with_reads_s=med(
+        lambda: tl._invsqrt_newton_schulz(a, 30)), without_reads_s=med(fixed))
+
+
+def _selection_flips(state, batch, patch: int, k: int):
+    """The patches (bool ``[P]``) whose k nearest obs differ as sets when
+    the centroids and obs are taken in float32 rather than float64, by
+    ``letkf_core``'s own selection (one group, ``ngrid`` a multiple of
+    ``patch``)."""
+    import torch
+
+    from efa_xray_tpu_torch import LETKF, FilterConfig
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+    from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+
+    st = state.structure
+    check(st.ngrid % patch == 0 and st.nvars * st.ntimes == 1,
+          "_selection_flips: one group, whole patches only")
+    oa = LETKF(state, batch, config=FilterConfig()).obs_arrays()
+    sets = []
+    for dt in (torch.float32, torch.float64):
+        glat, glon = st.grid_latlon_device(dt, state.device)
+        px = latlon_to_unit(glat, glon).reshape(-1, patch, 3).mean(dim=1)
+        px = px / torch.clamp(torch.linalg.norm(px, dim=-1, keepdim=True),
+                              min=1e-12)
+        ox = latlon_to_unit(oa.lats.to(dt), oa.lons.to(dt))
+        sets.append(tl.select_local_obs(px, ox, k).sort(dim=1).values)
+    return (sets[0] != sets[1]).any(dim=1)
+
+
+def phase19(dev="cuda", c6=None, c9=None):
+    """The LETKF through ``LETKF(...).update()`` at BASELINE config 6 (the
+    0.5-degree grid, 40 members, 2,000 obs, patches of 8, k 64, chunks of
+    512): top-k exact and host (same analysis), Newton-Schulz and eigh,
+    float32 and float64 on the device, and the unlocalized LETKF against
+    the unlocalized EnSRF; then config 9 (config 3's 80 level variables,
+    30 members, 5,000 obs, 300 hPa vertical)."""
+    import dataclasses
+
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF, FilterConfig
+
+    p = dict(CONFIG6, **(c6 or {}))
+    sync = _syncer(dev)
+    state, batch = _half_degree_workload(dev, **p)
+    cfg = FilterConfig(localization="GC", letkf_patch_size=p["patch"],
+                       letkf_k_obs=p["k"], letkf_chunk=p["chunk"])
+    out = {}
+    post, out["exact"] = _letkf_runs("phase 19 config 6 exact", state, batch,
+                                     cfg, sync)
+    host = dataclasses.replace(cfg, letkf_topk="host")
+    post_h, out["host"] = _letkf_runs("phase 19 config 6 host", state, batch,
+                                      host, sync)
+    out["host"]["gap_vs_exact"] = _posterior_gap(
+        "phase 19 host vs exact", post_h, post, state)
+    out["host"]["bitwise_equal_to_exact"] = bool(
+        (post_h.data == post.data).all())
+    post_e, out["eigh"] = _letkf_runs(
+        "phase 19 config 6 eigh", state, batch,
+        dataclasses.replace(cfg, letkf_sqrt="eigh"), sync)
+    out["eigh"]["gap_vs_newton_schulz"] = _posterior_gap(
+        "phase 19 Newton-Schulz vs eigh", post, post_e, state)
+    post64, out["float64"] = _letkf_runs(
+        "phase 19 config 6 float64", _as_float64(state), batch,
+        dataclasses.replace(cfg, dtype="float64"), sync)
+    # Chord dots from float64 and from float32 coordinates break near-ties
+    # at rank k differently: a few patches take another k-th ob, and their
+    # posterior moves by that ob's share.  The RMS gate is wider; outside
+    # those patches the max gap is gated.
+    out["float64"]["gap_vs_float32"] = _posterior_gap(
+        "phase 19 float32 vs float64", post, post64, state, gate=1e-2)
+    flips = _selection_flips(state, batch, p["patch"], p["k"])
+    gap = (post.to_vect().double().mean(dim=1)
+           - post64.to_vect().double().mean(dim=1)).abs()
+    keep = ~flips.repeat_interleave(p["patch"])
+    out["float64"]["patches_selecting_otherwise"] = int(flips.sum())
+    out["float64"]["mean_max_gap_elsewhere"] = float(gap[keep].max())
+    check(out["float64"]["mean_max_gap_elsewhere"]
+          <= SOLVER_GATE * out["float64"]["gap_vs_float32"]["mean_incr_rms"],
+          "phase 19: float32 vs float64 outside the patches that select "
+          f"otherwise: {out['float64']}")
+    # Unlocalized: the global ETKF is the serial EnSRF's analysis (mean
+    # and covariance), here with unbiased variances, through eigh: the
+    # Newton-Schulz exit rule (the JAX package's) stops early on this
+    # ill-conditioned system, at ~1e-4 of the increment even in float64.
+    for dtype, gate in (("float32", 1e-2), ("float64", 1e-6)):
+        cu = FilterConfig(localization=None, unbiased_variance=True,
+                          letkf_k_obs=p["nobs"], letkf_sqrt="eigh",
+                          dtype=dtype)
+        st = state if dtype == "float32" else _as_float64(state)
+        pl, nl = _letkf_runs(f"phase 19 unlocalized LETKF {dtype}", st,
+                             batch, cu, sync)
+        (pe, _), we, _ = _spans(lambda: EnSRF(st, batch, config=cu,
+                                              verbose=False).update(),
+                                [], sync)
+        # The perturbations differ by a rotation: compare the mean and
+        # the per-row variance.
+        vl, ve, v0 = (x.to_vect().double() for x in (pl, pe, state))
+        mgap = float((vl.mean(dim=1) - ve.mean(dim=1)).abs().max())
+        incr = float(torch.sqrt(torch.mean(
+            (ve.mean(dim=1) - v0.mean(dim=1)) ** 2)))
+        var_e = ve.var(dim=1, correction=1)
+        vgap = float((vl.var(dim=1, correction=1) - var_e).abs().max())
+        vscale = float(var_e.mean())
+        check(bool(torch.isfinite(vl).all()) and mgap <= gate * incr
+              and vgap <= gate * vscale,
+              f"phase 19 unlocalized LETKF vs EnSRF {dtype}: mean gap "
+              f"{mgap:.3e} (increment RMS {incr:.3e}), per-row variance "
+              f"gap {vgap:.3e} (posterior variance {vscale:.3e}), gate "
+              f"{gate}")
+        out[f"unlocalized_{dtype}"] = dict(
+            letkf_s=nl["warm_s"], ensrf_s=we, gate=gate, mean_gap=mgap,
+            mean_incr_rms=incr, var_gap=vgap, post_var_mean=vscale)
+    out["gate"] = SOLVER_GATE
+    out["ns_sync_cost"] = _ns_sync_cost(dev, nmems=p["nmems"],
+                                        chunk=p["chunk"])
+    log("phase 19: LETKF config 6 " + json.dumps(out))
+
+    q = dict(nmems=30, nobs=5000, seed=3, patch=8, k=64, chunk=512)
+    q.update(c9 or {})
+    state9, batch9, _ = _config3_workload(
+        nmems=q["nmems"], nobs=q["nobs"], seed=q["seed"], dev=dev,
+        ny=q.get("ny", 90), nx=q.get("nx", 180))
+    cfg9 = FilterConfig(localization="GC", letkf_patch_size=q["patch"],
+                        letkf_k_obs=q["k"], letkf_chunk=q["chunk"])
+    _, c9r = _letkf_runs("phase 19 config 9", state9, batch9, cfg9, sync)
+    c9r.update(nstate=state9.structure.nstate, nobs=batch9.nobs,
+               obs_points_per_sec=batch9.nobs * state9.structure.nstate
+               / c9r["warm_s"])
+    log("phase 19: LETKF config 9 " + json.dumps(c9r))
+    return dict(config6=out, config9=c9r)
+
+
+def phase20(dev="cuda", **cut):
+    """The LETKF at BASELINE config 7's full size through
+    ``letkf_core.letkf_update``, as ``bench_config7`` drives it: 4,194,304
+    scattered points x 80 members x 10,000 obs at 2000 km, points and obs
+    in the port's Hilbert order (``localization.spatial_sort_order``);
+    top-k exact, then host (its build timed apart), the same analysis."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+    from efa_xray_tpu_torch.assimilation.ensrf_core import ObsArrays
+    from efa_xray_tpu_torch.observation.localization import (
+        spatial_sort_order,
+    )
+
+    p = dict(CONFIG7, **cut)
+    sync = _syncer(dev)
+    n, m, nobs = p["npts"], p["nmems"], p["nobs"]
+    gen = torch.Generator(device=dev).manual_seed(p["seed"])
+    lat = -88.0 + 176.0 * torch.rand(n, generator=gen, device=dev)
+    lon = 360.0 * torch.rand(n, generator=gen, device=dev)
+    order = spatial_sort_order(lat, lon)
+    lat, lon = lat[order], lon[order]
+    prior = 280.0 + 5.0 * torch.randn((n, m), generator=gen, device=dev)
+    rows = torch.randint(0, n, (nobs,), generator=gen, device=dev)
+    rows = rows[spatial_sort_order(lat[rows], lon[rows])]
+    ye = prior[rows]
+    tm = ye.mean(dim=1)
+    tp = ye - tm[:, None]
+    bm = prior.mean(dim=1)
+    bp = prior - bm[:, None]
+    del prior
+    obs = ObsArrays(
+        values=tm + torch.randn(nobs, generator=gen, device=dev),
+        errors=torch.ones(nobs, device=dev), lats=lat[rows], lons=lon[rows],
+        radii=torch.full((nobs,), p["radius"], device=dev),
+        assim=torch.ones(nobs, dtype=torch.bool, device=dev))
+    kw = dict(ngrid=n, patch_size=p["patch"], k_obs=p["k"],
+              chunk=p["chunk"])
+    out = dict(npts=n, nmems=m, nobs=nobs, state_gb=bp.numel() * 4 / 1e9)
+    t0 = time.perf_counter()
+    cand, mask, geff = tl.host_select_candidates(
+        lat.double().cpu().numpy(), lon.double().cpu().numpy(), n,
+        p["patch"], obs.lats.double().cpu().numpy(),
+        obs.lons.double().cpu().numpy(), p["k"], chunk=p["chunk"])
+    out["host_build_s"] = time.perf_counter() - t0
+    out["host_candidate_width"] = int(cand.shape[1])
+    out["host_group"] = int(geff)
+    sel = dict(sel_cand=torch.from_numpy(cand).to(dev),
+               sel_mask=torch.from_numpy(mask).to(dev), sel_group=geff)
+    res = {}
+    for topk, extra in (("exact", {}), ("host", sel)):
+        tl.reset_counts()
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        res[topk], wall, _ = _spans(
+            lambda: tl.letkf_update(bm, bp, tm, tp, lat, lon, obs,
+                                    topk_method=topk, **kw, **extra),
+            [], sync)
+        check(bool(torch.isfinite(res[topk][1]).all()),
+              f"phase 20 {topk}: posterior not finite")
+        out[topk] = dict(
+            seconds=wall, obs_points_per_sec=nobs * n / wall,
+            peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if torch.cuda.is_available() else None),
+            ns_per_chunk=tl.ns_iterations / max(tl.ns_calls, 1),
+            ns_max=tl.ns_max_iterations, host_syncs=tl.host_syncs)
+    incr = float(torch.sqrt(torch.mean((res["exact"][0] - bm) ** 2)))
+    gap = float((res["host"][0] - res["exact"][0]).abs().max())
+    pgap = float((res["host"][1] - res["exact"][1]).abs().max())
+    check(gap <= SOLVER_GATE * incr,
+          f"phase 20: host vs exact mean gap {gap:.3e} > {SOLVER_GATE} x "
+          f"the increment RMS {incr:.3e}")
+    out.update(mean_incr_rms=incr, host_vs_exact_mean=gap,
+               host_vs_exact_perts=pgap,
+               bitwise_equal=bool(torch.equal(res["host"][1],
+                                              res["exact"][1])))
+    log("phase 20: LETKF config 7 " + json.dumps(out))
+    return out
 
 
 # P's products are timed as runs of this many calls back to back.
@@ -2718,6 +3234,9 @@ def main() -> int:
     timed(phase15)
     timed(phase16)
     timed(phase17)
+    timed(phase18)
+    timed(phase19)
+    timed(phase20)
     # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
     # a localized recurrence): their library_ms is null.
     kernels = [

@@ -12,14 +12,18 @@ production filter rides on it: ``AdaptiveInflation`` (Anderson 2009,
 learned on the filter's device), RTPS/RTPP, ``obs_order``,
 ``spatial_sort``, ``obs_chunk``, ``observation.bias.BiasCorrection``,
 ``postprocess.verification`` and the Lorenz-96 models in ``models``.  The
-package never imports JAX.
+other two solvers of the JAX package run through the same API: the
+stochastic ``EnKF`` and the ``LETKF``, as plain torch on every device, as
+the JAX package runs them without Pallas.  The package never imports JAX.
 """
 
 from efa_xray_tpu_torch.assimilation.adaptive_inflation import (
     AdaptiveInflation,
 )
 from efa_xray_tpu_torch.assimilation.assimilation import Assimilation
+from efa_xray_tpu_torch.assimilation.enkf import EnKF
 from efa_xray_tpu_torch.assimilation.ensrf import EnSRF
+from efa_xray_tpu_torch.assimilation.letkf import LETKF
 from efa_xray_tpu_torch.config import FilterConfig
 from efa_xray_tpu_torch.observation.localization import (
     gaspari_cohn,
@@ -40,9 +44,11 @@ __version__ = "0.1.0"
 __all__ = [
     "AdaptiveInflation",
     "Assimilation",
+    "EnKF",
     "EnSRF",
     "EnsembleState",
     "FilterConfig",
+    "LETKF",
     "Observation",
     "ObservationBatch",
     "StateStructure",

@@ -8,7 +8,8 @@ Counterpart of ``efa_xray_tpu/assimilation/assimilation.py``:
 ``_vertical_active`` :348, ``format_prior_state`` :492 (the fused
 ``_format_prior_jit`` :48), ``format_posterior_state`` :526,
 ``varloc_kwargs`` :539, ``maybe_update_adaptive_inflation`` :576 and
-``record_diagnostics`` :611.
+``record_diagnostics`` :611; the refusal of ``matmul_precision`` below fp32
+that every solver shares.
 
 Everything runs on one explicit device, the filter's: by default the
 prior state's.  With ``obs_order="hilbert"`` the filter assimilates a
@@ -39,6 +40,9 @@ from efa_xray_tpu_torch.state.ensemble import EnsembleState, _torch_dtype
 from efa_xray_tpu_torch.utils.validation import ValidationError
 
 InflationSpec = Union[None, float, dict, "AdaptiveInflation"]
+
+# The ``matmul_precision`` settings the port runs: full fp32 products.
+FULL_PRECISION = (None, "highest", "float32")
 
 
 def inflate_state(state: EnsembleState, inflation: InflationSpec,
@@ -154,6 +158,16 @@ class Assimilation:
     def dtype(self) -> torch.dtype:
         return _torch_dtype(self.config.dtype)
 
+    def _check_ported(self) -> None:
+        """Refuse ``matmul_precision`` settings below fp32: every product
+        of the port is fp32 until ROADMAP B-next 5 gives them a meaning.
+        Every solver's ``update()`` calls this first."""
+        mp = self.config.matmul_precision
+        if mp not in FULL_PRECISION:
+            raise NotImplementedError(
+                f"not ported yet: matmul_precision={mp!r} (every product of "
+                "the port is fp32; lower precisions are ROADMAP B-next 5)")
+
     def max_finite_radius(self):
         """Host-known bound on the finite per-ob radii (km) after the
         ``default_radius`` substitution; None when no ob is localized."""
@@ -172,6 +186,7 @@ class Assimilation:
                 npt=cfg.npt, exact_match_km=cfg.exact_match_km,
                 metric=cfg.nearest_metric, time_weighting=cfg.time_weighting,
                 search=cfg.taps_search, device=self.device,
+                topk_method=cfg.taps_topk,
             )
         return self._taps
 

@@ -43,8 +43,9 @@ route; it refuses hybrid covariance and ``variable_localization`` with a
 ``ValueError``, as the JAX package does.  The JAX package's automatic
 chunking of batches over 131072 obs on a TPU is left out: ``obs_chunk=None``
 is one shot.  ``mesh=`` and ``matmul_precision`` settings below float32
-(ROADMAP A10, B-next 5) raise ``NotImplementedError`` rather than run a
-plain path on the card.
+(ROADMAP A10, B-next 5; the latter refused by
+:meth:`Assimilation._check_ported` for every solver) raise
+``NotImplementedError`` rather than run a plain path on the card.
 """
 
 from __future__ import annotations
@@ -66,10 +67,6 @@ from efa_xray_tpu_torch.observation.observation import ObservationBatch
 from efa_xray_tpu_torch.ops import ensrf_grid
 from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
 from efa_xray_tpu_torch.state.ensemble import EnsembleState
-
-
-# The ``matmul_precision`` settings the port runs: full fp32 products.
-FULL_PRECISION = (None, "highest", "float32")
 
 
 class EnSRF(Assimilation):
@@ -156,13 +153,6 @@ class EnSRF(Assimilation):
         return dict(hybrid_alpha=float(cfg.hybrid_alpha), body_sigma=bsig,
                     tail_sigma=tsig,
                     static_length=float(cfg.static_b_length))
-
-    def _check_ported(self) -> None:
-        mp = self.config.matmul_precision
-        if mp not in FULL_PRECISION:
-            raise NotImplementedError(
-                f"not ported yet: matmul_precision={mp!r} (every product of "
-                "the port is fp32; lower precisions are ROADMAP B-next 5)")
 
     def update(self) -> Tuple[EnsembleState, ObservationBatch]:
         """Assimilate all observations; return ``(posterior, observations)``

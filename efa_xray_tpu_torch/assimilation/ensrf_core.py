@@ -14,8 +14,10 @@ Vertical localization, cross-variable localization (``varloc``,
 the gain like a Gaspari-Cohn weight) and the hybrid ensemble-static
 covariance (``hybrid_alpha < 1``, Hamill & Snyder 2000: a fixed column
 ``sigma_row sigma_ob GC(d, static_length)`` at exact haversine distance
-blended into the gain) are ported.  The stochastic-EnKF ``apply_rows``
-is not (ROADMAP queue A, item 9).
+blended into the gain) are ported, and so are the stochastic EnKF's
+``apply_rows`` (the rows ``z = ye - eps`` the solved gain columns are
+applied against, ``apply_obs_block`` :943-987; refused with hybrid,
+:1029-1031).
 
 Every function runs eagerly on the device of its inputs.  The sequential
 per-ob loops stay Python loops over tensor ops: they are the plain
@@ -753,21 +755,29 @@ def _block_recurrence(d0, gram, w, sqrt_coef, panel: int = 8,
 
 
 def apply_obs_block(body_mean, body_perts, ye_block, gain_coef, sqrt_coef,
-                    w_block, static_mean=None, static_tilde=None):
+                    w_block, static_mean=None, static_tilde=None,
+                    apply_rows=None):
     """Apply one block of B pre-solved obs to the state body: two matrix
     products and a B-step recurrence.  ``w_block [rows, B]`` or None.
     Hybrid mode adds the static columns' summed mean pull ``static_mean
     [rows]`` once and lets ``static_tilde [rows, B]`` ride the
-    recurrence."""
+    recurrence.
+
+    ``apply_rows [B, M]`` (default ``ye_block``) are the rows the solved
+    gain columns are applied against: the stochastic EnKF's perturbed-ob
+    departures ``z = ye - eps``.  The correction Gram is then
+    ``gram[i, j] = a_i . ye_j`` (``A Y^T``, not symmetric): a later ob's
+    prior sees the state updated by ``V A``."""
     y = ye_block.to(body_perts.dtype)
+    a = y if apply_rows is None else apply_rows.to(body_perts.dtype)
     d0 = body_perts @ y.T
-    gram = y @ y.T
+    gram = a @ y.T
     u, v = _block_recurrence(d0, gram, w_block, sqrt_coef,
                              static_tilde=static_tilde)
     body_mean = body_mean + u @ gain_coef
     if static_mean is not None:
         body_mean = body_mean + static_mean
-    return body_mean, body_perts - v @ y
+    return body_mean, body_perts - v @ a
 
 
 def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
@@ -776,24 +786,30 @@ def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
                        fast_geometry: bool = False, body_vert=None,
                        vertical: bool = False, hybrid: bool = False,
                        body_sigma=None, static_length=None, varloc=None,
-                       row_var=None, ob_var=None):
+                       row_var=None, ob_var=None, apply_rows=None):
     """Phase 2: sweep the pre-solved obs sequence over the body in
     blocks.  Exact (up to fp reassociation) match of the serial filter.
     ``hybrid=True`` also applies each ob's fixed static column (a
     hybrid-mode ``tail``'s ``static_gain``/``static_sqrt`` times
     ``body_sigma GC(d, static_length)`` at exact haversine distance)
     through the same recurrence.  ``varloc``/``row_var``/``ob_var`` as in
-    :func:`ensrf_serial`."""
+    :func:`ensrf_serial`.  ``apply_rows [No, M]``: the stochastic EnKF's
+    apply rows ``z = ye - eps`` (:func:`apply_obs_block`); refused with
+    hybrid."""
     nobs = tail.ye.shape[0]
     dtype = body_perts.dtype
     _check_hybrid(hybrid, varloc is not None, body_sigma, static_length,
                   tail.static_gain)
+    if hybrid and apply_rows is not None:
+        raise ValueError("apply_rows (stochastic EnKF) does not combine "
+                         "with hybrid covariance")
     if nobs == 0:
         return body_mean, body_perts
     nblocks = -(-nobs // block_size)
     pad = nblocks * block_size - nobs
     po = _pad_obs(obs, pad, dtype)
     ye = _pad(tail.ye, pad)
+    arows = None if apply_rows is None else _pad(apply_rows.to(dtype), pad)
     gain = _pad(tail.gain_coef.to(dtype), pad)
     sqrtc = _pad(tail.sqrt_coef.to(dtype), pad)
     use_vl = varloc is not None
@@ -843,7 +859,9 @@ def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
             static_tilde = bsig[:, None] * gc * ssqrt[sl][None, :]
         bm, bp = apply_obs_block(bm, bp, ye[sl], gain[sl], sqrtc[sl], w,
                                  static_mean=static_mean,
-                                 static_tilde=static_tilde)
+                                 static_tilde=static_tilde,
+                                 apply_rows=None if arows is None
+                                 else arows[sl])
     return bm, bp
 
 

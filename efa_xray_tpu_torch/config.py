@@ -5,10 +5,12 @@ knobs that exist only for the TPU and its remote link: the host fast path
 (``small_host``, ``small_host_threshold``), the Pallas selections
 (``use_pallas``, ``tail_pallas``: here the device decides, see
 ``EnSRF._use_kernels``), the TPU row tile (``pallas_tile``) and the
-timing-only ``mxu_bf16``.  The LETKF knobs (``letkf_*``) and ``taps_topk``
-(only the exact search is ported) come with the PRs that port them.  The
-adaptive-inflation knobs (``adaptive_*``, :262-291) are here.  ``obs_chunk``
-has no automatic threshold: None runs the batch in one shot.
+timing-only ``mxu_bf16``.  The LETKF knobs (``letkf_*``, :183-227) and
+``taps_topk`` (:55) are here: ``letkf_solve_precision`` and
+``taps_topk="approx"`` are accepted and run true fp32 and the exact search
+(what the JAX package runs off the TPU).  The adaptive-inflation knobs
+(``adaptive_*``, :262-291) are here.  ``obs_chunk`` has no automatic
+threshold: None runs the batch in one shot.
 
 The reference configures everything through loose kwargs and a polymorphic
 ``inflation`` argument (``efa_xray/assimilation/ensrf.py:28``,
@@ -47,6 +49,12 @@ class FilterConfig:
     npt: int = 4
     exact_match_km: float = 1.0
     nearest_metric: str = "haversine"  # or "reference_proxy"
+    # Nearest-point candidate selection of the device search in
+    # build_taps: "exact" or "approx".  The JAX package lowers "approx" to
+    # jax.lax.approx_max_k at recall 0.99 on a TPU; off the TPU that is
+    # the exact top-k, and here both run the exact chunked torch.topk
+    # (recall 1.0).
+    taps_topk: str = "exact"
     # Nearest-point search strategy: "auto" (default) detects separable
     # lat x lon product grids and resolves the search as exact host-side
     # index arithmetic with a per-ob exactness certificate — no device
@@ -89,9 +97,9 @@ class FilterConfig:
     # port is plain fp32 FMA, no TF32 (the kernels use no tensor cores,
     # and the plain products run with torch's TF32 switches off).  Accepted
     # values as in the JAX package: None, "default", "high", "highest",
-    # "bfloat16", "tensorfloat32", "float32"; ``EnSRF.update()`` runs None,
-    # "highest" and "float32" and raises NotImplementedError on the lower
-    # ones until a kernel gives them a meaning (ROADMAP B-next 5).
+    # "bfloat16", "tensorfloat32", "float32"; every solver's ``update()``
+    # runs None, "highest" and "float32" and raises NotImplementedError on
+    # the lower ones until a kernel gives them a meaning (ROADMAP B-next 5).
     matmul_precision: Optional[str] = None
     # Fast chordal geometry for localization weights (unit-vector dot +
     # polynomial arccos; ~2e-8 rad error) instead of the exact haversine.
@@ -118,6 +126,36 @@ class FilterConfig:
     # Whitaker-Hamill; analysis mean exactly order-invariant when
     # unlocalized).
     unbiased_variance: bool = False
+    # --- LETKF solver knobs (efa_xray_tpu_torch.assimilation.letkf) ---
+    # Grid points per local patch sharing one ensemble-space solve (weights
+    # at the patch centroid).  1 = textbook per-point LETKF (exact).
+    letkf_patch_size: int = 1
+    # Max observations entering each local solve (nearest-k truncation;
+    # only binds when a localization footprint holds more than k obs).
+    letkf_k_obs: int = 64
+    # Batched SPD inverse-sqrt backend: "newton_schulz" (coupled
+    # Newton-Schulz, pure matrix products, exits when the whole chunk has
+    # converged) or "eigh" (torch.linalg.eigh, the exact reference).
+    letkf_sqrt: str = "newton_schulz"
+    # Newton-Schulz iteration cap (quadratically convergent once the
+    # linear phase ~log2(cond) is past; 30 covers cond ~ 1e4 in f32).
+    letkf_ns_iters: int = 30
+    # Patches solved per step of the chunk loop (bounds the [chunk, k, M]
+    # gather and the [chunk, M, M] transforms).
+    letkf_chunk: int = 512
+    # Nearest-k obs selection: "exact" (top-k over all obs), "approx"
+    # (the JAX package's approx_max_k on a TPU; here the exact top-k), or
+    # "host" (EXACT: a host kd-tree emits certified candidate sets per
+    # group of patches -- ball(centroid, r_k + 2 * group_radius) covers
+    # every member patch's true top-k -- and the device ranks only those;
+    # cached per (structure, obs network, device).  Horizontal-only
+    # localization).
+    letkf_topk: str = "exact"
+    # Matmul precision of the LETKF's ensemble-space solve chain in the
+    # JAX package ("default", "high", "highest").  Every setting runs
+    # true fp32 here (no TF32), as the JAX package does off the TPU;
+    # lowering "default" and "high" waits for ROADMAP B-next 5.
+    letkf_solve_precision: str = "default"
     # --- Hybrid ensemble-static background covariance (Hamill & Snyder
     # 2000).  hybrid_alpha = 1 is the pure ensemble filter (reference
     # parity); 0 is classic Optimal Interpolation with a Gaspari-Cohn
@@ -284,8 +322,17 @@ class FilterConfig:
             raise ValueError(f"Unknown method {self.method!r}")
         if self.block_size < 1:
             raise ValueError("block_size must be >= 1")
+        if self.letkf_sqrt not in ("newton_schulz", "eigh"):
+            raise ValueError(f"Unknown letkf_sqrt {self.letkf_sqrt!r}")
+        if self.letkf_topk not in ("exact", "approx", "host"):
+            raise ValueError(f"Unknown letkf_topk {self.letkf_topk!r}")
         if self.obs_order not in (None, "hilbert"):
             raise ValueError(f"Unknown obs_order {self.obs_order!r}")
+        if self.letkf_solve_precision not in ("default", "high", "highest"):
+            raise ValueError(
+                f"Unknown letkf_solve_precision "
+                f"{self.letkf_solve_precision!r}"
+            )
         if self.variable_localization is not None:
             if not isinstance(self.variable_localization, dict):
                 raise ValueError("variable_localization must be a dict of "
@@ -308,6 +355,8 @@ class FilterConfig:
                 raise ValueError(
                     "variable_localization does not combine with hybrid "
                     "covariance (the static column would be untapered)")
+        if self.taps_topk not in ("exact", "approx"):
+            raise ValueError(f"Unknown taps_topk {self.taps_topk!r}")
         if self.taps_search not in ("auto", "device"):
             raise ValueError(f"Unknown taps_search {self.taps_search!r}")
         if self.matmul_precision not in (
@@ -317,6 +366,8 @@ class FilterConfig:
             raise ValueError(
                 f"Unknown matmul_precision {self.matmul_precision!r}"
             )
+        if self.letkf_patch_size < 1 or self.letkf_k_obs < 1:
+            raise ValueError("letkf_patch_size and letkf_k_obs must be >= 1")
         if self.outlier_threshold is not None and not (
             isinstance(self.outlier_threshold, (int, float))
             and self.outlier_threshold > 0

@@ -4,7 +4,10 @@ Counterpart of ``efa_xray_tpu/observation/forward.py``: ``ObsTaps`` :51,
 the host separable search :188-328 (copied as NumPy), ``build_taps`` :433,
 ``build_taps_cached`` :577 and ``apply_taps`` :623.  The JAX package's
 device search :66-175 becomes an exact chunked ``torch.topk`` over
-great-circle distances on the caller's device.
+great-circle distances on the caller's device, for both values of
+``topk_method`` (``FilterConfig.taps_topk``): the JAX package's
+``"approx"`` is ``jax.lax.approx_max_k`` at recall 0.99, which off the TPU
+is the exact top-k, so the port's recall is 1.0.
 
 H is linear: per observation K = npt (space) x 2 (time) taps, flattened
 state-row indices plus weights, so ``ye = W @ gather(X)`` for all obs at
@@ -325,17 +328,20 @@ def build_taps(structure: StateStructure, lats, lons, times_s, var_idx,
                npt: int = 4, exact_match_km: float = EXACT_MATCH_KM,
                metric: str = "haversine", time_weighting: str = "linear",
                obs_chunk_bytes: int = 1 << 28, search: str = "auto",
-               device="cpu") -> ObsTaps:
+               device="cpu", topk_method: str = "exact") -> ObsTaps:
     """Gather taps for a batch of point observations.
 
     ``search="auto"`` resolves separable lat x lon grids with the exact
     host search (:func:`_nearest_separable`); other grids, the
     ``reference_proxy`` metric and certificate failures use the exact
     full search, which ``search="device"`` forces and which runs on
-    ``device``.
+    ``device``.  ``topk_method`` ``"exact"`` and ``"approx"`` both run
+    that exact search (see the module docstring).
     """
     if search not in ("auto", "device"):
         raise ValueError(f"unknown search {search!r}")
+    if topk_method not in ("exact", "approx"):
+        raise ValueError(f"unknown topk_method {topk_method!r}")
     lats = np.asarray(lats, dtype=np.float64)
     lons = np.asarray(lons, dtype=np.float64)
     var_idx = np.asarray(var_idx, dtype=np.int64)
@@ -400,8 +406,10 @@ def build_taps_cached(structure: StateStructure, lats, lons, times_s,
                       exact_match_km: float = EXACT_MATCH_KM,
                       metric: str = "haversine",
                       time_weighting: str = "linear",
-                      search: str = "auto", device="cpu") -> ObsTaps:
-    """LRU-cached :func:`build_taps` (same contract)."""
+                      search: str = "auto", device="cpu",
+                      topk_method: str = "exact") -> ObsTaps:
+    """LRU-cached :func:`build_taps` (same contract; ``topk_method`` is
+    not part of the key, since both values give the same taps)."""
     params = (npt, float(exact_match_km), metric, time_weighting, search)
     key = _obs_digest(lats, lons, times_s, var_idx, params)
     per = _TAPS_CACHE.get(structure)
@@ -411,7 +419,7 @@ def build_taps_cached(structure: StateStructure, lats, lons, times_s,
     taps = build_taps(structure, lats, lons, times_s, var_idx, npt=npt,
                       exact_match_km=exact_match_km, metric=metric,
                       time_weighting=time_weighting, search=search,
-                      device=device)
+                      device=device, topk_method=topk_method)
     if per is None:
         per = collections.OrderedDict()
         _TAPS_CACHE[structure] = per

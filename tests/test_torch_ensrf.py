@@ -256,6 +256,9 @@ def test_port_imports_without_jax():
     package, not even lazily at import time."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import efa_xray_tpu_torch, efa_xray_tpu_torch.interop, "
+            "efa_xray_tpu_torch.assimilation.enkf, "
+            "efa_xray_tpu_torch.assimilation.letkf, "
+            "efa_xray_tpu_torch.assimilation.letkf_core, "
             "efa_xray_tpu_torch.ops.tail_solve, "
             "efa_xray_tpu_torch.ops.ensrf_fused, "
             "efa_xray_tpu_torch.ops.ensrf_grid, "
