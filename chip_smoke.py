@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-20
+    python3 chip_smoke.py             # phases 0-23
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
                                       # width and cluster, B2 with parts of
@@ -114,13 +114,42 @@ Phases, each printing one line of results:
 20. the LETKF at BASELINE config 7's full size through
     ``letkf_core.letkf_update``: 4,194,304 scattered points x 80 members x
     10,000 obs in the port's Hilbert order, top-k exact and host (the same
-    analysis), seconds, obs x points per second and peak memory.
+    analysis), seconds, obs x points per second and peak memory;
+21. BASELINE config 1 through the port's ``CyclingHarness``
+    (``benchmarks/run_benchmarks.py:195-253``: Lorenz-96, 40 variables, 20
+    members, 4 steps a cycle, obs at every 2nd variable, 8000 km, float32,
+    blocks of 8, adaptive inflation with sd 0.6 evolved, sd_min 0.15; 20
+    warm-up cycles, then 60 with ``resume=True``): cycles per second, the
+    mean analysis RMSE and spread over the last 30 and 10 cycles, B1/B4
+    launches a cycle; every cycle finite, the last-30 RMSE below 1.0,
+    cycle 0's analysis against the plain ``ensrf_blocked`` on the same
+    tensors, a checkpoint saved halfway and loaded into a fresh harness
+    reproducing the uninterrupted run bit for bit; then 5 cycles each of
+    the LETKF and the EnKF, finite and below the free run's RMSE;
+22. the multivariate shallow-water OSSE of ``examples/multivariate_swe.py``
+    on a 128 x 256 channel (98,304 rows of eta, u, v), 40 members, eta obs
+    at every 2nd point (16,384 obs, R 1e-4), 500 km, RTPS 0.5, 10 steps a
+    cycle, 10 cycles, float32: spin-up seconds, per-cycle forecast and
+    analysis seconds, B1/B4 launches a cycle, background and analysis
+    RMSE per variable; cycle 0 against the plain ``ensrf_blocked``, every
+    analysis finite, the never-observed u and v improved on cycle 0, the
+    forecast against float64 on the CPU for 3 steps;
+23. the observation pipeline of ``examples/obs_pipeline.py`` on phase 4's
+    grid: 100,000 raw obs of a smooth truth as a DataFrame (20%
+    duplicates), ``from_dataframe``, ``superob`` at 0.25 deg,
+    ``thin_by_distance`` at 25 km, ``sort_spatially``, ``EnSRF`` with
+    ``fast_geometry`` and ``spatial_sort`` (B1 + B2) with one custom
+    forward operator in the batch, then ``obs_assimilation_statistics``,
+    ``desroziers_diagnostics``, ``field_verification`` and ``interpolate``
+    / ``nearest_points`` / ``isel`` / ``sel`` on the posterior, each held
+    against NumPy on the host copy; the host seconds of each step and the
+    obs count after each thinning step.
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
 same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-20 with one warm headline update, the
+``--profile`` replaces phases 2-23 with one warm headline update, the
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
 ``torch.profiler`` (the profiler walks every traced event): wall and
@@ -128,7 +157,7 @@ device-busy time, the busy share, the device ops that take the most time,
 and the share of the headline's (row tile, obs block) pairs and 8-ob
 panels that the cull keeps alive.
 
-``--steps`` replaces phases 2-20 with B1 at 512 x 80 and 1024 x 256 at
+``--steps`` replaces phases 2-23 with B1 at 512 x 80 and 1024 x 256 at
 sub-panels of 8 and 16 on one CTA and on each cluster that holds the
 panel, the parent commit's B1 beside them where
 ``build/efa_xray_tpu_torch/parent/tail_solve.cu`` exists, and B1 at 512 x
@@ -2638,6 +2667,716 @@ def phase20(dev="cuda", **cut):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The cycling OSSE and the observation pipeline (ROADMAP A5, A8)
+# ---------------------------------------------------------------------------
+
+
+class _FirstCall:
+    """While open, a spy on ``cls.name`` (``FlatRoute.solve``, the
+    harness's EnSRF analysis, by default): its first call's positional
+    arguments (tensors cloned: the body kernels update them in place),
+    its route's config, and its outputs (tensors cloned)."""
+
+    def __init__(self, cls=None, name: str = "solve"):
+        if cls is None:
+            from efa_xray_tpu_torch.assimilation.ensrf import FlatRoute
+
+            cls = FlatRoute
+        self.cls, self.name = cls, name
+
+    def __enter__(self):
+        import torch
+
+        copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+        self.own = self.name in self.cls.__dict__
+        self.real, self.got = getattr(self.cls, self.name), None
+        spy = self
+
+        def call(route, *args, **kw):
+            first = spy.got is None
+            if first:
+                spy.got = dict(args=[copy(x) for x in args],
+                               cfg=route.config)
+            out = spy.real(route, *args, **kw)
+            if first:
+                spy.got["out"] = ([copy(x) for x in out]
+                                  if type(out) is tuple else out)
+            return out
+
+        setattr(self.cls, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        if self.own:
+            setattr(self.cls, self.name, self.real)
+        else:
+            delattr(self.cls, self.name)
+
+
+def _against_plain(label, got):
+    """A captured analysis (:class:`_FirstCall` on ``FlatRoute.solve``)
+    against the plain ``ensrf_blocked`` on the same tensors (its tail the
+    plain panel scan): max abs errors of the mean and the perturbations,
+    at the kernel tolerances, and the plain update's seconds."""
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+
+    cfg = got["cfg"]
+    sync = _syncer(got["args"][0].device)
+    sync()
+    t0 = time.perf_counter()
+    pbm, pbp, *_ = core.ensrf_blocked(
+        *got["args"][:7], localize=cfg.localize,
+        block_size=cfg.block_size, unbiased=cfg.unbiased_variance,
+        fast_geometry=cfg.fast_geometry, tail_panel=cfg.tail_panel)
+    sync()
+    secs = time.perf_counter() - t0
+    return (compare(f"{label} mean vs plain ensrf_blocked", got["out"][0],
+                    pbm),
+            compare(f"{label} perturbations vs plain ensrf_blocked",
+                    got["out"][1], pbp), secs)
+
+
+def _scratch_dir() -> str:
+    """A git-ignored directory of the checkout for this run's files."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+# BASELINE config 1 (benchmarks/run_benchmarks.py:195-253): Lorenz-96, 40
+# variables, 20 members, 4 steps a cycle, obs at every 2nd variable (R 1),
+# 8000 km, float32, blocks of 8, Anderson adaptive inflation (sd 0.6,
+# evolved, sd_min 0.15), 20 warm-up cycles, then 60 with resume=True.
+CONFIG1 = dict(nvars=40, nmems=20, steps=4, stride=2, radius=8000.0,
+               block=8, sd=0.6, sd_min=0.15, warmup=20, cycles=60, seed=1,
+               obs_seed=100, solver_cycles=5)
+
+
+def _config1_harness(dev, p, **over):
+    import torch
+
+    from efa_xray_tpu_torch import FilterConfig
+    from efa_xray_tpu_torch.models import lorenz96
+    from efa_xray_tpu_torch.models.cycling import CyclingHarness
+
+    lats, lons = lorenz96.fake_latlon(p["nvars"])
+    kw = dict(
+        forecast=lambda x: lorenz96.integrate(x, nsteps=p["steps"]),
+        state_lats=lats, state_lons=lons, ob_error=1.0,
+        localize_radius=p["radius"],
+        config=FilterConfig(localization="GC", dtype="float32",
+                            block_size=p["block"]),
+        obs_operator_rows=np.arange(0, p["nvars"], p["stride"]),
+        adaptive_inflation=True, adaptive_sd=p["sd"],
+        adaptive_sd_evolve=True, adaptive_sd_min=p["sd_min"],
+        device=torch.device(dev))
+    kw.update(over)
+    return CyclingHarness(**kw)
+
+
+def phase21(dev="cuda", **cut):
+    """BASELINE config 1 at its published settings through the port's
+    ``CyclingHarness``: cycles per second, the analysis RMSE and spread,
+    the B1/B4 launches a cycle; cycle 0 against the plain update, a
+    checkpoint halfway reproducing the uninterrupted run bit for bit, 5
+    cycles each of the LETKF and the EnKF against the free run, and the
+    options the JAX harness ignores keeping B1 + B4 and the analysis."""
+    import torch
+
+    from efa_xray_tpu_torch.models import lorenz96
+
+    p = dict(CONFIG1, **cut)
+    sync = _syncer(dev)
+    cuda = torch.device(dev).type == "cuda"
+    truth, ens = lorenz96.spinup_ensemble(
+        nvars=p["nvars"], nmems=p["nmems"], seed=p["seed"], device=dev,
+        dtype=torch.float32)
+    h = _config1_harness(dev, p)
+    with _FirstCall() as spy:
+        warm = h.run(ens.clone(), truth.clone(), p["warmup"],
+                     seed=p["obs_seed"])
+    mean_err, pert_err, _ = _against_plain("phase 21 cycle 0", spy.got)
+    sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    stats = h.run(None, None, p["cycles"], resume=True)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    nobs = len(range(0, p["nvars"], p["stride"]))
+    per_cycle = dict(B1=1, B4=-(-nobs // p["block"]))
+    if cuda:
+        check(_only(**{k: v * p["cycles"] for k, v in per_cycle.items()})(
+            counts), f"phase 21: launches {counts} in {p['cycles']} cycles")
+    rmse = [s.analysis_rmse for s in stats]
+    spread = [s.mean_spread for s in stats]
+    check(all(np.isfinite([s.analysis_rmse, s.mean_spread,
+                           s.background_rmse]).all() for s in warm + stats),
+          "phase 21: a cycle is not finite")
+    last30 = statistics.mean(rmse[-30:])
+    check(last30 < 1.0, f"phase 21: last-30 mean analysis RMSE {last30:.4f} "
+          "not below the obs error 1.0")
+
+    # Save halfway, load into a fresh harness, finish: bit for bit.
+    half = p["cycles"] // 2
+    h2 = _config1_harness(dev, p)
+    h2.run(ens.clone(), truth.clone(), p["warmup"], seed=p["obs_seed"])
+    first = h2.run(None, None, half, resume=True)
+    path = os.path.join(_scratch_dir(), "phase21.ckpt")
+    h2.save_checkpoint(path)
+    h3 = _config1_harness(dev, p)
+    h3.load_checkpoint(path)
+    second = h3.run(None, None, p["cycles"] - half, resume=True)
+    os.remove(path)
+    check(first + second == stats and bool(torch.equal(
+        h3._final_ensemble, h._final_ensemble)),
+          "phase 21: the resumed run differs from the uninterrupted one")
+
+    # Where a cycle's time goes: 10 more cycles, each part closed by a
+    # synchronize.
+    from efa_xray_tpu_torch.assimilation import adaptive_inflation as ai
+    from efa_xray_tpu_torch.assimilation.ensrf import FlatRoute
+    from efa_xray_tpu_torch.models import cycling
+
+    nsplit = 10
+    _, split_wall, split = _spans(
+        lambda: h.run(None, None, nsplit, resume=True),
+        [(lorenz96, "integrate", "forecast"), (FlatRoute, "solve",
+                                                "analysis"),
+         (ai, "update_inflation_rows", "inflation_learning"),
+         (cycling, "_crps_mean", "crps")], sync)
+    split = {k: v / nsplit for k, v in split.items()}
+    split["cycle"] = split_wall / nsplit
+
+    # The other solvers, from the spun-up ensemble, against the free run.
+    free, tr = ens.clone(), truth.clone()
+    free_rmse = []
+    for _ in range(p["solver_cycles"]):
+        tr = lorenz96.integrate(tr, nsteps=p["steps"])
+        free = lorenz96.integrate(free, nsteps=p["steps"])
+        free_rmse.append(float(torch.sqrt(torch.mean(
+            (free.mean(dim=0) - tr) ** 2))))
+    solvers = {}
+    for solver in ("letkf", "enkf"):
+        _reset_counts()
+        s = _config1_harness(dev, p, solver=solver).run(
+            ens.clone(), truth.clone(), p["solver_cycles"],
+            seed=p["obs_seed"])
+        r = [x.analysis_rmse for x in s]
+        check(bool(np.isfinite(r).all()), f"phase 21 {solver}: not finite")
+        check(statistics.mean(r) < statistics.mean(free_rmse),
+              f"phase 21 {solver}: mean analysis RMSE "
+              f"{statistics.mean(r):.4f} not below the free run's "
+              f"{statistics.mean(free_rmse):.4f}")
+        check(_only()(_counts()), f"phase 21 {solver}: launched {_counts()}")
+        solvers[solver] = dict(rmse=r, mean_rmse=statistics.mean(r))
+
+    # Options the JAX harness ignores (hybrid, variable_localization,
+    # method) keep the harness on B1 + B4 and leave its analysis as it is.
+    from efa_xray_tpu_torch import FilterConfig
+
+    lats, lons = lorenz96.fake_latlon(p["nvars"])
+    rows = np.arange(0, p["nvars"], p["stride"])
+    y = truth[torch.as_tensor(rows, device=truth.device)].double().cpu()
+    y = y.numpy() + 0.5
+
+    def one_analysis(**cfg):
+        hh = _config1_harness(dev, p, adaptive_inflation=False,
+                              config=FilterConfig(
+                                  localization="GC", dtype="float32",
+                                  block_size=p["block"], **cfg))
+        _reset_counts()
+        a, _ = hh.analysis_step(ens.clone(), y, lats[rows], lons[rows])
+        return a, _counts()
+
+    base, _ = one_analysis()
+    ignored = dict(
+        hybrid=dict(hybrid_alpha=0.5, static_b_sigma=1.0,
+                    static_b_length=500.0),
+        variable_localization=dict(variable_localization={("X", "X"): 0.5}),
+        serial=dict(method="serial"))
+    for name, cfg in ignored.items():
+        a, c = one_analysis(**cfg)
+        if cuda:
+            check(_only(**per_cycle)(c),
+                  f"phase 21 {name} config: launches {c}")
+        check(bool(torch.equal(a, base)),
+              f"phase 21 {name} config: the analysis differs")
+    out = dict(
+        cycles=p["cycles"], warmup=p["warmup"], seconds=wall,
+        cycles_per_sec=p["cycles"] / wall,
+        mean_analysis_rmse_last30=last30,
+        mean_analysis_rmse_last10=statistics.mean(rmse[-10:]),
+        mean_spread_last30=statistics.mean(spread[-30:]),
+        mean_spread_last10=statistics.mean(spread[-10:]),
+        launches_per_cycle={k: v / p["cycles"] for k, v in counts.items()
+                            if v},
+        split_seconds_per_cycle=split,
+        cycle0_vs_plain=dict(mean=mean_err, perts=pert_err),
+        checkpoint_bit_exact=True,
+        ignored_options_keep_route=sorted(ignored),
+        free_run_mean_rmse=statistics.mean(free_rmse),
+        **{f"{k}_{p['solver_cycles']}_cycles": v for k, v in solvers.items()})
+    log("phase 21: BASELINE config 1 (L96 CyclingHarness) " + json.dumps(out))
+    return out
+
+
+# examples/multivariate_swe.py on a channel 8 times wider each way: 128 x
+# 256 (98,304 rows of eta, u, v), 40 members, eta obs at every 2nd point
+# (16,384 obs), R 1e-4, 500 km (the example's 4000 km at 32 columns, in
+# grid units), RTPS 0.5, 10 model steps a cycle, 10 cycles, float32; the
+# example's spin-up (2500 steps, members 400).
+SWE22 = dict(ny=128, nx=256, nmems=40, stride=2, ob_error=1e-4,
+             radius=500.0, rtps=0.5, steps=10, cycles=10, spinup=2500,
+             member_steps=400, seed=0, obs_seed=3, check_steps=3,
+             check_mems=4)
+
+
+def _var_rmse(flat_ens, flat_truth, n):
+    """Ensemble-mean RMSE of each of a flat SWE state's variables."""
+    import torch
+
+    from efa_xray_tpu_torch.models import swe
+
+    err = (flat_ens.mean(dim=0) - flat_truth).double()
+    return {v: float(torch.sqrt(torch.mean(err[i * n:(i + 1) * n] ** 2)))
+            for i, v in enumerate(swe.VAR_ORDER)}
+
+
+def phase22(dev="cuda", **cut):
+    """The multivariate shallow-water OSSE at full width through the
+    port's ``CyclingHarness``: spin-up, per-cycle forecast and analysis
+    seconds, B1/B4 launches a cycle, background and analysis RMSE per
+    variable; cycle 0 against the plain update, the never-observed winds
+    corrected on cycle 0, the forecast against float64 on the CPU."""
+    import torch
+
+    from efa_xray_tpu_torch import FilterConfig
+    from efa_xray_tpu_torch.models import swe
+    from efa_xray_tpu_torch.models.cycling import CyclingHarness
+
+    p = dict(SWE22, **cut)
+    ny, nx, n = p["ny"], p["nx"], p["ny"] * p["nx"]
+    sync = _syncer(dev)
+    cuda = torch.device(dev).type == "cuda"
+    sync()
+    t0 = time.perf_counter()
+    truth, ens = swe.spinup_ensemble(
+        ny=ny, nx=nx, nmems=p["nmems"], seed=p["seed"],
+        spinup_steps=p["spinup"], member_steps=p["member_steps"],
+        device=dev, dtype=torch.float32)
+    sync()
+    spinup = time.perf_counter() - t0
+    steps_total = p["spinup"] + p["member_steps"]
+    start = {k: v[:p["check_mems"]] for k, v in ens.items()}
+    got = swe.integrate(start, ny, nsteps=p["check_steps"])
+    want = swe.integrate({k: v.double().cpu() for k, v in start.items()}, ny,
+                         nsteps=p["check_steps"])
+    ferr = max(compare(f"phase 22 SWE {k}, card vs float64 CPU", got[k],
+                       want[k].to(got[k].device)) for k in swe.VAR_ORDER)
+
+    lat, lon = swe.grid_latlon(ny, nx)
+    rows = swe.var_rows("eta", ny, nx, stride=p["stride"])
+    nobs = len(rows)
+    fc = swe.make_flat_forecast(ny, nx, nsteps=p["steps"])
+    rec, cur = [], {}
+
+    def forecast(x):
+        sync()
+        t = time.perf_counter()
+        out = fc(x)
+        sync()
+        cur["forecast"] = cur.get("forecast", 0.0) + time.perf_counter() - t
+        if x.ndim == 1:
+            cur["truth"] = out
+        return out
+
+    cfg = FilterConfig(rtps_alpha=p["rtps"], dtype="float32")
+    h = CyclingHarness(forecast=forecast, state_lats=lat, state_lons=lon,
+                       ob_error=p["ob_error"], localize_radius=p["radius"],
+                       obs_operator_rows=rows, config=cfg,
+                       device=torch.device(dev))
+    step = h.analysis_step
+
+    def timed_step(ensemble, values, la, lo):
+        _reset_counts()
+        sync()
+        t = time.perf_counter()
+        out, diags = step(ensemble, values, la, lo)
+        sync()
+        secs = time.perf_counter() - t
+        counts = _counts()
+        check(bool(torch.isfinite(out).all()),
+              f"phase 22 cycle {len(rec)}: analysis not finite")
+        rec.append(dict(cycle=len(rec), forecast_s=cur.pop("forecast"),
+                        analysis_s=secs, B1=counts["B1"], B4=counts["B4"],
+                        bg=_var_rmse(ensemble, cur["truth"], n),
+                        an=_var_rmse(out, cur["truth"], n),
+                        counts=counts))
+        return out, diags
+
+    h.analysis_step = timed_step
+    with _FirstCall() as spy:
+        stats = h.run(swe.pack(ens, ny, nx), swe.pack(truth, ny, nx),
+                      p["cycles"], seed=p["obs_seed"])
+    mean_err, pert_err, plain_s = _against_plain("phase 22 cycle 0",
+                                                 spy.got)
+    # Where an analysis's time goes: one more of the last ensemble, each
+    # part closed by a synchronize (the operands of the tail's and the
+    # body's B4 blocks together).
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    yobs = (cur["truth"][torch.as_tensor(rows, device=cur["truth"].device)]
+            .double().cpu().numpy()
+            + np.random.default_rng(p["obs_seed"] + 1).normal(
+                0.0, np.sqrt(p["ob_error"]), nobs))
+    _, split_wall, split = _spans(
+        lambda: step(h._final_ensemble, yobs, lat[rows], lon[rows]),
+        [(core, "tail_scan_blocked", "tail"),
+         (ensrf_grid, "blocked_body", "body"),
+         (ensrf_grid, "block_operands", "B4 operands"),
+         (ensrf_grid, "block_apply", "B4 launches")], sync)
+    split["analysis"] = split_wall
+    tail = _tail_counts(nobs, cfg.tail_panel, b4=True)
+    want = dict(B1=tail["panels"],
+                B4=tail["b4"] + -(-nobs // min(cfg.block_size, nobs)))
+    for r in rec:
+        if cuda:
+            check(_only(**want)(r.pop("counts")),
+                  f"phase 22 cycle {r['cycle']}: launches {r}")
+        else:
+            r.pop("counts")
+    c0 = rec[0]
+    for v in ("u", "v"):
+        check(c0["an"][v] < c0["bg"][v],
+              f"phase 22 cycle 0: never-observed {v} analysis RMSE "
+              f"{c0['an'][v]:.5f} not below its background's "
+              f"{c0['bg'][v]:.5f}")
+    for r in rec:
+        log("phase 22 cycle " + json.dumps(r))
+    late = rec[1:] or rec
+    out = dict(
+        ny=ny, nx=nx, nrows=3 * n, nmems=p["nmems"], nobs=nobs,
+        spinup_s=spinup, spinup_steps=steps_total,
+        spinup_ms_per_step=1e3 * spinup / steps_total,
+        forecast_s_per_cycle=statistics.mean(r["forecast_s"] for r in late),
+        analysis_s_per_cycle=statistics.mean(r["analysis_s"] for r in late),
+        first_analysis_s=rec[0]["analysis_s"],
+        analysis_split_s=split,
+        launches_per_cycle=want if cuda else None,
+        cycle0_vs_plain=dict(mean=mean_err, perts=pert_err,
+                             plain_s=plain_s),
+        forecast_vs_f64_cpu=ferr,
+        cycle0_rmse=dict(background=c0["bg"], analysis=c0["an"]),
+        final_rmse=dict(background=rec[-1]["bg"], analysis=rec[-1]["an"]),
+        analysis_rmse=[s.analysis_rmse for s in stats])
+    log("phase 22: multivariate SWE OSSE " + json.dumps(out))
+    return out
+
+
+# The observation pipeline (examples/obs_pipeline.py) on phase 4's grid:
+# 100,000 raw obs of a smooth truth (R 1) at grid points, 20% exact
+# duplicates of the ob before, superob at 0.25 deg, thinning at 25 km,
+# Hilbert order, EnSRF with fast_geometry + spatial_sort at 500 km and
+# inflation 1.05, one ob with a custom forward operator (the global mean).
+PIPE23 = dict(ny=1024, nmems=80, nraw=100_000, dup=0.2, cell_deg=0.25,
+              min_km=25.0, radius=500.0, r=1.0, inflation=1.05, seed=23,
+              nmodes=8, tail_check_panels=8)
+
+
+def _pipeline_against_plain(tail_got, body_got, npanels: int) -> dict:
+    """The pipeline's update against the plain versions on the same
+    tensors, at the kernel tolerances: the whole body (B2 over every row
+    and ob) against the plain ``ensrf_blocked_body`` fed the same tail
+    solution, and the tail (B1 with its out-of-panel B2 applies) against
+    the plain panel scan over its first ``npanels`` panels, which depend
+    on no later ob.  The plain scan of the whole tail (a per-ob loop,
+    ~2.3 ms an ob) would take minutes at this batch.  Max abs errors and
+    the plain seconds."""
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+
+    cfg = body_got["cfg"]
+    route, bm, bp, lat, lon, tail, obs, body_vert, vertical = \
+        body_got["args"][:9]
+    check(route == "B2", f"phase 23: the body took {route}, not B2")
+    sync = _syncer(bm.device)
+    sync()
+    t0 = time.perf_counter()
+    pbm, pbp = core.ensrf_blocked_body(
+        bm, bp, lat, lon, tail, obs, localize=cfg.localize,
+        block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
+        body_vert=body_vert, vertical=vertical)
+    sync()
+    body_s = time.perf_counter() - t0
+    errs = dict(
+        body_mean=compare("phase 23 body mean vs plain", body_got["out"][0],
+                          pbm),
+        body_perts=compare("phase 23 body perturbations vs plain",
+                           body_got["out"][1], pbp))
+    tm, tp, tobs, tvert = tail_got["args"][:4]
+    k = min(int(tobs.values.shape[0]), npanels * cfg.tail_panel)
+    cut = type(tobs)(*(None if x is None else x[:k] for x in tobs))
+    t0 = time.perf_counter()
+    ptail = core.tail_scan_blocked(
+        tm[:k], tp[:k], cut, localize=cfg.localize,
+        unbiased=cfg.unbiased_variance, fast_geometry=cfg.fast_geometry,
+        vertical=tvert, panel=cfg.tail_panel, kernels=False)
+    sync()
+    tail_s = time.perf_counter() - t0
+    for name in ("ye", "gain_coef", "sqrt_coef"):
+        errs[f"tail {name}"] = compare(
+            f"phase 23 tail {name} vs plain (first {k} obs)",
+            getattr(tail, name)[:k], getattr(ptail, name))
+    for i, name in enumerate(("prior_mean", "prior_var", "post_mean",
+                              "post_var")):
+        errs[f"tail {name}"] = compare(
+            f"phase 23 tail {name} vs plain (first {k} obs)",
+            tail.diags[i][:k], ptail.diags[i])
+    return dict(max_abs_err=errs, plain_body_s=body_s, plain_tail_s=tail_s,
+                tail_obs_checked=k)
+
+
+def _pipeline_state(dev, ny, nmems, nmodes, seed):
+    """Phase 4's grid (``ny`` x ``ny``, lat +-88) with a smooth truth, a
+    background off it by a smooth error, and members spread over the same
+    smooth modes: ``(state, truth [ny, nx] float64 NumPy)``."""
+    import torch
+
+    from efa_xray_tpu_torch import EnsembleState
+
+    nx = ny
+    lon, lat = np.meshgrid(np.arange(0, 360, 360 / nx),
+                           np.linspace(-88, 88, ny))
+    rng = np.random.default_rng(seed)
+    la, lo = np.radians(lat), np.radians(lon)
+    k = rng.integers(1, 7, nmodes)
+    l = rng.integers(1, 5, nmodes)
+    ph = rng.uniform(0, 2 * np.pi, (2, nmodes))
+    modes = torch.tensor(np.stack([
+        np.cos(la) * np.cos(k[j] * lo + ph[0, j]) * np.cos(l[j] * la
+                                                           + ph[1, j])
+        for j in range(nmodes)]), dtype=torch.float32, device=dev)
+    truth = 280.0 + 20.0 * np.cos(la) + 3.0 * np.einsum(
+        "j,jyx->yx", rng.normal(size=nmodes), modes.double().cpu().numpy())
+    err = rng.normal(size=nmodes)
+    c = rng.normal(size=(nmems, nmodes))
+    c = 2.0 * (err[None, :] + c - c.mean(axis=0, keepdims=True))
+    members = torch.einsum("mj,jyx->yxm", torch.tensor(c, dtype=torch.float32,
+                                                       device=dev), modes)
+    members += torch.tensor(truth, dtype=torch.float32, device=dev)[..., None]
+    times = np.datetime64("2026-08-01T00") + np.arange(1)
+    state = EnsembleState.from_vardict(
+        {"T2m": members[None]}, {"validtime": times, "lat": lat, "lon": lon},
+        dtype="float32", device=dev)
+    return state, truth
+
+
+def _pipeline_dataframe(state, truth, p):
+    """``examples/obs_pipeline.py``'s recipe: the truth at interior grid
+    points plus N(0, R), every ob with probability ``dup`` a copy of the
+    location of the ob before it."""
+    import pandas as pd
+
+    s = state.structure
+    rng = np.random.default_rng(p["seed"] + 1)
+    n = p["nraw"]
+    iy = rng.integers(1, s.ny - 1, n)
+    ix = rng.integers(1, s.nx - 1, n)
+    dup = rng.random(n) < p["dup"]
+    iy[dup] = iy[np.maximum(np.nonzero(dup)[0] - 1, 0)]
+    ix[dup] = ix[np.maximum(np.nonzero(dup)[0] - 1, 0)]
+    return pd.DataFrame({
+        "value": truth[iy, ix] + rng.normal(0, np.sqrt(p["r"]), n),
+        "error": p["r"], "lat": s.lat[iy, ix], "lon": s.lon[iy, ix],
+        "time": np.repeat(s.times64()[0], n), "obtype": s.var_names[0],
+        "localize_radius": p["radius"]})
+
+
+def _haversine_np(lat1, lon1, lat2, lon2):
+    p1, p2 = np.radians(lat1), np.radians(lat2)
+    a = (np.sin((p2 - p1) / 2) ** 2 + np.cos(p1) * np.cos(p2)
+         * np.sin(np.radians(lon2 - lon1) / 2) ** 2)
+    return 2 * 6371.0 * np.arctan2(np.sqrt(a), np.sqrt(1 - a))
+
+
+def _pipeline_probes(post, host, t0):
+    """``nearest_points`` / ``interpolate`` / ``isel`` / ``sel`` on the
+    posterior against NumPy on its host copy ``host [ny, nx, nmems]``;
+    returns the largest error."""
+    import torch
+
+    s = post.structure
+    errs = []
+    for plat, plon in ((12.34, 56.78), (-60.1, 300.2), (87.5, 359.9)):
+        yy, xx = post.nearest_points(plat, plon, npt=4)
+        d = _haversine_np(s.lat, s.lon, plat, plon).ravel()
+        near = np.argsort(d, kind="stable")[:4]
+        check(np.array_equal(np.ravel_multi_index((yy, xx), s.lat.shape),
+                             near), f"phase 23: nearest_points at "
+              f"({plat}, {plon})")
+        w = 1.0 / d[near]
+        w /= w.sum()
+        want = (host.reshape(-1, s.nmems)[near] * w[:, None]).sum(axis=0)
+        got = post.interpolate("T2m", t0, plat, plon)
+        errs.append(compare(f"phase 23 interpolate at ({plat}, {plon})",
+                            got.cpu(), torch.as_tensor(want)))
+    ys = slice(s.ny // 10, s.ny // 10 + max(2, s.ny // 25))
+    xs = [5, 17, s.nx * 7 // 8]
+    sub = post.isel(y=ys, x=xs, mem=slice(0, 10))
+    errs.append(compare("phase 23 isel", sub.data[0, 0].cpu(),
+                        torch.as_tensor(host[ys][:, xs, :10])))
+    box = post.sel(lat=slice(10.0, 20.0), lon=slice(350.0, 10.0))
+    ym = (s.lat[:, 0] >= 10.0) & (s.lat[:, 0] <= 20.0)
+    xm = (np.mod(s.lon[0], 360) >= 350.0) | (np.mod(s.lon[0], 360) <= 10.0)
+    errs.append(compare("phase 23 sel", box.data[0, 0].cpu(),
+                        torch.as_tensor(host[ym][:, xm])))
+    return max(errs)
+
+
+def phase23(dev="cuda", **cut):
+    """The observation pipeline on phase 4's grid: DataFrame ingest,
+    ``superob``, ``thin_by_distance``, ``sort_spatially``, ``EnSRF`` with
+    ``fast_geometry`` and ``spatial_sort`` (B1 + B2) with one custom
+    forward operator in the batch, held against the plain versions
+    (:func:`_pipeline_against_plain`), then
+    ``obs_assimilation_statistics``, ``desroziers_diagnostics``,
+    ``field_verification`` and the state probes, each held against NumPy
+    on the host copy; host seconds of each step and the obs count after
+    each thinning step."""
+    import torch
+
+    from efa_xray_tpu_torch import (
+        EnSRF,
+        FilterConfig,
+        Observation,
+        ObservationBatch,
+        obs_assimilation_statistics,
+    )
+    from efa_xray_tpu_torch.observation import forward as fwd
+    from efa_xray_tpu_torch.observation import thinning
+    from efa_xray_tpu_torch.postprocess import (
+        desroziers_diagnostics,
+        field_verification,
+    )
+
+    p = dict(PIPE23, **cut)
+    sync = _syncer(dev)
+    cuda = torch.device(dev).type == "cuda"
+    state, truth = _pipeline_state(dev, p["ny"], p["nmems"], p["nmodes"],
+                                   p["seed"])
+    df = _pipeline_dataframe(state, truth, p)
+    secs, counts_after = {}, {"raw": len(df)}
+
+    def step(name, fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    batch = step("from_dataframe", lambda: ObservationBatch.from_dataframe(df))
+    batch = step("superob", lambda: thinning.superob(batch, p["cell_deg"]))
+    counts_after["superob"] = batch.nobs
+    batch = step("thin", lambda: thinning.thin_by_distance(batch,
+                                                           p["min_km"]))
+    counts_after["thin"] = batch.nobs
+    batch = step("sort", lambda: thinning.sort_spatially(batch))
+    t0 = state.structure.times64()[0]
+    gmean = lambda st: st.data[0, 0].mean(dim=(0, 1))
+    custom = Observation(
+        value=float(truth.mean() + 0.2), obtype="T2m_global_mean", time=t0,
+        error=0.05, lat=0.0, lon=0.0, assimilate_this=True,
+        forward_operator=gmean)
+    # The custom ob goes first, so that its recorded prior is its own
+    # operator's (a later ob's is the tail after the obs before it).
+    obs = step("to_observations", lambda: [custom] + batch.to_observations())
+    cfg = FilterConfig(localization="GC", fast_geometry=True,
+                       spatial_sort=True, dtype="float32")
+    _reset_counts()
+    with _FirstCall(EnSRF, "_kernel_tail") as tail_spy, \
+            _FirstCall(EnSRF, "_body_apply") as body_spy:
+        post, out = step("update", lambda: EnSRF(
+            state, obs, inflation=p["inflation"], config=cfg,
+            verbose=False).update())
+    counts = _counts()
+    plain = _pipeline_against_plain(tail_spy.got, body_spy.got,
+                                    p["tail_check_panels"])
+    nobs = out.nobs
+    if cuda:
+        check(_only(B1=-(-nobs // cfg.tail_panel), B2=None)(counts),
+              f"phase 23: launches {counts}")
+    inn = _innovations("phase 23", out, out)
+    want_prior = float(gmean(state).double().mean())
+    check(abs(out.prior_mean[0] - want_prior) < 1e-3,
+          f"phase 23: the custom operator's prior {out.prior_mean[0]} is "
+          f"not its own {want_prior}")
+
+    stats = step("statistics", lambda: obs_assimilation_statistics(
+        state, post, out))
+    # The table re-applies the interpolation taps, so the custom ob's row
+    # (the first) carries no meaning for Desroziers: it is left out.
+    dd = step("desroziers", lambda: desroziers_diagnostics(stats.iloc[1:]))
+    fv = step("field_verification", lambda: field_verification(
+        post, truth[None, None]))
+    # The same on the host copy, in NumPy.
+    s = state.structure
+    prior_h = state.to_vect().double().cpu().numpy()
+    post_h = post.to_vect().double().cpu().numpy()
+    taps = fwd.build_taps_cached(s, out.lats, out.lons, out.times_s,
+                                 out.var_indices(s), device=state.device)
+    errs = {}
+    for name, vect in (("prior", prior_h), ("post", post_h)):
+        ye = np.einsum("okm,ok->om", vect[taps.rows], taps.weights)
+        errs[f"{name} mean"] = compare(
+            f"phase 23 statistics {name} mean",
+            torch.tensor(stats[f"{name} mean"].to_numpy()),
+            torch.tensor(ye.mean(axis=1)))
+        errs[f"{name} variance"] = compare(
+            f"phase 23 statistics {name} variance",
+            torch.tensor(stats[f"{name} variance"].to_numpy()),
+            torch.tensor(ye.var(axis=1)))
+    a = stats.iloc[1:][stats["assimilated"].iloc[1:]]
+    for ot, g in a.groupby("obtype"):
+        d_b = (g["value"] - g["prior mean"]).to_numpy()
+        d_a = (g["value"] - g["post mean"]).to_numpy()
+        check(abs(dd.loc[ot, "R_estimated"] - np.mean(d_a * d_b)) < 1e-9,
+              f"phase 23: desroziers R for {ot}")
+    ens_h = post_h.reshape(s.ny * s.nx, s.nmems)
+    mean_h = ens_h.mean(axis=1)
+    tr = truth.ravel()
+    m = s.nmems
+    w = 2.0 * np.arange(m) + 1.0 - m
+    fv_np = dict(
+        rmse=np.sqrt(np.mean((mean_h - tr) ** 2)),
+        bias=np.mean(mean_h - tr), spread=np.mean(ens_h.std(axis=1)),
+        crps=np.mean(np.abs(ens_h - tr[:, None]))
+        - np.mean(np.sort(ens_h, axis=1) @ w) / (m * m))
+    for k, v in fv_np.items():
+        got = float(fv[k].iloc[0])
+        check(abs(got - v) <= 1e-4 * max(1.0, abs(v)),
+              f"phase 23: field_verification {k} {got} vs NumPy {v}")
+    prior_fv = field_verification(state, truth[None, None])
+    check(float(fv["rmse"].iloc[0]) < float(prior_fv["rmse"].iloc[0]),
+          "phase 23: the analysis RMSE is not below the background's")
+    probe_err = step("probes", lambda: _pipeline_probes(
+        post, post.data[0, 0].cpu().numpy(), t0))
+    res = dict(
+        ngrid=s.ny * s.nx, nmems=s.nmems, obs_counts=counts_after,
+        assimilated=nobs, launches=counts if cuda else None,
+        host_seconds=secs, update_vs_plain=plain, mean_abs_innov=inn,
+        desroziers=dd.reset_index().to_dict("records"),
+        field_rmse=dict(background=float(prior_fv["rmse"].iloc[0]),
+                        analysis=float(fv["rmse"].iloc[0])),
+        field_spread=float(fv["spread"].iloc[0]),
+        statistics_vs_numpy=errs, probes_vs_numpy=probe_err)
+    log("phase 23: observation pipeline " + json.dumps(res, default=float))
+    return res
+
+
 # P's products are timed as runs of this many calls back to back.
 P_INNER = 20
 
@@ -3237,6 +3976,9 @@ def main() -> int:
     timed(phase18)
     timed(phase19)
     timed(phase20)
+    timed(phase21)
+    timed(phase22)
+    timed(phase23)
     # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
     # a localized recurrence): their library_ms is null.
     kernels = [

@@ -8,8 +8,10 @@ Counterpart of ``efa_xray_tpu/assimilation/assimilation.py``:
 ``_vertical_active`` :348, ``format_prior_state`` :492 (the fused
 ``_format_prior_jit`` :48), ``format_posterior_state`` :526,
 ``varloc_kwargs`` :539, ``maybe_update_adaptive_inflation`` :576 and
-``record_diagnostics`` :611; the refusal of ``matmul_precision`` below fp32
-that every solver shares.
+``record_diagnostics`` :611, ``compute_ob_priors`` with the custom forward
+operators ``_custom_operators`` :452-482, and the module-level ``update``
+:650; the refusal of ``matmul_precision`` below fp32 that every solver
+shares.
 
 Everything runs on one explicit device, the filter's: by default the
 prior state's.  With ``obs_order="hilbert"`` the filter assimilates a
@@ -17,9 +19,10 @@ sorted copy of the batch (``_batch``) and every update hands back the
 caller's order: the JAX package restores it from ``self.obs``, which its
 first update has already restored, so that a second ``update()`` of one
 filter reorders a batch that is no longer sorted (ROADMAP C, faults of
-the reference); here the sorted copy is never reordered.  Inflation from
-a file (netCDF I/O, ROADMAP A11), custom forward operators and the
-module-level ``update`` driver are not ported yet.
+the reference); here the sorted copy is never reordered.  A custom
+forward operator's row is put where its ob sits in the sorted batch (the
+JAX package puts it at the ob's index in the caller's order).  Inflation
+from a file (netCDF I/O, ROADMAP A11) is not ported yet.
 """
 
 from __future__ import annotations
@@ -255,6 +258,34 @@ class Assimilation:
         verts = np.asarray(self._batch.verts, dtype=np.float64)
         return bool(np.any(np.isfinite(vr) & np.isfinite(verts)))
 
+    def compute_ob_priors(self, state: Optional[EnsembleState] = None):
+        """Obs-space priors ``(means [No], perts [No, M])`` of ``state``
+        (the prior by default), in the assimilation order: one gather
+        through the taps, then each custom ``forward_operator``'s row
+        (reference ``assimilation.py:36-49``)."""
+        state = self.prior if state is None else state
+        ye = _fwd.apply_taps_obj(state.to_vect(), self.build_taps())
+        custom = self._custom_operators()
+        if custom:
+            ye = ye.clone()
+            for i, fn in custom:
+                ye[i] = torch.as_tensor(fn(state), dtype=ye.dtype,
+                                        device=ye.device)
+        means = ye.mean(dim=1)
+        return means, ye - means[:, None]
+
+    def _custom_operators(self):
+        """``(row, forward_operator)`` of every ob passed as an
+        ``Observation`` with a custom operator, the row being its place in
+        the assimilation order."""
+        if self._user_obs is None:
+            return []
+        pos = (np.arange(len(self._user_obs)) if self._obs_unsort is None
+               else self._obs_unsort)
+        return [(int(pos[i]), ob.forward_operator)
+                for i, ob in enumerate(self._user_obs)
+                if getattr(ob, "forward_operator", None) is not None]
+
     def inflate_state(self) -> None:
         if self.is_inflated:
             self.log.warning("State already inflated.  Skipping additional "
@@ -273,15 +304,11 @@ class Assimilation:
             if self.verbose:
                 self.log.info("Inflating Prior State")
             self.inflate_state()
-        if self._batch.custom_operator.any():
-            raise NotImplementedError(
-                "custom forward operators are not ported yet")
         if self.verbose:
             self.log.info("Computing observation priors")
+        tail_mean, tail_perts = self.compute_ob_priors()
+        tail_perts = tail_perts.to(self.dtype)
         vect = self.prior.to_vect()
-        ye = _fwd.apply_taps_obj(vect, self.build_taps())
-        tail_mean = ye.mean(dim=1)
-        tail_perts = (ye - tail_mean[:, None]).to(self.dtype)
         body_mean = vect.mean(dim=1)
         body_perts = (vect - body_mean[:, None]).to(self.dtype)
         return (body_mean.to(self.dtype), body_perts,
@@ -368,3 +395,31 @@ class Assimilation:
         if self._user_obs is not None and all(
                 isinstance(o, Observation) for o in self._user_obs):
             self.obs.writeback(self._user_obs)
+
+
+def update(prior_state: EnsembleState, obs, inflate: InflationSpec = None,
+           loc=False, nproc: int = 1, verbose: bool = False, mesh=None,
+           config: Optional[FilterConfig] = None, solver: str = "ensrf",
+           device=None):
+    """One-call update (the reference's ``assimilation.py:176-230``):
+    ``(posterior, observations)`` from ``solver`` ``"ensrf"`` (default),
+    ``"letkf"`` or ``"enkf"``.  ``nproc`` is accepted for the reference's
+    signature; ``mesh`` raises ``NotImplementedError`` (ROADMAP A10).
+    ``device``: the filter's (the state's by default)."""
+    from efa_xray_tpu_torch.assimilation.enkf import EnKF
+    from efa_xray_tpu_torch.assimilation.ensrf import EnSRF
+    from efa_xray_tpu_torch.assimilation.letkf import LETKF
+
+    try:
+        cls = {"ensrf": EnSRF, "letkf": LETKF, "enkf": EnKF}[solver]
+    except KeyError:
+        raise ValueError(f"unknown solver {solver!r}") from None
+    if config is None:
+        config = FilterConfig(
+            localization="GC" if loc not in (None, False) else None,
+            verbose=verbose)
+    kwargs = dict(inflation=inflate, verbose=verbose, loc=loc, config=config,
+                  mesh=mesh, device=device)
+    if cls is EnSRF:
+        kwargs["nproc"] = nproc
+    return cls(prior_state, obs, **kwargs).update()

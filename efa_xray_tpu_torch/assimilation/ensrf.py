@@ -2,15 +2,20 @@
 
 Counterpart of ``efa_xray_tpu/assimilation/ensrf.py``: the ``EnSRF`` class
 :42, its kernel selection ``_grid_kernel_ok`` :70, ``_use_pallas`` :85 and
-``_tail_pallas`` :129 (here :meth:`EnSRF._grid_kernel_ok`,
-:meth:`EnSRF._use_kernels` and :meth:`EnSRF._tail_kernels`),
+``_tail_pallas`` :129 (here :meth:`KernelRoute._grid_kernel_ok`,
+:meth:`KernelRoute._use_kernels` and :meth:`KernelRoute._tail_kernels`),
 ``_hybrid_kwargs`` :150, ``_update_impl`` :187 (with RTPS/RTPP
 :208-223, :324-331, and the adaptive-inflation learning :334), the
-one-shot ``_solve_once`` :338, the obs-chunked ``_solve_obs_chunked``
-:522 and ``_body_apply`` :618.
+one-shot ``_solve_once`` :338 (here :meth:`KernelRoute.solve`), the
+obs-chunked ``_solve_obs_chunked`` :522 and ``_body_apply`` :618.
+
+The route and its solve live in :class:`KernelRoute`, which ``EnSRF``
+takes on for its state and :class:`FlatRoute` for a flat ensemble: the
+cycling harness (``models/cycling.py``) runs its EnSRF analysis through
+``FlatRoute``, so that it takes the kernels the same way.
 
 Routing, branch for branch as the JAX package routes a TPU run
-(:meth:`EnSRF._route`):
+(:meth:`KernelRoute._route`):
 
 * ``method="serial"``: the plain serial loop on any device (the JAX serial
   path has no kernel either);
@@ -36,7 +41,8 @@ JAX package takes its tail kernel on the chordal runs only; the port's
 B1 carries the others' weights, the same function.  On CUDA tensors the
 kernels run; on CPU tensors their plain versions.
 
-``spatial_sort`` hands B2 (B2h) the structure's Hilbert row order.
+``spatial_sort`` hands B2 (B2h) the structure's Hilbert row order (a flat
+state's, from its rows' coordinates).
 ``obs_chunk`` solves the tail once over the whole batch, padded to whole
 chunks with no-op obs, then sweeps the body chunk by chunk along the same
 route; it refuses hybrid covariance and ``variable_localization`` with a
@@ -69,34 +75,27 @@ from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
 from efa_xray_tpu_torch.state.ensemble import EnsembleState
 
 
-class EnSRF(Assimilation):
-    """``EnSRF(state, obs, config=..., device=...).update()`` returns
-    ``(posterior_state, observations)`` with per-ob diagnostics recorded
-    (reference ``efa_xray/assimilation/ensrf.py:8-151``).  ``device``
-    defaults to the state's device."""
+class KernelRoute:
+    """The EnSRF's route and its solve, shared by :class:`EnSRF` and by
+    :class:`~efa_xray_tpu_torch.models.cycling.CyclingHarness` (through
+    :class:`FlatRoute`), so that both take one route for one state.
 
-    def __init__(self, state: EnsembleState, obs, nproc: int = 1,
-                 inflation=None, verbose: bool = True, loc=False,
-                 config: Optional[FilterConfig] = None, device=None,
-                 mesh=None):
-        if config is None:
-            config = FilterConfig(
-                localization="GC" if loc not in (None, False) else None,
-                verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device row sharding) is not ported yet "
-                "(ROADMAP A10)")
-        super().__init__(state, obs, nproc, inflation=inflation,
-                         verbose=verbose, config=config, device=device)
-        self.loc = loc if loc not in (None, False) else (config.localization
-                                                         or False)
+    A subclass provides ``config``, ``device``, ``dtype``,
+    :meth:`max_finite_radius` and :meth:`_route_structure`: the state's
+    ``StateStructure``, or None for a flat state (rows with coordinates
+    and nothing else; never B3, B4 as one group, ``spatial_sort`` from the
+    rows' own coordinates)."""
+
+    def _route_structure(self):
+        return None
 
     def _grid_kernel_ok(self) -> bool:
         """B3 eligibility: rows tile one spatial grid over vt > 1 groups,
         chordal localization, no hybrid."""
         cfg = self.config
-        st = self.prior.structure
+        st = self._route_structure()
+        if st is None:
+            return False
         vt = st.nvars * st.ntimes
         return (cfg.localize and cfg.fast_geometry and vt > 1
                 and st.ngrid > 0 and st.nstate == vt * st.ngrid
@@ -132,13 +131,166 @@ class EnSRF(Assimilation):
             return "serial"
         if not self._use_kernels():
             return "plain"
-        st = self.prior.structure
+        st = self._route_structure()
         if (self._grid_kernel_ok()
                 and nrows == st.nvars * st.ntimes * st.ngrid):
             return "B3"
         if cfg.fast_geometry or not cfg.localize:
             return "B2h" if cfg.hybrid_alpha < 1.0 else "B2"
         return "B4"
+
+    def _row_order(self, body_lat, body_lon):
+        """``spatial_sort``'s ``(order, inverse)`` of the body rows: the
+        structure's cached Hilbert order, or for a flat state the order of
+        ``body_lat``/``body_lon`` (float32, as the structure builds it)."""
+        st = self._route_structure()
+        if st is not None:
+            return st.spatial_order_device(self.device)
+        from efa_xray_tpu_torch.observation.localization import (
+            spatial_sort_order,
+        )
+
+        order = spatial_sort_order(body_lat.float(), body_lon.float())
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        return order, inv
+
+    def _kernel_tail(self, tail_mean, tail_perts, obs, vertical: bool,
+                     hkw: dict, vl: dict) -> core.TailSolution:
+        """Phase 1 of a kernel route: ``tail_scan_blocked(kernels=True)``."""
+        cfg = self.config
+        return core.tail_scan_blocked(
+            tail_mean, tail_perts, obs, localize=cfg.localize,
+            unbiased=cfg.unbiased_variance, fast_geometry=cfg.fast_geometry,
+            vertical=vertical, panel=cfg.tail_panel,
+            kernels=self._tail_kernels(),
+            max_radius_km=self.max_finite_radius(),
+            **{k: v for k, v in hkw.items() if k != "body_sigma"},
+            **({k: vl[k] for k in ("varloc", "ob_var")} if vl else {}))
+
+    def solve(self, body_mean, body_perts, tail_mean, tail_perts, body_lat,
+              body_lon, obs, body_vert=None, vertical: bool = False,
+              hkw: Optional[dict] = None, vl: Optional[dict] = None):
+        """One full update (tail + body) along :meth:`_route`; ``(bm, bp,
+        tm, tp, diags)``.  ``hkw``: hybrid inputs
+        (:meth:`EnSRF._hybrid_kwargs`), ``vl``: cross-variable ones
+        (``Assimilation.varloc_kwargs``).  The body kernels update
+        ``body_mean``/``body_perts`` in place."""
+        cfg = self.config
+        hkw = hkw or {}
+        vl = vl or {}
+        route = self._route(int(body_mean.shape[0]))
+        if route == "serial":
+            return core.ensrf_serial(
+                body_mean, body_perts, tail_mean, tail_perts, body_lat,
+                body_lon, obs, localize=cfg.localize,
+                unbiased=cfg.unbiased_variance,
+                fast_geometry=cfg.fast_geometry, body_vert=body_vert,
+                vertical=vertical, **hkw, **vl)
+        if route == "plain":
+            return core.ensrf_blocked(
+                body_mean, body_perts, tail_mean, tail_perts, body_lat,
+                body_lon, obs, localize=cfg.localize,
+                block_size=cfg.block_size, unbiased=cfg.unbiased_variance,
+                fast_geometry=cfg.fast_geometry, body_vert=body_vert,
+                vertical=vertical, **hkw, **vl)
+        tail = self._kernel_tail(tail_mean, tail_perts, obs, vertical, hkw,
+                                 vl)
+        bm, bp = self._body_apply(route, body_mean, body_perts, body_lat,
+                                  body_lon, tail, obs, body_vert, vertical,
+                                  hkw, vl)
+        return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
+
+    def _body_apply(self, route: str, bm, bp, body_lat, body_lon, tail, obs,
+                    body_vert, vertical: bool, hkw: dict, vl: dict):
+        """Phase 2: apply a pre-solved obs sequence to the state body along
+        ``route`` (B3, B2/B2h, B4, or the plain blocked body for the
+        ``"plain"`` and ``"serial"`` routes).  The caller owns the
+        formatted prior: the body kernels update it in place, where the
+        JAX package donates it."""
+        cfg = self.config
+        st = self._route_structure()
+        bvert = body_vert if vertical else None
+        if route in ("plain", "serial"):
+            return core.ensrf_blocked_body(
+                bm, bp, body_lat, body_lon, tail, obs, localize=cfg.localize,
+                block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
+                body_vert=body_vert, vertical=vertical)
+        if route == "B3":
+            group_factor = None
+            if vl:
+                vt = st.nvars * st.ntimes
+                varg = torch.arange(vt, device=self.device) // st.ntimes
+                group_factor = vl["varloc"][vl["ob_var"]][:, varg].T
+            return ensrf_grid.grid_body(
+                bm, bp, body_lat, body_lon, tail, obs, ngrid=st.ngrid,
+                body_vert=bvert, localize=cfg.localize,
+                block_size=cfg.block_size, vertical=vertical,
+                group_factor=group_factor, donate=True)
+        if route in ("B2", "B2h"):
+            row_order = inv_order = None
+            if cfg.spatial_sort:
+                row_order, inv_order = self._row_order(body_lat, body_lon)
+            return fused_body(
+                bm, bp, body_lat, body_lon, tail, obs, body_vert=bvert,
+                localize=cfg.localize, block_size=cfg.block_size,
+                vertical=vertical, cull=cfg.cull,
+                max_radius_km=self.max_finite_radius(),
+                hybrid=route == "B2h", body_sigma=hkw.get("body_sigma"),
+                static_length=hkw.get("static_length"), donate=True,
+                row_order=row_order, inv_order=inv_order)
+        return ensrf_grid.blocked_body(
+            bm, bp, body_lat, body_lon, tail, obs, localize=cfg.localize,
+            block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
+            body_vert=body_vert, vertical=vertical,
+            ngrid=None if st is None else st.ngrid, donate=True)
+
+
+class FlatRoute(KernelRoute):
+    """:class:`KernelRoute` over a flat state: ``config``, the device and
+    the radius bound of the obs (km, None when none is localized)."""
+
+    def __init__(self, config: FilterConfig, device,
+                 max_radius_km: Optional[float] = None):
+        self.config = config
+        self.device = torch.device(device)
+        self._max_radius_km = max_radius_km
+
+    @property
+    def dtype(self) -> torch.dtype:
+        from efa_xray_tpu_torch.state.ensemble import _torch_dtype
+
+        return _torch_dtype(self.config.dtype)
+
+    def max_finite_radius(self):
+        return self._max_radius_km
+
+
+class EnSRF(Assimilation, KernelRoute):
+    """``EnSRF(state, obs, config=..., device=...).update()`` returns
+    ``(posterior_state, observations)`` with per-ob diagnostics recorded
+    (reference ``efa_xray/assimilation/ensrf.py:8-151``).  ``device``
+    defaults to the state's device."""
+
+    def __init__(self, state: EnsembleState, obs, nproc: int = 1,
+                 inflation=None, verbose: bool = True, loc=False,
+                 config: Optional[FilterConfig] = None, device=None,
+                 mesh=None):
+        if config is None:
+            config = FilterConfig(
+                localization="GC" if loc not in (None, False) else None,
+                verbose=verbose)
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-device row sharding) is not ported yet "
+                "(ROADMAP A10)")
+        super().__init__(state, obs, nproc, inflation=inflation,
+                         verbose=verbose, config=config, device=device)
+        self.loc = loc if loc not in (None, False) else (config.localization
+                                                         or False)
+
+    def _route_structure(self):
+        return self.prior.structure
 
     def _hybrid_kwargs(self, body_mean) -> dict:
         """Static-B inputs for ``hybrid_alpha < 1`` (empty dict otherwise):
@@ -202,91 +354,16 @@ class EnSRF(Assimilation):
         self.post, _ = self.format_posterior_state(bm, bp)
         return self.post, self.obs
 
-    def _kernel_tail(self, tail_mean, tail_perts, obs, vertical: bool,
-                     hkw: dict, vl: dict) -> core.TailSolution:
-        """Phase 1 of a kernel route: ``tail_scan_blocked(kernels=True)``."""
-        cfg = self.config
-        return core.tail_scan_blocked(
-            tail_mean, tail_perts, obs, localize=cfg.localize,
-            unbiased=cfg.unbiased_variance, fast_geometry=cfg.fast_geometry,
-            vertical=vertical, panel=cfg.tail_panel,
-            kernels=self._tail_kernels(),
-            max_radius_km=self.max_finite_radius(),
-            **{k: v for k, v in hkw.items() if k != "body_sigma"},
-            **({k: vl[k] for k in ("varloc", "ob_var")} if vl else {}))
-
     def _solve_once(self, body_mean, body_perts, tail_mean, tail_perts,
                     body_lat, body_lon, obs, body_vert, vertical: bool):
-        """One full update (tail + body) along :meth:`_route`;
-        ``(bm, bp, tm, tp, diags)``."""
-        cfg = self.config
-        vl = self.varloc_kwargs()
-        hkw = self._hybrid_kwargs(body_mean)
-        route = self._route(int(body_mean.shape[0]))
-        if route == "serial":
-            return core.ensrf_serial(
-                body_mean, body_perts, tail_mean, tail_perts, body_lat,
-                body_lon, obs, localize=cfg.localize,
-                unbiased=cfg.unbiased_variance,
-                fast_geometry=cfg.fast_geometry, body_vert=body_vert,
-                vertical=vertical, **hkw, **vl)
-        if route == "plain":
-            return core.ensrf_blocked(
-                body_mean, body_perts, tail_mean, tail_perts, body_lat,
-                body_lon, obs, localize=cfg.localize,
-                block_size=cfg.block_size, unbiased=cfg.unbiased_variance,
-                fast_geometry=cfg.fast_geometry, body_vert=body_vert,
-                vertical=vertical, **hkw, **vl)
-        tail = self._kernel_tail(tail_mean, tail_perts, obs, vertical, hkw,
-                                 vl)
-        bm, bp = self._body_apply(route, body_mean, body_perts, body_lat,
-                                  body_lon, tail, obs, body_vert, vertical,
-                                  hkw, vl)
-        return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
-
-    def _body_apply(self, route: str, bm, bp, body_lat, body_lon, tail, obs,
-                    body_vert, vertical: bool, hkw: dict, vl: dict):
-        """Phase 2: apply a pre-solved obs sequence to the state body along
-        ``route`` (B3, B2/B2h, B4, or the plain blocked body for the
-        ``"plain"`` and ``"serial"`` routes).  The filter owns the formatted
-        prior: the body kernels update it in place, where the JAX package
-        donates it."""
-        cfg = self.config
-        st = self.prior.structure
-        bvert = body_vert if vertical else None
-        if route in ("plain", "serial"):
-            return core.ensrf_blocked_body(
-                bm, bp, body_lat, body_lon, tail, obs, localize=cfg.localize,
-                block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
-                body_vert=body_vert, vertical=vertical)
-        if route == "B3":
-            group_factor = None
-            if vl:
-                vt = st.nvars * st.ntimes
-                varg = torch.arange(vt, device=self.device) // st.ntimes
-                group_factor = vl["varloc"][vl["ob_var"]][:, varg].T
-            return ensrf_grid.grid_body(
-                bm, bp, body_lat, body_lon, tail, obs, ngrid=st.ngrid,
-                body_vert=bvert, localize=cfg.localize,
-                block_size=cfg.block_size, vertical=vertical,
-                group_factor=group_factor, donate=True)
-        if route in ("B2", "B2h"):
-            row_order = inv_order = None
-            if cfg.spatial_sort:
-                row_order, inv_order = st.spatial_order_device(self.device)
-            return fused_body(
-                bm, bp, body_lat, body_lon, tail, obs, body_vert=bvert,
-                localize=cfg.localize, block_size=cfg.block_size,
-                vertical=vertical, cull=cfg.cull,
-                max_radius_km=self.max_finite_radius(),
-                hybrid=route == "B2h", body_sigma=hkw.get("body_sigma"),
-                static_length=hkw.get("static_length"), donate=True,
-                row_order=row_order, inv_order=inv_order)
-        return ensrf_grid.blocked_body(
-            bm, bp, body_lat, body_lon, tail, obs, localize=cfg.localize,
-            block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
-            body_vert=body_vert, vertical=vertical, ngrid=st.ngrid,
-            donate=True)
+        """One full update (tail + body) along :meth:`_route`, with the
+        state's hybrid and cross-variable inputs; ``(bm, bp, tm, tp,
+        diags)``."""
+        return self.solve(body_mean, body_perts, tail_mean, tail_perts,
+                          body_lat, body_lon, obs, body_vert=body_vert,
+                          vertical=vertical,
+                          hkw=self._hybrid_kwargs(body_mean),
+                          vl=self.varloc_kwargs())
 
     def _solve_obs_chunked(self, body_mean, body_perts, tail_mean,
                            tail_perts, body_lat, body_lon, obs, body_vert,

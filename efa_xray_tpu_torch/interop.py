@@ -6,8 +6,11 @@ These functions take NumPy arrays and plain dicts, build the port's
 objects on a device, the card unless ``device`` names another (without a
 card, ``device="cpu"`` must be given), and turn results back into NumPy.
 A cycle's state crosses too: adaptive-inflation fields through
-:func:`adaptive_inflation_from_numpy`, and a ``BiasCorrection`` through its
-own ``to_dict`` / ``from_dict``.
+:func:`adaptive_inflation_from_numpy`, a ``BiasCorrection`` through its
+own ``to_dict`` / ``from_dict``, the shallow-water model's dicts and a
+cycling harness's flat ensembles through :func:`fields_from_numpy` and
+:func:`flat_ensemble_from_numpy`, and a harness's transient fields back to
+NumPy through :func:`harness_transients_to_numpy` (:func:`to_host`).
 """
 
 from __future__ import annotations
@@ -134,3 +137,44 @@ def adaptive_inflation_from_numpy(state: EnsembleState, mean: Dict,
         state.structure, mean, std,
         device=state.device if device is None else device)
 
+
+
+def fields_from_numpy(fields: Dict[str, np.ndarray], dtype=None,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """A dict of arrays (e.g. ``np.asarray`` of a JAX shallow-water state's
+    ``{"eta", "u", "v"}``) as tensors on ``device``; ``dtype`` None keeps
+    each array's."""
+    device = default_device(device)
+    dt = None if dtype is None else _torch_dtype(dtype)
+    return {k: _tensor(v, dt, device) for k, v in fields.items()}
+
+
+def flat_ensemble_from_numpy(x, dtype=None, device=None) -> torch.Tensor:
+    """A flat ensemble ``[nmems, nvars]`` (or a truth ``[nvars]``) as a
+    tensor on ``device``; ``dtype`` None keeps the array's."""
+    return _tensor(x, None if dtype is None else _torch_dtype(dtype),
+                   default_device(device))
+
+
+def to_host(x):
+    """Tensors as NumPy, lists and tuples of them element by element, other
+    arrays (a JAX array) through ``np.asarray``; NumPy values, scalars,
+    None and anything else as they are."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_host(v) for v in x)
+    if hasattr(x, "__array__") and not isinstance(x, (np.ndarray,
+                                                      np.generic)):
+        return np.asarray(x)
+    return x
+
+
+def harness_transients_to_numpy(harness) -> Dict[str, object]:
+    """Every transient field a cycling harness holds after ``run()`` (its
+    ``_TRANSIENT`` names: inflation, R, bias, IAU increment, smoother
+    window, final ensemble and truth, ...) through :func:`to_host`.  Takes
+    the port's harness or the JAX package's, so two runs compare field by
+    field."""
+    return {k: to_host(getattr(harness, k)) for k in harness._TRANSIENT
+            if hasattr(harness, k)}

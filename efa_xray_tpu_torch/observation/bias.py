@@ -5,8 +5,8 @@ host-side NumPy estimator with a JSON state, which touches no tensor.  For
 each observation type it keeps an exponential moving average of the mean
 prior innovation ``d = y - H(x_b)`` over assimilable, QC-passing obs;
 :meth:`BiasCorrection.correct` subtracts the current estimate from the ob
-values before assimilation.  The per-row variant of the JAX package's
-cycling harness (``models/cycling.py``) is not ported yet.
+values before assimilation.  The per-row variant is the cycling
+harness's ``adaptive_bias`` (``models/cycling.py``).
 """
 
 from __future__ import annotations

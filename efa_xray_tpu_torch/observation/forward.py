@@ -1,8 +1,13 @@
 """Forward operators H as precomputed gather taps.
 
 Counterpart of ``efa_xray_tpu/observation/forward.py``: ``ObsTaps`` :51,
-the host separable search :188-328 (copied as NumPy), ``build_taps`` :433,
-``build_taps_cached`` :577 and ``apply_taps`` :623.  The JAX package's
+the host separable search :188-328 (copied as NumPy; an ob its window
+cannot certify gets a wider window before the full-grid search, which
+the JAX package runs for every such ob: the same answer, and for obs on
+the grid points of a 1024 x 1024 grid ~12% of them fail the first
+window), ``build_taps`` :433,
+``build_taps_cached`` :577, ``apply_taps`` :623 and ``nearest_points``
+:355.  The JAX package's
 device search :66-175 becomes an exact chunked ``torch.topk`` over
 great-circle distances on the caller's device, for both values of
 ``topk_method`` (``FilterConfig.taps_topk``): the JAX package's
@@ -33,6 +38,9 @@ from efa_xray_tpu_torch.observation.localization import (
 from efa_xray_tpu_torch.state.structure import StateStructure
 
 EXACT_MATCH_KM = 1.0  # reference: efa_xray/state/ensemble.py:195
+# The separable search's second window, for the obs its first one cannot
+# certify (rows x columns of candidates).
+WIDE_CAND_ROWS, WIDE_CAND_COLS = 16, 32
 
 
 @dataclasses.dataclass
@@ -89,6 +97,26 @@ def _topk_points(grid_lat, grid_lon, lats, lons, npt: int, metric: str,
     return out
 
 
+def nearest_points(grid_lat, grid_lon, lat, lon, npt: int = 1,
+                   metric: str = "haversine", device="cpu"
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The ``npt`` grid points nearest to one ``(lat, lon)`` as ``(y_idx,
+    x_idx)`` NumPy arrays, ranked on ``device`` by float64 great-circle
+    distance (reference ``efa_xray/state/ensemble.py:152-168``); a 1-D
+    location grid gives ``(loc_idx, zeros)``."""
+    grid_lat = np.asarray(grid_lat, dtype=np.float64)
+    shape = grid_lat.shape
+    npt = min(npt, grid_lat.size)
+    flat = _topk_points(grid_lat.ravel(),
+                        np.asarray(grid_lon, dtype=np.float64).ravel(),
+                        np.asarray([lat], np.float64),
+                        np.asarray([lon], np.float64), npt, metric, 1,
+                        device)[0]
+    if len(shape) == 1:
+        return flat, np.zeros(npt, dtype=np.int64)
+    return np.unravel_index(flat, shape)
+
+
 def _haversine_np(lat1, lon1, lat2, lon2) -> np.ndarray:
     """Host (NumPy, float64) great-circle distance in km; broadcasts."""
     la1 = np.radians(np.asarray(lat1, dtype=np.float64))
@@ -98,7 +126,9 @@ def _haversine_np(lat1, lon1, lat2, lon2) -> np.ndarray:
         np.asarray(lon2, dtype=np.float64) - np.asarray(lon1, dtype=np.float64)
     )
     a = np.sin(dlat / 2.0) ** 2 + np.cos(la1) * np.cos(la2) * np.sin(dlon / 2.0) ** 2
-    return EARTH_RADIUS_KM * 2.0 * np.arctan2(np.sqrt(a), np.sqrt(1.0 - a))
+    # 1 - a rounds below 0 at an antipode: the distance is pi R there
+    return EARTH_RADIUS_KM * 2.0 * np.arctan2(
+        np.sqrt(a), np.sqrt(np.maximum(1.0 - a, 0.0)))
 
 
 def separable_grid_axes(lat2d, lon2d):
@@ -358,10 +388,20 @@ def build_taps(structure: StateStructure, lats, lons, times_s, var_idx,
         sp_idx, certified = _nearest_separable(axes[0], axes[1], lats, lons,
                                                npt)
         if not certified.all():
-            bad = ~certified
-            sp_idx[bad] = _host_full_search(
-                structure.lat, structure.lon, lats[bad], lons[bad], npt,
-                chunk_bytes=obs_chunk_bytes)
+            # Most failures are ties at the window's edge (an ob on a grid
+            # point, its npt-th neighbour as near as the first row left
+            # out): a wider window certifies them with the same answer as
+            # the full search, at a fraction of its cost.
+            bad = np.flatnonzero(~certified)
+            wide, ok = _nearest_separable(
+                axes[0], axes[1], lats[bad], lons[bad], npt,
+                ncand_rows=WIDE_CAND_ROWS, ncand_cols=WIDE_CAND_COLS)
+            sp_idx[bad[ok]] = wide[ok]
+            rest = bad[~ok]
+            if rest.size:
+                sp_idx[rest] = _host_full_search(
+                    structure.lat, structure.lon, lats[rest], lons[rest],
+                    npt, chunk_bytes=obs_chunk_bytes)
     else:
         sp_idx = _topk_points(structure.lat, structure.lon, lats, lons, npt,
                               metric, chunk, device)

@@ -1,10 +1,12 @@
 """Covariance localization and great-circle geometry on torch tensors.
 
 Counterpart of ``efa_xray_tpu/observation/localization.py``:
-``gaspari_cohn`` :27, ``haversine`` :51, ``latlon_to_unit`` :95,
+``gaspari_cohn`` :27, ``haversine`` :51, ``distance_to_point`` :65,
+``pairwise_distance`` :75, ``localization_weights`` :84,
+``latlon_to_unit`` :95,
 ``_arccos_as`` :103, ``chordal_gc_weights`` :122, ``morton3d_keys`` /
 ``hilbert3d_keys`` :142-198, ``spatial_sort_order`` :216,
-``EARTH_RADIUS_KM`` :24; plus the NumPy Hilbert
+``EARTH_RADIUS_KM`` :24 and ``gaspari_cohn_np`` :232; plus the NumPy Hilbert
 key of ``efa_xray_tpu/observation/thinning.py:236`` (``_hilbert3d_np``),
 which ``ObservationBatch.spatial_sort`` and the benchmark workload use.
 
@@ -25,11 +27,14 @@ EARTH_RADIUS_KM = 6371.0
 
 
 def _as_tensor(x, like=None):
+    """A tensor of ``x``: ``like``'s dtype and device when given, else
+    NumPy's dtype (Python floats are float64, as in the JAX package with
+    x64 on)."""
     if isinstance(x, torch.Tensor):
         return x
     if like is not None:
         return torch.as_tensor(x, dtype=like.dtype, device=like.device)
-    return torch.as_tensor(x)
+    return torch.from_numpy(np.array(x))
 
 
 def gaspari_cohn(distances, halfwidth):
@@ -62,6 +67,27 @@ def haversine(loc1, loc2):
          + torch.cos(lat1) * torch.cos(lat2) * torch.sin(dlon / 2.0) ** 2)
     c = 2.0 * torch.atan2(torch.sqrt(a), torch.sqrt(1.0 - a))
     return EARTH_RADIUS_KM * c
+
+
+def distance_to_point(grid_lat, grid_lon, lat, lon):
+    """Haversine distance (km) from ``(lat, lon)`` to every grid point;
+    broadcasts (batched points with leading dims included)."""
+    return haversine((grid_lat, grid_lon), (lat, lon))
+
+
+def pairwise_distance(lats1, lons1, lats2, lons2):
+    """All-pairs haversine distances ``[len(1), len(2)]`` in km."""
+    lats1 = _as_tensor(lats1)
+    return haversine((lats1[:, None], _as_tensor(lons1, like=lats1)[:, None]),
+                     (_as_tensor(lats2, like=lats1)[None, :],
+                      _as_tensor(lons2, like=lats1)[None, :]))
+
+
+def localization_weights(grid_lat, grid_lon, ob_lat, ob_lon, halfwidth):
+    """Gaspari-Cohn weights from one ob to a field of points; a
+    ``halfwidth`` of ``inf`` gives ones."""
+    d = distance_to_point(grid_lat, grid_lon, ob_lat, ob_lon)
+    return gaspari_cohn(d, halfwidth)
 
 
 def latlon_to_unit(lat, lon):
@@ -197,3 +223,16 @@ def hilbert3d_np(lats, lons, bits: int = 10) -> np.ndarray:
                                            & np.uint32(1))
     return key
 
+
+
+def gaspari_cohn_np(distances, halfwidth):
+    """NumPy float64 twin of :func:`gaspari_cohn` for host-side use."""
+    r = np.asarray(distances, dtype=np.float64) / abs(halfwidth)
+    inner = ((((-0.25 * r + 0.5) * r + 0.625) * r - 5.0 / 3.0) * r**2) + 1.0
+    r_safe = np.where(r > 0, r, 1.0)
+    outer = (
+        ((((r / 12.0 - 0.5) * r + 0.625) * r + 5.0 / 3.0) * r - 5.0) * r
+        + 4.0
+        - 2.0 / (3.0 * r_safe)
+    )
+    return np.where(r <= 1.0, inner, np.where(r < 2.0, outer, 0.0))

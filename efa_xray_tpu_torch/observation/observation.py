@@ -1,11 +1,13 @@
 """Observation records and the struct-of-arrays batch.
 
 Counterpart of ``efa_xray_tpu/observation/observation.py``:
-``Observation`` :26 (the record; its plotting and per-ob estimate helpers
-are not ported yet) and ``ObservationBatch`` :201 with ``coerce`` :283,
-``take`` :288, ``spatial_sort`` :307, ``var_indices`` :327 and
-``writeback`` :363.  All per-ob arrays are host NumPy; the filter moves
-them to its device at the assimilation boundary and writes its
+``Observation`` :26 with ``estimate``, ``distance_to_state`` and
+``localize`` :75-108 (``map_localization``, a matplotlib plot, waits for
+the viewer, ROADMAP A11) and ``ObservationBatch`` :201 with ``coerce``
+:283, ``take`` :288, ``spatial_sort`` :307, ``var_indices`` :327,
+``writeback`` :363, ``to_observations`` :381, ``to_dataframe`` :411 and
+``from_dataframe`` :441.  All per-ob arrays are host NumPy; the filter
+moves them to its device at the assimilation boundary and writes its
 diagnostics back as NumPy.
 """
 
@@ -17,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from efa_xray_tpu_torch.observation import localization as _loc
 from efa_xray_tpu_torch.observation.localization import hilbert3d_np
 from efa_xray_tpu_torch.utils import timeutil
 
@@ -67,9 +70,43 @@ class Observation:
         self.vert_localize_radius = vert_localize_radius
         # Optional custom H: a callable ``state -> ye[nmems]`` — the
         # pluggable-operator hook the reference's docstring promises but
-        # never implements (``observation/observation.py:44-46``).  The
-        # port's filter does not evaluate these yet and raises on them.
+        # never implements (``observation/observation.py:44-46``); the
+        # filter evaluates it in ``Assimilation.compute_ob_priors``.
         self.forward_operator = forward_operator
+
+    def estimate(self, state):
+        """Ensemble estimate of this ob, H(x) for every member (reference
+        ``efa_xray/observation/observation.py:40-50``): the custom
+        ``forward_operator`` when set, else the state's space/time
+        interpolation of the matching variable."""
+        if self.forward_operator is not None:
+            return self.forward_operator(state)
+        return state.interpolate(self.obtype, self.time, self.lat, self.lon)
+
+    def distance_to_state(self, state):
+        """Great-circle km from this ob to every grid point of ``state``
+        (a tensor ``[ny, nx]`` on the state's device)."""
+        return state.distance_to_point(self.lat, self.lon)
+
+    def localize(self, state, type="GC", full_state=False):
+        """Localization weights (NumPy float64) from this ob to a state's
+        grid or to a list of observations (reference
+        ``efa_xray/observation/observation.py:59-87``);
+        ``localize_radius=None`` gives ones."""
+        halfwidth = self.localize_radius
+        if isinstance(state, (list, tuple)):
+            f64 = lambda x: torch.as_tensor(np.asarray(x, np.float64))
+            distances = _loc.haversine(
+                (f64(self.lat), f64(self.lon)),
+                (f64([ob.lat for ob in state]), f64([ob.lon for ob in state])))
+        else:
+            distances = state.distance_to_point(self.lat, self.lon)
+        distances = np.asarray(distances.detach().cpu().numpy(), np.float64)
+        if halfwidth is None:
+            return np.ones(distances.shape)
+        if type == "GC":
+            return _loc.gaspari_cohn_np(distances, halfwidth)
+        raise ValueError(f"Unknown localization type {type!r}")
 
     def __repr__(self):
         return (
@@ -240,3 +277,85 @@ class ObservationBatch:
                 ob.assimilated = True
             else:
                 ob.assimilated = False
+
+    def to_observations(self) -> List[Observation]:
+        """One :class:`Observation` per ob, with the filter's diagnostics
+        written back when it has run."""
+        out = []
+        for i in range(self.nobs):
+            out.append(Observation(
+                value=float(self.values[i]),
+                obtype=self.obtypes[i],
+                time=timeutil.to_datetime64(self.times_s[i]),
+                error=float(self.errors[i]),
+                lat=float(self.lats[i]),
+                lon=float(self.lons[i]),
+                vert=None if np.isnan(self.verts[i]) else float(self.verts[i]),
+                assimilate_this=bool(self.assimilate_flags[i]),
+                description=self.descriptions[i],
+                localize_radius=(None if np.isinf(self.localize_radius[i])
+                                 else float(self.localize_radius[i])),
+                vert_localize_radius=(None if np.isinf(self.vert_radius[i])
+                                      else float(self.vert_radius[i]))))
+        if self.prior_mean is not None:
+            self.writeback(out)
+        return out
+
+    def to_dataframe(self):
+        """Pandas view of the batch (one row per ob), with the result slots
+        when the filter has run; inverse of :meth:`from_dataframe`."""
+        import pandas as pd
+
+        self.materialize_diagnostics()
+        cols = {
+            "value": np.asarray(self.values, dtype=np.float64),
+            "error": np.asarray(self.errors, dtype=np.float64),
+            "lat": np.asarray(self.lats, dtype=np.float64),
+            "lon": np.asarray(self.lons, dtype=np.float64),
+            "time": timeutil.to_datetime64(self.times_s),
+            "obtype": list(self.obtypes),
+            "localize_radius": np.asarray(self.localize_radius,
+                                          dtype=np.float64),
+            "assimilate_this": np.asarray(self.assimilate_flags, dtype=bool),
+            "vert": np.asarray(self.verts, dtype=np.float64),
+            "vert_radius": np.asarray(self.vert_radius, dtype=np.float64),
+            "description": list(self.descriptions),
+        }
+        for name in ("prior_mean", "prior_var", "post_mean", "post_var",
+                     "assimilated", "qc_outlier"):
+            val = getattr(self, name)
+            if val is not None:
+                cols[name] = np.asarray(val)
+        return pd.DataFrame(cols)
+
+    @classmethod
+    def from_dataframe(cls, df) -> "ObservationBatch":
+        """A batch from a DataFrame with (at least) the columns ``value,
+        error, lat, lon, time, obtype``; optional ``localize_radius``
+        (default inf), ``assimilate_this`` (True), ``vert`` (NaN),
+        ``vert_radius`` (inf) and ``description`` (None)."""
+        n = len(df)
+
+        def col(name, default, dtype=np.float64):
+            if name in df.columns:
+                return np.asarray(df[name], dtype=dtype)
+            return np.full(n, default, dtype=dtype)
+
+        descriptions = (
+            [None if (d is None or (isinstance(d, float) and np.isnan(d)))
+             else str(d) for d in df["description"]]
+            if "description" in df.columns else [None] * n)
+        return cls(
+            values=np.asarray(df["value"], dtype=np.float64),
+            errors=np.asarray(df["error"], dtype=np.float64),
+            lats=np.asarray(df["lat"], dtype=np.float64),
+            lons=np.asarray(df["lon"], dtype=np.float64),
+            times_s=timeutil.to_epoch_seconds(
+                np.asarray(df["time"], dtype="datetime64[s]")),
+            obtypes=[str(t) for t in df["obtype"]],
+            localize_radius=col("localize_radius", np.inf),
+            assimilate_flags=col("assimilate_this", True, dtype=bool),
+            verts=col("vert", np.nan),
+            descriptions=descriptions,
+            vert_radius=col("vert_radius", np.inf),
+        )

@@ -1,0 +1,10 @@
+from efa_xray_tpu_torch.postprocess.postprocess import (  # noqa: F401
+    obs_assimilation_statistics,
+)
+from efa_xray_tpu_torch.postprocess.verification import (  # noqa: F401
+    crps,
+    desroziers_diagnostics,
+    field_verification,
+    innovation_consistency,
+    rank_histogram,
+)

@@ -1,18 +1,23 @@
 """Ensemble verification statistics in observation space.
 
 Counterpart of ``efa_xray_tpu/postprocess/verification.py``:
-``rank_histogram`` :67, ``crps`` :84 and ``innovation_consistency`` :128.
+``field_verification`` :28, ``rank_histogram`` :67, ``crps`` :84,
+``innovation_consistency`` :128 and ``desroziers_diagnostics`` :149.
 The obs-space ensemble estimates come from the port's forward-operator
 taps, gathered on the state's device; the statistics over them are NumPy
-float64 on the host, as in the JAX package.  ``field_verification`` and
-``desroziers_diagnostics`` (pandas tables) are not ported yet.
+float64 on the host, as in the JAX package.  ``field_verification``
+reduces the state on its device (float64), so that a large state never
+crosses to the host; ``desroziers_diagnostics`` reads the per-ob table of
+``obs_assimilation_statistics`` (pandas).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+import pandas as pd
+import torch
 
 from efa_xray_tpu_torch.observation import forward as _fwd
 from efa_xray_tpu_torch.observation.observation import ObservationBatch
@@ -29,6 +34,43 @@ def _obs_space(state: EnsembleState, batch: ObservationBatch,
         time_weighting=time_weighting, device=state.device)
     ye = _fwd.apply_taps_obj(state.to_vect(), taps)
     return ye.detach().cpu().numpy().astype(np.float64), np.asarray(taps.qc_ok)
+
+
+def field_verification(state: EnsembleState, truth) -> pd.DataFrame:
+    """Per-variable, per-validtime RMSE, bias, spread and ensemble CRPS
+    against a truth field ``[nvars, ntimes, ny, nx]`` (or ``[ntimes, ny,
+    nx, nvars]``, transposed), a NumPy array or a tensor."""
+    s = state.structure
+    tr = torch.as_tensor(truth if isinstance(truth, torch.Tensor)
+                         else np.asarray(truth))
+    if tuple(tr.shape) == (s.ntimes, s.ny, s.nx, s.nvars):
+        tr = tr.permute(3, 0, 1, 2)
+    if tuple(tr.shape) != (s.nvars, s.ntimes, s.ny, s.nx):
+        raise ValueError(f"truth shape {tuple(tr.shape)} does not match "
+                         f"state {s.shape[:-1]}")
+    tr = tr.to(device=state.device, dtype=torch.float64)
+    mean = state.ensemble_mean().double()
+    spread = state.ensemble_spread()
+    m = s.nmems
+    w = 2.0 * torch.arange(m, dtype=torch.float64,
+                           device=state.device) + 1.0 - m
+    rows = []
+    for vi, name in enumerate(s.var_names):
+        for ti, t in enumerate(s.times64()):
+            err = mean[vi, ti] - tr[vi, ti]
+            ens = state.data[vi, ti].double().reshape(-1, m)
+            mae = torch.mean(torch.abs(ens - tr[vi, ti].reshape(-1, 1)))
+            pair = 2.0 * torch.mean(torch.sort(ens, dim=1).values @ w) / (
+                m * m)
+            rows.append({
+                "variable": name,
+                "validtime": t,
+                "rmse": float(torch.sqrt(torch.mean(err ** 2))),
+                "bias": float(torch.mean(err)),
+                "spread": float(torch.mean(spread[vi, ti])),
+                "crps": float(mae - 0.5 * pair),
+            })
+    return pd.DataFrame(rows)
 
 
 def rank_histogram(state: EnsembleState, obs,
@@ -82,3 +124,45 @@ def innovation_consistency(batch: ObservationBatch) -> Dict[str, float]:
         "consistency_ratio": float(np.mean(d2) / np.mean(expected)),
         "nobs": int(ok.sum()),
     }
+
+
+def desroziers_diagnostics(stats: pd.DataFrame,
+                           group_by: Optional[str] = "obtype"
+                           ) -> pd.DataFrame:
+    """Desroziers et al. (2005) consistency diagnostics from the per-ob
+    table of ``obs_assimilation_statistics``: with ``d_b = y - H(x_b)``
+    and ``d_a = y - H(x_a)``, ``E[d_a d_b] = R``, ``E[(d_b - d_a) d_b] =
+    HBH^T`` and ``E[d_b^2] = HBH^T + R`` for a filter with correct R and
+    HBH^T.  One row per ``group_by`` group (or one "all" row)."""
+    df = stats[stats["assimilated"].astype(bool)]
+    if len(df) == 0:
+        raise ValueError("No assimilated observations in the table")
+
+    def one(g: pd.DataFrame) -> Dict[str, float]:
+        d_b = np.asarray(g["value"] - g["prior mean"], dtype=np.float64)
+        d_a = np.asarray(g["value"] - g["post mean"], dtype=np.float64)
+        r_assigned = float(np.mean(g["ob error"]))
+        r_est = float(np.mean(d_a * d_b))
+        hbht_est = float(np.mean((d_b - d_a) * d_b))
+        total = float(np.mean(d_b * d_b))
+        prior_var = float(np.mean(g["prior variance"]))
+        return {
+            "nobs": int(len(g)),
+            "R_assigned": r_assigned,
+            "R_estimated": r_est,
+            "R_ratio": r_est / r_assigned if r_assigned > 0 else np.nan,
+            "HBHT_estimated": hbht_est,
+            "prior_var_ensemble": prior_var,
+            "innov_var": total,
+            "innov_var_expected": prior_var + r_assigned,
+            "innov_consistency": (total / (prior_var + r_assigned)
+                                  if prior_var + r_assigned > 0 else np.nan),
+        }
+
+    if group_by is None:
+        rows = {"all": one(df)}
+    else:
+        rows = {k: one(g) for k, g in df.groupby(group_by)}
+    out = pd.DataFrame.from_dict(rows, orient="index")
+    out.index.name = group_by or "group"
+    return out

@@ -4,7 +4,7 @@ Counterpart of ``efa_xray_tpu/state/structure.py``: ``StateMeta`` :45,
 ``StateStructure`` :78 with ``build`` :113, the size accessors :136-179,
 ``flat_index`` :257, ``row_latlon`` :262, ``row_vert`` :274 and
 ``row_latlon_device`` :202 and ``spatial_order_device`` :227, which here
-cache per device (and dtype).  ``subset`` is not ported yet.
+cache per device (and dtype), ``with_nmems`` :285 and ``subset`` :288.
 
 Canonical dense layout: ``data[var, time, y, x, member]``; the flattened
 state vector is C-order over ``(var, time, y, x)`` with members last (the
@@ -237,6 +237,50 @@ class StateStructure:
         assert len(self.var_verts) == self.nvars
         return np.repeat(
             np.asarray(self.var_verts, dtype=np.float64), self.ntimes * self.ngrid
+        )
+
+    def with_nmems(self, nmems: int) -> "StateStructure":
+        return dataclasses.replace(self, nmems=int(nmems))
+
+    def subset(self, v_idx, t_idx, y_idx, x_idx, m_idx) -> "StateStructure":
+        """Structure of a sub-selection along (var, time, y, x, mem), each
+        a 1-D integer array or None (keep all).  Per-variable attrs keep
+        the kept variables; extra coordinates are subset along their dims
+        named ``validtime``/``y``/``x``/``mem``/``location`` (the y axis
+        of a location-list grid).  Backs ``EnsembleState.isel``/``sel``."""
+        v_idx = np.arange(self.nvars) if v_idx is None else np.asarray(v_idx)
+        t_idx = np.arange(self.ntimes) if t_idx is None else np.asarray(t_idx)
+        y_idx = np.arange(self.ny) if y_idx is None else np.asarray(y_idx)
+        x_idx = np.arange(self.nx) if x_idx is None else np.asarray(x_idx)
+        m_idx = np.arange(self.nmems) if m_idx is None else np.asarray(m_idx)
+        names = tuple(self.var_names[i] for i in v_idx)
+        verts = (None if self.var_verts is None
+                 else tuple(self.var_verts[i] for i in v_idx))
+        meta = None
+        if self.meta is not None and self.meta:
+            axis_idx = {"validtime": t_idx, "y": y_idx, "x": x_idx,
+                        "mem": m_idx, "location": y_idx}
+            coords = {}
+            for cname, (cdims, carr, cattrs) in self.meta.coords.items():
+                arr = np.asarray(carr)
+                for ax, dim in enumerate(cdims):
+                    if dim in axis_idx:
+                        arr = np.take(arr, axis_idx[dim], axis=ax)
+                coords[cname] = (tuple(cdims), arr, dict(cattrs))
+            meta = StateMeta(
+                attrs=dict(self.meta.attrs),
+                var_attrs={k: dict(v) for k, v in self.meta.var_attrs.items()
+                           if k in names},
+                coords=coords)
+        return StateStructure(
+            var_names=names,
+            times_s=self.times_s[t_idx],
+            lat=self.lat[np.ix_(y_idx, x_idx)],
+            lon=self.lon[np.ix_(y_idx, x_idx)],
+            grid_is_2d=self.grid_is_2d,
+            nmems=len(m_idx),
+            var_verts=verts,
+            meta=meta,
         )
 
     # Structures containing identical metadata compare equal, so they can

@@ -7,6 +7,8 @@ import pytest
 import torch
 
 from efa_xray_tpu_torch import EnsembleState, interop
+from efa_xray_tpu_torch.models import swe
+from efa_xray_tpu_torch.models.cycling import CyclingHarness
 from efa_xray_tpu_torch.ops import precision_probe
 from efa_xray_tpu_torch.state.ensemble import default_device
 
@@ -46,6 +48,17 @@ _ENTRY_POINTS = {
         interop.tail_solution_from_numpy(**_tail_kw(), **kw),
     "precision_probe.probe": lambda **kw: precision_probe.probe(
         n=16, k=16, time_n=16, reps=1, **kw),
+    "CyclingHarness": lambda **kw: (CyclingHarness(
+        forecast=lambda x: x, state_lats=np.zeros(3),
+        state_lons=np.arange(3.0), **kw)._tensor(np.zeros((2, 3))),),
+    "swe.initial_state": lambda **kw: tuple(
+        swe.initial_state(4, 8, **kw).values()),
+    "swe.spinup_ensemble": lambda **kw: tuple(swe.spinup_ensemble(
+        ny=4, nx=8, nmems=2, spinup_steps=1, member_steps=1, **kw)[1].values()),
+    "fields_from_numpy": lambda **kw: tuple(interop.fields_from_numpy(
+        _fields()[0], **kw).values()),
+    "flat_ensemble_from_numpy": lambda **kw: (
+        interop.flat_ensemble_from_numpy(np.zeros((2, 3)), **kw),),
 }
 
 
