@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-23
+    python3 chip_smoke.py             # phases 0-24
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
                                       # width and cluster, B2 with parts of
@@ -143,13 +143,22 @@ Phases, each printing one line of results:
     ``desroziers_diagnostics``, ``field_verification`` and ``interpolate``
     / ``nearest_points`` / ``isel`` / ``sel`` on the posterior, each held
     against NumPy on the host copy; the host seconds of each step and the
-    obs count after each thinning step.
+    obs count after each thinning step;
+24. what ``cli target`` runs once a state is read, on phase 4's workload
+    in float64 (the CLI's default there): ``region_mean_metric`` over a
+    lat/lon box, ``ensemble_sensitivity`` with a 95% significance mask,
+    ``observation_impact`` on 2,000 candidates and a greedy network of 10,
+    each held against NumPy float64 on the host copy (greedy's first pick
+    the ranking's best), no kernel launched; host seconds of each step.
+    Its line says whether h5py is installed: the CLI's netCDF steps
+    need it, and without it they do not run here (the tests hold the CLI
+    against the JAX package's on the CPU).
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
 same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-23 with one warm headline update, the
+``--profile`` replaces phases 2-24 with one warm headline update, the
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
 ``torch.profiler`` (the profiler walks every traced event): wall and
@@ -157,7 +166,7 @@ device-busy time, the busy share, the device ops that take the most time,
 and the share of the headline's (row tile, obs block) pairs and 8-ob
 panels that the cull keeps alive.
 
-``--steps`` replaces phases 2-23 with B1 at 512 x 80 and 1024 x 256 at
+``--steps`` replaces phases 2-24 with B1 at 512 x 80 and 1024 x 256 at
 sub-panels of 8 and 16 on one CTA and on each cluster that holds the
 panel, the parent commit's B1 beside them where
 ``build/efa_xray_tpu_torch/parent/tail_solve.cu`` exists, and B1 at 512 x
@@ -3377,6 +3386,144 @@ def phase23(dev="cuda", **cut):
     return res
 
 
+# Phase 24: ``target``'s in-process part on phase 4's workload: 2,000
+# candidate obs, the metric the area mean of T2m over a lat/lon box,
+# float64 as ``cli target`` loads the state, greedy network of 10 picks.
+TARGET24 = dict(ny=1024, nmems=80, ncand=2000, nselect=10, seed=24,
+                lat_range=(30.0, 60.0), lon_range=(230.0, 300.0))
+
+
+def _rel_gap(got, want) -> float:
+    """Max abs difference of two float arrays (NaNs must coincide) over
+    the largest magnitude of ``want``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(bool((np.isnan(got) == np.isnan(want)).all()),
+          "NaN patterns differ")
+    ok = ~np.isnan(want)
+    return float(np.abs(got[ok] - want[ok]).max()
+                 / max(np.abs(want[ok]).max(), 1e-300))
+
+
+def phase24(dev="cuda", **cut):
+    """Ensemble sensitivity and observation targeting (what ``cli
+    target`` runs once the state is read) on phase 4's workload in
+    float64: ``region_mean_metric``, ``ensemble_sensitivity`` with a 95%
+    significance mask, ``observation_impact`` over the candidates and
+    ``greedy_obs_selection``, each held against NumPy float64 on the host
+    copy; no kernel launched; host seconds of each step.  The CLI's
+    netCDF steps need h5py, and the line says whether it is installed:
+    without it they do not run here (``tests/test_torch_cli.py`` holds
+    the CLI against the JAX package's on the CPU)."""
+    import importlib.util
+
+    import torch
+    from scipy.stats import t as tdist
+
+    from efa_xray_tpu_torch.observation import forward as fwd
+    from efa_xray_tpu_torch.postprocess import sensitivity as sens
+
+    p = dict(TARGET24, **cut)
+    h5py = ("not installed on this machine"
+            if importlib.util.find_spec("h5py") is None
+            else importlib.import_module("h5py").__version__)
+    sync = _syncer(dev)
+    cuda = torch.device(dev).type == "cuda"
+    secs = {}
+
+    def step(name, fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    state32, _ = _api_state(dev, nmems=p["nmems"], ny=p["ny"], nobs=1)
+    state = step("to float64", lambda: state32.astype("float64"))
+    del state32
+    batch = _api_batch(p["ncand"], p["seed"], ny=p["ny"])
+    s = state.structure
+    metric = sens.region_mean_metric("T2m", time_index=-1,
+                                     lat_range=p["lat_range"],
+                                     lon_range=p["lon_range"])
+    _reset_counts()
+    j = step("metric", lambda: sens.metric_values(state, metric))
+    field = step("sensitivity", lambda: sens.ensemble_sensitivity(
+        state, j, confidence=0.95)["T2m"])
+    rank = step("impact", lambda: sens.observation_impact(state, batch,
+                                                          metric))
+    net = step("greedy", lambda: sens.greedy_obs_selection(
+        state, batch, metric, p["nselect"]))
+    counts = _counts()
+    if cuda:
+        check(_only()(counts), f"phase 24: launches {counts}")
+
+    # The same in NumPy float64 on the host copy.
+    host = step("host copy", lambda: state.to_vect().cpu().numpy())
+    t0 = time.perf_counter()
+    mask = ((s.lat >= p["lat_range"][0]) & (s.lat <= p["lat_range"][1])
+            & (s.lon >= p["lon_range"][0]) & (s.lon <= p["lon_range"][1]))
+    grid = host.reshape(s.ntimes, s.ny, s.nx, s.nmems)[-1]
+    j_np = grid[mask].mean(axis=0)
+    m = s.nmems
+    jp = j_np - j_np.mean()
+    xp = host - host.mean(axis=1, keepdims=True)
+    cov = xp @ jp / (m - 1)
+    varx = np.einsum("nm,nm->n", xp, xp) / (m - 1)
+    del xp
+    corr = cov / np.sqrt(varx * (jp @ jp / (m - 1)))
+    tcrit = tdist.ppf(0.975, m - 2)
+    rcrit = tcrit / np.sqrt(m - 2 + tcrit * tcrit)
+    taps = fwd.build_taps_cached(s, batch.lats, batch.lons, batch.times_s,
+                                 batch.var_indices(s), device=state.device)
+    ye = np.einsum("okm,ok->om", host[taps.rows], taps.weights)
+    yep = ye - ye.mean(axis=1, keepdims=True)
+    varye = (yep * yep).sum(axis=1) / m
+    covj = yep @ jp / (m - 1)
+    kdenom = varye + batch.errors
+    secs["numpy reference"] = time.perf_counter() - t0
+
+    shape = (s.ntimes, s.ny, s.nx)
+    gaps = dict(
+        metric=_rel_gap(j, j_np),
+        covariance=_rel_gap(field["covariance"], cov.reshape(shape)),
+        sensitivity=_rel_gap(field["sensitivity"],
+                             (cov / varx).reshape(shape)),
+        correlation=_rel_gap(field["correlation"], corr.reshape(shape)),
+        dJ_mean_pred=_rel_gap(rank["dJ_mean_pred"],
+                              covj / kdenom * (batch.values
+                                               - ye.mean(axis=1))),
+        dJ_var_pred=_rel_gap(rank["dJ_var_pred"], -covj * covj / kdenom))
+    for name, gap in gaps.items():
+        check(gap <= 1e-9, f"phase 24: {name} differs from NumPy by "
+              f"{gap:.3e} of its scale")
+    near = np.abs(np.abs(corr) - rcrit) <= 1e-9
+    sig_np = (np.abs(corr) > rcrit).reshape(shape)
+    flips = int((field["significant"] != sig_np)[~near.reshape(shape)].sum())
+    check(flips == 0, f"phase 24: {flips} significance flags differ")
+    best = int(rank["dJ_var_pred"].idxmin())
+    first = int(net["candidate"].iloc[0])
+    check(first == best, f"phase 24: greedy's first pick {first} is not "
+          f"the ranking's best {best}")
+    check(bool(net["candidate"].is_unique) and len(net) == p["nselect"],
+          "phase 24: greedy picks are not unique")
+    check(abs(net["dJ_var_step"].iloc[0] - rank["dJ_var_pred"][best])
+          <= 1e-9 * abs(rank["dJ_var_pred"][best]),
+          "phase 24: greedy's first step is not the ranking's prediction")
+    res = dict(
+        h5py=h5py, ngrid=s.ny * s.nx, nmems=m, candidates=batch.nobs,
+        region_points=int(mask.sum()), launches=counts if cuda else None,
+        host_seconds=secs, gap_vs_numpy=gaps,
+        significant_share=float(sig_np.mean()),
+        best=dict(candidate=best, lat=float(batch.lats[best]),
+                  lon=float(batch.lons[best]),
+                  dJ_var_pred=float(rank["dJ_var_pred"][best])),
+        greedy=dict(picks=net["candidate"].tolist(),
+                    dJ_var_cum=float(net["dJ_var_cum"].iloc[-1])))
+    log("phase 24: ensemble sensitivity and targeting " + json.dumps(res))
+    return res
+
+
 # P's products are timed as runs of this many calls back to back.
 P_INNER = 20
 
@@ -3979,6 +4126,7 @@ def main() -> int:
     timed(phase21)
     timed(phase22)
     timed(phase23)
+    timed(phase24)
     # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
     # a localized recurrence): their library_ms is null.
     kernels = [

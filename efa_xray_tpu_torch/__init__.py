@@ -16,10 +16,15 @@ filter (``AdaptiveInflation``, RTPS/RTPP, ``obs_order``,
 ``EnKF`` and the ``LETKF``, plain torch as the JAX package runs them
 without Pallas), the cycling OSSE (``models.cycling.CyclingHarness`` with
 the Lorenz-96 and shallow-water models, its EnSRF analysis on the
-kernels' route), and the observation pipeline (``from_dataframe``,
-``observation.thinning``, ``desroziers_diagnostics``).  Entry points run
-on the card unless the caller passes ``device="cpu"``.  The package never
-imports JAX.
+kernels' route), the observation pipeline (``from_dataframe``,
+``observation.thinning``, ``desroziers_diagnostics``), and the
+file-driven entry point: the CLI (``python -m efa_xray_tpu_torch.cli``,
+the console script ``efa-xray-tpu-torch``), netCDF I/O that reads and
+writes the JAX package's files (``utils.ncio``, ``save_to_disk`` /
+``from_netcdf``, the inflation files), ensemble sensitivity and
+observation targeting (``postprocess.sensitivity``) and the viewer.
+Entry points run on the card unless the caller passes ``device="cpu"``
+(``--device cpu`` on the CLI).  The package never imports JAX.
 """
 
 from efa_xray_tpu_torch.state.structure import StateStructure

@@ -34,9 +34,15 @@ float64), which the port evaluates without cancellation (see
 :func:`_anderson_update`); a radius-0 ob weighs 0 in the colored form as
 in the scan (the JAX package's colored form treats it as unlocalized);
 the coloring cache evicts its oldest entry after it caches a ``None``
-too; and an empty batch is a no-op.  The file forms (loading an existing
-inflation file, ``save_to_disk``) need netCDF I/O, which is not ported
-yet (ROADMAP A11): they raise ``NotImplementedError``.
+too; and an empty batch is a no-op.  The file forms are the JAX
+package's (``_load`` and ``save_to_disk`` :472-500, through the port's
+copy of ``utils/ncio.py``), with one fault not copied: the JAX constructor
+catches every exception of ``_load`` and quietly builds fresh fields, so
+an existing file of other variables restarts the learned inflation from
+its initial values, and ``_load`` checks no shape, so a file of another
+grid gives fields of the wrong shape.  The port builds fresh fields only
+where the file does not exist; an existing file that does not fit the
+state raises.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from efa_xray_tpu_torch.observation.localization import (
     haversine,
 )
 from efa_xray_tpu_torch.state.ensemble import EnsembleState
+from efa_xray_tpu_torch.utils import ncio, timeutil
 
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
 
@@ -336,10 +343,6 @@ def pack_color_tables(order, color_sizes, obs_lats, obs_lons, radii,
 # The inflation fields
 # ---------------------------------------------------------------------------
 
-_FILE_FORM = ("inflation files need netCDF I/O, which is not ported yet "
-              "(ROADMAP A11)")
-
-
 class AdaptiveInflation:
     """Adaptive inflation state: per-variable (mean, std) fields of shape
     ``[ntimes, ny, nx]`` on the prior's grid, NumPy float64 on the host.
@@ -348,17 +351,18 @@ class AdaptiveInflation:
 
     def __init__(self, priorstate: EnsembleState, priorinf):
         """``priorinf`` is ``(inftype, infile, initvals)``, as in the
-        reference: an existing ``infile`` would be loaded (not ported:
-        raises ``NotImplementedError``); otherwise uniform fields are built
-        from ``initvals = (mean, std)``."""
+        reference: an existing ``infile`` is loaded (and raises when it
+        cannot be read); otherwise uniform fields are built from
+        ``initvals = (mean, std)``."""
         if not isinstance(priorstate, EnsembleState):
             raise TypeError("AdaptiveInflation needs an EnsembleState")
         _inftype, infile, initvals = priorinf
         self.structure = priorstate.structure
         self.device = priorstate.device
         if infile is not None and os.path.exists(infile):
-            raise NotImplementedError(f"reading {infile!r}: {_FILE_FORM}")
-        self.build_initial_inflation(priorstate, initvals)
+            self._load(infile)
+        else:
+            self.build_initial_inflation(priorstate, initvals)
 
     @classmethod
     def from_fields(cls, structure, mean: dict, std: dict,
@@ -386,8 +390,46 @@ class AdaptiveInflation:
         self.mean = {v: np.full(shape, float(mean0)) for v in s.var_names}
         self.std = {v: np.full(shape, float(std0)) for v in s.var_names}
 
+    def _load(self, infile: str) -> None:
+        """The (mean, std) fields of a file :meth:`save_to_disk` wrote:
+        each state variable ``[ntimes, ny, nx, 2]``."""
+        ds = ncio.read_dataset(infile)
+        s = self.structure
+        want = (s.ntimes, s.ny, s.nx, 2)
+        self.mean, self.std = {}, {}
+        for v in s.var_names:
+            if v not in ds.variables:
+                raise ValueError(f"inflation file {infile!r} has no "
+                                 f"variable {v!r}")
+            arr = np.asarray(ds[v], dtype=np.float64)
+            if arr.shape != want:
+                raise ValueError(
+                    f"inflation file {infile!r}: {v!r} has shape "
+                    f"{arr.shape}, the state needs {want}")
+            self.mean[v] = arr[..., 0]
+            self.std[v] = arr[..., 1]
+
     def save_to_disk(self, filename: str = "prior_inflation.nc") -> None:
-        raise NotImplementedError(f"writing {filename!r}: {_FILE_FORM}")
+        """Checkpoint (reference ``adaptive_inflation.py:76-80``): each
+        variable ``[validtime, y, x, moment]`` with the mean and std as
+        its two moments, validtime in lead hours."""
+        s = self.structure
+        lead = timeutil.lead_hours(s.times_s, s.times_s[0])
+        variables = {
+            "validtime": (("validtime",), lead),
+            "lat": (("y", "x"), np.asarray(s.lat)),
+            "lon": (("y", "x"), np.asarray(s.lon)),
+        }
+        for v in s.var_names:
+            variables[v] = (
+                ("validtime", "y", "x", "moment"),
+                np.stack([self.mean[v], self.std[v]], axis=-1),
+            )
+        ds = ncio.NcDataset(
+            dims={"validtime": s.ntimes, "y": s.ny, "x": s.nx, "moment": 2},
+            variables=variables,
+        )
+        ncio.write_dataset(filename, ds)
 
     def mean_field(self) -> np.ndarray:
         """Stacked inflation means, ``[nvars, ntimes, ny, nx]``."""

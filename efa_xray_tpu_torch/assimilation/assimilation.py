@@ -1,8 +1,8 @@
 """Assimilation driver layer: priors, inflation, state formatting.
 
 Counterpart of ``efa_xray_tpu/assimilation/assimilation.py``:
-``inflate_state`` :75 (scalar, per-dimension / per-variable dict and
-``AdaptiveInflation`` forms), and the ``Assimilation`` base class with the
+``inflate_state`` :75 (scalar, file, per-dimension / per-variable dict
+and ``AdaptiveInflation`` forms), and the ``Assimilation`` base class with the
 ``obs_order`` sort :201-208, ``max_finite_radius`` :212, ``build_taps``
 :224, ``obs_arrays`` :245, ``apply_outlier_check`` :297,
 ``_vertical_active`` :348, ``format_prior_state`` :492 (the fused
@@ -21,8 +21,7 @@ first update has already restored, so that a second ``update()`` of one
 filter reorders a batch that is no longer sorted (ROADMAP C, faults of
 the reference); here the sorted copy is never reordered.  A custom
 forward operator's row is put where its ob sits in the sorted batch (the
-JAX package puts it at the ob's index in the caller's order).  Inflation
-from a file (netCDF I/O, ROADMAP A11) is not ported yet.
+JAX package puts it at the ob's index in the caller's order).
 """
 
 from __future__ import annotations
@@ -42,7 +41,7 @@ from efa_xray_tpu_torch.observation.observation import (
 from efa_xray_tpu_torch.state.ensemble import EnsembleState, _torch_dtype
 from efa_xray_tpu_torch.utils.validation import ValidationError
 
-InflationSpec = Union[None, float, dict, "AdaptiveInflation"]
+InflationSpec = Union[None, float, str, dict, "AdaptiveInflation"]
 
 # The ``matmul_precision`` settings the port runs: full fp32 products.
 FULL_PRECISION = (None, "highest", "float32")
@@ -54,14 +53,17 @@ def inflate_state(state: EnsembleState, inflation: InflationSpec,
     ``efa_xray/assimilation/assimilation.py:52-118``).
 
     * float: every variable's perturbations scaled by the factor;
+    * str: the name of an inflation file (netCDF/HDF5, e.g. written with
+      ``utils.ncio.write_dataset``): each state variable found in it is a
+      factor field broadcast to ``[ntimes, ny, nx]`` on that variable's
+      perturbations (variables not in the file keep 1);
     * dict: dimension names (``validtime``/``lat``/``lon``/``x``/``y``)
       map to 1-D per-element factors along that dimension; variable names
       map to scalar factors for that variable (unknown ones are skipped);
     * an ``AdaptiveInflation``: its mean field, as ``sqrt(lambda)`` on the
       perturbations.
 
-    The str form (an inflation file) raises ``NotImplementedError``: it
-    needs netCDF I/O (ROADMAP A11).  Returns a new state.
+    Returns a new state.
     """
     if inflation is None:
         return state
@@ -114,9 +116,19 @@ def inflate_state(state: EnsembleState, inflation: InflationSpec,
                 data[vi] = perts[vi] * float(v) + mean[vi]
         return state.replace_data(data)
     if isinstance(inflation, str):
-        raise NotImplementedError(
-            f"inflation from the file {inflation!r} needs netCDF I/O, which "
-            "is not ported yet (ROADMAP A11)")
+        from efa_xray_tpu_torch.utils import ncio
+
+        if verbose:
+            print(f"Loading inflation from file: {inflation}")
+        ds = ncio.read_dataset(inflation)
+        factor = np.ones((s.nvars, s.ntimes, s.ny, s.nx), dtype=np.float64)
+        for vi, name in enumerate(s.var_names):
+            if name in ds.variables:
+                factor[vi] = np.broadcast_to(
+                    np.asarray(ds[name]), (s.ntimes, s.ny, s.nx))
+        mean = data.mean(dim=-1, keepdim=True)
+        factor = torch.tensor(factor, dtype=data.dtype, device=data.device)
+        return state.replace_data((data - mean) * factor[..., None] + mean)
     raise TypeError(f"Unsupported inflation spec: {type(inflation)!r}")
 
 

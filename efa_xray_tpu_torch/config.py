@@ -5,12 +5,14 @@ knobs that exist only for the TPU and its remote link: the host fast path
 (``small_host``, ``small_host_threshold``), the Pallas selections
 (``use_pallas``, ``tail_pallas``: here the device decides, see
 ``EnSRF._use_kernels``), the TPU row tile (``pallas_tile``) and the
-timing-only ``mxu_bf16``.  The LETKF knobs (``letkf_*``, :183-227) and
-``taps_topk`` (:55) are here: ``letkf_solve_precision`` and
-``taps_topk="approx"`` are accepted and run true fp32 and the exact search
-(what the JAX package runs off the TPU).  The adaptive-inflation knobs
-(``adaptive_*``, :262-291) are here.  ``obs_chunk`` has no automatic
-threshold: None runs the batch in one shot.
+timing-only ``mxu_bf16``; :meth:`FilterConfig.load` still reads a file
+that names them (see :data:`TPU_ROUTE_FIELDS`).  The LETKF knobs
+(``letkf_*``, :183-227) and ``taps_topk`` (:55) are here:
+``letkf_solve_precision`` and ``taps_topk="approx"`` are accepted and run
+true fp32 and the exact search (what the JAX package runs off the TPU).
+The adaptive-inflation knobs (``adaptive_*``, :262-291) are here.
+``obs_chunk`` has no automatic threshold: None runs the batch in one
+shot.
 
 The reference configures everything through loose kwargs and a polymorphic
 ``inflation`` argument (``efa_xray/assimilation/ensrf.py:28``,
@@ -23,7 +25,25 @@ the :class:`~efa_xray_tpu_torch.observation.observation.ObservationBatch`.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Union
+
+# Fields of the JAX package's FilterConfig (efa_xray_tpu/config.py:42-142)
+# that choose a route or a tile on the TPU, not the function computed:
+# ``load`` reads them from a file and drops them with a warning.
+TPU_ROUTE_FIELDS = ("use_pallas", "tail_pallas", "small_host",
+                    "small_host_threshold", "pallas_tile")
+
+
+def refuse_mxu_bf16(value) -> None:
+    """``mxu_bf16=True`` (the JAX package's bf16 casts on the fused
+    kernel's two products) changes the products' precision, which the
+    port does not lower yet: raise as ``matmul_precision`` below fp32
+    does.  False is the port's only setting."""
+    if value:
+        raise NotImplementedError(
+            "not ported yet: mxu_bf16=True (every product of the port is "
+            "fp32; lower precisions are ROADMAP B-next 5)")
 
 
 @dataclasses.dataclass
@@ -297,8 +317,11 @@ class FilterConfig:
 
     @classmethod
     def load(cls, path: str, **overrides) -> "FilterConfig":
-        """Read a JSON config written by :meth:`save` (or by hand).
-        Unknown keys raise (typo safety); ``overrides`` are applied on
+        """Read a JSON config written by :meth:`save`, by the JAX
+        package's ``FilterConfig.save`` or by hand.  Unknown keys raise
+        (typo safety); :data:`TPU_ROUTE_FIELDS` and ``mxu_bf16: false``
+        are dropped with one warning naming them, and ``mxu_bf16: true``
+        raises (:func:`refuse_mxu_bf16`); ``overrides`` are applied on
         top.  Validation runs through the normal constructor."""
         import json
 
@@ -307,11 +330,20 @@ class FilterConfig:
         if not isinstance(data, dict):
             raise ValueError(f"{path}: expected a JSON object")
         known = {f.name for f in dataclasses.fields(cls)}
-        unknown = sorted(set(data) - known)
+        unknown = sorted(set(data) - known - set(TPU_ROUTE_FIELDS)
+                         - {"mxu_bf16"})
         if unknown:
             raise ValueError(
                 f"{path}: unknown FilterConfig field(s): {', '.join(unknown)}"
             )
+        refuse_mxu_bf16(data.get("mxu_bf16", False))
+        dropped = sorted(set(data) - known)
+        if dropped:
+            warnings.warn(
+                f"{path}: dropped FilterConfig field(s) {', '.join(dropped)}"
+                ": they choose a route or a tile on the TPU, not the "
+                "function computed", stacklevel=2)
+        data = {k: v for k, v in data.items() if k in known}
         data.update(overrides)
         return cls(**data)
 

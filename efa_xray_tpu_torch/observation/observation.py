@@ -2,8 +2,9 @@
 
 Counterpart of ``efa_xray_tpu/observation/observation.py``:
 ``Observation`` :26 with ``estimate``, ``distance_to_state`` and
-``localize`` :75-108 (``map_localization``, a matplotlib plot, waits for
-the viewer, ROADMAP A11) and ``ObservationBatch`` :201 with ``coerce``
+``localize`` :75-108, ``map_localization`` :111-190 (matplotlib, taken
+lazily; the coastlines of the port's copy of ``utils/coastlines.py``) and
+``ObservationBatch`` :201 with ``coerce``
 :283, ``take`` :288, ``spatial_sort`` :307, ``var_indices`` :327,
 ``writeback`` :363, ``to_observations`` :381, ``to_dataframe`` :411 and
 ``from_dataframe`` :441.  All per-ob arrays are host NumPy; the filter
@@ -107,6 +108,89 @@ class Observation:
         if type == "GC":
             return _loc.gaspari_cohn_np(distances, halfwidth)
         raise ValueError(f"Unknown localization type {type!r}")
+
+    def map_localization(self, state, projection=None, type="GC", ax=None,
+                         coastlines="auto"):
+        """Plot the localization footprint (reference:
+        ``efa_xray/observation/observation.py:94-115``, which needed
+        Basemap; here plain matplotlib / any callable projection).
+
+        ``coastlines``: draw coastline outlines (the reference's
+        ``drawcoastlines``/``drawcountries``, ``observation.py:109-111``).
+        A geo toolkit is used when importable — cartopy preferred,
+        Basemap as fallback; when neither is installed, ``"auto"`` /
+        ``True`` fall back to the built-in orientation-grade world outline
+        (:mod:`efa_xray_tpu_torch.utils.coastlines`).  A path or ``(N, 2)``
+        lon/lat array draws those user-supplied NaN-separated polylines
+        instead (see :func:`utils.coastlines.load_segments` for the
+        formats).  ``False`` disables."""
+        import matplotlib.pyplot as plt
+
+        localization = np.asarray(self.localize(state, type=type))
+        if projection is not None:
+            gx, gy = state.project_coordinates(projection)
+        else:
+            gx, gy = np.asarray(state.structure.lon), np.asarray(state.structure.lat)
+        coast_auto = coastlines is True or (
+            isinstance(coastlines, str) and coastlines == "auto"
+        )
+        if ax is None:
+            if coast_auto and projection is None:
+                try:  # lat/lon axes: a cartopy GeoAxes gives real outlines
+                    import cartopy.crs as ccrs
+
+                    _, ax = plt.subplots(
+                        figsize=(10, 8),
+                        subplot_kw={"projection": ccrs.PlateCarree()},
+                    )
+                except ImportError:
+                    _, ax = plt.subplots(figsize=(10, 8))
+            else:
+                _, ax = plt.subplots(figsize=(10, 8))
+        pm = ax.pcolormesh(gx, gy, localization.reshape(gx.shape), vmin=0.0, vmax=1.0)
+        if coastlines is not False and coastlines is not None:
+            from efa_xray_tpu_torch.utils import coastlines as _coast
+
+            segments = None  # builtin coarse world outline
+            drew = False
+            if coast_auto:
+                if hasattr(ax, "coastlines"):  # cartopy GeoAxes
+                    try:
+                        import cartopy.feature as cfeature
+
+                        ax.coastlines()
+                        ax.add_feature(cfeature.BORDERS, linewidth=0.5)
+                        drew = True
+                    except Exception:
+                        pass
+                if not drew and projection is not None and hasattr(
+                    projection, "drawcoastlines"
+                ):  # a Basemap instance doubles as the projection callable
+                    try:
+                        projection.drawcoastlines(ax=ax)
+                        projection.drawcountries(ax=ax)
+                        drew = True
+                    except Exception:
+                        pass
+            else:  # a path or an (N, 2) lon/lat array of polylines
+                segments = coastlines
+            if not drew:
+                lon360 = projection is None and np.nanmax(gx) > 180.0
+                _coast.draw_coastlines(
+                    ax, segments=segments, projection=projection,
+                    lon360=lon360,
+                )
+                if projection is None:
+                    # keep the view on the data, not the world outline
+                    ax.set_xlim(float(np.nanmin(gx)), float(np.nanmax(gx)))
+                    ax.set_ylim(float(np.nanmin(gy)), float(np.nanmax(gy)))
+        plt.colorbar(pm, ax=ax)
+        ax.set_title(
+            "Localization Weights for {:s} ({:5.3f},{:5.3f})".format(
+                str(self.description), self.lat, self.lon
+            )
+        )
+        return ax
 
     def __repr__(self):
         return (

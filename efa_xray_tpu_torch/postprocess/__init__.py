@@ -8,3 +8,9 @@ from efa_xray_tpu_torch.postprocess.verification import (  # noqa: F401
     innovation_consistency,
     rank_histogram,
 )
+from efa_xray_tpu_torch.postprocess.sensitivity import (  # noqa: F401
+    ensemble_sensitivity,
+    greedy_obs_selection,
+    observation_impact,
+    region_mean_metric,
+)

@@ -9,9 +9,9 @@ Counterpart of ``efa_xray_tpu/state/ensemble.py``: ``from_vardict`` :59,
 :271-279, ``project_coordinates`` :281, ``isel`` / ``sel`` with
 ``_as_index`` :292-469, the arithmetic with ``_check_compatible``
 :472-542, ``where`` :544, ``__neg__`` / ``__abs__`` :561-565 and
-``astype`` :596.  ``shard`` (multi-device, ROADMAP A10) and
-``save_to_disk`` / ``from_netcdf`` (netCDF I/O, ROADMAP A11) raise
-``NotImplementedError``.
+``astype`` :596 and ``save_to_disk`` / ``from_netcdf`` :579-590 (through
+the port's copy of ``utils/ncio.py``).  ``shard`` (multi-device, ROADMAP
+A10) raises ``NotImplementedError``.
 
 The data lives in ONE tensor ``[nvars, ntimes, ny, nx, nmems]`` on one
 device, the card unless the caller asks for another;
@@ -473,16 +473,23 @@ class EnsembleState:
             "shard (multi-device row sharding) is not ported yet "
             "(ROADMAP A10)")
 
+    # --- I/O --------------------------------------------------------------
     def save_to_disk(self, filename: str = "ens_state.nc"):
-        raise NotImplementedError(
-            "save_to_disk needs netCDF I/O, which is not ported yet "
-            "(ROADMAP A11)")
+        """Checkpoint to a netCDF4(HDF5)-compatible file (reference
+        ``efa_xray/state/ensemble.py:269-273``) that the JAX package reads
+        too."""
+        from efa_xray_tpu_torch.utils import ncio
+
+        ncio.write_state(filename, self)
 
     @classmethod
-    def from_netcdf(cls, filename: str, dtype=None):
-        raise NotImplementedError(
-            "from_netcdf needs netCDF I/O, which is not ported yet "
-            "(ROADMAP A11)")
+    def from_netcdf(cls, filename: str, dtype=None,
+                    device=None) -> "EnsembleState":
+        """A state file (this package's or the JAX package's) on ``device``,
+        the card when None, in ``dtype`` (float32 when None)."""
+        from efa_xray_tpu_torch.utils import ncio
+
+        return ncio.read_state(filename, dtype=dtype, device=device)
 
     def replace_data(self, data) -> "EnsembleState":
         return EnsembleState(data, self.structure)

@@ -401,18 +401,24 @@ def test_inflate_state_matches_jax():
 
 def test_missing_file_builds_fields_and_an_existing_file_raises(tmp_path):
     """A missing inflation file builds the initial fields, as in the JAX
-    package; an existing one needs netCDF I/O (ROADMAP A11), and the port
-    raises rather than fall back to the initial fields."""
+    package; an existing one that cannot be read (here an empty file)
+    raises rather than fall back to the initial fields, as the JAX
+    package does (``tests/test_torch_inflation_files.py`` pins that); a
+    saved one loads back."""
     _, tstate, jad, tad = _pair_inflation(mean0=1.3, std0=0.2)
     for v in jad.mean:
         np.testing.assert_array_equal(tad.mean[v], jad.mean[v])
         np.testing.assert_array_equal(tad.std[v], jad.std[v])
     path = tmp_path / "prior_inflation.nc"
     path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(OSError):
         AdaptiveInflation(tstate, ("adaptive", str(path), (1.0, 0.5)))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tad.save_to_disk(str(tmp_path / "out.nc"))
+    tad.save_to_disk(str(tmp_path / "out.nc"))
+    back = AdaptiveInflation(tstate, ("adaptive", str(tmp_path / "out.nc"),
+                                      (1.0, 0.5)))
+    for v in tad.mean:
+        np.testing.assert_array_equal(back.mean[v], tad.mean[v])
+        np.testing.assert_array_equal(back.std[v], tad.std[v])
 
 
 def test_fields_cross_from_the_jax_package():

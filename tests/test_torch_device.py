@@ -2,15 +2,19 @@
 caller asks for another device; without a card and without
 ``device="cpu"`` they raise rather than carry on quietly on the CPU."""
 
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
 
-from efa_xray_tpu_torch import EnsembleState, interop
+from efa_xray_tpu_torch import EnsembleState, cli, interop
 from efa_xray_tpu_torch.models import swe
 from efa_xray_tpu_torch.models.cycling import CyclingHarness
 from efa_xray_tpu_torch.ops import precision_probe
 from efa_xray_tpu_torch.state.ensemble import default_device
+from efa_xray_tpu_torch.utils import demo_data, ncio
 
 
 def _fields():
@@ -32,6 +36,21 @@ def _tail_kw():
     return dict(ye=np.zeros((3, 2)), gain_coef=z, sqrt_coef=z, tail_mean=z,
                 tail_perts=np.zeros((3, 2)), prior_mean=z, prior_var=z,
                 post_mean=z, post_var=z, assimilated=np.ones(3, bool))
+
+
+def _with_state_file(fn):
+    """``fn(path)`` on a small state file in a temporary directory."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.nc")
+        EnsembleState.from_vardict(*_fields(), device="cpu").save_to_disk(
+            path)
+        return fn(path)
+
+
+def _cli_info(**kw):
+    argv = ["--device", kw["device"]] if kw else []
+    return _with_state_file(
+        lambda p: (cli.main(["info", "--state", p] + argv),))
 
 
 _ENTRY_POINTS = {
@@ -59,6 +78,13 @@ _ENTRY_POINTS = {
         _fields()[0], **kw).values()),
     "flat_ensemble_from_numpy": lambda **kw: (
         interop.flat_ensemble_from_numpy(np.zeros((2, 3)), **kw),),
+    "from_netcdf": lambda **kw: _with_state_file(
+        lambda p: EnsembleState.from_netcdf(p, **kw)),
+    "ncio.read_state": lambda **kw: _with_state_file(
+        lambda p: ncio.read_state(p, **kw)),
+    "demo_data.gefs_like_state": lambda **kw: demo_data.gefs_like_state(
+        ntimes=1, ny=3, nx=4, nmems=2, **kw)[0],
+    "cli.main": _cli_info,
 }
 
 

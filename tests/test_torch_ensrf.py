@@ -6,6 +6,7 @@ JAX."""
 import os
 import subprocess
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -109,7 +110,8 @@ def test_update_with_inflation_and_outlier_check_matches_jax():
 
 
 @pytest.mark.parametrize("kw,missing", [
-    (dict(inflation="prior_inflation.nc"), "A11"),
+    (dict(config=FilterConfig(dtype="float64",
+                              matmul_precision="tensorfloat32")), "B-next 5"),
     (dict(config=FilterConfig(dtype="float64",
                               matmul_precision="bfloat16")), "B-next 5"),
     (dict(config=FilterConfig(dtype="float64", matmul_precision="high")),
@@ -117,10 +119,10 @@ def test_update_with_inflation_and_outlier_check_matches_jax():
     (dict(mesh=object()), "A10"),
 ])
 def test_unported_paths_raise(kw, missing):
-    """What is still not ported raises, naming its ROADMAP item: inflation
-    from a file (netCDF I/O), products below fp32, ``mesh=``.  (RTPS/RTPP,
-    ``obs_order``, ``spatial_sort`` and ``obs_chunk`` run:
-    ``tests/test_torch_ensrf_options.py``.)"""
+    """What is still not ported raises, naming its ROADMAP item: products
+    below fp32, ``mesh=``.  (RTPS/RTPP, ``obs_order``, ``spatial_sort``
+    and ``obs_chunk`` run: ``tests/test_torch_ensrf_options.py``; inflation
+    from a file: ``tests/test_torch_inflation_files.py``.)"""
     _, _, tstate, tbatch = _pair()
     with pytest.raises(NotImplementedError, match=missing):
         EnSRF(tstate, tbatch, verbose=False, **kw).update()
@@ -251,22 +253,46 @@ def test_interop_roundtrip():
     assert tbatch.nobs == jbatch.nobs
 
 
-def test_port_imports_without_jax():
-    """``import efa_xray_tpu_torch`` must not touch JAX or the JAX
-    package, not even lazily at import time."""
-    code = ("import sys; sys.modules['jax'] = None; "
-            "import efa_xray_tpu_torch, efa_xray_tpu_torch.interop, "
-            "efa_xray_tpu_torch.assimilation.enkf, "
-            "efa_xray_tpu_torch.assimilation.letkf, "
-            "efa_xray_tpu_torch.assimilation.letkf_core, "
-            "efa_xray_tpu_torch.ops.tail_solve, "
-            "efa_xray_tpu_torch.ops.ensrf_fused, "
-            "efa_xray_tpu_torch.ops.ensrf_grid, "
-            "efa_xray_tpu_torch.ops.precision_probe; "
-            "bad = [m for m, v in sys.modules.items() if v is not None "
-            "and m.split('.')[0] in ('jax', 'efa_xray_tpu')]; "
-            "assert not bad, bad")
+def test_port_imports_without_jax(tmp_path):
+    """Every module of ``efa_xray_tpu_torch`` imports with JAX blocked, and
+    none touches JAX or the JAX package, not even lazily: the CLI, whose
+    commands import inside their bodies, runs ``assimilate`` end to end
+    in the same process."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import pkgutil
+        import numpy as np
+        import efa_xray_tpu_torch
+        from efa_xray_tpu_torch import EnsembleState, cli
+
+        names = [m.name for m in pkgutil.walk_packages(
+            efa_xray_tpu_torch.__path__, "efa_xray_tpu_torch.")]
+        for name in names:
+            __import__(name)
+        assert "efa_xray_tpu_torch.cli" in names
+        assert "efa_xray_tpu_torch.models.cycling" in names
+        rng = np.random.default_rng(0)
+        lon, lat = np.meshgrid(np.linspace(230, 240, 6),
+                               np.linspace(40, 48, 5))
+        EnsembleState.from_vardict(
+            {"T2m": rng.normal(280, 2, (1, 5, 6, 8))},
+            {"validtime": np.array([np.datetime64("2026-08-01T00")]),
+             "lat": lat, "lon": lon}, device="cpu").save_to_disk("prior.nc")
+        with open("obs.csv", "w") as f:
+            f.write("value,lat,lon,time,obtype,radius\\n"
+                    "281.0,44.0,235.0,2026-08-01T00,T2m,800\\n"
+                    "279.0,46.0,238.0,2026-08-01T00,T2m,800\\n")
+        assert cli.main(["assimilate", "--state", "prior.nc", "--obs",
+                         "obs.csv", "--out", "post.nc", "--stats",
+                         "stats.csv", "--device", "cpu"]) == 0
+        bad = [m for m, v in sys.modules.items() if v is not None
+               and m.split(".")[0] in ("jax", "efa_xray_tpu")]
+        assert not bad, bad
+    """)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    res = subprocess.run([sys.executable, "-c", code], cwd=root,
-                         capture_output=True, text=True, timeout=120)
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stderr
