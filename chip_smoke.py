@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-24
+    python3 chip_smoke.py             # phases 0-25
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
                                       # width and cluster, B2 with parts of
@@ -152,13 +152,26 @@ Phases, each printing one line of results:
     the ranking's best), no kernel launched; host seconds of each step.
     Its line says whether h5py is installed: the CLI's netCDF steps
     need it, and without it they do not run here (the tests hold the CLI
-    against the JAX package's on the CPU).
+    against the JAX package's on the CPU);
+25. the mesh on the card (``mesh=``, ``parallel/``): a mesh of 2-4
+    repeats of the one card, each case held against the single-device
+    update on the same inputs: (a) phase 4's workload on 4 shards (B1 +
+    B2), (b) phase 9's on 3 (1,048,576 rows are not a multiple of 3: the
+    padding runs; B1 + B4), (c) phase 11 (a)'s hybrid config on 2 (B1h +
+    B2h), (d) the EnKF at config 11 and the LETKF at config 6 with
+    ``letkf_topk="host"`` on 2 (no kernel; the host selection rebuilt for
+    2 shards), at the f32 kernel gate; (e) ``make_mesh()`` with its
+    defaults, one device here, bit for bit; the launches (B1 once per
+    panel on the one distinct device, B2, B4 and B2h once per shard in
+    the body plus the tail's applies), the max abs error and whether it
+    is bitwise, and host seconds of the single-device update and of the
+    mesh update's parts (pad, split, replicate, tail, shards, gather).
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
 same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-24 with one warm headline update, the
+``--profile`` replaces phases 2-25 with one warm headline update, the
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
 ``torch.profiler`` (the profiler walks every traced event): wall and
@@ -166,7 +179,7 @@ device-busy time, the busy share, the device ops that take the most time,
 and the share of the headline's (row tile, obs block) pairs and 8-ob
 panels that the cull keeps alive.
 
-``--steps`` replaces phases 2-24 with B1 at 512 x 80 and 1024 x 256 at
+``--steps`` replaces phases 2-25 with B1 at 512 x 80 and 1024 x 256 at
 sub-panels of 8 and 16 on one CTA and on each cluster that holds the
 panel, the parent commit's B1 beside them where
 ``build/efa_xray_tpu_torch/parent/tail_solve.cu`` exists, and B1 at 512 x
@@ -3524,6 +3537,169 @@ def phase24(dev="cuda", **cut):
     return res
 
 
+# Phase 25: phase 4's workload (``api``), the shards of each case, and
+# configs 11 and 6 (``c11``, ``c6``) as phases 18 and 19 run them.
+MESH25 = dict(fast=4, default=3, hybrid=2, solvers=2)
+
+
+def _mesh_parts():
+    """The sharded drivers' parts, each closed by a synchronize: padding,
+    the split of the rows onto the shards' devices, the obs' replication,
+    the tail (once per distinct device), the shards' solves, the gather,
+    and the LETKF's host selection build."""
+    from efa_xray_tpu_torch.assimilation import ensrf as ensrf_mod
+    from efa_xray_tpu_torch.assimilation import enkf as enkf_mod
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+    from efa_xray_tpu_torch.parallel import sharded
+
+    return [(sharded, "pad_rows", "pad"), (sharded, "_split", "split"),
+            (sharded, "_obs_to", "replicate"),
+            (ensrf_mod.KernelRoute, "_kernel_tail", "tail"),
+            (enkf_mod, "enkf_tail_scan", "tail"),
+            (sharded, "_ensrf_local", "shards"),
+            (sharded, "_enkf_local", "shards"),
+            (sharded, "_letkf_local", "shards"),
+            (sharded, "_gather", "gather"),
+            (tl, "host_select_candidates", "host_build")]
+
+
+def _mesh_vs_single(label, make, shards, dev, expect, gate=(RTOL, ATOL),
+                    warm=False):
+    """``make(mesh)`` is a filter on one state; its ``update()`` on one
+    device (once to fill the structure's caches, once timed) and on a
+    mesh of ``shards`` repeats of ``dev`` (``make_mesh()``'s defaults when
+    None), timed by parts, after one untimed mesh update when ``warm``
+    (the first use of another card loads the kernels there).  The launches of the mesh run are checked with
+    ``expect`` on the card (none on the CPU) and its posterior and
+    diagnostics held against the single-device update at ``gate``
+    (rtol, atol).  Returns a dict of the numbers."""
+    import torch
+
+    from efa_xray_tpu_torch.parallel import make_mesh
+
+    sync = _syncer(dev)
+    names = ("prior_mean", "prior_var", "post_mean", "post_var")
+
+    def run(mesh):
+        post, obs = make(mesh).update()
+        return post, {k: np.array(getattr(obs, k)) for k in names}, np.array(
+            obs.assimilated)
+
+    run(None)
+    (post1, d1, a1), wall1, _ = _spans(lambda: run(None), [], sync)
+    mesh = make_mesh() if shards is None else make_mesh([dev] * shards)
+    if warm:
+        run(mesh)
+    _reset_counts()
+    (postm, dm, am), wallm, spent = _spans(lambda: run(mesh), _mesh_parts(),
+                                           sync)
+    counts = _counts()
+    cuda = torch.device(dev).type == "cuda"
+    check((expect if cuda else _only())(counts), f"{label}: launches {counts}")
+    check(bool(torch.isfinite(postm.data).all()), f"{label}: not finite")
+    rtol, atol = gate
+    err = float((postm.data - post1.data).abs().max())
+    check(bool(torch.allclose(postm.data, post1.data, rtol=rtol, atol=atol)),
+          f"{label}: the mesh posterior differs from the single-device one "
+          f"by {err:.3e} (rtol {rtol}, atol {atol})")
+    check(bool((am == a1).all()), f"{label}: assimilated flags differ")
+    diag_err = 0.0
+    for k in names:
+        got, want = dm[k][a1], d1[k][a1]
+        check(bool(np.allclose(got, want, rtol=rtol, atol=atol)),
+              f"{label}: {k} differs from the single-device one")
+        diag_err = max(diag_err, float(np.abs(got - want).max(initial=0.0)))
+    return dict(shards=mesh.size, device=str(mesh.devices[0]),
+                launches=counts if cuda else None, max_abs_err=err,
+                bitwise=bool(torch.equal(postm.data, post1.data)),
+                diag_max_abs_err=diag_err, gate=dict(rtol=rtol, atol=atol),
+                single_s=wall1, mesh_s=wallm,
+                **{f"{k}_s": v for k, v in spent.items()})
+
+
+def phase25(dev="cuda", api=None, c11=None, c6=None):
+    """The mesh on the card: ``mesh=`` with several shards on the one
+    device (``make_mesh([dev] * n)``), each case held against the
+    single-device update on the same inputs.  (a) phase 4's workload
+    (``fast_geometry``) on 4 shards: B1 once per panel on the one distinct
+    device, B2 once per shard plus the tail's applies; (b) the default
+    config on 3 shards (1,048,576 rows are not a multiple of 3: the
+    padding runs): B1 + B4; (c) phase 11 (a)'s hybrid config on 2 shards:
+    B1h + B2h; (d) the EnKF at config 11 and the LETKF at config 6 with
+    ``letkf_topk="host"`` (its selection rebuilt for 2 shards) on 2
+    shards, no kernel; (e) ``make_mesh()`` with its defaults, one device
+    here (on a machine of several cards, every card, timed after one
+    warm-up update): the update bit for bit.  (a)-(d) at the f32 kernel gate (rtol
+    2e-5, atol 2e-4); host seconds of each part around synchronizes."""
+    import torch
+
+    from efa_xray_tpu_torch import EnKF, EnSRF, FilterConfig, LETKF
+    from efa_xray_tpu_torch.assimilation import letkf as tletkf
+    from efa_xray_tpu_torch.parallel import pad_to_multiple
+
+    out = {}
+    state, batch = _api_state(dev, **(api or {}))
+    nobs, ns = batch.nobs, state.structure.nstate
+    panels = _tail_counts(nobs, 512, False)["panels"]
+    nblocks = -(-nobs // 128)
+    ensrf = lambda cfg: (lambda mesh: EnSRF(state, batch, config=cfg,
+                                            verbose=False, mesh=mesh))
+    fast = FilterConfig(localization="GC", dtype="float32",
+                        fast_geometry=True)
+    n = MESH25["fast"]
+    out["a"] = _mesh_vs_single(
+        "phase 25 (a)", ensrf(fast), n, dev,
+        _only(B1=panels, B2=panels + n))
+    n = MESH25["default"]
+    out["b"] = _mesh_vs_single(
+        "phase 25 (b)", ensrf(FilterConfig(localization="GC")), n, dev,
+        _only(B1=panels, B4=_tail_counts(nobs, 512, True)["b4"]
+              + n * nblocks))
+    out["b"]["pad_rows"] = pad_to_multiple(ns, n) - ns
+    n = MESH25["hybrid"]
+    out["c"] = _mesh_vs_single(
+        "phase 25 (c)", ensrf(_hybrid_config(ns, 111)), n, dev,
+        _only(B1h=panels, B2h=n))
+    cuda = torch.device(dev).type == "cuda"
+    # make_mesh()'s defaults take every card (one on this machine: B1 and
+    # the tail's B2 applies once per card); a CPU rehearsal lists the CPU
+    # once
+    cards = torch.cuda.device_count() if cuda else 1
+    out["e"] = _mesh_vs_single(
+        "phase 25 (e)", ensrf(fast), None if cuda else 1, dev,
+        _only(B1=panels * cards, B2=(panels + 1) * cards), warm=True)
+    check(out["e"]["bitwise"], "phase 25 (e): a mesh of one device is not "
+          "the single-device update bit for bit")
+    check(out["e"]["shards"] == cards,
+          "phase 25 (e): make_mesh() does not take every card")
+    del state, batch
+    n = MESH25["solvers"]
+    p = dict(CONFIG11, **(c11 or {}))
+    state, batch = _half_degree_workload(dev, **p)
+    cfg = FilterConfig(localization="GC", fast_geometry=True,
+                       block_size=p["block"])
+    out["d_enkf"] = _mesh_vs_single(
+        "phase 25 (d) EnKF", lambda mesh: EnKF(
+            state, batch, config=cfg, verbose=False, seed=p["seed"],
+            mesh=mesh), n, dev, _only())
+    del state, batch
+    p = dict(CONFIG6, **(c6 or {}))
+    state, batch = _half_degree_workload(dev, **p)
+    cfg = FilterConfig(localization="GC", letkf_patch_size=p["patch"],
+                       letkf_k_obs=p["k"], letkf_chunk=p["chunk"],
+                       letkf_topk="host")
+    builds = tletkf.sel_build_count
+    out["d_letkf"] = _mesh_vs_single(
+        "phase 25 (d) LETKF", lambda mesh: LETKF(
+            state, batch, config=cfg, mesh=mesh), n, dev, _only())
+    out["d_letkf"]["host_selection_builds"] = tletkf.sel_build_count - builds
+    check(out["d_letkf"]["host_selection_builds"] == 2,
+          "phase 25 (d): the host selection was not rebuilt for the mesh")
+    for case, r in out.items():
+        log(f"phase 25 ({case}): " + json.dumps(r))
+    return out
+
+
 # P's products are timed as runs of this many calls back to back.
 P_INNER = 20
 
@@ -4127,6 +4303,7 @@ def main() -> int:
     timed(phase22)
     timed(phase23)
     timed(phase24)
+    timed(phase25)
     # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
     # a localized recurrence): their library_ms is null.
     kernels = [

@@ -59,7 +59,7 @@ from efa_xray_tpu_torch.observation.localization import (
     gaspari_cohn,
     haversine,
 )
-from efa_xray_tpu_torch.state.ensemble import EnsembleState
+from efa_xray_tpu_torch.state.ensemble import EnsembleState, default_device
 from efa_xray_tpu_torch.utils import ncio, timeutil
 
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
@@ -366,13 +366,14 @@ class AdaptiveInflation:
 
     @classmethod
     def from_fields(cls, structure, mean: dict, std: dict,
-                    device="cpu") -> "AdaptiveInflation":
+                    device=None) -> "AdaptiveInflation":
         """Fields given as ``{var: [ntimes, ny, nx]}`` arrays (copied to
         float64), e.g. those of the JAX package's ``AdaptiveInflation``
-        mid-cycle."""
+        mid-cycle, updating on ``device``: the card when None (without a
+        card a missing ``device`` raises, as ``default_device`` does)."""
         self = cls.__new__(cls)
         self.structure = structure
-        self.device = torch.device(device)
+        self.device = default_device(device)
         shape = (structure.ntimes, structure.ny, structure.nx)
         self.mean, self.std = {}, {}
         for v in structure.var_names:

@@ -14,12 +14,14 @@ operators ``_custom_operators`` :452-482, and the module-level ``update``
 shares.
 
 Everything runs on one explicit device, the filter's: by default the
-prior state's.  With ``obs_order="hilbert"`` the filter assimilates a
-sorted copy of the batch (``_batch``) and every update hands back the
-caller's order: the JAX package restores it from ``self.obs``, which its
-first update has already restored, so that a second ``update()`` of one
-filter reorders a batch that is no longer sorted (ROADMAP C, faults of
-the reference); here the sorted copy is never reordered.  A custom
+prior state's; with ``mesh=`` the solvers split the state body over the
+mesh's devices and gather the posterior back onto the filter's device.
+With ``obs_order="hilbert"`` the filter assimilates a sorted copy of the
+batch (``_batch``) and every update hands back the caller's order: the
+JAX package restores it from ``self.obs``, which its first update has
+already restored, so that a second ``update()`` of one filter reorders a
+batch that is no longer sorted (ROADMAP C, faults of the reference);
+here the sorted copy is never reordered.  A custom
 forward operator's row is put where its ob sits in the sorted batch (the
 JAX package puts it at the ob's index in the caller's order).
 """
@@ -138,7 +140,8 @@ class Assimilation:
 
     def __init__(self, state: EnsembleState, obs, nproc: int = 1,
                  inflation: InflationSpec = None, verbose: bool = False,
-                 config: Optional[FilterConfig] = None, device=None):
+                 config: Optional[FilterConfig] = None, device=None,
+                 mesh=None):
         from efa_xray_tpu_torch.utils.logging import verbose_logger
         from efa_xray_tpu_torch.utils.validation import (
             validate_obs,
@@ -154,8 +157,11 @@ class Assimilation:
         validate_state(state)
         validate_obs(self.obs, state.structure)
         self.verbose = verbose
-        # Accepted for the reference's signature; unused (one device).
+        # Accepted for the reference's signature; unused (parallelism
+        # comes from ``mesh``).
         self.nproc = nproc
+        # A parallel.mesh.Mesh: the solvers split the state over it.
+        self.mesh = mesh
         self.inflation = inflation
         self.config = config or FilterConfig(verbose=verbose)
         # The batch in assimilation order: obs_order="hilbert" sorts it
@@ -416,8 +422,9 @@ def update(prior_state: EnsembleState, obs, inflate: InflationSpec = None,
     """One-call update (the reference's ``assimilation.py:176-230``):
     ``(posterior, observations)`` from ``solver`` ``"ensrf"`` (default),
     ``"letkf"`` or ``"enkf"``.  ``nproc`` is accepted for the reference's
-    signature; ``mesh`` raises ``NotImplementedError`` (ROADMAP A10).
-    ``device``: the filter's (the state's by default)."""
+    signature; ``mesh`` (a :class:`~efa_xray_tpu_torch.parallel.mesh.Mesh`)
+    splits the state body over its devices.  ``device``: the filter's (the
+    state's by default)."""
     from efa_xray_tpu_torch.assimilation.enkf import EnKF
     from efa_xray_tpu_torch.assimilation.ensrf import EnSRF
     from efa_xray_tpu_torch.assimilation.letkf import LETKF

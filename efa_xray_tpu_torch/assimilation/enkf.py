@@ -254,7 +254,9 @@ class EnKF(Assimilation):
     and their defaults are the JAX package's (``enkf.py:373-384``), plus
     ``device`` (the state's by default).  ``seed`` fixes the perturbation
     draw; ``scale_perturbations`` the variance-exact rescale.  ``mesh=``
-    raises ``NotImplementedError`` (ROADMAP A10)."""
+    splits the body over the mesh's devices with the tail and the draws
+    replicated (``parallel.sharded.enkf_update_sharded``), so the
+    analysis does not depend on the mesh."""
 
     def __init__(self, state, obs, inflation=None, verbose: bool = True,
                  loc=False, config: Optional[FilterConfig] = None,
@@ -264,12 +266,8 @@ class EnKF(Assimilation):
             config = FilterConfig(
                 localization="GC" if loc not in (None, False) else None,
                 verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device row sharding) is not ported yet "
-                "(ROADMAP A10)")
         super().__init__(state, obs, inflation=inflation, verbose=verbose,
-                         config=config, device=device)
+                         config=config, device=device, mesh=mesh)
         self.seed = int(seed)
         self.scale_perturbations = bool(scale_perturbations)
 
@@ -302,7 +300,16 @@ class EnKF(Assimilation):
         kw = dict(localize=cfg.localize, unbiased=cfg.unbiased_variance,
                   fast_geometry=cfg.fast_geometry, body_vert=body_vert,
                   vertical=vertical, **self.varloc_kwargs())
-        if cfg.method == "blocked":
+        if self.mesh is not None:
+            from efa_xray_tpu_torch.parallel.sharded import (
+                enkf_update_sharded,
+            )
+
+            bm, bp, _, _, diags = enkf_update_sharded(
+                body_mean, body_perts, tail_mean, tail_perts, body_lat,
+                body_lon, obs, eps, mesh=self.mesh, method=cfg.method,
+                block_size=cfg.block_size, **kw)
+        elif cfg.method == "blocked":
             bm, bp, _, _, diags = enkf_blocked(
                 body_mean, body_perts, tail_mean, tail_perts, body_lat,
                 body_lon, obs, eps, block_size=cfg.block_size, **kw)

@@ -48,10 +48,19 @@ chunks with no-op obs, then sweeps the body chunk by chunk along the same
 route; it refuses hybrid covariance and ``variable_localization`` with a
 ``ValueError``, as the JAX package does.  The JAX package's automatic
 chunking of batches over 131072 obs on a TPU is left out: ``obs_chunk=None``
-is one shot.  ``mesh=`` and ``matmul_precision`` settings below float32
-(ROADMAP A10, B-next 5; the latter refused by
-:meth:`Assimilation._check_ported` for every solver) raise
-``NotImplementedError`` rather than run a plain path on the card.
+is one shot.  ``matmul_precision`` settings below float32 (ROADMAP
+B-next 5, refused by :meth:`Assimilation._check_ported` for every solver)
+raise ``NotImplementedError`` rather than run a plain path on the card.
+
+``mesh=`` (a :class:`~efa_xray_tpu_torch.parallel.mesh.Mesh`, JAX
+``ensrf.py:257-301``) runs the update through
+:func:`~efa_xray_tpu_torch.parallel.sharded.ensrf_update_sharded`: the
+rows split over the mesh's devices, the tail solved once per distinct
+device, each shard along the JAX sharded route (B1 tail, then B2, B2h or
+B4 as a flat state; never B3), the shards gathered.  It refuses a
+positive ``obs_chunk`` with the JAX package's message.  The JAX package's
+refusal of more than 131072 obs on a mesh guards a TPU worker crash and is
+left out: the card ran 160,000 obs in one shot.
 """
 
 from __future__ import annotations
@@ -215,7 +224,9 @@ class KernelRoute:
             return core.ensrf_blocked_body(
                 bm, bp, body_lat, body_lon, tail, obs, localize=cfg.localize,
                 block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
-                body_vert=body_vert, vertical=vertical)
+                body_vert=body_vert, vertical=vertical, hybrid=bool(hkw),
+                body_sigma=hkw.get("body_sigma"),
+                static_length=hkw.get("static_length"), **vl)
         if route == "B3":
             group_factor = None
             if vl:
@@ -280,12 +291,9 @@ class EnSRF(Assimilation, KernelRoute):
             config = FilterConfig(
                 localization="GC" if loc not in (None, False) else None,
                 verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device row sharding) is not ported yet "
-                "(ROADMAP A10)")
         super().__init__(state, obs, nproc, inflation=inflation,
-                         verbose=verbose, config=config, device=device)
+                         verbose=verbose, config=config, device=device,
+                         mesh=mesh)
         self.loc = loc if loc not in (None, False) else (config.localization
                                                          or False)
 
@@ -332,7 +340,11 @@ class EnSRF(Assimilation, KernelRoute):
         prior_perts = body_perts.clone() if cfg.rtpp_alpha > 0.0 else None
         nobs = int(obs.values.shape[0])
         chunk = int(cfg.obs_chunk or 0)
-        if chunk and nobs > chunk:
+        if self.mesh is not None:
+            bm, bp, tm, tp, diags = self._solve_sharded(
+                body_mean, body_perts, tail_mean, tail_perts, body_lat,
+                body_lon, obs, body_vert, vertical)
+        elif chunk and nobs > chunk:
             if cfg.hybrid_alpha < 1.0 or cfg.variable_localization:
                 raise ValueError(
                     "obs_chunk does not combine with hybrid covariance or "
@@ -364,6 +376,31 @@ class EnSRF(Assimilation, KernelRoute):
                           vertical=vertical,
                           hkw=self._hybrid_kwargs(body_mean),
                           vl=self.varloc_kwargs())
+
+    def _solve_sharded(self, body_mean, body_perts, tail_mean, tail_perts,
+                       body_lat, body_lon, obs, body_vert, vertical: bool):
+        """The update over ``self.mesh`` (JAX ``ensrf.py:257-301``); the
+        sharded driver has no chunked mode, so a positive ``obs_chunk``
+        raises."""
+        from efa_xray_tpu_torch.parallel import sharded
+
+        cfg = self.config
+        if cfg.obs_chunk is not None and cfg.obs_chunk > 0:
+            raise ValueError(
+                "obs_chunk is a single-device driver; it does not "
+                "combine with mesh=. Pre-split the batch into "
+                "sequential EnSRF.update() calls, or pass obs_chunk=0 "
+                "to force the one-shot sharded update.")
+        return sharded.ensrf_update_sharded(
+            body_mean, body_perts, tail_mean, tail_perts, body_lat,
+            body_lon, obs, mesh=self.mesh, localize=cfg.localize,
+            method=cfg.method, block_size=cfg.block_size,
+            unbiased=cfg.unbiased_variance, fast_geometry=cfg.fast_geometry,
+            body_vert=body_vert, vertical=vertical, donate=True,
+            tail_panel=cfg.tail_panel, cull=cfg.cull,
+            spatial_sort=cfg.spatial_sort,
+            max_radius_km=self.max_finite_radius(),
+            **self._hybrid_kwargs(body_mean), **self.varloc_kwargs())
 
     def _solve_obs_chunked(self, body_mean, body_perts, tail_mean,
                            tail_perts, body_lat, body_lon, obs, body_vert,

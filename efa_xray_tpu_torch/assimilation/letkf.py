@@ -15,8 +15,9 @@ per (analysed variable, observed variable).
 The selection cache is keyed on the structure, the obs network and the
 selection geometry, and on the torch device the candidates live on, so a
 cycling workload re-observing one network on one device builds the host
-kd-tree certificates once.  ``mesh=`` raises ``NotImplementedError``
-(ROADMAP A10).
+kd-tree certificates once.  ``mesh=`` splits the grid over the mesh's
+devices (``parallel.sharded.letkf_update_sharded``, JAX ``letkf.py:
+210-250``); the host selection is then built per shard (``ndev``).
 """
 
 from __future__ import annotations
@@ -47,25 +48,55 @@ sel_build_count = 0
 
 
 def _host_selection_cached(structure, obs_lats, obs_lons, k: int,
-                           patch_size: int, chunk: int, device):
+                           patch_size: int, chunk: int, device,
+                           ndev: int = 0):
     """``(cand, mask, group)`` for this (grid, obs network, selection
     geometry, device): :func:`letkf_core.host_select_candidates` built on
-    the host on first use, its candidates uploaded to ``device`` once."""
+    the host on first use, its candidates uploaded to ``device`` once.
+
+    ``ndev = 0``: the single-device layout.  ``ndev > 0``: the sharded
+    layout of ``letkf_update_sharded``, which pads the grid to a multiple
+    of ``ndev * patch_size`` and runs each shard's own patch and chunk
+    partition: the candidates are built per shard (with one common width
+    S) and stacked along the group axis, which the driver splits like the
+    grid."""
     global sel_build_count
     device = torch.device(device)
     h = hashlib.sha256()
     for a in (obs_lats, obs_lons):
         h.update(np.ascontiguousarray(np.asarray(a, np.float64)).tobytes())
-    h.update(repr((k, patch_size, chunk, str(device))).encode())
+    h.update(repr((k, patch_size, chunk, str(device), ndev)).encode())
     key = h.hexdigest()
     per = _SEL_CACHE.get(structure)
     if per is not None and key in per:
         per.move_to_end(key)
         return per[key]
-    cand, mask, geff = letkf_core.host_select_candidates(
-        np.asarray(structure.lat.ravel(), np.float64),
-        np.asarray(structure.lon.ravel(), np.float64), structure.ngrid,
-        patch_size, obs_lats, obs_lons, k, chunk=chunk)
+    glat = np.asarray(structure.lat.ravel(), np.float64)
+    glon = np.asarray(structure.lon.ravel(), np.float64)
+    ngrid = structure.ngrid
+    if ndev == 0:
+        cand, mask, geff = letkf_core.host_select_candidates(
+            glat, glon, ngrid, patch_size, obs_lats, obs_lons, k,
+            chunk=chunk)
+    else:
+        from efa_xray_tpu_torch.parallel.mesh import pad_to_multiple
+
+        g_pad = pad_to_multiple(ngrid, ndev * patch_size)
+        glat = np.concatenate([glat, np.repeat(glat[-1:], g_pad - ngrid)])
+        glon = np.concatenate([glon, np.repeat(glon[-1:], g_pad - ngrid)])
+        g_local = g_pad // ndev
+        chunk_local = min(chunk, max(1, -(-g_local // patch_size)))
+        parts = [letkf_core.host_select_candidates(
+            glat[s * g_local:(s + 1) * g_local],
+            glon[s * g_local:(s + 1) * g_local], g_local, patch_size,
+            obs_lats, obs_lons, k, chunk=chunk_local) for s in range(ndev)]
+        geff = parts[0][2]
+        if any(p[2] != geff for p in parts):
+            raise RuntimeError("shards disagree on the group layout")
+        width = max(p[0].shape[1] for p in parts)
+        cand, mask = (np.concatenate([
+            np.pad(p[i], ((0, 0), (0, width - p[i].shape[1])))
+            for p in parts]) for i in (0, 1))
     entry = (torch.from_numpy(cand).to(device),
              torch.from_numpy(mask).to(device), geff)
     sel_build_count += 1
@@ -90,12 +121,8 @@ class LETKF(Assimilation):
             config = FilterConfig(
                 localization="GC" if loc not in (None, False) else None,
                 verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device row sharding) is not ported yet "
-                "(ROADMAP A10)")
         super().__init__(state, obs, inflation=inflation, verbose=verbose,
-                         config=config, device=device)
+                         config=config, device=device, mesh=mesh)
 
     def update(self) -> Tuple[EnsembleState, ObservationBatch]:
         """Assimilate all observations simultaneously; return
@@ -142,21 +169,33 @@ class LETKF(Assimilation):
                     "localization")
             cand, mask, geff = _host_selection_cached(
                 st, self._batch.lats, self._batch.lons, cfg.letkf_k_obs,
-                cfg.letkf_patch_size, cfg.letkf_chunk, self.device)
+                cfg.letkf_patch_size, cfg.letkf_chunk, self.device,
+                ndev=0 if self.mesh is None else self.mesh.size)
             sel_kw = dict(sel_cand=cand, sel_mask=mask, sel_group=geff)
         prior_spread = row_spread(body_perts) if cfg.rtps_alpha > 0.0 else None
         # The update does not touch the prior in place: a reference
         # suffices.
         prior_perts = body_perts if cfg.rtpp_alpha > 0.0 else None
-        bm, bp, _, _, diags = letkf_core.letkf_update(
-            body_mean, body_perts, tail_mean, tail_perts, grid_lat, grid_lon,
-            obs, ngrid=st.ngrid, patch_size=cfg.letkf_patch_size,
-            k_obs=cfg.letkf_k_obs, localize=cfg.localize,
-            sqrt_method=cfg.letkf_sqrt, ns_iters=cfg.letkf_ns_iters,
-            chunk=cfg.letkf_chunk, topk_method=cfg.letkf_topk,
-            vertical=vertical, body_vert=body_vert,
-            unbiased=cfg.unbiased_variance,
-            solve_precision=cfg.letkf_solve_precision, **sel_kw, **vl_kw)
+        kw = dict(ngrid=st.ngrid, patch_size=cfg.letkf_patch_size,
+                  k_obs=cfg.letkf_k_obs, localize=cfg.localize,
+                  sqrt_method=cfg.letkf_sqrt, ns_iters=cfg.letkf_ns_iters,
+                  chunk=cfg.letkf_chunk, topk_method=cfg.letkf_topk,
+                  vertical=vertical, body_vert=body_vert,
+                  unbiased=cfg.unbiased_variance,
+                  solve_precision=cfg.letkf_solve_precision, **sel_kw,
+                  **vl_kw)
+        if self.mesh is not None:
+            from efa_xray_tpu_torch.parallel.sharded import (
+                letkf_update_sharded,
+            )
+
+            bm, bp, _, _, diags = letkf_update_sharded(
+                body_mean, body_perts, tail_mean, tail_perts, grid_lat,
+                grid_lon, obs, mesh=self.mesh, **kw)
+        else:
+            bm, bp, _, _, diags = letkf_core.letkf_update(
+                body_mean, body_perts, tail_mean, tail_perts, grid_lat,
+                grid_lon, obs, **kw)
         if prior_spread is not None:
             bp = rtps(prior_spread, bp, cfg.rtps_alpha)
         if prior_perts is not None:

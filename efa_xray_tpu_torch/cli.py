@@ -27,7 +27,8 @@ by the other.  Where it differs from the JAX CLI:
 (b) ``--dtype float64`` needs no switch (the JAX CLI turns on x64).  On
     the card it takes the plain update, as ``FilterConfig(dtype=
     "float64")`` does.
-(c) ``--mesh`` raises ``NotImplementedError`` (multi-device, ROADMAP A10).
+(c) ``--mesh`` splits the state over every visible CUDA device
+    (``parallel.make_mesh()``), or over ``[cpu]`` with ``--device cpu``.
 (d) ``--mxu-bf16`` (a TPU timing knob the port's ``FilterConfig`` dropped)
     still parses, so that a scheduler's command line does, and raises
     ``NotImplementedError`` as ``FilterConfig.load`` does for
@@ -186,10 +187,6 @@ def config_kwargs(args) -> dict:
 def cmd_assimilate(args):
     from efa_xray_tpu_torch.config import FilterConfig, refuse_mxu_bf16
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (multi-device row sharding) is not ported yet "
-            "(ROADMAP A10)")
     refuse_mxu_bf16(args.mxu_bf16)
     state = _read_state(args.state, args)
     batch = _read_obs(args.obs)
@@ -229,22 +226,29 @@ def cmd_assimilate(args):
         )
     else:
         cfg = FilterConfig(**cli_kwargs)
+    mesh = None
+    if args.mesh:
+        from efa_xray_tpu_torch.parallel import make_mesh
+
+        dev = _device(args)
+        mesh = make_mesh() if dev.type == "cuda" else make_mesh([dev])
 
     if args.solver == "letkf":
         from efa_xray_tpu_torch.assimilation.letkf import LETKF
 
         filt = LETKF(state, batch, inflation=args.inflation,
-                     verbose=args.verbose, config=cfg)
+                     verbose=args.verbose, config=cfg, mesh=mesh)
     elif args.solver == "enkf":
         from efa_xray_tpu_torch.assimilation.enkf import EnKF
 
         filt = EnKF(state, batch, inflation=args.inflation,
-                    verbose=args.verbose, config=cfg, seed=args.seed)
+                    verbose=args.verbose, config=cfg, seed=args.seed,
+                    mesh=mesh)
     else:
         from efa_xray_tpu_torch.assimilation.ensrf import EnSRF
 
         filt = EnSRF(state, batch, inflation=args.inflation,
-                     verbose=args.verbose, config=cfg)
+                     verbose=args.verbose, config=cfg, mesh=mesh)
 
     if args.bias_file:
         # Cycle-persistent per-obtype bias correction: learn this batch's
@@ -524,8 +528,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_as.add_argument("--dtype", default="float32",
                       choices=["float32", "float64"])
     p_as.add_argument("--mesh", action="store_true",
-                      help="shard over all visible devices (not ported "
-                           "yet: raises)")
+                      help="shard over all visible devices")
     p_as.add_argument("--verbose", action="store_true")
     _add_device(p_as)
     p_as.set_defaults(func=cmd_assimilate)

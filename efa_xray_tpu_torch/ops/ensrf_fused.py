@@ -349,14 +349,17 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
         out_p = torch.empty((nrows, nmems), dtype=f32, device=dev)
     ins = [t.contiguous() for t in (bm, bp, geom, y_b, ggt_b, tab_b)]
     cbits = bits.contiguous() if bits is not None else None
-    err = _build.lib().efa_fused_body(
-        *(t.data_ptr() for t in ins),
-        None if cbits is None else cbits.data_ptr(),
-        nrows, nmems, bsz, nblocks, tile, int(localize),
-        int(vertical), int(series), int(hybrid), out_m.data_ptr(),
-        out_p.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # The C entry sets its attributes on, and launches onto, the current
+    # device: make it the tensors' one.
+    with torch.cuda.device(dev):
+        err = _build.lib().efa_fused_body(
+            *(t.data_ptr() for t in ins),
+            None if cbits is None else cbits.data_ptr(),
+            nrows, nmems, bsz, nblocks, tile, int(localize),
+            int(vertical), int(series), int(hybrid), out_m.data_ptr(),
+            out_p.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, "B2 ensrf_fused launch")
     if hybrid:
         hybrid_launches += 1

@@ -186,25 +186,34 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
     ins = [None if t is None else t.contiguous()
            for t in (bm, bp, w, table, y_b, ggt_b, coef_b)]
     ptrs = [None if t is None else t.data_ptr() for t in ins]
-    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.lib()
+    # The C entries set their attributes on, and launch onto, the current
+    # device: make it the tensors' one.
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if entry == "B3":
+            err = lib.efa_grid_body(*ptrs, vt, g, nmems, bsz, nblocks, tile,
+                                    out_m.data_ptr(), out_p.data_ptr(),
+                                    stream)
+        else:
+            err = lib.efa_block_apply(*ptrs, vt, g, nmems, bsz, tile,
+                                      out_m.data_ptr(), out_p.data_ptr(),
+                                      stream)
+    _build.check(err, f"{entry} ensrf_grid launch")
     if entry == "B3":
-        err = lib.efa_grid_body(*ptrs, vt, g, nmems, bsz, nblocks, tile,
-                                out_m.data_ptr(), out_p.data_ptr(), stream)
-        _build.check(err, "B3 ensrf_grid launch")
         b3_launches += 1
     else:
-        err = lib.efa_block_apply(*ptrs, vt, g, nmems, bsz, tile,
-                                  out_m.data_ptr(), out_p.data_ptr(), stream)
-        _build.check(err, "B4 ensrf_grid launch")
         b4_launches += 1
     return out_m, out_p
 
 
-def ctas_per_sm_on_card(tile: int, block_size: int, nmems: int) -> int:
-    """CTAs of the built kernel that the card's occupancy calculator puts
-    on one SM at this shape (registers and shared memory included)."""
-    n = _build.lib().efa_grid_ctas_per_sm(nmems, block_size, tile)
+def ctas_per_sm_on_card(tile: int, block_size: int, nmems: int,
+                        device=None) -> int:
+    """CTAs of the built kernel that the occupancy calculator of
+    ``device`` (the current CUDA device when None) puts on one SM at this
+    shape (registers and shared memory included)."""
+    with torch.cuda.device(device):
+        n = _build.lib().efa_grid_ctas_per_sm(nmems, block_size, tile)
     _build.check(-n if n < 0 else 0, "ensrf_grid occupancy query")
     return n
 

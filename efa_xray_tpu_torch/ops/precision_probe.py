@@ -126,11 +126,14 @@ def mm_cuda(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
         sa, sb = scratch_shapes(n, k, m)
         ar = torch.empty(sa, dtype=sdtype, device=dev)
         bt = torch.empty(sb, dtype=sdtype, device=dev)
-    err = _build.lib().efa_precision_mm(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        None if ar is None else ar.data_ptr(),
-        None if bt is None else bt.data_ptr(), n, k, m, _MODE_ID[mode],
-        torch.cuda.current_stream(dev).cuda_stream)
+    # The C entry sets its attributes on, and launches onto, the current
+    # device: make it the tensors' one.
+    with torch.cuda.device(dev):
+        err = _build.lib().efa_precision_mm(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            None if ar is None else ar.data_ptr(),
+            None if bt is None else bt.data_ptr(), n, k, m, _MODE_ID[mode],
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"P precision_probe launch ({mode})")
     launches += 1
     launches_by_mode[mode] += 1

@@ -296,14 +296,17 @@ def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
     vec = [torch.empty(pp, dtype=f32, device=dev)
            for _ in range(8 if hybrid else 6)]
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _build.lib().efa_tail_solve(
-        tm_in.data_ptr(), tp_in.data_ptr(), vals.data_ptr(), errs.data_ptr(),
-        am.data_ptr(), ptr(w), ptr(gc), ptr(sig), float(alpha), pp, m,
-        int(bool(unbiased)), sub, c, tm.data_ptr(), tp.data_ptr(),
-        ye.data_ptr(), *(v.data_ptr() for v in vec[:6]),
-        *(ptr(v) for v in (vec[6:] if hybrid else (None, None))),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # The C entry sets its attributes on, and launches onto, the current
+    # device: make it the tensors' one.
+    with torch.cuda.device(dev):
+        err = _build.lib().efa_tail_solve(
+            tm_in.data_ptr(), tp_in.data_ptr(), vals.data_ptr(),
+            errs.data_ptr(), am.data_ptr(), ptr(w), ptr(gc), ptr(sig),
+            float(alpha), pp, m, int(bool(unbiased)), sub, c, tm.data_ptr(),
+            tp.data_ptr(), ye.data_ptr(), *(v.data_ptr() for v in vec[:6]),
+            *(ptr(v) for v in (vec[6:] if hybrid else (None, None))),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, "B1h tail_solve launch" if hybrid
                  else "B1 tail_solve launch")
     if hybrid:

@@ -10,8 +10,7 @@ Counterpart of ``efa_xray_tpu/state/ensemble.py``: ``from_vardict`` :59,
 ``_as_index`` :292-469, the arithmetic with ``_check_compatible``
 :472-542, ``where`` :544, ``__neg__`` / ``__abs__`` :561-565 and
 ``astype`` :596 and ``save_to_disk`` / ``from_netcdf`` :579-590 (through
-the port's copy of ``utils/ncio.py``).  ``shard`` (multi-device, ROADMAP
-A10) raises ``NotImplementedError``.
+the port's copy of ``utils/ncio.py``), and ``shard`` :568.
 
 The data lives in ONE tensor ``[nvars, ntimes, ny, nx, nmems]`` on one
 device, the card unless the caller asks for another;
@@ -467,11 +466,19 @@ class EnsembleState:
         return EnsembleState(self.data.to(_torch_dtype(dtype)),
                              self.structure)
 
-    # --- not ported yet ---------------------------------------------------
-    def shard(self, mesh, axis_name: str = "state"):
-        raise NotImplementedError(
-            "shard (multi-device row sharding) is not ported yet "
-            "(ROADMAP A10)")
+    def shard(self, mesh, axis_name: str = "state") -> "EnsembleState":
+        """The state placed for ``mesh`` (a
+        :class:`~efa_xray_tpu_torch.parallel.mesh.Mesh`): whole, on
+        ``mesh.devices[0]``.  The JAX package places its one array
+        sharded over the mesh, a placement convenience by its own
+        docstring; here the state is one tensor, which cannot span
+        devices, and the sharded drivers split the flat rows themselves
+        either way (``parallel.mesh.shard_state_array`` gives the JAX
+        rule's per-device chunks)."""
+        if not getattr(mesh, "devices", None):
+            raise TypeError(f"shard takes a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
+        return self.to(mesh.devices[0])
 
     # --- I/O --------------------------------------------------------------
     def save_to_disk(self, filename: str = "ens_state.nc"):

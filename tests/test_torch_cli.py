@@ -3,10 +3,11 @@
 "--device", "cpu"])``, each run in a directory of its own holding the
 same inputs, must print the same lines and write the same posterior
 netCDF, posterior obs, stats CSV, target CSV and bias JSON (float64,
-1e-9).  The EnKF gets the JAX package's draws.  Also the
+1e-9).  The EnKF gets the JAX package's draws; ``--mesh`` runs the JAX
+CLI on its 8 CPU devices and the port's on ``[cpu]``.  Also the
 ``FilterConfig.load`` repair (a config file the JAX package wrote), the
-refusals (``--mesh``, ``--mxu-bf16``, a CPU-less default device) and the
-mirror of the CLI defaults on the port's ``FilterConfig``."""
+refusals (``--mxu-bf16``, a CPU-less default device) and the mirror of
+the CLI defaults on the port's ``FilterConfig``."""
 
 import dataclasses
 import json
@@ -132,6 +133,13 @@ _CASES = {
               "assimilated 7/8"),
     "enkf": (["--obs", "obs.nc", "--solver", "enkf", "--seed", "3",
               "--sort-spatial"], {}, "assimilated 8/8"),
+    # --mesh: the JAX CLI on its 8 CPU devices, the port's on [cpu]
+    "ensrf mesh": (["--obs", "obs.csv", "--radius", "2000", "--mesh",
+                    "--fast-geometry"], {}, "assimilated 7/8"),
+    "letkf mesh": (["--obs", "obs.nc", "--solver", "letkf", "--mesh"], {},
+                   "assimilated 8/8"),
+    "enkf mesh": (["--obs", "obs.csv", "--solver", "enkf", "--seed", "5",
+                   "--radius", "2000", "--mesh"], {}, "assimilated 7/8"),
 }
 
 
@@ -240,8 +248,6 @@ def test_refusals(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path / "in")
     base = ["assimilate", "--state", "prior.nc", "--obs", "obs.csv", "--out",
             "post.nc", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcli.main(base + ["--mesh"])
     with pytest.raises(NotImplementedError, match="mxu_bf16"):
         tcli.main(base + ["--mxu-bf16"])
     with pytest.raises(NotImplementedError, match="matmul_precision"):

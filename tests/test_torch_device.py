@@ -1,18 +1,27 @@
 """The port's entry points place their tensors on the card unless the
 caller asks for another device; without a card and without
-``device="cpu"`` they raise rather than carry on quietly on the CPU."""
+``device="cpu"`` they raise rather than carry on quietly on the CPU.  The
+kernel wrappers make the tensors' device current around each C entry,
+which sets its attributes on, and launches onto, the current device."""
 
 import os
 import tempfile
+import types
 
 import numpy as np
 import pytest
 import torch
 
-from efa_xray_tpu_torch import EnsembleState, cli, interop
+from efa_xray_tpu_torch import AdaptiveInflation, EnsembleState, cli, interop
 from efa_xray_tpu_torch.models import swe
 from efa_xray_tpu_torch.models.cycling import CyclingHarness
-from efa_xray_tpu_torch.ops import precision_probe
+from efa_xray_tpu_torch.ops import (
+    _build,
+    ensrf_fused,
+    ensrf_grid,
+    precision_probe,
+    tail_solve,
+)
 from efa_xray_tpu_torch.state.ensemble import default_device
 from efa_xray_tpu_torch.utils import demo_data, ncio
 
@@ -112,3 +121,98 @@ def test_the_card_is_the_default(monkeypatch):
     assert default_device() == torch.device("cuda")
     assert default_device("cpu") == torch.device("cpu")
     assert default_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+
+
+def test_adaptive_inflation_from_fields_defaults_to_the_card(monkeypatch):
+    """``AdaptiveInflation.from_fields`` updates on the card unless asked
+    for another device; ``interop.adaptive_inflation_from_numpy`` keeps
+    passing the state's device."""
+    state = EnsembleState.from_vardict(*_fields(), device="cpu")
+    fields = {"T2m": np.ones((1, 4, 5))}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        AdaptiveInflation.from_fields(state.structure, fields, fields)
+    adapt = AdaptiveInflation.from_fields(state.structure, fields, fields,
+                                          device="cpu")
+    assert adapt.device == torch.device("cpu")
+    assert interop.adaptive_inflation_from_numpy(
+        state, fields, fields).device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert AdaptiveInflation.from_fields(
+        state.structure, fields, fields).device == torch.device("cuda")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports ``is_cuda``: P's wrapper checks it."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _launch(wrapper):
+    """Call ``wrapper``'s CUDA entry on small float32 CPU tensors (the
+    fake library below never reads them)."""
+    f = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    if wrapper == "B1":
+        tail_solve.tail_panel_solve_cuda(
+            f(8), f(8, 4), f(8), torch.ones(8), torch.ones(8, dtype=bool))
+    elif wrapper == "B2":
+        ensrf_fused.fused_apply_cuda(
+            f(32), f(32, 4), f(4, 32), f(1, 8, 4), f(1, 8, 8),
+            f(1, len(ensrf_fused.TABLE_ROWS), 8), None, 32, True, False,
+            False)
+    elif wrapper in ("B3", "B4"):
+        ensrf_grid.grid_apply_cuda(wrapper, f(32), f(32, 4), f(1, 8, 16),
+                                   None, f(1, 8, 4), f(1, 8, 8), f(1, 2, 8),
+                                   vt=2)
+    elif wrapper == "occupancy":
+        ensrf_grid.ctas_per_sm_on_card(64, 8, 4, device=torch.device("cpu"))
+    else:
+        a = f(16, 16).as_subclass(_OnCard)
+        precision_probe.mm_cuda(a, a, "ieee")
+
+
+@pytest.mark.parametrize("wrapper", ["B1", "B2", "B3", "B4", "occupancy",
+                                     "P"])
+def test_kernel_wrappers_enter_the_tensors_device(wrapper, monkeypatch):
+    """Each wrapper calls its C entry with the tensors' device current
+    (``torch.cuda.device`` entered, not yet left), so that a launch on a
+    second card sets its attributes on, and runs on, that card."""
+    current = []
+    calls = []
+
+    class Device:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            current.append(self.device)
+
+        def __exit__(self, *exc):
+            current.pop()
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, list(current)))
+                return 2 if name == "efa_grid_ctas_per_sm" else 0
+            return entry
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    monkeypatch.setattr(_build, "lib", lambda: Library())
+    # the counts come back as they were: other tests read them
+    for mod, names in ((tail_solve, ("launches", "hybrid_launches")),
+                       (ensrf_fused, ("launches", "hybrid_launches")),
+                       (ensrf_grid, ("b3_launches", "b4_launches")),
+                       (precision_probe, ("launches",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, getattr(mod, name))
+    monkeypatch.setattr(precision_probe, "launches_by_mode",
+                        dict(precision_probe.launches_by_mode))
+    _launch(wrapper)
+    assert len(calls) == 1 and not current
+    assert calls[0][1] == [torch.device("cpu")], calls

@@ -5,9 +5,10 @@ the same perturbation table, the same analysis.  The core functions take
 the JAX package's ``eps``; at the class level the port's
 ``draw_ob_perturbations`` is patched to return the JAX table for the same
 seed and errors (the only JAX behaviour the port does not carry).  Float64
-on the CPU, 1e-9.  Each case of ``tests/test_enkf.py`` but the sharded one
-has its counterpart here, plus ``apply_rows`` itself, the refusals and the
-routing (the EnKF never reaches a body kernel)."""
+on the CPU, 1e-9 (the mesh case: 1e-10).  Each case of
+``tests/test_enkf.py`` has its counterpart here, plus ``apply_rows``
+itself, the refusals and the routing (the EnKF never reaches a body
+kernel)."""
 
 import numpy as np
 import pytest
@@ -345,7 +346,6 @@ def test_enkf_launches_no_body_kernel(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(mesh=object()), NotImplementedError, "A10"),
     (dict(config=FilterConfig(dtype="float64", hybrid_alpha=0.5,
                               static_b_sigma=1.0, static_b_length=500.0)),
      ValueError, "EnSRF solver only"),
@@ -394,3 +394,18 @@ def test_enkf_cycles_lorenz96_beats_free_run():
     assert np.isfinite(rmse).all()
     assert rmse[5:].mean() < bg[5:].mean()
     assert rmse[-8:].mean() < 1.0
+
+
+@pytest.mark.parametrize("method", ["blocked", "serial"])
+def test_enkf_sharded_matches_single_device(method, jax_draws):
+    """The EnKF on a mesh (the body split, the tail and the perturbation
+    table replicated): the port's ``[cpu] * 8`` against the JAX package's
+    8 CPU devices and the port's single device, same seed, same draws."""
+    from test_torch_sharded import assert_mesh_agrees, mesh_runs
+
+    jstate = make_demo_state(ny=8, nx=8, nmems=12, seed=6)
+    jbatch = JBatch.coerce(make_demo_obs(jstate, nobs=9, seed=7,
+                                         radius=1100.0))
+    assert_mesh_agrees(mesh_runs(
+        jenkf.EnKF, EnKF, jstate, jbatch,
+        dict(localization="GC", dtype="float64", method=method), seed=4))

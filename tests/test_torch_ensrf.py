@@ -116,13 +116,13 @@ def test_update_with_inflation_and_outlier_check_matches_jax():
                               matmul_precision="bfloat16")), "B-next 5"),
     (dict(config=FilterConfig(dtype="float64", matmul_precision="high")),
      "B-next 5"),
-    (dict(mesh=object()), "A10"),
 ])
 def test_unported_paths_raise(kw, missing):
     """What is still not ported raises, naming its ROADMAP item: products
-    below fp32, ``mesh=``.  (RTPS/RTPP, ``obs_order``, ``spatial_sort``
-    and ``obs_chunk`` run: ``tests/test_torch_ensrf_options.py``; inflation
-    from a file: ``tests/test_torch_inflation_files.py``.)"""
+    below fp32.  (RTPS/RTPP, ``obs_order``, ``spatial_sort`` and
+    ``obs_chunk`` run: ``tests/test_torch_ensrf_options.py``; inflation
+    from a file: ``tests/test_torch_inflation_files.py``; ``mesh=``:
+    ``tests/test_torch_sharded.py``.)"""
     _, _, tstate, tbatch = _pair()
     with pytest.raises(NotImplementedError, match=missing):
         EnSRF(tstate, tbatch, verbose=False, **kw).update()
@@ -131,7 +131,10 @@ def test_unported_paths_raise(kw, missing):
 def test_exact_haversine_raises_on_cuda_and_mesh_raises():
     """Exact haversine on CUDA no longer raises: a CUDA-routed default
     config selects B4, with the kernel tail (B1, then B4) (routing only;
-    nothing runs).  ``mesh=`` still raises."""
+    nothing runs).  ``mesh=`` runs (``tests/test_torch_sharded.py``) and
+    raises only with a positive ``obs_chunk``, as in the JAX package."""
+    from efa_xray_tpu_torch.parallel import make_mesh
+
     _, _, tstate, tbatch = _pair()
     filt = EnSRF(tstate, tbatch, verbose=False,
                  config=FilterConfig(dtype="float32", fast_geometry=False))
@@ -139,8 +142,9 @@ def test_exact_haversine_raises_on_cuda_and_mesh_raises():
     filt._check_ported()
     assert filt._route(tstate.structure.nstate) == "B4"
     assert filt._tail_kernels()
-    with pytest.raises(NotImplementedError, match="A10"):
-        EnSRF(tstate, tbatch, mesh=object())
+    with pytest.raises(ValueError, match="single-device"):
+        EnSRF(tstate, tbatch, mesh=make_mesh(["cpu"] * 2), verbose=False,
+              config=FilterConfig(dtype="float64", obs_chunk=4)).update()
 
 
 @pytest.mark.parametrize("dtype,cuda,route", [
@@ -272,6 +276,7 @@ def test_port_imports_without_jax(tmp_path):
             __import__(name)
         assert "efa_xray_tpu_torch.cli" in names
         assert "efa_xray_tpu_torch.models.cycling" in names
+        assert "efa_xray_tpu_torch.parallel.sharded" in names
         rng = np.random.default_rng(0)
         lon, lat = np.meshgrid(np.linspace(230, 240, 6),
                                np.linspace(40, 48, 5))

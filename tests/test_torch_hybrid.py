@@ -1,8 +1,9 @@
 """Hybrid ensemble-static covariance in the port (``hybrid_alpha < 1``):
 the serial, plain blocked and B2h routes against the JAX package on the
 same NumPy inputs, in float64 on the CPU (where B2h's plain version runs,
-held against the JAX B2 kernel's hybrid branch in interpret mode).
-Mirrors ``tests/test_hybrid.py``."""
+held against the JAX B2 kernel's hybrid branch in interpret mode), and on
+a mesh of ``[cpu] * 8`` against the JAX package's 8 CPU devices.  Mirrors
+``tests/test_hybrid.py``."""
 
 import numpy as np
 import pytest
@@ -471,3 +472,60 @@ def test_hybrid_with_variable_localization_raises_as_in_jax():
              static_length=800.0, varloc=torch.ones(1, 1),
              row_var=torch.zeros(50, dtype=torch.long),
              ob_var=torch.zeros(3, dtype=torch.long))
+
+
+# ---------------------------------------------------------------------------
+# Hybrid on a mesh (``body_sigma`` split with the rows, the ob-side inputs
+# replicated): float64, 1e-10
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("method", ["serial", "blocked"])
+def test_hybrid_sharded_equals_single_device(method):
+    """``ensrf_update_sharded`` of both packages on 101 rows over 8
+    shards, against each other and the single-device function."""
+    from efa_xray_tpu.parallel import make_mesh as jmake_mesh
+    from efa_xray_tpu.parallel.sharded import ensrf_update_sharded as jshard
+    from efa_xray_tpu_torch.parallel import make_mesh, sharded
+
+    arrays, obs, _ = _toy(nstate=101, nobs=9, seed=13)
+    bsig, tsig = _sigmas(arrays, 17)
+    kw = dict(hybrid_alpha=0.6, static_length=1500.0, localize=True)
+    jout = jshard(*map(jnp.asarray, arrays), _jax_obs(obs),
+                  mesh=jmake_mesh(), method=method, block_size=4,
+                  body_sigma=jnp.asarray(bsig), tail_sigma=jnp.asarray(tsig),
+                  **kw)
+    tout = sharded.ensrf_update_sharded(
+        *map(torch.tensor, arrays),
+        interop.obs_arrays_from_numpy(**obs, device="cpu"),
+        mesh=make_mesh(["cpu"] * 8), method=method, block_size=4,
+        body_sigma=torch.tensor(bsig), tail_sigma=torch.tensor(tsig), **kw)
+    fn = "ensrf_serial" if method == "serial" else "ensrf_blocked"
+    single = _run("torch", fn, arrays, obs, body_sigma=bsig,
+                  tail_sigma=tsig, **kw,
+                  **({} if method == "serial" else dict(block_size=4)))
+    got = [np.asarray(x) for x in tout[:4]]
+    _assert_close(got, [np.asarray(x) for x in jout[:4]], 1e-10, "jax mesh")
+    _assert_close(got, single, 1e-10, "single device")
+
+
+def test_hybrid_via_ensrf_api_blocked_and_mesh():
+    """The public API: the mesh posterior equals the JAX mesh one and the
+    port's blocked and serial ones (plain route: exact haversine)."""
+    from test_torch_sharded import (
+        assert_mesh_agrees,
+        close,
+        mesh_runs,
+        to_port,
+    )
+
+    jstate = make_demo_state(nmems=14, seed=2)
+    jbatch = JBatch.coerce(make_demo_obs(jstate, nobs=6, seed=3,
+                                         radius=1500.0))
+    kw = dict(localization="GC", dtype="float64", hybrid_alpha=0.5,
+              static_b_sigma=1.5, static_b_length=800.0)
+    runs = mesh_runs(JEnSRF, EnSRF, jstate, jbatch, kw)
+    assert_mesh_agrees(runs)
+    serial, _ = EnSRF(*to_port(jstate, jbatch), verbose=False,
+                      config=FilterConfig(**kw, method="serial")).update()
+    close(runs[2][0], serial.data.numpy(), 1e-9)

@@ -650,7 +650,7 @@ def test_host_topk_cache_reused_across_filters_and_keyed_by_device():
 
 
 @pytest.mark.parametrize("case", ["host+vertical", "host+varloc", "hybrid",
-                                  "mesh", "matmul_precision"])
+                                  "matmul_precision"])
 def test_letkf_refusals(case):
     if case == "host+vertical":
         _, _, tstate, tbatch = _level_pair()
@@ -666,13 +666,11 @@ def test_letkf_refusals(case):
         "hybrid": (ValueError, "EnSRF solver only",
                    dict(hybrid_alpha=0.5, static_b_sigma=1.0,
                         static_b_length=500.0)),
-        "mesh": (NotImplementedError, "A10", {}),
         "matmul_precision": (NotImplementedError, "B-next 5",
                              dict(matmul_precision="bfloat16")),
     }[case]
     with pytest.raises(err, match=match):
-        LETKF(tstate, tbatch, config=FilterConfig(**kw, **extra),
-              mesh=object() if case == "mesh" else None).update()
+        LETKF(tstate, tbatch, config=FilterConfig(**kw, **extra)).update()
 
 
 def test_letkf_obs_order_hilbert_caller_order_diagnostics():
@@ -747,3 +745,110 @@ def test_taps_topk_approx_is_the_exact_search():
     post_e, _ = LETKF(*_to_port(jstate, jbatch), config=FilterConfig(
         dtype="float64", taps_search="device")).update()
     assert torch.equal(post_a.data, post_e.data)
+
+
+# ---------------------------------------------------------------------------
+# The LETKF on a mesh (``parallel.sharded.letkf_update_sharded``): the
+# mesh cases of ``tests/test_letkf.py``, the port's ``[cpu] * 8`` against
+# the JAX package's 8 virtual CPU devices and the port's single device
+# ---------------------------------------------------------------------------
+
+
+def _mesh_case(jstate, jbatch, **kw):
+    from test_torch_sharded import assert_mesh_agrees, mesh_runs
+
+    runs = mesh_runs(JLETKF, LETKF, jstate, jbatch,
+                     dict(localization="GC", dtype="float64", **kw))
+    assert_mesh_agrees(runs)
+    return runs
+
+
+def test_letkf_sharded_matches_single_device():
+    """63 grid points over 8 shards: the grid padding path."""
+    jstate = make_demo_state(ntimes=2, ny=7, nx=9, nmems=16, seed=9)
+    jbatch = JBatch.coerce(make_demo_obs(jstate, nobs=9, seed=10,
+                                         radius=1200.0))
+    runs = _mesh_case(jstate, jbatch)
+    assert np.isfinite(runs[2][1]["post_mean"]).all()
+
+
+def test_letkf_sharded_obs_solve_issues_no_collectives(monkeypatch):
+    """The counterpart of the JAX HLO check: each shard's solve gets its
+    own 8 grid points of every group and nothing else, and every copy
+    between devices happens before the first shard's solve or after the
+    last one's."""
+    from efa_xray_tpu_torch.parallel import sharded
+    from test_torch_sharded import cpu_mesh
+
+    jstate = make_demo_state(ntimes=2, ny=8, nx=8, nmems=12, seed=12)
+    jbatch = JBatch.coerce(make_demo_obs(jstate, nobs=6, seed=13,
+                                         radius=1200.0))
+    tstate, tbatch = _to_port(jstate, jbatch)
+    events = []
+    local, to = sharded._letkf_local, sharded._to
+
+    def spy_local(bm, *a, **k):
+        events.append(("local", bm.clone()))
+        return local(bm, *a, **k)
+
+    def spy_to(x, device):
+        events.append(("copy", None))
+        return to(x, device)
+
+    monkeypatch.setattr(sharded, "_letkf_local", spy_local)
+    monkeypatch.setattr(sharded, "_to", spy_to)
+    LETKF(tstate, tbatch, config=FilterConfig(dtype="float64"),
+          mesh=cpu_mesh()).update()
+    kinds = [k for k, _ in events]
+    first = kinds.index("local")
+    last = len(kinds) - 1 - kinds[::-1].index("local")
+    assert kinds.count("local") == 8
+    assert "copy" not in kinds[first:last + 1]
+    grid = tstate.data.mean(dim=-1).reshape(2, 64)
+    for s, bm in enumerate(b for k, b in events if k == "local"):
+        assert bm.shape == (2, 8)
+        _close(bm, grid[:, 8 * s:8 * (s + 1)], 0.0)
+
+
+def test_letkf_vertical_api_and_sharded():
+    """The two-level state on a mesh: the observed level updated, the far
+    level inert."""
+    jstate, jbatch, tstate, _ = _level_pair()
+    runs = _mesh_case(jstate, jbatch)
+    d = runs[2][0] - tstate.data.numpy()
+    st = tstate.structure
+    assert np.abs(d[st.var_index("T_500")]).max() > 1e-6
+    np.testing.assert_allclose(d[st.var_index("T_850")], 0.0, atol=1e-12)
+
+
+@pytest.mark.parametrize("topk,precision", [("approx", "default"),
+                                            ("exact", "highest")])
+def test_letkf_sharded_honors_topk_and_solve_precision(topk, precision):
+    jstate = make_demo_state(ntimes=1, ny=8, nx=16, nmems=10, seed=5)
+    jbatch = JBatch.coerce(make_demo_obs(jstate, nobs=12, seed=6,
+                                         radius=1200.0))
+    _mesh_case(jstate, jbatch, letkf_k_obs=6, letkf_chunk=8,
+               letkf_topk=topk, letkf_solve_precision=precision)
+
+
+def test_host_topk_mesh_matches_single_device():
+    """``letkf_topk="host"`` on a mesh builds the selection in the
+    sharded layout once (its own cache key) and meets the single-device
+    and JAX analyses."""
+    jstate = make_demo_state(ntimes=1, ny=16, nx=24, nmems=12, seed=13)
+    jbatch = JBatch.coerce(make_demo_obs(jstate, nobs=25, seed=14,
+                                         radius=1000.0))
+    before = tletkf.sel_build_count
+    _mesh_case(jstate, jbatch, letkf_patch_size=4, letkf_k_obs=12,
+               letkf_chunk=32, letkf_topk="host")
+    assert tletkf.sel_build_count == before + 2  # single and sharded
+    from efa_xray_tpu.assimilation import letkf as jletkf
+
+    tstate, tbatch = _to_port(jstate, jbatch)
+    args = (tbatch.lats, tbatch.lons, 12, 4, 32)
+    got = tletkf._host_selection_cached(tstate.structure, *args, "cpu",
+                                        ndev=8)
+    want = jletkf._host_selection_cached(jstate.structure, *args, ndev=8)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert got[2] == want[2]

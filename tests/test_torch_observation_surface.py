@@ -256,8 +256,33 @@ def test_module_update_refusals():
     tstate = _port_state(make_demo_state(ny=3, nx=4))
     with pytest.raises(ValueError, match="unknown solver"):
         update(tstate, [], solver="3dvar")
-    with pytest.raises(NotImplementedError, match="A10"):
-        update(tstate, [], mesh=object())
+
+
+@pytest.mark.parametrize("solver", ["ensrf", "letkf", "enkf"])
+def test_module_update_passes_mesh(solver):
+    """``update(..., mesh=)`` hands the mesh to the solver: the posterior
+    equals the single-device one and, for the EnSRF and the LETKF, the
+    JAX package's ``update`` on its 8 CPU devices, at 1e-10."""
+    from efa_xray_tpu.parallel import make_mesh as jmake_mesh
+    from efa_xray_tpu_torch.parallel import make_mesh
+
+    jstate = make_demo_state(ny=6, nx=8, nmems=10, seed=4)
+    jobs = make_demo_obs(jstate, nobs=5, seed=5, radius=1500.0)
+    tstate = _port_state(jstate)
+    cfg = dict(localization="GC", dtype="float64")
+    single, _ = update(tstate, _port_obs(jobs), solver=solver,
+                       config=FilterConfig(**cfg))
+    meshed, _ = update(tstate, _port_obs(jobs), solver=solver,
+                       config=FilterConfig(**cfg),
+                       mesh=make_mesh(["cpu"] * 8))
+    np.testing.assert_allclose(meshed.data.numpy(), single.data.numpy(),
+                               rtol=1e-10, atol=1e-10)
+    assert not torch.equal(meshed.data, tstate.data)
+    if solver != "enkf":
+        jp, _ = jassim.update(jstate, list(jobs), solver=solver,
+                              config=JConfig(**cfg), mesh=jmake_mesh())
+        np.testing.assert_allclose(meshed.data.numpy(), np.asarray(jp.data),
+                                   rtol=1e-10, atol=1e-10)
 
 
 def test_localization_helpers_match_jax():

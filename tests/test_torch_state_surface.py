@@ -321,12 +321,13 @@ def test_sel_subset_assimilates_like_jax():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda st: st.shard(None), "A10"),
+    (lambda st: st.shard(None), "parallel.mesh.Mesh"),
 ])
 def test_unported_io_and_sharding_raise(call, item):
-    """Sharding is not ported yet (the netCDF I/O is:
-    ``tests/test_torch_ncio.py``)."""
-    with pytest.raises(NotImplementedError, match=item):
+    """Sharding is ported (``tests/test_torch_sharded.py``), as is the
+    netCDF I/O (``tests/test_torch_ncio.py``): ``shard`` without a mesh
+    raises, naming what it takes."""
+    with pytest.raises(TypeError, match=item):
         call(_port(make_demo_state(ny=3, nx=4)))
 
 

@@ -1,7 +1,8 @@
 """Cross-variable localization in the port, and the grid-mode routing of
 ``EnSRF.update()``: the port against the JAX package (float64, CPU, the
 kernels' plain versions and the Pallas kernels in interpret mode) and
-against the NumPy oracle."""
+against the NumPy oracle; and each solver's cross-variable localization on
+a mesh of ``[cpu] * 8`` against the JAX package's 8 CPU devices."""
 
 import numpy as np
 import pytest
@@ -391,3 +392,87 @@ def test_flat_demo_state_default_config_matches_jax_b4():
     tpost, _ = filt.update()
     np.testing.assert_allclose(interop.state_to_numpy(tpost),
                                np.asarray(jpost.data), rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# Cross-variable localization on a mesh (``row_var`` split with the rows,
+# the factors and ``ob_var`` replicated): float64, 1e-10
+# ---------------------------------------------------------------------------
+
+
+def _two_var_pair(nobs=14, seed=0, nmems=16, one_obtype=False):
+    """``tests/test_varloc.py``'s two-variable state (2 times, 6 x 8),
+    with every ob on the first variable when ``one_obtype``."""
+    jstate = make_demo_state(nvars=2, ntimes=2, ny=6, nx=8, nmems=nmems,
+                             seed=seed)
+    obs = make_demo_obs(jstate, nobs=nobs, seed=seed + 1, radius=2000.0)
+    names = jstate.structure.var_names
+    if one_obtype:
+        for ob in obs:
+            ob.obtype = names[0]
+    return jstate, JBatch.coerce(obs), names
+
+
+def test_serial_blocked_mesh_agree_with_factors():
+    from test_torch_sharded import (
+        assert_mesh_agrees,
+        close,
+        mesh_runs,
+        to_port,
+    )
+
+    jstate, jbatch, names = _two_var_pair(nobs=18, seed=3)
+    spec = {f"{names[0]}:{names[1]}": 0.3, f"{names[1]}:{names[0]}": 0.7,
+            (names[1], names[1]): 0.9}
+    kw = dict(localization="GC", dtype="float64", variable_localization=spec)
+    runs = mesh_runs(JEnSRF, EnSRF, jstate, jbatch, kw)
+    assert_mesh_agrees(runs)
+    serial, _ = EnSRF(*to_port(jstate, jbatch), verbose=False,
+                      config=FilterConfig(**kw, method="serial")).update()
+    close(runs[2][0], serial.data.numpy(), 1e-9)
+
+
+def test_enkf_varloc_isolation_on_a_mesh(monkeypatch):
+    """The EnKF with a zero cross factor on a mesh: the untargeted
+    variable stays at its prior exactly, and the mesh analysis meets the
+    JAX mesh one and the port's single-device one (the JAX draws)."""
+    import jax
+
+    from efa_xray_tpu.assimilation import enkf as jenkf
+    from efa_xray_tpu_torch import EnKF
+    from efa_xray_tpu_torch.assimilation import enkf as tenkf
+    from test_torch_sharded import assert_mesh_agrees, mesh_runs
+
+    def draw(seed, errors, nmems, scale=True):
+        return torch.from_numpy(np.array(jenkf.draw_ob_perturbations(
+            jax.random.PRNGKey(seed), jnp.asarray(errors.numpy()), nmems,
+            scale=scale)))
+
+    monkeypatch.setattr(tenkf, "draw_ob_perturbations", draw)
+    jstate, jbatch, names = _two_var_pair(seed=7, one_obtype=True)
+    runs = mesh_runs(jenkf.EnKF, EnKF, jstate, jbatch,
+                     dict(localization="GC", dtype="float64",
+                          variable_localization={
+                              f"{names[0]}:{names[1]}": 0.0}), seed=4)
+    assert_mesh_agrees(runs)
+    np.testing.assert_array_equal(runs[2][0][1], np.asarray(jstate.data)[1])
+
+
+def test_letkf_varloc_isolation_on_a_mesh():
+    """The LETKF's rho factor (per-(group, patch) solves) on a mesh: a
+    zero cross factor isolates the untargeted variable, and the mesh
+    analysis meets the JAX mesh one and the port's single-device one."""
+    from efa_xray_tpu.assimilation.letkf import LETKF as JLETKF
+    from efa_xray_tpu_torch import LETKF
+    from test_torch_sharded import assert_mesh_agrees, mesh_runs
+
+    jstate, jbatch, names = _two_var_pair(seed=23, one_obtype=True)
+    runs = mesh_runs(JLETKF, LETKF, jstate, jbatch,
+                     dict(localization="GC", dtype="float64",
+                          letkf_k_obs=8, letkf_chunk=16,
+                          variable_localization={
+                              f"{names[0]}:{names[1]}": 0.0}))
+    assert_mesh_agrees(runs)
+    prior = np.asarray(jstate.data)
+    np.testing.assert_allclose(runs[2][0][1], prior[1], atol=1e-12)
+    assert np.abs(runs[2][0][0] - prior[0]).max() > 1e-8
