@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-25
+    python3 chip_smoke.py             # phases 0-26
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
                                       # width and cluster, B2 with parts of
@@ -25,21 +25,24 @@ Phases, each printing one line of results:
    layout;
 3. B2 (fused body) against its plain version at 262,144 rows x 80 x 2048
    obs: cull on and off, both angle forms, an odd row count; then at
-   20,001 rows x 300 obs over the edges of its tiling (30, 50 and 80
-   members, blocks of 128, 100 and 50 obs, one alive panel per block, cull
-   off, unlocalized, vertical, the arccos form, in place);
+   20,001 rows x 300 obs over the edges of its tiling (12, 21, 30, 50,
+   80, 128 and 256 members, blocks of 128, 100 and 50 obs, one alive
+   panel per block, cull off, unlocalized, vertical, the arccos form, in
+   place);
 4. the public API: ``EnSRF(...).update()`` on a 1024 x 1024 global grid x
    80 members with 10,000 obs, through both kernels (launch counts), held
    against the plain blocked update on the same tensors;
 5. the headline workload: 1e7 Hilbert-ordered rows x 80 x 10,000 obs at
    2000 km through the B1/B2 tail and the B2 body, timed with CUDA events,
-   a 20,000-row sample held against the plain body;
+   a 20,000-row sample held against the plain body; (c) one warm update
+   each with the body's two products in TF32 and in bf16, their posterior
+   against the fp32 one;
 6. B3 (grid body) against its plain version at BASELINE config 3's shape
    (a 90 x 180 global 2-degree grid, 80 groups, 30 members, 5,000 obs at
    2000 km, a vertical table at 300 hPa), with and without a
    cross-variable group factor, and at 80 members on a 45 x 90 grid, with
    the CTAs per SM and the weight bytes the launch reads; then over the
-   edges of its tiling at small grids (grids of 527, 60 and 21 points, 30
+   edges of its tiling at small grids (grids of 527, 60 and 21 points, 12
    to 256 members, blocks of 8 to 256 obs, no weights, no table, one
    group, one block, in place, weight chunks);
 7. B4 (one obs block per launch) against its plain version at config 3's
@@ -165,13 +168,33 @@ Phases, each printing one line of results:
     panel on the one distinct device, B2, B4 and B2h once per shard in
     the body plus the tail's applies), the max abs error and whether it
     is bitwise, and host seconds of the single-device update and of the
-    mesh update's parts (pad, split, replicate, tail, shards, gather).
+    mesh update's parts (pad, split, replicate, tail, shards, gather);
+26. the body kernels' product modes (``matmul_precision``, ``mxu_bf16``;
+    ``ops/precision.py``): (a) B2 and B2h at phase 3's shape, B3 at
+    config 3's (with a group factor) and B4 at one block of config 3 and
+    of the 1024 x 1024 x 80 grid, each in fp32 against its plain version
+    and in TF32 and bf16 at gate (a) (``hold_mode``: one obs block at a
+    time against the plain version in float64, per entry with a flip
+    allowance and per member column as a share of the mode's effect,
+    beside planted faults that must fail), every tensor-core output
+    unlike the fp32 one, kernel ms, plain ms and the bound (the products
+    at the mode's tensor-core peak), then phases 3, 6, 7 and 10's edge
+    cases in TF32 and bf16 at gate (a); (b)
+    ``EnSRF.update()`` on phase 4's workload (B2, B4, B2h) and on config
+    3 (B4, B3) at ``matmul_precision`` None, "highest", "tensorfloat32",
+    "bfloat16" and at ``mxu_bf16``: wall, the launches (the fp32 update's
+    counts; the body's in its mode, every other one in fp32), and the
+    posterior mean and perturbations against the fp32 update as a share
+    of the increment RMS (``API_MODE_GATE``: 2e-3 TF32, 1e-2 bf16; a
+    setting whose mode is fp32 gives the fp32 posterior bit for bit),
+    and ``mxu_bf16`` on a mesh of 2 shards of the card against the
+    single-device update, one B2 body per shard in bf16.
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
 same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-25 with one warm headline update, the
+``--profile`` replaces phases 2-26 with one warm headline update, the
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
 ``torch.profiler`` (the profiler walks every traced event): wall and
@@ -179,7 +202,7 @@ device-busy time, the busy share, the device ops that take the most time,
 and the share of the headline's (row tile, obs block) pairs and 8-ob
 panels that the cull keeps alive.
 
-``--steps`` replaces phases 2-25 with B1 at 512 x 80 and 1024 x 256 at
+``--steps`` replaces phases 2-26 with B1 at 512 x 80 and 1024 x 256 at
 sub-panels of 8 and 16 on one CTA and on each cluster that holds the
 panel, the parent commit's B1 beside them where
 ``build/efa_xray_tpu_torch/parent/tail_solve.cu`` exists, and B1 at 512 x
@@ -202,6 +225,7 @@ non-zero before doing anything.  It never imports JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -287,19 +311,40 @@ def bound(flop: float, nbyte: float, peak: str = "fp32") -> dict:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def body_flop(rows: int, nblocks: int, bsz: int, nmems: int) -> float:
+def body_flop(rows: int, nblocks: int, bsz: int, nmems: int,
+              part: str = "all") -> float:
     """Operations of the dense body sweep (B3, B4) over ``rows`` rows and
     ``nblocks`` blocks of ``bsz`` obs: D0 and the rank-B apply (4 M per
-    (ob, row)), the forward substitution (B per (ob, row) on average) and
-    the weight and mean terms (3 per (ob, row))."""
-    return float(rows) * nblocks * bsz * (4 * nmems + bsz + 3)
+    (ob, row); ``part="products"``), the forward substitution (B per (ob,
+    row) on average) and the weight and mean terms (3 per (ob, row);
+    ``part="rest"``)."""
+    per_pair = {"all": 4 * nmems + bsz + 3, "products": 4 * nmems,
+                "rest": bsz + 3}[part]
+    return float(rows) * nblocks * bsz * per_pair
+
+
+def mode_bound(products: float, rest: float, nbyte: float,
+               mode: str) -> dict:
+    """:func:`bound` for a body kernel whose two large products run in
+    ``mode`` ("ieee", "tf32", "bf16"): the products at that mode's peak
+    (fp32 in "ieee"), the rest at the fp32 peak.  The tensor cores and the
+    fp32 units run side by side, so the operations take at least the
+    longer of the two times."""
+    if mode == "ieee":
+        return bound(products + rest, nbyte)
+    ops_ms = max(products / (PEAK_TFLOPS[mode] * 1e12),
+                 rest / (PEAK_TFLOPS["fp32"] * 1e12)) * 1e3
+    bytes_ms = nbyte / (HBM_TBPS * 1e12) * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def b2_flop(ops: dict, nrows: int, nmems: int, localize: bool,
-            hybrid: bool) -> float:
+            hybrid: bool, part: str = "all") -> float:
     """Operations B2/B2h need on prepared operands ``ops``: as
-    :func:`body_flop`, but only over the 8-ob panels the cull keeps alive,
-    plus the per-pair weight chain (and B2h's static column)."""
+    :func:`body_flop` (and its ``part``), but only over the 8-ob panels
+    the cull keeps alive, plus the per-pair weight chain (and B2h's static
+    column) in the rest."""
     import torch
 
     from efa_xray_tpu_torch.ops import ensrf_fused
@@ -315,8 +360,9 @@ def b2_flop(ops: dict, nrows: int, nmems: int, localize: bool,
         alive = sum(int(((bits >> q) & 1).sum()) for q in range(npanels))
     pair = ((B2_PAIR_OPS if localize or hybrid else 0)
             + (B2H_PAIR_OPS if hybrid else 0))
-    return (alive * ensrf_fused.PANEL * (nrows / gtiles)
-            * (4 * nmems + bsz + 3 + pair))
+    per_pair = {"all": 4 * nmems + bsz + 3 + pair, "products": 4 * nmems,
+                "rest": bsz + 3 + pair}[part]
+    return alive * ensrf_fused.PANEL * (nrows / gtiles) * per_pair
 
 
 # ---------------------------------------------------------------------------
@@ -523,21 +569,22 @@ def _scattered(n, nobs, seed, dev):
     return t(lat), t(lon), t(olat[oo]), t(olon[oo]), rng
 
 
-def _b2_edge_cases(hybrid: bool):
-    """B2 (B2h with ``hybrid``) against its plain version at small shapes
-    chosen for the edges of the kernel's tiling: 20,001 rows (a ragged last
-    tile), 300 obs (a padded last block), ensembles of 30, 50, 80, 128
-    (the tile of 64 rows, 8 members per thread in the apply) and 256 (one
-    CTA of 32 rows per SM, 16 members per thread), block sizes 128, 100
-    and 50 (a last panel narrower than 8 obs, copies of 4 bytes), cull words with one alive panel, cull off, unlocalized,
-    vertical localization, the arccos form, and an in-place update.
-    Returns ``(max abs err, labels)``."""
+def _b2_edge_inputs(hybrid: bool, dev="cuda"):
+    """B2's (B2h's with ``hybrid``) small shapes chosen for the edges of
+    the kernel's tiling: 20,001 rows (a ragged last tile), 300 obs (a
+    padded last block), ensembles of 12, 21, 30, 50, 80, 128 (the tile of
+    64 rows, 8 members per thread in the apply) and 256 (one CTA of 32
+    rows per SM, 16 members per thread), block sizes 128, 100 and 50 (a
+    last panel narrower than 8 obs, copies of 4 bytes), cull words with
+    one alive panel, cull off, unlocalized, vertical localization, the
+    arccos form, and an in-place update.  Yields ``(label, bm, bp, args,
+    donate)``: ``args`` follow ``bm, bp`` in ``fused_apply``."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
     from efa_xray_tpu_torch.ops import ensrf_fused
 
-    dev = torch.device("cuda")
+    dev = torch.device(dev)
     n, nobs = 20_001, 300
     lat, lon, olat, olon, _ = _scattered(n, nobs, 31 + hybrid, dev)
     gen = torch.Generator(device=dev).manual_seed(32 + hybrid)
@@ -554,7 +601,7 @@ def _b2_edge_cases(hybrid: bool):
     tail_sigma = 2.0 + 2.0 * rnd(nobs)
     slen = 1000.0
     state, tails = {}, {}
-    for m in (30, 50, 80, 128, 256):
+    for m in (12, 21, 30, 50, 80, 128, 256):
         state[m] = 5.0 * torch.randn(n, m, generator=gen, device=dev)
         tp0 = 5.0 * torch.randn(nobs, m, generator=gen, device=dev)
         tails[m] = core.tail_scan_blocked(
@@ -562,8 +609,9 @@ def _b2_edge_cases(hybrid: bool):
             localize=True, fast_geometry=True, panel=512,
             **(dict(hybrid_alpha=0.5, tail_sigma=tail_sigma,
                     static_length=slen) if hybrid else {}))
-    worst, labels = 0.0, []
     for label, m, bsz, localize, vertical, radius, cull, one, donate in (
+            ("12 members", 12, 128, True, False, 2000.0, True, False, False),
+            ("21 members", 21, 128, True, False, 2000.0, True, False, False),
             ("30 members", 30, 128, True, False, 2000.0, True, False, False),
             ("50 members", 50, 128, True, False, 2000.0, True, False, False),
             ("128 members, tile 64", 128, 128, True, False, 2000.0, True,
@@ -598,10 +646,22 @@ def _b2_edge_cases(hybrid: bool):
             q = (torch.arange(tiles, device=dev)[:, None]
                  + torch.arange(blocks, device=dev)[None, :]) % npanels
             bits = (torch.ones_like(q) << q).to(torch.int32)
-        args = (ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"], bits,
-                ops["tile"], localize, vertical, ops["series"], hybrid)
-        want = ensrf_fused.fused_apply_plain(bm, state[m], *args)
-        gm, gp = (bm.clone(), state[m].clone()) if donate else (bm, state[m])
+        yield label, bm, state[m], (
+            ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"], bits,
+            ops["tile"], localize, vertical, ops["series"], hybrid), donate
+
+
+def _b2_edge_cases(hybrid: bool):
+    """B2 (B2h with ``hybrid``) against its plain version at each of
+    :func:`_b2_edge_inputs`'s shapes.  Returns ``(max abs err, labels)``."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    worst, labels = 0.0, []
+    for label, bm, bp, args, donate in _b2_edge_inputs(hybrid):
+        want = ensrf_fused.fused_apply_plain(bm, bp, *args)
+        gm, gp = (bm.clone(), bp.clone()) if donate else (bm, bp)
         got = ensrf_fused.fused_apply(gm, gp, *args, donate=donate)
         torch.cuda.synchronize()
         name = f"{'B2h' if hybrid else 'B2'} edge case {label}"
@@ -609,7 +669,7 @@ def _b2_edge_cases(hybrid: bool):
             check(got[0].data_ptr() == gm.data_ptr()
                   and got[1].data_ptr() == gp.data_ptr(),
                   f"{name}: not updated in place")
-        check(float((want[1] - state[m]).abs().max()) > 1e-2,
+        check(float((want[1] - bp).abs().max()) > 1e-2,
               f"{name}: the plain version did not move the state")
         worst = max(worst, compare(f"{name} mean", got[0], want[0]),
                     compare(f"{name} perts", got[1], want[1]))
@@ -617,7 +677,7 @@ def _b2_edge_cases(hybrid: bool):
     return worst, labels
 
 
-def _b2_workload():
+def _b2_workload(dev="cuda", n=262_144, m=80, nobs=2048):
     """Phase 3's workload on the card: 262,144 Hilbert-ordered rows x 80
     members, 2048 obs at 2000 km, and their pre-solved sequence from the
     B1/B2 tail.  Returns a dict of tensors."""
@@ -625,8 +685,7 @@ def _b2_workload():
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
 
-    dev = torch.device("cuda")
-    n, m, nobs = 262_144, 80, 2048
+    dev = torch.device(dev)
     lat, lon, olat, olon, _ = _scattered(n, nobs, 21, dev)
     gen = torch.Generator(device=dev).manual_seed(22)
     bm = 280.0 + 0.5 * torch.randn(n, generator=gen, device=dev)
@@ -643,7 +702,7 @@ def _b2_workload():
                                   fast_geometry=True, panel=512, kernels=True,
                                   max_radius_km=2000.0)
     return dict(n=n, m=m, nobs=nobs, lat=lat, lon=lon, bm=bm, bp=bp, obs=obs,
-                tail=tail)
+                tail=tail, tm=tm, tp=tp, gen=gen)
 
 
 def phase3():
@@ -799,6 +858,11 @@ def _reset_counts():
     ensrf_fused.hybrid_launches = 0
     ensrf_grid.b3_launches = 0
     ensrf_grid.b4_launches = 0
+    for by_mode in (ensrf_fused.launches_by_mode,
+                    ensrf_grid.launches_by_mode):
+        for counts in by_mode.values():
+            for mode in counts:
+                counts[mode] = 0
     precision_probe.launches = 0
     for mode in precision_probe.MODES:
         precision_probe.launches_by_mode[mode] = 0
@@ -817,6 +881,16 @@ def _counts() -> dict:
             "B2": ensrf_fused.launches,
             "B2h": ensrf_fused.hybrid_launches, "B3": ensrf_grid.b3_launches,
             "B4": ensrf_grid.b4_launches, "P": precision_probe.launches}
+
+
+def _mode_counts() -> dict:
+    """Launches of B2, B2h, B3 and B4 by product mode since the last
+    :func:`_reset_counts`: ``{kernel: {mode: n}}``."""
+    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid
+
+    return {k: dict(v) for by_mode in (ensrf_fused.launches_by_mode,
+                                       ensrf_grid.launches_by_mode)
+            for k, v in by_mode.items()}
 
 
 def _only(**expect):
@@ -964,7 +1038,8 @@ def _headline():
     """The headline workload of bench.py's build_workload (1e7
     Hilbert-ordered rows x 80 x 10k obs at 2000 km), drawn on the card.
     Returns ``(tail_phase, body_phase, w)``: the B1/B2 tail, the B2 body
-    on a tail, and a dict of the workload's tensors."""
+    on a tail (its two products in a given mode), and a dict of the
+    workload's tensors."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
@@ -993,10 +1068,11 @@ def _headline():
                                       fast_geometry=True, panel=512,
                                       kernels=True, max_radius_km=radius)
 
-    def body_phase(tail):
+    def body_phase(tail, precision="ieee"):
         return ensrf_fused.fused_body(bm, bp, lat, lon, tail, obs,
                                       localize=True, block_size=128,
-                                      max_radius_km=radius)
+                                      max_radius_km=radius,
+                                      precision=precision)
 
     w = dict(bm=bm, bp=bp, lat=lat, lon=lon, obs=obs, gen=gen,
              nstate=nstate, nobs=nobs, radius=radius)
@@ -1004,7 +1080,8 @@ def _headline():
 
 
 def phase5():
-    """The headline workload: 1e7 rows x 80 x 10k obs."""
+    """The headline workload: 1e7 rows x 80 x 10k obs; then (c) one warm
+    update each with the body's two products in TF32 and in bf16."""
     import torch
 
     from efa_xray_tpu_torch.ops import ensrf_fused
@@ -1059,7 +1136,39 @@ def phase5():
         f"{body_bound['bound_ms']:.1f} ms ({body_bound['bound_by']}) at tile "
         f"{ops['tile']}; setup {setup:.1f} s; "
         f"20k-row sample vs plain body max abs err {err:.3e}")
-    return dict(seconds=sec)
+    del ops
+    modes = {}
+    for mode in ("tf32", "bf16"):
+        body_phase(tail_phase(), mode)  # warm-up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        tail = tail_phase()
+        ev[1].record()
+        bm3, bp3 = body_phase(tail, mode)
+        ev[2].record()
+        ev[2].synchronize()
+        check(bool(torch.isfinite(bm3).all() and torch.isfinite(bp3).all()),
+              f"headline {mode} posterior not finite")
+        r = dict(seconds=ev[0].elapsed_time(ev[2]) / 1e3,
+                 body_s=ev[1].elapsed_time(ev[2]) / 1e3,
+                 mean_err_share=_rms_share(bm3, bm2, w["bm"]),
+                 perts_err_share=_rms_share(bp3, bp2, w["bp"]))
+        gate = API_MODE_GATE[mode]
+        check(0.0 < r["perts_err_share"] <= gate
+              and r["mean_err_share"] <= gate,
+              f"headline {mode}: error shares {r['mean_err_share']:.3e} / "
+              f"{r['perts_err_share']:.3e} of the fp32 increment (gate "
+              f"{gate})")
+        modes[mode] = r
+        del bm3, bp3
+    log("phase 5 (c): the headline body's two products on the tensor "
+        "cores, one warm update each: " + "; ".join(
+            f"{mode}: update {r['seconds']:.4f} s (body B2 "
+            f"{r['body_s']:.4f} s), {nobs * nstate / r['seconds']:.4e} "
+            f"obs*points/s, posterior vs fp32: mean {r['mean_err_share']:.3e}"
+            f" perts {r['perts_err_share']:.3e} of the increment RMS"
+            for mode, r in modes.items()))
+    return dict(seconds=sec, modes=modes)
 
 
 # Config 3's four quantities, each on 20 pressure levels from 1000 to 100
@@ -1069,7 +1178,7 @@ C3_LEVELS = np.linspace(1000.0, 100.0, 20)
 
 
 def _grid_case(ny, nx, vt, nmems, nobs, seed, group_levels=None,
-               radius=2000.0):
+               radius=2000.0, dev="cuda"):
     """Operands of a body sweep over ``vt`` groups on a global ``ny x nx``
     grid: a random state, obs at random places each observing a random
     group (its level, 300 hPa vertical radius), their pre-solved sequence
@@ -1079,7 +1188,7 @@ def _grid_case(ny, nx, vt, nmems, nobs, seed, group_levels=None,
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
 
-    dev = torch.device("cuda")
+    dev = torch.device(dev)
     f32 = torch.float32
     rng = np.random.default_rng(seed)
     t = lambda x: torch.tensor(x, dtype=f32, device=dev)
@@ -1124,20 +1233,17 @@ def _grid_case(ny, nx, vt, nmems, nobs, seed, group_levels=None,
 GRID_BLOCK_SWEEP = (8, 16, 24, 40, 64, 72, 96, 120, 136, 200, 256)
 
 
-def _grid_edge_cases(entry: str):
-    """B3 or B4 (``entry``) against the plain version at small grids chosen
-    for the edges of the kernel's tiling: a grid of 527 points (not a multiple of
-    the tile nor of 4: 4-byte weight copies, a ragged last tile), of 60 (a
-    multiple of 4: 16-byte copies into a ragged tile) and of 21 (under one
-    tile); ensembles of 30, 50, 80, 128 and 256; blocks of 100 and 50 obs
-    (a ragged last panel, 4-byte copies) and a sweep of block sizes; no
-    weights (unlocalized), no table, one group, one block, an in-place
-    update and, for B3, ``grid_body`` over more blocks than one weight
-    chunk holds.  Each case runs all its blocks through B3, or its first
-    block through B4, and checks the tile and the CTAs per SM the wrapper
-    planned for.  Returns ``(max abs err, labels)``."""
-    import torch
-
+def _grid_edge_inputs(dev="cuda"):
+    """The grid kernel's small grids chosen for the edges of its tiling: a
+    grid of 527 points (not a multiple of the tile nor of 4: 4-byte weight
+    copies, a ragged last tile), of 60 (a multiple of 4: 16-byte copies
+    into a ragged tile) and of 21 (under one tile); ensembles of 12, 21,
+    30, 50, 80, 128 and 256; blocks of 100 and 50 obs (a ragged last
+    panel, 4-byte copies) and a sweep of block sizes; no weights
+    (unlocalized), no table, one group, one block and an in-place update.
+    Yields ``(label, case, (w, table, y_b, ggt_b, coef_b), vt, donate)``,
+    ``case`` from :func:`_grid_case` (made once per shape: the last one
+    holds the 17 x 31 grid of 3 groups, 30 members and 300 obs)."""
     from efa_xray_tpu_torch.observation.localization import latlon_to_unit
     from efa_xray_tpu_torch.ops import ensrf_grid
 
@@ -1148,6 +1254,8 @@ def _grid_edge_cases(entry: str):
         ("G 60", dict(ny=6, nx=10), 3, 30, 128, 300, True, True, False),
         ("G 21 (under one tile)", dict(ny=3, nx=7), 3, 30, 128, 300, True,
          True, False),
+        ("12 members", wide, 3, 12, 128, 300, True, True, False),
+        ("21 members", wide, 3, 21, 128, 300, True, True, False),
         ("50 members", wide, 3, 50, 128, 300, True, True, False),
         ("80 members", wide, 3, 80, 128, 300, True, True, False),
         ("128 members", wide, 3, 128, 128, 300, True, True, False),
@@ -1162,17 +1270,12 @@ def _grid_edge_cases(entry: str):
         ("in place", wide, 3, 80, 128, 300, True, True, True),
     ] + [(f"blocks of {b}", wide, 3, 30, b, 300, True, True, False)
          for b in GRID_BLOCK_SWEEP]
-    # The tile the wrapper must choose where the choice was measured.
-    tiles = {"G 527, 30 members": 64, "50 members": 64, "80 members": 64,
-             "128 members": 32, "256 members": 32, "blocks of 256": 32}
     made = {}
-    worst = 0.0
-    labels = []
     for label, grid, vt, m, bsz, nobs, weights, use_table, donate in cases:
         key = (grid["ny"], grid["nx"], vt, m, nobs)
         if key not in made:
             made[key] = _grid_case(vt=vt, nmems=m, nobs=nobs, seed=63,
-                                   **grid)
+                                   dev=dev, **grid)
         c = made[key]
         ops = ensrf_grid.grid_prepare(
             c["bp"], c["body_vert"], c["tail"], c["obs"], c["ngrid"],
@@ -1184,21 +1287,49 @@ def _grid_edge_cases(entry: str):
             w = ensrf_grid.grid_weights(
                 latlon_to_unit(c["lat"], c["lon"]), ops["ob_xyz"],
                 ops["radii"]).reshape(nblocks, bsz, c["ngrid"])
+        yield label, c, (w, ops["table"], ops["y_b"], ops["ggt_b"],
+                         ops["coef_b"]), vt, donate
+
+
+def _first_block(args):
+    """B4's operands for the first block of :func:`_grid_edge_inputs`'s
+    ``(w, table, y_b, ggt_b, coef_b)``: ``(for block_apply, for
+    grid_apply_plain)``."""
+    return (tuple(None if t is None else (t[:, 0] if i == 1 else t[0])
+                  for i, t in enumerate(args)),
+            tuple(None if t is None else (t[:, :1] if i == 1 else t[:1])
+                  for i, t in enumerate(args)))
+
+
+def _grid_edge_cases(entry: str):
+    """B3 or B4 (``entry``) against the plain version at each of
+    :func:`_grid_edge_inputs`'s grids and, for B3, ``grid_body`` over more
+    blocks than one weight chunk holds.  Each case runs all its blocks
+    through B3, or its first block through B4, and checks the tile and the
+    CTAs per SM the wrapper planned for.  Returns ``(max abs err,
+    labels)``."""
+    import torch
+
+    from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    # The tile the wrapper must choose where the choice was measured.
+    tiles = {"G 527, 30 members": 64, "50 members": 64, "80 members": 64,
+             "128 members": 32, "256 members": 32, "blocks of 256": 32}
+    worst = 0.0
+    labels = []
+    for label, c, args, vt, donate in _grid_edge_inputs():
+        bsz, m = args[2].shape[1:]
         tile = ensrf_grid.pick_tile(bsz, m)
         planned = ensrf_grid.ctas_per_sm(tile, bsz, m)
         on_card = ensrf_grid.ctas_per_sm_on_card(tile, bsz, m)
         check(tile == tiles.get(label, tile) and 1 <= planned <= on_card,
               f"grid edge case {label}: tile {tile}, {planned} CTAs per SM "
               f"planned, {on_card} on the card")
-        args = plain = (w, ops["table"], ops["y_b"], ops["ggt_b"],
-                        ops["coef_b"])
+        plain = args
         run = ensrf_grid.grid_apply
         if entry == "B4":  # the first block alone (the table is [VT, nb, B])
-            plain = tuple(None if t is None else (t[:, :1] if i == 1
-                                                  else t[:1])
-                          for i, t in enumerate(args))
-            args = tuple(None if t is None else (t[:, 0] if i == 1 else t[0])
-                         for i, t in enumerate(args))
+            args, plain = _first_block(args)
             run = ensrf_grid.block_apply
         want = ensrf_grid.grid_apply_plain(c["bm"], c["bp"], *plain, vt)
         gm, gp = ((c["bm"].clone(), c["bp"].clone()) if donate
@@ -1219,7 +1350,6 @@ def _grid_edge_cases(entry: str):
         return worst, labels
 
     # grid_body building its weights over chunks of two blocks.
-    c = made[(17, 31, 3, 30, 300)]
     ops = ensrf_grid.grid_prepare(c["bp"], c["body_vert"], c["tail"],
                                   c["obs"], c["ngrid"], block_size=64,
                                   vertical=True)
@@ -3700,6 +3830,633 @@ def phase25(dev="cuda", api=None, c11=None, c6=None):
     return out
 
 
+# Phase 26's gates.  (a) A tensor-core mode's kernel against its plain
+# version in the same mode, one obs block at a time from the same input: the
+# kernel's own output of the blocks before (the whole launch must equal
+# that chain of one-block launches bit for bit).  The plain version runs in
+# float64 from that input: the same roundings at the same points, the rest
+# exact (in fp32 on the card its matmuls err as much as the kernel's tensor
+# cores, at 256 members more).  On one block both round the same X and Y
+# for D0, whose products are then exact.  What they can round apart is the
+# apply's left operand W (g o U, B2h's V), which the kernel computes in
+# fp32: an entry next to a midpoint may round to the other neighbour, which
+# moves its term by one unit of the mode's rounding, at most FLIP_UNIT x
+# |W_rj| x |round(Y_jc)| (one ulp: 2^-10 in TF32, 2^-7 in bf16).  So, per entry, the mean (fp32 from D0 on) is held
+# at the f32 gate (rtol 2e-5 / atol 2e-4), and the perturbations at the f32
+# gate plus FLIP_UNIT x sum_j |W_rj| |round(Y_jc)|, every term flipped.
+# That sum is as large as the mode's whole effect, so gate (a) also holds
+# the RMS of kernel minus plain, per member column over all rows and
+# blocks, to at most SHARE_GATE of the RMS of the mode's effect there (the
+# plain version in the mode minus the plain version in fp32).  Flips are
+# rare single ulps; a wrong rounding moves every term.  Planted faults are
+# held at gate (a) beside each kernel and must fail it (GATE_A_RUNS): the
+# fp32 kernel, the plain version truncating instead of rounding, and, at
+# the PERF.md shapes, the plain version with one of its four rounded
+# operands left unrounded (the smallest fault a kernel could make; its
+# share is about half the effect's, as the two products' four roundings
+# each add about as much).  (b) The API's posterior in a mode against the
+# fp32 update: the RMS error over the increment's RMS, mean and
+# perturbations apart.
+FLIP_UNIT = {"tf32": 2.0 ** -10, "bf16": 2.0 ** -7}
+SHARE_GATE = 0.25
+API_MODE_GATE = {"tf32": 2e-3, "bf16": 1e-2}
+# The settings phase 26 (b) runs: (matmul_precision, mxu_bf16).  The
+# first is the fp32 reference the others are held against.
+MODE_SETTINGS = ((None, False), ("highest", False), ("tensorfloat32", False),
+                 ("bfloat16", False), (None, True))
+# The kernels line's entries of phase 26: (name, phase 26 (a)'s key, the
+# phase 26 (b) run whose launches it reports, source, TPU kernel), and the
+# matmul_precision setting of each tensor-core mode there.
+MODE_KERNELS = (
+    ("B2 fused body", "B2", "api B2", "efa_xray_tpu_torch/csrc/ensrf_fused.cu",
+     "efa_xray_tpu/ops/ensrf_pallas_fused.py:117"),
+    ("B2h fused body, hybrid static column", "B2h", "api B2h",
+     "efa_xray_tpu_torch/csrc/ensrf_fused.cu",
+     "efa_xray_tpu/ops/ensrf_pallas_fused.py:208"),
+    ("B3 grid body", "B3", "config 3 B3",
+     "efa_xray_tpu_torch/csrc/ensrf_grid.cu",
+     "efa_xray_tpu/ops/ensrf_pallas_fused.py:784"),
+    ("B4 block apply (config 3's shape)", "B4 config 3", "config 3 B4",
+     "efa_xray_tpu_torch/csrc/ensrf_grid.cu",
+     "efa_xray_tpu/ops/ensrf_pallas.py:68"),
+    ("B4 block apply (1024 x 1024 x 80, one group)", "B4 wide", "api B4",
+     "efa_xray_tpu_torch/csrc/ensrf_grid.cu",
+     "efa_xray_tpu/ops/ensrf_pallas.py:68"))
+MODE_SETTING = {"tf32": "tensorfloat32", "bf16": "bfloat16"}
+# What phase 26 cuts on the CPU: nothing on the card.
+PHASE26 = dict(b2=dict(n=262_144, m=80, nobs=2048),
+               c3=dict(ny=90, nx=180, vt=80, nmems=30, nobs=5000, seed=61,
+                       group_levels=np.tile(C3_LEVELS, 4)),
+               wide=dict(ny=1024, nx=1024, vt=1, nmems=80, nobs=10_000,
+                         seed=72),
+               api={}, c3api={}, edges={})
+
+
+def _ms(fn, reps: int, dev) -> float:
+    """:func:`cuda_ms` on the card; host milliseconds of a CPU
+    rehearsal."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        return cuda_ms(fn, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _truncate(x, mode: str):
+    """``x`` rounded toward zero to mode ``mode``'s bits: the fault the
+    kernels' explicit rounding guards against (a tensor core reading raw
+    fp32 bits)."""
+    import torch
+
+    if mode == "ieee":
+        return x
+    if x.dtype != torch.float32:
+        return _truncate(x.to(torch.float32), mode).to(x.dtype)
+    keep = ~0x1FFF if mode == "tf32" else ~0xFFFF
+    return (x.contiguous().view(torch.int32) & keep).view(torch.float32)
+
+
+@contextlib.contextmanager
+def _plain_rounding(fn):
+    """The plain versions of B2-B4 with their input rounding replaced by
+    ``fn(x, mode)`` (a planted fault for gate (a)'s controls)."""
+    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid
+
+    saved = ensrf_fused.round_inputs, ensrf_grid.round_inputs
+    ensrf_fused.round_inputs = ensrf_grid.round_inputs = fn
+    try:
+        yield
+    finally:
+        ensrf_fused.round_inputs, ensrf_grid.round_inputs = saved
+
+
+def _entry_gate(got, want, allow):
+    """Gate (a) per entry for ``got = (mean, perts)`` against ``want``:
+    the mean at the f32 gate, the perturbations at the f32 gate plus
+    ``allow``.  Returns ``(entries outside, max abs err, per-column sums
+    of the squared perturbation errors)``."""
+    import torch
+
+    gm, gp = got[0].double(), got[1].double()
+    wm, wp = want[0].double(), want[1].double()
+    check(bool(torch.isfinite(gm).all() and torch.isfinite(gp).all()),
+          "phase 26: not finite")
+    em, ep = (gm - wm).abs(), (gp - wp).abs()
+    bad = (int((em > ATOL + RTOL * wm.abs()).sum())
+           + int((ep > ATOL + RTOL * wp.abs() + allow).sum()))
+    return bad, max(float(em.max()), float(ep.max())), ((gp - wp) ** 2).sum(0)
+
+
+# The runs gate (a) holds on each block: the kernel in the mode, then the
+# planted faults, each of which must fail.  The plain versions round, per
+# block, X then Y for D0, then W then Y for the apply: OPERAND_FAULTS
+# leave the operand at that position unrounded.
+OPERAND_FAULTS = ("plain, X unrounded in D0", "plain, Y unrounded in D0",
+                  "plain, W unrounded in the apply",
+                  "plain, Y unrounded in the apply")
+GATE_A_RUNS = ("kernel", "fp32 kernel", "truncating plain") + OPERAND_FAULTS
+
+
+def _unrounded(position: int):
+    """A rounding for :func:`_plain_rounding` that leaves the operand at
+    ``position`` (of ``OPERAND_FAULTS``' order) of each plain run on one
+    block unrounded."""
+    from efa_xray_tpu_torch.ops.precision import round_inputs
+
+    calls = [0]
+
+    def rnd(x, mode):
+        k = calls[0]
+        calls[0] += 1
+        return x if k == position else round_inputs(x, mode)
+
+    return rnd
+
+
+def hold_mode(label, launch, plain, bm, bp, nblocks: int, mode: str,
+              operand_faults: bool = True):
+    """Gate (a) for one kernel in tensor-core mode ``mode`` on one input.
+    ``launch(bm, bp, blocks, mode)`` runs the kernel's wrapper over the obs
+    blocks of the slice ``blocks``; ``plain(bm, bp, blocks, mode,
+    operands)`` its plain version, in the dtype of ``bp``.  The whole
+    launch must equal the chain of one-block launches bit for bit; each
+    block's launch is held against the plain version on the same input in
+    float64 (the same roundings, the rest exact), per entry and per member
+    column (the comment above ``FLIP_UNIT``), beside the planted faults of
+    ``GATE_A_RUNS`` (``OPERAND_FAULTS`` only with ``operand_faults``),
+    each of which must fail.  Also reads the plain version in fp32 the
+    same way (not gated).  Returns the readings, the whole launch's output
+    under ``"out"``."""
+    import torch
+
+    from efa_xray_tpu_torch.ops.precision import round_inputs
+
+    runs = GATE_A_RUNS if operand_faults else GATE_A_RUNS[:3]
+    full = launch(bm, bp, slice(None), mode)
+    x = (bm, bp)
+    bad = dict.fromkeys(runs, 0)
+    err = dict.fromkeys(runs, 0.0)
+    sq = dict.fromkeys(runs, 0.0)
+    effect, sq32, past_f32, allowed = 0.0, 0.0, 0, 0.0
+    for b in range(nblocks):
+        s = slice(b, b + 1)
+        got = launch(*x, s, mode)
+        x64 = (x[0].double(), x[1].double())
+        ops = []
+        want = plain(*x64, s, mode, ops)
+        (left, y), = ops
+        allow = FLIP_UNIT[mode] * (left.abs()
+                                   @ round_inputs(y, mode).abs())
+        del ops, left
+        ref = plain(*x64, s, "ieee", None)
+        effect = effect + ((want[1] - ref[1]) ** 2).sum(0)
+        ref = plain(*x, s, mode, None)
+        sq32 = sq32 + ((ref[1].double() - want[1]) ** 2).sum(0)
+        del ref
+        for run in runs:
+            if run == "kernel":
+                out = got
+            elif run == "fp32 kernel":
+                out = launch(*x, s, "ieee")
+            else:
+                with _plain_rounding(
+                        _truncate if run == "truncating plain" else
+                        _unrounded(OPERAND_FAULTS.index(run))):
+                    out = plain(*x64, s, mode, None)
+            n, e, q = _entry_gate(out, want, allow)
+            bad[run] += n
+            err[run] = max(err[run], e)
+            sq[run] = sq[run] + q
+            del out
+        past_f32 += int(((got[1].double() - want[1].double()).abs()
+                         > ATOL + RTOL * want[1].double().abs()).sum())
+        allowed = max(allowed, float(allow.max()))
+        del want, allow
+        x = got
+    check(torch.equal(full[0], x[0]) and torch.equal(full[1], x[1]),
+          f"{label} {mode}: the whole launch is not the chain of one-block "
+          "launches bit for bit")
+    share = {run: float(torch.nan_to_num(torch.sqrt(q / effect),
+                                         nan=0.0).max())
+             for run, q in dict(sq, fp32_plain=sq32).items()}
+    fails = {run: bad[run] > 0 or share[run] > SHARE_GATE for run in runs}
+    check(not fails["kernel"],
+          f"{label} {mode}: gate (a): {bad['kernel']} entries outside the "
+          f"f32 gate plus the flip allowance (max abs err "
+          f"{err['kernel']:.3e}), largest column share of the mode's effect "
+          f"{share['kernel']:.3f} (gate {SHARE_GATE})")
+    for run in runs[1:]:
+        check(fails[run], f"{label} {mode}: the planted fault '{run}' "
+              f"passes gate (a) ({bad[run]} entries outside, column share "
+              f"{share[run]:.3f})")
+    return dict(max_abs_err=err["kernel"], beyond_f32_gate=past_f32,
+                flip_allowance=allowed, share=share["kernel"],
+                fp32_plain_share=share["fp32_plain"],
+                controls={run: dict(entries_outside=bad[run],
+                                    share=share[run])
+                          for run in runs[1:]}, out=full)
+
+
+def _b2_block_fns(args):
+    """``(launch, plain, nblocks)`` for :func:`hold_mode` from B2's
+    operands ``args`` after ``bm, bp`` (``fused_apply``'s order)."""
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    bits, rest = args[4], args[5:]
+    by_dtype = {}
+
+    def sliced(s, dtype):
+        if dtype not in by_dtype:
+            by_dtype[dtype] = [t.to(dtype) for t in args[:4]]
+        geom, y_b, ggt_b, tab_b = by_dtype[dtype]
+        return (geom, y_b[s], ggt_b[s], tab_b[s],
+                None if bits is None else bits[:, s], *rest)
+
+    return (lambda bm, bp, s, mode: ensrf_fused.fused_apply(
+                bm, bp, *sliced(s, bp.dtype), precision=mode),
+            lambda bm, bp, s, mode, ops: ensrf_fused.fused_apply_plain(
+                bm, bp, *sliced(s, bp.dtype), precision=mode, operands=ops),
+            args[1].shape[0])
+
+
+def _grid_block_fns(entry, w, table, y_b, ggt_b, coef_b, vt):
+    """``(launch, plain, nblocks)`` for :func:`hold_mode` from the grid
+    kernel's operands: B3 over the blocks of ``y_b``, or B4 over its one
+    block (``entry``)."""
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    by_dtype = {}
+
+    def sliced(s, dtype):
+        if dtype not in by_dtype:
+            by_dtype[dtype] = [None if t is None else t.to(dtype)
+                               for t in (w, table, y_b, ggt_b, coef_b)]
+        w_, table_, y_, ggt_, coef_ = by_dtype[dtype]
+        return (None if w_ is None else w_[s],
+                None if table_ is None else table_[:, s], y_[s], ggt_[s],
+                coef_[s])
+
+    def launch(bm, bp, s, mode):
+        if entry == "B4":
+            return ensrf_grid.block_apply(
+                bm, bp, *_first_block(sliced(s, bp.dtype))[0], vt,
+                precision=mode)
+        return ensrf_grid.grid_apply(bm, bp, *sliced(s, bp.dtype), vt,
+                                     precision=mode)
+
+    check(entry == "B3" or y_b.shape[0] == 1, "B4 takes one block")
+    return (launch,
+            lambda bm, bp, s, mode, ops: ensrf_grid.grid_apply_plain(
+                bm, bp, *sliced(s, bp.dtype), vt, precision=mode,
+                operands=ops),
+            y_b.shape[0])
+
+
+def _modes_case(label, fns, bm, bp, products, rest, nbyte, dev):
+    """Phase 26 (a) for one kernel: its wrapper (``fns`` from
+    :func:`_b2_block_fns` or :func:`_grid_block_fns`) against its plain
+    version, in fp32 at the f32 gate and in each tensor-core mode at gate
+    (a), each tensor-core output unlike the fp32 one; kernel ms (3 runs),
+    plain ms (the fp32 plain version over every block) and the bound.  Returns ``{mode:
+    dict}``."""
+    from efa_xray_tpu_torch.ops.precision import MODES
+
+    launch, plain, nblocks = fns
+    sync = _syncer(dev)
+    every = slice(None)
+    out = {}
+    for mode in MODES:
+        if mode == "ieee":
+            ieee = launch(bm, bp, every, mode)
+            sync()
+            t0 = time.perf_counter()
+            want = plain(bm, bp, every, mode, None)
+            sync()
+            r = dict(plain_ms=(time.perf_counter() - t0) * 1e3, vs_ieee=0.0,
+                     max_abs_err=max(
+                         compare(f"phase 26 {label} ieee {part}", g, w)
+                         for part, g, w in zip(("mean", "perts"), ieee,
+                                               want)))
+            del want
+        else:
+            r = hold_mode(f"phase 26 {label}", launch, plain, bm, bp,
+                          nblocks, mode)
+            sync()
+            t0 = time.perf_counter()
+            plain(bm, bp, every, mode, None)
+            sync()
+            r["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            got = r.pop("out")
+            r["vs_ieee"] = max(float((g - f).abs().max())
+                               for g, f in zip(got, ieee))
+            check(r["vs_ieee"] > 0.0, f"phase 26 {label} {mode}: the output "
+                  "is the fp32 one (the mode took no effect)")
+            del got
+        out[mode] = dict(r, ms=_ms(lambda: launch(bm, bp, every, mode), 3,
+                                   dev),
+                         **mode_bound(products, rest, nbyte, mode))
+    return out
+
+
+def _phase26_kernels(dev, cut):
+    """Phase 26 (a): B2, B2h, B3 and B4 in every mode at their PERF.md
+    shapes.  Returns ``{kernel: {mode: dict}}``."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+    from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid
+
+    res = {}
+    w = _b2_workload(dev, **cut["b2"])
+    n, m, nobs = w["n"], w["m"], w["nobs"]
+    rnd = lambda k: torch.rand(k, generator=w["gen"], device=w["bp"].device)
+    hyb = dict(body_sigma=2.0 + 2.0 * rnd(n), static_length=1000.0)
+    tail_h = core.tail_scan_blocked(
+        w["tm"], w["tp"], w["obs"], localize=True, fast_geometry=True,
+        panel=512, kernels=True, max_radius_km=2000.0, hybrid_alpha=0.5,
+        tail_sigma=2.0 + 2.0 * rnd(nobs), static_length=1000.0)
+    for key, hybrid, tail in (("B2", False, w["tail"]), ("B2h", True,
+                                                          tail_h)):
+        ops = ensrf_fused.prepare(
+            w["bp"], w["lat"], w["lon"], tail, w["obs"], block_size=128,
+            max_radius_km=2000.0, hybrid=hybrid, **(hyb if hybrid else {}))
+        args = (ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
+                ops["bits"], ops["tile"], True, False, ops["series"], hybrid)
+        res[key] = _modes_case(
+            f"{key} {n} x {m} x {nobs} obs", _b2_block_fns(args), w["bm"],
+            w["bp"], b2_flop(ops, n, m, True, hybrid, "products"),
+            b2_flop(ops, n, m, True, hybrid, "rest"),
+            nbytes(*args[:5]) + 2 * nbytes(w["bm"], w["bp"]), dev)
+        del ops, args
+    del w, tail_h
+    bsz = 128
+    c = _grid_case(**cut["c3"], dev=dev)
+    ops = ensrf_grid.grid_prepare(c["bp"], c["body_vert"], c["tail"],
+                                  c["obs"], c["ngrid"], block_size=bsz,
+                                  vertical=True, group_factor=c["gf"])
+    nb = ops["y_b"].shape[0]
+    wts = ensrf_grid.grid_weights(latlon_to_unit(c["lat"], c["lon"]),
+                                  ops["ob_xyz"], ops["radii"])
+    args = (wts.reshape(nb, bsz, c["ngrid"]), ops["table"], ops["y_b"],
+            ops["ggt_b"], ops["coef_b"])
+    rows, mm = c["bp"].shape
+    res["B3"] = _modes_case(
+        "B3 config 3 + group factor",
+        _grid_block_fns("B3", *args, ops["vt"]), c["bm"], c["bp"],
+        body_flop(rows, nb, bsz, mm, "products"),
+        body_flop(rows, nb, bsz, mm, "rest"),
+        nbytes(*args) + 2 * nbytes(c["bm"], c["bp"]), dev)
+    del c, ops, wts, args
+    for key, dims, vertical in (("B4 config 3", cut["c3"], True),
+                                ("B4 wide", cut["wide"], False)):
+        c = _grid_case(**dims, dev=dev)
+        tail, obs = c["tail"], c["obs"]
+        sl = slice(0, bsz)
+        rows, mm = c["bp"].shape
+        vt, wts, table, ggt = ensrf_grid.block_operands(
+            c["lat"], c["lon"], tail.ye[sl], tail.sqrt_coef[sl],
+            obs.lats[sl], obs.lons[sl], obs.radii[sl], rows,
+            body_vert=c["body_vert"], ob_vert=obs.verts[sl],
+            ob_vrad=obs.vert_radii[sl], vertical=vertical, ngrid=c["ngrid"])
+        coef = torch.stack([tail.gain_coef[sl], tail.sqrt_coef[sl]])
+        ops = (None if wts is None else wts[None],
+               None if table is None else table[:, None],
+               tail.ye[sl].contiguous()[None], ggt.contiguous()[None],
+               coef[None])
+        res[key] = _modes_case(
+            f"{key} (one block)", _grid_block_fns("B4", *ops, vt), c["bm"],
+            c["bp"], body_flop(rows, 1, bsz, mm, "products"),
+            body_flop(rows, 1, bsz, mm, "rest"),
+            2 * nbytes(c["bm"], c["bp"]) + nbytes(*ops), dev)
+        del c, tail, obs, ops, wts
+    return res
+
+
+def _phase26_edges(dev, cut):
+    """Phase 26 (a) over the edge cases of phases 3 and 10 (B2, B2h) and
+    6 and 7 (B3; B4 on each case's first block), in TF32 and bf16 at gate
+    (a), with the fp32 kernel and the truncating plain version as planted
+    faults.  ``cut`` may name the cases to run (``labels``).  Returns
+    ``{kernel: {mode: dict}}``: the largest error and column share over
+    the cases, the smallest share and entry count of each planted fault,
+    and the labels."""
+    labels = cut.get("labels")
+    out = {}
+
+    def hold(kernel, label, fns, bm, bp):
+        if labels is not None and label not in labels:
+            return
+        for mode in ("tf32", "bf16"):
+            r = hold_mode(f"phase 26 {kernel} edge case {label}", *fns[:2],
+                          bm, bp, fns[2], mode, operand_faults=False)
+            agg = out.setdefault(kernel, {}).setdefault(mode, dict(
+                max_abs_err=0.0, share=0.0, fp32_plain_share=0.0,
+                labels=[], controls={
+                    run: dict(entries_outside=None, share=None)
+                    for run in GATE_A_RUNS[1:3]}))
+            agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
+            agg["share"] = max(agg["share"], r["share"])
+            agg["fp32_plain_share"] = max(agg["fp32_plain_share"],
+                                          r["fp32_plain_share"])
+            agg["labels"].append(label)
+            for run, c in r["controls"].items():
+                for k, v in c.items():
+                    have = agg["controls"][run][k]
+                    agg["controls"][run][k] = v if have is None else min(
+                        have, v)
+
+    for hybrid in (False, True):
+        for label, bm, bp, args, _ in _b2_edge_inputs(hybrid, dev):
+            hold("B2h" if hybrid else "B2", label, _b2_block_fns(args), bm,
+                 bp)
+    for label, c, args, vt, _ in _grid_edge_inputs(dev):
+        hold("B3", label, _grid_block_fns("B3", *args, vt), c["bm"],
+             c["bp"])
+        first = _first_block(args)[1]
+        hold("B4", label, _grid_block_fns("B4", *first, vt), c["bm"],
+             c["bp"])
+    return out
+
+
+def _rms_share(got, want, before) -> float:
+    """RMS of ``got - want`` over the RMS of the increment ``want -
+    before``."""
+    import torch
+
+    err = torch.sqrt(torch.mean((got - want) ** 2))
+    inc = torch.sqrt(torch.mean((want - before) ** 2))
+    return float(err / inc)
+
+
+def _mode_runs(label, state, batch, base, route, dev):
+    """Phase 26 (b) for one workload: ``EnSRF(...).update()`` at each of
+    ``MODE_SETTINGS`` on ``base``'s route, timed (host clock around
+    synchronizes), its launches held against the fp32 update's (the same
+    counts; on the card the route's body launches in its mode and every
+    other launch in fp32) and its posterior mean and perturbations
+    against the fp32 update's at gate (b); a setting whose mode is fp32
+    gives the fp32 posterior bit for bit.  Returns ``{setting: dict}``."""
+    import dataclasses
+
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF
+    from efa_xray_tpu_torch.ops.precision import product_mode
+
+    sync = _syncer(dev)
+    cuda = torch.device(dev).type == "cuda"
+    nstate = state.structure.nstate
+    body = -(-batch.nobs // base.block_size) if route == "B4" else 1
+    prior = state.to_vect()
+    pm0 = prior.mean(dim=1)
+    pp0 = prior - pm0[:, None]
+    del prior
+    ref, out = None, {}
+    for mp, mxu in MODE_SETTINGS:
+        setting = "mxu_bf16" if mxu else f"matmul_precision={mp}"
+        cfg = dataclasses.replace(base, matmul_precision=mp, mxu_bf16=mxu)
+        filt = EnSRF(state, batch, config=cfg, verbose=False)
+        check(filt._route(nstate) == route,
+              f"{label} {setting}: routed to {filt._route(nstate)}")
+        mode = product_mode(cfg, route, dev)
+        _reset_counts()
+        (post, _), wall, _ = _spans(filt.update, [], sync)
+        counts, by_mode = _counts(), _mode_counts()
+        check(bool(torch.isfinite(post.data).all()),
+              f"{label} {setting}: not finite")
+        pv = post.to_vect()
+        pm = pv.mean(dim=1)
+        pp = pv - pm[:, None]
+        del pv
+        if ref is None:
+            ref = dict(pm=pm, pp=pp, counts=counts)
+        check(counts == ref["counts"],
+              f"{label} {setting}: launches {counts}, fp32 {ref['counts']}")
+        for k, modes in by_mode.items():
+            for md, nl in modes.items():
+                want = (0 if not cuda or md == "ieee" else
+                        body if (k == route and md == mode) else 0)
+                check(md == "ieee" or nl == want,
+                      f"{label} {setting}: {k} launched {nl} times in "
+                      f"{md}, not {want}")
+        r = dict(mode=mode, wall_s=wall, launches=counts,
+                 body_launches_in_mode=by_mode[route][mode] if cuda else 0,
+                 mean_err_share=_rms_share(pm, ref["pm"], pm0),
+                 perts_err_share=_rms_share(pp, ref["pp"], pp0))
+        if mode == "ieee":
+            check(torch.equal(pm, ref["pm"]) and torch.equal(pp, ref["pp"]),
+                  f"{label} {setting}: fp32 products, but not the fp32 "
+                  "posterior bit for bit")
+        else:
+            gate = API_MODE_GATE[mode]
+            check(0.0 < max(r["mean_err_share"], r["perts_err_share"])
+                  and r["mean_err_share"] <= gate
+                  and r["perts_err_share"] <= gate,
+                  f"{label} {setting} ({mode}): posterior error shares "
+                  f"{r['mean_err_share']:.3e} / {r['perts_err_share']:.3e} "
+                  f"of the increment RMS (gate {gate}; 0 means the mode "
+                  "took no effect)")
+        out[setting] = r
+        del post, pm, pp
+    return out
+
+
+def phase26(dev="cuda", **cut):
+    """The body kernels' product modes on the card: (a) B2, B2h, B3 and
+    B4 in fp32, TF32 and bf16 at phase 3's, 10's, 6's and 7's shapes,
+    each against its plain version in the same mode (gate (a), with its
+    two planted faults), each tensor-core output unlike the fp32 one,
+    then every edge case of those phases in TF32 and bf16 at gate (a);
+    (b) ``EnSRF.update()`` on phase 4's workload (B2 with
+    ``fast_geometry``, B4 at the default config, B2h in hybrid mode) and
+    on config 3 (B4 at the default config, B3 with ``fast_geometry`` +
+    varloc) at every setting of ``MODE_SETTINGS``: wall, launches
+    (unchanged) and the posterior's error against the fp32 update (gate
+    (b)); and phase 4's B2 update with ``mxu_bf16`` on a mesh of 2 shards
+    of the card against the single-device one, each shard's body in bf16.
+    ``cut`` overrides ``PHASE26``'s sizes for a CPU rehearsal (``edges``
+    may name the edge cases to run: ``labels``)."""
+    import dataclasses
+
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF, FilterConfig
+
+    p = {k: dict(v, **cut.get(k, {})) for k, v in PHASE26.items()}
+    a = _phase26_kernels(dev, p)
+    for key, modes in a.items():
+        log(f"phase 26 (a): {key}: " + "; ".join(
+            f"{mode} err {r['max_abs_err']:.3e}" + (
+                "" if mode == "ieee" else
+                f" ({r['beyond_f32_gate']} entries past the f32 gate, flip "
+                f"allowance up to {r['flip_allowance']:.3e}, column share "
+                f"{r['share']:.4f} (the fp32 plain version's "
+                f"{r['fp32_plain_share']:.4f}); planted faults: " + ", ".join(
+                    f"{run} {c['entries_outside']} entries outside, share "
+                    f"{c['share']:.3f}" for run, c in r["controls"].items())
+                + ")")
+            + f", vs fp32 {r['vs_ieee']:.3e}, kernel {r['ms']:.3f} ms plain "
+            f"{r['plain_ms']:.2f} ms bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})" for mode, r in modes.items()))
+    edges = _phase26_edges(dev, p["edges"])
+    for key, modes in edges.items():
+        log(f"phase 26 (a): {key} edge cases ({len(modes['tf32']['labels'])}"
+            f"): " + "; ".join(
+                f"{mode} err {r['max_abs_err']:.3e}, column share "
+                f"{r['share']:.4f} (the fp32 plain version's "
+                f"{r['fp32_plain_share']:.4f}); planted faults at least: "
+                + ", ".join(
+                    f"{run} {c['entries_outside']} entries outside, share "
+                    f"{c['share']:.3f}" for run, c in r["controls"].items())
+                for mode, r in modes.items()))
+    b = {}
+    state, batch = _api_state(dev, **p["api"])
+    fast = FilterConfig(localization="GC", dtype="float32",
+                        fast_geometry=True)
+    for route, cfg in (("B2", fast),
+                       ("B4", FilterConfig(localization="GC")),
+                       ("B2h", _hybrid_config(state.structure.nstate, 111))):
+        b[f"api {route}"] = _mode_runs(f"phase 26 (b) api {route}", state,
+                                       batch, cfg, route, dev)
+    panels = _tail_counts(batch.nobs, 512, False)["panels"]
+    shards = 2
+    mesh = _mesh_vs_single(
+        "phase 26 (b) mesh mxu_bf16",
+        lambda m: EnSRF(state, batch, verbose=False, mesh=m,
+                        config=dataclasses.replace(fast, mxu_bf16=True)),
+        shards, dev, _only(B1=panels, B2=panels + shards))
+    by_mode = _mode_counts()["B2"]
+    cuda = torch.device(dev).type == "cuda"
+    check(not cuda or by_mode == dict(ieee=panels, tf32=0, bf16=shards),
+          f"phase 26 (b) mesh mxu_bf16: B2 launches by mode {by_mode}, not "
+          f"the tail's {panels} in fp32 and one body per shard in bf16")
+    b["mesh B2 mxu_bf16"] = dict(mesh, b2_by_mode=by_mode)
+    del state, batch
+    state, batch, names = _config3_workload(dev=dev, **p["c3api"])
+    for _, cfg, route in _config3_runs(names):
+        b[f"config 3 {route}"] = _mode_runs(
+            f"phase 26 (b) config 3 {route}", state, batch, cfg, route, dev)
+    del state, batch
+    for key, runs in b.items():
+        if key.startswith("mesh"):
+            log(f"phase 26 (b): {key} on {runs['shards']} shards: err "
+                f"{runs['max_abs_err']:.3e} against the single-device "
+                f"update (bitwise {runs['bitwise']}), B2 by mode "
+                f"{runs['b2_by_mode']}, wall {runs['mesh_s']:.3f} s "
+                f"(single device {runs['single_s']:.3f} s)")
+            continue
+        log(f"phase 26 (b): {key}: " + "; ".join(
+            f"{s} ({r['mode']}): wall {r['wall_s']:.3f} s, body launches "
+            f"in mode {r['body_launches_in_mode']}, error share mean "
+            f"{r['mean_err_share']:.3e} perts {r['perts_err_share']:.3e}"
+            for s, r in runs.items()))
+    return dict(kernels=a, edges=edges, api=b)
+
+
 # P's products are timed as runs of this many calls back to back.
 P_INNER = 20
 
@@ -3734,6 +4491,7 @@ def phase12():
     import torch
 
     from efa_xray_tpu_torch.ops import precision_probe as pp
+    from efa_xray_tpu_torch.ops.precision import round_tf32
 
     dev = torch.device("cuda")
     _reset_counts()
@@ -3768,7 +4526,7 @@ def phase12():
                 # bits: the kernel sits nearer the product of inputs
                 # rounded to nearest than that of truncated inputs.
                 chop = lambda x: (x.view(torch.int32) & ~0x1FFF).view(f32)
-                near = float((got - pp.round_tf32(a) @ pp.round_tf32(b))
+                near = float((got - round_tf32(a) @ round_tf32(b))
                              .abs().max())
                 far = float((got - chop(a) @ chop(b)).abs().max())
                 check(near < 0.1 * far,
@@ -3960,7 +4718,8 @@ def _grid_libs():
     all started together, in ``build/efa_xray_tpu_torch/variants``: one
     per entry of ``GRID_PARTS`` and, under the name "parent", the source
     at ``PARENT_GRID_SOURCE`` where that file exists.  Returns ``{name:
-    library}``."""
+    (library, whether its entries take a product mode)}``: sources from
+    before the modes take none."""
     import ctypes
 
     from efa_xray_tpu_torch.ops import _build
@@ -3987,11 +4746,20 @@ def _grid_libs():
     for name, (out, proc) in procs.items():
         text, _ = proc.communicate()
         check(proc.returncode == 0, f"steps: nvcc failed for {name}:\n{text}")
-        libs[name] = ctypes.CDLL(out)
+        lib = ctypes.CDLL(out)
+        # The version of the entries' signatures (csrc/ensrf_grid.cu
+        # efa_grid_abi; 0 where the source predates it).
+        abi = lib.efa_grid_abi() if hasattr(lib, "efa_grid_abi") else 0
+        check(abi in (0, 1), f"steps: {name}: unknown grid ABI {abi}")
+        takes_mode = abi == 1
         for fn_name in ("efa_grid_body", "efa_block_apply"):
-            fn = getattr(libs[name], fn_name)
-            fn.argtypes = _build._SIGNATURES[fn_name]
+            fn = getattr(lib, fn_name)
+            argtypes = list(_build._SIGNATURES[fn_name])
+            if not takes_mode:  # the int before the three pointers
+                del argtypes[-4]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        libs[name] = (lib, takes_mode)
     return libs
 
 
@@ -4013,12 +4781,13 @@ def _grid_variants(label, entry, libs, bm, bp, w, table, y_b, ggt_b, coef_b,
     def run(tile):
         return ensrf_grid.grid_apply_cuda(entry, bm, bp, *ops, vt, tile=tile)
 
-    def run_lib(lib, tile):
+    def run_lib(entry_lib, tile):
+        lib, takes_mode = entry_lib
         out_m, out_p = torch.empty_like(bm), torch.empty_like(bp)
         ptrs = [None if t is None else t.data_ptr() for t in (bm, bp, *ops)]
         dims = (vt, bp.shape[0] // vt, nmems, bsz)
-        tail = (tile, out_m.data_ptr(), out_p.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+        tail = (tile, *((0,) if takes_mode else ()), out_m.data_ptr(),
+                out_p.data_ptr(), torch.cuda.current_stream().cuda_stream)
         err = (lib.efa_grid_body(*ptrs, *dims, nblocks, *tail)
                if entry == "B3" else lib.efa_block_apply(*ptrs, *dims, *tail))
         check(err == 0, f"steps {label}: CUDA error {err}")
@@ -4304,8 +5073,10 @@ def main() -> int:
     timed(phase23)
     timed(phase24)
     timed(phase25)
+    modes = timed(phase26)
     # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
-    # a localized recurrence): their library_ms is null.
+    # a localized recurrence), in any product mode: their library_ms is
+    # null.
     kernels = [
         dict(name="B1 tail panel solve", route="cuda",
              source="efa_xray_tpu_torch/csrc/tail_solve.cu",
@@ -4335,6 +5106,18 @@ def main() -> int:
              route="cuda", source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
              replaces="efa_xray_tpu/ops/ensrf_pallas.py:68",
              launches=wide["b4"], library_ms=None, **b4["wide"]),
+    ] + [
+        dict(name=f"{name} ({mode} products)", route="cuda", source=source,
+             replaces=replaces,
+             launches=modes["api"][api][
+                 f"matmul_precision={MODE_SETTING[mode]}"][
+                 "body_launches_in_mode"],
+             library_ms=None,
+             **{k: modes["kernels"][key][mode][k]
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by")})
+        for name, key, api, source, replaces in MODE_KERNELS
+        for mode in ("tf32", "bf16")
     ] + [
         dict(name=f"P precision probe ({mode})", route="cuda",
              source="efa_xray_tpu_torch/csrc/precision_probe.cu",

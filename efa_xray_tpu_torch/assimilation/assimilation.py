@@ -10,8 +10,7 @@ and ``AdaptiveInflation`` forms), and the ``Assimilation`` base class with the
 ``varloc_kwargs`` :539, ``maybe_update_adaptive_inflation`` :576 and
 ``record_diagnostics`` :611, ``compute_ob_priors`` with the custom forward
 operators ``_custom_operators`` :452-482, and the module-level ``update``
-:650; the refusal of ``matmul_precision`` below fp32 that every solver
-shares.
+:650.
 
 Everything runs on one explicit device, the filter's: by default the
 prior state's; with ``mesh=`` the solvers split the state body over the
@@ -44,10 +43,6 @@ from efa_xray_tpu_torch.state.ensemble import EnsembleState, _torch_dtype
 from efa_xray_tpu_torch.utils.validation import ValidationError
 
 InflationSpec = Union[None, float, str, dict, "AdaptiveInflation"]
-
-# The ``matmul_precision`` settings the port runs: full fp32 products.
-FULL_PRECISION = (None, "highest", "float32")
-
 
 def inflate_state(state: EnsembleState, inflation: InflationSpec,
                   verbose: bool = False) -> EnsembleState:
@@ -178,16 +173,6 @@ class Assimilation:
     @property
     def dtype(self) -> torch.dtype:
         return _torch_dtype(self.config.dtype)
-
-    def _check_ported(self) -> None:
-        """Refuse ``matmul_precision`` settings below fp32: every product
-        of the port is fp32 until ROADMAP B-next 5 gives them a meaning.
-        Every solver's ``update()`` calls this first."""
-        mp = self.config.matmul_precision
-        if mp not in FULL_PRECISION:
-            raise NotImplementedError(
-                f"not ported yet: matmul_precision={mp!r} (every product of "
-                "the port is fp32; lower precisions are ROADMAP B-next 5)")
 
     def max_finite_radius(self):
         """Host-known bound on the finite per-ob radii (km) after the

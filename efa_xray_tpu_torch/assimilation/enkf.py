@@ -274,7 +274,6 @@ class EnKF(Assimilation):
     def update(self):
         """Assimilate all observations; return ``(posterior,
         observations)`` with the observations in the caller's order."""
-        self._check_ported()
         cfg = self.config
         if cfg.hybrid_alpha < 1.0:
             raise ValueError(

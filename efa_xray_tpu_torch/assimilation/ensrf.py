@@ -48,9 +48,14 @@ chunks with no-op obs, then sweeps the body chunk by chunk along the same
 route; it refuses hybrid covariance and ``variable_localization`` with a
 ``ValueError``, as the JAX package does.  The JAX package's automatic
 chunking of batches over 131072 obs on a TPU is left out: ``obs_chunk=None``
-is one shot.  ``matmul_precision`` settings below float32 (ROADMAP
-B-next 5, refused by :meth:`Assimilation._check_ported` for every solver)
-raise ``NotImplementedError`` rather than run a plain path on the card.
+is one shot.
+
+``matmul_precision`` and ``mxu_bf16`` set the mode of the body kernel's
+two large products (:func:`~efa_xray_tpu_torch.ops.precision.product_mode`:
+TF32 or bf16 tensor cores on the card; ``mxu_bf16`` casts B2, B2h and B3
+on every device), passed at the body call sites where the JAX package
+passes ``mxu_bf16`` (its ``ensrf.py:310``, :435, :479, :648, :668).  The
+tail's launches, the plain route and a float64 update stay fp32.
 
 ``mesh=`` (a :class:`~efa_xray_tpu_torch.parallel.mesh.Mesh`, JAX
 ``ensrf.py:257-301``) runs the update through
@@ -81,6 +86,7 @@ from efa_xray_tpu_torch.observation import forward as _fwd
 from efa_xray_tpu_torch.observation.observation import ObservationBatch
 from efa_xray_tpu_torch.ops import ensrf_grid
 from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
+from efa_xray_tpu_torch.ops.precision import product_mode
 from efa_xray_tpu_torch.state.ensemble import EnsembleState
 
 
@@ -214,12 +220,14 @@ class KernelRoute:
                     body_vert, vertical: bool, hkw: dict, vl: dict):
         """Phase 2: apply a pre-solved obs sequence to the state body along
         ``route`` (B3, B2/B2h, B4, or the plain blocked body for the
-        ``"plain"`` and ``"serial"`` routes).  The caller owns the
+        ``"plain"`` and ``"serial"`` routes), the kernel's two large
+        products in the configuration's mode.  The caller owns the
         formatted prior: the body kernels update it in place, where the
         JAX package donates it."""
         cfg = self.config
         st = self._route_structure()
         bvert = body_vert if vertical else None
+        mode = product_mode(cfg, route, self.device)
         if route in ("plain", "serial"):
             return core.ensrf_blocked_body(
                 bm, bp, body_lat, body_lon, tail, obs, localize=cfg.localize,
@@ -237,7 +245,7 @@ class KernelRoute:
                 bm, bp, body_lat, body_lon, tail, obs, ngrid=st.ngrid,
                 body_vert=bvert, localize=cfg.localize,
                 block_size=cfg.block_size, vertical=vertical,
-                group_factor=group_factor, donate=True)
+                group_factor=group_factor, donate=True, precision=mode)
         if route in ("B2", "B2h"):
             row_order = inv_order = None
             if cfg.spatial_sort:
@@ -249,12 +257,13 @@ class KernelRoute:
                 max_radius_km=self.max_finite_radius(),
                 hybrid=route == "B2h", body_sigma=hkw.get("body_sigma"),
                 static_length=hkw.get("static_length"), donate=True,
-                row_order=row_order, inv_order=inv_order)
+                row_order=row_order, inv_order=inv_order, precision=mode)
         return ensrf_grid.blocked_body(
             bm, bp, body_lat, body_lon, tail, obs, localize=cfg.localize,
             block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
             body_vert=body_vert, vertical=vertical,
-            ngrid=None if st is None else st.ngrid, donate=True)
+            ngrid=None if st is None else st.ngrid, donate=True,
+            precision=mode)
 
 
 class FlatRoute(KernelRoute):
@@ -317,7 +326,6 @@ class EnSRF(Assimilation, KernelRoute):
     def update(self) -> Tuple[EnsembleState, ObservationBatch]:
         """Assimilate all observations; return ``(posterior, observations)``
         with the observations in the caller's order."""
-        self._check_ported()
         cfg = self.config
         if self.verbose:
             self.log.info("Beginning update sequence")
@@ -400,6 +408,7 @@ class EnSRF(Assimilation, KernelRoute):
             tail_panel=cfg.tail_panel, cull=cfg.cull,
             spatial_sort=cfg.spatial_sort,
             max_radius_km=self.max_finite_radius(),
+            matmul_precision=cfg.matmul_precision, mxu_bf16=cfg.mxu_bf16,
             **self._hybrid_kwargs(body_mean), **self.varloc_kwargs())
 
     def _solve_obs_chunked(self, body_mean, body_perts, tail_mean,

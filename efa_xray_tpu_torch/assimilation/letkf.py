@@ -128,7 +128,6 @@ class LETKF(Assimilation):
         """Assimilate all observations simultaneously; return
         ``(posterior, observations)`` with the observations in the
         caller's order."""
-        self._check_ported()
         cfg = self.config
         if cfg.hybrid_alpha < 1.0:
             raise ValueError(

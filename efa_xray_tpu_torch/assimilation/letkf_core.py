@@ -32,8 +32,9 @@ and so does the port as torch operations:
   torch each iteration's error is read back to the host, counted in
   :data:`host_syncs`.
 * ``solve_precision`` is validated and runs true fp32 (or float64) for
-  every setting, as the JAX package runs it off the TPU; lowering
-  ``"default"`` and ``"high"`` waits for ROADMAP B-next 5.
+  every setting, as the JAX package runs it off the TPU: the LETKF has no
+  body kernel, and every product outside the body kernels stays fp32
+  (:mod:`efa_xray_tpu_torch.ops.precision`).
 
 Counters (reset with :func:`reset_counts`): :data:`ns_calls` Newton-Schulz
 solves, :data:`ns_iterations` their iterations summed,
@@ -75,7 +76,8 @@ def _solve_precision_obj(solve_precision: str) -> Optional[str]:
     """Validate the ``solve_precision`` knob.  Every setting runs the
     ensemble-space solve in the working dtype's full precision (no TF32):
     the JAX package's ``"default"`` and ``"high"`` lower the TPU's matrix
-    unit input, which has no counterpart here until ROADMAP B-next 5."""
+    unit input; here only the body kernels' products take a lower mode
+    (:mod:`efa_xray_tpu_torch.ops.precision`)."""
     if solve_precision in (None, "default", "high", "highest"):
         return solve_precision
     raise ValueError(f"unknown solve_precision {solve_precision!r}")

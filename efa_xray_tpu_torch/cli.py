@@ -29,11 +29,12 @@ by the other.  Where it differs from the JAX CLI:
     "float64")`` does.
 (c) ``--mesh`` splits the state over every visible CUDA device
     (``parallel.make_mesh()``), or over ``[cpu]`` with ``--device cpu``.
-(d) ``--mxu-bf16`` (a TPU timing knob the port's ``FilterConfig`` dropped)
-    still parses, so that a scheduler's command line does, and raises
-    ``NotImplementedError`` as ``FilterConfig.load`` does for
-    ``mxu_bf16: true``.
-(e) ``--matmul-precision`` below fp32 raises at ``update()``.
+(d) ``--mxu-bf16`` casts the two large products of the B2, B2h and B3
+    body kernels to bf16 on every device, as the JAX kernels do in
+    interpret mode (``ops/precision.py``).
+(e) ``--matmul-precision`` sets the body kernels' products on the card:
+    high / tensorfloat32 TF32, default / bfloat16 bf16 tensor cores;
+    every other product, and the CPU, stay fp32.
 (f) ``--bias-file`` reads the obs-space prior means of
     ``compute_ob_priors`` back to the host through ``interop.to_host``.
 (g) As in the JAX CLI, the tuning flags' defaults equal the
@@ -169,6 +170,7 @@ def config_kwargs(args) -> dict:
         method=args.method,
         dtype=args.dtype,
         fast_geometry=args.fast_geometry,
+        mxu_bf16=args.mxu_bf16,
         matmul_precision=args.matmul_precision,
         spatial_sort=args.sort_spatial,
         rtps_alpha=args.rtps,
@@ -185,9 +187,8 @@ def config_kwargs(args) -> dict:
 
 
 def cmd_assimilate(args):
-    from efa_xray_tpu_torch.config import FilterConfig, refuse_mxu_bf16
+    from efa_xray_tpu_torch.config import FilterConfig
 
-    refuse_mxu_bf16(args.mxu_bf16)
     state = _read_state(args.state, args)
     batch = _read_obs(args.obs)
     if args.thin_km:
@@ -496,15 +497,17 @@ def build_parser() -> argparse.ArgumentParser:
                            "2004); exclusive with --rtps")
     p_as.add_argument("--fast-geometry", action="store_true")
     p_as.add_argument("--mxu-bf16", action="store_true",
-                      help="the JAX CLI's bf16 casts on a TPU kernel's "
-                           "products: parsed, and refused (every product "
-                           "of the port is fp32)")
+                      help="bf16 inputs (f32 accumulation) on the two "
+                           "large products of the B2, B2h and B3 body "
+                           "kernels, on every device")
     p_as.add_argument("--matmul-precision", default=None,
                       choices=["default", "high", "highest", "bfloat16",
                                "tensorfloat32", "float32"],
-                      help="what an f32 matmul means for the whole update: "
-                           "highest / float32 (or unset) run true fp32; "
-                           "the lower settings raise at update()")
+                      help="the body kernels' two large products on CUDA: "
+                           "highest / float32 (or unset) fp32, high / "
+                           "tensorfloat32 TF32, default / bfloat16 bf16 "
+                           "tensor cores; every other product, and the "
+                           "CPU, fp32")
     p_as.add_argument("--taps-topk", default="exact",
                       choices=["exact", "approx"],
                       help="forward-operator nearest-point candidate "

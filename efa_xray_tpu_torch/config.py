@@ -4,10 +4,11 @@ Copy of ``efa_xray_tpu/config.py`` (``FilterConfig`` :17-504) without the
 knobs that exist only for the TPU and its remote link: the host fast path
 (``small_host``, ``small_host_threshold``), the Pallas selections
 (``use_pallas``, ``tail_pallas``: here the device decides, see
-``EnSRF._use_kernels``), the TPU row tile (``pallas_tile``) and the
-timing-only ``mxu_bf16``; :meth:`FilterConfig.load` still reads a file
-that names them (see :data:`TPU_ROUTE_FIELDS`).  The LETKF knobs
-(``letkf_*``, :183-227) and ``taps_topk`` (:55) are here:
+``EnSRF._use_kernels``) and the TPU row tile (``pallas_tile``);
+:meth:`FilterConfig.load` still reads a file that names them (see
+:data:`TPU_ROUTE_FIELDS`).  ``matmul_precision`` and ``mxu_bf16`` choose
+the body kernels' product modes (:mod:`efa_xray_tpu_torch.ops.precision`).
+The LETKF knobs (``letkf_*``, :183-227) and ``taps_topk`` (:55) are here:
 ``letkf_solve_precision`` and ``taps_topk="approx"`` are accepted and run
 true fp32 and the exact search (what the JAX package runs off the TPU).
 The adaptive-inflation knobs (``adaptive_*``, :262-291) are here.
@@ -33,17 +34,6 @@ from typing import Optional, Union
 # ``load`` reads them from a file and drops them with a warning.
 TPU_ROUTE_FIELDS = ("use_pallas", "tail_pallas", "small_host",
                     "small_host_threshold", "pallas_tile")
-
-
-def refuse_mxu_bf16(value) -> None:
-    """``mxu_bf16=True`` (the JAX package's bf16 casts on the fused
-    kernel's two products) changes the products' precision, which the
-    port does not lower yet: raise as ``matmul_precision`` below fp32
-    does.  False is the port's only setting."""
-    if value:
-        raise NotImplementedError(
-            "not ported yet: mxu_bf16=True (every product of the port is "
-            "fp32; lower precisions are ROADMAP B-next 5)")
 
 
 @dataclasses.dataclass
@@ -113,13 +103,19 @@ class FilterConfig:
     # its obs order, ``efa_demo.ipynb`` cell 11 — order is a free
     # choice).
     obs_order: Optional[str] = None
-    # What an f32 matrix product means.  On CUDA every product of the
-    # port is plain fp32 FMA, no TF32 (the kernels use no tensor cores,
-    # and the plain products run with torch's TF32 switches off).  Accepted
-    # values as in the JAX package: None, "default", "high", "highest",
-    # "bfloat16", "tensorfloat32", "float32"; every solver's ``update()``
-    # runs None, "highest" and "float32" and raises NotImplementedError on
-    # the lower ones until a kernel gives them a meaning (ROADMAP B-next 5).
+    # bf16 inputs (f32 accumulation) on the two large products of the
+    # B2, B2h and B3 body kernels (D0 and the rank-B apply), on every
+    # device: the JAX package's explicit casts on its fused kernels.  B4
+    # and the tail do not take it (ops/precision.product_mode).
+    mxu_bf16: bool = False
+    # What the body kernels' two large products mean on CUDA (the JAX
+    # package's jax.default_matmul_precision hint): None, "highest",
+    # "float32": fp32 FMA; "high", "tensorfloat32": TF32 tensor cores;
+    # "default", "bfloat16": bf16 tensor cores; f32 accumulation.  The
+    # CPU runs fp32 whatever it says, as JAX's CPU does; every other
+    # product (tail, corrections, the EnKF and LETKF, torch products)
+    # stays fp32, and a float64 update ignores it
+    # (ops/precision.product_mode).
     matmul_precision: Optional[str] = None
     # Fast chordal geometry for localization weights (unit-vector dot +
     # polynomial arccos; ~2e-8 rad error) instead of the exact haversine.
@@ -173,8 +169,8 @@ class FilterConfig:
     letkf_topk: str = "exact"
     # Matmul precision of the LETKF's ensemble-space solve chain in the
     # JAX package ("default", "high", "highest").  Every setting runs
-    # true fp32 here (no TF32), as the JAX package does off the TPU;
-    # lowering "default" and "high" waits for ROADMAP B-next 5.
+    # true fp32 here (no TF32), as the JAX package does off the TPU: the
+    # LETKF has no body kernel, and only those take a lower mode.
     letkf_solve_precision: str = "default"
     # --- Hybrid ensemble-static background covariance (Hamill & Snyder
     # 2000).  hybrid_alpha = 1 is the pure ensemble filter (reference
@@ -319,10 +315,9 @@ class FilterConfig:
     def load(cls, path: str, **overrides) -> "FilterConfig":
         """Read a JSON config written by :meth:`save`, by the JAX
         package's ``FilterConfig.save`` or by hand.  Unknown keys raise
-        (typo safety); :data:`TPU_ROUTE_FIELDS` and ``mxu_bf16: false``
-        are dropped with one warning naming them, and ``mxu_bf16: true``
-        raises (:func:`refuse_mxu_bf16`); ``overrides`` are applied on
-        top.  Validation runs through the normal constructor."""
+        (typo safety); :data:`TPU_ROUTE_FIELDS` are dropped with one
+        warning naming them; ``overrides`` are applied on top.
+        Validation runs through the normal constructor."""
         import json
 
         with open(path) as fh:
@@ -330,13 +325,11 @@ class FilterConfig:
         if not isinstance(data, dict):
             raise ValueError(f"{path}: expected a JSON object")
         known = {f.name for f in dataclasses.fields(cls)}
-        unknown = sorted(set(data) - known - set(TPU_ROUTE_FIELDS)
-                         - {"mxu_bf16"})
+        unknown = sorted(set(data) - known - set(TPU_ROUTE_FIELDS))
         if unknown:
             raise ValueError(
                 f"{path}: unknown FilterConfig field(s): {', '.join(unknown)}"
             )
-        refuse_mxu_bf16(data.get("mxu_bf16", False))
         dropped = sorted(set(data) - known)
         if dropped:
             warnings.warn(

@@ -76,7 +76,16 @@
 //    kept.)
 // kHybrid is a template parameter, so the pure instantiation carries none of
 // the static column.  Rows past the end of the state (the ragged last tile)
-// are zero and never written.  No tensor cores and no TF32.
+// are zero and never written.
+//
+// The two large products, D0 and the apply, run in one of three modes, the
+// template parameter kMode (ops/precision.py product_mode): fp32 FMA (the
+// register tiles above), or TF32 or bf16 tensor cores (mma_modes.cuh: a warp
+// per 16 rows x one alive panel for D0, per 16 rows x 8 members over the
+// alive panels for the apply; inputs rounded where fused_apply_plain rounds
+// them: X and Y in D0, g o U (B2h: V) and Y in the apply).  Everything else
+// (the corrections, the weights, the 8 x 8 triangle, the mean) is fp32 in
+// every mode, and the layout and the shared memory are the same.
 //
 // Shared memory (floats; make_layout below, mirrored by ops/ensrf_fused.py
 // smem_bytes): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp, T], partial sums
@@ -88,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_modes.cuh"
 
 namespace {
 
@@ -317,7 +328,8 @@ __device__ __forceinline__ void apply_tiles(float* Xs, const float* Ysm,
 
 // bm_out/bp_out may alias bm_in/bp_in (in-place update): a CTA reads its
 // own rows before the block loop and writes only those rows after it.
-template <bool kHybrid>
+// kMode: the two large products' mode (efa_mma::kIeee, kTf32, kBf16).
+template <bool kHybrid, int kMode>
 __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     const float* bm_in,  // [N]
     const float* bp_in,  // [N, M]
@@ -420,6 +432,9 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
   };
 
   const int RG = T >> 2, rgsh = tsh - 2;  // D0: groups of 4 rows
+  const int RT = T >> 4;                  // tensor-core tiles of 16 rows
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
+  const auto yr = [Ys](int j) { return yrow(j, Ys); };
   const int half = T >> 1;                // corrections: pairs of rows
   const int KS = nth / half;              // slices of the reduction
   const int ks = tid / half, rp = tid - ks * half;
@@ -448,8 +463,15 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     cp_async_commit();
     if (tid < T) macc[tid] = 0.0f;
 
-    // D0 = X Y^T over the alive panels: 4 rows x 4 obs per thread.
-    for (int task = tid; task < RG * 2 * na; task += nth) {
+    // D0 = X Y^T over the alive panels: 4 rows x 4 obs per thread, or on
+    // the tensor cores a warp per 16 rows x one panel.
+    if constexpr (kMode != efa_mma::kIeee) {
+      for (int wt = warp; wt < RT * na; wt += nwarps)
+        efa_mma::d0_tile<kMode>(Xs, Ys, Ysm, yr, U, T, 16 * (wt % RT),
+                                kPanel * pl[wt / RT], Mp, lane);
+    }
+    for (int task = tid; kMode == efa_mma::kIeee && task < RG * 2 * na;
+         task += nth) {
       const int rgi = task & (RG - 1), h = task >> rgsh;
       const int j0 = kPanel * pl[h >> 1] + 4 * (h & 1);
       const float* xp = Xs + rgi * Ys;
@@ -604,7 +626,12 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
       }
       __syncthreads();
     }
-    if (Mp <= 32)
+    if constexpr (kMode != efa_mma::kIeee) {
+      const int NT = (Mp + 7) >> 3;  // tiles of 8 members
+      for (int wt = warp; wt < RT * NT; wt += nwarps)
+        efa_mma::apply_tile<kMode>(Xs, Ys, Ysm, yr, U, T, 16 * (wt % RT),
+                                   8 * (wt / RT), pl, na, Mp, lane);
+    } else if (Mp <= 32)
       apply_tiles<2>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
     else if (Mp <= 64)
       apply_tiles<4>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
@@ -638,7 +665,7 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <bool kHybrid>
+template <bool kHybrid, int kMode>
 int launch(const float* bm_in, const float* bp_in, const float* geom,
            const float* y_b, const float* ggt_b, const float* tab_b,
            const int* bits, int N, int M, int B, int nb, int T, int localize, int vertical, int series, float* bm_out,
@@ -649,7 +676,7 @@ int launch(const float* bm_in, const float* bp_in, const float* geom,
     return (int)cudaErrorInvalidValue;
   const int smem =
       (int)sizeof(float) * make_layout(T, B, M, kHybrid).total;
-  cudaError_t e = cudaFuncSetAttribute(fused_body_kernel<kHybrid>,
+  cudaError_t e = cudaFuncSetAttribute(fused_body_kernel<kHybrid, kMode>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem);
   if (e != cudaSuccess) return (int)e;
@@ -657,23 +684,36 @@ int launch(const float* bm_in, const float* bp_in, const float* geom,
                   (B % 4 == 0 && aligned16(tab_b) ? kVecTab : 0) |
                   (B % 4 == 0 && aligned16(ggt_b) ? kVecG : 0);
   const int tiles = (N + T - 1) / T;
-  fused_body_kernel<kHybrid><<<tiles, kThreads, smem, stream>>>(
+  fused_body_kernel<kHybrid, kMode><<<tiles, kThreads, smem, stream>>>(
       bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T, vec,
       localize, vertical, series, bm_out, bp_out);
   return (int)cudaGetLastError();
+}
+
+// The instantiation of `mode`, or nullptr for an unknown mode.
+template <bool kHybrid>
+decltype(&launch<kHybrid, efa_mma::kIeee>) launcher(int mode) {
+  switch (mode) {
+    case efa_mma::kIeee: return &launch<kHybrid, efa_mma::kIeee>;
+    case efa_mma::kTf32: return &launch<kHybrid, efa_mma::kTf32>;
+    case efa_mma::kBf16: return &launch<kHybrid, efa_mma::kBf16>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// T: rows per CTA (32 or 64).
+// T: rows per CTA (32 or 64).  mode: 0 fp32 FMA, 1 TF32, 2 bf16 tensor
+// cores for D0 and the apply.
 int efa_fused_body(const float* bm_in, const float* bp_in, const float* geom,
                    const float* y_b, const float* ggt_b, const float* tab_b,
                    const int* bits, int N, int M, int B, int nb, int T,
-                   int localize, int vertical, int series,
-                   int hybrid, float* bm_out, float* bp_out, void* stream) {
-  const auto run = hybrid ? &launch<true> : &launch<false>;
+                   int localize, int vertical, int series, int hybrid,
+                   int mode, float* bm_out, float* bp_out, void* stream) {
+  const auto run = hybrid ? launcher<true>(mode) : launcher<false>(mode);
+  if (!run) return (int)cudaErrorInvalidValue;
   return run(bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T,
              localize, vertical, series, bm_out, bp_out,
              (cudaStream_t)stream);

@@ -71,8 +71,16 @@
 //    come from the L2 (measured no faster than group-major order at 80
 //    groups x 254 tiles, where the CTAs in flight share slabs either way).
 // Points past the end of the grid (a ragged last tile) are zero, their
-// weights are never read and their rows never written.  No tensor cores and
-// no TF32.
+// weights are never read and their rows never written.
+//
+// The two large products, D0 and the apply, run in one of three modes, the
+// template parameter kMode (ops/precision.py product_mode): fp32 FMA (the
+// register tiles above), or TF32 or bf16 tensor cores (mma_modes.cuh: a warp
+// per 16 points x one panel for D0, per 16 points x 8 members over all
+// panels for the apply; inputs rounded where grid_apply_plain rounds them:
+// X and Y in D0, sqrt_coef o U and Y in the apply).  The substitution, the
+// weights, the table and the mean are fp32 in every mode; the layout and
+// the shared memory are the same.
 //
 // Shared memory (floats; make_layout below, mirrored by ops/ensrf_grid.py
 // smem_bytes): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp, T], ring [kSlots] of
@@ -81,6 +89,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_modes.cuh"
 
 namespace {
 
@@ -275,8 +285,9 @@ __device__ __forceinline__ void apply_tiles(float* Xs, const float* Ysm,
 
 // bm_out/bp_out may alias bm_in/bp_in (in-place update): a CTA reads its
 // own rows before the block loop and writes only those rows after it.
-// kCtas: the CTAs per SM the register count is held to.
-template <int kCtas>
+// kCtas: the CTAs per SM the register count is held to; kMode: the two
+// large products' mode (efa_mma::kIeee, kTf32, kBf16).
+template <int kCtas, int kMode>
 __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     const float* bm_in,  // [VT * G]
     const float* bp_in,  // [VT * G, M]
@@ -377,6 +388,9 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
   };
 
   const int RG = T >> 2, rgsh = tsh - 2;  // D0: groups of 4 rows
+  const int RT = T >> 4;                  // tensor-core tiles of 16 points
+  const int lane = tid & 31, warp = tid >> 5;
+  const auto yr = [Ys](int j) { return yrow(j, Ys); };
   // U[j, :] -= G[j, panel] U[panel, :] for jlo <= j < jhi (multiples of
   // 4), the panel's ggt columns at Gp and its obs from `base` on: 4 obs x 4
   // rows per thread, 8 deep.
@@ -435,8 +449,15 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     // have landed, and every thread has left the block before.
     __syncthreads();
 
-    // D0 = X Y^T: 4 rows x 4 obs per thread.
-    for (int task = tid; task < RG * 2 * npanels && !skips(kSkipD0);
+    // D0 = X Y^T: 4 rows x 4 obs per thread, or on the tensor cores a warp
+    // per 16 points x one panel.
+    if constexpr (kMode != efa_mma::kIeee) {
+      for (int wt = warp; wt < RT * npanels && !skips(kSkipD0); wt += kWarps)
+        efa_mma::d0_tile<kMode>(Xs, Ys, Ysm, yr, U, T, 16 * (wt % RT),
+                                kPanel * (wt / RT), Mp, lane);
+    }
+    for (int task = tid; kMode == efa_mma::kIeee &&
+                         task < RG * 2 * npanels && !skips(kSkipD0);
          task += kThreads) {
       const int rgi = task & (RG - 1), j0 = 4 * (task >> rgsh);
       const float* xp = Xs + rgi * Ys;
@@ -552,10 +573,18 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
       macc = 0.0f;
     }
     __syncthreads();
-    if (!skips(kSkipApply))
-      apply_tiles(Xs, Ysm, U, Bp, T, Ys, Mp, tid);
-    else
+    if (skips(kSkipApply)) {
       __syncthreads();
+    } else if constexpr (kMode != efa_mma::kIeee) {
+      const int NT = (Mp + 7) >> 3;  // tiles of 8 members
+      for (int wt = warp; wt < RT * NT; wt += kWarps)
+        efa_mma::apply_tile<kMode>(Xs, Ys, Ysm, yr, U, T, 16 * (wt % RT),
+                                   8 * (wt / RT), nullptr, npanels, Mp,
+                                   lane);
+      __syncthreads();
+    } else {
+      apply_tiles(Xs, Ysm, U, Bp, T, Ys, Mp, tid);
+    }
     // The apply ended on a barrier: Y and the per-ob rows are free.
     if (b + 1 < nb) fetch_block(b + 1);
     cp_async_commit();
@@ -563,8 +592,7 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
   cp_async_wait<0>();
   __syncthreads();
 
-  const int lane = tid & 31;
-  for (int r = tid >> 5; r < npts; r += kWarps) {
+  for (int r = warp; r < npts; r += kWarps) {
     const float* xs = Xs + r * Ys;
     float* out = bp_out + (row0 + r) * M;
     if (vec & kVecX) {
@@ -582,17 +610,17 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <int kCtas>
+template <int kCtas, int kMode>
 int launch_as(const float* bm_in, const float* bp_in, const float* w,
               const float* table, const float* y_b, const float* ggt_b,
               const float* coef_b, int VT, int G, int M, int B, int nb, int T,
               int smem, unsigned ctas, float* bm_out, float* bp_out,
               cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      grid_body_kernel<kCtas>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      grid_body_kernel<kCtas, kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(grid_body_kernel<kCtas>,
+  e = cudaFuncSetAttribute(grid_body_kernel<kCtas, kMode>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
@@ -603,23 +631,36 @@ int launch_as(const float* bm_in, const float* bp_in, const float* w,
       (B % 4 == 0 && aligned16(table) ? kVecT : 0) |
       (G % 4 == 0 && aligned16(w) ? kVecW : 0) |
       (M % 4 == 0 && aligned16(bp_in) && aligned16(bp_out) ? kVecX : 0);
-  grid_body_kernel<kCtas><<<ctas, kThreads, smem, stream>>>(
+  grid_body_kernel<kCtas, kMode><<<ctas, kThreads, smem, stream>>>(
       bm_in, bp_in, w, table, y_b, ggt_b, coef_b, VT, G, M, B, nb, T, vec,
       bm_out, bp_out);
   return (int)cudaGetLastError();
 }
 
+// The instantiation for `mode`, or nullptr for an unknown mode.
+template <int kCtas>
+decltype(&launch_as<kCtas, efa_mma::kIeee>) launcher(int mode) {
+  switch (mode) {
+    case efa_mma::kIeee: return &launch_as<kCtas, efa_mma::kIeee>;
+    case efa_mma::kTf32: return &launch_as<kCtas, efa_mma::kTf32>;
+    case efa_mma::kBf16: return &launch_as<kCtas, efa_mma::kBf16>;
+    default: return nullptr;
+  }
+}
+
 int launch(const float* bm_in, const float* bp_in, const float* w,
            const float* table, const float* y_b, const float* ggt_b,
            const float* coef_b, int VT, int G, int M, int B, int nb, int T,
-           float* bm_out, float* bp_out, void* stream) {
+           int mode, float* bm_out, float* bp_out, void* stream) {
   if ((T != 32 && T != 64) || VT <= 0 || G <= 0 || M <= 0 || B <= 0 ||
       nb <= 0 || nb > 0x7fffffff / ((B + kPanel - 1) / kPanel))
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(float) * make_layout(T, B, M).total;
   const long ctas = (long)VT * ((G + T - 1) / T);
   if (ctas > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
-  const auto run = ctas_per_sm(smem) >= 3 ? &launch_as<3> : &launch_as<2>;
+  const auto run =
+      ctas_per_sm(smem) >= 3 ? launcher<3>(mode) : launcher<2>(mode);
+  if (!run) return (int)cudaErrorInvalidValue;
   return run(bm_in, bp_in, w, table, y_b, ggt_b, coef_b, VT, G, M, B, nb, T,
              smem, (unsigned)ctas, bm_out, bp_out, (cudaStream_t)stream);
 }
@@ -629,22 +670,29 @@ int launch(const float* bm_in, const float* bp_in, const float* w,
 extern "C" {
 
 // B3: all nb blocks in one launch.  T: grid points per CTA (32 or 64).
+// mode: 0 fp32 FMA, 1 TF32, 2 bf16 tensor cores for D0 and the apply.
 int efa_grid_body(const float* bm_in, const float* bp_in, const float* w,
                   const float* table, const float* y_b, const float* ggt_b,
                   const float* coef_b, int VT, int G, int M, int B, int nb,
-                  int T, float* bm_out, float* bp_out, void* stream) {
+                  int T, int mode, float* bm_out, float* bp_out,
+                  void* stream) {
   return launch(bm_in, bp_in, w, table, y_b, ggt_b, coef_b, VT, G, M, B, nb,
-                T, bm_out, bp_out, stream);
+                T, mode, bm_out, bp_out, stream);
 }
 
 // B4: one block per launch.
 int efa_block_apply(const float* bm_in, const float* bp_in, const float* w,
                     const float* table, const float* y, const float* ggt,
                     const float* coef, int VT, int G, int M, int B, int T,
-                    float* bm_out, float* bp_out, void* stream) {
+                    int mode, float* bm_out, float* bp_out, void* stream) {
   return launch(bm_in, bp_in, w, table, y, ggt, coef, VT, G, M, B, 1, T,
-                bm_out, bp_out, stream);
+                mode, bm_out, bp_out, stream);
 }
+
+// The version of the two entries' C signatures above, so that a build of
+// another commit's source can be bound right: 1 takes the product mode
+// before the outputs.  A source without this entry predates the modes.
+int efa_grid_abi() { return 1; }
 
 // CTAs of the kernel that the card holds on one SM at this shape (by the
 // occupancy calculator, registers and shared memory included), or minus a
@@ -653,8 +701,8 @@ int efa_grid_ctas_per_sm(int M, int B, int T) {
   if ((T != 32 && T != 64) || M <= 0 || B <= 0) return -(int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(float) * make_layout(T, B, M).total;
   const bool three = ctas_per_sm(smem) >= 3;
-  const void* fn = three ? (const void*)grid_body_kernel<3>
-                         : (const void*)grid_body_kernel<2>;
+  const void* fn = three ? (const void*)grid_body_kernel<3, efa_mma::kIeee>
+                         : (const void*)grid_body_kernel<2, efa_mma::kIeee>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
@@ -664,9 +712,9 @@ int efa_grid_ctas_per_sm(int M, int B, int T) {
   int n = 0;
   if (e == cudaSuccess)
     e = three ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &n, grid_body_kernel<3>, kThreads, smem)
+                    &n, grid_body_kernel<3, efa_mma::kIeee>, kThreads, smem)
               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &n, grid_body_kernel<2>, kThreads, smem);
+                    &n, grid_body_kernel<2, efa_mma::kIeee>, kThreads, smem);
   return e == cudaSuccess ? n : -(int)e;
 }
 

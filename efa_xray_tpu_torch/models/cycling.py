@@ -17,11 +17,12 @@ analysis takes the route ``EnSRF.update()`` gives a flat state
 float32 the tail through B1 and the body through B4 at exact haversine,
 or through B2 with ``fast_geometry`` or without localization; on the CPU,
 and in float64, the plain versions.  Like the JAX harness, which calls
-the plain ``ensrf_blocked``, it ignores ``method``, ``hybrid_alpha`` and
-``variable_localization``, so every config takes the kernels on CUDA
-float32.  The JAX harness also ignores ``fast_geometry`` (exact
-haversine); the port honours it (B2), so the two compute the same
-function unless ``fast_geometry`` is set.
+the plain ``ensrf_blocked``, it ignores ``method``, ``hybrid_alpha``,
+``variable_localization``, ``matmul_precision`` and ``mxu_bf16``, so
+every config takes the kernels on CUDA float32, in fp32.  The JAX harness
+also ignores ``fast_geometry`` (exact haversine); the port honours it
+(B2), so the two compute the same function unless ``fast_geometry`` is
+set.
 
 The synthetic obs noise and the additive draws come from NumPy's
 ``default_rng``, as in the JAX package, so both packages draw the same
@@ -268,12 +269,14 @@ class CyclingHarness:
                 localize=cfg.localize, unbiased=cfg.unbiased_variance)
         elif self.solver == "ensrf":
             # The JAX harness runs the pure-ensemble blocked update whatever
-            # method, hybrid_alpha and variable_localization say (it passes
-            # no hybrid or cross-variable inputs): so does the route here.
+            # method, hybrid_alpha, variable_localization, matmul_precision
+            # and mxu_bf16 say (it passes no hybrid or cross-variable
+            # inputs, and no precision): so does the route here.
             route_cfg = dataclasses.replace(
                 cfg, block_size=min(cfg.block_size, max(nobs, 1)),
                 method="blocked", hybrid_alpha=1.0,
-                variable_localization=None)
+                variable_localization=None, matmul_precision=None,
+                mxu_bf16=False)
             radius = (float(self.localize_radius)
                       if np.isfinite(self.localize_radius) else None)
             bm2, bp2, _, _, diags = FlatRoute(route_cfg, dev, radius).solve(

@@ -6,8 +6,9 @@ for ``sm_90a``, one ``nvcc`` per source, all started together, and linked
 into one shared library with a plain C interface, at first use; it is
 loaded with :mod:`ctypes`.  The library goes to
 ``build/efa_xray_tpu_torch/`` beside the package, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the existing file.  A failed build or load raises.
+sources, their headers (``*.cuh``) and the flags, so an edited source
+rebuilds and an unchanged one loads the existing file.  A failed build or
+load raises.
 """
 
 from __future__ import annotations
@@ -38,16 +39,21 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "efa_tail_solve": [_P] * 8 + [_F] + [_I] * 5 + [_P] * 12,
     "efa_tail_solve_smem": [_I] * 4,
-    "efa_fused_body": [_P] * 7 + [_I] * 9 + [_P] * 3,
-    "efa_grid_body": [_P] * 7 + [_I] * 6 + [_P] * 3,
-    "efa_block_apply": [_P] * 7 + [_I] * 5 + [_P] * 3,
+    "efa_fused_body": [_P] * 7 + [_I] * 10 + [_P] * 3,
+    "efa_grid_body": [_P] * 7 + [_I] * 7 + [_P] * 3,
+    "efa_block_apply": [_P] * 7 + [_I] * 6 + [_P] * 3,
     "efa_grid_ctas_per_sm": [_I] * 3,
+    "efa_grid_abi": [],
     "efa_precision_mm": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 
 def sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -61,7 +67,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -20,6 +20,14 @@ Hybrid mode (``hybrid=True``) adds each ob's static column
 angle: the mean accumulates ``gain_j u_j + sgain_j s_j`` while the
 columns solve, the stored columns are ``v_j = sqrt_coef_j u_j + ssqrt_j
 s_j`` against the raw Gram matrix, and ``X -= V^T Y``.
+
+``precision`` (:mod:`efa_xray_tpu_torch.ops.precision`) is the mode of the
+two large products, D0 = X Y^T and the apply: ``"ieee"`` (fp32), or
+``"tf32"`` / ``"bf16"``, where the kernel runs them on the tensor cores and
+the plain version rounds the same operands (X and Y in D0; ``g o U``, or V,
+and Y in the apply) before an fp32 product, as the JAX kernel's
+``mxu_bf16`` casts do (``ensrf_pallas_fused.py:191-205``, :392-412).  The
+mean update and everything else stay fp32.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from efa_xray_tpu_torch.observation.localization import (
     latlon_to_unit,
 )
 from efa_xray_tpu_torch.ops import _build
+from efa_xray_tpu_torch.ops.precision import MODES, round_inputs
 
 PANEL = 8
 # Rows of the per-ob table handed to the kernel (csrc/ensrf_fused.cu kTab);
@@ -56,9 +65,10 @@ THREADS = 256
 SERIES_MAX_RADIUS_KM = 5000.0
 
 # Launches of the CUDA kernel (not of the plain version): pure-ensemble
-# B2, and its hybrid instantiation B2h.
+# B2, and its hybrid instantiation B2h; and each of them by product mode.
 launches = 0
 hybrid_launches = 0
+launches_by_mode = {k: dict.fromkeys(MODES, 0) for k in ("B2", "B2h")}
 
 _ASIN2 = (-0.0963332506, 0.1146914397, 0.0793335722, 0.1508451291,
           0.3333070474, 2.0000001309)
@@ -253,9 +263,14 @@ def _weights_plain(tab, geom, lo, hi, dist, vertical: bool, series: bool):
 
 def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                       localize: bool, vertical: bool, series: bool,
-                      hybrid: bool = False):
+                      hybrid: bool = False, precision: str = "ieee",
+                      operands: list | None = None):
     """Plain-torch B2 (B2h with ``hybrid``) on prepared operands; returns
-    ``(bm, bp)``.  In hybrid mode ``u`` holds the V columns."""
+    ``(bm, bp)``.  In hybrid mode ``u`` holds the V columns.  The two large
+    products round their operands as mode ``precision`` does.  A list
+    ``operands`` receives each block's apply operands before rounding:
+    ``(g o U or V [rows, B], Y [B, M])``."""
+    rnd = lambda x: round_inputs(x, precision)
     nrows = bp.shape[0]
     nblocks, bsz, _ = y_b.shape
     if bits is not None:
@@ -263,7 +278,7 @@ def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
     for b in range(nblocks):
         y = y_b[b]
         tab = tab_b[b]
-        d0 = bp @ y.T
+        d0 = rnd(bp) @ rnd(y).T
         u = torch.zeros_like(d0)
         if hybrid:
             mean = torch.zeros_like(bm)
@@ -304,20 +319,27 @@ def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                 u[:, j] = d_j
         if hybrid:
             bm = bm + mean
-            bp = bp - u @ y
+            left = u
         else:
             bm = bm + u @ tab[0]
-            bp = bp - (u * tab[1][None, :]) @ y
+            left = u * tab[1][None, :]
+        if operands is not None:
+            operands.append((left, y))
+        bp = bp - rnd(left) @ rnd(y)
     return bm, bp
 
 
 def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                      localize: bool, vertical: bool, series: bool,
-                     hybrid: bool = False, donate: bool = False):
-    """Launch B2 (B2h with ``hybrid``) on CUDA float32 tensors.
-    ``donate=True`` updates ``bm``/``bp`` in place (the JAX package
-    donates these buffers)."""
+                     hybrid: bool = False, donate: bool = False,
+                     precision: str = "ieee"):
+    """Launch B2 (B2h with ``hybrid``) on CUDA float32 tensors, its two
+    large products in mode ``precision``.  ``donate=True`` updates
+    ``bm``/``bp`` in place (the JAX package donates these buffers)."""
     global launches, hybrid_launches
+    if precision not in MODES:
+        raise ValueError(f"unknown mode {precision!r}; expected one of "
+                         f"{MODES}")
     nrows, nmems = bp.shape
     nblocks, bsz, _ = y_b.shape
     dev = bp.device
@@ -356,30 +378,33 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
             *(t.data_ptr() for t in ins),
             None if cbits is None else cbits.data_ptr(),
             nrows, nmems, bsz, nblocks, tile, int(localize),
-            int(vertical), int(series), int(hybrid), out_m.data_ptr(),
-            out_p.data_ptr(),
+            int(vertical), int(series), int(hybrid), MODES.index(precision),
+            out_m.data_ptr(), out_p.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check(err, "B2 ensrf_fused launch")
+    _build.check(err, f"B2 ensrf_fused launch ({precision})")
     if hybrid:
         hybrid_launches += 1
     else:
         launches += 1
+    launches_by_mode["B2h" if hybrid else "B2"][precision] += 1
     return out_m, out_p
 
 
 def fused_apply(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                 localize: bool, vertical: bool, series: bool,
-                hybrid: bool = False, donate: bool = False):
+                hybrid: bool = False, donate: bool = False,
+                precision: str = "ieee"):
     """B2 dispatch: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if bp.is_cuda:
         return fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile,
-                                localize, vertical, series, hybrid, donate)
+                                localize, vertical, series, hybrid, donate,
+                                precision)
     if bp.device.type != "cpu":
         raise ValueError(f"B2 runs on CUDA or CPU, not {bp.device}")
     return fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile,
-                             localize, vertical, series, hybrid)
+                             localize, vertical, series, hybrid, precision)
 
 
 def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
@@ -466,7 +491,7 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
                block_size: int = 128, vertical: bool = False,
                cull: bool = True, max_radius_km=None, hybrid: bool = False,
                body_sigma=None, static_length=None, donate: bool = False,
-               row_order=None, inv_order=None):
+               row_order=None, inv_order=None, precision: str = "ieee"):
     """Phase 2 through B2 (B2h with ``hybrid``): apply the pre-solved obs
     sequence ``tail`` to the state body.  Drop-in for
     ``ensrf_core.ensrf_blocked_body`` with chordal geometry, the static
@@ -474,7 +499,9 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
     radii) selects the series angle form when it and ``static_length``
     are <= 5000 km.  ``donate=True`` lets the kernel update the caller's
     buffers in place, where the JAX package donates them
-    (``ensrf_blocked_body_pallas_fused_donating``).
+    (``ensrf_blocked_body_pallas_fused_donating``).  ``precision``: the
+    mode of the two large products (:mod:`~efa_xray_tpu_torch.ops.
+    precision`).
 
     ``row_order`` with its inverse ``inv_order`` permutes the rows before
     the kernel and back after it, as ``_fused_impl`` :643-660 and :776-779
@@ -495,7 +522,7 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
             localize=localize, block_size=block_size, vertical=vertical,
             cull=cull, max_radius_km=max_radius_km, hybrid=hybrid,
             body_sigma=take(body_sigma), static_length=static_length,
-            donate=True)
+            donate=True, precision=precision)
         return bm[inv_order], bp[inv_order]
     ops = prepare(body_perts, body_lat, body_lon, tail, obs,
                   body_vert=body_vert, localize=localize,
@@ -506,4 +533,4 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
                        ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
                        ops["bits"], ops["tile"], localize,
                        localize and vertical, ops["series"], hybrid=hybrid,
-                       donate=donate)
+                       donate=donate, precision=precision)

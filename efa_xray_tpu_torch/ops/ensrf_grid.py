@@ -28,6 +28,15 @@ it, and launches the kernel, over chunks of blocks under
 ``GRID_WEIGHT_BUDGET_BYTES``: the body sweep composes exactly over blocks
 (each block is a row-local update of the state the previous one left), so
 the chunks give the one-launch result.
+
+``precision`` (:mod:`efa_xray_tpu_torch.ops.precision`) is the mode of the
+two large products, D0 = X Y^T and the apply X -= (sqrt_coef o U)^T Y:
+``"ieee"`` (fp32), or ``"tf32"`` / ``"bf16"``, where the kernel runs them on
+the tensor cores and the plain version rounds the same operands before an
+fp32 product (B3: as the JAX kernel's ``mxu_bf16`` casts,
+``ensrf_pallas_fused.py:821-828``, :868-874; B4: as the TPU's default
+matmul precision makes of ``ensrf_pallas.py:87-90``, :127-131).  The
+substitution, the weights and the mean stay fp32.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from efa_xray_tpu_torch.observation.localization import (
 )
 from efa_xray_tpu_torch.ops import _build
 from efa_xray_tpu_torch.ops.ensrf_fused import MAX_SMEM_BYTES, PANEL, _gc_poly
+from efa_xray_tpu_torch.ops.precision import MODES, round_inputs
 
 # Per-ob rows in the kernel's shared memory (csrc/ensrf_grid.cu kCoef).
 COEF_ROWS = 3
@@ -60,9 +70,11 @@ CTA_RESERVED_BYTES = 1024
 # several times this).
 GRID_WEIGHT_BUDGET_BYTES = 1 << 29
 
-# Launches of the CUDA kernel (not of the plain version), per entry point.
+# Launches of the CUDA kernel (not of the plain version), per entry point,
+# and per entry point and product mode.
 b3_launches = 0
 b4_launches = 0
+launches_by_mode = {k: dict.fromkeys(MODES, 0) for k in ("B3", "B4")}
 
 
 def smem_bytes(tile: int, block_size: int, nmems: int) -> int:
@@ -108,13 +120,18 @@ def _gram_tables(y_b, sqrtc_b):
 # ---------------------------------------------------------------------------
 
 
-def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int):
+def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
+                     precision: str = "ieee", operands: list | None = None):
     """Plain-torch body on prepared operands; returns ``(bm, bp)``.
 
     ``bm [VT*G]``, ``bp [VT*G, M]``; ``w [nb, B, G]`` or None
     (unlocalized); ``table [VT, nb, B]`` or None (ones); ``y_b [nb, B,
     M]``; ``ggt_b [nb, B, B]``; ``coef_b [nb, 2, B]`` (gain, sqrt_coef).
+    The two large products round their operands as mode ``precision``
+    does.  A list ``operands`` receives each block's apply operands before
+    rounding: ``(sqrt_coef o U [VT*G, B], Y [B, M])``.
     """
+    rnd = lambda x: round_inputs(x, precision)
     nrows, nmems = bp.shape
     g = nrows // vt
     nblocks, bsz, _ = y_b.shape
@@ -122,7 +139,7 @@ def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int):
     xm = bm.reshape(vt, g)
     for b in range(nblocks):
         y = y_b[b]
-        d0 = x @ y.T  # [VT, G, B]
+        d0 = rnd(x) @ rnd(y).T  # [VT, G, B]
         u = torch.zeros_like(d0)
         for base in range(0, bsz, PANEL):
             width = min(PANEL, bsz - base)
@@ -143,17 +160,24 @@ def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int):
                     d_j = d_j * w_panel[..., t]
                 u[..., j] = d_j
         xm = xm + u @ coef_b[b, 0]
-        x = x - (u * coef_b[b, 1]) @ y
+        left = u * coef_b[b, 1]
+        if operands is not None:
+            operands.append((left.reshape(nrows, bsz), y))
+        x = x - rnd(left) @ rnd(y)
     return xm.reshape(nrows), x.reshape(nrows, nmems)
 
 
 def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
-                    vt: int, donate: bool = False, tile=None):
+                    vt: int, donate: bool = False, tile=None,
+                    precision: str = "ieee"):
     """Launch the kernel of ``csrc/ensrf_grid.cu`` through ``entry`` ("B3"
     or "B4") on CUDA float32 tensors, at ``tile`` grid points per CTA
-    (:func:`pick_tile`'s when None).  ``donate=True`` updates ``bm``/``bp``
-    in place."""
+    (:func:`pick_tile`'s when None), its two large products in mode
+    ``precision``.  ``donate=True`` updates ``bm``/``bp`` in place."""
     global b3_launches, b4_launches
+    if precision not in MODES:
+        raise ValueError(f"unknown mode {precision!r}; expected one of "
+                         f"{MODES}")
     nrows, nmems = bp.shape
     nblocks, bsz, _ = y_b.shape
     dev = bp.device
@@ -191,19 +215,21 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
     # device: make it the tensors' one.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        mode = MODES.index(precision)
         if entry == "B3":
             err = lib.efa_grid_body(*ptrs, vt, g, nmems, bsz, nblocks, tile,
-                                    out_m.data_ptr(), out_p.data_ptr(),
+                                    mode, out_m.data_ptr(), out_p.data_ptr(),
                                     stream)
         else:
-            err = lib.efa_block_apply(*ptrs, vt, g, nmems, bsz, tile,
+            err = lib.efa_block_apply(*ptrs, vt, g, nmems, bsz, tile, mode,
                                       out_m.data_ptr(), out_p.data_ptr(),
                                       stream)
-    _build.check(err, f"{entry} ensrf_grid launch")
+    _build.check(err, f"{entry} ensrf_grid launch ({precision})")
     if entry == "B3":
         b3_launches += 1
     else:
         b4_launches += 1
+    launches_by_mode[entry][precision] += 1
     return out_m, out_p
 
 
@@ -219,29 +245,31 @@ def ctas_per_sm_on_card(tile: int, block_size: int, nmems: int,
 
 
 def _dispatch(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
-              donate: bool):
+              donate: bool, precision: str):
     if bp.is_cuda:
         return grid_apply_cuda(entry, bm, bp, w, table, y_b, ggt_b, coef_b,
-                               vt, donate)
+                               vt, donate, precision=precision)
     if bp.device.type != "cpu":
         raise ValueError(f"{entry} runs on CUDA or CPU, not {bp.device}")
-    return grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt)
+    return grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt,
+                            precision)
 
 
 def grid_apply(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
-               donate: bool = False):
+               donate: bool = False, precision: str = "ieee"):
     """B3 dispatch: one launch over all the blocks of ``y_b`` on CUDA
     tensors, the plain version on CPU tensors."""
-    return _dispatch("B3", bm, bp, w, table, y_b, ggt_b, coef_b, vt, donate)
+    return _dispatch("B3", bm, bp, w, table, y_b, ggt_b, coef_b, vt, donate,
+                     precision)
 
 
 def block_apply(bm, bp, w, table, y, ggt, coef, vt: int,
-                donate: bool = False):
+                donate: bool = False, precision: str = "ieee"):
     """B4 dispatch for one block: ``w [B, G]`` or None, ``table [VT, B]``
     or None, ``y [B, M]``, ``ggt [B, B]``, ``coef [2, B]``."""
     return _dispatch("B4", bm, bp, None if w is None else w[None],
                      None if table is None else table[:, None, :], y[None],
-                     ggt[None], coef[None], vt, donate)
+                     ggt[None], coef[None], vt, donate, precision)
 
 
 # ---------------------------------------------------------------------------
@@ -311,13 +339,14 @@ def grid_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
               obs: ObsArrays, ngrid: int, body_vert=None,
               localize: bool = True, block_size: int = 128,
               vertical: bool = False, group_factor=None,
-              donate: bool = False):
+              donate: bool = False, precision: str = "ieee"):
     """Phase 2 through B3 for a state whose rows tile one grid of
     ``ngrid`` points over VT groups.  Drop-in for
     ``ensrf_core.ensrf_blocked_body`` with chordal geometry.
     ``group_factor [VT, No]`` multiplies ob j's gain on group v
     (cross-variable localization).  ``donate=True`` lets the kernel update
-    the caller's buffers in place."""
+    the caller's buffers in place.  ``precision``: the mode of the two
+    large products."""
     if tail.ye.shape[0] == 0:
         return body_mean, body_perts
     dtype = body_perts.dtype
@@ -342,7 +371,8 @@ def grid_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
         # the buffers this call owns.
         bm, bp = grid_apply(bm, bp, w, table, ops["y_b"][lo:hi],
                             ops["ggt_b"][lo:hi], ops["coef_b"][lo:hi],
-                            ops["vt"], donate=donate or lo > 0)
+                            ops["vt"], donate=donate or lo > 0,
+                            precision=precision)
     return bm, bp
 
 
@@ -403,10 +433,12 @@ def apply_obs_block(body_mean, body_perts, body_lat, body_lon, ye_block,
                     localize: bool = True, fast_geometry: bool = False,
                     body_vert=None, ob_vert=None, ob_vrad=None,
                     vertical: bool = False, ngrid=None,
-                    ob_row_factor=None, donate: bool = False):
+                    ob_row_factor=None, donate: bool = False,
+                    precision: str = "ieee"):
     """Apply one pre-solved obs block to the state body through B4 (the
     counterpart of ``apply_obs_block_pallas``); ``ob_row_factor`` as in
-    :func:`block_operands`."""
+    :func:`block_operands`; ``precision``: the mode of the two large
+    products."""
     dtype = body_perts.dtype
     y = ye_block.to(dtype)
     vt, w, table, ggt = block_operands(
@@ -417,17 +449,19 @@ def apply_obs_block(body_mean, body_perts, body_lat, body_lon, ye_block,
         ob_row_factor=ob_row_factor)
     coef = torch.stack([gain_coef.to(dtype), sqrt_coef.to(dtype)])
     return block_apply(body_mean.to(dtype), body_perts, w, table, y,
-                       ggt.contiguous(), coef, vt, donate=donate)
+                       ggt.contiguous(), coef, vt, donate=donate,
+                       precision=precision)
 
 
 def blocked_body(body_mean, body_perts, body_lat, body_lon,
                  tail: TailSolution, obs: ObsArrays, localize: bool = True,
                  block_size: int = 128, fast_geometry: bool = False,
                  body_vert=None, vertical: bool = False, ngrid=None,
-                 donate: bool = False):
+                 donate: bool = False, precision: str = "ieee"):
     """Phase 2 through B4, one launch per obs block (the counterpart of
     ``ensrf_blocked_body_pallas``).  Same contract as
-    ``ensrf_core.ensrf_blocked_body``."""
+    ``ensrf_core.ensrf_blocked_body``; ``precision``: the mode of the two
+    large products."""
     nobs = tail.ye.shape[0]
     if nobs == 0:
         return body_mean, body_perts
@@ -452,5 +486,5 @@ def blocked_body(body_mean, body_perts, body_lat, body_lon,
             lon[sl], radii[sl], localize=localize,
             fast_geometry=fast_geometry, body_vert=body_vert,
             ob_vert=overt[sl], ob_vrad=ovrad[sl], vertical=vertical,
-            ngrid=ngrid, donate=donate or b > 0)
+            ngrid=ngrid, donate=donate or b > 0, precision=precision)
     return bm, bp

@@ -20,8 +20,9 @@ unit takes f32 inputs ("default" single-pass bf16, explicit bf16, and
 :func:`probe` holds each mode against a float64 oracle, as the TPU probe
 did.  Run ``python -m efa_xray_tpu_torch.ops.precision_probe`` on a
 machine with a GPU to print its dict as JSON.  Nothing in the filter calls
-this module: it records what each precision costs before any kernel uses
-one.
+this module: it records what each precision costs.  Its rounding lives in
+:mod:`efa_xray_tpu_torch.ops.precision`, where the body kernels' product
+modes (B2-B4) take it from.
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ import numpy as np
 import torch
 
 from efa_xray_tpu_torch.ops import _build
+from efa_xray_tpu_torch.ops.precision import MODES, round_inputs
 from efa_xray_tpu_torch.state.ensemble import default_device
 
-MODES = ("ieee", "tf32", "bf16")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 # Every size must be a multiple of TILE; the kernels zero-fill and mask
 # their edge tiles beyond that (csrc/precision_probe.cu kSizeMultiple).
@@ -49,27 +50,6 @@ K_PAD = 64
 # mode.
 launches = 0
 launches_by_mode = dict.fromkeys(MODES, 0)
-
-
-def round_tf32(x: torch.Tensor) -> torch.Tensor:
-    """Round float32 values to TF32 (10 mantissa bits), to nearest with
-    ties away from zero, as ``cvt.rna.tf32.f32`` does.  The result is
-    float32 with the low 13 mantissa bits cleared; inf and NaN pass
-    through."""
-    bits = x.contiguous().view(torch.int32)
-    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-    return torch.where(torch.isfinite(x), rounded, x)
-
-
-def round_inputs(x: torch.Tensor, mode: str) -> torch.Tensor:
-    """The inputs as mode ``mode`` rounds them before its product."""
-    if mode == "bf16":
-        return x.to(torch.bfloat16).to(torch.float32)
-    if mode == "tf32":
-        return round_tf32(x)
-    if mode == "ieee":
-        return x
-    raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
 
 def mm_plain(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:

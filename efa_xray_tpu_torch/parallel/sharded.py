@@ -107,7 +107,9 @@ def ensrf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
                          hybrid_alpha: float = 1.0, body_sigma=None,
                          tail_sigma=None, static_length=None, varloc=None,
                          row_var=None, ob_var=None,
-                         max_radius_km: Optional[float] = None):
+                         max_radius_km: Optional[float] = None,
+                         matmul_precision: Optional[str] = None,
+                         mxu_bf16: bool = False):
     """Sharded EnSRF update: pad the state rows to a multiple of the mesh
     size (pad rows carry zero perturbations and coordinates (0, 0), so
     their updates are no-ops that never touch real rows), split them over
@@ -122,10 +124,12 @@ def ensrf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
     too.  ``body_sigma`` (hybrid) and ``row_var`` (varloc) are
     split with the rows; ``tail_sigma``, ``varloc`` and ``ob_var`` are
     replicated.  ``max_radius_km`` bounds the finite radii for B2's angle
-    form.  ``donate=True`` lets the body kernels update the caller's
-    ``body_mean``/``body_perts`` in place where a shard's slice is not
-    copied (the JAX package donates them); the default leaves them
-    untouched."""
+    form.  ``matmul_precision`` and ``mxu_bf16`` give every shard's body
+    kernel its product mode, as the single-device route does (JAX
+    ``sharded.py:83``, :152, :235, :354).  ``donate=True`` lets the body
+    kernels update the caller's ``body_mean``/``body_perts`` in place where
+    a shard's slice is not copied (the JAX package donates them); the
+    default leaves them untouched."""
     from efa_xray_tpu_torch.assimilation.ensrf import FlatRoute
 
     ns = int(body_mean.shape[0])
@@ -148,7 +152,8 @@ def ensrf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
         dtype=str(body_perts.dtype).removeprefix("torch."),
         hybrid_alpha=float(hybrid_alpha),
         static_b_sigma=body_sigma if hybrid else None,
-        static_b_length=static_length if hybrid else None)
+        static_b_length=static_length if hybrid else None,
+        matmul_precision=matmul_precision, mxu_bf16=mxu_bf16)
 
     bm = pad_rows(body_mean, ns_pad)
     bp = pad_rows(body_perts, ns_pad)

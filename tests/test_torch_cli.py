@@ -6,8 +6,10 @@ netCDF, posterior obs, stats CSV, target CSV and bias JSON (float64,
 1e-9).  The EnKF gets the JAX package's draws; ``--mesh`` runs the JAX
 CLI on its 8 CPU devices and the port's on ``[cpu]``.  Also the
 ``FilterConfig.load`` repair (a config file the JAX package wrote), the
-refusals (``--mxu-bf16``, a CPU-less default device) and the mirror of
-the CLI defaults on the port's ``FilterConfig``."""
+refusals (a CPU-less default device), ``--mxu-bf16`` and
+``--matmul-precision`` (which ran into a refusal until the product modes
+were ported) and the mirror of the CLI defaults on the port's
+``FilterConfig``."""
 
 import dataclasses
 import json
@@ -243,15 +245,22 @@ def test_posterior_files_cross_read(tmp_path, monkeypatch, capsys):
         device="cpu").structure
 
 
-def test_refusals(tmp_path, monkeypatch):
+def test_refusals(tmp_path, monkeypatch, capsys):
+    """``--mxu-bf16`` and ``--matmul-precision bfloat16``, refused until
+    the product modes were ported, run and write the JAX CLI's files (a
+    float64 update on the CPU: fp32 products in both packages); bad
+    inputs and a CPU-less default device still refuse."""
     _inputs(tmp_path)
-    monkeypatch.chdir(tmp_path / "in")
     base = ["assimilate", "--state", "prior.nc", "--obs", "obs.csv", "--out",
             "post.nc", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="mxu_bf16"):
-        tcli.main(base + ["--mxu-bf16"])
-    with pytest.raises(NotImplementedError, match="matmul_precision"):
-        tcli.main(base + ["--matmul-precision", "bfloat16"])
+    for flag in (["--mxu-bf16"], ["--matmul-precision", "bfloat16"]):
+        out = _run_both(tmp_path, monkeypatch, capsys,
+                        base[:-2] + flag + _OUT)
+        assert out["torch"] == out["jax"], flag
+        for name in ("post.nc", "obs_post.nc"):
+            _same_nc(tmp_path, name)
+        _same_csv(tmp_path, "stats.csv")
+    monkeypatch.chdir(tmp_path / "in")
     (tmp_path / "in" / "bad.csv").write_text("foo,bar\n1,2\n")
     with pytest.raises(SystemExit):
         tcli.main(base[:3] + ["--obs", "bad.csv", "--out", "x.nc",
@@ -307,21 +316,26 @@ def test_config_load_reads_a_jax_file_and_drops_tpu_fields(tmp_path):
 
 @pytest.mark.parametrize("mxu_bf16", [True, False])
 def test_config_load_mxu_bf16(mxu_bf16, tmp_path):
-    """``mxu_bf16: true`` changes the products' precision: refused;
-    ``false`` is dropped."""
+    """``mxu_bf16`` is a field of the port's config (the B2, B2h and B3
+    products in bf16): ``load`` keeps it in either state, where ``true``
+    raised and ``false`` was dropped with a warning before the product
+    modes were ported, and the port's file carries it back to the JAX
+    package."""
     path = str(tmp_path / "cfg.json")
     with open(path, "w") as f:
         json.dump({"mxu_bf16": mxu_bf16, "fast_geometry": True}, f)
-    if mxu_bf16:
-        with pytest.raises(NotImplementedError, match="B-next 5"):
-            FilterConfig.load(path)
-    else:
-        with pytest.warns(UserWarning, match="mxu_bf16"):
-            assert FilterConfig.load(path).fast_geometry
-    # the JAX package's own file with the knob on
-    JConfig(fast_geometry=True, use_pallas=False, mxu_bf16=True).save(path)
-    with pytest.raises(NotImplementedError, match="mxu_bf16"):
-        FilterConfig.load(path)
+    cfg = FilterConfig.load(path)
+    assert cfg.mxu_bf16 is mxu_bf16 and cfg.fast_geometry
+    cfg.save(path)
+    assert JConfig.load(path).mxu_bf16 is mxu_bf16
+    # the JAX package's own file with the knob set: only its route field
+    # is dropped
+    JConfig(fast_geometry=True, use_pallas=False, mxu_bf16=mxu_bf16).save(
+        path)
+    with pytest.warns(UserWarning, match="use_pallas") as rec:
+        cfg = FilterConfig.load(path)
+    assert "dropped FilterConfig field(s) use_pallas:" in str(rec[0].message)
+    assert cfg.mxu_bf16 is mxu_bf16 and cfg.fast_geometry
 
 
 def test_config_load_typo_still_raises(tmp_path):

@@ -213,6 +213,10 @@ def test_kernel_wrappers_enter_the_tensors_device(wrapper, monkeypatch):
             monkeypatch.setattr(mod, name, getattr(mod, name))
     monkeypatch.setattr(precision_probe, "launches_by_mode",
                         dict(precision_probe.launches_by_mode))
+    for mod in (ensrf_fused, ensrf_grid):
+        monkeypatch.setattr(mod, "launches_by_mode",
+                            {k: dict(v) for k, v in
+                             mod.launches_by_mode.items()})
     _launch(wrapper)
     assert len(calls) == 1 and not current
     assert calls[0][1] == [torch.device("cpu")], calls

@@ -109,23 +109,28 @@ def test_update_with_inflation_and_outlier_check_matches_jax():
     assert tobs.qc_outlier.any()
 
 
-@pytest.mark.parametrize("kw,missing", [
-    (dict(config=FilterConfig(dtype="float64",
-                              matmul_precision="tensorfloat32")), "B-next 5"),
-    (dict(config=FilterConfig(dtype="float64",
-                              matmul_precision="bfloat16")), "B-next 5"),
-    (dict(config=FilterConfig(dtype="float64", matmul_precision="high")),
-     "B-next 5"),
+@pytest.mark.parametrize("kw", [
+    dict(config=FilterConfig(dtype="float64",
+                             matmul_precision="tensorfloat32")),
+    dict(config=FilterConfig(dtype="float64", matmul_precision="bfloat16")),
+    dict(config=FilterConfig(dtype="float64", matmul_precision="high")),
 ])
-def test_unported_paths_raise(kw, missing):
-    """What is still not ported raises, naming its ROADMAP item: products
-    below fp32.  (RTPS/RTPP, ``obs_order``, ``spatial_sort`` and
-    ``obs_chunk`` run: ``tests/test_torch_ensrf_options.py``; inflation
-    from a file: ``tests/test_torch_inflation_files.py``; ``mesh=``:
-    ``tests/test_torch_sharded.py``.)"""
+def test_unported_paths_raise(kw):
+    """What raised until the product modes were ported now runs: products
+    below fp32 leave a float64 update on the CPU in fp32, the default
+    config's posterior bit for bit (every value and solver:
+    ``tests/test_torch_precision_modes.py``).  Nothing of the EnSRF's
+    configuration raises ``NotImplementedError`` any more (RTPS/RTPP,
+    ``obs_order``, ``spatial_sort`` and ``obs_chunk``:
+    ``tests/test_torch_ensrf_options.py``; inflation from a file:
+    ``tests/test_torch_inflation_files.py``; ``mesh=``:
+    ``tests/test_torch_sharded.py``)."""
     _, _, tstate, tbatch = _pair()
-    with pytest.raises(NotImplementedError, match=missing):
-        EnSRF(tstate, tbatch, verbose=False, **kw).update()
+    post, _ = EnSRF(tstate, tbatch, verbose=False, **kw).update()
+    ref, _ = EnSRF(tstate, tbatch, verbose=False,
+                   config=FilterConfig(dtype="float64")).update()
+    np.testing.assert_array_equal(interop.state_to_numpy(post),
+                                  interop.state_to_numpy(ref))
 
 
 def test_exact_haversine_raises_on_cuda_and_mesh_raises():
@@ -139,7 +144,6 @@ def test_exact_haversine_raises_on_cuda_and_mesh_raises():
     filt = EnSRF(tstate, tbatch, verbose=False,
                  config=FilterConfig(dtype="float32", fast_geometry=False))
     filt.device = torch.device("cuda")
-    filt._check_ported()
     assert filt._route(tstate.structure.nstate) == "B4"
     assert filt._tail_kernels()
     with pytest.raises(ValueError, match="single-device"):
@@ -164,21 +168,19 @@ def test_float64_on_the_card_routes_to_the_plain_update(dtype, cuda, route):
     assert filt._tail_kernels() == (route != "plain")
 
 
-@pytest.mark.parametrize("precision,runs", [
-    (None, True), ("highest", True), ("float32", True), ("default", False),
-    ("high", False), ("bfloat16", False), ("tensorfloat32", False)])
-def test_matmul_precision_runs_fp32_and_refuses_lower(precision, runs):
-    """Every product of the port is fp32: the settings that mean fp32 run
-    and match the default; the lower ones raise at ``update()`` until the
-    tensor-core work gives them a meaning (ROADMAP B-next 5)."""
+@pytest.mark.parametrize("precision", [
+    None, "highest", "float32", "default", "high", "bfloat16",
+    "tensorfloat32"])
+def test_matmul_precision_runs_fp32_and_refuses_lower(precision):
+    """Every setting runs; on the CPU every one is fp32, as the JAX
+    package's CPU ignores the hint, and matches the default bit for bit
+    (the lower settings, which raised until the product modes were
+    ported, reach the tensor cores only on the card:
+    ``ops/precision.product_mode``)."""
     _, _, tstate, tbatch = _pair()
     cfg = FilterConfig(dtype="float64", localization="GC",
                        matmul_precision=precision)
     filt = EnSRF(tstate, tbatch, verbose=False, config=cfg)
-    if not runs:
-        with pytest.raises(NotImplementedError, match="B-next 5"):
-            filt.update()
-        return
     post, _ = filt.update()
     ref, _ = EnSRF(tstate, tbatch, verbose=False,
                    config=FilterConfig(dtype="float64",

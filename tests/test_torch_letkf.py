@@ -605,8 +605,8 @@ def test_letkf_class_matches_jax(kw):
 def test_letkf_topk_and_solve_precision_settings_agree():
     """``letkf_topk="approx"`` and every ``letkf_solve_precision`` run the
     exact selection and true fp64/fp32 solve (the JAX package's CPU
-    behaviour; lowering them waits for ROADMAP B-next 5): the analyses
-    are identical.  Unknown values raise."""
+    behaviour; the LETKF has no body kernel, and only those take a lower
+    product mode): the analyses are identical.  Unknown values raise."""
     _, _, tstate, tbatch = _pair(ntimes=1, ny=10, nx=10, nmems=12, seed=1,
                                  nobs=15, radius=900.0)
     outs = []
@@ -666,9 +666,16 @@ def test_letkf_refusals(case):
         "hybrid": (ValueError, "EnSRF solver only",
                    dict(hybrid_alpha=0.5, static_b_sigma=1.0,
                         static_b_length=500.0)),
-        "matmul_precision": (NotImplementedError, "B-next 5",
-                             dict(matmul_precision="bfloat16")),
+        # Refused until the product modes were ported; now it runs, and
+        # the LETKF (no body kernel) gives the default config's posterior.
+        "matmul_precision": (None, None, dict(matmul_precision="bfloat16")),
     }[case]
+    if err is None:
+        post, _ = LETKF(tstate, tbatch,
+                        config=FilterConfig(**kw, **extra)).update()
+        ref, _ = LETKF(tstate, tbatch, config=FilterConfig(**kw)).update()
+        assert torch.equal(post.data, ref.data)
+        return
     with pytest.raises(err, match=match):
         LETKF(tstate, tbatch, config=FilterConfig(**kw, **extra)).update()
 

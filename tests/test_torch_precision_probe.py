@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from efa_xray_tpu_torch.ops import precision_probe as pp
+from efa_xray_tpu_torch.ops.precision import round_tf32
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # f32 products of K = 64 terms of unit-normal entries (sums ~8) in another
@@ -74,18 +75,18 @@ def test_round_tf32_by_hand():
     want = torch.tensor([1.0 + ulp, -(1.0 + ulp), 1.0, 1.0 + 2 * ulp,
                          3.0 * 2.0 ** -20, 1.0, 0.0, float("inf"),
                          float("-inf")], dtype=torch.float32)
-    got = pp.round_tf32(x)
+    got = round_tf32(x)
     assert torch.equal(got, want)
-    assert torch.isnan(pp.round_tf32(torch.tensor([float("nan")]))).all()
+    assert torch.isnan(round_tf32(torch.tensor([float("nan")]))).all()
     # The low 13 mantissa bits are clear on every finite output.
-    r = pp.round_tf32(torch.randn(1000))
+    r = round_tf32(torch.randn(1000))
     assert not (r.view(torch.int32) & 0x1FFF).any()
 
 
 def test_tf32_plain_is_the_product_of_rounded_inputs():
     a, b = (torch.from_numpy(x) for x in _inputs(seed=2))
     got = pp.mm_plain(a, b, "tf32")
-    want = pp.round_tf32(a) @ pp.round_tf32(b)
+    want = round_tf32(a) @ round_tf32(b)
     assert torch.equal(got, want)
     ieee = pp.mm_plain(a, b, "ieee")
     assert 1e-5 < float((got - ieee).abs().max()) < 1e-1
