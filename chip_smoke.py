@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-26
+    python3 chip_smoke.py             # phases 0-27
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
                                       # width and cluster, B2 with parts of
@@ -189,12 +189,30 @@ Phases, each printing one line of results:
     setting whose mode is fp32 gives the fp32 posterior bit for bit),
     and ``mxu_bf16`` on a mesh of 2 shards of the card against the
     single-device update, one B2 body per shard in bf16.
+27. the port's examples (``efa_xray_tpu_torch/examples``): (a) each at
+    its default arguments through its compute steps on the card
+    (``gridded_assimilation`` with the EnSRF, the LETKF and ``--mesh``,
+    ``obs_pipeline`` with each solver, ``sensitivity_targeting``,
+    ``cycling_adaptive``, ``cycling_smoother`` with and without ``--iau
+    4``, ``multivariate_swe``, ``efa_demo``): wall, launches and the
+    numbers the script prints, its own assertions holding, held against
+    the same example on the CPU in the same process (float32 at the f32
+    gate, float64 at 1e-9; the cyclers at their first analysis, the rest
+    of the chaotic run reported; the float32 LETKF at phase 19's gate
+    against the CPU's and the float64 one); (b) ``gridded_assimilation`` at
+    BASELINE config 2's size (361 x 720 x 8 lead times, 40 members, 2,000
+    obs) through the EnSRF (B1 + B4, held against the plain blocked
+    update), the LETKF and a mesh of the card (bit for bit the EnSRF),
+    cold and warm walls, launches, peak memory and the obs-space and
+    field RMSE; (c) ``real_data_ingest``'s in-process part (the station
+    CSV through ``cli.read_obs_csv``, the CLI's update and its RMSE
+    check), against the CPU.
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
 same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-26 with one warm headline update, the
+``--profile`` replaces phases 2-27 with one warm headline update, the
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
 ``torch.profiler`` (the profiler walks every traced event): wall and
@@ -202,7 +220,7 @@ device-busy time, the busy share, the device ops that take the most time,
 and the share of the headline's (row tile, obs block) pairs and 8-ob
 panels that the cull keeps alive.
 
-``--steps`` replaces phases 2-26 with B1 at 512 x 80 and 1024 x 256 at
+``--steps`` replaces phases 2-27 with B1 at 512 x 80 and 1024 x 256 at
 sub-panels of 8 and 16 on one CTA and on each cluster that holds the
 panel, the parent commit's B1 beside them where
 ``build/efa_xray_tpu_torch/parent/tail_solve.cu`` exists, and B1 at 512 x
@@ -4457,6 +4475,405 @@ def phase26(dev="cuda", **cut):
     return dict(kernels=a, edges=edges, api=b)
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the port's examples (efa_xray_tpu_torch/examples) on the card.
+
+# (a) Each example at its default arguments, with the kernels its compute
+# steps launch on the card (as :func:`_only` takes them: None at least
+# once, every kernel not named never).  The float64 examples (sensitivity
+# targeting, the Lorenz-96 cyclers) and the LETKF and EnKF take the plain
+# torch route; the unlocalized point update of efa_demo takes B2's body.
+EXAMPLES27 = (
+    ("gridded_assimilation", [], dict(B1=None, B4=None)),
+    ("gridded_assimilation", ["--solver", "letkf"], {}),
+    ("gridded_assimilation", ["--mesh"], dict(B1=None, B4=None)),
+    ("obs_pipeline", [], dict(B1=None, B2=None)),
+    ("obs_pipeline", ["--solver", "enkf"], {}),
+    ("obs_pipeline", ["--solver", "letkf"], {}),
+    ("sensitivity_targeting", [], {}),
+    ("cycling_adaptive", [], {}),
+    ("cycling_smoother", [], {}),
+    ("cycling_smoother", ["--iau", "4"], {}),
+    ("multivariate_swe", [], dict(B1=None, B4=None)),
+    ("efa_demo", [], dict(B1=None, B2=None)),
+)
+# The examples whose inputs come from a torch.Generator, which draws
+# differently on the card and on the CPU: their CPU run gets the card's.
+TORCH_SEEDED27 = ("cycling_adaptive", "cycling_smoother", "multivariate_swe")
+# (b) gridded_assimilation at BASELINE config 2's size: a 0.5-degree
+# grid's 361 x 720 points, 40 members, 2,000 obs (the script's 8 lead
+# times: 2,079,360 state points).
+CONFIG2_27 = dict(ny=361, nx=720, nmems=40, nobs=2000)
+# The float32 LETKF on the card against the one on the CPU, and against
+# the float64 LETKF: phase 19's gate (RMS gaps of the mean and the
+# perturbations within 1e-2 of the increment RMS).  Near-ties at rank k
+# of the obs selection break differently by device and dtype, and a
+# patch that takes another k-th ob moves by that ob's share.
+LETKF_GATE27 = 1e-2
+
+
+def _to_cpu(x):
+    """Tensors and EnsembleStates, and dicts of them, on the CPU."""
+    import torch
+
+    from efa_xray_tpu_torch import EnsembleState
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, EnsembleState):
+        return x.to("cpu")
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def _example_run(mod, args, inp, sync):
+    """``mod.run(args, inp)`` with the launch counts reset before it, its
+    own prints swallowed: ``(result, wall seconds, launches)``."""
+    import io
+
+    _reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = mod.run(args, inp)
+    sync()
+    return res, time.perf_counter() - t0, _counts()
+
+
+def _gap(label, got, want, tol) -> float:
+    """Max abs difference of ``got`` from ``want`` (tensors, arrays,
+    numbers, dicts of them, or DataFrames: text columns equal, numeric
+    ones compared), raising outside ``tol``: 32 the f32 gate
+    (:func:`compare`), 64 rtol and atol 1e-9."""
+    import pandas as pd
+    import torch
+
+    from efa_xray_tpu_torch.interop import to_host
+
+    if isinstance(got, pd.DataFrame):
+        check(list(got.columns) == list(want.columns)
+              and list(got.index) == list(want.index),
+              f"{label}: the tables' columns or rows differ")
+        gaps = [0.0]
+        for col in got.columns:
+            g, w = got[col].to_numpy(), want[col].to_numpy()
+            if g.dtype.kind in "fi":
+                gaps.append(_gap(f"{label} {col}", g, w, tol))
+            else:
+                check(list(g) == list(w), f"{label} {col}: differs")
+        return max(gaps)
+    if isinstance(got, dict):
+        return max(_gap(f"{label} {k}", got[k], want[k], tol) for k in got)
+    g = torch.from_numpy(np.array(to_host(got), dtype=np.float64))
+    w = torch.from_numpy(np.array(to_host(want), dtype=np.float64))
+    check(g.shape == w.shape, f"{label}: shapes {g.shape} and {w.shape}")
+    if tol == 32:
+        return compare(label, g, w)
+    err = (g - w).abs()
+    check(not bool((err > 1e-9 + 1e-9 * w.abs()).any()),
+          f"{label}: max abs err {float(err.max()):.3e} outside 1e-9")
+    return float(err.max()) if err.numel() else 0.0
+
+
+class _Built:
+    """While open, records each construction of ``cls``: ``(state, a deep
+    copy of the obs, keyword arguments)``."""
+
+    def __init__(self, cls):
+        self.cls, self.made = cls, []
+
+    def __enter__(self):
+        import copy
+
+        real = self.real = self.cls.__init__
+        made = self.made
+
+        def init(obj, state, obs, *a, **k):
+            made.append((state, copy.deepcopy(obs), k))
+            real(obj, state, obs, *a, **k)
+
+        self.cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.real
+
+
+class _EnkfDraws:
+    """While open, ``enkf.draw_ob_perturbations`` records its draws; with
+    ``replay`` set it hands them back instead, moved to the device asked
+    for, so that the CPU run of an EnKF example takes the card's table."""
+
+    def __enter__(self):
+        from efa_xray_tpu_torch.assimilation import enkf
+
+        self.real, self.draws, self.replay = (enkf.draw_ob_perturbations,
+                                              [], False)
+
+        def draw(seed, errors, nmems, scale=True):
+            if self.replay:
+                return self.draws.pop(0).to(errors.device)
+            eps = self.real(seed, errors, nmems, scale=scale)
+            self.draws.append(eps)
+            return eps
+
+        enkf.draw_ob_perturbations = draw
+        return self
+
+    def __exit__(self, *exc):
+        from efa_xray_tpu_torch.assimilation import enkf
+
+        enkf.draw_ob_perturbations = self.real
+
+
+def _letkf_float64(built):
+    """The recorded LETKF (:class:`_Built`) again in float64 on its
+    state's device: ``(posterior, batch)``."""
+    import dataclasses
+
+    from efa_xray_tpu_torch import LETKF
+
+    state, obs, k = built.made[0]
+    k = dict(k, config=dataclasses.replace(k["config"], dtype="float64"),
+             mesh=None, verbose=False)
+    return LETKF(state.astype("float64"), obs, **k).update()
+
+
+def _stats_gap(got, want) -> float:
+    """Largest difference of any CycleStats field over the run."""
+    fields = ("analysis_rmse", "background_rmse", "mean_spread",
+              "obs_prior_rmse", "obs_post_rmse", "analysis_crps")
+    return max(abs(getattr(g, f) - getattr(w, f))
+               for g, w in zip(got, want) for f in fields)
+
+
+def _hold27(name, argv, inp, res, cpu, first, first_cpu, built) -> dict:
+    """One example's card result ``res`` (from ``inp``) against its CPU
+    run ``cpu``: the gaps by quantity (raising outside the gates)."""
+    label = f"phase 27 (a) {name} {' '.join(argv)}".rstrip()
+    if "letkf" in argv:
+        prior = inp["state"]
+        post64, _ = _letkf_float64(built)
+        out, out_cpu = (r.get("batch", r.get("out")) for r in (res, cpu))
+        return dict(
+            vs_cpu=_posterior_gap(f"{label} card vs CPU", res["post"],
+                                  cpu["post"].to(prior.device), prior,
+                                  gate=LETKF_GATE27),
+            vs_float64=_posterior_gap(f"{label} float32 vs float64",
+                                      res["post"], post64, prior,
+                                      gate=LETKF_GATE27),
+            obs_post_mean_max_not_gated=float(np.abs(
+                out.post_mean - out_cpu.post_mean).max()),
+            prior_mean=_gap(f"{label} prior_mean", out.prior_mean,
+                            out_cpu.prior_mean, 32))
+    if name in ("gridded_assimilation", "efa_demo"):
+        gaps = dict(posterior=_gap(f"{label} posterior", res["post"].data,
+                                   cpu["post"].data, 32))
+        if name == "efa_demo":
+            gaps["variance rows"] = _gap(
+                f"{label} variance rows",
+                np.concatenate([res["prior_var"], res["post_var"]]),
+                np.concatenate([cpu["prior_var"], cpu["post_var"]]), 32)
+            return gaps
+        gaps["statistics"] = _gap(f"{label} statistics", res["stats"],
+                                  cpu["stats"], 32)
+        keys = ("obs_rmse_prior", "obs_rmse_post", "field_rmse_prior",
+                "field_rmse_post")
+        gaps["rmse"] = _gap(f"{label} RMSE", {k: res[k] for k in keys},
+                            {k: cpu[k] for k in keys}, 32)
+        return gaps
+    if name == "obs_pipeline":
+        gaps = dict(posterior=_gap(f"{label} posterior", res["post"].data,
+                                   cpu["post"].data, 32))
+        for f in ("prior_mean", "prior_var", "post_mean", "post_var"):
+            gaps[f] = _gap(f"{label} {f}", getattr(res["out"], f),
+                           getattr(cpu["out"], f), 32)
+        gaps["desroziers"] = _gap(f"{label} Desroziers", res["desroziers"],
+                                  cpu["desroziers"], 32)
+        return gaps
+    if name == "sensitivity_targeting":
+        check(res["best"] == cpu["best"], f"{label}: the pick differs")
+        keys = ("j0_mean", "j0_spread", "frac_sig", "dj_var_pred",
+                "dj_mean_pred", "dj_realized", "var_j0", "var_j1")
+        return dict(
+            numbers=_gap(f"{label} numbers", {k: res[k] for k in keys},
+                         {k: cpu[k] for k in keys}, 64),
+            impact=_gap(f"{label} impact", res["impact"], cpu["impact"], 64),
+            sensitivity=_gap(f"{label} sensitivity",
+                             res["sens"]["sensitivity"],
+                             cpu["sens"]["sensitivity"], 64))
+    if name == "multivariate_swe":
+        keys = ("background_rmse", "analysis_rmse",
+                "forecast_background_rmse", "forecast_analysis_rmse")
+        return dict(
+            analysis=_gap(f"{label} analysis", res["post"], cpu["post"], 32),
+            rmse=_gap(f"{label} RMSE", {k: res[k] for k in keys},
+                      {k: cpu[k] for k in keys}, 32),
+            cycles_max_not_gated=_stats_gap(res["stats"], cpu["stats"]))
+    # The Lorenz-96 cyclers, float64: the first analysis at 1e-9; the
+    # chaotic run after it reported.
+    return dict(
+        first_analysis=max(
+            _gap(f"{label} first analysis {part}", first["out"][i],
+                 first_cpu["out"][i], 64)
+            for i, part in enumerate(("mean", "perturbations"))),
+        cycles_max_not_gated=_stats_gap(res["stats"], cpu["stats"]))
+
+
+def _report27(mod, args, res) -> str:
+    """The lines the example prints, one line, blanks collapsed."""
+    return " | ".join(" ".join(line.split())
+                      for text in mod.report(args, res)
+                      for line in text.splitlines() if line.strip())
+
+
+def phase27(dev="cuda", c2=None, names=None):
+    """The port's examples on the card: (a) each at its default arguments
+    through its compute steps, its launches, wall and printed numbers,
+    held against the same example on the CPU in the same process; (b)
+    gridded_assimilation at BASELINE config 2's size through the EnSRF
+    (B1 + B4, held against the plain blocked update), the LETKF and a
+    mesh of the card (bit for bit the single-device update), cold and
+    warm walls and peak memory; (c) real_data_ingest's in-process part
+    (the station CSV through ``cli.read_obs_csv`` and the CLI's update,
+    no netCDF)."""
+    import importlib
+    import io
+
+    import torch
+
+    from efa_xray_tpu_torch import LETKF
+
+    sync = _syncer(dev)
+    cuda = torch.device(dev).type == "cuda"
+    load = lambda n: importlib.import_module(f"efa_xray_tpu_torch.examples.{n}")
+    a, single = {}, None
+    for name, argv, kernels in EXAMPLES27:
+        if names is not None and name not in names:
+            continue
+        mod = load(name)
+        label = f"{name} {' '.join(argv)}".rstrip()
+        args = mod.parse_args(argv + ["--device", str(dev)])
+        args_cpu = mod.parse_args(argv + ["--device", "cpu"])
+        inp = mod.inputs(args)
+        inp_cpu = (_to_cpu(inp) if name in TORCH_SEEDED27
+                   else mod.inputs(args_cpu))
+        with _EnkfDraws() as draws, _Built(LETKF) as built:
+            with _FirstCall() as first:
+                res, wall, counts = _example_run(mod, args, inp, sync)
+            draws.replay = True
+            with _FirstCall() as first_cpu, contextlib.redirect_stdout(
+                    io.StringIO()):
+                cpu = mod.run(args_cpu, inp_cpu)
+            if cuda:
+                check(_only(**kernels)(counts),
+                      f"phase 27 (a) {label}: launches {counts}")
+            gaps = _hold27(name, argv, inp, res, cpu, first.got,
+                           first_cpu.got, built)
+        a[label] = dict(wall_s=wall, launches=counts, gaps=gaps)
+        if name == "gridded_assimilation" and not argv:
+            single = res["post"]
+        elif name == "gridded_assimilation" and "--mesh" in argv:
+            check(single is None or bool(torch.equal(res["post"].data,
+                                                     single.data)),
+                  "phase 27 (a): the mesh's posterior is not the "
+                  "single-device one bit for bit")
+        log(f"phase 27 (a) {label}: wall {wall:.3f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, against the CPU "
+            f"{json.dumps(gaps)}; prints: {_report27(mod, args, res)}")
+    del single
+
+    # (b) gridded_assimilation at BASELINE config 2's size.
+    p = dict(CONFIG2_27, **(c2 or {}))
+    mod = load("gridded_assimilation")
+    base = ["--ny", str(p["ny"]), "--nx", str(p["nx"]), "--nmems",
+            str(p["nmems"]), "--nobs", str(p["nobs"]), "--device", str(dev)]
+    args = mod.parse_args(base)
+    t0 = time.perf_counter()
+    inp = mod.inputs(args)
+    sync()
+    inputs_s = time.perf_counter() - t0
+    state = inp["state"]
+    b = dict(points=state.structure.nstate, nmems=state.structure.nmems,
+             nobs=len(inp["obs"]), inputs_s=inputs_s,
+             state_gb=state.data.numel() * state.data.element_size() / 1e9)
+    posts = {}
+    for key, extra, kernels, warm in (
+            ("ensrf", [], dict(B1=None, B4=None), True),
+            ("letkf", ["--solver", "letkf"], {}, False),
+            ("mesh", ["--mesh"], dict(B1=None, B4=None), True)):
+        args = mod.parse_args(base + extra)
+        run_inp = dict(inp, mesh=mod.make_mesh(args))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res, cold, counts = _example_run(mod, args, run_inp, sync)
+        walls = dict(cold_s=cold)
+        if warm:
+            del res
+            res, walls["warm_s"], counts = _example_run(mod, args, run_inp,
+                                                        sync)
+        check(_only(**kernels)(counts) if cuda else True,
+              f"phase 27 (b) {key}: launches {counts}")
+        check(bool(torch.isfinite(res["post"].data).all()),
+              f"phase 27 (b) {key}: posterior not finite")
+        check(res["obs_rmse_post"] < res["obs_rmse_prior"],
+              f"phase 27 (b) {key}: the obs-space RMSE did not drop")
+        b[key] = dict(walls, launches={k: v for k, v in counts.items() if v},
+                      peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                               if cuda else None),
+                      **{k: res[k] for k in (
+                          "obs_rmse_prior", "obs_rmse_post",
+                          "field_rmse_prior", "field_rmse_post")})
+        posts[key] = res["post"]
+        del res
+    check(bool(torch.equal(posts["mesh"].data, posts["ensrf"].data)),
+          "phase 27 (b): the mesh's posterior is not the single-device one "
+          "bit for bit")
+    del posts["mesh"], posts["letkf"]
+    from efa_xray_tpu_torch import FilterConfig
+
+    sync()
+    t0 = time.perf_counter()
+    bm, _, pbm, pbp = _plain_update(state, inp["obs"],
+                                    FilterConfig(localization="GC",
+                                                 method="blocked"),
+                                    inflation=1.05)
+    sync()
+    v = posts["ensrf"].to_vect()
+    mean = v.mean(dim=1)
+    b["plain"] = dict(
+        seconds=time.perf_counter() - t0,
+        mean_max_abs_err=compare("phase 27 (b) EnSRF mean vs plain", mean,
+                                 pbm),
+        perts_max_abs_err=compare("phase 27 (b) EnSRF perturbations vs "
+                                  "plain", v - mean[:, None], pbp),
+        increment_rms=float(torch.sqrt(torch.mean((pbm - bm) ** 2))))
+    del posts, state, inp, bm, pbm, pbp, v, mean
+    log(f"phase 27 (b) gridded_assimilation at config 2's size "
+        f"{json.dumps(b)}")
+
+    # (c) real_data_ingest without netCDF files.
+    mod = load("real_data_ingest")
+    work = os.path.join(_scratch_dir(), "ingest27")
+    args = mod.parse_args(["--device", str(dev), "--workdir", work])
+    args_cpu = mod.parse_args(["--device", "cpu", "--workdir", work])
+    res, wall, counts = _example_run(mod, args, mod.inputs(args), sync)
+    check(_only(B1=None, B4=None)(counts) if cuda else True,
+          f"phase 27 (c): launches {counts}")
+    cpu = mod.run(args_cpu, mod.inputs(args_cpu))
+    c = dict(wall_s=wall, launches={k: v for k, v in counts.items() if v},
+             rmse_prior=res["rmse_prior"], rmse_post=res["rmse_post"],
+             gaps=dict(posterior=_gap("phase 27 (c) posterior",
+                                      res["post"].data, cpu["post"].data,
+                                      32),
+                       statistics=_gap("phase 27 (c) statistics",
+                                       res["stats"], cpu["stats"], 32)))
+    log(f"phase 27 (c) real_data_ingest in process (read_obs_csv, the "
+        f"CLI's update) {json.dumps(c)}")
+    return dict(a=a, b=b, c=c)
+
+
 # P's products are timed as runs of this many calls back to back.
 P_INNER = 20
 
@@ -5074,6 +5491,7 @@ def main() -> int:
     timed(phase24)
     timed(phase25)
     modes = timed(phase26)
+    timed(phase27)
     # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
     # a localized recurrence), in any product mode: their library_ms is
     # null.

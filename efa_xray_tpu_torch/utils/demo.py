@@ -29,3 +29,13 @@ def apply_device(args):
 
     device = getattr(args, "device", "cuda")
     return default_device(None if device == "cuda" else device)
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (a no-op off the card), so
+    that a host clock read after it times the device's work."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -86,17 +86,20 @@ def gefs_like_state(
     hours = np.arange(ntimes) * step_hours
 
     def smooth_noise(shape, n_modes=6):
-        """Random low-wavenumber field -> spatially correlated errors."""
+        """Random low-wavenumber field -> spatially correlated errors.
+        Each mode is separable: its two sines are taken on the 1-D axes
+        and broadcast, the same numbers as on the 2-D grid at a
+        fraction of the cost."""
         field = np.zeros(shape)
         for _ in range(n_modes):
             ky, kx = rng.uniform(0.5, 3.0, 2)
             phy, phx = rng.uniform(0, 2 * np.pi, 2)
             amp = rng.normal(0, 1.0)
             field += amp * np.sin(
-                ky * np.pi * (lat - lat_range[0]) / (lat_range[1] - lat_range[0]) + phy
-            ) * np.sin(
-                kx * np.pi * (lon - lon_range[0]) / (lon_range[1] - lon_range[0]) + phx
-            )
+                ky * np.pi * (lat1d - lat_range[0]) / (lat_range[1] - lat_range[0]) + phy
+            )[:, None] * np.sin(
+                kx * np.pi * (lon1d - lon_range[0]) / (lon_range[1] - lon_range[0]) + phx
+            )[None, :]
         return field / np.sqrt(n_modes)
 
     def error_draw():

@@ -279,6 +279,11 @@ def test_port_imports_without_jax(tmp_path):
         assert "efa_xray_tpu_torch.cli" in names
         assert "efa_xray_tpu_torch.models.cycling" in names
         assert "efa_xray_tpu_torch.parallel.sharded" in names
+        assert {f"efa_xray_tpu_torch.examples.{n}" for n in (
+            "gridded_assimilation", "obs_pipeline", "sensitivity_targeting",
+            "cycling_adaptive", "cycling_smoother", "multivariate_swe",
+            "real_data_ingest", "efa_demo", "interactive_viewer")
+        } <= set(names)
         rng = np.random.default_rng(0)
         lon, lat = np.meshgrid(np.linspace(230, 240, 6),
                                np.linspace(40, 48, 5))
