@@ -7,8 +7,9 @@ Usage, from the root of a checkout::
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
                                       # width and cluster, B2 with parts of
-                                      # its design switched off, and the
-                                      # grid kernel (B3, B4) at each tile,
+                                      # its design switched off, the grid
+                                      # kernel (B3, B4) at each tile, and
+                                      # B2-B4's product modes part by part,
                                       # beside the parent commit's kernels
 
 Phases, each printing one line of results:
@@ -233,9 +234,19 @@ grid kernel (B3 at config 3's shape and at 80 members, B4 at phase 7's
 shapes) at tiles of 32 and 64 points, with parts of it compiled out
 (``-DEFA_GRID_SKIP``: what the chain, the trailing update, D0 and the apply
 cost) and, where ``build/efa_xray_tpu_torch/parent/ensrf_grid.cu`` exists,
-the kernel of that file on the same operands.  Put the parent commit's
-sources there with ``git show <commit>:efa_xray_tpu_torch/csrc/<file>``
-(the directory is git-ignored).
+the kernel of that file on the same operands; then the product modes
+(``mode_steps_phase``): B2 and B2h on phase 3's workload, B3 at config 3's
+shape and B4 at one block of config 3 and of the 1024 x 1024 x 80 grid,
+each in fp32 (bit for bit the parent's), TF32 and bf16 beside the kernel
+of ``build/efa_xray_tpu_torch/parent/ensrf_fused.cu`` / ``ensrf_grid.cu``
+where those exist, with the mode kernels' parts compiled out
+(``-DEFA_FUSED_SKIP``, ``-DEFA_GRID_SKIP``: the rounding of L, D0, the
+apply; ``-DEFA_MMA_PROBE``: the mma instructions, the fragment loads),
+each kernel's modes at both tiles, and whether the fp32
+instantiations compile to the parent's machine code.  Put the parent
+commit's sources there with ``git show
+<commit>:efa_xray_tpu_torch/csrc/<file>`` (``mma_modes.cuh`` too; the
+directory is git-ignored).
 
 Any failure raises and exits non-zero; without a GPU the script exits
 non-zero before doing anything.  It never imports JAX.
@@ -4085,6 +4096,7 @@ def _b2_block_fns(args):
 
     bits, rest = args[4], args[5:]
     by_dtype = {}
+    _, bsz, nmems = args[1].shape
 
     def sliced(s, dtype):
         if dtype not in by_dtype:
@@ -4093,8 +4105,16 @@ def _b2_block_fns(args):
         return (geom, y_b[s], ggt_b[s], tab_b[s],
                 None if bits is None else bits[:, s], *rest)
 
-    return (lambda bm, bp, s, mode: ensrf_fused.fused_apply(
-                bm, bp, *sliced(s, bp.dtype), precision=mode),
+    def launch(bm, bp, s, mode):
+        # The kernel in a mode runs at that mode's tile (the cull bits are
+        # computed at it).
+        check(mode == "ieee" or rest[0] == ensrf_fused.pick_tile(
+            bsz, nmems, rest[4], mode), f"B2 at {nmems} members: the tile "
+            f"{rest[0]} is not the one of mode {mode}")
+        return ensrf_fused.fused_apply(bm, bp, *sliced(s, bp.dtype),
+                                       precision=mode)
+
+    return (launch,
             lambda bm, bp, s, mode, ops: ensrf_fused.fused_apply_plain(
                 bm, bp, *sliced(s, bp.dtype), precision=mode, operands=ops),
             args[1].shape[0])
@@ -5431,6 +5451,270 @@ def b1_steps_phase():
         del args, want
 
 
+# Where --steps looks for the parent commit's B2 (see the module
+# docstring; its mma_modes.cuh beside it), and the parts of the
+# tensor-core modes that builds with -DEFA_FUSED_SKIP / -DEFA_GRID_SKIP
+# leave out (csrc/ensrf_fused.cu, csrc/ensrf_grid.cu): (B2's bits, the
+# grid kernel's bits); ("probe", bits): -DEFA_MMA_PROBE in both
+# (csrc/mma_modes.cuh: the mma instructions, the fragment loads).
+PARENT_FUSED_SOURCE = os.path.join("build", "efa_xray_tpu_torch", "parent",
+                                   "ensrf_fused.cu")
+MODE_PARTS = {"the rounding of L": (4, 32), "D0": (1, 4), "the apply": (2, 8),
+              "both products": (3, 12), "products and rounding": (7, 44),
+              "the mma instructions": ("probe", 1),
+              "the fragment loads": ("probe", 2)}
+# The fp32 instantiations, whose code the modes' redesign leaves as it was.
+IEEE_KERNELS = {"ensrf_fused.cu": ("fused_body_kernelILb0ELi0E",
+                                   "fused_body_kernelILb1ELi0E"),
+                "ensrf_grid.cu": ("grid_body_kernelILi2ELi0E",
+                                  "grid_body_kernelILi3ELi0E")}
+
+
+def _build_variants(specs):
+    """Builds ``{name: (source, flags)}``, one ``nvcc`` each, all started
+    together, into ``build/efa_xray_tpu_torch/variants``; binds each
+    library's entries as :mod:`~efa_xray_tpu_torch.ops._build` does.
+    Returns ``{name: library}``."""
+    import ctypes
+
+    from efa_xray_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "efa_xray_tpu_torch", "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for i, (name, (src, flags)) in enumerate(specs.items()):
+        out = os.path.join(out_dir, f"libmode_{i}.so")
+        procs[name] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o", out,
+             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"steps: nvcc failed for {name}:\n{text}")
+        lib = ctypes.CDLL(out)
+        for fn, argtypes in _build._SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def _ieee_sass_check():
+    """Whether each fp32 instantiation of B2/B2h and of the grid kernel
+    compiles to the parent commit's machine code: both sources to
+    ``-cubin``, ``cuobjdump -sass``, each kernel's listing compared.
+    Returns ``{kernel: "same" | "differs in n of m lines" | "no parent"}``."""
+    from efa_xray_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "efa_xray_tpu_torch", "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+
+    def listings(src, tag):
+        cubin = os.path.join(out_dir, f"{tag}.cubin")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-cubin", "-o",
+                        cubin, src], check=True, capture_output=True)
+        text = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True).stdout
+        out, name = {}, None
+        for line in text.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                out[name] = []
+            elif name is not None and "/*" in line:
+                out[name].append(line.strip())
+        return out
+
+    res = {}
+    for src, kernels in IEEE_KERNELS.items():
+        parent = os.path.join(root, "build", "efa_xray_tpu_torch", "parent",
+                              src)
+        if not os.path.exists(parent):
+            res.update(dict.fromkeys(kernels, "no parent"))
+            continue
+        own = listings(str(_build.CSRC / src), "own_" + src)
+        old = listings(parent, "parent_" + src)
+        for k in kernels:
+            a = next(v for n, v in own.items() if k in n)
+            b = next(v for n, v in old.items() if k in n)
+            diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+            res[k] = ("same" if diff == 0 else
+                      f"differs in {diff} of {max(len(a), len(b))} lines")
+    return res
+
+
+def mode_steps_phase():
+    """What the tensor-core modes' redesign changed, beside the parent
+    commit's kernels on the same operands: B2 and B2h on phase 3's
+    workload, B3 at config 3's shape, B4 at one block of config 3 and of
+    the 1024 x 1024 x 80 grid, each in fp32 (bit for bit the parent's),
+    TF32 and bf16; the mode kernels with parts left out (``MODE_PARTS``:
+    the rounding passes, D0, the apply; wrong results, timed only); the
+    grid kernel's modes at both tiles; and whether the fp32
+    instantiations' machine code is the parent's."""
+    import torch
+
+    from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+    from efa_xray_tpu_torch.ops import _build, ensrf_fused, ensrf_grid
+    from efa_xray_tpu_torch.ops import precision as prec
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    log(f"steps modes: fp32 machine code against the parent's: "
+        f"{_ieee_sass_check()}")
+    specs = {}
+    for part, (fbits, gbits) in MODE_PARTS.items():
+        flags = ((f"-DEFA_MMA_PROBE={gbits}",) * 2 if fbits == "probe" else
+                 (f"-DEFA_FUSED_SKIP={fbits}", f"-DEFA_GRID_SKIP={gbits}"))
+        specs[("B2", part)] = (str(_build.CSRC / "ensrf_fused.cu"),
+                               [flags[0]])
+        specs[("grid", part)] = (str(_build.CSRC / "ensrf_grid.cu"),
+                                 [flags[1]])
+    for key, src in (("B2", PARENT_FUSED_SOURCE),
+                     ("grid", PARENT_GRID_SOURCE)):
+        if os.path.exists(os.path.join(root, src)):
+            specs[(key, "parent")] = (os.path.join(root, src), [])
+        else:
+            log(f"steps modes: no {src}; the parent's {key} is not timed")
+    libs = _build_variants(specs)
+
+    def with_lib(lib, fn, parent=False):
+        """``fn()`` with ``lib`` as the kernel library; the parent's
+        kernels round their own Y, so they get it unrounded."""
+        saved = _build.lib, prec.staged_y
+        _build.lib = lambda: lib
+        if parent:
+            prec.staged_y = lambda y, mode: y
+        try:
+            return fn()
+        finally:
+            _build.lib, prec.staged_y = saved
+
+    def report(label, run, key, tiles, reps):
+        """``run(mode, tile)`` -> outputs; ``tiles(mode)``: the tiles to
+        time (the wrapper's first)."""
+        line = []
+        for mode in ("ieee", "tf32", "bf16"):
+            want = run(mode, tiles(mode)[0])
+            timed = [(f"tile {t}", lambda t=t: run(mode, t))
+                     for t in tiles(mode)]
+            if (key, "parent") in libs:
+                timed.append(("parent", lambda: with_lib(
+                    libs[(key, "parent")], lambda: run(mode, None), True)))
+            ms = {}
+            for name, fn in timed + timed[::-1]:
+                got = fn()
+                torch.cuda.synchronize()
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                if mode == "ieee" and name == "parent":
+                    check(err == 0.0, f"steps modes {label}: the fp32 "
+                          f"kernel is not the parent's bit for bit ({err})")
+                ms.setdefault(name, []).append(cuda_ms(fn, reps))
+                ms[name + " err"] = [err]
+            parts = {}
+            if mode != "ieee" or key == "grid":
+                for part in MODE_PARTS:
+                    parts[part] = with_lib(
+                        libs[(key, part)],
+                        lambda: cuda_ms(lambda: run(mode, tiles(mode)[0]),
+                                        reps))
+            line.append(f"{mode}: " + ", ".join(
+                f"{n} {min(v):.3f} ms" if not n.endswith("err") else
+                f"{n} {v[0]:.2e}" for n, v in ms.items()) + (
+                "; without " + ", without ".join(
+                    f"{p} {v:.3f} ms" for p, v in parts.items())
+                if parts else ""))
+        log(f"steps modes {label}: " + " | ".join(line))
+
+    w = _b2_workload()
+    for hybrid in (False, True):
+        kw = {}
+        if hybrid:
+            gen = torch.Generator(device="cuda").manual_seed(141)
+            kw = dict(hybrid=True, body_sigma=2.0 + 2.0 * torch.rand(
+                w["n"], generator=gen, device="cuda"), static_length=1000.0)
+        tail = w["tail"]
+        if hybrid:
+            from efa_xray_tpu_torch.assimilation import ensrf_core as core
+            tail = core.tail_scan_blocked(
+                w["tm"], w["tp"], w["obs"], localize=True,
+                fast_geometry=True, panel=512, kernels=True,
+                max_radius_km=2000.0, hybrid_alpha=0.5,
+                tail_sigma=2.0 + 2.0 * torch.rand(
+                    w["nobs"], generator=gen, device="cuda"),
+                static_length=1000.0)
+        ops = {m: ensrf_fused.prepare(w["bp"], w["lat"], w["lon"], tail,
+                                      w["obs"], block_size=128,
+                                      max_radius_km=2000.0, precision=m,
+                                      **kw)
+               for m in ("ieee", "tf32", "bf16")}
+        # The cull bits at either tile (the kernel takes 32 rows here).
+        bits = {t: ensrf_fused.cull_bits(
+            latlon_to_unit(w["lat"], w["lon"]),
+            latlon_to_unit(w["obs"].lats, w["obs"].lons),
+            (torch.clamp(w["obs"].radii, min=1000.0) if hybrid
+             else w["obs"].radii), w["obs"].assim, t,
+            ops["ieee"]["y_b"].shape[0], 128) for t in (32, 64)}
+
+        def run(mode, tile, ops=ops, hybrid=hybrid, bits=bits):
+            o = ops[mode]
+            t = tile or o["tile"]
+            return ensrf_fused.fused_apply_cuda(
+                w["bm"], w["bp"], o["geom"], o["y_b"], o["ggt_b"],
+                o["tab_b"], bits[t], t, True, False, o["series"], hybrid,
+                precision=mode)
+
+        report(f"{'B2h' if hybrid else 'B2'} 262,144 x 80 x 2048 obs", run,
+               "B2", lambda mode: [ops[mode]["tile"], 96 - ops[mode]["tile"]],
+               5)
+        del ops
+    del w
+    bsz = 128
+    for label, dims, b3 in (
+            ("config 3 (80 groups x 16,200 x 30, 5,000 obs)",
+             dict(ny=90, nx=180, vt=80, nmems=30, nobs=5000, seed=61,
+                  group_levels=np.tile(C3_LEVELS, 4)), True),
+            ("1024x1024 x 80 members (vt 1)",
+             dict(ny=1024, nx=1024, vt=1, nmems=80, nobs=512, seed=72),
+             False)):
+        c = _grid_case(**dims)
+        vertical = dims["vt"] > 1
+        ops = ensrf_grid.grid_prepare(
+            c["bp"], c["body_vert"], c["tail"], c["obs"], c["ngrid"],
+            block_size=bsz, vertical=vertical,
+            group_factor=c["gf"] if vertical else None)
+        nb = ops["y_b"].shape[0] if b3 else 1
+        wts = ensrf_grid.grid_weights(
+            latlon_to_unit(c["lat"], c["lon"]),
+            ops["ob_xyz"][:nb * bsz], ops["radii"][:nb * bsz]).reshape(
+                nb, bsz, c["ngrid"])
+        table = ops["table"]
+        args = (wts, None if table is None else table[:, :nb].contiguous(),
+                ops["y_b"][:nb], ops["ggt_b"][:nb], ops["coef_b"][:nb])
+        tiles = lambda mode: sorted(
+            (t for t in (32, 64) if ensrf_grid.ctas_per_sm(
+                t, bsz, dims["nmems"], mode) >= 1),
+            key=lambda t: t != ensrf_grid.pick_tile(bsz, dims["nmems"],
+                                                    mode))
+        for entry in (("B3", "B4") if b3 else ("B4",)):
+            a = args if entry == "B3" else tuple(
+                None if t is None else (t[:, :1] if i == 1 else t[:1])
+                for i, t in enumerate(args))
+
+            def run(mode, tile, entry=entry, a=a):
+                return ensrf_grid.grid_apply_cuda(
+                    entry, c["bm"], c["bp"], *a, ops["vt"],
+                    tile=tile or PARENT_GRID_TILE, precision=mode)
+
+            report(f"{entry} {label}{'' if entry == 'B3' else ', one block'}",
+                   run, "grid", tiles, 3 if entry == "B3" else 5)
+        del c, ops, wts, args
+
+
 def steps_phase():
     """What the parts of B1's and B2's design buy: B1 at each sub-panel
     and cluster, then B2 on phase 3's workload and on the headline body,
@@ -5445,6 +5729,7 @@ def steps_phase():
                  w["lat"], w["lon"], tail_phase(), w["obs"], w["radius"], 2)
     del tail_phase, w
     grid_steps_phase()
+    mode_steps_phase()
 
 
 def main() -> int:

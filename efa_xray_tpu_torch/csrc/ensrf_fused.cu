@@ -80,12 +80,14 @@
 //
 // The two large products, D0 and the apply, run in one of three modes, the
 // template parameter kMode (ops/precision.py product_mode): fp32 FMA (the
-// register tiles above), or TF32 or bf16 tensor cores (mma_modes.cuh: a warp
-// per 16 rows x one alive panel for D0, per 16 rows x 8 members over the
-// alive panels for the apply; inputs rounded where fused_apply_plain rounds
-// them: X and Y in D0, g o U (B2h: V) and Y in the apply).  Everything else
-// (the corrections, the weights, the 8 x 8 triangle, the mean) is fp32 in
-// every mode, and the layout and the shared memory are the same.
+// register tiles above), or TF32 or bf16 tensor cores (mma_modes.cuh),
+// each operand rounded once where fused_apply_plain rounds it: Y by the
+// wrapper (y_b arrives rounded), X in D0's registers (D0 runs transposed,
+// a warp per 8 rows over the alive panels), g o U (B2h: V) in place in U
+// after the substitution.  The corrections, the weights, the 8 x 8
+// triangle and the mean are fp32 in every mode.  The mode layout
+// (make_mode_layout) is the fp32 one with U's rows T + 4 words apart and
+// the X and Y rows at least the staged K wide.
 //
 // Shared memory (floats; make_layout below, mirrored by ops/ensrf_fused.py
 // smem_bytes): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp, T], partial sums
@@ -101,6 +103,18 @@
 #include "mma_modes.cuh"
 
 namespace {
+
+// Parts of the tensor-core modes that a build with -DEFA_FUSED_SKIP=<bits>
+// leaves out, to time what each costs (no profiler sees inside a kernel
+// here): the results of such a build are wrong.  0 in every build that is
+// used; the fp32 mode has no such switch.
+#ifndef EFA_FUSED_SKIP
+#define EFA_FUSED_SKIP 0
+#endif
+constexpr int kSkipD0 = 1, kSkipApply = 2, kSkipRound = 4;
+__host__ __device__ constexpr bool skips(int part) {
+  return (EFA_FUSED_SKIP & part) != 0;
+}
 
 constexpr int kThreads = 256;
 constexpr int kPanel = 8;
@@ -272,6 +286,32 @@ __host__ __device__ inline Layout make_layout(int T, int B, int M,
   return L;
 }
 
+// The layout of the tensor-core modes (mma_modes.cuh): the fp32 one with
+// U's rows T + 4 words apart and the X and Y rows at least the staged K.
+__host__ __device__ inline Layout make_mode_layout(int T, int B, int M,
+                                                   bool hybrid, int mode) {
+  Layout L;
+  L.Ys = efa_mma::mode_row_stride(mode, M);
+  L.Bp = (B + kPanel - 1) / kPanel * kPanel;
+  L.ysz = L.Bp * L.Ys + 4 * (L.Bp / kPanel);
+  L.tabsz = round4((hybrid ? kTabHybrid : kTabPure) * B);
+  int o = 0;
+  L.x = o, o += T * L.Ys;
+  L.y = o, o += L.ysz;
+  L.u = o, o += L.Bp * efa_mma::u_stride(mode, T);
+  L.scr = o, o += 16 * kThreads;
+  L.g = o, o += 2 * kPanel * L.Bp;
+  L.wb = o, o += kPanel * T;
+  L.sb = o, o += hybrid ? kPanel * T : 0;
+  L.tab = o, o += L.tabsz;
+  L.geo = o, o += (hybrid ? 5 : 4) * T;
+  L.xm = o, o += T;
+  L.macc = o, o += T;
+  L.plist = o, o += round4(2 * (L.Bp / kPanel));
+  L.total = o;
+  return L;
+}
+
 // Row j of the Y buffer: rows are Ys apart and every panel of 8 starts 4
 // words later than the rows alone would put it, so that the rows of
 // different panels that a warp reads at once in D0 fall into different
@@ -344,7 +384,9 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
   constexpr int kTab = kHybrid ? kTabHybrid : kTabPure;
   constexpr int kGeo = kHybrid ? 5 : 4;
   extern __shared__ __align__(16) float smem[];
-  const Layout L = make_layout(T, B, M, kHybrid);
+  const Layout L = kMode == efa_mma::kIeee
+                       ? make_layout(T, B, M, kHybrid)
+                       : make_mode_layout(T, B, M, kHybrid, kMode);
   const int Ys = L.Ys, Bp = L.Bp;
   float* Xs = smem + L.x;      // [T, Ys]
   float* Ysm = smem + L.y;     // [Bp rows, skewed]
@@ -358,6 +400,8 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
   float* xm = smem + L.xm;     // [T]
   float* macc = smem + L.macc; // [T] mean increment of the block
   int* plist = reinterpret_cast<int*>(smem + L.plist);  // [2][npanels]
+  // U's row stride: T, or T + 4 in the tensor-core modes (mma_modes.cuh).
+  const int Us = efa_mma::u_stride(kMode, T);
 
   const int tid = threadIdx.x;
   const int nth = kThreads;
@@ -381,6 +425,7 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     xm[r] = bm_in[r0 + r];
     for (int c = 0; c < kGeo; ++c) geo[c * T + r] = geom[(long)c * N + r0 + r];
   }
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
 
   // The block's alive-panel word (all ones without a cull).
   const unsigned pmask = npanels >= 32 ? 0xFFFFFFFFu : (1u << npanels) - 1u;
@@ -393,6 +438,18 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
   };
   // Y and the table of block b, asynchronously.
   auto fetch = [&](int b) {
+    if constexpr (kMode == efa_mma::kBf16) {
+      // Rows of round16(M) bf16 values from the wrapper: whole 16 bytes.
+      const int kw = efa_mma::staged_words(kMode, M), c4 = kw >> 2;
+      const float* yw = y_b + (long)b * B * kw;
+      for (int idx = tid; idx < B * c4; idx += nth) {
+        const int j = idx / c4, c = idx - j * c4;
+        cp_async16(Ysm + yrow(j, Ys) + 4 * c, yw + (long)j * kw + 4 * c);
+      }
+      copy_async(tab, tab_b + (long)b * kTab * B, kTab * B, vec & kVecTab,
+                 tid, nth);
+      return;
+    }
     const float* yb = y_b + (long)b * B * M;
     float* yd = Ysm;
     if (vec & kVecY) {
@@ -433,8 +490,6 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
 
   const int RG = T >> 2, rgsh = tsh - 2;  // D0: groups of 4 rows
   const int RT = T >> 4;                  // tensor-core tiles of 16 rows
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
-  const auto yr = [Ys](int j) { return yrow(j, Ys); };
   const int half = T >> 1;                // corrections: pairs of rows
   const int KS = nth / half;              // slices of the reduction
   const int ks = tid / half, rp = tid - ks * half;
@@ -464,11 +519,15 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     if (tid < T) macc[tid] = 0.0f;
 
     // D0 = X Y^T over the alive panels: 4 rows x 4 obs per thread, or on
-    // the tensor cores a warp per 16 rows x one panel.
+    // the tensor cores a warp per 8 rows over every alive panel.
     if constexpr (kMode != efa_mma::kIeee) {
-      for (int wt = warp; wt < RT * na; wt += nwarps)
-        efa_mma::d0_tile<kMode>(Xs, Ys, Ysm, yr, U, T, 16 * (wt % RT),
-                                kPanel * pl[wt / RT], Mp, lane);
+      if (warp < (T >> 3) && !skips(kSkipD0))
+        efa_mma::d0t_warp<kMode, 12, 4, 2>(
+            Xs, Ys, Ysm,
+            [pl, Ys](int p, int i) { return yrow(kPanel * pl[p] + i, Ys); },
+            [pl](int p) { return kPanel * pl[p]; }, na,
+            efa_mma::staged_words(kMode, M) * 4 / efa_mma::kStepBytes, U, Us,
+            8 * warp, lane);
     }
     for (int task = tid; kMode == efa_mma::kIeee && task < RG * 2 * na;
          task += nth) {
@@ -530,7 +589,7 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
             float2 uv[4];
 #pragma unroll
             for (int ii = 0; ii < 4; ++ii)
-              uv[ii] = *reinterpret_cast<const float2*>(U + (i0 + ii) * T +
+              uv[ii] = *reinterpret_cast<const float2*>(U + (i0 + ii) * Us +
                                                         2 * rp);
 #pragma unroll
             for (int t = 0; t < kPanel; ++t) {
@@ -564,7 +623,7 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
         if (ns) {
           float corr = 0.f;
           for (int s = 0; s < ns; ++s) corr += scr[(s * kPanel + t) * T + r];
-          U[j * T + r] -= corr;
+          U[j * Us + r] -= corr;
         }
         if (localize || kHybrid) {
           const float dist = chord_dist(tab, B, j, geo, T, r, series);
@@ -591,7 +650,7 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
 #pragma unroll
             for (int i = 0; i < t; ++i)
               corr = fmaf(Gp[t * Bp + base + i], ur[i], corr);
-            float d = U[j * T + r] - corr;
+            float d = U[j * Us + r] - corr;
             if (localize) d *= Wb[t * T + r];
             if (kHybrid) {
               const float s = Sb[t * T + r];
@@ -601,7 +660,7 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
               mloc += tab[j] * d;
             }
             ur[t] = d;
-            U[j * T + r] = d;
+            U[j * Us + r] = d;
           }
         }
         macc[r] += mloc;
@@ -610,37 +669,53 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
       __syncthreads();
     }
 
-    if (!kHybrid) {
-      // U <- g o U on the alive panels, so that the apply is X -= U^T Y in
-      // both instantiations.
-      for (int idx = tid; idx < na * kPanel * RG; idx += nth) {
-        const int c = idx & (RG - 1), jt = idx >> rgsh;
-        const int j = kPanel * pl[jt >> 3] + (jt & 7);
-        if (j < B) {
-          const float g = tab[B + j];
-          float4* p = reinterpret_cast<float4*>(U + j * T + 4 * c);
-          float4 v = *p;
-          v.x *= g, v.y *= g, v.z *= g, v.w *= g;
-          *p = v;
-        }
-      }
-      __syncthreads();
-    }
     if constexpr (kMode != efa_mma::kIeee) {
-      const int NT = (Mp + 7) >> 3;  // tiles of 8 members
-      for (int wt = warp; wt < RT * NT; wt += nwarps)
-        efa_mma::apply_tile<kMode>(Xs, Ys, Ysm, yr, U, T, 16 * (wt % RT),
-                                   8 * (wt / RT), pl, na, Mp, lane);
-    } else if (Mp <= 32)
-      apply_tiles<2>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
-    else if (Mp <= 64)
-      apply_tiles<4>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
-    else if (Mp <= 80)
-      apply_tiles<5>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
-    else if (Mp <= 128)
-      apply_tiles<8>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
-    else
-      apply_tiles<16>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+      // The apply on the tensor cores: g o U (B2h: V) rounded in place, then
+      // X -= U^T Y over the alive panels, a warp per 16 rows x every
+      // (8 / RT)-th tile of 8 members.
+      const auto ob = [pl](int i) { return kPanel * pl[i >> 3] + (i & 7); };
+      if (!skips(kSkipRound))
+        efa_mma::round_left<kMode>(
+            U, Us, T, kPanel * na, B, ob,
+            [tab, B](int j) { return kHybrid ? 1.0f : tab[B + j]; }, tid,
+            nth);
+      __syncthreads();
+      if (!skips(kSkipApply))
+        efa_mma::apply_warp<kMode, 4, 2>(
+            Xs, Ys, U, [pl, Us](int a, int i) {
+              return (kPanel * pl[a] + i) * Us;
+            }, Us, Ysm,
+            [pl, Ys](int a, int i) { return yrow(kPanel * pl[a] + i, Ys); },
+            na, M, 16 * (warp % RT), warp / RT, nwarps / RT, (M + 7) >> 3,
+            lane);
+    } else {
+      if (!kHybrid) {
+        // U <- g o U on the alive panels, so that the apply is X -= U^T Y in
+        // both instantiations.
+        for (int idx = tid; idx < na * kPanel * RG; idx += nth) {
+          const int c = idx & (RG - 1), jt = idx >> rgsh;
+          const int j = kPanel * pl[jt >> 3] + (jt & 7);
+          if (j < B) {
+            const float g = tab[B + j];
+            float4* p = reinterpret_cast<float4*>(U + j * T + 4 * c);
+            float4 v = *p;
+            v.x *= g, v.y *= g, v.z *= g, v.w *= g;
+            *p = v;
+          }
+        }
+        __syncthreads();
+      }
+      if (Mp <= 32)
+        apply_tiles<2>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+      else if (Mp <= 64)
+        apply_tiles<4>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+      else if (Mp <= 80)
+        apply_tiles<5>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+      else if (Mp <= 128)
+        apply_tiles<8>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+      else
+        apply_tiles<16>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+    }
     if (tid < T) xm[tid] += macc[tid];
 
     if (nxt < nb) {
@@ -674,8 +749,15 @@ int launch(const float* bm_in, const float* bp_in, const float* geom,
   if ((T != 32 && T != 64) || N <= 0 ||
       M <= 0 || B <= 0 || nb <= 0 || (bits && npanels > 32))
     return (int)cudaErrorInvalidValue;
+  // bf16: Y arrives as rows of round16(M) bf16 values, copied 16 bytes at a
+  // time.
+  if (kMode == efa_mma::kBf16 && !aligned16(y_b))
+    return (int)cudaErrorInvalidValue;
   const int smem =
-      (int)sizeof(float) * make_layout(T, B, M, kHybrid).total;
+      (int)sizeof(float) * (kMode == efa_mma::kIeee
+                                ? make_layout(T, B, M, kHybrid)
+                                : make_mode_layout(T, B, M, kHybrid, kMode))
+                               .total;
   cudaError_t e = cudaFuncSetAttribute(fused_body_kernel<kHybrid, kMode>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem);

@@ -75,12 +75,15 @@
 //
 // The two large products, D0 and the apply, run in one of three modes, the
 // template parameter kMode (ops/precision.py product_mode): fp32 FMA (the
-// register tiles above), or TF32 or bf16 tensor cores (mma_modes.cuh: a warp
-// per 16 points x one panel for D0, per 16 points x 8 members over all
-// panels for the apply; inputs rounded where grid_apply_plain rounds them:
-// X and Y in D0, sqrt_coef o U and Y in the apply).  The substitution, the
-// weights, the table and the mean are fp32 in every mode; the layout and
-// the shared memory are the same.
+// register tiles above), or TF32 or bf16 tensor cores (mma_modes.cuh),
+// each operand rounded once where grid_apply_plain rounds it: Y by the
+// wrapper (y_b arrives rounded), X in D0's registers (D0 runs transposed,
+// a warp per 8 points over every panel), sqrt_coef o U in place in U after
+// the substitution.  The substitution, the weights, the table and the mean
+// are fp32 in every mode.  The mode layout (make_mode_layout) is the fp32
+// one with U's rows T + 4 words apart and the X and Y rows at least the
+// staged K wide: at 30 members and 64 points it still fits three CTAs on
+// an SM, at 80 members two.
 //
 // Shared memory (floats; make_layout below, mirrored by ops/ensrf_grid.py
 // smem_bytes): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp, T], ring [kSlots] of
@@ -112,7 +115,7 @@ constexpr int kSlots = 1 + kAhead;
 #define EFA_GRID_SKIP 0
 #endif
 constexpr int kSkipChain = 1, kSkipUpdate = 2, kSkipD0 = 4, kSkipApply = 8,
-              kSkipPanels = 16;
+              kSkipPanels = 16, kSkipRound = 32;
 __host__ __device__ constexpr bool skips(int part) { return (EFA_GRID_SKIP & part) != 0; }
 // Shared memory of an SM, and what the system keeps of it for each CTA.
 constexpr int kSmSmemBytes = 233472;
@@ -208,6 +211,30 @@ __host__ __device__ inline Layout make_layout(int T, int B, int M) {
   return L;
 }
 
+// The layout of the tensor-core modes (mma_modes.cuh): the fp32 one with
+// U's rows T + 4 words apart and the X and Y rows at least the staged K.
+__host__ __device__ inline Layout make_mode_layout(int T, int B, int M,
+                                                   int mode) {
+  Layout L;
+  L.Ys = efa_mma::mode_row_stride(mode, M);
+  L.Bp = (B + kPanel - 1) / kPanel * kPanel;
+  int o = 0;
+  L.x = o, o += T * L.Ys;
+  L.y = o, o += L.Bp * L.Ys + 4 * (L.Bp / kPanel);
+  L.u = o, o += L.Bp * efa_mma::u_stride(mode, T);
+  L.g = o, o += kSlots * L.Bp * kPanel;
+  L.w = o, o += kSlots * kPanel * T;
+  L.cf = o, o += round4(kCoef * B);
+  L.xm = o, o += T;
+  L.total = o;
+  return L;
+}
+
+__host__ __device__ inline Layout layout_of(int T, int B, int M, int mode) {
+  return mode == efa_mma::kIeee ? make_layout(T, B, M)
+                                : make_mode_layout(T, B, M, mode);
+}
+
 // CTAs per SM the launch plans for (mirrored by ops/ensrf_grid.py
 // ctas_per_sm): what fits by shared memory, at most 3.
 __host__ inline int ctas_per_sm(int smem) {
@@ -299,7 +326,8 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     int VT, int G, int M, int B, int nb, int T, int vec, float* bm_out,
     float* bp_out) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L = make_layout(T, B, M);
+  const Layout L = kMode == efa_mma::kIeee ? make_layout(T, B, M)
+                                           : make_mode_layout(T, B, M, kMode);
   const int Ys = L.Ys, Bp = L.Bp;
   float* Xs = smem + L.x;     // [T, Ys]
   float* Ysm = smem + L.y;    // [Bp rows, skewed]
@@ -308,6 +336,15 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
   float* Wr = smem + L.w;     // [kSlots][kPanel, T] weight rows of a panel
   float* cf = smem + L.cf;    // [kCoef, B]
   float* xm = smem + L.xm;    // [T]
+  // U's row stride: T, or T + 4 in the tensor-core modes (mma_modes.cuh),
+  // whose warps keep kModeTiles x kModeSplit mma chains in flight and hold
+  // kModeSteps k-steps of X at a time, as the registers that the CTAs per
+  // SM leave allow (measured: at two CTAs eight tiles of one chain beat
+  // four of two; at three, four of two beat four of one).
+  const int Us = efa_mma::u_stride(kMode, T);
+  constexpr int kModeTiles = kCtas >= 3 ? 4 : 8;
+  constexpr int kModeSplit = kCtas >= 3 ? 2 : 1;
+  constexpr int kModeSteps = kCtas >= 3 ? 8 : 12;
 
   const int tid = threadIdx.x;
   const int tile = blockIdx.x / VT;
@@ -334,8 +371,15 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
 
   // Y, the per-ob rows and the table row of block b, asynchronously.
   auto fetch_block = [&](int b) {
-    copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
-                    y_b + (long)b * B * M, M, B, M, vec & kVecY, tid);
+    if constexpr (kMode == efa_mma::kBf16) {
+      // Rows of round16(M) bf16 values from the wrapper: whole 16 bytes.
+      const int kw = efa_mma::staged_words(kMode, M);
+      copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
+                      y_b + (long)b * B * kw, kw, B, kw, true, tid);
+    } else {
+      copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
+                      y_b + (long)b * B * M, M, B, M, vec & kVecY, tid);
+    }
     copy_async(cf, coef_b + (long)b * 2 * B, 2 * B, vec & kVecC, tid);
     if (table)
       copy_async(cf + 2 * B, table + ((long)v * nb + b) * B, B, vec & kVecT,
@@ -390,7 +434,7 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
   const int RG = T >> 2, rgsh = tsh - 2;  // D0: groups of 4 rows
   const int RT = T >> 4;                  // tensor-core tiles of 16 points
   const int lane = tid & 31, warp = tid >> 5;
-  const auto yr = [Ys](int j) { return yrow(j, Ys); };
+  const auto ypanel = [Ys](int p, int i) { return yrow(kPanel * p + i, Ys); };
   // U[j, :] -= G[j, panel] U[panel, :] for jlo <= j < jhi (multiples of
   // 4), the panel's ggt columns at Gp and its obs from `base` on: 4 obs x 4
   // rows per thread, 8 deep.
@@ -399,13 +443,13 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     for (int task = tid; task < ntask; task += kThreads) {
       const int rq = task & (RG - 1);
       const int j0 = jlo + 4 * (task >> rgsh);
-      float* dp = U + j0 * T + 4 * rq;
+      float* dp = U + j0 * Us + 4 * rq;
       const float* gp = Gp + j0 * kPanel;
-      const float* up = U + base * T + 4 * rq;
+      const float* up = U + base * Us + 4 * rq;
       float4 acc[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
-        acc[a] = *reinterpret_cast<const float4*>(dp + a * T);
+        acc[a] = *reinterpret_cast<const float4*>(dp + a * Us);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float4 g4[4];
@@ -415,7 +459,7 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii) {
           const float4 u =
-              *reinterpret_cast<const float4*>(up + (4 * h + ii) * T);
+              *reinterpret_cast<const float4*>(up + (4 * h + ii) * Us);
 #pragma unroll
           for (int a = 0; a < 4; ++a) {
             const float g = ii == 0   ? g4[a].x
@@ -431,7 +475,7 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
       }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
-        *reinterpret_cast<float4*>(dp + a * T) = acc[a];
+        *reinterpret_cast<float4*>(dp + a * Us) = acc[a];
     }
   };
 
@@ -450,11 +494,13 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     __syncthreads();
 
     // D0 = X Y^T: 4 rows x 4 obs per thread, or on the tensor cores a warp
-    // per 16 points x one panel.
+    // per 8 points over every panel.
     if constexpr (kMode != efa_mma::kIeee) {
-      for (int wt = warp; wt < RT * npanels && !skips(kSkipD0); wt += kWarps)
-        efa_mma::d0_tile<kMode>(Xs, Ys, Ysm, yr, U, T, 16 * (wt % RT),
-                                kPanel * (wt / RT), Mp, lane);
+      if (warp < (T >> 3) && !skips(kSkipD0))
+        efa_mma::d0t_warp<kMode, kModeSteps, kModeTiles, kModeSplit>(
+            Xs, Ys, Ysm, ypanel, [](int p) { return kPanel * p; }, npanels,
+            efa_mma::staged_words(kMode, M) * 4 / efa_mma::kStepBytes, U, Us,
+            8 * warp, lane);
     }
     for (int task = tid; kMode == efa_mma::kIeee &&
                          task < RG * 2 * npanels && !skips(kSkipD0);
@@ -516,7 +562,7 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
           glo[t] = ghi[t] = make_float4(0.f, 0.f, 0.f, 0.f);
           if (t < width) {
             const int j = base + t;
-            d[t] = U[j * T + r];
+            d[t] = U[j * Us + r];
             gn[t] = cf[j];
             if (localize) wt[t] = Wp[t * T + r] * cf[2 * B + j];
             if (t > 0)
@@ -539,7 +585,7 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
         }
 #pragma unroll
         for (int t = 0; t < kPanel; ++t)
-          if (t < width) U[(base + t) * T + r] = ur[t];
+          if (t < width) U[(base + t) * Us + r] = ur[t];
         macc += mloc;
       }
       // Meanwhile the other warps fetch the panel kAhead ahead into the
@@ -557,33 +603,46 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
       if (++cslot == kSlots) cslot = 0;
     }
 
-    // U <- sqrt_coef o U, so that the apply is X -= U^T Y.
-    for (int idx = tid; idx < Bp * RG; idx += kThreads) {
-      const int c = idx & (RG - 1), j = idx >> rgsh;
-      if (j < B) {
-        const float g = cf[B + j];
-        float4* up = reinterpret_cast<float4*>(U + j * T + 4 * c);
-        float4 u = *up;
-        u.x *= g, u.y *= g, u.z *= g, u.w *= g;
-        *up = u;
+    if constexpr (kMode != efa_mma::kIeee) {
+      // The apply on the tensor cores: sqrt_coef o U rounded in place, then
+      // X -= U^T Y, a warp per 16 points x every (8 / RT)-th tile of 8
+      // members.
+      if (!skips(kSkipRound))
+        efa_mma::round_left<kMode>(
+            U, Us, T, Bp, B, [](int i) { return i; },
+            [cf, B](int j) { return cf[B + j]; }, tid, kThreads);
+      if (tid < T) {
+        xm[tid] += macc;
+        macc = 0.0f;
       }
-    }
-    if (tid < T) {
-      xm[tid] += macc;
-      macc = 0.0f;
-    }
-    __syncthreads();
-    if (skips(kSkipApply)) {
       __syncthreads();
-    } else if constexpr (kMode != efa_mma::kIeee) {
-      const int NT = (Mp + 7) >> 3;  // tiles of 8 members
-      for (int wt = warp; wt < RT * NT; wt += kWarps)
-        efa_mma::apply_tile<kMode>(Xs, Ys, Ysm, yr, U, T, 16 * (wt % RT),
-                                   8 * (wt / RT), nullptr, npanels, Mp,
-                                   lane);
+      if (!skips(kSkipApply))
+        efa_mma::apply_warp<kMode, kModeTiles, kModeSplit>(
+            Xs, Ys, U, [Us](int a, int i) { return (kPanel * a + i) * Us; },
+            Us, Ysm, ypanel, npanels, M, 16 * (warp % RT), warp / RT,
+            kWarps / RT, (M + 7) >> 3, lane);
       __syncthreads();
     } else {
-      apply_tiles(Xs, Ysm, U, Bp, T, Ys, Mp, tid);
+      // U <- sqrt_coef o U, so that the apply is X -= U^T Y.
+      for (int idx = tid; idx < Bp * RG; idx += kThreads) {
+        const int c = idx & (RG - 1), j = idx >> rgsh;
+        if (j < B) {
+          const float g = cf[B + j];
+          float4* up = reinterpret_cast<float4*>(U + j * T + 4 * c);
+          float4 u = *up;
+          u.x *= g, u.y *= g, u.z *= g, u.w *= g;
+          *up = u;
+        }
+      }
+      if (tid < T) {
+        xm[tid] += macc;
+        macc = 0.0f;
+      }
+      __syncthreads();
+      if (skips(kSkipApply))
+        __syncthreads();
+      else
+        apply_tiles(Xs, Ysm, U, Bp, T, Ys, Mp, tid);
     }
     // The apply ended on a barrier: Y and the per-ob rows are free.
     if (b + 1 < nb) fetch_block(b + 1);
@@ -648,6 +707,16 @@ decltype(&launch_as<kCtas, efa_mma::kIeee>) launcher(int mode) {
   }
 }
 
+// The kernel of `mode` for kCtas CTAs per SM (a valid mode).
+template <int kCtas>
+const void* kernel_of(int mode) {
+  if (mode == efa_mma::kTf32)
+    return (const void*)grid_body_kernel<kCtas, efa_mma::kTf32>;
+  if (mode == efa_mma::kBf16)
+    return (const void*)grid_body_kernel<kCtas, efa_mma::kBf16>;
+  return (const void*)grid_body_kernel<kCtas, efa_mma::kIeee>;
+}
+
 int launch(const float* bm_in, const float* bp_in, const float* w,
            const float* table, const float* y_b, const float* ggt_b,
            const float* coef_b, int VT, int G, int M, int B, int nb, int T,
@@ -655,7 +724,11 @@ int launch(const float* bm_in, const float* bp_in, const float* w,
   if ((T != 32 && T != 64) || VT <= 0 || G <= 0 || M <= 0 || B <= 0 ||
       nb <= 0 || nb > 0x7fffffff / ((B + kPanel - 1) / kPanel))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(float) * make_layout(T, B, M).total;
+  // bf16: Y arrives as rows of round16(M) bf16 values, copied 16 bytes at a
+  // time.
+  if (mode == efa_mma::kBf16 && !aligned16(y_b))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(float) * layout_of(T, B, M, mode).total;
   const long ctas = (long)VT * ((G + T - 1) / T);
   if (ctas > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
   const auto run =
@@ -694,15 +767,16 @@ int efa_block_apply(const float* bm_in, const float* bp_in, const float* w,
 // before the outputs.  A source without this entry predates the modes.
 int efa_grid_abi() { return 1; }
 
-// CTAs of the kernel that the card holds on one SM at this shape (by the
-// occupancy calculator, registers and shared memory included), or minus a
-// cudaError_t.
-int efa_grid_ctas_per_sm(int M, int B, int T) {
-  if ((T != 32 && T != 64) || M <= 0 || B <= 0) return -(int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(float) * make_layout(T, B, M).total;
+// CTAs of the kernel in product mode `mode` that the card holds on one SM
+// at this shape (by the occupancy calculator, registers and shared memory
+// included), or minus a cudaError_t.
+int efa_grid_ctas_per_sm(int M, int B, int T, int mode) {
+  if ((T != 32 && T != 64) || M <= 0 || B <= 0 || mode < efa_mma::kIeee ||
+      mode > efa_mma::kBf16)
+    return -(int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(float) * layout_of(T, B, M, mode).total;
   const bool three = ctas_per_sm(smem) >= 3;
-  const void* fn = three ? (const void*)grid_body_kernel<3, efa_mma::kIeee>
-                         : (const void*)grid_body_kernel<2, efa_mma::kIeee>;
+  const void* fn = three ? kernel_of<3>(mode) : kernel_of<2>(mode);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
@@ -711,10 +785,7 @@ int efa_grid_ctas_per_sm(int M, int B, int T) {
                              cudaSharedmemCarveoutMaxShared);
   int n = 0;
   if (e == cudaSuccess)
-    e = three ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &n, grid_body_kernel<3, efa_mma::kIeee>, kThreads, smem)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &n, grid_body_kernel<2, efa_mma::kIeee>, kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, smem);
   return e == cudaSuccess ? n : -(int)e;
 }
 

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "efa_fused_body": [_P] * 7 + [_I] * 10 + [_P] * 3,
     "efa_grid_body": [_P] * 7 + [_I] * 7 + [_P] * 3,
     "efa_block_apply": [_P] * 7 + [_I] * 6 + [_P] * 3,
-    "efa_grid_ctas_per_sm": [_I] * 3,
+    "efa_grid_ctas_per_sm": [_I] * 4,
     "efa_grid_abi": [],
     "efa_precision_mm": [_P] * 5 + [_I] * 4 + [_P],
 }

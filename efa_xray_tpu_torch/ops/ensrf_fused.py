@@ -45,6 +45,7 @@ from efa_xray_tpu_torch.observation.localization import (
     latlon_to_unit,
 )
 from efa_xray_tpu_torch.ops import _build
+from efa_xray_tpu_torch.ops import precision as prec
 from efa_xray_tpu_torch.ops.precision import MODES, round_inputs
 
 PANEL = 8
@@ -110,17 +111,21 @@ def _gc_poly(r, outer_form: str = "exact"):
 
 
 def smem_bytes(tile: int, block_size: int, nmems: int,
-               hybrid: bool = False) -> int:
+               hybrid: bool = False, precision: str = "ieee") -> int:
     """Shared memory of one CTA (mirrors ``make_layout`` in
-    ``csrc/ensrf_fused.cu``)."""
+    ``csrc/ensrf_fused.cu``, and ``make_mode_layout`` for the tensor-core
+    modes ``precision``)."""
     t, b, m = tile, block_size, nmems
     ys = 4 * (-(-m // 4) | 1)        # row stride of X and Y: 4 x odd words
     bp = -(-b // PANEL) * PANEL      # obs rounded up to whole panels
     ntab = len(TABLE_ROWS) + (len(HYBRID_ROWS) if hybrid else 0)
     round4 = lambda x: (x + 3) & ~3
+    us = prec.u_stride(precision, t)  # row stride of U
+    if precision != "ieee":
+        ys = prec.mode_row_stride(precision, m)
     return 4 * (t * ys                           # X
             + bp * ys + bp // 2                  # Y, panels skewed
-            + bp * t                             # d0 / u columns
+            + bp * us                            # d0 / u columns
             + 16 * THREADS                       # partial corrections
             + 2 * PANEL * bp                     # ring of ggt panel rows
             + PANEL * t * (2 if hybrid else 1)   # weights (, static columns)
@@ -130,15 +135,17 @@ def smem_bytes(tile: int, block_size: int, nmems: int,
             + round4(2 * (bp // PANEL)))         # alive-panel lists
 
 
-def pick_tile(block_size: int, nmems: int, hybrid: bool = False) -> int:
-    """Rows per CTA: 32 where two such CTAs fit an SM (measured faster
-    than one CTA of 64 rows: two CTAs hide each other's waits and the
-    cull is finer); else 64, or 32 when 64 would overflow shared memory.
-    The cull bits are computed at this tile."""
-    if smem_bytes(32, block_size, nmems, hybrid) <= TWO_CTA_SMEM_BYTES:
+def pick_tile(block_size: int, nmems: int, hybrid: bool = False,
+              precision: str = "ieee") -> int:
+    """Rows per CTA in product mode ``precision``: 32 where two such CTAs
+    fit an SM (measured faster than one CTA of 64 rows: two CTAs hide
+    each other's waits and the cull is finer); else 64, or 32 when 64
+    would overflow shared memory.  The cull bits are computed at this
+    tile."""
+    smem = lambda t: smem_bytes(t, block_size, nmems, hybrid, precision)
+    if smem(32) <= TWO_CTA_SMEM_BYTES:
         return 32
-    return (64 if smem_bytes(64, block_size, nmems, hybrid)
-            <= MAX_SMEM_BYTES else 32)
+    return 64 if smem(64) <= MAX_SMEM_BYTES else 32
 
 
 def series_form(max_radius_km, static_length=None) -> bool:
@@ -359,7 +366,7 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
         raise ValueError("B2 cull bits must be int32 [gtiles, nblocks]")
     if tile not in (32, 64):
         raise ValueError(f"B2 takes a tile of 32 or 64 rows, not {tile}")
-    smem = smem_bytes(tile, bsz, nmems, hybrid)
+    smem = smem_bytes(tile, bsz, nmems, hybrid, precision)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"B2 tile {tile} x block {bsz} x {nmems} members needs {smem} B "
@@ -369,6 +376,8 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
     else:
         out_m = torch.empty(nrows, dtype=f32, device=dev)
         out_p = torch.empty((nrows, nmems), dtype=f32, device=dev)
+    if precision != "ieee":  # Y rounded once for every CTA
+        y_b = prec.staged_y(y_b, precision)
     ins = [t.contiguous() for t in (bm, bp, geom, y_b, ggt_b, tab_b)]
     cbits = bits.contiguous() if bits is not None else None
     # The C entry sets its attributes on, and launches onto, the current
@@ -410,10 +419,12 @@ def fused_apply(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
 def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
             obs: ObsArrays, body_vert=None, localize: bool = True,
             block_size: int = 128, cull: bool = True, max_radius_km=None,
-            hybrid: bool = False, body_sigma=None, static_length=None):
+            hybrid: bool = False, body_sigma=None, static_length=None,
+            precision: str = "ieee"):
     """Kernel operands for :func:`fused_apply`, as ``_fused_impl``
     :564-704 builds them: a dict of ``geom, y_b, ggt_b, tab_b, bits, tile,
-    series``.  Hybrid mode (a hybrid ``tail``, ``body_sigma`` scalar or
+    series``, the tile (and the cull bits) that of product mode
+    ``precision``.  Hybrid mode (a hybrid ``tail``, ``body_sigma`` scalar or
     per row, ``static_length`` km) passes the raw Gram matrix, three more
     table rows (``sgain``, ``ssqrt``, ``1/static_length``), the sigma row
     as a fifth geometry row, and culls at ``max(radius, static_length)``
@@ -468,7 +479,7 @@ def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
         geo_rows.append(sigma_rows(body_sigma, bvert))
     geom = torch.stack(geo_rows)
 
-    tile = pick_tile(bsz, nmems, hybrid)
+    tile = pick_tile(bsz, nmems, hybrid, precision)
     npanels = -(-bsz // PANEL)
     # An int32 holds 32 panel bits (block_size 256); larger blocks run
     # without culling, as in the JAX package.
@@ -528,7 +539,8 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
                   body_vert=body_vert, localize=localize,
                   block_size=block_size, cull=cull,
                   max_radius_km=max_radius_km, hybrid=hybrid,
-                  body_sigma=body_sigma, static_length=static_length)
+                  body_sigma=body_sigma, static_length=static_length,
+                  precision=precision)
     return fused_apply(body_mean.to(body_perts.dtype), body_perts,
                        ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
                        ops["bits"], ops["tile"], localize,

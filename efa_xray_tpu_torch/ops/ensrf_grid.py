@@ -56,6 +56,7 @@ from efa_xray_tpu_torch.observation.localization import (
 )
 from efa_xray_tpu_torch.ops import _build
 from efa_xray_tpu_torch.ops.ensrf_fused import MAX_SMEM_BYTES, PANEL, _gc_poly
+from efa_xray_tpu_torch.ops import precision as prec
 from efa_xray_tpu_torch.ops.precision import MODES, round_inputs
 
 # Per-ob rows in the kernel's shared memory (csrc/ensrf_grid.cu kCoef).
@@ -77,36 +78,44 @@ b4_launches = 0
 launches_by_mode = {k: dict.fromkeys(MODES, 0) for k in ("B3", "B4")}
 
 
-def smem_bytes(tile: int, block_size: int, nmems: int) -> int:
+def smem_bytes(tile: int, block_size: int, nmems: int,
+               precision: str = "ieee") -> int:
     """Shared memory of one CTA (mirrors ``make_layout`` in
-    ``csrc/ensrf_grid.cu``)."""
+    ``csrc/ensrf_grid.cu``, and ``make_mode_layout`` for the tensor-core
+    modes ``precision``)."""
     t, b, m = tile, block_size, nmems
     ys = 4 * (-(-m // 4) | 1)        # row stride of X and Y: 4 x odd words
     bp = -(-b // PANEL) * PANEL      # obs rounded up to whole panels
+    us = prec.u_stride(precision, t)  # row stride of U
+    if precision != "ieee":
+        ys = prec.mode_row_stride(precision, m)
     return 4 * (t * ys                           # X
                 + bp * ys + bp // 2              # Y, panels skewed
-                + bp * t                         # d0 / u columns
+                + bp * us                        # d0 / u columns
                 + RING_SLOTS * bp * PANEL        # ring of ggt panel columns
                 + RING_SLOTS * PANEL * t         # ring of weight panel rows
                 + ((COEF_ROWS * b + 3) & ~3)     # per-ob rows
                 + t)                             # mean
 
 
-def ctas_per_sm(tile: int, block_size: int, nmems: int) -> int:
-    """CTAs per SM the kernel plans for at this shape (mirrors
-    ``ctas_per_sm`` in ``csrc/ensrf_grid.cu``): what fits by shared
-    memory, at most 3 (from there on the kernel is compiled for 85
-    registers a thread); 0 when one CTA does not fit."""
-    return min(3, SM_SMEM_BYTES // (smem_bytes(tile, block_size, nmems)
-                                    + CTA_RESERVED_BYTES))
+def ctas_per_sm(tile: int, block_size: int, nmems: int,
+                precision: str = "ieee") -> int:
+    """CTAs per SM the kernel plans for at this shape in product mode
+    ``precision`` (mirrors ``ctas_per_sm`` in ``csrc/ensrf_grid.cu``):
+    what fits by shared memory, at most 3 (from there on the kernel is
+    compiled for 85 registers a thread); 0 when one CTA does not fit."""
+    return min(3, SM_SMEM_BYTES // (
+        smem_bytes(tile, block_size, nmems, precision) + CTA_RESERVED_BYTES))
 
 
-def pick_tile(block_size: int, nmems: int) -> int:
+def pick_tile(block_size: int, nmems: int, precision: str = "ieee") -> int:
     """Grid points per CTA: 64 where at least two such CTAs share an SM
-    (three up to 36 members at blocks of 128, two up to 84: measured 23-28%
-    faster than the same number of CTAs of 32 points at 30 and at 80
-    members), else 32 (two CTAs up to 128 members, one beyond)."""
-    return 64 if ctas_per_sm(64, block_size, nmems) >= 2 else 32
+    (fp32: three up to 36 members at blocks of 128, two up to 84: measured
+    23-28% faster than the same number of CTAs of 32 points at 30 and at
+    80 members), else 32 (two CTAs up to 128 members, one beyond).  The
+    tensor-core modes' wider U keeps those counts at 30 and 80 members."""
+    return (64 if ctas_per_sm(64, block_size, nmems, precision) >= 2
+            else 32)
 
 
 def _gram_tables(y_b, sqrtc_b):
@@ -196,8 +205,8 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
             or (table is not None and table.shape != (vt, nblocks, bsz))):
         raise ValueError(f"{entry} operand shapes disagree")
     if tile is None:
-        tile = pick_tile(bsz, nmems)
-    smem = smem_bytes(tile, bsz, nmems)
+        tile = pick_tile(bsz, nmems, precision)
+    smem = smem_bytes(tile, bsz, nmems, precision)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{entry}: tile {tile} x block {bsz} x {nmems} members needs "
@@ -207,6 +216,8 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
     else:
         out_m = torch.empty(nrows, dtype=f32, device=dev)
         out_p = torch.empty((nrows, nmems), dtype=f32, device=dev)
+    if precision != "ieee":  # Y rounded once for every CTA
+        y_b = prec.staged_y(y_b, precision)
     ins = [None if t is None else t.contiguous()
            for t in (bm, bp, w, table, y_b, ggt_b, coef_b)]
     ptrs = [None if t is None else t.data_ptr() for t in ins]
@@ -234,12 +245,14 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
 
 
 def ctas_per_sm_on_card(tile: int, block_size: int, nmems: int,
-                        device=None) -> int:
-    """CTAs of the built kernel that the occupancy calculator of
-    ``device`` (the current CUDA device when None) puts on one SM at this
-    shape (registers and shared memory included)."""
+                        device=None, precision: str = "ieee") -> int:
+    """CTAs of the built kernel in product mode ``precision`` that the
+    occupancy calculator of ``device`` (the current CUDA device when None)
+    puts on one SM at this shape (registers and shared memory
+    included)."""
     with torch.cuda.device(device):
-        n = _build.lib().efa_grid_ctas_per_sm(nmems, block_size, tile)
+        n = _build.lib().efa_grid_ctas_per_sm(nmems, block_size, tile,
+                                              MODES.index(precision))
     _build.check(-n if n < 0 else 0, "ensrf_grid occupancy query")
     return n
 

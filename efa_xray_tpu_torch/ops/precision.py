@@ -42,6 +42,46 @@ _PRECISION_MODE = {None: "ieee", "highest": "ieee", "float32": "ieee",
                    "default": "bf16", "bfloat16": "bf16"}
 
 
+# The layouts of the tensor-core modes (mirrors of the helpers in
+# csrc/mma_modes.cuh; the body kernels' smem_bytes use them).
+STEP_BYTES = 32  # bytes of K per mma k-step: 8 TF32 or 16 bf16 values
+
+
+def staged_values(mode: str, n: int) -> int:
+    """Values of a row of ``n`` values padded with zeros to whole k-steps
+    (8 in TF32, 16 in bf16)."""
+    step = STEP_BYTES // (2 if mode == "bf16" else 4)
+    return -(-n // step) * step
+
+
+def mode_row_stride(mode: str, nmems: int) -> int:
+    """Row stride (floats) of the X and Y buffers in a tensor-core mode:
+    4 x odd, at least the staged K."""
+    return 4 * ((staged_values(mode, nmems) // 4) | 1)
+
+
+def u_stride(mode: str, tile: int) -> int:
+    """Row stride (floats) of U: the tile, and 4 more in the tensor-core
+    modes."""
+    return tile if mode == "ieee" else tile + 4
+
+
+def staged_y(y: torch.Tensor, mode: str) -> torch.Tensor:
+    """The Y operand a body kernel takes in tensor-core mode ``mode``
+    (``[..., M]`` float32 in): rounded once for every CTA, as
+    :func:`round_inputs` rounds it; TF32 as float32 ``[..., M]``, bf16 as
+    bfloat16 ``[..., staged_values(M)]`` with the pad zero, so that its
+    rows copy 16 bytes at a time."""
+    if mode == "tf32":
+        return round_tf32(y)
+    if mode != "bf16":
+        raise ValueError(f"no staged Y in mode {mode!r}")
+    out = torch.zeros((*y.shape[:-1], staged_values(mode, y.shape[-1])),
+                      dtype=torch.bfloat16, device=y.device)
+    out[..., :y.shape[-1]] = y
+    return out
+
+
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
     """Round float32 values to TF32 (10 mantissa bits), to nearest with
     ties away from zero, as ``cvt.rna.tf32.f32`` does.  The result is
