@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout::
 
-    python3 chip_smoke.py             # phases 0-27
+    python3 chip_smoke.py             # phases 0-28
     python3 chip_smoke.py --profile   # phases 0-1, then the profile phase
     python3 chip_smoke.py --steps     # phases 0-1, then B1 at each sub-panel
                                       # width and cluster, B2 with parts of
@@ -166,7 +166,7 @@ Phases, each printing one line of results:
     ``letkf_topk="host"`` on 2 (no kernel; the host selection rebuilt for
     2 shards), at the f32 kernel gate; (e) ``make_mesh()`` with its
     defaults, one device here, bit for bit; the launches (B1 once per
-    panel on the one distinct device, B2, B4 and B2h once per shard in
+    panel, on the mesh's first device, B2, B4 and B2h once per shard in
     the body plus the tail's applies), the max abs error and whether it
     is bitwise, and host seconds of the single-device update and of the
     mesh update's parts (pad, split, replicate, tail, shards, gather);
@@ -207,13 +207,27 @@ Phases, each printing one line of results:
     cold and warm walls, launches, peak memory and the obs-space and
     field RMSE; (c) ``real_data_ingest``'s in-process part (the station
     CSV through ``cli.read_obs_csv``, the CLI's update and its RMSE
-    check), against the CPU.
+    check), against the CPU;
+28. BASELINE config 4 through ``mesh=`` at full size, and the overlap of
+    the shards on distinct cards: (a) the headline's 1e7 rows x 80 x
+    10,000 obs through ``ensrf_update_sharded`` on ``make_mesh()`` (every
+    card; one here) against the single-device B1/B2 tail and B2 body,
+    bit for bit on one card, at the f32 gate on several; B1 once per
+    panel, B2 once per panel and once per card; (b) with several cards,
+    the EnKF at config 11, the LETKF at config 6 and at config 7
+    (``letkf_update_sharded``), top-k exact, over every card against the
+    single-device update.  Each update warm, timed with no synchronize
+    inside it (every card synchronized around it), its peak memory per
+    card; the mesh update once more by parts; and on the card one more
+    mesh update traced by ``torch.profiler``: each card's busy seconds
+    and first and last device event, the device window and the effective
+    parallelism (busy seconds summed over the window).
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
 same work and, for P, the library call's) and, last, the device line.
 
-``--profile`` replaces phases 2-27 with one warm headline update, the
+``--profile`` replaces phases 2-28 with one warm headline update, the
 warm ``EnSRF.update()`` of phase 4 and the hybrid one of phase 11 (a) on
 phase 4's workload, and the two config-3 updates of phase 8 under
 ``torch.profiler`` (the profiler walks every traced event): wall and
@@ -221,7 +235,7 @@ device-busy time, the busy share, the device ops that take the most time,
 and the share of the headline's (row tile, obs block) pairs and 8-ob
 panels that the cull keeps alive.
 
-``--steps`` replaces phases 2-27 with B1 at 512 x 80 and 1024 x 256 at
+``--steps`` replaces phases 2-28 with B1 at 512 x 80 and 1024 x 256 at
 sub-panels of 8 and 16 on one CTA and on each cluster that holds the
 panel, the parent commit's B1 beside them where
 ``build/efa_xray_tpu_torch/parent/tail_solve.cu`` exists, and B1 at 512 x
@@ -1063,20 +1077,21 @@ def phase4():
     return dict(b1=b1, b2=b2)
 
 
-def _headline():
+def _headline(dev="cuda", nstate=10_000_000, nobs=10_000):
     """The headline workload of bench.py's build_workload (1e7
-    Hilbert-ordered rows x 80 x 10k obs at 2000 km), drawn on the card.
-    Returns ``(tail_phase, body_phase, w)``: the B1/B2 tail, the B2 body
-    on a tail (its two products in a given mode), and a dict of the
+    Hilbert-ordered rows x 80 x 10k obs at 2000 km; BASELINE config 4),
+    drawn on ``dev`` (``nstate`` and ``nobs`` cut for a rehearsal on the
+    CPU).  Returns ``(tail_phase, body_phase, w)``: the B1/B2 tail, the B2
+    body on a tail (its two products in a given mode), and a dict of the
     workload's tensors."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
     from efa_xray_tpu_torch.ops import ensrf_fused
 
-    dev = torch.device("cuda")
+    dev = torch.device(dev)
     f32 = torch.float32
-    nstate, nmems, nobs, radius = 10_000_000, 80, 10_000, 2000.0
+    nmems, radius = 80, 2000.0
     lat, lon, olat, olon, rng = _scattered(nstate, nobs, 4, dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     bm = 280.0 + 0.5 * torch.randn(nstate, generator=gen, device=dev)
@@ -1103,7 +1118,7 @@ def _headline():
                                       max_radius_km=radius,
                                       precision=precision)
 
-    w = dict(bm=bm, bp=bp, lat=lat, lon=lon, obs=obs, gen=gen,
+    w = dict(bm=bm, bp=bp, tm=tm, tp=tp, lat=lat, lon=lon, obs=obs, gen=gen,
              nstate=nstate, nobs=nobs, radius=radius)
     return tail_phase, body_phase, w
 
@@ -2768,22 +2783,17 @@ def phase19(dev="cuda", c6=None, c9=None):
     return dict(config6=out, config9=c9r)
 
 
-def phase20(dev="cuda", **cut):
-    """The LETKF at BASELINE config 7's full size through
-    ``letkf_core.letkf_update``, as ``bench_config7`` drives it: 4,194,304
-    scattered points x 80 members x 10,000 obs at 2000 km, points and obs
-    in the port's Hilbert order (``localization.spatial_sort_order``);
-    top-k exact, then host (its build timed apart), the same analysis."""
+def _config7(dev, p):
+    """Config 7's inputs (``p`` as :data:`CONFIG7`) drawn on ``dev``:
+    ``(bm, bp, tm, tp, lat, lon, obs)``, the points and the obs in the
+    port's Hilbert order."""
     import torch
 
-    from efa_xray_tpu_torch.assimilation import letkf_core as tl
     from efa_xray_tpu_torch.assimilation.ensrf_core import ObsArrays
     from efa_xray_tpu_torch.observation.localization import (
         spatial_sort_order,
     )
 
-    p = dict(CONFIG7, **cut)
-    sync = _syncer(dev)
     n, m, nobs = p["npts"], p["nmems"], p["nobs"]
     gen = torch.Generator(device=dev).manual_seed(p["seed"])
     lat = -88.0 + 176.0 * torch.rand(n, generator=gen, device=dev)
@@ -2804,6 +2814,23 @@ def phase20(dev="cuda", **cut):
         errors=torch.ones(nobs, device=dev), lats=lat[rows], lons=lon[rows],
         radii=torch.full((nobs,), p["radius"], device=dev),
         assim=torch.ones(nobs, dtype=torch.bool, device=dev))
+    return bm, bp, tm, tp, lat, lon, obs
+
+
+def phase20(dev="cuda", **cut):
+    """The LETKF at BASELINE config 7's full size through
+    ``letkf_core.letkf_update``, as ``bench_config7`` drives it: 4,194,304
+    scattered points x 80 members x 10,000 obs at 2000 km, points and obs
+    in the port's Hilbert order (``localization.spatial_sort_order``);
+    top-k exact, then host (its build timed apart), the same analysis."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+
+    p = dict(CONFIG7, **cut)
+    sync = _syncer(dev)
+    bm, bp, tm, tp, lat, lon, obs = _config7(dev, p)
+    n, m, nobs = p["npts"], p["nmems"], p["nobs"]
     kw = dict(ngrid=n, patch_size=p["patch"], k_obs=p["k"],
               chunk=p["chunk"])
     out = dict(npts=n, nmems=m, nobs=nobs, state_gb=bp.numel() * 4 / 1e9)
@@ -3704,7 +3731,7 @@ MESH25 = dict(fast=4, default=3, hybrid=2, solvers=2)
 def _mesh_parts():
     """The sharded drivers' parts, each closed by a synchronize: padding,
     the split of the rows onto the shards' devices, the obs' replication,
-    the tail (once per distinct device), the shards' solves, the gather,
+    the tail (once, on the first device), the shards' solves, the gather,
     and the LETKF's host selection build."""
     from efa_xray_tpu_torch.assimilation import ensrf as ensrf_mod
     from efa_xray_tpu_torch.assimilation import enkf as enkf_mod
@@ -3780,16 +3807,18 @@ def phase25(dev="cuda", api=None, c11=None, c6=None):
     """The mesh on the card: ``mesh=`` with several shards on the one
     device (``make_mesh([dev] * n)``), each case held against the
     single-device update on the same inputs.  (a) phase 4's workload
-    (``fast_geometry``) on 4 shards: B1 once per panel on the one distinct
-    device, B2 once per shard plus the tail's applies; (b) the default
+    (``fast_geometry``) on 4 shards: B1 once per panel on the mesh's
+    first device, B2 once per shard plus the tail's applies; (b) the default
     config on 3 shards (1,048,576 rows are not a multiple of 3: the
     padding runs): B1 + B4; (c) phase 11 (a)'s hybrid config on 2 shards:
     B1h + B2h; (d) the EnKF at config 11 and the LETKF at config 6 with
     ``letkf_topk="host"`` (its selection rebuilt for 2 shards) on 2
     shards, no kernel; (e) ``make_mesh()`` with its defaults, one device
     here (on a machine of several cards, every card, timed after one
-    warm-up update): the update bit for bit.  (a)-(d) at the f32 kernel gate (rtol
-    2e-5, atol 2e-4); host seconds of each part around synchronizes."""
+    warm-up update: B1 and the tail's B2 once, on the first card, one B2
+    body per card): the update bit for bit.  (a)-(d) at the f32 kernel
+    gate (rtol 2e-5, atol 2e-4); host seconds of each part around
+    synchronizes."""
     import torch
 
     from efa_xray_tpu_torch import EnKF, EnSRF, FilterConfig, LETKF
@@ -3820,13 +3849,13 @@ def phase25(dev="cuda", api=None, c11=None, c6=None):
         "phase 25 (c)", ensrf(_hybrid_config(ns, 111)), n, dev,
         _only(B1h=panels, B2h=n))
     cuda = torch.device(dev).type == "cuda"
-    # make_mesh()'s defaults take every card (one on this machine: B1 and
-    # the tail's B2 applies once per card); a CPU rehearsal lists the CPU
-    # once
+    # make_mesh()'s defaults take every card (B1 and the tail's B2
+    # applies once, on the first card, and one B2 body per card); a CPU
+    # rehearsal lists the CPU once
     cards = torch.cuda.device_count() if cuda else 1
     out["e"] = _mesh_vs_single(
         "phase 25 (e)", ensrf(fast), None if cuda else 1, dev,
-        _only(B1=panels * cards, B2=(panels + 1) * cards), warm=True)
+        _only(B1=panels, B2=panels + cards), warm=True)
     check(out["e"]["bitwise"], "phase 25 (e): a mesh of one device is not "
           "the single-device update bit for bit")
     check(out["e"]["shards"] == cards,
@@ -4894,6 +4923,222 @@ def phase27(dev="cuda", c2=None, names=None):
     return dict(a=a, b=b, c=c)
 
 
+# Phase 28: BASELINE config 4 (the headline's 1e7 x 80 x 10k obs) through
+# ``mesh=`` at full size (``c4`` cuts it for a rehearsal), and whether the
+# shards on distinct cards overlap; with two distinct devices or more,
+# configs 11, 6 and 7 (``c11``, ``c6``, ``c7``) too.
+
+
+def _mesh_devices(dev):
+    """The devices of phase 28's mesh: ``make_mesh()``'s defaults (every
+    card) on the card; on the CPU the CPU named twice ("cpu" and "cpu:0":
+    two distinct devices, so that (b) and the tail's copies run)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        return None
+    return [torch.device("cpu"), torch.device("cpu", 0)]
+
+
+def _sync_cards(dev):
+    """A synchronize of every card (nothing on the CPU)."""
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return lambda: None
+    cards = range(torch.cuda.device_count())
+    return lambda: [torch.cuda.synchronize(i) for i in cards]
+
+
+def _union_us(spans) -> float:
+    """Microseconds covered by the union of ``(start, end)`` spans."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        total += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return total
+
+
+def _card_overlap(fn, sync) -> dict:
+    """One run of ``fn`` under ``torch.profiler`` with CUDA activity (CPU
+    and CUDA where that traces no device event): each card's busy seconds
+    (the union of its kernel and copy intervals), the device window (the
+    first start to the last end over every card) and the effective
+    parallelism, the cards' busy seconds summed over the window (1.0
+    serial, the card count perfect)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for acts in ([ProfilerActivity.CUDA],
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        sync()
+        with profile(activities=acts) as prof:
+            fn()
+            sync()
+        spans = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                spans.setdefault(e.device_index, []).append(
+                    (e.time_range.start, e.time_range.end))
+        if spans:
+            break
+    check(bool(spans), "phase 28: no device time was traced")
+    busy = {card: _union_us(s) / 1e6 for card, s in sorted(spans.items())}
+    every = [t for s in spans.values() for t in s]
+    t0 = min(b for b, _ in every)
+    window = (max(e for _, e in every) - t0) / 1e6
+    return dict(traced=[a.name for a in acts], busy_s=busy, window_s=window,
+                parallelism=sum(busy.values()) / window,
+                first_last_s={card: ((min(b for b, _ in s) - t0) / 1e6,
+                                     (max(e for _, e in s) - t0) / 1e6)
+                              for card, s in sorted(spans.items())})
+
+
+def _mesh_overlap(label, run, dev, mesh, expect, gate=(RTOL, ATOL)) -> dict:
+    """``run(m)`` is one update on the mesh ``m`` (the single-device
+    update when None) returning tensors; it runs on ``mesh``.  Each is
+    run once to warm up (the first use of a card loads the kernels
+    there), then timed with no synchronize inside (every card
+    synchronized on both sides): the single-device update 3 times; the
+    mesh update once with its launches checked with ``expect`` (none on
+    the CPU), its peak allocated memory read per card and its outputs
+    held against the single-device ones at ``gate`` (rtol, atol), then
+    twice more.  Then once by parts, each closed by a synchronize
+    (:func:`_mesh_parts`), and on the card once traced
+    (:func:`_card_overlap`).  Returns a dict."""
+    import torch
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = _sync_cards(dev)
+    cards = range(torch.cuda.device_count() if cuda else 0)
+    run(None)
+    single_s = []
+    for _ in range(3):
+        want, wall, _ = _spans(lambda: run(None), [], sync)
+        single_s.append(wall)
+    run(mesh)
+    _reset_counts()
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    got, wall, _ = _spans(lambda: run(mesh), [], sync)
+    mesh_s = [wall]
+    counts = _counts()
+    check((expect if cuda else _only())(counts), f"{label}: launches {counts}")
+    rtol, atol = gate
+    err, bitwise = 0.0, True
+    for g, w in zip(got, want):
+        check(bool(torch.isfinite(g).all()), f"{label}: not finite")
+        e = float((g.double() - w.double()).abs().max())
+        check(bool(torch.allclose(g, w, rtol=rtol, atol=atol)),
+              f"{label}: the mesh update differs from the single-device one "
+              f"by {e:.3e} (rtol {rtol}, atol {atol})")
+        err, bitwise = max(err, e), bitwise and bool(torch.equal(g, w))
+    del got, want
+    peak = [torch.cuda.max_memory_allocated(i) / 1e9 for i in cards]
+    for _ in range(2):
+        mesh_s.append(_spans(lambda: run(mesh), [], sync)[1])
+    r = dict(devices=len(mesh.distinct_devices()), shards=mesh.size,
+             launches=counts if cuda else None, max_abs_err=err,
+             bitwise=bitwise, gate=dict(rtol=rtol, atol=atol),
+             peak_gb_per_card=peak or None)
+    r["single_s"] = statistics.median(single_s)
+    r["mesh_s"] = statistics.median(mesh_s)
+    r["runs_s"] = dict(single=single_s, mesh=mesh_s)
+    r["parts_s"] = _spans(lambda: run(mesh), _mesh_parts(), sync)[2]
+    if cuda:
+        r.update(_card_overlap(lambda: run(mesh), sync))
+    return r
+
+
+def phase28(dev="cuda", c4=None, c11=None, c6=None, c7=None):
+    """BASELINE config 4 through ``mesh=`` at full size, and the overlap
+    of the shards on distinct cards.  (a) The headline's 1e7
+    Hilbert-ordered rows x 80 members x 10,000 obs at 2000 km through
+    ``ensrf_update_sharded(..., mesh=make_mesh())`` (B1 + B2) against the
+    single-device ``tail_scan_blocked`` + ``fused_body`` on the same
+    prior: bit for bit on one card, at the f32 kernel gate on several;
+    B1 once per panel, B2 once per panel and once per card.  (b) With two
+    distinct devices or more: the EnKF at config 11, the LETKF at config
+    6 (``LETKF``) and at config 7 (``letkf_update_sharded``), top-k
+    exact, over every card, each against its
+    single-device update at the f32 gate, no kernel launched.  Each
+    update warm, timed with no synchronize inside it; on the card one
+    more mesh update traced per case: each card's busy seconds, the
+    device window, the effective parallelism; peak memory per card.
+    The mesh is ``make_mesh()``'s defaults on the card, "cpu" and "cpu:0"
+    on the CPU."""
+    import torch
+
+    from efa_xray_tpu_torch import EnKF, FilterConfig, LETKF
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+    from efa_xray_tpu_torch.parallel import make_mesh, sharded
+
+    out = {}
+    mesh = make_mesh(_mesh_devices(dev))
+    tail_phase, body_phase, w = _headline(dev, **(c4 or {}))
+    nstate, nobs = w["nstate"], w["nobs"]
+    panels = _tail_counts(nobs, 512, False)["panels"]
+
+    def config4(m):
+        if m is None:
+            tail = tail_phase()
+            return (*body_phase(tail), tail.tail_mean, tail.tail_perts)
+        return sharded.ensrf_update_sharded(
+            w["bm"], w["bp"], w["tm"], w["tp"], w["lat"], w["lon"],
+            w["obs"], m, localize=True, block_size=128,
+            fast_geometry=True, tail_panel=512,
+            max_radius_km=w["radius"])[:4]
+
+    out["a"] = _mesh_overlap("phase 28 (a)", config4, dev, mesh,
+                             _only(B1=panels, B2=panels + mesh.size))
+    out["a"].update(nstate=nstate, nobs=nobs, obs_points_per_s=dict(
+        single=nobs * nstate / out["a"]["single_s"],
+        mesh=nobs * nstate / out["a"]["mesh_s"]))
+    check(mesh.size > 1 or out["a"]["bitwise"], "phase 28 (a): a mesh of "
+          "one card is not the single-device update bit for bit")
+    del tail_phase, body_phase, w
+    log("phase 28 (a): config 4 EnSRF " + json.dumps(out["a"]))
+    if len(mesh.distinct_devices()) < 2:
+        return out
+    p = dict(CONFIG11, **(c11 or {}))
+    state, batch = _half_degree_workload(dev, **p)
+    cfg = FilterConfig(localization="GC", fast_geometry=True,
+                       block_size=p["block"])
+    out["b_enkf"] = _mesh_overlap(
+        "phase 28 (b) EnKF", lambda m: (EnKF(
+            state, batch, config=cfg, verbose=False, seed=p["seed"],
+            mesh=m).update()[0].data,), dev, mesh, _only())
+    log("phase 28 (b): config 11 EnKF " + json.dumps(out["b_enkf"]))
+    p = dict(CONFIG6, **(c6 or {}))
+    state, batch = _half_degree_workload(dev, **p)
+    # Top-k exact: the host selection's bundle size is picked per shard,
+    # and over 4 shards of config 6 they differ, which the host top-k
+    # refuses as the JAX package's does (letkf.py:110).
+    cfg = FilterConfig(localization="GC", letkf_patch_size=p["patch"],
+                       letkf_k_obs=p["k"], letkf_chunk=p["chunk"])
+    out["b_letkf6"] = _mesh_overlap(
+        "phase 28 (b) LETKF config 6", lambda m: (LETKF(
+            state, batch, config=cfg, mesh=m).update()[0].data,), dev, mesh,
+        _only())
+    log("phase 28 (b): config 6 LETKF " + json.dumps(out["b_letkf6"]))
+    del state, batch
+    p = dict(CONFIG7, **(c7 or {}))
+    bm, bp, tm, tp, lat, lon, obs = _config7(dev, p)
+    kw = dict(ngrid=p["npts"], patch_size=p["patch"], k_obs=p["k"],
+              chunk=p["chunk"])
+
+    def config7(m):
+        if m is None:
+            return tl.letkf_update(bm, bp, tm, tp, lat, lon, obs, **kw)[:2]
+        return sharded.letkf_update_sharded(bm, bp, tm, tp, lat, lon, obs,
+                                            m, **kw)[:2]
+
+    out["b_letkf7"] = _mesh_overlap("phase 28 (b) LETKF config 7", config7,
+                                    dev, mesh, _only())
+    log("phase 28 (b): config 7 LETKF " + json.dumps(out["b_letkf7"]))
+    return out
+
+
 # P's products are timed as runs of this many calls back to back.
 P_INNER = 20
 
@@ -5026,10 +5271,7 @@ def _profiled(label: str, fn, top: int = 8) -> None:
         spans.append((start, end))
         n, us = per_name.get(e.name, (0, 0.0))
         per_name[e.name] = (n + 1, us + (end - start))
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
+    busy_us = _union_us(spans)
     check(busy_us > 0, f"profile {label}: no device time was traced")
     log(f"profile {label}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms, busy share {busy_us / 1e3 / wall_ms:.3f}")
@@ -5777,6 +6019,7 @@ def main() -> int:
     timed(phase25)
     modes = timed(phase26)
     timed(phase27)
+    timed(phase28)
     # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
     # a localized recurrence), in any product mode: their library_ms is
     # null.

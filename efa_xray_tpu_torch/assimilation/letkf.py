@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import threading
 import weakref
 from typing import Optional, Tuple
 
@@ -43,8 +44,9 @@ from efa_xray_tpu_torch.state.ensemble import EnsembleState
 
 _SEL_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 SEL_CACHE_MAX_PER_STRUCTURE = 8
-# Host kd-tree builds (cache misses).
+# Host kd-tree builds (cache misses), and the lock that guards the count.
 sel_build_count = 0
+_count_lock = threading.Lock()
 
 
 def _host_selection_cached(structure, obs_lats, obs_lons, k: int,
@@ -99,7 +101,8 @@ def _host_selection_cached(structure, obs_lats, obs_lons, k: int,
             for p in parts]) for i in (0, 1))
     entry = (torch.from_numpy(cand).to(device),
              torch.from_numpy(mask).to(device), geff)
-    sel_build_count += 1
+    with _count_lock:
+        sel_build_count += 1
     if per is None:
         per = collections.OrderedDict()
         _SEL_CACHE[structure] = per

@@ -45,6 +45,7 @@ values read back.
 from __future__ import annotations
 
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -65,11 +66,14 @@ ns_calls = 0
 ns_iterations = 0
 ns_max_iterations = 0
 host_syncs = 0
+# Guards the counters against solves from several threads.
+_count_lock = threading.Lock()
 
 
 def reset_counts() -> None:
     global ns_calls, ns_iterations, ns_max_iterations, host_syncs
-    ns_calls = ns_iterations = ns_max_iterations = host_syncs = 0
+    with _count_lock:
+        ns_calls = ns_iterations = ns_max_iterations = host_syncs = 0
 
 
 def _solve_precision_obj(solve_precision: str) -> Optional[str]:
@@ -322,7 +326,8 @@ def host_select_candidates(grid_lat, grid_lon, ngrid: int, patch_size: int,
 def _read(x: torch.Tensor) -> float:
     """A device scalar on the host, counted in :data:`host_syncs`."""
     global host_syncs
-    host_syncs += 1
+    with _count_lock:
+        host_syncs += 1
     return float(x)
 
 
@@ -338,7 +343,6 @@ def _invsqrt_newton_schulz(a: torch.Tensor, iters: int):
     of the dtype, or below 0.1 and not halved by the last iteration (a
     stall at the precision floor).  Each iteration reads that error back
     to the host (one sync)."""
-    global ns_calls, ns_iterations, ns_max_iterations
     m = a.shape[-1]
     dtype = a.dtype
     eye = torch.eye(m, dtype=dtype, device=a.device)
@@ -361,11 +365,18 @@ def _invsqrt_newton_schulz(a: torch.Tensor, iters: int):
         z = t @ z
         i += 1
         prev, err = err, (_read(new_err) if i < iters else err)
-    ns_calls += 1
-    ns_iterations += i
-    ns_max_iterations = max(ns_max_iterations, i)
+    _count_ns(i)
     inv_sqrt = z / torch.sqrt(c)[..., None, None]
     return inv_sqrt, inv_sqrt @ inv_sqrt
+
+
+def _count_ns(iterations: int) -> None:
+    """One Newton-Schulz call of ``iterations`` iterations."""
+    global ns_calls, ns_iterations, ns_max_iterations
+    with _count_lock:
+        ns_calls += 1
+        ns_iterations += iterations
+        ns_max_iterations = max(ns_max_iterations, iterations)
 
 
 def _invsqrt_eigh(a: torch.Tensor):

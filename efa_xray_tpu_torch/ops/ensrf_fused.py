@@ -32,6 +32,8 @@ mean update and everything else stay fp32.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from efa_xray_tpu_torch.assimilation.ensrf_core import (
@@ -70,6 +72,8 @@ SERIES_MAX_RADIUS_KM = 5000.0
 launches = 0
 hybrid_launches = 0
 launches_by_mode = {k: dict.fromkeys(MODES, 0) for k in ("B2", "B2h")}
+# Guards the counters against launches from several threads.
+_count_lock = threading.Lock()
 
 _ASIN2 = (-0.0963332506, 0.1146914397, 0.0793335722, 0.1508451291,
           0.3333070474, 2.0000001309)
@@ -343,7 +347,6 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
     """Launch B2 (B2h with ``hybrid``) on CUDA float32 tensors, its two
     large products in mode ``precision``.  ``donate=True`` updates
     ``bm``/``bp`` in place (the JAX package donates these buffers)."""
-    global launches, hybrid_launches
     if precision not in MODES:
         raise ValueError(f"unknown mode {precision!r}; expected one of "
                          f"{MODES}")
@@ -392,12 +395,19 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, f"B2 ensrf_fused launch ({precision})")
-    if hybrid:
-        hybrid_launches += 1
-    else:
-        launches += 1
-    launches_by_mode["B2h" if hybrid else "B2"][precision] += 1
+    _count(hybrid, precision)
     return out_m, out_p
+
+
+def _count(hybrid: bool, precision: str) -> None:
+    """One launch of B2 (B2h with ``hybrid``) in mode ``precision``."""
+    global launches, hybrid_launches
+    with _count_lock:
+        if hybrid:
+            hybrid_launches += 1
+        else:
+            launches += 1
+        launches_by_mode["B2h" if hybrid else "B2"][precision] += 1
 
 
 def fused_apply(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,

@@ -41,6 +41,8 @@ substitution, the weights and the mean stay fp32.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from efa_xray_tpu_torch.assimilation.ensrf_core import (
@@ -76,6 +78,8 @@ GRID_WEIGHT_BUDGET_BYTES = 1 << 29
 b3_launches = 0
 b4_launches = 0
 launches_by_mode = {k: dict.fromkeys(MODES, 0) for k in ("B3", "B4")}
+# Guards the counters against launches from several threads.
+_count_lock = threading.Lock()
 
 
 def smem_bytes(tile: int, block_size: int, nmems: int,
@@ -183,7 +187,6 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
     or "B4") on CUDA float32 tensors, at ``tile`` grid points per CTA
     (:func:`pick_tile`'s when None), its two large products in mode
     ``precision``.  ``donate=True`` updates ``bm``/``bp`` in place."""
-    global b3_launches, b4_launches
     if precision not in MODES:
         raise ValueError(f"unknown mode {precision!r}; expected one of "
                          f"{MODES}")
@@ -236,12 +239,19 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
                                       out_m.data_ptr(), out_p.data_ptr(),
                                       stream)
     _build.check(err, f"{entry} ensrf_grid launch ({precision})")
-    if entry == "B3":
-        b3_launches += 1
-    else:
-        b4_launches += 1
-    launches_by_mode[entry][precision] += 1
+    _count(entry, precision)
     return out_m, out_p
+
+
+def _count(entry: str, precision: str) -> None:
+    """One launch through ``entry`` ("B3" or "B4") in mode ``precision``."""
+    global b3_launches, b4_launches
+    with _count_lock:
+        if entry == "B3":
+            b3_launches += 1
+        else:
+            b4_launches += 1
+        launches_by_mode[entry][precision] += 1
 
 
 def ctas_per_sm_on_card(tile: int, block_size: int, nmems: int,

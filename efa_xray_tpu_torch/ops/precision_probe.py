@@ -28,6 +28,7 @@ modes (B2-B4) take it from.
 from __future__ import annotations
 
 import json
+import threading
 import time
 
 import numpy as np
@@ -50,6 +51,8 @@ K_PAD = 64
 # mode.
 launches = 0
 launches_by_mode = dict.fromkeys(MODES, 0)
+# Guards the counters against launches from several threads.
+_count_lock = threading.Lock()
 
 
 def mm_plain(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
@@ -82,7 +85,6 @@ def scratch_shapes(n: int, k: int, m: int):
 def mm_cuda(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """Launch P on CUDA float32 tensors whose sizes are multiples of 16,
     square or not."""
-    global launches
     _check(a, b, mode)
     n, k = a.shape
     m = b.shape[1]
@@ -115,9 +117,16 @@ def mm_cuda(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
             None if bt is None else bt.data_ptr(), n, k, m, _MODE_ID[mode],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"P precision_probe launch ({mode})")
-    launches += 1
-    launches_by_mode[mode] += 1
+    _count(mode)
     return c
+
+
+def _count(mode: str) -> None:
+    """One launch of P in ``mode``."""
+    global launches
+    with _count_lock:
+        launches += 1
+        launches_by_mode[mode] += 1
 
 
 def mm(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:

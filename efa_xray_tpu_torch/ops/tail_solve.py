@@ -37,6 +37,8 @@ plain version).  :func:`smem_bytes` mirrors the kernel's ``make_layout``.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from efa_xray_tpu_torch.assimilation.ensrf_core import _pad
@@ -46,6 +48,8 @@ from efa_xray_tpu_torch.ops import _build
 # (B1) and hybrid (B1h).
 launches = 0
 hybrid_launches = 0
+# Guards the counters against launches from several threads.
+_count_lock = threading.Lock()
 
 # Largest dynamic shared memory a CTA may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
@@ -254,7 +258,6 @@ def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
     returns as the plain version.  ``cluster`` overrides
     :func:`pick_cluster`.  Raises on a shape the kernel does not take,
     before any launch."""
-    global launches, hybrid_launches
     p, m = tail_perts.shape
     dev = tail_perts.device
     f32 = torch.float32
@@ -309,11 +312,18 @@ def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
         )
     _build.check(err, "B1h tail_solve launch" if hybrid
                  else "B1 tail_solve launch")
-    if hybrid:
-        hybrid_launches += 1
-    else:
-        launches += 1
+    _count(hybrid)
     return tuple(t[:p] for t in (tm, tp, ye, *vec))
+
+
+def _count(hybrid: bool) -> None:
+    """One launch of B1 (B1h with ``hybrid``)."""
+    global launches, hybrid_launches
+    with _count_lock:
+        if hybrid:
+            hybrid_launches += 1
+        else:
+            launches += 1
 
 
 def tail_panel_solve(tail_mean, tail_perts, values, errors, assim,

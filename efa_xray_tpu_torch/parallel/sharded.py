@@ -16,18 +16,25 @@ driven from one process, and each driver
 1. pads the rows (the LETKF: the grid) to a multiple of the mesh size and
    copies each device its slice, and each distinct device the tail and
    the per-ob arrays (:func:`_to` makes every copy between devices);
-2. solves the tail once per distinct device, where the JAX package solves
+2. solves the tail once, on the mesh's first device, and copies the
+   solution to the other distinct devices, where the JAX package solves
    it redundantly (and bit-identically) on every device: the same
-   function at less cost when shards share a card;
+   function, paid once;
 3. updates each shard on its own device (:func:`_ensrf_local`,
-   :func:`_enkf_local`, :func:`_letkf_local`), touching no other shard;
+   :func:`_enkf_local`, :func:`_letkf_local`), touching no other shard,
+   the shards issued in mesh order from the calling thread
+   (:func:`run_shards`) with no synchronize between them, so that the
+   cards run them at once, as ``shard_map`` runs its shards, wherever
+   the host does not wait on a card (the kernel routes never do);
 4. gathers the shards onto the input's device and drops the padding.
 
 No copy between devices happens between the first shard's solve and the
-last one's.  The EnSRF shard takes the route the JAX sharded path takes,
-through :class:`~efa_xray_tpu_torch.assimilation.ensrf.FlatRoute` (a
-shard is a flat slice of rows, so never B3): with ``fast_geometry`` or
-without localization the body is B2 (B2h in hybrid mode), with
+last one's.
+
+The EnSRF shard takes the route the JAX sharded path takes, through
+:class:`~efa_xray_tpu_torch.assimilation.ensrf.FlatRoute` (a shard is a
+flat slice of rows, so never B3): with ``fast_geometry`` or without
+localization the body is B2 (B2h in hybrid mode), with
 ``spatial_sort`` within the shard; other blocked runs take B4;
 ``variable_localization``, hybrid at exact haversine and float64 on the
 card take the plain blocked body; ``method="serial"``
@@ -38,7 +45,7 @@ torch, as their single-device updates do.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -54,10 +61,16 @@ from efa_xray_tpu_torch.parallel.mesh import (
 
 
 def _to(x, device):
-    """``x`` on ``device`` (None stays None): every copy between devices
-    that the drivers make goes through here, before the first shard's
-    solve or after the last one's."""
-    return None if x is None else x.to(device)
+    """``x`` on ``device``: a tensor, or a tuple of them (a
+    ``TailSolution``, the EnKF's ``(tail, z)``), None staying None.  Every
+    copy between devices that the drivers make goes through here, before
+    the first shard's solve or after the last one's."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        items = [_to(v, device) for v in x]
+        return x._make(items) if hasattr(x, "_make") else tuple(items)
+    return x.to(device)
 
 
 def _obs_to(obs: ObsArrays, device) -> ObsArrays:
@@ -75,6 +88,12 @@ def _split(x, mesh: Mesh, local: int, dim: int = 0):
 
 def _gather(parts, device, dim: int = 0) -> torch.Tensor:
     return torch.cat([_to(p, device) for p in parts], dim=dim)
+
+
+def run_shards(mesh: Mesh, work: Callable[[int], object]) -> List[object]:
+    """``work(s)`` for every shard, issued in mesh order from the calling
+    thread with no synchronize between shards."""
+    return [work(s) for s in range(mesh.size)]
 
 
 # ---------------------------------------------------------------------------
@@ -113,8 +132,9 @@ def ensrf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
     """Sharded EnSRF update: pad the state rows to a multiple of the mesh
     size (pad rows carry zero perturbations and coordinates (0, 0), so
     their updates are no-ops that never touch real rows), split them over
-    the mesh, solve the tail once per distinct device, update each shard
-    along its route, gather onto ``body_mean``'s device and unpad.
+    the mesh, solve the tail once on the mesh's first device and copy it
+    to the others, update the shards along their route
+    (:func:`run_shards`), gather onto ``body_mean``'s device and unpad.
     ``(bm, bp, tm, tp, diags)``, the single-device update's function.
 
     Each shard takes :class:`FlatRoute`'s route (B1 + B2, B2h or B4 on
@@ -185,26 +205,32 @@ def ensrf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
         return (dict(varloc=r["varloc"], row_var=rvar_s, ob_var=r["ob_var"])
                 if use_varloc else {})
 
-    # The tail, once per distinct device (JAX: on every device).
-    solvers, routes, tails = {}, {}, {}
-    for d, r in rep.items():
+    solvers, routes = {}, {}
+    for d in rep:
         solvers[d] = FlatRoute(cfg, d, max_radius_km)
         route = solvers[d]._route(local)
         if route != "serial" and use_varloc:
             route = "plain"  # no kernel carries varloc on a flat state
         routes[d] = route
-        if route != "serial":
-            tails[d] = solvers[d]._kernel_tail(
-                r["tm"], r["tp"], r["obs"], vertical,
-                hkw(r, None), vl(r, None))
-    outs = []
-    for d, (bm_s, bp_s, blat_s, blon_s, bvert_s, bsig_s, rvar_s) in zip(
-            mesh.devices, shards):
+    # The tail, once on the first device (JAX: on every device), copied
+    # to the others before any shard's solve.
+    d0, tails = mesh.devices[0], {}
+    if routes[d0] != "serial":
+        r = rep[d0]
+        tail = solvers[d0]._kernel_tail(r["tm"], r["tp"], r["obs"], vertical,
+                                        hkw(r, None), vl(r, None))
+        tails = {d: _to(tail, d) for d in rep}
+
+    def shard(s):
+        d = mesh.devices[s]
+        bm_s, bp_s, blat_s, blon_s, bvert_s, bsig_s, rvar_s = shards[s]
         r = rep[d]
-        outs.append(_ensrf_local(
+        return _ensrf_local(
             solvers[d], routes[d], tails.get(d), bm_s, bp_s, blat_s, blon_s,
             bvert_s, r["obs"], r["tm"], r["tp"], vertical, hkw(r, bsig_s),
-            vl(r, rvar_s)))
+            vl(r, rvar_s))
+
+    outs = run_shards(mesh, shard)
     home = body_mean.device
     bm = _gather([o[0] for o in outs], home)[:ns]
     bp = _gather([o[1] for o in outs], home)[:ns]
@@ -244,9 +270,10 @@ def enkf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
     """Sharded stochastic EnKF, with the layout of
     :func:`ensrf_update_sharded`: the body split over the mesh, the tail
     AND the perturbation table ``eps`` replicated (so the draws do not
-    depend on the mesh), the tail solved once per distinct device
-    (``enkf_tail_scan``), each shard's rows swept through the
-    Gram-corrected recurrence with the apply rows ``z = ye - eps``
+    depend on the mesh), the tail solved once on the mesh's first device
+    (``enkf_tail_scan``) and copied to the others, each shard's rows
+    swept through the Gram-corrected recurrence with the apply rows
+    ``z = ye - eps``
     (``method="blocked"``) or the serial per-ob loop (``"serial"``).
     Plain torch on every device, as the single-device ``EnKF``."""
     from efa_xray_tpu_torch.assimilation.enkf import enkf_tail_scan
@@ -273,16 +300,18 @@ def enkf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
            for d in mesh.distinct_devices()}
     tails = {}
     if method == "blocked":
-        for d, r in rep.items():
-            tails[d] = enkf_tail_scan(
-                r["tm"], r["tp"], r["obs"], r["eps"], localize=localize,
-                unbiased=unbiased, fast_geometry=fast_geometry,
-                vertical=vertical,
-                **({"varloc": r["varloc"], "ob_var": r["ob_var"]}
-                   if use_varloc else {}))
-    outs = []
-    for d, (bm_s, bp_s, blat_s, blon_s, bvert_s, rvar_s) in zip(
-            mesh.devices, shards):
+        r = rep[mesh.devices[0]]
+        tail = enkf_tail_scan(
+            r["tm"], r["tp"], r["obs"], r["eps"], localize=localize,
+            unbiased=unbiased, fast_geometry=fast_geometry,
+            vertical=vertical,
+            **({"varloc": r["varloc"], "ob_var": r["ob_var"]}
+               if use_varloc else {}))
+        tails = {d: _to(tail, d) for d in rep}
+
+    def shard(s):
+        d = mesh.devices[s]
+        bm_s, bp_s, blat_s, blon_s, bvert_s, rvar_s = shards[s]
         r = rep[d]
         tail, z = tails.get(d, (None, None))
         kw = dict(localize=localize, unbiased=unbiased,
@@ -290,9 +319,11 @@ def enkf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
                   vertical=vertical)
         vl = (dict(varloc=r["varloc"], row_var=rvar_s, ob_var=r["ob_var"])
               if use_varloc else {})
-        outs.append(_enkf_local(method, tail, z, bm_s, bp_s, blat_s, blon_s,
-                                bvert_s, r["obs"], r["eps"], r["tm"],
-                                r["tp"], kw, vl, block_size))
+        return _enkf_local(method, tail, z, bm_s, bp_s, blat_s, blon_s,
+                           bvert_s, r["obs"], r["eps"], r["tm"], r["tp"], kw,
+                           vl, block_size)
+
+    outs = run_shards(mesh, shard)
     home = body_mean.device
     bm = _gather([o[0] for o in outs], home)[:ns]
     bp = _gather([o[1] for o in outs], home)[:ns]
@@ -379,11 +410,11 @@ def letkf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
                    obs=_obs_to(obs, d), varloc=_to(varloc, d),
                    ob_var=_to(ob_var, d), group_var=_to(group_var, d))
            for d in mesh.distinct_devices()}
-    outs = []
-    for d, (bm_s, bp_s, glat_s, glon_s, bvert_s, cand_s, mask_s) in zip(
-            mesh.devices, shards):
-        r = rep[d]
-        outs.append(_letkf_local(
+
+    def shard(s):
+        bm_s, bp_s, glat_s, glon_s, bvert_s, cand_s, mask_s = shards[s]
+        r = rep[mesh.devices[s]]
+        return _letkf_local(
             bm_s, bp_s, r["tm"], r["tp"], glat_s, glon_s, r["obs"], bvert_s,
             cand_s, mask_s, vt=vt, g_local=g_local, chunk=chunk,
             patch_size=patch_size, vertical=vertical, k_obs=k_obs,
@@ -391,7 +422,9 @@ def letkf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
             unbiased=unbiased, topk_method=topk_method,
             solve_precision=solve_precision, sel_group=sel_group,
             **({k: r[k] for k in ("varloc", "ob_var", "group_var")}
-               if use_varloc else {})))
+               if use_varloc else {}))
+
+    outs = run_shards(mesh, shard)
     home = body_mean.device
     bm = _gather([o[0] for o in outs], home, dim=1)[:, :ngrid].reshape(ns)
     bp = _gather([o[1] for o in outs], home, dim=1)[:, :ngrid].reshape(
