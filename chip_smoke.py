@@ -23,13 +23,17 @@ Phases, each printing one line of results:
    128, 512 x 256, 1024 x 256 (and hybrid), 30 members, a padded 300-ob
    panel, unbiased, all obs skipped; kernel and plain ms, us per ob, the
    bound, and the shared memory the wrapper plans against the kernel's
-   layout;
+   layout; then B1e (the stochastic EnKF's instantiation, with draws
+   ``eps``) over 9 cases: config 11's 512 x 40 panel (timed), haversine
+   + vertical, varloc, half assimilated, 1024 x 80, 512 x 256, 1024 x
+   256, a padded 300-ob panel unbiased, all obs skipped;
 3. B2 (fused body) against its plain version at 262,144 rows x 80 x 2048
    obs: cull on and off, both angle forms, an odd row count; then at
    20,001 rows x 300 obs over the edges of its tiling (12, 21, 30, 50,
    80, 128 and 256 members, blocks of 128, 100 and 50 obs, one alive
    panel per block, cull off, unlocalized, vertical, the arccos form, in
-   place);
+   place); then B2e (departure rows ``z`` applied, the chordal form) on
+   the same workload (cull on and off) and edge cases;
 4. the public API: ``EnSRF(...).update()`` on a 1024 x 1024 global grid x
    80 members with 10,000 obs, through both kernels (launch counts), held
    against the plain blocked update on the same tensors;
@@ -48,8 +52,8 @@ Phases, each printing one line of results:
    group, one block, in place, weight chunks);
 7. B4 (one obs block per launch) against its plain version at config 3's
    shape and on a 1024 x 1024 grid x 80 members with 10,000 obs (vt = 1),
-   the torch build of a block's operands timed apart; then phase 6's edge
-   cases through B4;
+   the torch build of a block's operands timed apart, and B4e over two
+   blocks of each; then phase 6's edge cases through B4;
 8. the public API on config 3 as users build it (80 level-stacked
    variables with their levels in ``var_verts``): (a) the default
    ``FilterConfig``: tail B1 + B4, body B4; (b) ``fast_geometry`` with
@@ -101,24 +105,30 @@ Phases, each printing one line of results:
 18. the stochastic EnKF at BASELINE config 11 through ``EnKF(...).update()``
     (a 361 x 720 0.5-degree grid, 40 members, 2,000 obs at grid points,
     2000 km, ``fast_geometry``, blocks of 128, seed 6): the warm blocked
-    update with its tail/body split, the serial update and a float64 one
-    with the same draws (RMS gaps gated at 1e-3 of the increment RMS), the
-    default config, and no kernel launched (plain torch, as the JAX
-    package runs it without Pallas);
+    update on its kernel route (B1e once per panel, B2e; no synchronizing
+    call inside) with its tail/body split, held against the plain route
+    (the per-ob tail and the plain body), the serial update and a float64
+    one with the same draws (RMS gaps gated at 1e-3 of the increment
+    RMS), the default config (B1e + B4e); B2e and B4e against their plain
+    versions on the update's own operands, timed;
 19. the LETKF through ``LETKF(...).update()`` at BASELINE config 6 (the
     same grid, patches of 8, k 64, chunks of 512): top-k exact and host
     (the host build timed; the same analysis), Newton-Schulz and eigh,
     float32 and float64 (the max gap gated outside the few patches whose
     k-th ob differs between the two), the unlocalized LETKF against the
-    unlocalized EnSRF (mean and per-row variance), and what the
-    Newton-Schulz exit test's host reads cost; then config 9 (config 3's 80
-    level variables, 30 members, 5,000 obs, 300 hPa vertical).  For each:
-    seconds split into select, solve and apply, Newton-Schulz iterations
-    per chunk, host syncs per update and peak memory;
+    unlocalized EnSRF (mean and per-row variance), and NS against the
+    plain Newton-Schulz loop on config 6's first chunk and on 64
+    systems of 200 members (the device-memory variant; the same
+    iterations, timed); then config 9 (config 3's 80 level variables, 30
+    members, 5,000 obs, 300 hPa vertical).  For each: seconds split into
+    select, solve and apply, Newton-Schulz iterations per chunk, host
+    syncs per update (none where NS runs) and peak memory;
 20. the LETKF at BASELINE config 7's full size through
     ``letkf_core.letkf_update``: 4,194,304 scattered points x 80 members x
     10,000 obs in the port's Hilbert order, top-k exact and host (the same
-    analysis), seconds, obs x points per second and peak memory;
+    analysis), seconds, obs x points per second and peak memory, NS's
+    launches, no host read and no synchronizing call inside the update;
+    NS against the plain loop on the first chunk;
 21. BASELINE config 1 through the port's ``CyclingHarness``
     (``benchmarks/run_benchmarks.py:195-253``: Lorenz-96, 40 variables, 20
     members, 4 steps a cycle, obs at every 2nd variable, 8000 km, float32,
@@ -162,8 +172,8 @@ Phases, each printing one line of results:
     update on the same inputs: (a) phase 4's workload on 4 shards (B1 +
     B2), (b) phase 9's on 3 (1,048,576 rows are not a multiple of 3: the
     padding runs; B1 + B4), (c) phase 11 (a)'s hybrid config on 2 (B1h +
-    B2h), (d) the EnKF at config 11 and the LETKF at config 6 with
-    ``letkf_topk="host"`` on 2 (no kernel; the host selection rebuilt for
+    B2h), (d) the EnKF at config 11 (B1e + B2e) and the LETKF at config
+    6 with ``letkf_topk="host"`` on 2 (NS; the host selection rebuilt for
     2 shards), at the f32 kernel gate; (e) ``make_mesh()`` with its
     defaults, one device here, bit for bit; the launches (B1 once per
     panel, on the mesh's first device, B2, B4 and B2h once per shard in
@@ -214,14 +224,16 @@ Phases, each printing one line of results:
     card; one here) against the single-device B1/B2 tail and B2 body,
     bit for bit on one card, at the f32 gate on several; B1 once per
     panel, B2 once per panel and once per card; (b) with several cards,
-    the EnKF at config 11, the LETKF at config 6 and at config 7
-    (``letkf_update_sharded``), top-k exact, over every card against the
-    single-device update.  Each update warm, timed with no synchronize
-    inside it (every card synchronized around it), its peak memory per
-    card; the mesh update once more by parts; and on the card one more
-    mesh update traced by ``torch.profiler``: each card's busy seconds
-    and first and last device event, the device window and the effective
-    parallelism (busy seconds summed over the window).
+    the EnKF at config 11 (B1e + B2e), the LETKF at config 6 (top-k exact
+    and host) and at config 7 (``letkf_update_sharded``, top-k exact; NS
+    on every card), over every card against the single-device update.
+    Each update warm, timed with no synchronize inside it (every card
+    synchronized around it), its peak memory per card; the mesh update
+    once more by parts; and on the card one more mesh update traced by
+    ``torch.profiler``: each card's busy seconds and first and last
+    device event, the device window and the effective parallelism (busy
+    seconds summed over the window); and one more with the shards' issue
+    watched for synchronizing calls (none allowed).
 
 Then one JSON line describing each kernel (its launches on the main path,
 its time, its plain version's, the least time the card could take for the
@@ -269,6 +281,7 @@ non-zero before doing anything.  It never imports JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -327,6 +340,21 @@ def cuda_ms(fn, reps: int, inner: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def cuda_timed(fn):
+    """``fn()`` once: ``(its result, its milliseconds by CUDA events)``
+    (a plain version, slow enough that one run times it, is timed on the
+    run that is compared)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -553,8 +581,8 @@ def phase2():
         check(planned == built, f"B1 {label}: the wrapper plans {planned} B "
               f"of shared memory, the kernel lays out {built}")
         got = tail_solve.tail_panel_solve(*args, unbiased=unbiased, **kw)
-        want = tail_solve.tail_panel_solve_plain(*args, unbiased=unbiased,
-                                                 **kw)
+        want, p_ms = cuda_timed(lambda: tail_solve.tail_panel_solve_plain(
+            *args, unbiased=unbiased, **kw))
         torch.cuda.synchronize()
         check(len(got) == len(want) == (11 if hybrid else 9),
               f"B1 {label}: {len(got)} outputs")
@@ -567,8 +595,6 @@ def phase2():
               f"B1 {label}: the tail did not move as it should")
         k_ms = cuda_ms(lambda: tail_solve.tail_panel_solve(
             *args, unbiased=unbiased, **kw), 10)
-        p_ms = cuda_ms(lambda: tail_solve.tail_panel_solve_plain(
-            *args, unbiased=unbiased, **kw), 1)
         r = dict(label=label, cluster=c, max_abs_err=err, ms=k_ms,
                  plain_ms=p_ms, us_per_ob=1e3 * k_ms / p,
                  **bound(b1_flop(p, m, hybrid),
@@ -587,16 +613,93 @@ def phase2():
         f"{r['bound_ms']:.4f} ms ({r['bound_by']})" for r in rows))
     worst = max(r["max_abs_err"] for r in rows)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    return {name: dict(max_abs_err=worst, **{k: r[k] for k in keys})
-            for name, r in out.items()}
+    res = {name: dict(max_abs_err=worst, **{k: r[k] for k in keys})
+           for name, r in out.items()}
+    res["B1e"] = _b1e_cases()
+    return res
 
 
-def _scattered(n, nobs, seed, dev):
-    """Hilbert-ordered scattered rows and obs drawn from the rows, drawn
-    as bench.py's build_workload draws them; also returns the generator
-    for the draws that follow there."""
+# B1e's edge cases in phase 2 (the EnKF's panel solve): label, panel,
+# members, geometry, vertical, varloc, unbiased, share of obs assimilated.
+# The first is config 11's panel (phase 18's main path).
+B1E_CASES = (
+    ("512 x 40 chordal (config 11's panel)", 512, 40, "chordal", False,
+     False, False, 1.0),
+    ("512 x 80 haversine + vertical", 512, 80, "haversine", True, False,
+     False, 0.9),
+    ("512 x 80 haversine + varloc", 512, 80, "haversine", False, True,
+     False, 0.9),
+    ("512 x 80 unlocalized, half assimilated", 512, 80, "unlocalized",
+     False, False, False, 0.5),
+    ("1024 x 80", 1024, 80, "chordal", False, False, False, 0.9),
+    ("512 x 256", 512, 256, "chordal", False, False, False, 0.9),
+    ("1024 x 256", 1024, 256, "chordal", False, False, False, 0.9),
+    ("300 x 50 (padded), unbiased", 300, 50, "haversine", False, False,
+     True, 0.9),
+    ("512 x 40 all obs skipped", 512, 40, "chordal", False, False, False,
+     0.0),
+)
+
+
+def _b1e_cases():
+    """B1e against its serial plain version over :data:`B1E_CASES`, each
+    with draws ``eps`` of the obs' error variance, the wrapper's shared
+    memory against the kernel's layout; kernel and plain ms of the first
+    case.  Returns its kernels-line entry."""
     import torch
 
+    from efa_xray_tpu_torch.ops import _build, tail_solve
+
+    rows = []
+    for n, (label, p, m, geometry, vertical, varloc, unbiased,
+            share) in enumerate(B1E_CASES):
+        args, _ = _b1_case(p, m, geometry, vertical, varloc, False, share,
+                           41 + n)
+        gen = torch.Generator(device="cuda").manual_seed(51 + n)
+        eps = torch.randn((p, m), generator=gen, device="cuda")
+        eps = (eps - eps.mean(1, keepdim=True)) * torch.sqrt(args[3])[:, None]
+        c = tail_solve.pick_cluster(p, m, enkf=True)
+        pp = tail_solve.padded_panel(p, tail_solve.DEFAULT_SUB, c)
+        planned = tail_solve.smem_bytes(pp // c, m, enkf=True)
+        built = _build.lib().efa_tail_solve_smem(
+            pp // c, m, tail_solve.DEFAULT_SUB, 2)
+        check(planned == built, f"B1e {label}: the wrapper plans {planned} "
+              f"B of shared memory, the kernel lays out {built}")
+        got = tail_solve.tail_panel_solve(*args, unbiased=unbiased, eps=eps)
+        want, p_ms = cuda_timed(lambda: tail_solve.tail_panel_solve_plain(
+            *args, unbiased=unbiased, eps=eps))
+        torch.cuda.synchronize()
+        check(len(got) == len(want) == 10, f"B1e {label}: {len(got)} "
+              "outputs")
+        err = max(compare(f"B1e {label} out{k}", a, b)
+                  for k, (a, b) in enumerate(zip(got, want)))
+        check(float((want[1] - args[1]).abs().max()) > 1e-3 if share > 0
+              else bool(torch.equal(got[1], args[1])),
+              f"B1e {label}: the tail did not move as it should")
+        r = dict(label=label, cluster=c, max_abs_err=err)
+        if n == 0:
+            r["ms"] = cuda_ms(lambda: tail_solve.tail_panel_solve(
+                *args, unbiased=unbiased, eps=eps), 10)
+            r["plain_ms"] = p_ms
+            r.update(bound(b1_flop(p, m, False) + 4.0 * p * m,
+                           nbytes(*args, eps) + nbytes(*got)))
+        rows.append(r)
+    head = rows[0]
+    log("phase 2: B1e matches the serial plain version: " + "; ".join(
+        f"{r['label']} ({r['cluster']} CTAs): err {r['max_abs_err']:.3e}"
+        for r in rows) + f"; {head['label']}: kernel {head['ms']:.3f} ms "
+        f"plain {head['plain_ms']:.1f} ms bound {head['bound_ms']:.4f} ms "
+        f"({head['bound_by']})")
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")})
+
+
+@functools.lru_cache(maxsize=None)
+def _scattered_np(n, nobs, seed):
+    """:func:`_scattered`'s host arrays and the state of its generator
+    after them, drawn once per ``(n, nobs, seed)`` (the Hilbert sort of
+    1e7 rows takes seconds; phases 5 and 28 draw the same rows)."""
     from efa_xray_tpu_torch.observation.localization import hilbert3d_np
 
     rng = np.random.default_rng(seed)
@@ -607,27 +710,32 @@ def _scattered(n, nobs, seed, dev):
     rows = rng.integers(0, n, nobs)
     olat, olon = lat[rows], lon[rows]
     oo = np.argsort(hilbert3d_np(olat, olon), kind="stable")
+    return lat, lon, olat[oo], olon[oo], rng.bit_generator.state
+
+
+def _scattered(n, nobs, seed, dev):
+    """Hilbert-ordered scattered rows and obs drawn from the rows, drawn
+    as bench.py's build_workload draws them; also returns the generator
+    for the draws that follow there."""
+    import torch
+
+    *arrays, state = _scattered_np(n, nobs, seed)
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state
     f32 = torch.float32
-    t = lambda x: torch.tensor(x, dtype=f32, device=dev)
-    return t(lat), t(lon), t(olat[oo]), t(olon[oo]), rng
+    return (*(torch.tensor(x, dtype=f32, device=dev) for x in arrays), rng)
 
 
-def _b2_edge_inputs(hybrid: bool, dev="cuda"):
-    """B2's (B2h's with ``hybrid``) small shapes chosen for the edges of
-    the kernel's tiling: 20,001 rows (a ragged last tile), 300 obs (a
-    padded last block), ensembles of 12, 21, 30, 50, 80, 128 (the tile of
-    64 rows, 8 members per thread in the apply) and 256 (one CTA of 32
-    rows per SM, 16 members per thread), block sizes 128, 100 and 50 (a
-    last panel narrower than 8 obs, copies of 4 bytes), cull words with
-    one alive panel, cull off, unlocalized, vertical localization, the
-    arccos form, and an in-place update.  Yields ``(label, bm, bp, args,
-    donate)``: ``args`` follow ``bm, bp`` in ``fused_apply``."""
+@functools.lru_cache(maxsize=None)
+def _b2_edge_base(hybrid: bool, dev):
+    """:func:`_b2_edge_inputs`'s rows, obs, states and their plain tails
+    (seven per-ob scans), made once per ``(hybrid, dev)``: phases 3, 10
+    and 26 hold B2, B2e and B2h on them.  Nothing that takes them
+    updates them in place."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import ensrf_core as core
-    from efa_xray_tpu_torch.ops import ensrf_fused
 
-    dev = torch.device(dev)
     n, nobs = 20_001, 300
     lat, lon, olat, olon, _ = _scattered(n, nobs, 31 + hybrid, dev)
     gen = torch.Generator(device=dev).manual_seed(32 + hybrid)
@@ -652,6 +760,27 @@ def _b2_edge_inputs(hybrid: bool, dev="cuda"):
             localize=True, fast_geometry=True, panel=512,
             **(dict(hybrid_alpha=0.5, tail_sigma=tail_sigma,
                     static_length=slen) if hybrid else {}))
+    return (lat, lon, bm, body_sigma, body_vert, obs, slen, state, tails)
+
+
+def _b2_edge_inputs(hybrid: bool, dev="cuda"):
+    """B2's (B2h's with ``hybrid``) small shapes chosen for the edges of
+    the kernel's tiling: 20,001 rows (a ragged last tile), 300 obs (a
+    padded last block), ensembles of 12, 21, 30, 50, 80, 128 (the tile of
+    64 rows, 8 members per thread in the apply) and 256 (one CTA of 32
+    rows per SM, 16 members per thread), block sizes 128, 100 and 50 (a
+    last panel narrower than 8 obs, copies of 4 bytes), cull words with
+    one alive panel, cull off, unlocalized, vertical localization, the
+    arccos form, and an in-place update.  Yields ``(label, bm, bp, args,
+    donate)``: ``args`` follow ``bm, bp`` in ``fused_apply``."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    dev = torch.device(dev)
+    nobs = 300
+    (lat, lon, bm, body_sigma, body_vert, obs, slen, state,
+     tails) = _b2_edge_base(hybrid, dev)
     for label, m, bsz, localize, vertical, radius, cull, one, donate in (
             ("12 members", 12, 128, True, False, 2000.0, True, False, False),
             ("21 members", 21, 128, True, False, 2000.0, True, False, False),
@@ -770,7 +899,7 @@ def phase3():
                 ops["tab_b"], ops["bits"], ops["tile"], True, False,
                 ops["series"])
         got = ensrf_fused.fused_apply(*args)
-        want = ensrf_fused.fused_apply_plain(*args)
+        want, p_ms = cuda_timed(lambda: ensrf_fused.fused_apply_plain(*args))
         torch.cuda.synchronize()
         err = max(compare(f"B2 rows={rows} cull={cull} r={radius} mean",
                           got[0], want[0]),
@@ -779,7 +908,6 @@ def phase3():
         alive = (float((ops["bits"] != 0).float().mean())
                  if ops["bits"] is not None else 1.0)
         k_ms = cuda_ms(lambda: ensrf_fused.fused_apply(*args), 3)
-        p_ms = cuda_ms(lambda: ensrf_fused.fused_apply_plain(*args), 1)
         results.append(dict(
             rows=rows, cull=cull, radius=radius,
             form="series" if ops["series"] else "arccos",
@@ -794,11 +922,86 @@ def phase3():
     edge_err, edge_labels = _b2_edge_cases(hybrid=False)
     log(f"phase 3: B2 matches plain at 20,001 rows x 300 obs (max abs err "
         f"{edge_err:.3e}): " + ", ".join(edge_labels))
+    _b2e_cases(w)
     head = results[0]
     return dict(max_abs_err=max([edge_err] + [r["max_abs_err"]
                                               for r in results]),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"])
+
+
+def _draws(ye, seed):
+    """Centred draws ``eps`` shaped like ``ye`` (unit variance), on its
+    device."""
+    import torch
+
+    gen = torch.Generator(device=ye.device).manual_seed(seed)
+    eps = torch.randn(ye.shape, generator=gen, device=ye.device)
+    return eps - eps.mean(dim=-1, keepdim=True)
+
+
+def _with_z(args, seed):
+    """B2's prepared operands (``fused_apply``'s after ``bm, bp``) turned
+    into B2e's: departure rows ``z_b = y_b - eps``, the Gram tables from
+    them, the chordal angle form.  Returns ``(args, z_b)``."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    geom, y_b, _, tab_b, bits, tile, localize, vertical, _, hybrid = args
+    z_b = (y_b - _draws(y_b, seed)).contiguous()
+    gram = torch.bmm(z_b, y_b.transpose(1, 2))
+    ggt_b = (gram * tab_b[:, 1, :, None]).transpose(1, 2).contiguous()
+    return (geom, y_b, ggt_b, tab_b, bits, tile, localize, vertical,
+            ensrf_fused.CHORDAL_FORM, hybrid), z_b
+
+
+def _b2e_cases(w):
+    """B2e against its plain version: phase 3's workload (cull on, 2000
+    km, and the cull off) and phase 3's edge cases, each with departure
+    rows ``z = ye - eps`` (the chordal form).  Returns the max abs
+    error."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    worst, labels = 0.0, []
+    cases = []
+    for cull in (True, False):
+        ops = ensrf_fused.prepare(w["bp"], w["lat"], w["lon"], w["tail"],
+                                  w["obs"], block_size=128, cull=cull,
+                                  max_radius_km=2000.0)
+        cases.append((f"262,144 x 80 x 2048, cull {cull}", w["bm"], w["bp"],
+                      (ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
+                       ops["bits"], ops["tile"], True, False, ops["series"],
+                       False), False))
+    cases += list(_b2_edge_inputs(False))
+    for n, (label, bm, bp, args, donate) in enumerate(cases):
+        args, z_b = _with_z(args, 61 + n)
+        want = ensrf_fused.fused_apply_plain(bm, bp, *args, z_b=z_b)
+        gm, gp = (bm.clone(), bp.clone()) if donate else (bm, bp)
+        got = ensrf_fused.fused_apply(gm, gp, *args, donate=donate, z_b=z_b)
+        torch.cuda.synchronize()
+        check(float((want[1] - bp).abs().max()) > 1e-2,
+              f"B2e {label}: the plain version did not move the state")
+        worst = max(worst, compare(f"B2e {label} mean", got[0], want[0]),
+                    compare(f"B2e {label} perts", got[1], want[1]))
+        labels.append(label)
+    log(f"phase 3: B2e matches plain (max abs err {worst:.3e}): "
+        + ", ".join(labels))
+    return worst
+
+
+@functools.lru_cache(maxsize=None)
+def _api_draws(nmems, nobs, seed, ny):
+    """:func:`_api_workload`'s random draws (the field, the obs' values,
+    lats and lons, in that order), made once per argument set: nine
+    phases build the same workload, its 84M normals seconds each time.
+    Callers take copies."""
+    rng = np.random.default_rng(seed)
+    field = rng.normal(280, 5, (1, ny, ny, nmems)).astype(np.float32)
+    return (field, rng.normal(280, 5, nobs), rng.uniform(-85, 85, nobs),
+            rng.uniform(0, 360, nobs))
 
 
 def _api_workload(nmems=80, nobs=10_000, seed=1, ny=1024):
@@ -807,16 +1010,15 @@ def _api_workload(nmems=80, nobs=10_000, seed=1, ny=1024):
     from efa_xray_tpu_torch.observation.observation import ObservationBatch
     from efa_xray_tpu_torch.utils import timeutil
 
-    rng = np.random.default_rng(seed)
+    field, values, olat, olon = (x.copy() for x in
+                                 _api_draws(nmems, nobs, seed, ny))
     nx = ny
     lat1d = np.linspace(-88, 88, ny)
     lon1d = np.arange(0, 360, 360 / nx)
     lon, lat = np.meshgrid(lon1d, lat1d)
     times = np.datetime64("2026-08-01T00") + np.arange(1) * np.timedelta64(6, "h")
-    field = rng.normal(280, 5, (1, ny, nx, nmems)).astype(np.float32)
     batch = ObservationBatch(
-        values=rng.normal(280, 5, nobs), errors=np.ones(nobs),
-        lats=rng.uniform(-85, 85, nobs), lons=rng.uniform(0, 360, nobs),
+        values=values, errors=np.ones(nobs), lats=olat, lons=olon,
         times_s=timeutil.to_epoch_seconds(np.repeat(times[0], nobs)),
         obtypes=["T2m"] * nobs, localize_radius=np.full(nobs, 2000.0),
         assimilate_flags=np.ones(nobs, bool), verts=np.full(nobs, np.nan),
@@ -851,6 +1053,23 @@ def _plain_update(state, batch, cfg, inflation=None):
         body_vert=bvert, vertical=vertical, tail_panel=cfg.tail_panel,
         **ref.varloc_kwargs(), **ref._hybrid_kwargs(bm))
     return bm, bp, pbm, pbp
+
+
+# Plain updates kept for a later phase on the same workload and config:
+# {key: (cfg, (bm, bp, pbm, pbp) on the CPU)}.
+_PLAIN_KEPT = {}
+
+
+def _plain_kept(key, state, batch, cfg):
+    """:func:`_plain_update` of ``cfg`` on the workload named ``key``,
+    computed once and kept on the host: phases 4 and 15 hold the same
+    update of phase 4's workload against it."""
+    kept = _PLAIN_KEPT.get(key)
+    if kept is None or kept[0] != cfg:
+        kept = (cfg, tuple(x.cpu() for x in _plain_update(state, batch,
+                                                           cfg)))
+        _PLAIN_KEPT[key] = kept
+    return tuple(x.to(state.device) for x in kept[1])
 
 
 def _check_api(label, state, batch, cfg, post, obs, inflation=None,
@@ -891,16 +1110,21 @@ def _reset_counts():
     from efa_xray_tpu_torch.ops import (
         ensrf_fused,
         ensrf_grid,
+        newton_schulz,
         precision_probe,
         tail_solve,
     )
 
     tail_solve.launches = 0
     tail_solve.hybrid_launches = 0
+    tail_solve.enkf_launches = 0
     ensrf_fused.launches = 0
     ensrf_fused.hybrid_launches = 0
+    ensrf_fused.enkf_launches = 0
     ensrf_grid.b3_launches = 0
     ensrf_grid.b4_launches = 0
+    ensrf_grid.b4e_launches = 0
+    newton_schulz.launches = 0
     for by_mode in (ensrf_fused.launches_by_mode,
                     ensrf_grid.launches_by_mode):
         for counts in by_mode.values():
@@ -916,14 +1140,17 @@ def _counts() -> dict:
     from efa_xray_tpu_torch.ops import (
         ensrf_fused,
         ensrf_grid,
+        newton_schulz,
         precision_probe,
         tail_solve,
     )
 
     return {"B1": tail_solve.launches, "B1h": tail_solve.hybrid_launches,
-            "B2": ensrf_fused.launches,
-            "B2h": ensrf_fused.hybrid_launches, "B3": ensrf_grid.b3_launches,
-            "B4": ensrf_grid.b4_launches, "P": precision_probe.launches}
+            "B1e": tail_solve.enkf_launches, "B2": ensrf_fused.launches,
+            "B2h": ensrf_fused.hybrid_launches,
+            "B2e": ensrf_fused.enkf_launches, "B3": ensrf_grid.b3_launches,
+            "B4": ensrf_grid.b4_launches, "B4e": ensrf_grid.b4e_launches,
+            "NS": newton_schulz.launches, "P": precision_probe.launches}
 
 
 def _mode_counts() -> dict:
@@ -955,6 +1182,42 @@ def _tail_counts(nobs: int, panel: int, b4: bool) -> dict:
     npanels = -(-nobs // panel)
     per_panel = -(-panel // 128) if (b4 and npanels > 1) else 0
     return dict(panels=npanels, b4=npanels * per_panel)
+
+
+def _enkf_only(nobs: int, route: str, bodies: int = 1, block: int = 128,
+               panel: int = 512):
+    """:func:`_only` of an EnKF update on the kernel route ``route`` ("B2"
+    or "B4") with ``bodies`` shards: B1e once per panel; on B2, B2e once
+    per panel out of panel (a batch in one panel applies nothing) and
+    once per shard's body; on B4, B4e per 128 obs of each panel and per
+    block of each shard's body."""
+    t = _tail_counts(nobs, panel, route == "B4")
+    if route == "B2":
+        return _only(B1e=t["panels"],
+                     B2e=(t["panels"] if t["panels"] > 1 else 0) + bodies)
+    return _only(B1e=t["panels"], B4e=t["b4"] + bodies * -(-nobs // block))
+
+
+def _sync_free(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the synchronizing calls it made (the host waiting on a
+    card: a read back, a copy from pageable memory, a synchronize), by
+    warning text."""
+    import warnings
+
+    import torch
+
+    old = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+    syncs = [str(w.message).splitlines()[0] for w in seen
+             if "called a synchronizing" in str(w.message)]
+    return out, syncs
 
 
 def _syncer(dev):
@@ -1061,7 +1324,8 @@ def phase4():
     check(b2 >= -(-nobs // cfg.tail_panel) + 1, f"B2 launched {b2} times")
     check(_only(B1=b1, B2=b2)(counts), f"phase 4: launches {counts}")
     mean_err, incr_rms, inn_prior, inn_post = _check_api(
-        "phase 4", state, batch, cfg, post, obs)
+        "phase 4", state, batch, cfg, post, obs,
+        plain=_plain_kept(("api", 1024, 10_000, 80), state, batch, cfg))
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1449,12 +1713,11 @@ def phase6():
                 ops["table"], ops["y_b"], ops["ggt_b"], ops["coef_b"],
                 ops["vt"])
         got = ensrf_grid.grid_apply(*args)
-        want = ensrf_grid.grid_apply_plain(*args)
+        want, p_ms = cuda_timed(lambda: ensrf_grid.grid_apply_plain(*args))
         torch.cuda.synchronize()
         err = max(compare(f"B3 {label} mean", got[0], want[0]),
                   compare(f"B3 {label} perts", got[1], want[1]))
         k_ms = cuda_ms(lambda: ensrf_grid.grid_apply(*args), 3)
-        p_ms = cuda_ms(lambda: ensrf_grid.grid_apply_plain(*args), 1)
         tile = ensrf_grid.pick_tile(bsz, dims["nmems"])
         moved = nbytes(*args[:7]) + nbytes(*got)
         results.append(dict(
@@ -1543,13 +1806,35 @@ def phase7():
             ctas=ensrf_grid.ctas_per_sm_on_card(tile, bsz, dims["nmems"]),
             **bound(body_flop(nrows, 1, bsz, dims["nmems"]),
                     nbytes(*args[:7]) + nbytes(*got))))
+        # B4e on the same blocks, against departure rows z = ye - eps.
+        got = want = (c["bm"], c["bp"])
+        for b in range(2):
+            sl = slice(b * bsz, (b + 1) * bsz)
+            z = (tail.ye[sl] - _draws(tail.ye[sl], 71 + b)).contiguous()
+            vt, w, table, ggt = ensrf_grid.block_operands(
+                c["lat"], c["lon"], tail.ye[sl], tail.sqrt_coef[sl],
+                obs.lats[sl], obs.lons[sl], obs.radii[sl], nrows,
+                body_vert=c["body_vert"], ob_vert=obs.verts[sl],
+                ob_vrad=obs.vert_radii[sl], vertical=vertical,
+                ngrid=c["ngrid"], apply_rows=z)
+            coef = torch.stack([tail.gain_coef[sl], tail.sqrt_coef[sl]])
+            ops = (w, table, tail.ye[sl].contiguous(), ggt.contiguous(), coef)
+            got = ensrf_grid.block_apply(*got, *ops, vt, z=z)
+            want = ensrf_grid.grid_apply_plain(
+                *want, w[None], None if table is None else table[:, None],
+                ops[2][None], ops[3][None], coef[None], vt, z_b=z[None])
+        torch.cuda.synchronize()
+        results[-1]["b4e_max_abs_err"] = max(
+            compare(f"B4e {label} mean", got[0], want[0]),
+            compare(f"B4e {label} perts", got[1], want[1]))
         del c, tail, obs, got, want, ops, args, w
     log(f"phase 7: B4 matches plain over {nblk} blocks: " + "; ".join(
         f"{r['label']} (tile {r['tile']}, {r['ctas']} CTAs per SM): err "
         f"{r['max_abs_err']:.3e}, one block: kernel "
         f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}); its operands in torch "
-        f"(block_operands) {r['operands_ms']:.3f} ms" for r in results))
+        f"(block_operands) {r['operands_ms']:.3f} ms; B4e over 2 blocks: "
+        f"err {r['b4e_max_abs_err']:.3e}" for r in results))
     edge_err, edge_labels = _grid_edge_cases("B4")
     log(f"phase 7: B4 matches plain at small grids (max abs err "
         f"{edge_err:.3e}): " + ", ".join(edge_labels))
@@ -1727,12 +2012,14 @@ def phase10():
             ("(c) unlocalized", n, 1000.0, False, False),
             ("(d) vertical", n, 1000.0, True, True)):
         key = (slen, localize, vertical)
+        radius = 2000.0 if localize else None
         if key not in tails:
+            # The body's operands: the tail through B1h (held in phase 2).
             tails[key] = core.tail_scan_blocked(
                 tm, tp, obs, localize=localize, fast_geometry=True,
-                vertical=vertical, panel=512, hybrid_alpha=alpha,
+                vertical=vertical, panel=512, kernels=True,
+                max_radius_km=radius, hybrid_alpha=alpha,
                 tail_sigma=tail_sigma, static_length=slen)
-        radius = 2000.0 if localize else None
         ops = ensrf_fused.prepare(
             bp[:rows], lat[:rows], lon[:rows], tails[key], obs,
             body_vert=body_vert[:rows] if vertical else None,
@@ -1742,7 +2029,7 @@ def phase10():
                 ops["tab_b"], ops["bits"], ops["tile"], localize, vertical,
                 ops["series"], True)
         got = ensrf_fused.fused_apply(*args)
-        want = ensrf_fused.fused_apply_plain(*args)
+        want, p_ms = cuda_timed(lambda: ensrf_fused.fused_apply_plain(*args))
         torch.cuda.synchronize()
         err = max(compare(f"B2h {label} mean", got[0], want[0]),
                   compare(f"B2h {label} perts", got[1], want[1]))
@@ -1751,7 +2038,6 @@ def phase10():
         alive = (float((ops["bits"] != 0).float().mean())
                  if ops["bits"] is not None else 1.0)
         k_ms = cuda_ms(lambda: ensrf_fused.fused_apply(*args), 3)
-        p_ms = cuda_ms(lambda: ensrf_fused.fused_apply_plain(*args), 1)
         results.append(dict(
             label=label, alive_tile_blocks=alive, max_abs_err=err, ms=k_ms,
             plain_ms=p_ms, form="series" if ops["series"] else "arccos",
@@ -1977,7 +2263,7 @@ def phase15(dev="cuda", ny=1024, nobs=10_000, nmems=80, flat_n=262_144,
     state, batch = _api_state(dev, ny=ny, nobs=nobs, nmems=nmems)
     base = FilterConfig(localization="GC", fast_geometry=True)
     panels = _tail_counts(batch.nobs, base.tail_panel, False)["panels"]
-    plain = _plain_update(state, batch, base)
+    plain = _plain_kept(("api", ny, nobs, nmems), state, batch, base)
     out = {}
     for order in (None, "hilbert"):
         cfg = dataclasses.replace(base, obs_order=order)
@@ -2499,10 +2785,13 @@ def _innovations(label, batch, obs, var_shrinks=True):
 
 def phase18(dev="cuda", **cut):
     """The stochastic EnKF at BASELINE config 11 through
-    ``EnKF(...).update()``: ``fast_geometry``, blocks of 128, seed 6.  The
-    blocked update (warm, its tail/body split), the serial one with the
-    same draws, the float64 update on the device with the same draws, and
-    the default config (exact haversine); no kernel may launch."""
+    ``EnKF(...).update()``: ``fast_geometry``, blocks of 128, seed 6, on
+    its kernel route (B1e once per 512-ob panel, B2e out of panel and for
+    the body): warm, split into tail and body, no read back inside the
+    update, held against the plain route (the per-ob tail and the plain
+    body); the serial update and a float64 one (the plain route) with the
+    same draws; the default config (exact haversine: B1e + B4e).  B2e and
+    B4e against their plain versions on the update's own operands."""
     import dataclasses
 
     import torch
@@ -2513,19 +2802,59 @@ def phase18(dev="cuda", **cut):
 
     p = dict(CONFIG11, **cut)
     sync = _syncer(dev)
+    cuda = torch.device(dev).type == "cuda"
     state, batch = _half_degree_workload(dev, **p)
     cfg = FilterConfig(localization="GC", fast_geometry=True,
                        block_size=p["block"])
     run = lambda c: (lambda: EnKF(state, batch, config=c, verbose=False,
                                   seed=p["seed"]).update())
-    split = [(tenkf, "enkf_tail_scan", "tail"),
-             (core, "ensrf_blocked_body", "body")]
-    _reset_counts()
-    _, cold, _ = _spans(run(cfg), [], sync)
-    (post, obs), wall, spent = _spans(run(cfg), split, sync)
-    counts = _counts()
-    check(_only()(counts), f"phase 18: the EnKF launched {counts}")
+    split = [(core, "tail_scan_blocked", "tail"),
+             (tenkf, "enkf_kernel_body", "body")]
+    real = tenkf.enkf_kernel_update
+    seen = {}
+
+    def capture(route, *a, **k):
+        seen.setdefault(route, (a, k))
+        return real(route, *a, **k)
+
+    tenkf.enkf_kernel_update = capture
+    try:
+        _, cold, _ = _spans(run(cfg), [], sync)
+        _reset_counts()
+        (post, obs), wall, spent = _spans(run(cfg), split, sync)
+        counts = _counts()
+        check((_enkf_only(p["nobs"], "B2", block=p["block"]) if cuda
+               else _only())(counts), f"phase 18: the EnKF launched {counts}")
+        cfg_d = FilterConfig(localization="GC", block_size=p["block"])
+        run(cfg_d)()
+        _reset_counts()
+        (post_d, obs_d), wall_d, spent_d = _spans(run(cfg_d), split, sync)
+        counts_d = _counts()
+        check((_enkf_only(p["nobs"], "B4", block=p["block"]) if cuda
+               else _only())(counts_d), f"phase 18 default: launches "
+              f"{counts_d}")
+    finally:
+        tenkf.enkf_kernel_update = real
     inn = _innovations("phase 18", batch, obs, var_shrinks=False)
+    inn_d = _innovations("phase 18 default", batch, obs_d, var_shrinks=False)
+    syncs = []
+    if cuda:
+        a, k = seen["B2"]
+        syncs = _sync_free(lambda: real("B2", *a, **k))[1]
+        check(not syncs, f"phase 18: the kernel update waited on the card: "
+              f"{syncs}")
+    # The plain route (the per-ob tail, the plain body): the reference.
+    route = tenkf.enkf_route
+    tenkf.enkf_route = lambda *a: "plain"
+    try:
+        (post_p, _), wall_p, _ = _spans(run(cfg), [], sync)
+        (post_pd, _), wall_pd, _ = _spans(run(cfg_d), [], sync)
+    finally:
+        tenkf.enkf_route = route
+    gap_p = _posterior_gap("phase 18 kernel route vs plain", post, post_p,
+                           state)
+    gap_pd = _posterior_gap("phase 18 default: kernel route vs plain",
+                            post_d, post_pd, state)
     (post_s, _), wall_s, _ = _spans(
         run(dataclasses.replace(cfg, method="serial")), [], sync)
     gap_s = _posterior_gap("phase 18 blocked vs serial", post, post_s, state)
@@ -2544,21 +2873,90 @@ def phase18(dev="cuda", **cut):
     finally:
         tenkf.draw_ob_perturbations = draw
     gap64 = _posterior_gap("phase 18 float32 vs float64", post, post64, state)
-    cfg_d = FilterConfig(localization="GC", block_size=p["block"])
-    (post_d, obs_d), wall_d, spent_d = _spans(run(cfg_d), split, sync)
-    counts_d = _counts()
-    check(_only()(counts_d), f"phase 18 default: launches {counts_d}")
-    inn_d = _innovations("phase 18 default", batch, obs_d, var_shrinks=False)
+    kernels = _enkf_holds(seen) if cuda else {}
     out = dict(
         ngrid=p["ny"] * p["nx"], nmems=p["nmems"], nobs=p["nobs"],
         cold_s=cold, warm_s=wall, tail_s=spent["tail"], body_s=spent["body"],
-        serial_s=wall_s, float64_s=wall64, default_s=wall_d,
+        plain_s=wall_p, serial_s=wall_s, float64_s=wall64, default_s=wall_d,
         default_tail_s=spent_d["tail"], default_body_s=spent_d["body"],
-        b_launches=counts, mean_abs_innov=inn, default_mean_abs_innov=inn_d,
-        blocked_vs_serial=gap_s, f32_vs_f64=gap64,
-        gate=SOLVER_GATE,
-        obs_points_per_sec=p["nobs"] * p["ny"] * p["nx"] / wall)
+        default_plain_s=wall_pd, b_launches=counts,
+        default_launches=counts_d, syncs_in_update=len(syncs),
+        mean_abs_innov=inn, default_mean_abs_innov=inn_d,
+        kernel_vs_plain=gap_p, default_kernel_vs_plain=gap_pd,
+        blocked_vs_serial=gap_s, f32_vs_f64=gap64, gate=SOLVER_GATE,
+        obs_points_per_sec=p["nobs"] * p["ny"] * p["nx"] / wall,
+        kernels=kernels)
     log("phase 18: EnKF config 11 " + json.dumps(out))
+    return out
+
+
+def _enkf_holds(seen):
+    """B2e and B4e against their plain versions on the operands of phase
+    18's updates (``seen``: each route's ``enkf_kernel_update`` arguments):
+    B2e over the whole body, B4e over its first block; kernel and plain
+    ms, the bound.  Returns ``{"B2e": ..., "B4e": ...}``."""
+    import torch
+
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
+    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid
+
+    out = {}
+    a, k = seen["B2"]
+    bm, bp, tm, tp, lat, lon, obs, eps = a
+    tkw = lambda k: {n: k[n] for n in ("localize", "unbiased",
+                                       "fast_geometry", "vertical",
+                                       "panel")}
+    tail = core.tail_scan_blocked(tm, tp, obs, kernels=True, eps=eps,
+                                  **tkw(k))
+    ops = ensrf_fused.prepare(bp, lat, lon, tail, obs,
+                              block_size=k["block_size"], cull=k["cull"],
+                              apply_rows=tail.apply_rows)
+    args = (bm, bp, ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
+            ops["bits"], ops["tile"], True, False, ops["series"])
+    got = ensrf_fused.fused_apply(*args, z_b=ops["z_b"])
+    want, p_ms = cuda_timed(lambda: ensrf_fused.fused_apply_plain(
+        *args, z_b=ops["z_b"]))
+    torch.cuda.synchronize()
+    err = max(compare("B2e config 11 mean", got[0], want[0]),
+              compare("B2e config 11 perts", got[1], want[1]))
+    out["B2e"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ensrf_fused.fused_apply(*args, z_b=ops["z_b"]),
+                   5),
+        plain_ms=p_ms,
+        **bound(b2_flop(ops, bp.shape[0], bp.shape[1], True, False),
+                nbytes(*args[:7], ops["z_b"]) + nbytes(*got)))
+    a, k = seen["B4"]
+    bm, bp, tm, tp, lat, lon, obs, eps = a
+    tail = core.tail_scan_blocked(tm, tp, obs, kernels=True, eps=eps,
+                                  **tkw(k))
+    sl = slice(0, k["block_size"])
+    z = tail.apply_rows[sl].contiguous()
+    vt, w, table, ggt = ensrf_grid.block_operands(
+        lat, lon, tail.ye[sl], tail.sqrt_coef[sl], obs.lats[sl],
+        obs.lons[sl], obs.radii[sl], bp.shape[0], apply_rows=z)
+    coef = torch.stack([tail.gain_coef[sl], tail.sqrt_coef[sl]])
+    ops = (w, table, tail.ye[sl].contiguous(), ggt.contiguous(), coef)
+    got = ensrf_grid.block_apply(bm, bp, *ops, vt, z=z)
+    want = ensrf_grid.grid_apply_plain(bm, bp, w[None], None, ops[2][None],
+                                       ops[3][None], coef[None], vt,
+                                       z_b=z[None])
+    torch.cuda.synchronize()
+    err = max(compare("B4e config 11 mean", got[0], want[0]),
+              compare("B4e config 11 perts", got[1], want[1]))
+    out["B4e"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ensrf_grid.block_apply(bm, bp, *ops, vt, z=z), 5),
+        plain_ms=cuda_ms(lambda: ensrf_grid.grid_apply_plain(
+            bm, bp, w[None], None, ops[2][None], ops[3][None], coef[None],
+            vt, z_b=z[None]), 1),
+        **bound(body_flop(bp.shape[0], 1, k["block_size"], bp.shape[1]),
+                nbytes(bm, bp, w, *ops[2:], z) + nbytes(*got)))
+    log("phase 18: B2e (the body) and B4e (one block of the default "
+        "config's body) match plain on config 11's operands: " + "; ".join(
+            f"{n}: err {r['max_abs_err']:.3e} kernel {r['ms']:.3f} ms plain "
+            f"{r['plain_ms']:.1f} ms bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})" for n, r in out.items()))
     return out
 
 
@@ -2575,13 +2973,16 @@ def _letkf_split():
 
 def _letkf_runs(label, state, batch, cfg, sync, prior_var_check=True):
     """``LETKF(state, batch, config=cfg).update()`` cold, warm (wall, peak
-    memory, Newton-Schulz iterations per chunk, host syncs), and warm
-    again split into select / solve / apply.  Returns ``(post, numbers)``."""
+    memory, Newton-Schulz iterations per chunk, host syncs: none where the
+    kernel NS runs, float32 Newton-Schulz on the card), and warm again
+    split into select / solve / apply.  Returns ``(post, numbers)``."""
     import torch
 
     from efa_xray_tpu_torch import LETKF
     from efa_xray_tpu_torch.assimilation import letkf_core as tl
 
+    kernel = (state.device.type == "cuda" and cfg.dtype == "float32"
+              and cfg.letkf_sqrt == "newton_schulz")
     run = lambda: LETKF(state, batch, config=cfg).update()
     _reset_counts()
     _, cold, cold_spent = _spans(run, [(tl, "host_select_candidates",
@@ -2592,65 +2993,102 @@ def _letkf_runs(label, state, batch, cfg, sync, prior_var_check=True):
     (post, obs), wall, _ = _spans(run, [], sync)
     peak = (torch.cuda.max_memory_allocated() / 1e9
             if torch.cuda.is_available() else None)
-    ns = dict(calls=tl.ns_calls, iterations=tl.ns_iterations,
-              per_chunk=tl.ns_iterations / max(tl.ns_calls, 1),
-              max=tl.ns_max_iterations, host_syncs=tl.host_syncs)
+    n = tl.ns_counts()
+    ns = dict(calls=n["calls"], iterations=n["iterations"],
+              per_chunk=n["iterations"] / max(n["calls"], 1),
+              max=n["max_iterations"], host_syncs=n["host_syncs"])
+    check(not kernel or n["host_syncs"] == 0,
+          f"{label}: {n['host_syncs']} host reads inside a warm update")
+    _reset_counts()
     _, wall_split, spent = _spans(run, _letkf_split(), sync)
     counts = _counts()
-    check(_only()(counts), f"{label}: launches {counts}")
+    check((_only(NS=None) if kernel else _only())(counts),
+          f"{label}: launches {counts}")
     inn = _innovations(label, batch, obs, var_shrinks=prior_var_check)
     return post, dict(cold_s=cold, host_build_s=cold_spent["host_build"],
                       warm_s=wall, peak_gb=peak, newton_schulz=ns,
+                      launches=counts,
                       split_wall_s=wall_split,
                       **{f"{k}_s": v for k, v in spent.items()
                          if k != "host_build"},
                       mean_abs_innov=inn)
 
 
-def _ns_sync_cost(dev, nmems=40, chunk=512, reps=5):
-    """What the Newton-Schulz exit test's host reads cost: one chunk of
-    ``chunk`` SPD ``[nmems, nmems]`` systems (LETKF-shaped, eigenvalues in
-    [M-1, 40 (M-1)]) through ``letkf_core._invsqrt_newton_schulz``, against
-    the same iterations with no read.  Median seconds of each, closed by a
-    synchronize, and the iterations."""
+def _first_ns_input(run, got=None):
+    """``run()`` with a spy on ``letkf_core._invsqrt_newton_schulz``: the
+    first chunk's ``A [C, M, M]`` (a copy) and the cap it was given, which
+    are also appended to the list ``got``; ``run``'s result is that list's
+    first entry then."""
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+
+    real, seen = tl._invsqrt_newton_schulz, []
+
+    def spy(a, iters):
+        if not seen:
+            seen.append((a.clone(), iters))
+        return real(a, iters)
+
+    tl._invsqrt_newton_schulz = spy
+    try:
+        out = run()
+    finally:
+        tl._invsqrt_newton_schulz = real
+    if got is not None:
+        got[:] = [out, seen[0]]
+    return seen[0]
+
+
+def _ns_hold(label, a, iters):
+    """NS against its plain version (the loop that reads each error back)
+    on one chunk's ``A``: the same iteration count, ``A^{-1/2}`` and
+    ``A^{-1}`` at the f32 gate; kernel and plain ms, the bound (the
+    iterations this batch runs: three products of 2 M^3 each, and the
+    final product).  Returns the kernels-line numbers."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import letkf_core as tl
+    from efa_xray_tpu_torch.ops import newton_schulz
 
-    sync = _syncer(dev)
-    gen = torch.Generator(device=dev).manual_seed(19)
-    q, _ = torch.linalg.qr(torch.randn((chunk, nmems, nmems), generator=gen,
-                                       device=dev))
-    ev = (nmems - 1) * (1.0 + 39.0 * torch.rand((chunk, nmems),
-                                                generator=gen, device=dev))
-    a = (q * ev[:, None, :]) @ q.transpose(1, 2)
-    tl.reset_counts()
-    tl._invsqrt_newton_schulz(a, 30)
-    iters = tl.ns_iterations
-    eye = torch.eye(nmems, device=dev)
+    got = newton_schulz.invsqrt_newton_schulz_cuda(a, iters)
+    want = tl._invsqrt_newton_schulz_plain(a, iters)
+    torch.cuda.synchronize()
+    n = int(got[2])
+    check(n == want[2], f"NS {label}: {n} iterations, the plain loop "
+          f"{want[2]}")
+    check(all(bool(torch.isfinite(x).all()) for x in got[:2] + want[:2]),
+          f"NS {label}: not finite")
+    err = max(compare(f"NS {label} inverse sqrt", got[0], want[0]),
+              compare(f"NS {label} inverse", got[1], want[1]))
+    c, m = a.shape[0], a.shape[-1]
+    r = dict(
+        iterations=n, max_abs_err=err,
+        ms=cuda_ms(lambda: newton_schulz.invsqrt_newton_schulz_cuda(
+            a, iters), 5),
+        plain_ms=cuda_ms(lambda: tl._invsqrt_newton_schulz_plain(a, iters),
+                         3),
+        **bound(float(c) * m ** 3 * (6 * n + 2), nbytes(a, *got[:2])))
+    log(f"phase NS {label}: [{c}, {m}, {m}] x {n} iterations: err "
+        f"{err:.3e} kernel {r['ms']:.3f} ms plain (host reads) "
+        f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
+    return r
 
-    def fixed():
-        c = torch.clamp(torch.amax(a.abs().sum(-1), -1), min=1e-30)
-        y, z = a / c[:, None, None], eye.expand(a.shape)
-        for _ in range(iters):
-            zy = z @ y
-            torch.amax(torch.abs(zy - eye))
-            t = 1.5 * eye - 0.5 * zy
-            y, z = y @ t, t @ z
-        return z
 
-    def med(fn):
-        times = []
-        for _ in range(reps):
-            sync()
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
+# NS's device-memory variant: a chunk of 64 systems of 200 members, each
+# the LETKF's precision (M - 1) I + G^T G of 64 local obs, at the default
+# cap of 30 iterations.
+NS_WIDE = dict(nmems=200, chunk=64, k=64, seed=19, iters=30)
 
-    return dict(iterations=iters, with_reads_s=med(
-        lambda: tl._invsqrt_newton_schulz(a, 30)), without_reads_s=med(fixed))
+
+def _letkf_like_spd(m: int, c: int, k: int, seed: int):
+    """``[c, m, m]`` float32 on the card: ``(m - 1) I + G^T G``, ``G``
+    ``[k, m]`` standard normal, the form of the LETKF's precision."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn((c, k, m), generator=gen, device="cuda")
+    eye = torch.eye(m, device="cuda")
+    return (m - 1) * eye + g.transpose(1, 2) @ g
 
 
 def _selection_flips(state, batch, patch: int, k: int):
@@ -2685,12 +3123,15 @@ def phase19(dev="cuda", c6=None, c9=None):
     512): top-k exact and host (same analysis), Newton-Schulz and eigh,
     float32 and float64 on the device, and the unlocalized LETKF against
     the unlocalized EnSRF; then config 9 (config 3's 80 level variables,
-    30 members, 5,000 obs, 300 hPa vertical)."""
+    30 members, 5,000 obs, 300 hPa vertical).  Each float32
+    Newton-Schulz update on the card runs NS and reads nothing back; NS
+    is held against its plain version on config 6's first chunk, and its
+    device-memory variant on a chunk of 200 members (:data:`NS_WIDE`)."""
     import dataclasses
 
     import torch
 
-    from efa_xray_tpu_torch import EnSRF, FilterConfig
+    from efa_xray_tpu_torch import EnSRF, FilterConfig, LETKF
 
     p = dict(CONFIG6, **(c6 or {}))
     sync = _syncer(dev)
@@ -2764,8 +3205,14 @@ def phase19(dev="cuda", c6=None, c9=None):
             letkf_s=nl["warm_s"], ensrf_s=we, gate=gate, mean_gap=mgap,
             mean_incr_rms=incr, var_gap=vgap, post_var_mean=vscale)
     out["gate"] = SOLVER_GATE
-    out["ns_sync_cost"] = _ns_sync_cost(dev, nmems=p["nmems"],
-                                        chunk=p["chunk"])
+    if torch.device(dev).type == "cuda":
+        out["ns"] = _ns_hold("config 6 chunk", *_first_ns_input(
+            lambda: LETKF(state, batch, config=cfg).update()))
+        # Past 136 members NS keeps Y, Z and T in device memory (two
+        # launches an iteration over 64 x 64 tiles).
+        out["ns_wide"] = _ns_hold("200 members", _letkf_like_spd(
+            NS_WIDE["nmems"], NS_WIDE["chunk"], NS_WIDE["k"],
+            NS_WIDE["seed"]), NS_WIDE["iters"])
     log("phase 19: LETKF config 6 " + json.dumps(out))
 
     q = dict(nmems=30, nobs=5000, seed=3, patch=8, k=64, chunk=512)
@@ -2822,7 +3269,10 @@ def phase20(dev="cuda", **cut):
     ``letkf_core.letkf_update``, as ``bench_config7`` drives it: 4,194,304
     scattered points x 80 members x 10,000 obs at 2000 km, points and obs
     in the port's Hilbert order (``localization.spatial_sort_order``);
-    top-k exact, then host (its build timed apart), the same analysis."""
+    top-k exact, then host (its build timed apart), the same analysis;
+    each launches NS and makes no synchronizing call inside the update
+    (``set_sync_debug_mode``), and NS is held against its plain version
+    on the first chunk."""
     import torch
 
     from efa_xray_tpu_torch.assimilation import letkf_core as tl
@@ -2844,23 +3294,44 @@ def phase20(dev="cuda", **cut):
     out["host_group"] = int(geff)
     sel = dict(sel_cand=torch.from_numpy(cand).to(dev),
                sel_mask=torch.from_numpy(mask).to(dev), sel_group=geff)
-    res = {}
+    res, first = {}, []
+    cuda = torch.device(dev).type == "cuda"
     for topk, extra in (("exact", {}), ("host", sel)):
+        def update(topk=topk, extra=extra):
+            run = lambda: tl.letkf_update(bm, bp, tm, tp, lat, lon, obs,
+                                          topk_method=topk, **kw, **extra)
+            if topk != "exact":
+                return run()
+            # The exact run also hands NS's first chunk to the hold below.
+            _first_ns_input(run, first)
+            return first[0]
+
         tl.reset_counts()
-        if torch.cuda.is_available():
+        _reset_counts()
+        if cuda:
             torch.cuda.reset_peak_memory_stats()
-        res[topk], wall, _ = _spans(
-            lambda: tl.letkf_update(bm, bp, tm, tp, lat, lon, obs,
-                                    topk_method=topk, **kw, **extra),
-            [], sync)
+        # Timed, and watched for synchronizing calls (none allowed).
+        (res[topk], syncs), wall, _ = _spans(
+            lambda: _sync_free(update) if cuda else (update(), []), [],
+            sync)
         check(bool(torch.isfinite(res[topk][1]).all()),
               f"phase 20 {topk}: posterior not finite")
+        counts, ns = _counts(), tl.ns_counts()
+        check((_only(NS=None) if cuda else _only())(counts),
+              f"phase 20 {topk}: launches {counts}")
+        check(not cuda or ns["host_syncs"] == 0,
+              f"phase 20 {topk}: {ns['host_syncs']} host reads")
+        check(not syncs, f"phase 20 {topk}: the update waited on the card: "
+              f"{syncs}")
         out[topk] = dict(
             seconds=wall, obs_points_per_sec=nobs * n / wall,
             peak_gb=(torch.cuda.max_memory_allocated() / 1e9
-                     if torch.cuda.is_available() else None),
-            ns_per_chunk=tl.ns_iterations / max(tl.ns_calls, 1),
-            ns_max=tl.ns_max_iterations, host_syncs=tl.host_syncs)
+                     if cuda else None),
+            ns_per_chunk=ns["iterations"] / max(ns["calls"], 1),
+            ns_max=ns["max_iterations"], host_syncs=ns["host_syncs"],
+            ns_launches=counts["NS"], syncs_in_update=len(syncs))
+    if cuda:
+        out["ns"] = _ns_hold("config 7 chunk", *first[1])
     incr = float(torch.sqrt(torch.mean((res["exact"][0] - bm) ** 2)))
     gap = float((res["host"][0] - res["exact"][0]).abs().max())
     pgap = float((res["host"][1] - res["exact"][1]).abs().max())
@@ -3078,7 +3549,10 @@ def phase21(dev="cuda", **cut):
               f"phase 21 {solver}: mean analysis RMSE "
               f"{statistics.mean(r):.4f} not below the free run's "
               f"{statistics.mean(free_rmse):.4f}")
-        check(_only()(_counts()), f"phase 21 {solver}: launched {_counts()}")
+        # The harness's LETKF runs NS on the card; its EnKF is the serial
+        # loop, as the JAX harness's.
+        want = _only(NS=None) if (cuda and solver == "letkf") else _only()
+        check(want(_counts()), f"phase 21 {solver}: launched {_counts()}")
         solvers[solver] = dict(rmse=r, mean_rmse=statistics.mean(r))
 
     # Options the JAX harness ignores (hybrid, variable_localization,
@@ -3733,15 +4207,14 @@ def _mesh_parts():
     the split of the rows onto the shards' devices, the obs' replication,
     the tail (once, on the first device), the shards' solves, the gather,
     and the LETKF's host selection build."""
-    from efa_xray_tpu_torch.assimilation import ensrf as ensrf_mod
-    from efa_xray_tpu_torch.assimilation import enkf as enkf_mod
+    from efa_xray_tpu_torch.assimilation import ensrf_core as core
     from efa_xray_tpu_torch.assimilation import letkf_core as tl
     from efa_xray_tpu_torch.parallel import sharded
 
+    # The EnSRF's and the EnKF's kernel tails are both tail_scan_blocked.
     return [(sharded, "pad_rows", "pad"), (sharded, "_split", "split"),
             (sharded, "_obs_to", "replicate"),
-            (ensrf_mod.KernelRoute, "_kernel_tail", "tail"),
-            (enkf_mod, "enkf_tail_scan", "tail"),
+            (core, "tail_scan_blocked", "tail"),
             (sharded, "_ensrf_local", "shards"),
             (sharded, "_enkf_local", "shards"),
             (sharded, "_letkf_local", "shards"),
@@ -3811,9 +4284,10 @@ def phase25(dev="cuda", api=None, c11=None, c6=None):
     first device, B2 once per shard plus the tail's applies; (b) the default
     config on 3 shards (1,048,576 rows are not a multiple of 3: the
     padding runs): B1 + B4; (c) phase 11 (a)'s hybrid config on 2 shards:
-    B1h + B2h; (d) the EnKF at config 11 and the LETKF at config 6 with
-    ``letkf_topk="host"`` (its selection rebuilt for 2 shards) on 2
-    shards, no kernel; (e) ``make_mesh()`` with its defaults, one device
+    B1h + B2h; (d) the EnKF at config 11 (B1e once per panel, B2e per
+    panel and once per shard) and the LETKF at config 6 with
+    ``letkf_topk="host"`` (its selection rebuilt for 2 shards; NS) on 2
+    shards; (e) ``make_mesh()`` with its defaults, one device
     here (on a machine of several cards, every card, timed after one
     warm-up update: B1 and the tail's B2 once, on the first card, one B2
     body per card): the update bit for bit.  (a)-(d) at the f32 kernel
@@ -3869,7 +4343,8 @@ def phase25(dev="cuda", api=None, c11=None, c6=None):
     out["d_enkf"] = _mesh_vs_single(
         "phase 25 (d) EnKF", lambda mesh: EnKF(
             state, batch, config=cfg, verbose=False, seed=p["seed"],
-            mesh=mesh), n, dev, _only())
+            mesh=mesh), n, dev,
+        _enkf_only(p["nobs"], "B2", bodies=n, block=p["block"]))
     del state, batch
     p = dict(CONFIG6, **(c6 or {}))
     state, batch = _half_degree_workload(dev, **p)
@@ -3879,7 +4354,7 @@ def phase25(dev="cuda", api=None, c11=None, c6=None):
     builds = tletkf.sel_build_count
     out["d_letkf"] = _mesh_vs_single(
         "phase 25 (d) LETKF", lambda mesh: LETKF(
-            state, batch, config=cfg, mesh=mesh), n, dev, _only())
+            state, batch, config=cfg, mesh=mesh), n, dev, _only(NS=None))
     out["d_letkf"]["host_selection_builds"] = tletkf.sel_build_count - builds
     check(out["d_letkf"]["host_selection_builds"] == 2,
           "phase 25 (d): the host selection was not rebuilt for the mesh")
@@ -4530,15 +5005,16 @@ def phase26(dev="cuda", **cut):
 # (a) Each example at its default arguments, with the kernels its compute
 # steps launch on the card (as :func:`_only` takes them: None at least
 # once, every kernel not named never).  The float64 examples (sensitivity
-# targeting, the Lorenz-96 cyclers) and the LETKF and EnKF take the plain
-# torch route; the unlocalized point update of efa_demo takes B2's body.
+# targeting, the Lorenz-96 cyclers) take the plain torch route, the LETKF
+# NS and the EnKF B1e + B2e; the unlocalized point update of efa_demo
+# takes B2's body.
 EXAMPLES27 = (
     ("gridded_assimilation", [], dict(B1=None, B4=None)),
-    ("gridded_assimilation", ["--solver", "letkf"], {}),
+    ("gridded_assimilation", ["--solver", "letkf"], dict(NS=None)),
     ("gridded_assimilation", ["--mesh"], dict(B1=None, B4=None)),
     ("obs_pipeline", [], dict(B1=None, B2=None)),
-    ("obs_pipeline", ["--solver", "enkf"], {}),
-    ("obs_pipeline", ["--solver", "letkf"], {}),
+    ("obs_pipeline", ["--solver", "enkf"], dict(B1e=None, B2e=None)),
+    ("obs_pipeline", ["--solver", "letkf"], dict(NS=None)),
     ("sensitivity_targeting", [], {}),
     ("cycling_adaptive", [], {}),
     ("cycling_smoother", [], {}),
@@ -4850,7 +5326,7 @@ def phase27(dev="cuda", c2=None, names=None):
     posts = {}
     for key, extra, kernels, warm in (
             ("ensrf", [], dict(B1=None, B4=None), True),
-            ("letkf", ["--solver", "letkf"], {}, False),
+            ("letkf", ["--solver", "letkf"], dict(NS=None), False),
             ("mesh", ["--mesh"], dict(B1=None, B4=None), True)):
         args = mod.parse_args(base + extra)
         run_inp = dict(inp, mesh=mod.make_mesh(args))
@@ -5047,6 +5523,24 @@ def _mesh_overlap(label, run, dev, mesh, expect, gate=(RTOL, ATOL)) -> dict:
     r["parts_s"] = _spans(lambda: run(mesh), _mesh_parts(), sync)[2]
     if cuda:
         r.update(_card_overlap(lambda: run(mesh), sync))
+        # The shards' issue, watched for the host waiting on a card.
+        from efa_xray_tpu_torch.parallel import sharded
+
+        real, waits = sharded.run_shards, []
+
+        def watched(m, work):
+            res, syncs = _sync_free(lambda: real(m, work))
+            waits.extend(syncs)
+            return res
+
+        sharded.run_shards = watched
+        try:
+            run(mesh)
+        finally:
+            sharded.run_shards = real
+        r["syncs_in_shards"] = len(waits)
+        check(not waits, f"{label}: the host waited on a card while it "
+              f"issued the shards: {waits}")
     return r
 
 
@@ -5058,15 +5552,20 @@ def phase28(dev="cuda", c4=None, c11=None, c6=None, c7=None):
     single-device ``tail_scan_blocked`` + ``fused_body`` on the same
     prior: bit for bit on one card, at the f32 kernel gate on several;
     B1 once per panel, B2 once per panel and once per card.  (b) With two
-    distinct devices or more: the EnKF at config 11, the LETKF at config
-    6 (``LETKF``) and at config 7 (``letkf_update_sharded``), top-k
-    exact, over every card, each against its
-    single-device update at the f32 gate, no kernel launched.  Each
-    update warm, timed with no synchronize inside it; on the card one
-    more mesh update traced per case: each card's busy seconds, the
-    device window, the effective parallelism; peak memory per card.
-    The mesh is ``make_mesh()``'s defaults on the card, "cpu" and "cpu:0"
-    on the CPU."""
+    distinct devices or more: the EnKF at config 11 (B1e once per panel
+    on the first card, B2e per panel and once per card), the LETKF at
+    config 6 (``LETKF``, top-k exact and host: one group layout for every
+    shard) and at config 7 (``letkf_update_sharded``, top-k exact), NS on
+    every card, over every card, each against its single-device update
+    at the f32 gate.  Each update warm, timed with no synchronize inside
+    it; on the card one more mesh update traced per case: each card's
+    busy seconds and first and last event, the device window, the
+    effective parallelism; peak memory per card; and one more with
+    ``run_shards`` watched for a synchronizing call (there must be
+    none).  The mesh is ``make_mesh()``'s defaults on the card, "cpu"
+    and "cpu:0" on the CPU."""
+    import dataclasses
+
     import torch
 
     from efa_xray_tpu_torch import EnKF, FilterConfig, LETKF
@@ -5107,20 +5606,22 @@ def phase28(dev="cuda", c4=None, c11=None, c6=None, c7=None):
     out["b_enkf"] = _mesh_overlap(
         "phase 28 (b) EnKF", lambda m: (EnKF(
             state, batch, config=cfg, verbose=False, seed=p["seed"],
-            mesh=m).update()[0].data,), dev, mesh, _only())
+            mesh=m).update()[0].data,), dev, mesh,
+        _enkf_only(p["nobs"], "B2", bodies=mesh.size, block=p["block"]))
     log("phase 28 (b): config 11 EnKF " + json.dumps(out["b_enkf"]))
     p = dict(CONFIG6, **(c6 or {}))
     state, batch = _half_degree_workload(dev, **p)
-    # Top-k exact: the host selection's bundle size is picked per shard,
-    # and over 4 shards of config 6 they differ, which the host top-k
-    # refuses as the JAX package's does (letkf.py:110).
     cfg = FilterConfig(localization="GC", letkf_patch_size=p["patch"],
                        letkf_k_obs=p["k"], letkf_chunk=p["chunk"])
-    out["b_letkf6"] = _mesh_overlap(
-        "phase 28 (b) LETKF config 6", lambda m: (LETKF(
-            state, batch, config=cfg, mesh=m).update()[0].data,), dev, mesh,
-        _only())
-    log("phase 28 (b): config 6 LETKF " + json.dumps(out["b_letkf6"]))
+    for key, topk in (("b_letkf6", "exact"), ("b_letkf6_host", "host")):
+        c = dataclasses.replace(cfg, letkf_topk=topk)
+        out[key] = _mesh_overlap(
+            f"phase 28 (b) LETKF config 6, top-k {topk}",
+            lambda m, c=c: (LETKF(state, batch, config=c,
+                                  mesh=m).update()[0].data,), dev, mesh,
+            _only(NS=None))
+        log(f"phase 28 (b): config 6 LETKF, top-k {topk} "
+            + json.dumps(out[key]))
     del state, batch
     p = dict(CONFIG7, **(c7 or {}))
     bm, bp, tm, tp, lat, lon, obs = _config7(dev, p)
@@ -5134,13 +5635,15 @@ def phase28(dev="cuda", c4=None, c11=None, c6=None, c7=None):
                                             m, **kw)[:2]
 
     out["b_letkf7"] = _mesh_overlap("phase 28 (b) LETKF config 7", config7,
-                                    dev, mesh, _only())
+                                    dev, mesh, _only(NS=None))
     log("phase 28 (b): config 7 LETKF " + json.dumps(out["b_letkf7"]))
     return out
 
 
 # P's products are timed as runs of this many calls back to back.
 P_INNER = 20
+# The numbers of NS's kernels-line entries.
+NS_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
 
 def _library_mm_ms(a, b, mode: str) -> float:
@@ -5781,7 +6284,9 @@ def _ieee_sass_check():
         own = listings(str(_build.CSRC / src), "own_" + src)
         old = listings(parent, "parent_" + src)
         for k in kernels:
-            a = next(v for n, v in own.items() if k in n)
+            # This source's fp32 instantiations end in kZ = false.
+            a = next((v for n, v in own.items() if k + "Lb0E" in n),
+                     None) or next(v for n, v in own.items() if k in n)
             b = next(v for n, v in old.items() if k in n)
             diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
             res[k] = ("same" if diff == 0 else
@@ -6009,9 +6514,9 @@ def main() -> int:
     timed(phase15)
     timed(phase16)
     timed(phase17)
-    timed(phase18)
-    timed(phase19)
-    timed(phase20)
+    enkf = timed(phase18)
+    letkf = timed(phase19)
+    letkf7 = timed(phase20)
     timed(phase21)
     timed(phase22)
     timed(phase23)
@@ -6020,9 +6525,9 @@ def main() -> int:
     modes = timed(phase26)
     timed(phase27)
     timed(phase28)
-    # No single PyTorch call computes B1-B4, B1h or B2h (a serial filter,
-    # a localized recurrence), in any product mode: their library_ms is
-    # null.
+    # No single PyTorch call computes B1-B4, B1h, B2h, B1e, B2e, B4e (a
+    # serial filter, a localized recurrence), in any product mode, or NS
+    # (an iteration with an exit test): their library_ms is null.
     kernels = [
         dict(name="B1 tail panel solve", route="cuda",
              source="efa_xray_tpu_torch/csrc/tail_solve.cu",
@@ -6052,6 +6557,33 @@ def main() -> int:
              route="cuda", source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
              replaces="efa_xray_tpu/ops/ensrf_pallas.py:68",
              launches=wide["b4"], library_ms=None, **b4["wide"]),
+        dict(name="B1e tail panel solve, stochastic EnKF (512 x 40)",
+             route="cuda", source="efa_xray_tpu_torch/csrc/tail_solve.cu",
+             replaces="efa_xray_tpu/ops/tail_solve_pallas.py:46",
+             launches=enkf["b_launches"]["B1e"], library_ms=None,
+             **b1["B1e"]),
+        dict(name="B2e fused body, stochastic EnKF (config 11)",
+             route="cuda", source="efa_xray_tpu_torch/csrc/ensrf_fused.cu",
+             replaces="efa_xray_tpu/ops/ensrf_pallas_fused.py:117",
+             launches=enkf["b_launches"]["B2e"], library_ms=None,
+             **enkf["kernels"]["B2e"]),
+        dict(name="B4e block apply, stochastic EnKF (config 11, default "
+             "config)", route="cuda",
+             source="efa_xray_tpu_torch/csrc/ensrf_grid.cu",
+             replaces="efa_xray_tpu/ops/ensrf_pallas.py:68",
+             launches=enkf["default_launches"]["B4e"], library_ms=None,
+             **enkf["kernels"]["B4e"]),
+        dict(name="NS Newton-Schulz inverse square root (config 6 chunk)",
+             route="cuda", source="efa_xray_tpu_torch/csrc/newton_schulz.cu",
+             replaces="efa_xray_tpu/assimilation/letkf_core.py:406",
+             launches=letkf["config6"]["exact"]["launches"]["NS"],
+             library_ms=None,
+             **{k: letkf["config6"]["ns"][k] for k in NS_KEYS}),
+        dict(name="NS Newton-Schulz inverse square root (config 7 chunk)",
+             route="cuda", source="efa_xray_tpu_torch/csrc/newton_schulz.cu",
+             replaces="efa_xray_tpu/assimilation/letkf_core.py:406",
+             launches=letkf7["exact"]["ns_launches"], library_ms=None,
+             **{k: letkf7["ns"][k] for k in NS_KEYS}),
     ] + [
         dict(name=f"{name} ({mode} products)", route="cuda", source=source,
              replaces=replaces,

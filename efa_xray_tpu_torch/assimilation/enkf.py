@@ -12,13 +12,20 @@ gain (Burgers, van Leeuwen & Evensen 1998)::
 so the perturbation update is ``Xa' = Xb' - K (ye - eps)`` with centred
 perturbations ``eps`` and no square-root ``beta`` factor.
 
-``method="blocked"`` is the two-phase form: the per-ob tail scan, then
-the body in blocks through ``ensrf_core.ensrf_blocked_body`` with the
-apply rows ``z = ye - eps`` (correction Gram ``Z Ye^T``).  The JAX package
-runs it in plain XLA, with no Pallas kernel; here it runs as plain torch
-on every device.  The body kernels B2-B4 never serve it: their Gram is the
-symmetric ``Y Y^T`` and they apply ``Y``.  ``method="serial"`` is the
-literal per-ob loop.
+``method="blocked"`` is the two-phase form: the tail scan, then the body
+in blocks with the apply rows ``z = ye - eps`` (correction Gram ``Z
+Ye^T``).  The JAX package runs both in plain XLA (the tail a ``lax.scan``),
+with no Pallas kernel.  Here the blocked update takes a route as the
+EnSRF's ``FlatRoute`` does (:func:`enkf_route`): on float32 (and on CPU
+tensors, where the kernels' plain versions run) the tail goes panel by
+panel through B1e, the rows outside a panel and then the body through B2e
+(``fast_geometry`` or unlocalized, no ``variable_localization``) or B4e
+(everywhere else), the EnKF instantiations of B1, B2 and B4
+(:mod:`efa_xray_tpu_torch.ops`), which apply ``z`` and take ``Z Y^T`` as
+their Gram (:func:`enkf_kernel_update`).  float64 on the card takes the
+plain route, :func:`enkf_blocked`: the per-ob :func:`enkf_tail_scan` and
+``ensrf_core.ensrf_blocked_body``, the reference the kernel route is held
+against.  ``method="serial"`` is the literal per-ob loop.
 
 JAX's threefry stream cannot be matched: the draws come from a
 ``torch.Generator`` on the filter's device seeded with ``seed``, centred
@@ -28,7 +35,7 @@ Given the same draws, the two packages give the same analysis.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -45,11 +52,13 @@ from efa_xray_tpu_torch.assimilation.ensrf_core import (
     TailSolution,
     _cast_obs,
     _empty_diags,
-    _loc_weights,
+    _ob_weights,
     _ye_var,
+    enkf_tail_scan,
 )
 from efa_xray_tpu_torch.config import FilterConfig
 from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid
 
 
 def draw_ob_perturbations(seed: int, errors: torch.Tensor, nmems: int,
@@ -71,20 +80,6 @@ def draw_ob_perturbations(seed: int, errors: torch.Tensor, nmems: int,
         sd = torch.std(eps, dim=1, correction=1, keepdim=True)
         eps = eps / torch.clamp(sd, min=1e-30)
     return eps * torch.sqrt(errors)[:, None]
-
-
-def _weights(rows_lat, rows_lon, rows_xyz, rows_vert, ob: ObsArrays, i: int,
-             localize: bool, fast_geometry: bool, vertical: bool, dtype):
-    """Ob ``i``'s localization weights on a set of rows (None when off)."""
-    vkw = (dict(row_vert=rows_vert, ob_vert=ob.verts[i],
-                vert_radius=ob.vert_radii[i])
-           if (localize and vertical) else {})
-    if localize and fast_geometry:
-        ob_xyz = latlon_to_unit(ob.lats[i], ob.lons[i]).to(dtype)
-        return _loc_weights(None, None, None, None, ob.radii[i], True, dtype,
-                            row_xyz=rows_xyz, ob_xyz=ob_xyz, **vkw)
-    return _loc_weights(rows_lat, rows_lon, ob.lats[i], ob.lons[i],
-                        ob.radii[i], localize, dtype, **vkw)
 
 
 def enkf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
@@ -128,10 +123,10 @@ def enkf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
             tp, tm, i, obs.values, obs.errors, nens, unbiased)
         kcov_b = bp @ ye
         kcov_t = tp @ ye
-        w_b = _weights(body_lat, body_lon, body_xyz, bvert, obs, i, localize,
-                       fast_geometry, vertical, dtype)
-        w_t = _weights(obs_raw.lats, obs_raw.lons, tail_xyz, obs.verts, obs,
-                       i, localize, fast_geometry, vertical, dtype)
+        w_b = _ob_weights(body_lat, body_lon, body_xyz, bvert, obs, i,
+                          localize, fast_geometry, vertical, dtype)
+        w_t = _ob_weights(obs_raw.lats, obs_raw.lons, tail_xyz, obs.verts,
+                          obs, i, localize, fast_geometry, vertical, dtype)
         if localize:
             kcov_b = kcov_b * w_b
             kcov_t = kcov_t * w_t
@@ -158,73 +153,6 @@ def enkf_serial(body_mean, body_perts, tail_mean, tail_perts, body_lat,
     return bm, bp, tm, tp, diags
 
 
-def enkf_tail_scan(tail_mean, tail_perts, obs: ObsArrays, eps,
-                   localize: bool = True, unbiased: bool = False,
-                   fast_geometry: bool = False, vertical: bool = False,
-                   varloc=None, ob_var=None) -> Tuple[TailSolution,
-                                                      torch.Tensor]:
-    """The stochastic EnKF on the observation-space tail only: the exact
-    ``ye`` sequence, the per-ob coefficients (``gain_coef = innov *
-    scale``, ``sqrt_coef = scale``: the full gain, no beta) and the
-    perturbed-ob departure rows ``z = ye - eps`` the blocked body applies.
-    Returns ``(TailSolution, z)``."""
-    nens = tail_perts.shape[1]
-    dtype = tail_perts.dtype
-    device = tail_perts.device
-    nobs = obs.values.shape[0]
-    if nobs == 0:
-        zc = torch.zeros((0,), dtype=dtype, device=device)
-        rows = torch.zeros((0, nens), dtype=dtype, device=device)
-        return TailSolution(ye=rows, gain_coef=zc, sqrt_coef=zc,
-                            tail_mean=tail_mean, tail_perts=tail_perts,
-                            diags=_empty_diags(dtype, device)), rows
-    use_vl = varloc is not None
-    if use_vl:
-        if ob_var is None:
-            raise ValueError("varloc needs ob_var")
-        vl = varloc.to(dtype)
-        ovar_all = ob_var.long()
-    tail_xyz = (latlon_to_unit(obs.lats, obs.lons).to(dtype)
-                if (localize and fast_geometry) else None)
-    obs_raw = obs.with_default_verts()
-    obs = _cast_obs(obs, dtype)
-    eps = eps.to(dtype)
-    tm, tp = tail_mean, tail_perts
-    zero = torch.zeros((), dtype=dtype, device=device)
-    nan = torch.tensor(float("nan"), dtype=dtype, device=device)
-    ye_rows, z_rows, gains, coefs = [], [], [], []
-    pm, pv, om, ov = [], [], [], []
-    for i in range(nobs):
-        ye, mye, varye, innov, _, scale, _ = core._serial_step_scalars(
-            tp, tm, i, obs.values, obs.errors, nens, unbiased)
-        kcov_t = tp @ ye
-        w_t = _weights(obs_raw.lats, obs_raw.lons, tail_xyz, obs.verts, obs,
-                       i, localize, fast_geometry, vertical, dtype)
-        if localize:
-            kcov_t = kcov_t * w_t
-        if use_vl:
-            kcov_t = kcov_t * vl[ovar_all[i]][ovar_all]
-        kmat_t = kcov_t * scale
-        z = ye - eps[i]
-        a = obs.assim[i]
-        tm = torch.where(a, tm + kmat_t * innov, tm)
-        tp = torch.where(a, tp - kmat_t[:, None] * z[None, :], tp)
-        ye_rows.append(ye)
-        z_rows.append(z)
-        gains.append(torch.where(a, innov * scale, zero))
-        coefs.append(torch.where(a, scale, zero))
-        pm.append(mye)
-        pv.append(varye)
-        om.append(torch.where(a, tm[i], nan))
-        ov.append(torch.where(a, _ye_var(tp[i], unbiased), nan))
-    return TailSolution(
-        ye=torch.stack(ye_rows), gain_coef=torch.stack(gains),
-        sqrt_coef=torch.stack(coefs), tail_mean=tm, tail_perts=tp,
-        diags=ObsDiagnostics(torch.stack(pm), torch.stack(pv),
-                             torch.stack(om), torch.stack(ov), obs.assim),
-    ), torch.stack(z_rows)
-
-
 def enkf_blocked(body_mean, body_perts, tail_mean, tail_perts, body_lat,
                  body_lon, obs: ObsArrays, eps, localize: bool = True,
                  unbiased: bool = False, fast_geometry: bool = False,
@@ -247,6 +175,73 @@ def enkf_blocked(body_mean, body_perts, tail_mean, tail_perts, body_lat,
     return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
 
 
+def enkf_route(method: str, localize: bool, fast_geometry: bool,
+               use_vl: bool, device, dtype) -> str:
+    """The route of an EnKF update: ``"serial"``, ``"plain"``
+    (:func:`enkf_blocked`; float64 on the card, as the EnSRF's), ``"B2"``
+    (B1e tail, B2e body: ``fast_geometry`` or unlocalized, no varloc) or
+    ``"B4"`` (B1e tail, B4e body: exact haversine or varloc).  The tail's
+    out-of-panel apply takes the body's kernel
+    (``ensrf_core.tail_apply_route``)."""
+    if method != "blocked":
+        return "serial"
+    if torch.device(device).type == "cuda" and dtype != torch.float32:
+        return "plain"
+    return core.tail_apply_route(localize, fast_geometry, use_vl, False)
+
+
+def enkf_kernel_body(route: str, body_mean, body_perts, body_lat, body_lon,
+                     tail: TailSolution, obs: ObsArrays,
+                     localize: bool = True, block_size: int = 128,
+                     fast_geometry: bool = False, body_vert=None,
+                     vertical: bool = False, cull: bool = True, varloc=None,
+                     row_var=None, ob_var=None):
+    """Phase 2 on ``route``: the body through B2e (``"B2"``) or B4e
+    (``"B4"``, the rows a flat state, ``varloc`` a per-(ob, row) factor)
+    against the tail's ``apply_rows``, in fp32 products (the EnKF takes no
+    product mode).  The prior is not updated in place."""
+    if route == "B2":
+        return ensrf_fused.fused_body(
+            body_mean, body_perts, body_lat, body_lon, tail, obs,
+            body_vert=body_vert if vertical else None, localize=localize,
+            block_size=block_size, vertical=vertical, cull=cull,
+            apply_rows=tail.apply_rows)
+    vkw = (dict(varloc=varloc, row_var=row_var, ob_var=ob_var)
+           if varloc is not None else {})
+    return ensrf_grid.blocked_body(
+        body_mean, body_perts, body_lat, body_lon, tail, obs,
+        localize=localize, block_size=block_size,
+        fast_geometry=fast_geometry, body_vert=body_vert, vertical=vertical,
+        apply_rows=tail.apply_rows, **vkw)
+
+
+def enkf_kernel_update(route: str, body_mean, body_perts, tail_mean,
+                       tail_perts, body_lat, body_lon, obs: ObsArrays, eps,
+                       localize: bool = True, unbiased: bool = False,
+                       fast_geometry: bool = False, body_vert=None,
+                       vertical: bool = False, block_size: int = 128,
+                       panel: int = 512, cull: bool = True, varloc=None,
+                       row_var=None, ob_var=None):
+    """The blocked EnKF on the kernel route ``route`` (:func:`enkf_route`):
+    the tail ``panel`` obs at a time through B1e and the rows outside each
+    panel through B2e or B4e (``ensrf_core.tail_scan_blocked(kernels=True,
+    eps=eps)``, the solution carrying ``z`` as ``apply_rows``), then
+    :func:`enkf_kernel_body`.  Equal to :func:`enkf_blocked` up to fp
+    reassociation; ``(body_mean, body_perts, tail_mean, tail_perts,
+    diags)``."""
+    vkw = dict(varloc=varloc, ob_var=ob_var) if varloc is not None else {}
+    tail = core.tail_scan_blocked(
+        tail_mean, tail_perts, obs, localize=localize, unbiased=unbiased,
+        fast_geometry=fast_geometry, vertical=vertical, panel=panel,
+        kernels=True, eps=eps, **vkw)
+    bm, bp = enkf_kernel_body(
+        route, body_mean, body_perts, body_lat, body_lon, tail, obs,
+        localize=localize, block_size=block_size,
+        fast_geometry=fast_geometry, body_vert=body_vert, vertical=vertical,
+        cull=cull, varloc=varloc, row_var=row_var, ob_var=ob_var)
+    return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
+
+
 class EnKF(Assimilation):
     """``EnKF(state, obs, config=..., seed=..., device=...).update()``
     returns ``(posterior_state, observations)`` like
@@ -256,7 +251,9 @@ class EnKF(Assimilation):
     draw; ``scale_perturbations`` the variance-exact rescale.  ``mesh=``
     splits the body over the mesh's devices with the tail and the draws
     replicated (``parallel.sharded.enkf_update_sharded``), so the
-    analysis does not depend on the mesh."""
+    analysis does not depend on the mesh.  The update takes
+    :func:`enkf_route`'s route; ``matmul_precision`` and ``mxu_bf16`` leave
+    it in fp32."""
 
     def __init__(self, state, obs, inflation=None, verbose: bool = True,
                  loc=False, config: Optional[FilterConfig] = None,
@@ -296,9 +293,12 @@ class EnKF(Assimilation):
         prior_perts = body_perts if cfg.rtpp_alpha > 0.0 else None
         eps = draw_ob_perturbations(self.seed, obs.errors.to(dtype),
                                     st.nmems, scale=self.scale_perturbations)
+        vl = self.varloc_kwargs()
         kw = dict(localize=cfg.localize, unbiased=cfg.unbiased_variance,
                   fast_geometry=cfg.fast_geometry, body_vert=body_vert,
-                  vertical=vertical, **self.varloc_kwargs())
+                  vertical=vertical, **vl)
+        route = enkf_route(cfg.method, cfg.localize, cfg.fast_geometry,
+                           bool(vl), self.device, dtype)
         if self.mesh is not None:
             from efa_xray_tpu_torch.parallel.sharded import (
                 enkf_update_sharded,
@@ -307,8 +307,14 @@ class EnKF(Assimilation):
             bm, bp, _, _, diags = enkf_update_sharded(
                 body_mean, body_perts, tail_mean, tail_perts, body_lat,
                 body_lon, obs, eps, mesh=self.mesh, method=cfg.method,
-                block_size=cfg.block_size, **kw)
-        elif cfg.method == "blocked":
+                block_size=cfg.block_size, tail_panel=cfg.tail_panel,
+                cull=cfg.cull, **kw)
+        elif route in ("B2", "B4"):
+            bm, bp, _, _, diags = enkf_kernel_update(
+                route, body_mean, body_perts, tail_mean, tail_perts,
+                body_lat, body_lon, obs, eps, block_size=cfg.block_size,
+                panel=cfg.tail_panel, cull=cfg.cull, **kw)
+        elif route == "plain":
             bm, bp, _, _, diags = enkf_blocked(
                 body_mean, body_perts, tail_mean, tail_perts, body_lat,
                 body_lon, obs, eps, block_size=cfg.block_size, **kw)

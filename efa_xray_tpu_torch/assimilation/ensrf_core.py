@@ -27,7 +27,7 @@ are).  No function reads a tensor back to the host inside its loop.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -95,6 +95,9 @@ class TailSolution(NamedTuple):
     # skipped: (1-a) sigma_ob innov / kdenom and (1-a) sigma_ob beta / kdenom
     static_gain: Optional[torch.Tensor] = None  # [No]
     static_sqrt: Optional[torch.Tensor] = None  # [No]
+    # the stochastic EnKF's departure rows z = ye - eps, which the body
+    # applies (its gain_coef / sqrt_coef carry no beta); None for the EnSRF
+    apply_rows: Optional[torch.Tensor] = None  # [No, M]
 
 
 def _pad(x: torch.Tensor, n: int, fill=0.0) -> torch.Tensor:
@@ -409,6 +412,93 @@ def tail_scan(tail_mean, tail_perts, obs: ObsArrays, localize: bool = True,
     )
 
 
+def _ob_weights(rows_lat, rows_lon, rows_xyz, rows_vert, ob: ObsArrays,
+                i: int, localize: bool, fast_geometry: bool, vertical: bool,
+                dtype):
+    """Ob ``i``'s localization weights on a set of rows (None when off)."""
+    vkw = (dict(row_vert=rows_vert, ob_vert=ob.verts[i],
+                vert_radius=ob.vert_radii[i])
+           if (localize and vertical) else {})
+    if localize and fast_geometry:
+        ob_xyz = latlon_to_unit(ob.lats[i], ob.lons[i]).to(dtype)
+        return _loc_weights(None, None, None, None, ob.radii[i], True, dtype,
+                            row_xyz=rows_xyz, ob_xyz=ob_xyz, **vkw)
+    return _loc_weights(rows_lat, rows_lon, ob.lats[i], ob.lons[i],
+                        ob.radii[i], localize, dtype, **vkw)
+
+
+def enkf_tail_scan(tail_mean, tail_perts, obs: ObsArrays, eps,
+                   localize: bool = True, unbiased: bool = False,
+                   fast_geometry: bool = False, vertical: bool = False,
+                   varloc=None, ob_var=None) -> Tuple[TailSolution,
+                                                      torch.Tensor]:
+    """The stochastic EnKF on the observation-space tail only: the exact
+    ``ye`` sequence, the per-ob coefficients (``gain_coef = innov *
+    scale``, ``sqrt_coef = scale``: the full gain, no beta) and the
+    perturbed-ob departure rows ``z = ye - eps`` the blocked body applies.
+    Returns ``(TailSolution, z)``, the solution carrying ``z`` as its
+    ``apply_rows`` too.  The plain reference of the EnKF's tail on the
+    kernel route (:func:`tail_scan_blocked` with ``eps``), and its panel
+    solve there where no kernel runs."""
+    nens = tail_perts.shape[1]
+    dtype = tail_perts.dtype
+    device = tail_perts.device
+    nobs = obs.values.shape[0]
+    if nobs == 0:
+        zc = torch.zeros((0,), dtype=dtype, device=device)
+        rows = torch.zeros((0, nens), dtype=dtype, device=device)
+        return TailSolution(ye=rows, gain_coef=zc, sqrt_coef=zc,
+                            tail_mean=tail_mean, tail_perts=tail_perts,
+                            diags=_empty_diags(dtype, device),
+                            apply_rows=rows), rows
+    use_vl = varloc is not None
+    if use_vl:
+        if ob_var is None:
+            raise ValueError("varloc needs ob_var")
+        vl = varloc.to(dtype)
+        ovar_all = ob_var.long()
+    tail_xyz = (latlon_to_unit(obs.lats, obs.lons).to(dtype)
+                if (localize and fast_geometry) else None)
+    obs_raw = obs.with_default_verts()
+    obs = _cast_obs(obs, dtype)
+    eps = eps.to(dtype)
+    tm, tp = tail_mean, tail_perts
+    zero = torch.zeros((), dtype=dtype, device=device)
+    nan = torch.full((), float("nan"), dtype=dtype, device=device)
+    ye_rows, z_rows, gains, coefs = [], [], [], []
+    pm, pv, om, ov = [], [], [], []
+    for i in range(nobs):
+        ye, mye, varye, innov, _, scale, _ = _serial_step_scalars(
+            tp, tm, i, obs.values, obs.errors, nens, unbiased)
+        kcov_t = tp @ ye
+        w_t = _ob_weights(obs_raw.lats, obs_raw.lons, tail_xyz, obs.verts,
+                          obs, i, localize, fast_geometry, vertical, dtype)
+        if localize:
+            kcov_t = kcov_t * w_t
+        if use_vl:
+            kcov_t = kcov_t * vl[ovar_all[i]][ovar_all]
+        kmat_t = kcov_t * scale
+        z = ye - eps[i]
+        a = obs.assim[i]
+        tm = torch.where(a, tm + kmat_t * innov, tm)
+        tp = torch.where(a, tp - kmat_t[:, None] * z[None, :], tp)
+        ye_rows.append(ye)
+        z_rows.append(z)
+        gains.append(torch.where(a, innov * scale, zero))
+        coefs.append(torch.where(a, scale, zero))
+        pm.append(mye)
+        pv.append(varye)
+        om.append(torch.where(a, tm[i], nan))
+        ov.append(torch.where(a, _ye_var(tp[i], unbiased), nan))
+    z = torch.stack(z_rows)
+    return TailSolution(
+        ye=torch.stack(ye_rows), gain_coef=torch.stack(gains),
+        sqrt_coef=torch.stack(coefs), tail_mean=tm, tail_perts=tp,
+        diags=ObsDiagnostics(torch.stack(pm), torch.stack(pv),
+                             torch.stack(om), torch.stack(ov), obs.assim),
+        apply_rows=z), z
+
+
 def panel_weights(pxyz, pob: ObsArrays, vertical: bool, dtype,
                   localize: bool = True, varloc=None, ob_var=None):
     """Ob-ob weight matrix of one panel, ``w[i, j]`` = weight of ob i at
@@ -452,9 +542,10 @@ def static_weights(pob: ObsArrays, static_length: float, dtype):
 def _panel_solve_kernel(tm, tp, pob: ObsArrays, pxyz, localize: bool,
                         unbiased: bool, vertical: bool, dtype, varloc=None,
                         ob_var=None, hybrid_alpha: float = 1.0,
-                        tail_sigma=None,
-                        static_length=None) -> TailSolution:
-    """Serial solve of one obs panel through B1, or B1h in hybrid mode
+                        tail_sigma=None, static_length=None,
+                        eps=None) -> TailSolution:
+    """Serial solve of one obs panel through B1, B1h in hybrid mode, or
+    B1e given the stochastic EnKF's draws ``eps [P, M]``
     (:func:`efa_xray_tpu_torch.ops.tail_solve.tail_panel_solve`), with the
     panel's weights built here once: chordal when ``pxyz`` is given, else
     exact haversine."""
@@ -467,6 +558,8 @@ def _panel_solve_kernel(tm, tp, pob: ObsArrays, pxyz, localize: bool,
     if hybrid:
         hkw = dict(alpha=float(hybrid_alpha), sigma=tail_sigma.to(dtype),
                    static_gc=static_weights(pob, static_length, dtype))
+    if eps is not None:
+        hkw = dict(eps=eps.to(dtype))
     out = tail_panel_solve(tm, tp, pob.values, pob.errors, pob.assim, wmat,
                            unbiased=unbiased, **hkw)
     ptm, ptp, pye, pg, psq, ppm, ppv, pom, pov = out[:9]
@@ -475,6 +568,7 @@ def _panel_solve_kernel(tm, tp, pob: ObsArrays, pxyz, localize: bool,
         diags=ObsDiagnostics(ppm, ppv, pom, pov, pob.assim),
         static_gain=out[9] if hybrid else None,
         static_sqrt=out[10] if hybrid else None,
+        apply_rows=out[9] if eps is not None else None,
     )
 
 
@@ -486,7 +580,8 @@ def _cut(sol: TailSolution, n: int) -> TailSolution:
         sqrt_coef=cut(sol.sqrt_coef), tail_mean=cut(sol.tail_mean),
         tail_perts=cut(sol.tail_perts),
         diags=ObsDiagnostics(*(cut(d) for d in sol.diags)),
-        static_gain=cut(sol.static_gain), static_sqrt=cut(sol.static_sqrt))
+        static_gain=cut(sol.static_gain), static_sqrt=cut(sol.static_sqrt),
+        apply_rows=cut(sol.apply_rows))
 
 
 # The in-kernel panel solve serves panels up to this many obs, the bound
@@ -516,7 +611,7 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                       panel: int = 512, kernels: bool = False,
                       max_radius_km=None, hybrid_alpha: float = 1.0,
                       tail_sigma=None, static_length=None, varloc=None,
-                      ob_var=None) -> TailSolution:
+                      ob_var=None, eps=None) -> TailSolution:
     """Panel-blocked phase 1: same outputs as :func:`tail_scan`, exact up
     to fp reassociation.  Each panel of obs is solved serially on its own
     rows, then applied to every row outside the panel with the body
@@ -536,6 +631,12 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     B2 pick its cheaper angle form.  ``kernels=False`` is the plain
     per-ob scan of each panel, the reference the kernel branch is held
     against.
+
+    ``eps [No, M]`` (the stochastic EnKF's draws; no hybrid) solves
+    :func:`enkf_tail_scan` instead:
+    each panel through B1e (plain: that per-ob scan), the rows outside it
+    through B2e / B4e (plain: :func:`apply_obs_block`) against the
+    panel's departure rows, which the solution carries as ``apply_rows``.
     """
     nens = tail_perts.shape[1]
     dtype = tail_perts.dtype
@@ -548,15 +649,28 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     hkw = dict(hybrid_alpha=hybrid_alpha,
                static_length=static_length) if hybrid else {}
     _check_hybrid(hybrid, use_vl, tail_sigma, static_length)
+    enkf = eps is not None
+    if hybrid and enkf:
+        raise ValueError("eps (stochastic EnKF) does not combine with "
+                         "hybrid covariance")
     solve_kernel = kernels and panel <= MAX_KERNEL_PANEL
     obs = obs.with_default_verts()
     chordal = localize and fast_geometry
+
+    def plain_solve(tm, tp, pob, pe, **kw):
+        if not enkf:
+            return tail_scan(tm, tp, pob, localize=localize,
+                             unbiased=unbiased, fast_geometry=fast_geometry,
+                             vertical=vertical, **kw)
+        return enkf_tail_scan(tm, tp, pob, pe, localize=localize,
+                              unbiased=unbiased, fast_geometry=fast_geometry,
+                              vertical=vertical, **kw)[0]
+
     if nobs == 0 or nobs <= panel:
         if not (solve_kernel and nobs > 0):
-            return tail_scan(tail_mean, tail_perts, obs, localize=localize,
-                             unbiased=unbiased, fast_geometry=fast_geometry,
-                             vertical=vertical, tail_sigma=tail_sigma,
-                             **hkw, **vkw)
+            return plain_solve(tail_mean, tail_perts, obs, eps,
+                               **(dict(tail_sigma=tail_sigma, **hkw)
+                                  if hybrid else {}), **vkw)
         # One panel covers the batch: pad it to the full panel width
         # (padded obs have assim=False and are exact no-ops) and slice
         # every output back.
@@ -572,7 +686,8 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                if use_vl else {}),
             **(dict(tail_sigma=_pad(sigma_rows(tail_sigma,
                                                tail_mean.to(dtype)), pad1),
-                    **hkw) if hybrid else {}))
+                    **hkw) if hybrid else {}),
+            eps=_pad(eps.to(dtype), pad1) if enkf else None)
         return _cut(sol, nobs)
 
     npanels = -(-nobs // panel)
@@ -590,6 +705,7 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     if hybrid:
         tsig_all = _pad(sigma_rows(tail_sigma, tail_mean.to(dtype)), pad)
         slen = float(static_length)
+    eps_all = _pad(eps.to(dtype), pad) if enkf else None
     apply = (tail_apply_route(localize, fast_geometry, use_vl, hybrid)
              if kernels else "plain")
     # The B4 apply updates the tail in place once this call owns it.
@@ -601,18 +717,18 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
         sl = slice(base, base + panel)
         pob = ObsArrays(*(x[sl] for x in allo))
         pvkw = dict(varloc=vl, ob_var=ovarr[sl]) if use_vl else {}
+        pe = eps_all[sl] if enkf else None
         if solve_kernel:
             sol = _panel_solve_kernel(
                 tm[sl], tp[sl], pob, all_xyz[sl] if chordal else None,
                 localize=localize, unbiased=unbiased, vertical=vertical,
                 dtype=dtype, **pvkw,
-                **(dict(tail_sigma=tsig_all[sl], **hkw) if hybrid else {}))
+                **(dict(tail_sigma=tsig_all[sl], **hkw) if hybrid else {}),
+                eps=pe)
         else:
-            sol = tail_scan(tm[sl], tp[sl], pob, localize=localize,
-                            unbiased=unbiased, fast_geometry=fast_geometry,
-                            vertical=vertical,
-                            tail_sigma=tsig_all[sl] if hybrid else None,
-                            **hkw, **pvkw)
+            sol = plain_solve(tm[sl], tp[sl], pob, pe,
+                              **(dict(tail_sigma=tsig_all[sl], **hkw)
+                                 if hybrid else {}), **pvkw)
         if apply == "B2":
             from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
 
@@ -623,6 +739,7 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                 body_vert=allo.verts if (localize and vertical) else None,
                 localize=localize, block_size=min(128, panel),
                 vertical=localize and vertical, max_radius_km=max_radius_km,
+                apply_rows=sol.apply_rows,
             )
         elif apply == "B4":
             from efa_xray_tpu_torch.ops import ensrf_grid
@@ -641,7 +758,8 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                     vertical=localize and vertical, ngrid=None,
                     ob_row_factor=(vl[ovarr[sl][bl]][:, ovarr] if use_vl
                                    else None),
-                    donate=owned)
+                    donate=owned,
+                    apply_rows=None if not enkf else sol.apply_rows[bl])
                 owned = True
         else:
             outside = ((row_idx < base) | (row_idx >= base + panel)).to(dtype)
@@ -679,7 +797,8 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
             tm2, tp2 = apply_obs_block(tm, tp, sol.ye, sol.gain_coef,
                                        sol.sqrt_coef, w,
                                        static_mean=static_mean,
-                                       static_tilde=static_tilde)
+                                       static_tilde=static_tilde,
+                                       apply_rows=sol.apply_rows)
         tm2[sl] = sol.tail_mean
         tp2[sl] = sol.tail_perts
         tm, tp = tm2, tp2
@@ -696,6 +815,7 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                                for k in range(5))),
         static_gain=cat([s.static_gain for s in outs]) if hybrid else None,
         static_sqrt=cat([s.static_sqrt for s in outs]) if hybrid else None,
+        apply_rows=cat([s.apply_rows for s in outs]) if enkf else None,
     )
 
 
@@ -795,9 +915,12 @@ def ensrf_blocked_body(body_mean, body_perts, body_lat, body_lon,
     through the same recurrence.  ``varloc``/``row_var``/``ob_var`` as in
     :func:`ensrf_serial`.  ``apply_rows [No, M]``: the stochastic EnKF's
     apply rows ``z = ye - eps`` (:func:`apply_obs_block`); refused with
-    hybrid."""
+    hybrid; by default the tail's own ``apply_rows`` (None for the
+    EnSRF)."""
     nobs = tail.ye.shape[0]
     dtype = body_perts.dtype
+    if apply_rows is None:
+        apply_rows = tail.apply_rows
     _check_hybrid(hybrid, varloc is not None, body_sigma, static_length,
                   tail.static_gain)
     if hybrid and apply_rows is not None:

@@ -60,8 +60,8 @@ def _host_selection_cached(structure, obs_lats, obs_lons, k: int,
     layout of ``letkf_update_sharded``, which pads the grid to a multiple
     of ``ndev * patch_size`` and runs each shard's own patch and chunk
     partition: the candidates are built per shard (with one common width
-    S) and stacked along the group axis, which the driver splits like the
-    grid."""
+    S and one bundle size, the smallest the shards pick) and stacked along
+    the group axis, which the driver splits like the grid."""
     global sel_build_count
     device = torch.device(device)
     h = hashlib.sha256()
@@ -88,13 +88,21 @@ def _host_selection_cached(structure, obs_lats, obs_lons, k: int,
         glon = np.concatenate([glon, np.repeat(glon[-1:], g_pad - ngrid)])
         g_local = g_pad // ndev
         chunk_local = min(chunk, max(1, -(-g_local // patch_size)))
-        parts = [letkf_core.host_select_candidates(
-            glat[s * g_local:(s + 1) * g_local],
-            glon[s * g_local:(s + 1) * g_local], g_local, patch_size,
-            obs_lats, obs_lons, k, chunk=chunk_local) for s in range(ndev)]
-        geff = parts[0][2]
-        if any(p[2] != geff for p in parts):
-            raise RuntimeError("shards disagree on the group layout")
+
+        def shard(s, **kw):
+            return letkf_core.host_select_candidates(
+                glat[s * g_local:(s + 1) * g_local],
+                glon[s * g_local:(s + 1) * g_local], g_local, patch_size,
+                obs_lats, obs_lons, k, chunk=chunk_local, **kw)
+
+        parts = [shard(s) for s in range(ndev)]
+        # Each shard picks its own bundle size (g0, g0 / 4 or g0 / 16), so
+        # the smallest pick divides the others: the shards that picked
+        # otherwise are rebuilt at it, still certified exact, so that
+        # every shard has one group layout.
+        geff = min(p[2] for p in parts)
+        parts = [p if p[2] == geff else shard(s, group=geff, auto_group=False)
+                 for s, p in enumerate(parts)]
         width = max(p[0].shape[1] for p in parts)
         cand, mask = (np.concatenate([
             np.pad(p[i], ((0, 0), (0, width - p[i].shape[1])))

@@ -28,9 +28,12 @@ and so does the port as torch operations:
   neighbours by hundreds of km.)
 * :func:`_top_k` keeps ``jax.lax.top_k``'s order: descending, and on a
   tie the lower index first (``torch.topk`` alone does not promise it).
-* Newton-Schulz keeps ``jax.lax.while_loop``'s exit rule exactly; in eager
-  torch each iteration's error is read back to the host, counted in
-  :data:`host_syncs`.
+* Newton-Schulz keeps ``jax.lax.while_loop``'s exit rule exactly.  On
+  CUDA float32 tensors it runs as the kernel NS
+  (:mod:`efa_xray_tpu_torch.ops.newton_schulz`), the exit test on the
+  card, so an update reads nothing back to the host; the plain version,
+  on CPU tensors and in float64, reads each iteration's error back,
+  counted in :data:`host_syncs`.
 * ``solve_precision`` is validated and runs true fp32 (or float64) for
   every setting, as the JAX package runs it off the TPU: the LETKF has no
   body kernel, and every product outside the body kernels stays fp32
@@ -39,7 +42,9 @@ and so does the port as torch operations:
 Counters (reset with :func:`reset_counts`): :data:`ns_calls` Newton-Schulz
 solves, :data:`ns_iterations` their iterations summed,
 :data:`ns_max_iterations` the most one took, :data:`host_syncs` the device
-values read back.
+values read back.  The kernel's iterations are tallied on its device and
+folded into the two iteration counters when asked (:func:`ns_counts`),
+never inside an update.
 """
 
 from __future__ import annotations
@@ -66,6 +71,9 @@ ns_calls = 0
 ns_iterations = 0
 ns_max_iterations = 0
 host_syncs = 0
+# The kernel's iterations per device, not yet folded into the counters:
+# int64 [summed, most in one solve].
+_device_tally: dict = {}
 # Guards the counters against solves from several threads.
 _count_lock = threading.Lock()
 
@@ -74,6 +82,24 @@ def reset_counts() -> None:
     global ns_calls, ns_iterations, ns_max_iterations, host_syncs
     with _count_lock:
         ns_calls = ns_iterations = ns_max_iterations = host_syncs = 0
+        _device_tally.clear()
+
+
+def ns_counts() -> dict:
+    """The counters, the kernel's tallies folded into
+    :data:`ns_iterations` and :data:`ns_max_iterations` first (one read
+    per device: never call it inside an update)."""
+    global ns_iterations, ns_max_iterations
+    with _count_lock:
+        tallies = list(_device_tally.values())
+        _device_tally.clear()
+    for t in tallies:
+        total, most = (int(v) for v in t.cpu())
+        with _count_lock:
+            ns_iterations += total
+            ns_max_iterations = max(ns_max_iterations, most)
+    return dict(calls=ns_calls, iterations=ns_iterations,
+                max_iterations=ns_max_iterations, host_syncs=host_syncs)
 
 
 def _solve_precision_obj(solve_precision: str) -> Optional[str]:
@@ -332,6 +358,34 @@ def _read(x: torch.Tensor) -> float:
 
 
 def _invsqrt_newton_schulz(a: torch.Tensor, iters: int):
+    """Batched ``(A^{-1/2}, A^{-1})`` for SPD ``A [..., M, M]``: the kernel
+    NS on CUDA float32 tensors (its iterations tallied on the device), else
+    :func:`_invsqrt_newton_schulz_plain`."""
+    if not (a.is_cuda and a.dtype == torch.float32):
+        return _invsqrt_newton_schulz_plain(a, iters)[:2]
+    from efa_xray_tpu_torch.ops.newton_schulz import (
+        invsqrt_newton_schulz_cuda,
+    )
+
+    inv_sqrt, inv, _ = invsqrt_newton_schulz_cuda(a, iters,
+                                                  tally=_tally(a.device))
+    return inv_sqrt, inv
+
+
+def _tally(device) -> torch.Tensor:
+    """One more kernel solve on ``device``: its int64 ``[summed, most]``
+    tally of iterations, which the kernel adds to on the card."""
+    global ns_calls
+    with _count_lock:
+        ns_calls += 1
+        t = _device_tally.get(device)
+        if t is None:
+            t = _device_tally[device] = torch.zeros(2, dtype=torch.int64,
+                                                    device=device)
+        return t
+
+
+def _invsqrt_newton_schulz_plain(a: torch.Tensor, iters: int):
     """Batched ``(A^{-1/2}, A^{-1})`` for SPD ``A [..., M, M]`` by coupled
     Newton-Schulz (Denman-Beavers variant): scale ``A`` by an upper
     spectral bound c (max abs row sum), then iterate
@@ -342,19 +396,16 @@ def _invsqrt_newton_schulz(a: torch.Tensor, iters: int):
     converged, by the JAX package's rule: ``max |ZY - I|`` at most 100 eps
     of the dtype, or below 0.1 and not halved by the last iteration (a
     stall at the precision floor).  Each iteration reads that error back
-    to the host (one sync)."""
-    m = a.shape[-1]
-    dtype = a.dtype
-    eye = torch.eye(m, dtype=dtype, device=a.device)
-    c = torch.amax(torch.sum(torch.abs(a), dim=-1), dim=-1)
-    c = torch.clamp(c, min=1e-30)
-    y = a / c[..., None, None]
-    z = eye.expand(a.shape)
-    # The exit thresholds in the working dtype, as the JAX package's
-    # comparisons take them.
-    npd = np.float32 if dtype == torch.float32 else np.float64
-    tol = float(npd(100.0) * np.finfo(npd).eps)
-    quad = float(npd(0.1))
+    to the host (one sync).  Returns ``(A^{-1/2}, A^{-1}, iterations)``."""
+    from efa_xray_tpu_torch.ops.newton_schulz import (
+        _finish,
+        _scaled,
+        exit_thresholds,
+    )
+
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    c, y, z = _scaled(a)
+    tol, quad = exit_thresholds(a.dtype)
     i = 0
     err = prev = math.inf
     while i < iters and err > tol and not (err < quad and err > 0.5 * prev):
@@ -366,8 +417,7 @@ def _invsqrt_newton_schulz(a: torch.Tensor, iters: int):
         i += 1
         prev, err = err, (_read(new_err) if i < iters else err)
     _count_ns(i)
-    inv_sqrt = z / torch.sqrt(c)[..., None, None]
-    return inv_sqrt, inv_sqrt @ inv_sqrt
+    return (*_finish(z, c), i)
 
 
 def _count_ns(iterations: int) -> None:
@@ -531,9 +581,7 @@ def _select_chunk(px, obs_xyz, k: int, topk_method: str, cand=None,
         return _top_k(_chord_dots(px, obs_xyz), k, topk_method)
     ngroups, nsc = cand.shape
     dg = _chord_dots(px.reshape(ngroups, group, 3), obs_xyz[cand])
-    dg = torch.where(mask[:, None, :], dg,
-                     torch.tensor(-math.inf, dtype=dg.dtype,
-                                  device=dg.device))
+    dg = dg.masked_fill(~mask[:, None, :], -math.inf)
     pos = _top_k(dg, k)  # [G, P, K]
     ii = torch.gather(cand[:, None, :].expand(ngroups, group, nsc), 2, pos)
     return ii.reshape(ngroups * group, k)
@@ -785,7 +833,7 @@ def letkf_update(body_mean, body_perts, tail_mean, tail_perts, grid_lat,
                            patch_var=ob_var if use_vl else None)
     else:
         # Global ETKF: one patch covering the whole grid, all obs, rho = 1.
-        pxyz = torch.tensor([[0.0, 0.0, 1.0]], dtype=dtype, device=device)
+        pxyz = torch.eye(3, dtype=dtype, device=device)[2:]
         idx = torch.arange(nobs, device=device)[None, :]
         weights = solve(pxyz, idx)
         bm, bp = apply_patch_weights(body_mean, body_perts, weights,
@@ -802,7 +850,7 @@ def letkf_update(body_mean, body_perts, tail_mean, tail_perts, grid_lat,
     var_denom = (nens - 1) if unbiased else nens
     prior_var = torch.sum(tail_perts ** 2, dim=1) / var_denom
     post_var = torch.sum(tp ** 2, dim=1) / var_denom
-    nan = torch.tensor(float("nan"), dtype=dtype, device=device)
+    nan = torch.full((), float("nan"), dtype=dtype, device=device)
     diags = ObsDiagnostics(
         prior_mean=tail_mean, prior_var=prior_var,
         post_mean=torch.where(obs.assim, tm, nan),

@@ -14,7 +14,10 @@
 //   u_j = w_j o (d0_j - sum_{i<j} ggt[j, i] u_i),  ggt[j, i] = (y_i . y_j) g_i
 //   xm += U^T gain;  X -= (g o U)^T Y
 // where the angle is the series form sqrt(s) p(s) (radii <= 5000 km) or the
-// half-angle arccos form, exactly as the Pallas kernel chooses.  Cull bits,
+// half-angle arccos form, exactly as the Pallas kernel chooses (B2e: the
+// chordal form of observation/localization.py chordal_gc_weights, the
+// polynomial arccos of the dot itself, which the JAX package's EnKF body
+// evaluates).  Cull bits,
 // one int32 per (row tile, block) with bit q for the q-th 8-ob panel, skip
 // pairs whose weights are provably zero; skipping them is exact.
 //
@@ -27,6 +30,15 @@
 // Its wrapper culls at max(radius, static_length), so a skipped panel has
 // zero static columns too.  A padded ob (gain = g = sg = ss = 0) stays an
 // exact no-op: its v column is 0 and it adds 0 to the mean.
+//
+// B2e, the stochastic EnKF's instantiation (template flag kZ, fp32 only),
+// has no TPU kernel (the JAX package runs the EnKF's body in plain XLA,
+// efa_xray_tpu/assimilation/ensrf_core.py apply_obs_block with
+// apply_rows).  It takes a second row operand, the departure rows Z [B, M]
+// (z_j = ye_j - eps_j): D0 still reads Y, the wrapper's ggt is (z_i . y_j)
+// g_i, and the apply is X -= (g o U)^T Z.  Z is copied into the Y buffer
+// once D0 has read Y, under the panels' solve, so B2e needs no more shared
+// memory than B2 and keeps its tile and cull bits.
 //
 // What bounds it on an H100: with plain fp32 FMA, arithmetic.  Per alive
 // 8-ob panel of an alive (tile, block) the two products take 2 x 8 T M FMAs
@@ -178,6 +190,10 @@ __device__ __forceinline__ float arccos_poly(float x) {
   return sqrtf(fmaxf(1.0f - x, 0.0f)) * p;
 }
 
+// The angle forms (`series`): the half-angle arccos, the series (radii <=
+// 5000 km), and the chordal form (B2e).
+constexpr int kArccosForm = 0, kSeriesForm = 1, kChordalForm = 2;
+
 // Great-circle distance (km) from ob j to row r, by the chordal angle.
 __device__ __forceinline__ float chord_dist(const float* tab, int B, int j,
                                             const float* geo, int T, int r,
@@ -186,7 +202,10 @@ __device__ __forceinline__ float chord_dist(const float* tab, int B, int j,
   float dot = ox * geo[r] + oy * geo[T + r] + oz * geo[2 * T + r];
   dot = fminf(fmaxf(dot, -1.0f), 1.0f);
   float ang;
-  if (series) {
+  if (series == kChordalForm) {
+    const float a = arccos_poly(fabsf(dot));
+    ang = dot >= 0.0f ? a : 3.14159265358979f - a;
+  } else if (series == kSeriesForm) {
     const float su = (1.0f - dot) * 0.5f;
     ang = sqrtf(su) * asin2_poly(su);
   } else {
@@ -202,7 +221,9 @@ __device__ __forceinline__ float loc_weight(const float* tab, int B, int j,
                                             int series) {
   const float invrad = tab[5 * B + j];
   const float rr = dist * invrad;
-  float w = invrad > 0.0f ? (series ? gc_poly(rr) : gc_exact(rr)) : 1.0f;
+  float w = invrad > 0.0f
+                ? (series == kSeriesForm ? gc_poly(rr) : gc_exact(rr))
+                : 1.0f;
   if (vertical) {
     const float ivr = tab[7 * B + j];
     const float rv = fabsf(geo[3 * T + r] - tab[6 * B + j]) * ivr;
@@ -369,13 +390,15 @@ __device__ __forceinline__ void apply_tiles(float* Xs, const float* Ysm,
 // bm_out/bp_out may alias bm_in/bp_in (in-place update): a CTA reads its
 // own rows before the block loop and writes only those rows after it.
 // kMode: the two large products' mode (efa_mma::kIeee, kTf32, kBf16).
-template <bool kHybrid, int kMode>
+// kZ: B2e (fp32, pure ensemble), the apply reads z_b instead of y_b.
+template <bool kHybrid, int kMode, bool kZ>
 __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     const float* bm_in,  // [N]
     const float* bp_in,  // [N, M]
     const float* __restrict__ geom,   // [kGeo, N]: unit x, y, z, vertical
                                       // (, sigma for B2h)
     const float* __restrict__ y_b,    // [nb, B, M]
+    const float* __restrict__ z_b,    // [nb, B, M] B2e, else nullptr
     const float* __restrict__ ggt_b,  // [nb, B, B]; B2h: the raw Gram
     const float* __restrict__ tab_b,  // [nb, kTab, B]
     const int* __restrict__ bits,     // [gtiles, nb] or nullptr (no cull)
@@ -436,6 +459,23 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     while (b < nb && block_bits(b) == 0u) ++b;
     return b;
   };
+  // Rows [B, M] of block b of `src` (y_b, or B2e's z_b) into the Y buffer,
+  // asynchronously.
+  auto fetch_rows = [&](const float* src, int b) {
+    const float* yb = src + (long)b * B * M;
+    if (vec & kVecY) {
+      const int c4 = M >> 2;
+      for (int idx = tid; idx < B * c4; idx += nth) {
+        const int j = idx / c4, c = idx - j * c4;
+        cp_async16(Ysm + yrow(j, Ys) + 4 * c, yb + (long)j * M + 4 * c);
+      }
+    } else {
+      for (int idx = tid; idx < B * M; idx += nth) {
+        const int j = idx / M, c = idx - j * M;
+        cp_async4(Ysm + yrow(j, Ys) + c, yb + (long)j * M + c);
+      }
+    }
+  };
   // Y and the table of block b, asynchronously.
   auto fetch = [&](int b) {
     if constexpr (kMode == efa_mma::kBf16) {
@@ -450,20 +490,7 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
                  tid, nth);
       return;
     }
-    const float* yb = y_b + (long)b * B * M;
-    float* yd = Ysm;
-    if (vec & kVecY) {
-      const int c4 = M >> 2;
-      for (int idx = tid; idx < B * c4; idx += nth) {
-        const int j = idx / c4, c = idx - j * c4;
-        cp_async16(yd + yrow(j, Ys) + 4 * c, yb + (long)j * M + 4 * c);
-      }
-    } else {
-      for (int idx = tid; idx < B * M; idx += nth) {
-        const int j = idx / M, c = idx - j * M;
-        cp_async4(yd + yrow(j, Ys) + c, yb + (long)j * M + c);
-      }
-    }
+    fetch_rows(y_b, b);
     copy_async(tab, tab_b + (long)b * kTab * B, kTab * B,
                vec & kVecTab, tid, nth);
   };
@@ -568,6 +595,12 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     }
     cp_async_wait_all();
     __syncthreads();  // D0 is in U; the first panel's ggt rows have landed
+    if constexpr (kZ) {
+      // D0 has read Y: the apply's rows Z take its place, landing under the
+      // first panel's solve (whose wait covers this group too).
+      fetch_rows(z_b, b);
+      cp_async_commit();
+    }
 
     for (int a = 0; a < na; ++a) {
       const int q = pl[a];
@@ -740,10 +773,11 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <bool kHybrid, int kMode>
+template <bool kHybrid, int kMode, bool kZ = false>
 int launch(const float* bm_in, const float* bp_in, const float* geom,
-           const float* y_b, const float* ggt_b, const float* tab_b,
-           const int* bits, int N, int M, int B, int nb, int T, int localize, int vertical, int series, float* bm_out,
+           const float* y_b, const float* z_b, const float* ggt_b,
+           const float* tab_b, const int* bits, int N, int M, int B, int nb,
+           int T, int localize, int vertical, int series, float* bm_out,
            float* bp_out, cudaStream_t stream) {
   const int npanels = (B + kPanel - 1) / kPanel;
   if ((T != 32 && T != 64) || N <= 0 ||
@@ -758,16 +792,17 @@ int launch(const float* bm_in, const float* bp_in, const float* geom,
                                 ? make_layout(T, B, M, kHybrid)
                                 : make_mode_layout(T, B, M, kHybrid, kMode))
                                .total;
-  cudaError_t e = cudaFuncSetAttribute(fused_body_kernel<kHybrid, kMode>,
+  cudaError_t e = cudaFuncSetAttribute(fused_body_kernel<kHybrid, kMode, kZ>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem);
   if (e != cudaSuccess) return (int)e;
-  const int vec = (M % 4 == 0 && aligned16(y_b) ? kVecY : 0) |
+  const int vec = (M % 4 == 0 && aligned16(y_b) &&
+                           (!kZ || aligned16(z_b)) ? kVecY : 0) |
                   (B % 4 == 0 && aligned16(tab_b) ? kVecTab : 0) |
                   (B % 4 == 0 && aligned16(ggt_b) ? kVecG : 0);
   const int tiles = (N + T - 1) / T;
-  fused_body_kernel<kHybrid, kMode><<<tiles, kThreads, smem, stream>>>(
-      bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T, vec,
+  fused_body_kernel<kHybrid, kMode, kZ><<<tiles, kThreads, smem, stream>>>(
+      bm_in, bp_in, geom, y_b, z_b, ggt_b, tab_b, bits, N, M, B, nb, T, vec,
       localize, vertical, series, bm_out, bp_out);
   return (int)cudaGetLastError();
 }
@@ -796,9 +831,24 @@ int efa_fused_body(const float* bm_in, const float* bp_in, const float* geom,
                    int mode, float* bm_out, float* bp_out, void* stream) {
   const auto run = hybrid ? launcher<true>(mode) : launcher<false>(mode);
   if (!run) return (int)cudaErrorInvalidValue;
-  return run(bm_in, bp_in, geom, y_b, ggt_b, tab_b, bits, N, M, B, nb, T,
-             localize, vertical, series, bm_out, bp_out,
+  return run(bm_in, bp_in, geom, y_b, nullptr, ggt_b, tab_b, bits, N, M, B,
+             nb, T, localize, vertical, series, bm_out, bp_out,
              (cudaStream_t)stream);
+}
+
+// B2e: B2 in fp32 with the apply's rows z_b [nb, B, M] (ggt_b built from
+// them: (z_i . y_j) g_i).
+int efa_fused_body_enkf(const float* bm_in, const float* bp_in,
+                        const float* geom, const float* y_b,
+                        const float* z_b, const float* ggt_b,
+                        const float* tab_b, const int* bits, int N, int M,
+                        int B, int nb, int T, int localize, int vertical,
+                        int series, float* bm_out, float* bp_out,
+                        void* stream) {
+  if (!z_b) return (int)cudaErrorInvalidValue;
+  return launch<false, efa_mma::kIeee, true>(
+      bm_in, bp_in, geom, y_b, z_b, ggt_b, tab_b, bits, N, M, B, nb, T,
+      localize, vertical, series, bm_out, bp_out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

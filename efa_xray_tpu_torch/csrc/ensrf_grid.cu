@@ -12,6 +12,10 @@
 //       apply_obs_block_pallas, scanned by ensrf_blocked_body_pallas): one
 //       obs block per launch.  Entry point efa_block_apply.
 // Both run the same kernel: B3 over all blocks, B4 over one.
+//   B4e: the stochastic EnKF's instantiation of B4 (template flag kZ, fp32;
+//       no TPU kernel: the JAX package runs the EnKF's body in plain XLA,
+//       efa_xray_tpu/assimilation/ensrf_core.py apply_obs_block with
+//       apply_rows).  Entry point efa_block_apply_enkf.
 //
 // What it computes, for a tile of rows X [T, M] (perturbations) and xm [T]
 // (mean) of group v, for each block of B pre-solved obs with rows Y [B, M]:
@@ -19,7 +23,10 @@
 //   u_j = w[j, g_r] table[v, j] o (d0_j - sum_{i<j} ggt[j, i] u_i)
 //   xm += U^T gain;  X -= (sqrt_coef o U)^T Y
 // with ggt[j, i] = (y_i . y_j) sqrt_coef_i, w the block's weights [B, G]
-// (absent: unlocalized) and the table absent meaning 1.
+// (absent: unlocalized) and the table absent meaning 1.  B4e takes the
+// departure rows Z [B, M] as well: D0 still reads Y, ggt[j, i] = (z_i .
+// y_j) sqrt_coef_i, and X -= (sqrt_coef o U)^T Z; Z is copied into the Y
+// buffer once D0 has read Y, under the first panel's solve.
 //
 // What bounds it on an H100: with plain fp32 FMA, arithmetic.  Per (tile,
 // block) the two products take 2 T B M FMAs and the substitution T B^2 / 2:
@@ -314,13 +321,15 @@ __device__ __forceinline__ void apply_tiles(float* Xs, const float* Ysm,
 // own rows before the block loop and writes only those rows after it.
 // kCtas: the CTAs per SM the register count is held to; kMode: the two
 // large products' mode (efa_mma::kIeee, kTf32, kBf16).
-template <int kCtas, int kMode>
+// kZ: B4e (fp32), the apply reads z_b instead of y_b.
+template <int kCtas, int kMode, bool kZ>
 __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     const float* bm_in,  // [VT * G]
     const float* bp_in,  // [VT * G, M]
     const float* __restrict__ w,      // [nb, B, G] or nullptr (unlocalized)
     const float* __restrict__ table,  // [VT, nb, B] or nullptr (ones)
     const float* __restrict__ y_b,    // [nb, B, M]
+    const float* __restrict__ z_b,    // [nb, B, M] B4e, else nullptr
     const float* __restrict__ ggt_b,  // [nb, B, B]
     const float* __restrict__ coef_b, // [nb, 2, B]: gain, sqrt_coef
     int VT, int G, int M, int B, int nb, int T, int vec, float* bm_out,
@@ -540,6 +549,13 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
           U[(j0 + jj) * T + rgi + i * RG] = acc[i][jj];
     }
     __syncthreads();
+    if constexpr (kZ) {
+      // D0 has read Y: the apply's rows Z take its place, landing by the
+      // first panel's wait.
+      copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
+                      z_b + (long)b * B * M, M, B, M, vec & kVecY, tid);
+      cp_async_commit();
+    }
 
     // The forward substitution, panel by panel.  U holds, for the obs not
     // yet solved, d0 less the products with every panel solved so far.
@@ -669,30 +685,31 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <int kCtas, int kMode>
+template <int kCtas, int kMode, bool kZ = false>
 int launch_as(const float* bm_in, const float* bp_in, const float* w,
-              const float* table, const float* y_b, const float* ggt_b,
-              const float* coef_b, int VT, int G, int M, int B, int nb, int T,
-              int smem, unsigned ctas, float* bm_out, float* bp_out,
-              cudaStream_t stream) {
+              const float* table, const float* y_b, const float* z_b,
+              const float* ggt_b, const float* coef_b, int VT, int G, int M,
+              int B, int nb, int T, int smem, unsigned ctas, float* bm_out,
+              float* bp_out, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      grid_body_kernel<kCtas, kMode>,
+      grid_body_kernel<kCtas, kMode, kZ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(grid_body_kernel<kCtas, kMode>,
+  e = cudaFuncSetAttribute(grid_body_kernel<kCtas, kMode, kZ>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
   const int vec =
-      (M % 4 == 0 && aligned16(y_b) ? kVecY : 0) |
+      (M % 4 == 0 && aligned16(y_b) && (!kZ || aligned16(z_b)) ? kVecY
+                                                               : 0) |
       (B % 4 == 0 && aligned16(ggt_b) ? kVecG : 0) |
       (B % 2 == 0 && aligned16(coef_b) ? kVecC : 0) |
       (B % 4 == 0 && aligned16(table) ? kVecT : 0) |
       (G % 4 == 0 && aligned16(w) ? kVecW : 0) |
       (M % 4 == 0 && aligned16(bp_in) && aligned16(bp_out) ? kVecX : 0);
-  grid_body_kernel<kCtas, kMode><<<ctas, kThreads, smem, stream>>>(
-      bm_in, bp_in, w, table, y_b, ggt_b, coef_b, VT, G, M, B, nb, T, vec,
-      bm_out, bp_out);
+  grid_body_kernel<kCtas, kMode, kZ><<<ctas, kThreads, smem, stream>>>(
+      bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M, B, nb, T,
+      vec, bm_out, bp_out);
   return (int)cudaGetLastError();
 }
 
@@ -711,16 +728,17 @@ decltype(&launch_as<kCtas, efa_mma::kIeee>) launcher(int mode) {
 template <int kCtas>
 const void* kernel_of(int mode) {
   if (mode == efa_mma::kTf32)
-    return (const void*)grid_body_kernel<kCtas, efa_mma::kTf32>;
+    return (const void*)grid_body_kernel<kCtas, efa_mma::kTf32, false>;
   if (mode == efa_mma::kBf16)
-    return (const void*)grid_body_kernel<kCtas, efa_mma::kBf16>;
-  return (const void*)grid_body_kernel<kCtas, efa_mma::kIeee>;
+    return (const void*)grid_body_kernel<kCtas, efa_mma::kBf16, false>;
+  return (const void*)grid_body_kernel<kCtas, efa_mma::kIeee, false>;
 }
 
 int launch(const float* bm_in, const float* bp_in, const float* w,
-           const float* table, const float* y_b, const float* ggt_b,
-           const float* coef_b, int VT, int G, int M, int B, int nb, int T,
-           int mode, float* bm_out, float* bp_out, void* stream) {
+           const float* table, const float* y_b, const float* z_b,
+           const float* ggt_b, const float* coef_b, int VT, int G, int M,
+           int B, int nb, int T, int mode, float* bm_out, float* bp_out,
+           void* stream) {
   if ((T != 32 && T != 64) || VT <= 0 || G <= 0 || M <= 0 || B <= 0 ||
       nb <= 0 || nb > 0x7fffffff / ((B + kPanel - 1) / kPanel))
     return (int)cudaErrorInvalidValue;
@@ -731,11 +749,21 @@ int launch(const float* bm_in, const float* bp_in, const float* w,
   const int smem = (int)sizeof(float) * layout_of(T, B, M, mode).total;
   const long ctas = (long)VT * ((G + T - 1) / T);
   if (ctas > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
+  if (z_b) {  // B4e: fp32 only
+    if (mode != efa_mma::kIeee) return (int)cudaErrorInvalidValue;
+    const auto run = ctas_per_sm(smem) >= 3
+                         ? &launch_as<3, efa_mma::kIeee, true>
+                         : &launch_as<2, efa_mma::kIeee, true>;
+    return run(bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M, B,
+               nb, T, smem, (unsigned)ctas, bm_out, bp_out,
+               (cudaStream_t)stream);
+  }
   const auto run =
       ctas_per_sm(smem) >= 3 ? launcher<3>(mode) : launcher<2>(mode);
   if (!run) return (int)cudaErrorInvalidValue;
-  return run(bm_in, bp_in, w, table, y_b, ggt_b, coef_b, VT, G, M, B, nb, T,
-             smem, (unsigned)ctas, bm_out, bp_out, (cudaStream_t)stream);
+  return run(bm_in, bp_in, w, table, y_b, nullptr, ggt_b, coef_b, VT, G, M,
+             B, nb, T, smem, (unsigned)ctas, bm_out, bp_out,
+             (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -749,8 +777,8 @@ int efa_grid_body(const float* bm_in, const float* bp_in, const float* w,
                   const float* coef_b, int VT, int G, int M, int B, int nb,
                   int T, int mode, float* bm_out, float* bp_out,
                   void* stream) {
-  return launch(bm_in, bp_in, w, table, y_b, ggt_b, coef_b, VT, G, M, B, nb,
-                T, mode, bm_out, bp_out, stream);
+  return launch(bm_in, bp_in, w, table, y_b, nullptr, ggt_b, coef_b, VT, G,
+                M, B, nb, T, mode, bm_out, bp_out, stream);
 }
 
 // B4: one block per launch.
@@ -758,8 +786,20 @@ int efa_block_apply(const float* bm_in, const float* bp_in, const float* w,
                     const float* table, const float* y, const float* ggt,
                     const float* coef, int VT, int G, int M, int B, int T,
                     int mode, float* bm_out, float* bp_out, void* stream) {
-  return launch(bm_in, bp_in, w, table, y, ggt, coef, VT, G, M, B, 1, T,
-                mode, bm_out, bp_out, stream);
+  return launch(bm_in, bp_in, w, table, y, nullptr, ggt, coef, VT, G, M, B,
+                1, T, mode, bm_out, bp_out, stream);
+}
+
+// B4e: one block in fp32 with the apply's rows z [B, M] (ggt built from
+// them: (z_i . y_j) sqrt_coef_i).
+int efa_block_apply_enkf(const float* bm_in, const float* bp_in,
+                         const float* w, const float* table, const float* y,
+                         const float* z, const float* ggt, const float* coef,
+                         int VT, int G, int M, int B, int T, float* bm_out,
+                         float* bp_out, void* stream) {
+  if (!z) return (int)cudaErrorInvalidValue;
+  return launch(bm_in, bp_in, w, table, y, z, ggt, coef, VT, G, M, B, 1, T,
+                efa_mma::kIeee, bm_out, bp_out, stream);
 }
 
 // The version of the two entries' C signatures above, so that a build of

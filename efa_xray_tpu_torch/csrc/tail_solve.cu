@@ -6,7 +6,9 @@
 // efa_xray_tpu/assimilation/ensrf_core.py::_panel_solve_pallas.  B1h, the
 // hybrid instantiation (kHybrid), has no TPU kernel: it carries the static
 // column of ensrf_core.tail_scan, which the JAX package solves with its
-// plain scan.
+// plain scan.  B1e, the stochastic EnKF's instantiation (kEnkf), has no TPU
+// kernel either: it solves efa_xray_tpu/assimilation/enkf.py::
+// enkf_tail_scan (a lax.scan there) panel by panel.
 //
 // What it computes, for each ob i of the panel in order (f = assim flag):
 //   ye = tp[i, :];  varye_e = var(ye) (ddof 0, or 1 when unbiased)
@@ -21,6 +23,14 @@
 // kdenom, and the prior and posterior obs-space mean and variance (NaN
 // where skipped; the posterior row i is (1 - beta kmat_i) ye, so post_var =
 // (1 - beta kmat_i)^2 varye_e).
+//
+// B1e (kEnkf) takes the panel's perturbed-ob draws eps [P, M] and applies
+// each ob's full gain to its departure row z_i = ye - eps[i, :]:
+//   gain = f innov scale, sqrt = f scale (no beta);
+//   tm[j] += (f innov) kmat_j;   tp[j, :] -= (f kmat_j) z_i
+// and emits the z rows too.  The rank update of the other rows then runs
+// against G = Z Y^T (z_p . ye_t, not symmetric) and applies X -= V Z, and
+// the posterior variance of row i is taken from the updated row itself.
 //
 // What bounds it on an H100: the serial chain, not arithmetic or bytes.  A
 // 512 x 80 panel is 42M FMAs (under a microsecond of the card, a third of a
@@ -63,9 +73,10 @@
 //
 // Shared memory (floats; make_layout below, mirrored by ops/tail_solve.py
 // smem_bytes): weight ring [2][kSub][Pc] (and the static ring), Y [2][M]
-// [kSub] (transposed, so a row's kSub values are float4 loads), G [2][kSub]
-// [kSub], coefficients [2][4][kSub], the rows X [Pc][M | 1] (odd stride:
-// one thread per row reads 32 banks), tm, (sigma), value, error, flag [Pc].
+// [kSub] (transposed, so a row's kSub values are float4 loads), (B1e: Z
+// [2][M][kSub] likewise), G [2][kSub][kSub], coefficients [2][4][kSub], the
+// rows X [Pc][M | 1] (odd stride: one thread per row reads 32 banks), tm,
+// (sigma), value, error, flag [Pc].
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -105,11 +116,11 @@ __host__ __device__ constexpr bool skips(int part) {
 }
 
 struct Layout {
-  int wring, gring, yt, g, coef, x, tm, sig, vals, errs, flags, total;
+  int wring, gring, yt, zt, g, coef, x, tm, sig, vals, errs, flags, total;
 };
 
 __host__ __device__ inline Layout make_layout(int Pc, int M, int sub,
-                                              bool hybrid) {
+                                              bool hybrid, bool enkf) {
   Layout L;
   int o = 0;
   L.wring = o;
@@ -118,6 +129,8 @@ __host__ __device__ inline Layout make_layout(int Pc, int M, int sub,
   o += hybrid ? kSlots * sub * Pc : 0;
   L.yt = o;
   o += kSlots * M * sub;
+  L.zt = o;
+  o += enkf ? kSlots * M * sub : 0;
   L.g = o;
   o += kSlots * sub * sub;
   L.coef = o;
@@ -138,8 +151,8 @@ __host__ __device__ inline Layout make_layout(int Pc, int M, int sub,
   return L;
 }
 
-int smem_bytes(int Pc, int M, int sub, bool hybrid) {
-  return (int)sizeof(float) * make_layout(Pc, M, sub, hybrid).total;
+int smem_bytes(int Pc, int M, int sub, bool hybrid, bool enkf) {
+  return (int)sizeof(float) * make_layout(Pc, M, sub, hybrid, enkf).total;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -171,6 +184,7 @@ struct Args {
   const float* w;               // [P, P] w[i, j]; nullptr = no localization
   const float* gc;              // [P, P] static correlation (B1h)
   const float* sig;             // [P] static std (B1h)
+  const float* eps;             // [P, M] perturbed-ob draws (B1e)
   float alpha;
   int P, M, unbiased, cluster, tpr;
   float* tm_out;                // [P]
@@ -184,11 +198,13 @@ struct Args {
   float* ov_out;
   float* sg_out;                // B1h
   float* ss_out;                // B1h
+  float* z_out;                 // [P, M] B1e
 };
 
 // The shared arrays of one CTA.
 struct Smem {
-  float *wring, *gring, *yt, *g, *coef, *x, *tm, *sig, *vals, *errs, *flags;
+  float *wring, *gring, *yt, *zt, *g, *coef, *x, *tm, *sig, *vals, *errs,
+      *flags;
 };
 
 __device__ __forceinline__ void cluster_sync(int C) {
@@ -201,8 +217,9 @@ __device__ __forceinline__ void cluster_sync(int C) {
 
 // Warp 0 of the owning CTA: the serial solve of sub-panel k (obs and rows
 // k kSub .. k kSub + kSub - 1, local rows il0 ..), then its Gram matrix,
-// and the sub-panel's Y, G and coefficients pushed into every CTA.
-template <bool kHybrid, int kSub, int kLanes>
+// and the sub-panel's Y (B1e: and Z), G and coefficients pushed into every
+// CTA.
+template <bool kHybrid, bool kEnkf, int kSub, int kLanes>
 __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
                                int slot, int Pc, int S, int rank) {
   const int lane = threadIdx.x & 31;
@@ -214,6 +231,7 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
   const float* wslot = s.wring + slot * kSub * Pc + il0;
   const float* gslot = s.gring + slot * kSub * Pc + il0;
   float* ys = s.yt + slot * M * kSub;
+  float* zs = s.zt + slot * M * kSub;
   float* coef = s.coef + slot * kCoef * kSub;
 
   float tmv[kSub], sgr[kSub];
@@ -237,11 +255,15 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
     // first member, so the variance does not cancel.
     __syncwarp();
     const float* yt = rows + t * S;
-    float ye[kLanes];
+    float ye[kLanes], z[kLanes];
 #pragma unroll
     for (int q = 0; q < kLanes; ++q) {
       const int m = q * 32 + lane;
       ye[q] = (m < M) ? yt[m] : 0.f;
+      // B1e: the departure row z = ye - eps[gi, :]; the square root
+      // applies ye itself.
+      z[q] = kEnkf ? ((m < M) ? ye[q] - a.eps[(long)gi * M + m] : 0.f)
+                   : ye[q];
     }
     const float c0 = yt[0];
     float red[kSub + 2];
@@ -284,7 +306,9 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
     // division routine: the chain of one step is what bounds the solve.
     const float inv_kd = __frcp_rn(kdenom);
     const float scale = inv_kd * inv_m1;
-    const float beta = __frcp_rn(1.f + __fsqrt_rn(r_err * inv_kd));
+    // B1e applies the full gain: beta = 1.
+    const float beta =
+        kEnkf ? 1.f : __frcp_rn(1.f + __fsqrt_rn(r_err * inv_kd));
     const float f = s.flags[il0 + t];
     const float fi = f * innov, fb = f * beta;
     const float sfac = kHybrid ? (1.f - alpha) * sgt * inv_kd : 0.f;
@@ -297,14 +321,35 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
       tmv[r] += fi * km;
       cr[r] = fb * km;
     }
+    float crt = 0.f;
+#pragma unroll
+    for (int r = 0; r < kSub; ++r)
+      if (r == t) crt = cr[r];
+    // B1e: the sums of row t after its own ob, about its first member.
+    float post[2] = {0.f, 0.f};
+    const float c1 = kEnkf ? c0 - crt * (c0 - a.eps[(long)gi * M]) : 0.f;
 #pragma unroll
     for (int q = 0; q < kLanes; ++q) {
       const int m = q * 32 + lane;
       if (m < M) {
         a.ye_out[(long)gi * M + m] = ye[q];
         ys[m * kSub + t] = ye[q];
+        if (kEnkf) {
+          a.z_out[(long)gi * M + m] = z[q];
+          zs[m * kSub + t] = z[q];
+          const float dv = ye[q] - crt * z[q] - c1;
+          post[0] += dv;
+          post[1] += dv * dv;
+        }
 #pragma unroll
-        for (int r = 0; r < kSub; ++r) rows[r * S + m] -= cr[r] * ye[q];
+        for (int r = 0; r < kSub; ++r) rows[r * S + m] -= cr[r] * z[q];
+      }
+    }
+    if (kEnkf) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        post[0] += __shfl_xor_sync(0xffffffffu, post[0], o);
+        post[1] += __shfl_xor_sync(0xffffffffu, post[1], o);
       }
     }
     if (lane == 0) {
@@ -312,12 +357,15 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
       const float gain = ens * (fi * scale), sq = ens * (fb * scale);
       const bool as = f != 0.f;
       const float shrink = 1.f - beta * kt;
+      const float post_var =
+          kEnkf ? fmaxf(post[1] - post[0] * post[0] * inv_m, 0.f) * inv_vden
+                : shrink * shrink * varye_e;
       a.gain_out[gi] = gain;
       a.sqrt_out[gi] = sq;
       a.pm_out[gi] = mye;
       a.pv_out[gi] = varye;
       a.om_out[gi] = as ? mye + kt * innov : nan;
-      a.ov_out[gi] = as ? shrink * shrink * varye_e : nan;
+      a.ov_out[gi] = as ? post_var : nan;
       coef[t] = gain;
       coef[kSub + t] = sq;
       coef[2 * kSub + t] = sfac * fi;
@@ -333,7 +381,9 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
     for (int r = 0; r < kSub; ++r) s.tm[il0 + r] = tmv[r];
   }
   __syncwarp();
-  // G[p][t] = ye_p . ye_t for p < t, one pair per lane at a time.
+  // G[p][t] = a_p . ye_t for p < t (a = ye, B1e: z), one pair per lane at a
+  // time.
+  const float* as_ = kEnkf ? zs : ys;
   float* g = s.g + slot * kSub * kSub;
   constexpr int kPairs = kSub * (kSub - 1) / 2;
   for (int e = lane; e < (skips(kSkipGram) ? 0 : kPairs); e += 32) {
@@ -345,15 +395,16 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
     for (; m + 4 <= M; m += 4) {
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        acc[u] += ys[(m + u) * kSub + p] * ys[(m + u) * kSub + t];
+        acc[u] += as_[(m + u) * kSub + p] * ys[(m + u) * kSub + t];
     }
-    for (; m < M; ++m) acc[0] += ys[m * kSub + p] * ys[m * kSub + t];
+    for (; m < M; ++m) acc[0] += as_[m * kSub + p] * ys[m * kSub + t];
     g[p * kSub + t] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
   __syncwarp();
   if (a.cluster > 1 && !skips(kSkipPush)) {
     cg::cluster_group cl = cg::this_cluster();
     const float4* y4 = reinterpret_cast<const float4*>(ys);
+    const float4* z4 = reinterpret_cast<const float4*>(zs);
     const float4* g4 = reinterpret_cast<const float4*>(g);
     const float4* c4 = reinterpret_cast<const float4*>(coef);
     for (int r = 0; r < a.cluster; ++r) {
@@ -362,14 +413,19 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
       float4* dg = reinterpret_cast<float4*>(cl.map_shared_rank(g, r));
       float4* dc = reinterpret_cast<float4*>(cl.map_shared_rank(coef, r));
       for (int e = lane; e < M * kSub / 4; e += 32) dy[e] = y4[e];
+      if (kEnkf) {
+        float4* dz = reinterpret_cast<float4*>(cl.map_shared_rank(zs, r));
+        for (int e = lane; e < M * kSub / 4; e += 32) dz[e] = z4[e];
+      }
       for (int e = lane; e < kSub * kSub / 4; e += 32) dg[e] = g4[e];
       for (int e = lane; e < kCoef * kSub / 4; e += 32) dc[e] = c4[e];
     }
   }
 }
 
-// Every row of this CTA outside the sub-panel: one rank-kSub update.
-template <bool kHybrid, int kSub>
+// Every row of this CTA outside the sub-panel: one rank-kSub update (B1e:
+// X -= V Z).
+template <bool kHybrid, bool kEnkf, int kSub>
 __device__ void rank_update(const Args& a, const Smem& s, int skip0,
                             int slot, int Pc, int S) {
   const int M = a.M;
@@ -380,6 +436,7 @@ __device__ void rank_update(const Args& a, const Smem& s, int skip0,
   const float* wslot = s.wring + slot * kSub * Pc;
   const float* gslot = s.gring + slot * kSub * Pc;
   const float* ys = s.yt + slot * M * kSub;
+  const float* as_ = kEnkf ? s.zt + slot * M * kSub : ys;
   const float* g = s.g + slot * kSub * kSub;
   const float* coef = s.coef + slot * kCoef * kSub;
   const int passes = (Pc + groups - 1) / groups;
@@ -430,7 +487,7 @@ __device__ void rank_update(const Args& a, const Smem& s, int skip0,
     if (q == 0) s.tm[jl] += mean;
     for (int m = q; m < M; m += tpr) {
       float acc = x[m];
-      const float4* y4 = reinterpret_cast<const float4*>(ys + m * kSub);
+      const float4* y4 = reinterpret_cast<const float4*>(as_ + m * kSub);
 #pragma unroll
       for (int t4 = 0; t4 < kSub / 4; ++t4) {
         const float4 y = y4[t4];
@@ -444,7 +501,7 @@ __device__ void rank_update(const Args& a, const Smem& s, int skip0,
   }
 }
 
-template <bool kHybrid, int kSub>
+template <bool kHybrid, bool kEnkf, int kSub>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     tail_solve_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
@@ -452,10 +509,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int P = a.P, M = a.M, S = M | 1, Pc = P / C, row0 = rank * Pc;
   const int tid = threadIdx.x, nth = blockDim.x;
-  const Layout L = make_layout(Pc, M, kSub, kHybrid);
-  const Smem s{smem + L.wring, smem + L.gring, smem + L.yt,   smem + L.g,
-               smem + L.coef,  smem + L.x,     smem + L.tm,   smem + L.sig,
-               smem + L.vals,  smem + L.errs,  smem + L.flags};
+  const Layout L = make_layout(Pc, M, kSub, kHybrid, kEnkf);
+  const Smem s{smem + L.wring, smem + L.gring, smem + L.yt,  smem + L.zt,
+               smem + L.g,     smem + L.coef,  smem + L.x,   smem + L.tm,
+               smem + L.sig,   smem + L.vals,  smem + L.errs, smem + L.flags};
 
   // The weight rows of sub-panel k (and B1h's static rows) at this CTA's
   // rows, into ring slot `slot`.
@@ -498,16 +555,16 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const int il0 = (k - owner * per_cta) * kSub;
     if (rank == owner && tid < 32) {
       if (M <= 32 * kFewLanes)
-        solve_subpanel<kHybrid, kSub, kFewLanes>(a, s, k, il0, slot, Pc, S,
-                                                 rank);
+        solve_subpanel<kHybrid, kEnkf, kSub, kFewLanes>(a, s, k, il0, slot,
+                                                        Pc, S, rank);
       else
-        solve_subpanel<kHybrid, kSub, kMaxLanes>(a, s, k, il0, slot, Pc, S,
-                                                 rank);
+        solve_subpanel<kHybrid, kEnkf, kSub, kMaxLanes>(a, s, k, il0, slot,
+                                                        Pc, S, rank);
     }
     cluster_sync(C);
     if (!skips(kSkipUpdate))
-      rank_update<kHybrid, kSub>(a, s, rank == owner ? il0 : Pc, slot, Pc,
-                                 S);
+      rank_update<kHybrid, kEnkf, kSub>(a, s, rank == owner ? il0 : Pc, slot,
+                                        Pc, S);
   }
   __syncthreads();
   for (int idx = tid; idx < Pc * M; idx += nth) {
@@ -517,10 +574,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   for (int j = tid; j < Pc; j += nth) a.tm_out[row0 + j] = s.tm[j];
 }
 
-template <bool kHybrid, int kSub>
+template <bool kHybrid, bool kEnkf, int kSub>
 cudaError_t launch(const Args& a, int threads, int smem,
                    cudaStream_t stream) {
-  auto kernel = tail_solve_kernel<kHybrid, kSub>;
+  auto kernel = tail_solve_kernel<kHybrid, kEnkf, kSub>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -539,13 +596,48 @@ cudaError_t launch(const Args& a, int threads, int smem,
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
+// The launch of one panel (P a multiple of sub x cluster: the wrapper
+// pads): threads per CTA and per row, then the instantiation.
+cudaError_t run(Args a, int sub, int smem, cudaStream_t s, bool hybrid,
+                bool enkf) {
+  const int Pc = a.P / a.cluster;
+  // One thread per row up to 512 rows; below 256 rows a CTA keeps 256
+  // threads and shares each row among 2, 4 or 8 of them.
+  const int threads = Pc >= kMaxThreads ? kMaxThreads : 256;
+  int tpr = 1;
+  while (tpr < 8 && Pc * tpr * 2 <= threads) tpr *= 2;
+  a.tpr = tpr;
+  cudaError_t e;
+  if (sub == 8) {
+    e = enkf     ? launch<false, true, 8>(a, threads, smem, s)
+        : hybrid ? launch<true, false, 8>(a, threads, smem, s)
+                 : launch<false, false, 8>(a, threads, smem, s);
+  } else {
+#if EFA_TAIL_SUB16
+    e = hybrid ? launch<true, false, 16>(a, threads, smem, s)
+               : launch<false, false, 16>(a, threads, smem, s);
+#else
+    return cudaErrorInvalidValue;
+#endif
+  }
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+bool bad_shape(int P, int M, int sub, int cluster) {
+  return (sub != 8 && sub != 16) ||
+         (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+         P <= 0 || P % (sub * cluster) != 0 || M < 2 || M > kMaxMembers;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one CTA owning `rows` rows (for the wrapper's check).
-int efa_tail_solve_smem(int rows, int M, int sub, int hybrid) {
-  return smem_bytes(rows, M, sub, hybrid != 0);
+// Shared memory of one CTA owning `rows` rows (for the wrapper's check);
+// kind 0 B1, 1 B1h, 2 B1e.
+int efa_tail_solve_smem(int rows, int M, int sub, int kind) {
+  return smem_bytes(rows, M, sub, kind == 1, kind == 2);
 }
 
 // P must be a multiple of sub x cluster (the wrapper pads), gc and sig are
@@ -559,38 +651,39 @@ int efa_tail_solve(const float* tm_in, const float* tp_in, const float* vals,
                    float* pv_out, float* om_out, float* ov_out,
                    float* sg_out, float* ss_out, void* stream) {
   const bool hybrid = gc != nullptr;
-  if ((sub != 8 && sub != 16) ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
-      P <= 0 || P % (sub * cluster) != 0 || M < 2 || M > kMaxMembers ||
-      hybrid != (sig != nullptr) || (hybrid && (!sg_out || !ss_out)))
+  if (bad_shape(P, M, sub, cluster) || hybrid != (sig != nullptr) ||
+      (hybrid && (!sg_out || !ss_out)))
     return (int)cudaErrorInvalidValue;
-  const int Pc = P / cluster;
-  const int smem = smem_bytes(Pc, M, sub, hybrid);
+  const int smem = smem_bytes(P / cluster, M, sub, hybrid, false);
   if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  // One thread per row up to 512 rows; below 256 rows a CTA keeps 256
-  // threads and shares each row among 2, 4 or 8 of them.
-  const int threads = Pc >= kMaxThreads ? kMaxThreads : 256;
-  int tpr = 1;
-  while (tpr < 8 && Pc * tpr * 2 <= threads) tpr *= 2;
-  Args a{tm_in,  tp_in,  vals,   errs,     assim,    w,      gc,
-         sig,    alpha,  P,      M,        unbiased, cluster, tpr,
-         tm_out, tp_out, ye_out, gain_out, sqrt_out, pm_out, pv_out,
-         om_out, ov_out, sg_out, ss_out};
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (sub == 8) {
-    e = hybrid ? launch<true, 8>(a, threads, smem, s)
-               : launch<false, 8>(a, threads, smem, s);
-  } else {
-#if EFA_TAIL_SUB16
-    e = hybrid ? launch<true, 16>(a, threads, smem, s)
-               : launch<false, 16>(a, threads, smem, s);
-#else
+  Args a{tm_in,  tp_in,   vals,     errs,     assim,  w,      gc,
+         sig,    nullptr, alpha,    P,        M,      unbiased,
+         cluster, 0,      tm_out,   tp_out,   ye_out, gain_out,
+         sqrt_out, pm_out, pv_out,  om_out,   ov_out, sg_out,
+         ss_out, nullptr};
+  return (int)run(a, sub, smem, (cudaStream_t)stream, hybrid, false);
+}
+
+// B1e: the stochastic EnKF's panel solve, with the draws eps [P, M] and
+// the departure rows z_out [P, M]; sub-panels of 8 only.
+int efa_tail_solve_enkf(const float* tm_in, const float* tp_in,
+                        const float* vals, const float* errs,
+                        const unsigned char* assim, const float* w,
+                        const float* eps, int P, int M, int unbiased,
+                        int cluster, float* tm_out, float* tp_out,
+                        float* ye_out, float* z_out, float* gain_out,
+                        float* sqrt_out, float* pm_out, float* pv_out,
+                        float* om_out, float* ov_out, void* stream) {
+  if (bad_shape(P, M, 8, cluster) || !eps || !z_out)
     return (int)cudaErrorInvalidValue;
-#endif
-  }
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  const int smem = smem_bytes(P / cluster, M, 8, false, true);
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  Args a{tm_in,  tp_in,   vals,     errs,     assim,  w,      nullptr,
+         nullptr, eps,    1.f,      P,        M,      unbiased,
+         cluster, 0,      tm_out,   tp_out,   ye_out, gain_out,
+         sqrt_out, pm_out, pv_out,  om_out,   ov_out, nullptr,
+         nullptr, z_out};
+  return (int)run(a, 8, smem, (cudaStream_t)stream, false, true);
 }
 
 }  // extern "C"

@@ -33,6 +33,9 @@ def _as_tensor(x, like=None):
     if isinstance(x, torch.Tensor):
         return x
     if like is not None:
+        if isinstance(x, (int, float)):
+            # Filled on the device: a copy from the host would wait on it.
+            return torch.full((), x, dtype=like.dtype, device=like.device)
         return torch.as_tensor(x, dtype=like.dtype, device=like.device)
     return torch.from_numpy(np.array(x))
 

@@ -21,6 +21,12 @@ angle: the mean accumulates ``gain_j u_j + sgain_j s_j`` while the
 columns solve, the stored columns are ``v_j = sqrt_coef_j u_j + ssqrt_j
 s_j`` against the raw Gram matrix, and ``X -= V^T Y``.
 
+B2e, the stochastic EnKF's instantiation (``apply_rows``, fp32), applies
+the solved columns against the departure rows ``z = ye - eps``: ``D0 = X
+Y^T`` as before, ``ggt[j, i] = (z_i . y_j) g_i`` and ``X -= (g o U)^T Z``
+(``ensrf_core.apply_obs_block(apply_rows=z)``, which the JAX package runs
+in plain XLA).  Its tile and cull bits are B2's.
+
 ``precision`` (:mod:`efa_xray_tpu_torch.ops.precision`) is the mode of the
 two large products, D0 = X Y^T and the apply: ``"ieee"`` (fp32), or
 ``"tf32"`` / ``"bf16"``, where the kernel runs them on the tensor cores and
@@ -44,6 +50,7 @@ from efa_xray_tpu_torch.assimilation.ensrf_core import (
 )
 from efa_xray_tpu_torch.observation.localization import (
     EARTH_RADIUS_KM,
+    _arccos_as,
     latlon_to_unit,
 )
 from efa_xray_tpu_torch.ops import _build
@@ -66,12 +73,18 @@ THREADS = 256
 # The series angle form is valid while every angle the kernel evaluates
 # stays within 90 degrees: GC supports of 2 x 5000 km at most.
 SERIES_MAX_RADIUS_KM = 5000.0
+# The angle forms the kernel takes (its ``series`` argument): the
+# half-angle arccos, the series, and B2e's chordal form (the polynomial
+# arccos of the dot, as ``localization.chordal_gc_weights``).
+ARCCOS_FORM, SERIES_FORM, CHORDAL_FORM = 0, 1, 2
 
 # Launches of the CUDA kernel (not of the plain version): pure-ensemble
 # B2, and its hybrid instantiation B2h; and each of them by product mode.
 launches = 0
 hybrid_launches = 0
 launches_by_mode = {k: dict.fromkeys(MODES, 0) for k in ("B2", "B2h")}
+# Launches of B2e (fp32 only).
+enkf_launches = 0
 # Guards the counters against launches from several threads.
 _count_lock = threading.Lock()
 
@@ -181,8 +194,8 @@ def _tile_caps(body_xyz, tile):
     txyz = body_xyz.reshape(gtiles, tile, 3)
     csum = torch.sum(txyz, dim=1)
     cnorm = torch.sqrt(torch.sum(csum * csum, dim=1, keepdim=True))
-    fallback = torch.tensor([1.0, 0.0, 0.0], dtype=body_xyz.dtype,
-                            device=body_xyz.device)
+    # Made on the device (a copy from the host would wait on it).
+    fallback = torch.eye(3, dtype=body_xyz.dtype, device=body_xyz.device)[0]
     center = torch.where(cnorm > 1e-6, csum / torch.clamp(cnorm, min=1e-6),
                          fallback[None, :])
     cosmin = torch.einsum("gtc,gc->gt", txyz, center).amin(dim=1)
@@ -243,13 +256,15 @@ def cull_bits(body_xyz, ob_xyz, radii, assim, tile, nblocks, block_size,
     return torch.cat(out)
 
 
-def _dist_plain(tab, geom, lo, hi, series: bool):
+def _dist_plain(tab, geom, lo, hi, series: int):
     """Distances (km) ``[rows, hi - lo]`` from every row to obs lo..hi-1
     of one block: the kernel's chordal angle forms."""
     ox, oy, oz = (tab[k, lo:hi][None, :] for k in (2, 3, 4))
     bx, by, bz = (geom[k][:, None] for k in range(3))
     dot = torch.clamp(ox * bx + oy * by + oz * bz, -1.0, 1.0)
-    if series:
+    if series == CHORDAL_FORM:
+        ang = _arccos_as(dot)
+    elif series == SERIES_FORM:
         su = (1.0 - dot) * 0.5
         ang = torch.sqrt(su) * _asin2_poly_u(su)
     else:
@@ -258,13 +273,13 @@ def _dist_plain(tab, geom, lo, hi, series: bool):
     return EARTH_RADIUS_KM * ang
 
 
-def _weights_plain(tab, geom, lo, hi, dist, vertical: bool, series: bool):
+def _weights_plain(tab, geom, lo, hi, dist, vertical: bool, series: int):
     """Localization weights ``[rows, hi - lo]`` at ``dist``: the kernel's
     Gaspari-Cohn forms, times the vertical factor."""
     invrad = tab[5, lo:hi][None, :]
     one = torch.ones_like(dist)
-    w = torch.where(invrad > 0, _gc_poly(dist * invrad,
-                                         "poly" if series else "exact"), one)
+    w = torch.where(invrad > 0, _gc_poly(
+        dist * invrad, "poly" if series == SERIES_FORM else "exact"), one)
     if vertical:
         ivr = tab[7, lo:hi][None, :]
         rv = torch.abs(geom[3][:, None] - tab[6, lo:hi][None, :]) * ivr
@@ -275,12 +290,13 @@ def _weights_plain(tab, geom, lo, hi, dist, vertical: bool, series: bool):
 def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                       localize: bool, vertical: bool, series: bool,
                       hybrid: bool = False, precision: str = "ieee",
-                      operands: list | None = None):
-    """Plain-torch B2 (B2h with ``hybrid``) on prepared operands; returns
-    ``(bm, bp)``.  In hybrid mode ``u`` holds the V columns.  The two large
-    products round their operands as mode ``precision`` does.  A list
-    ``operands`` receives each block's apply operands before rounding:
-    ``(g o U or V [rows, B], Y [B, M])``."""
+                      operands: list | None = None, z_b=None):
+    """Plain-torch B2 (B2h with ``hybrid``, B2e with the apply rows
+    ``z_b``) on prepared operands; returns ``(bm, bp)``.  In hybrid mode
+    ``u`` holds the V columns.  The two large products round their
+    operands as mode ``precision`` does.  A list ``operands`` receives each
+    block's apply operands before rounding: ``(g o U or V [rows, B], Y (B2e:
+    Z) [B, M])``."""
     rnd = lambda x: round_inputs(x, precision)
     nrows = bp.shape[0]
     nblocks, bsz, _ = y_b.shape
@@ -334,34 +350,39 @@ def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
         else:
             bm = bm + u @ tab[0]
             left = u * tab[1][None, :]
+        right = y if z_b is None else z_b[b]
         if operands is not None:
-            operands.append((left, y))
-        bp = bp - rnd(left) @ rnd(y)
+            operands.append((left, right))
+        bp = bp - rnd(left) @ rnd(right)
     return bm, bp
 
 
 def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                      localize: bool, vertical: bool, series: bool,
                      hybrid: bool = False, donate: bool = False,
-                     precision: str = "ieee"):
-    """Launch B2 (B2h with ``hybrid``) on CUDA float32 tensors, its two
-    large products in mode ``precision``.  ``donate=True`` updates
-    ``bm``/``bp`` in place (the JAX package donates these buffers)."""
+                     precision: str = "ieee", z_b=None):
+    """Launch B2 (B2h with ``hybrid``, B2e with ``z_b``) on CUDA float32
+    tensors, its two large products in mode ``precision``.
+    ``donate=True`` updates ``bm``/``bp`` in place (the JAX package donates
+    these buffers)."""
     if precision not in MODES:
         raise ValueError(f"unknown mode {precision!r}; expected one of "
                          f"{MODES}")
+    if z_b is not None and (hybrid or precision != "ieee"):
+        raise ValueError("B2e (apply rows) runs pure-ensemble fp32 only")
     nrows, nmems = bp.shape
     nblocks, bsz, _ = y_b.shape
     dev = bp.device
     f32 = torch.float32
-    for t in (bm, bp, geom, y_b, ggt_b, tab_b):
-        if t.device != dev or t.dtype != f32:
+    for t in (bm, bp, geom, y_b, ggt_b, tab_b, z_b):
+        if t is not None and (t.device != dev or t.dtype != f32):
             raise ValueError("B2 takes float32 tensors on one CUDA device")
     ntab = len(TABLE_ROWS) + (len(HYBRID_ROWS) if hybrid else 0)
     if (bm.shape != (nrows,) or geom.shape != (5 if hybrid else 4, nrows)
             or y_b.shape != (nblocks, bsz, nmems)
             or ggt_b.shape != (nblocks, bsz, bsz)
-            or tab_b.shape != (nblocks, ntab, bsz)):
+            or tab_b.shape != (nblocks, ntab, bsz)
+            or (z_b is not None and z_b.shape != y_b.shape)):
         raise ValueError("B2 operand shapes disagree")
     gtiles = -(-nrows // tile)
     if bits is not None and (bits.device != dev or bits.dtype != torch.int32
@@ -385,6 +406,18 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
     cbits = bits.contiguous() if bits is not None else None
     # The C entry sets its attributes on, and launches onto, the current
     # device: make it the tensors' one.
+    if z_b is not None:
+        with torch.cuda.device(dev):
+            err = _build.lib().efa_fused_body_enkf(
+                *(t.data_ptr() for t in ins[:4]), z_b.contiguous().data_ptr(),
+                *(t.data_ptr() for t in ins[4:]),
+                None if cbits is None else cbits.data_ptr(),
+                nrows, nmems, bsz, nblocks, tile, int(localize),
+                int(vertical), int(series), out_m.data_ptr(),
+                out_p.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "B2e ensrf_fused launch")
+        _count_enkf()
+        return out_m, out_p
     with torch.cuda.device(dev):
         err = _build.lib().efa_fused_body(
             *(t.data_ptr() for t in ins),
@@ -410,31 +443,41 @@ def _count(hybrid: bool, precision: str) -> None:
         launches_by_mode["B2h" if hybrid else "B2"][precision] += 1
 
 
+def _count_enkf() -> None:
+    """One launch of B2e."""
+    global enkf_launches
+    with _count_lock:
+        enkf_launches += 1
+
+
 def fused_apply(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                 localize: bool, vertical: bool, series: bool,
                 hybrid: bool = False, donate: bool = False,
-                precision: str = "ieee"):
+                precision: str = "ieee", z_b=None):
     """B2 dispatch: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if bp.is_cuda:
         return fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile,
                                 localize, vertical, series, hybrid, donate,
-                                precision)
+                                precision, z_b=z_b)
     if bp.device.type != "cpu":
         raise ValueError(f"B2 runs on CUDA or CPU, not {bp.device}")
     return fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile,
-                             localize, vertical, series, hybrid, precision)
+                             localize, vertical, series, hybrid, precision,
+                             z_b=z_b)
 
 
 def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
             obs: ObsArrays, body_vert=None, localize: bool = True,
             block_size: int = 128, cull: bool = True, max_radius_km=None,
             hybrid: bool = False, body_sigma=None, static_length=None,
-            precision: str = "ieee"):
+            precision: str = "ieee", apply_rows=None):
     """Kernel operands for :func:`fused_apply`, as ``_fused_impl``
     :564-704 builds them: a dict of ``geom, y_b, ggt_b, tab_b, bits, tile,
-    series``, the tile (and the cull bits) that of product mode
-    ``precision``.  Hybrid mode (a hybrid ``tail``, ``body_sigma`` scalar or
+    series, z_b``, the tile (and the cull bits) that of product mode
+    ``precision``.  ``apply_rows [No, M]`` (B2e) are padded into ``z_b``
+    and the Gram tables built from them (``(z_i . y_j) g_i``); ``z_b`` is
+    None otherwise.  Hybrid mode (a hybrid ``tail``, ``body_sigma`` scalar or
     per row, ``static_length`` km) passes the raw Gram matrix, three more
     table rows (``sgain``, ``ssqrt``, ``1/static_length``), the sigma row
     as a fifth geometry row, and culls at ``max(radius, static_length)``
@@ -443,6 +486,9 @@ def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
                    or tail.static_gain is None):
         raise ValueError("B2h needs body_sigma, static_length and a "
                          "hybrid-mode TailSolution")
+    if hybrid and apply_rows is not None:
+        raise ValueError("apply_rows (B2e) does not combine with hybrid "
+                         "covariance")
     dtype = body_perts.dtype
     nrows, nmems = body_perts.shape
     nobs = tail.ye.shape[0]
@@ -461,7 +507,9 @@ def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
     ovrad = _pad(obs.vert_radii.to(dtype), pad, inf)
 
     y_b = ye.reshape(nblocks, bsz, nmems)
-    gram = torch.bmm(y_b, y_b.transpose(1, 2))
+    z_b = (None if apply_rows is None else
+           _pad(apply_rows.to(dtype), pad).reshape(nblocks, bsz, nmems))
+    gram = torch.bmm(y_b if z_b is None else z_b, y_b.transpose(1, 2))
     if hybrid:
         # The corrections run against the stored V columns, which already
         # carry g_j and the static term: the raw Gram matrix.
@@ -502,9 +550,13 @@ def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
         bits = cull_bits(body_xyz, ob_xyz_raw, cull_radii, obs.assim,
                          tile, nblocks, bsz)
     series = series_form(max_radius_km, static_length if hybrid else None)
+    if apply_rows is not None:
+        # B2e evaluates the EnKF body's own chordal weights.
+        series = CHORDAL_FORM
     return dict(geom=geom.contiguous(), y_b=y_b.contiguous(),
                 ggt_b=ggt_b.contiguous(), tab_b=tab_b.contiguous(),
-                bits=bits, tile=tile, series=series)
+                bits=bits, tile=tile, series=series,
+                z_b=None if z_b is None else z_b.contiguous())
 
 
 def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
@@ -512,7 +564,8 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
                block_size: int = 128, vertical: bool = False,
                cull: bool = True, max_radius_km=None, hybrid: bool = False,
                body_sigma=None, static_length=None, donate: bool = False,
-               row_order=None, inv_order=None, precision: str = "ieee"):
+               row_order=None, inv_order=None, precision: str = "ieee",
+               apply_rows=None):
     """Phase 2 through B2 (B2h with ``hybrid``): apply the pre-solved obs
     sequence ``tail`` to the state body.  Drop-in for
     ``ensrf_core.ensrf_blocked_body`` with chordal geometry, the static
@@ -522,7 +575,9 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
     buffers in place, where the JAX package donates them
     (``ensrf_blocked_body_pallas_fused_donating``).  ``precision``: the
     mode of the two large products (:mod:`~efa_xray_tpu_torch.ops.
-    precision`).
+    precision`).  ``apply_rows [No, M]``: the stochastic EnKF's departure
+    rows, applied through B2e (``ensrf_core.ensrf_blocked_body``'s
+    argument of that name; fp32, no hybrid).
 
     ``row_order`` with its inverse ``inv_order`` permutes the rows before
     the kernel and back after it, as ``_fused_impl`` :643-660 and :776-779
@@ -543,16 +598,16 @@ def fused_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
             localize=localize, block_size=block_size, vertical=vertical,
             cull=cull, max_radius_km=max_radius_km, hybrid=hybrid,
             body_sigma=take(body_sigma), static_length=static_length,
-            donate=True, precision=precision)
+            donate=True, precision=precision, apply_rows=apply_rows)
         return bm[inv_order], bp[inv_order]
     ops = prepare(body_perts, body_lat, body_lon, tail, obs,
                   body_vert=body_vert, localize=localize,
                   block_size=block_size, cull=cull,
                   max_radius_km=max_radius_km, hybrid=hybrid,
                   body_sigma=body_sigma, static_length=static_length,
-                  precision=precision)
+                  precision=precision, apply_rows=apply_rows)
     return fused_apply(body_mean.to(body_perts.dtype), body_perts,
                        ops["geom"], ops["y_b"], ops["ggt_b"], ops["tab_b"],
                        ops["bits"], ops["tile"], localize,
                        localize and vertical, ops["series"], hybrid=hybrid,
-                       donate=donate, precision=precision)
+                       donate=donate, precision=precision, z_b=ops["z_b"])

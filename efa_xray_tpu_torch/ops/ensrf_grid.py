@@ -14,6 +14,12 @@ schedule and weight source:
   point; the vertical factor as a ``[VT, B]`` table when the state has
   VT > 1 groups, folded into per-row weights when VT = 1.  Here
   :func:`apply_obs_block` and :func:`blocked_body`.
+* B4e, B4's instantiation for the stochastic EnKF (``apply_rows``, fp32):
+  the solved columns are applied against the departure rows ``z = ye -
+  eps``, ``ggt[j, i] = (z_i . y_j) sqrt_coef_i`` and ``X -= (sqrt_coef o
+  U)^T Z`` (``ensrf_core.apply_obs_block(apply_rows=z)``, which the JAX
+  package runs in plain XLA).  :func:`blocked_body` also takes
+  ``varloc`` on a flat state, as a per-(ob, row) factor.
 
 The weights and tables are built outside the kernel with torch ops, as the
 JAX package builds them with XLA outside Pallas.  :func:`grid_apply` and
@@ -78,6 +84,8 @@ GRID_WEIGHT_BUDGET_BYTES = 1 << 29
 b3_launches = 0
 b4_launches = 0
 launches_by_mode = {k: dict.fromkeys(MODES, 0) for k in ("B3", "B4")}
+# Launches of B4e (fp32 only).
+b4e_launches = 0
 # Guards the counters against launches from several threads.
 _count_lock = threading.Lock()
 
@@ -122,9 +130,10 @@ def pick_tile(block_size: int, nmems: int, precision: str = "ieee") -> int:
             else 32)
 
 
-def _gram_tables(y_b, sqrtc_b):
-    """``ggt[blk, j, i] = (y_i . y_j) sqrt_coef_i`` for ``y_b [nb, B, M]``."""
-    gram = torch.bmm(y_b, y_b.transpose(1, 2))
+def _gram_tables(y_b, sqrtc_b, z_b=None):
+    """``ggt[blk, j, i] = (a_i . y_j) sqrt_coef_i`` for ``y_b [nb, B, M]``,
+    the rows ``a`` being ``y_b`` or B4e's ``z_b``."""
+    gram = torch.bmm(y_b if z_b is None else z_b, y_b.transpose(1, 2))
     return (gram * sqrtc_b[:, :, None]).transpose(1, 2)
 
 
@@ -134,8 +143,10 @@ def _gram_tables(y_b, sqrtc_b):
 
 
 def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
-                     precision: str = "ieee", operands: list | None = None):
+                     precision: str = "ieee", operands: list | None = None,
+                     z_b=None):
     """Plain-torch body on prepared operands; returns ``(bm, bp)``.
+    ``z_b [nb, B, M]`` (B4e): the rows the apply reads instead of Y.
 
     ``bm [VT*G]``, ``bp [VT*G, M]``; ``w [nb, B, G]`` or None
     (unlocalized); ``table [VT, nb, B]`` or None (ones); ``y_b [nb, B,
@@ -174,27 +185,32 @@ def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
                 u[..., j] = d_j
         xm = xm + u @ coef_b[b, 0]
         left = u * coef_b[b, 1]
+        right = y if z_b is None else z_b[b]
         if operands is not None:
-            operands.append((left.reshape(nrows, bsz), y))
-        x = x - rnd(left) @ rnd(y)
+            operands.append((left.reshape(nrows, bsz), right))
+        x = x - rnd(left) @ rnd(right)
     return xm.reshape(nrows), x.reshape(nrows, nmems)
 
 
 def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
                     vt: int, donate: bool = False, tile=None,
-                    precision: str = "ieee"):
+                    precision: str = "ieee", z_b=None):
     """Launch the kernel of ``csrc/ensrf_grid.cu`` through ``entry`` ("B3"
-    or "B4") on CUDA float32 tensors, at ``tile`` grid points per CTA
-    (:func:`pick_tile`'s when None), its two large products in mode
-    ``precision``.  ``donate=True`` updates ``bm``/``bp`` in place."""
+    or "B4"; "B4" with ``z_b`` is B4e) on CUDA float32 tensors, at
+    ``tile`` grid points per CTA (:func:`pick_tile`'s when None), its two
+    large products in mode ``precision``.  ``donate=True`` updates
+    ``bm``/``bp`` in place."""
     if precision not in MODES:
         raise ValueError(f"unknown mode {precision!r}; expected one of "
                          f"{MODES}")
+    if z_b is not None and (entry != "B4" or precision != "ieee"):
+        raise ValueError("apply rows run through B4 in fp32 only (B4e)")
     nrows, nmems = bp.shape
     nblocks, bsz, _ = y_b.shape
     dev = bp.device
     f32 = torch.float32
-    ops = [t for t in (bm, bp, w, table, y_b, ggt_b, coef_b) if t is not None]
+    ops = [t for t in (bm, bp, w, table, y_b, ggt_b, coef_b, z_b)
+           if t is not None]
     for t in ops:
         if t.device != dev or t.dtype != f32:
             raise ValueError(f"{entry} takes float32 tensors on one CUDA "
@@ -205,7 +221,8 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
     if (bm.shape != (nrows,) or ggt_b.shape != (nblocks, bsz, bsz)
             or coef_b.shape != (nblocks, 2, bsz)
             or (w is not None and w.shape != (nblocks, bsz, g))
-            or (table is not None and table.shape != (vt, nblocks, bsz))):
+            or (table is not None and table.shape != (vt, nblocks, bsz))
+            or (z_b is not None and z_b.shape != y_b.shape)):
         raise ValueError(f"{entry} operand shapes disagree")
     if tile is None:
         tile = pick_tile(bsz, nmems, precision)
@@ -234,13 +251,28 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
             err = lib.efa_grid_body(*ptrs, vt, g, nmems, bsz, nblocks, tile,
                                     mode, out_m.data_ptr(), out_p.data_ptr(),
                                     stream)
+        elif z_b is not None:
+            err = lib.efa_block_apply_enkf(
+                *ptrs[:5], z_b.contiguous().data_ptr(), *ptrs[5:], vt, g,
+                nmems, bsz, tile, out_m.data_ptr(), out_p.data_ptr(), stream)
         else:
             err = lib.efa_block_apply(*ptrs, vt, g, nmems, bsz, tile, mode,
                                       out_m.data_ptr(), out_p.data_ptr(),
                                       stream)
+    if z_b is not None:
+        _build.check(err, "B4e ensrf_grid launch")
+        _count_enkf()
+        return out_m, out_p
     _build.check(err, f"{entry} ensrf_grid launch ({precision})")
     _count(entry, precision)
     return out_m, out_p
+
+
+def _count_enkf() -> None:
+    """One launch of B4e."""
+    global b4e_launches
+    with _count_lock:
+        b4e_launches += 1
 
 
 def _count(entry: str, precision: str) -> None:
@@ -268,14 +300,14 @@ def ctas_per_sm_on_card(tile: int, block_size: int, nmems: int,
 
 
 def _dispatch(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
-              donate: bool, precision: str):
+              donate: bool, precision: str, z_b=None):
     if bp.is_cuda:
         return grid_apply_cuda(entry, bm, bp, w, table, y_b, ggt_b, coef_b,
-                               vt, donate, precision=precision)
+                               vt, donate, precision=precision, z_b=z_b)
     if bp.device.type != "cpu":
         raise ValueError(f"{entry} runs on CUDA or CPU, not {bp.device}")
     return grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt,
-                            precision)
+                            precision, z_b=z_b)
 
 
 def grid_apply(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
@@ -287,12 +319,14 @@ def grid_apply(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
 
 
 def block_apply(bm, bp, w, table, y, ggt, coef, vt: int,
-                donate: bool = False, precision: str = "ieee"):
+                donate: bool = False, precision: str = "ieee", z=None):
     """B4 dispatch for one block: ``w [B, G]`` or None, ``table [VT, B]``
-    or None, ``y [B, M]``, ``ggt [B, B]``, ``coef [2, B]``."""
+    or None, ``y [B, M]``, ``ggt [B, B]``, ``coef [2, B]``; B4e with the
+    apply rows ``z [B, M]``."""
     return _dispatch("B4", bm, bp, None if w is None else w[None],
                      None if table is None else table[:, None, :], y[None],
-                     ggt[None], coef[None], vt, donate, precision)
+                     ggt[None], coef[None], vt, donate, precision,
+                     z_b=None if z is None else z[None])
 
 
 # ---------------------------------------------------------------------------
@@ -408,9 +442,10 @@ def block_operands(body_lat, body_lon, ye_block, sqrt_coef, ob_lat, ob_lon,
                    radii, nrows: int, localize: bool = True,
                    fast_geometry: bool = False, body_vert=None, ob_vert=None,
                    ob_vrad=None, vertical: bool = False, ngrid=None,
-                   ob_row_factor=None):
+                   ob_row_factor=None, apply_rows=None):
     """One block's operands, as ``apply_obs_block_pallas`` :176-245 builds
-    them: ``(vt, w [B, G] or None, table [VT, B] or None, ggt [B, B])``.
+    them: ``(vt, w [B, G] or None, table [VT, B] or None, ggt [B, B])``,
+    ``ggt`` from B4e's ``apply_rows [B, M]`` where given.
     ``ngrid`` that does not divide the rows means a flat state (VT = 1).
     ``ob_row_factor [B, rows]`` (flat states only) multiplies the weights
     per (ob, row), as cross-variable localization does on the tail rows;
@@ -420,7 +455,9 @@ def block_operands(body_lat, body_lon, ye_block, sqrt_coef, ob_lat, ob_lon,
         g, vt = nrows, 1
     else:
         g, vt = ngrid, nrows // ngrid
-    ggt = _gram_tables(ye_block[None], sqrt_coef[None].to(dtype))[0]
+    ggt = _gram_tables(ye_block[None], sqrt_coef[None].to(dtype),
+                       None if apply_rows is None
+                       else apply_rows[None].to(dtype))[0]
     w = table = None
     if localize:
         grid_lat = body_lat[:g].to(dtype)
@@ -457,34 +494,41 @@ def apply_obs_block(body_mean, body_perts, body_lat, body_lon, ye_block,
                     body_vert=None, ob_vert=None, ob_vrad=None,
                     vertical: bool = False, ngrid=None,
                     ob_row_factor=None, donate: bool = False,
-                    precision: str = "ieee"):
+                    precision: str = "ieee", apply_rows=None):
     """Apply one pre-solved obs block to the state body through B4 (the
-    counterpart of ``apply_obs_block_pallas``); ``ob_row_factor`` as in
+    counterpart of ``apply_obs_block_pallas``), or through B4e against the
+    stochastic EnKF's ``apply_rows [B, M]``; ``ob_row_factor`` as in
     :func:`block_operands`; ``precision``: the mode of the two large
     products."""
     dtype = body_perts.dtype
     y = ye_block.to(dtype)
+    z = None if apply_rows is None else apply_rows.to(dtype)
     vt, w, table, ggt = block_operands(
         body_lat, body_lon, y, sqrt_coef, ob_lat, ob_lon, radii,
         body_perts.shape[0], localize=localize, fast_geometry=fast_geometry,
         body_vert=body_vert, ob_vert=ob_vert, ob_vrad=ob_vrad,
         vertical=localize and vertical, ngrid=ngrid,
-        ob_row_factor=ob_row_factor)
+        ob_row_factor=ob_row_factor, apply_rows=z)
     coef = torch.stack([gain_coef.to(dtype), sqrt_coef.to(dtype)])
     return block_apply(body_mean.to(dtype), body_perts, w, table, y,
                        ggt.contiguous(), coef, vt, donate=donate,
-                       precision=precision)
+                       precision=precision, z=z)
 
 
 def blocked_body(body_mean, body_perts, body_lat, body_lon,
                  tail: TailSolution, obs: ObsArrays, localize: bool = True,
                  block_size: int = 128, fast_geometry: bool = False,
                  body_vert=None, vertical: bool = False, ngrid=None,
-                 donate: bool = False, precision: str = "ieee"):
+                 donate: bool = False, precision: str = "ieee",
+                 apply_rows=None, varloc=None, row_var=None, ob_var=None):
     """Phase 2 through B4, one launch per obs block (the counterpart of
     ``ensrf_blocked_body_pallas``).  Same contract as
     ``ensrf_core.ensrf_blocked_body``; ``precision``: the mode of the two
-    large products."""
+    large products.  ``apply_rows [No, M]``: the stochastic EnKF's
+    departure rows, through B4e.  ``varloc``/``row_var``/``ob_var`` (a
+    flat state only) enter each block as the factor ``varloc[ob_var_j,
+    row_var_r]`` on its weights (:func:`block_operands`'
+    ``ob_row_factor``)."""
     nobs = tail.ye.shape[0]
     if nobs == 0:
         return body_mean, body_perts
@@ -501,6 +545,13 @@ def blocked_body(body_mean, body_perts, body_lat, body_lon,
     radii = _pad(obs.radii.to(dtype), pad, inf)
     overt = _pad(obs.verts.to(dtype), pad)
     ovrad = _pad(obs.vert_radii.to(dtype), pad, inf)
+    z = None if apply_rows is None else _pad(apply_rows.to(dtype), pad)
+    if varloc is not None:
+        if row_var is None or ob_var is None:
+            raise ValueError("varloc needs row_var and ob_var")
+        vl = varloc.to(dtype)
+        rvar = row_var.long()
+        ovar = _pad(ob_var.long(), pad, 0)
     bm, bp = body_mean, body_perts
     for b in range(nblocks):
         sl = slice(b * block_size, (b + 1) * block_size)
@@ -509,5 +560,9 @@ def blocked_body(body_mean, body_perts, body_lat, body_lon,
             lon[sl], radii[sl], localize=localize,
             fast_geometry=fast_geometry, body_vert=body_vert,
             ob_vert=overt[sl], ob_vrad=ovrad[sl], vertical=vertical,
-            ngrid=ngrid, donate=donate or b > 0, precision=precision)
+            ngrid=None if varloc is not None else ngrid,
+            ob_row_factor=(None if varloc is None
+                           else vl[ovar[sl]][:, rvar]),
+            donate=donate or b > 0, precision=precision,
+            apply_rows=None if z is None else z[sl])
     return bm, bp

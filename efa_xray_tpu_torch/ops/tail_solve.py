@@ -1,4 +1,4 @@
-"""B1 and B1h: serial EnSRF solve of one observation-space tail panel.
+"""B1, B1h and B1e: serial solve of one observation-space tail panel.
 
 Counterpart of ``efa_xray_tpu/ops/tail_solve_pallas.py``
 (``tail_panel_solve_pallas`` :161, kernel ``_make_tail_solve_kernel`` :46).
@@ -17,6 +17,13 @@ sigma_i^2``, ``kmat_j = alpha kmat_ens_j + (1 - alpha) sigma_j sigma_i
 static_gc[i, j] / kdenom``, the ensemble coefficients scaled by ``alpha``,
 and two more outputs, the static-column scalars ``static_gain`` and
 ``static_sqrt``.
+
+B1e, the stochastic EnKF's instantiation (``eps`` given), solves
+``enkf.enkf_tail_scan`` on the panel: each ob's full gain (no beta) is
+applied to its departure row ``z_i = ye - eps[i]``, ``sqrt_coef = scale``,
+the posterior variance is the updated row's own, and the ``z`` rows are a
+tenth output.  The JAX package runs that scan as a ``lax.scan``, with no
+Pallas kernel.
 
 The kernel's design (its source's header says more).  What bounds a serial
 panel solve on one SM is the chain of steps, not arithmetic: one thread
@@ -45,9 +52,10 @@ from efa_xray_tpu_torch.assimilation.ensrf_core import _pad
 from efa_xray_tpu_torch.ops import _build
 
 # Launches of the CUDA kernel (not of the plain version), pure ensemble
-# (B1) and hybrid (B1h).
+# (B1), hybrid (B1h) and stochastic EnKF (B1e).
 launches = 0
 hybrid_launches = 0
+enkf_launches = 0
 # Guards the counters against launches from several threads.
 _count_lock = threading.Lock()
 
@@ -75,24 +83,29 @@ COEF_ROWS = 4
 SLOTS = 2
 
 
-def _check_hybrid(alpha, sigma, static_gc):
+def _check_hybrid(alpha, sigma, static_gc, eps=None):
     hybrid = alpha < 1.0
     if hybrid and (sigma is None or static_gc is None):
         raise ValueError("B1h (alpha < 1) needs sigma and static_gc")
+    if hybrid and eps is not None:
+        raise ValueError("B1e (eps) does not combine with hybrid covariance")
     return hybrid
 
 
 def tail_panel_solve_plain(tail_mean, tail_perts, values, errors, assim,
                            weights=None, unbiased: bool = False,
-                           alpha: float = 1.0, sigma=None, static_gc=None):
+                           alpha: float = 1.0, sigma=None, static_gc=None,
+                           eps=None):
     """Plain-torch B1, serial: ``(tm, tp, ye, gain, sqrt, pm, pv, om,
     ov)``, and with ``alpha < 1`` (B1h) also ``(static_gain,
-    static_sqrt)``.  ``weights[i, j]`` is the weight of ob i at panel row
-    j (None = no localization); ``sigma [P]`` the static std of each row,
+    static_sqrt)``, with ``eps [P, M]`` (B1e) also the departure rows
+    ``z``.  ``weights[i, j]`` is the weight of ob i at panel row j (None =
+    no localization); ``sigma [P]`` the static std of each row,
     ``static_gc[i, j]`` the static correlation of ob i with row j."""
     p, m = tail_perts.shape
     dtype = tail_perts.dtype
-    hybrid = _check_hybrid(alpha, sigma, static_gc)
+    hybrid = _check_hybrid(alpha, sigma, static_gc, eps)
+    enkf = eps is not None
     vden = (m - 1) if unbiased else m
     tm = tail_mean.to(dtype).clone()
     tp = tail_perts.clone()
@@ -102,8 +115,11 @@ def tail_panel_solve_plain(tail_mean, tail_perts, values, errors, assim,
     if hybrid:
         sig = sigma.to(dtype)
         gc = static_gc.to(dtype)
-    nan = torch.tensor(float("nan"), dtype=dtype, device=tp.device)
+    if enkf:
+        eps = eps.to(dtype)
+    nan = torch.full((), float("nan"), dtype=dtype, device=tp.device)
     outs = [[] for _ in range(9)]
+    zs = []
     for i in range(p):
         ye = tp[i].clone()
         mye = tm[i]
@@ -115,7 +131,9 @@ def tail_panel_solve_plain(tail_mean, tail_perts, values, errors, assim,
         innov = vals[i] - mye
         kdenom = varye + errs[i]
         scale = 1.0 / (kdenom * (m - 1))
-        beta = 1.0 / (1.0 + torch.sqrt(errs[i] / kdenom))
+        # B1e applies the full gain to the departure row.
+        beta = 1.0 if enkf else 1.0 / (1.0 + torch.sqrt(errs[i] / kdenom))
+        z = ye - eps[i] if enkf else ye
         kcov = tp @ ye
         kmat = (kcov * weights[i] if weights is not None else kcov) * scale
         ens = 1.0
@@ -124,19 +142,27 @@ def tail_panel_solve_plain(tail_mean, tail_perts, values, errors, assim,
             ens = alpha
         f = f_all[i]
         tm = tm + (f * innov) * kmat
-        tp = tp - ((f * beta) * kmat)[:, None] * ye[None, :]
+        tp = tp - ((f * beta) * kmat)[:, None] * z[None, :]
         k_i = kmat[i]
         a = assim[i]
-        shrink = 1.0 - beta * k_i
+        if enkf:
+            post = tp[i] - torch.sum(tp[i]) / m
+            post_var = torch.sum(post * post) / vden
+            zs.append(z)
+        else:
+            shrink = 1.0 - beta * k_i
+            post_var = shrink * shrink * var_ens
         s_base = ((1.0 - alpha) * sig[i] / kdenom) if hybrid else 0.0
         for out, v in zip(outs, (
                 ye, ens * f * innov * scale, ens * f * beta * scale, mye,
                 varye, torch.where(a, mye + k_i * innov, nan),
-                torch.where(a, shrink * shrink * var_ens, nan),
+                torch.where(a, post_var, nan),
                 f * s_base * innov, f * s_base * beta)):
             out.append(v)
     st = torch.stack
     res = (tm, tp, *(st(o) for o in outs[:7]))
+    if enkf:
+        return res + (st(zs),)
     return res + (st(outs[7]), st(outs[8])) if hybrid else res
 
 
@@ -144,16 +170,17 @@ def tail_panel_solve_subpanel_plain(tail_mean, tail_perts, values, errors,
                                     assim, weights=None,
                                     unbiased: bool = False,
                                     alpha: float = 1.0, sigma=None,
-                                    static_gc=None,
+                                    static_gc=None, eps=None,
                                     sub: int = DEFAULT_SUB):
     """Plain-torch B1 in the kernel's order of operations: per sub-panel
     of ``sub`` obs, the serial solve on the sub-panel's own rows, then one
     rank-``sub`` update of every other row (``D0 = X Y^T``, a forward
-    substitution against ``G = Y Y^T``, ``xm += U gain``, ``X -= V Y``).
-    Same inputs and returns as :func:`tail_panel_solve_plain`."""
+    substitution against ``G = Y Y^T``, ``xm += U gain``, ``X -= V Y``;
+    B1e: ``G = Z Y^T`` and ``X -= V Z``).  Same inputs and returns as
+    :func:`tail_panel_solve_plain`."""
     p, m = tail_perts.shape
     dtype = tail_perts.dtype
-    hybrid = _check_hybrid(alpha, sigma, static_gc)
+    hybrid = _check_hybrid(alpha, sigma, static_gc, eps)
     tm = tail_mean.to(dtype).clone()
     tp = tail_perts.clone()
     sig = sigma.to(dtype) if hybrid else None
@@ -166,16 +193,19 @@ def tail_panel_solve_subpanel_plain(tail_mean, tail_perts, values, errors,
         w_own = None if weights is None else weights[own, own]
         hkw = (dict(alpha=alpha, sigma=sig[own], static_gc=gc[own, own])
                if hybrid else {})
+        if eps is not None:
+            hkw = dict(eps=eps[own])
         res = tail_panel_solve_plain(tm[own], tp[own], values[own],
                                      errors[own], assim[own], w_own,
                                      unbiased, **hkw)
         tm[own], tp[own] = res[0], res[1]
         parts.append(res[2:])
         ye, gain, sqrtc = res[2], res[3], res[4]
+        arows = ye if eps is None else res[9]
         other = (rows < i0) | (rows >= i1)
         x = tp[other]
         d0 = x @ ye.T
-        gram = ye @ ye.T
+        gram = arows @ ye.T
         u = torch.zeros_like(d0)
         v = torch.zeros_like(d0)
         mean = torch.zeros_like(tm[other])
@@ -189,20 +219,21 @@ def tail_panel_solve_subpanel_plain(tail_mean, tail_perts, values, errors,
                 v[:, t] = v[:, t] + res[10][t] * col
                 mean = mean + res[9][t] * col
         tm[other] = tm[other] + mean
-        tp[other] = x - v @ ye
+        tp[other] = x - v @ arows
     return (tm, tp) + tuple(torch.cat([q[k] for q in parts])
                             for k in range(len(parts[0])))
 
 
 def smem_bytes(rows: int, m: int, sub: int = DEFAULT_SUB,
-               hybrid: bool = False) -> int:
+               hybrid: bool = False, enkf: bool = False) -> int:
     """Shared memory of one CTA that owns ``rows`` rows of the panel
     (mirrors ``make_layout`` in ``csrc/tail_solve.cu``): the weight ring
-    (and B1h's static ring), the sub-panel's ``ye`` rows, Gram matrix and
-    coefficients (two slots each), the rows at an odd stride, and the
-    per-row mean, value, error, flag (and sigma)."""
+    (and B1h's static ring), the sub-panel's ``ye`` rows (and B1e's ``z``
+    rows), Gram matrix and coefficients (two slots each), the rows at an
+    odd stride, and the per-row mean, value, error, flag (and sigma)."""
     h = int(bool(hybrid))
-    return 4 * (SLOTS * sub * rows * (1 + h) + SLOTS * m * sub
+    e = int(bool(enkf))
+    return 4 * (SLOTS * sub * rows * (1 + h) + SLOTS * m * sub * (1 + e)
                 + SLOTS * sub * sub + SLOTS * COEF_ROWS * sub
                 + rows * (m | 1) + rows * (4 + h))
 
@@ -215,7 +246,7 @@ def padded_panel(p: int, sub: int, cluster: int) -> int:
 
 
 def pick_cluster(p: int, m: int, sub: int = DEFAULT_SUB,
-                 hybrid: bool = False) -> int:
+                 hybrid: bool = False, enkf: bool = False) -> int:
     """CTAs the panel's rows are dealt over: the smallest cluster of
     ``CLUSTERS``, from ``MIN_CLUSTER`` on, whose CTAs' shares of the slab
     fit in shared memory.  Raises ``ValueError`` beyond ``MAX_PANEL`` obs,
@@ -230,7 +261,7 @@ def pick_cluster(p: int, m: int, sub: int = DEFAULT_SUB,
         if c < MIN_CLUSTER:
             continue
         rows = padded_panel(p, sub, c) // c
-        if smem_bytes(rows, m, sub, hybrid) <= MAX_SMEM_BYTES:
+        if smem_bytes(rows, m, sub, hybrid, enkf) <= MAX_SMEM_BYTES:
             return c
     raise ValueError(
         f"tail panel [{p}, {m}] does not fit the shared memory of "
@@ -253,26 +284,29 @@ def _aligned(t):
 def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
                           weights=None, unbiased: bool = False,
                           alpha: float = 1.0, sigma=None, static_gc=None,
-                          sub: int = DEFAULT_SUB, cluster=None):
-    """Launch B1 (B1h with ``alpha < 1``) on CUDA tensors (float32); same
-    returns as the plain version.  ``cluster`` overrides
+                          eps=None, sub: int = DEFAULT_SUB, cluster=None):
+    """Launch B1 (B1h with ``alpha < 1``, B1e with ``eps``) on CUDA tensors
+    (float32); same returns as the plain version.  ``cluster`` overrides
     :func:`pick_cluster`.  Raises on a shape the kernel does not take,
     before any launch."""
     p, m = tail_perts.shape
     dev = tail_perts.device
     f32 = torch.float32
-    hybrid = _check_hybrid(alpha, sigma, static_gc)
-    c = pick_cluster(p, m, sub, hybrid) if cluster is None else cluster
+    hybrid = _check_hybrid(alpha, sigma, static_gc, eps)
+    enkf = eps is not None
+    if enkf and sub != DEFAULT_SUB:
+        raise ValueError(f"B1e runs sub-panels of {DEFAULT_SUB} obs only")
+    c = pick_cluster(p, m, sub, hybrid, enkf) if cluster is None else cluster
     if c not in CLUSTERS:
         raise ValueError(f"B1 clusters are {CLUSTERS} CTAs, not {c}")
     pp = padded_panel(p, sub, c)
-    if smem_bytes(pp // c, m, sub, hybrid) > MAX_SMEM_BYTES:
+    need = smem_bytes(pp // c, m, sub, hybrid, enkf)
+    if need > MAX_SMEM_BYTES:
         raise ValueError(
-            f"tail panel [{p}, {m}] over {c} CTAs needs "
-            f"{smem_bytes(pp // c, m, sub, hybrid)} B of shared memory per "
-            f"CTA, more than the {MAX_SMEM_BYTES} B a CTA may use")
+            f"tail panel [{p}, {m}] over {c} CTAs needs {need} B of shared "
+            f"memory per CTA, more than the {MAX_SMEM_BYTES} B a CTA may use")
     ins = [tail_mean, tail_perts, values, errors]
-    ins += [t for t in (weights, sigma, static_gc) if t is not None]
+    ins += [t for t in (weights, sigma, static_gc, eps) if t is not None]
     for t in ins:
         if t.device != dev or t.dtype != f32:
             raise ValueError("B1 takes float32 tensors on one CUDA device")
@@ -282,6 +316,8 @@ def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
     for t in (tail_mean, values, errors, assim, sigma):
         if t is not None and t.shape != (p,):
             raise ValueError("B1 per-ob inputs must be [P]")
+    if enkf and eps.shape != (p, m):
+        raise ValueError("B1e's eps must be [P, M]")
     pad = pp - p
     tm_in = _pad(tail_mean, pad).contiguous()
     tp_in = _pad(tail_perts, pad).contiguous()
@@ -299,8 +335,22 @@ def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
     vec = [torch.empty(pp, dtype=f32, device=dev)
            for _ in range(8 if hybrid else 6)]
     ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     # The C entry sets its attributes on, and launches onto, the current
     # device: make it the tensors' one.
+    if enkf:
+        e_in = _pad(eps, pad).contiguous()
+        z = torch.empty((pp, m), dtype=f32, device=dev)
+        with torch.cuda.device(dev):
+            err = _build.lib().efa_tail_solve_enkf(
+                tm_in.data_ptr(), tp_in.data_ptr(), vals.data_ptr(),
+                errs.data_ptr(), am.data_ptr(), ptr(w), e_in.data_ptr(), pp,
+                m, int(bool(unbiased)), c, tm.data_ptr(), tp.data_ptr(),
+                ye.data_ptr(), z.data_ptr(), *(v.data_ptr() for v in vec),
+                stream)
+        _build.check(err, "B1e tail_solve launch")
+        _count("B1e")
+        return tuple(t[:p] for t in (tm, tp, ye, *vec, z))
     with torch.cuda.device(dev):
         err = _build.lib().efa_tail_solve(
             tm_in.data_ptr(), tp_in.data_ptr(), vals.data_ptr(),
@@ -308,31 +358,34 @@ def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
             float(alpha), pp, m, int(bool(unbiased)), sub, c, tm.data_ptr(),
             tp.data_ptr(), ye.data_ptr(), *(v.data_ptr() for v in vec[:6]),
             *(ptr(v) for v in (vec[6:] if hybrid else (None, None))),
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream,
         )
     _build.check(err, "B1h tail_solve launch" if hybrid
                  else "B1 tail_solve launch")
-    _count(hybrid)
+    _count("B1h" if hybrid else "B1")
     return tuple(t[:p] for t in (tm, tp, ye, *vec))
 
 
-def _count(hybrid: bool) -> None:
-    """One launch of B1 (B1h with ``hybrid``)."""
-    global launches, hybrid_launches
+def _count(kind: str) -> None:
+    """One launch of ``kind``: "B1", "B1h" or "B1e"."""
+    global launches, hybrid_launches, enkf_launches
     with _count_lock:
-        if hybrid:
+        if kind == "B1h":
             hybrid_launches += 1
+        elif kind == "B1e":
+            enkf_launches += 1
         else:
             launches += 1
 
 
 def tail_panel_solve(tail_mean, tail_perts, values, errors, assim,
                      weights=None, unbiased: bool = False,
-                     alpha: float = 1.0, sigma=None, static_gc=None):
-    """B1/B1h dispatch: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+                     alpha: float = 1.0, sigma=None, static_gc=None,
+                     eps=None):
+    """B1/B1h/B1e dispatch: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     args = (tail_mean, tail_perts, values, errors, assim, weights, unbiased,
-            alpha, sigma, static_gc)
+            alpha, sigma, static_gc, eps)
     if tail_perts.is_cuda:
         return tail_panel_solve_cuda(*args)
     if tail_perts.device.type != "cpu":

@@ -39,12 +39,16 @@ localization the body is B2 (B2h in hybrid mode), with
 ``variable_localization``, hybrid at exact haversine and float64 on the
 card take the plain blocked body; ``method="serial"``
 runs ``ensrf_serial`` on each shard.  The kernel tail is B1 (B1h in hybrid
-mode) with its out-of-panel apply.  The EnKF and the LETKF run plain
-torch, as their single-device updates do.
+mode) with its out-of-panel apply.  The EnKF shard takes the
+single-device EnKF's route (B1e tail once, then B2e or B4e per shard);
+the LETKF's shard runs ``letkf_core.letkf_update``, its Newton-Schulz
+the kernel NS on the card.  None of these routes reads a value back to
+the host between the first shard's issue and the last one's.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Optional
 
 import torch
@@ -92,8 +96,15 @@ def _gather(parts, device, dim: int = 0) -> torch.Tensor:
 
 def run_shards(mesh: Mesh, work: Callable[[int], object]) -> List[object]:
     """``work(s)`` for every shard, issued in mesh order from the calling
-    thread with no synchronize between shards."""
-    return [work(s) for s in range(mesh.size)]
+    thread with no synchronize between shards, each with its own card
+    current (an operation on tensors of another card than the current
+    one switches devices around its launch)."""
+    out = []
+    for s, d in enumerate(mesh.devices):
+        with (torch.cuda.device(d) if d.type == "cuda"
+              else contextlib.nullcontext()):
+            out.append(work(s))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -243,20 +254,26 @@ def ensrf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
 # ---------------------------------------------------------------------------
 
 
-def _enkf_local(method: str, tail, z, bm, bp, blat, blon, bvert, obs, eps,
-                tm, tp, kw: dict, vl: dict, block_size: int):
-    """One shard's stochastic EnKF on its own device: the serial per-ob
-    loop, or the blocked body with the apply rows ``z`` of its device's
-    pre-solved tail; ``(bm, bp, tm, tp, diags)``."""
-    from efa_xray_tpu_torch.assimilation.enkf import enkf_serial
+def _enkf_local(route: str, tail, bm, bp, blat, blon, bvert, obs, eps,
+                tm, tp, kw: dict, vl: dict, block_size: int, cull: bool):
+    """One shard's stochastic EnKF on its own device, along ``route``
+    (``enkf.enkf_route``): the serial per-ob loop, the plain blocked body,
+    or B2e / B4e, each against the apply rows of its device's pre-solved
+    tail; ``(bm, bp, tm, tp, diags)``."""
+    from efa_xray_tpu_torch.assimilation import enkf
 
-    if method != "blocked":
-        return enkf_serial(bm, bp, tm, tp, blat, blon, obs, eps, **kw, **vl)
-    bm, bp = core.ensrf_blocked_body(
-        bm, bp, blat, blon, tail, obs, localize=kw["localize"],
-        block_size=block_size, fast_geometry=kw["fast_geometry"],
-        body_vert=kw["body_vert"], vertical=kw["vertical"], apply_rows=z,
-        **vl)
+    if route == "serial":
+        return enkf.enkf_serial(bm, bp, tm, tp, blat, blon, obs, eps, **kw,
+                                **vl)
+    body = dict(localize=kw["localize"], block_size=block_size,
+                fast_geometry=kw["fast_geometry"], body_vert=kw["body_vert"],
+                vertical=kw["vertical"], **vl)
+    if route == "plain":
+        bm, bp = core.ensrf_blocked_body(bm, bp, blat, blon, tail, obs,
+                                         **body)
+    else:
+        bm, bp = enkf.enkf_kernel_body(route, bm, bp, blat, blon, tail, obs,
+                                       cull=cull, **body)
     return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
 
 
@@ -266,17 +283,18 @@ def enkf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
                         unbiased: bool = False, fast_geometry: bool = False,
                         body_vert=None, vertical: bool = False,
                         method: str = "blocked", block_size: int = 128,
+                        tail_panel: int = 512, cull: bool = True,
                         varloc=None, row_var=None, ob_var=None):
     """Sharded stochastic EnKF, with the layout of
     :func:`ensrf_update_sharded`: the body split over the mesh, the tail
     AND the perturbation table ``eps`` replicated (so the draws do not
     depend on the mesh), the tail solved once on the mesh's first device
-    (``enkf_tail_scan``) and copied to the others, each shard's rows
-    swept through the Gram-corrected recurrence with the apply rows
-    ``z = ye - eps``
-    (``method="blocked"``) or the serial per-ob loop (``"serial"``).
-    Plain torch on every device, as the single-device ``EnKF``."""
-    from efa_xray_tpu_torch.assimilation.enkf import enkf_tail_scan
+    and copied to the others, each shard's rows swept along the
+    single-device route (``enkf.enkf_route``): B1e + B2e or B4e on
+    float32 (their plain versions on CPU tensors), the plain per-ob tail
+    and blocked body with float64 on the card, the serial per-ob loop for
+    ``method="serial"``."""
+    from efa_xray_tpu_torch.assimilation import enkf
 
     ns = int(body_mean.shape[0])
     ndev = mesh.shape[axis_name]
@@ -298,30 +316,37 @@ def enkf_update_sharded(body_mean, body_perts, tail_mean, tail_perts,
                    obs=_obs_to(obs, d), eps=_to(eps, d),
                    varloc=_to(varloc, d), ob_var=_to(ob_var, d))
            for d in mesh.distinct_devices()}
+    d0 = mesh.devices[0]
+    route = enkf.enkf_route(method, localize, fast_geometry, use_varloc, d0,
+                            body_perts.dtype)
     tails = {}
-    if method == "blocked":
-        r = rep[mesh.devices[0]]
-        tail = enkf_tail_scan(
-            r["tm"], r["tp"], r["obs"], r["eps"], localize=localize,
-            unbiased=unbiased, fast_geometry=fast_geometry,
-            vertical=vertical,
-            **({"varloc": r["varloc"], "ob_var": r["ob_var"]}
-               if use_varloc else {}))
+    if route != "serial":
+        r = rep[d0]
+        tkw = dict(localize=localize, unbiased=unbiased,
+                   fast_geometry=fast_geometry, vertical=vertical,
+                   **({"varloc": r["varloc"], "ob_var": r["ob_var"]}
+                      if use_varloc else {}))
+        if route == "plain":
+            tail = enkf.enkf_tail_scan(r["tm"], r["tp"], r["obs"], r["eps"],
+                                       **tkw)[0]
+        else:
+            tail = core.tail_scan_blocked(r["tm"], r["tp"], r["obs"],
+                                          panel=tail_panel, kernels=True,
+                                          eps=r["eps"], **tkw)
         tails = {d: _to(tail, d) for d in rep}
 
     def shard(s):
         d = mesh.devices[s]
         bm_s, bp_s, blat_s, blon_s, bvert_s, rvar_s = shards[s]
         r = rep[d]
-        tail, z = tails.get(d, (None, None))
         kw = dict(localize=localize, unbiased=unbiased,
                   fast_geometry=fast_geometry, body_vert=bvert_s,
                   vertical=vertical)
         vl = (dict(varloc=r["varloc"], row_var=rvar_s, ob_var=r["ob_var"])
               if use_varloc else {})
-        return _enkf_local(method, tail, z, bm_s, bp_s, blat_s, blon_s,
+        return _enkf_local(route, tails.get(d), bm_s, bp_s, blat_s, blon_s,
                            bvert_s, r["obs"], r["eps"], r["tm"], r["tp"], kw,
-                           vl, block_size)
+                           vl, block_size, cull)
 
     outs = run_shards(mesh, shard)
     home = body_mean.device

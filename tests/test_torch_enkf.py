@@ -316,33 +316,47 @@ def test_enkf_class_options_match_jax(kw, jax_draws):
 
 
 def test_enkf_launches_no_body_kernel(monkeypatch):
-    """The EnKF's body is the plain ``ensrf_blocked_body(apply_rows=z)``:
-    B1-B4 compute the square-root update (a symmetric Gram, ``Y``
-    applied), so no kernel wrapper is reached, on any route's settings."""
+    """The EnKF's blocked update takes its kernel route: B1e for every
+    panel (the draws ``eps`` handed over), then B2e with
+    ``fast_geometry`` or B4e at exact haversine, for the tail's
+    out-of-panel apply and the body, each against the departure rows
+    ``z``.  On CPU tensors every wrapper runs its plain version: no
+    kernel is launched."""
     from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid, tail_solve
 
     calls = []
 
-    def spy(mod, name):
-        def refuse(*a, **k):
-            calls.append(name)
-            raise AssertionError(f"EnKF reached {name}")
-        monkeypatch.setattr(mod, name, refuse)
+    def spy(mod, name, key):
+        real = getattr(mod, name)
 
-    for mod, name in ((ensrf_fused, "fused_body"),
-                      (ensrf_grid, "grid_body"),
-                      (ensrf_grid, "blocked_body"),
-                      (ensrf_grid, "apply_obs_block"),
-                      (tail_solve, "tail_panel_solve")):
-        spy(mod, name)
+        def wrapped(*a, **k):
+            calls.append((name, k.get(key) is not None))
+            return real(*a, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    for mod, name, key in ((ensrf_fused, "fused_body", "apply_rows"),
+                           (ensrf_grid, "grid_body", "apply_rows"),
+                           (ensrf_grid, "blocked_body", "apply_rows"),
+                           (ensrf_grid, "apply_obs_block", "apply_rows"),
+                           (tail_solve, "tail_panel_solve", "eps")):
+        spy(mod, name, key)
     _, _, tstate, tbatch = _pair(ntimes=2, nvars=2)
-    for extra in (dict(fast_geometry=True), dict()):
+    routes = {}
+    for label, extra in (("B2", dict(fast_geometry=True)), ("B4", dict())):
+        calls.clear()
         EnKF(tstate, tbatch, verbose=False, config=FilterConfig(
             localization="GC", dtype="float32", tail_panel=4,
             **extra)).update()
-    assert calls == []
-    assert (tail_solve.launches == ensrf_fused.launches
-            == ensrf_grid.b3_launches == ensrf_grid.b4_launches == 0)
+        routes[label] = sorted(set(calls))
+    # 9 obs in panels of 4: three B1e solves, each applied out of panel.
+    assert routes["B2"] == [("fused_body", True), ("tail_panel_solve", True)]
+    assert routes["B4"] == [("apply_obs_block", True),
+                            ("blocked_body", True),
+                            ("tail_panel_solve", True)]
+    assert (tail_solve.launches == tail_solve.enkf_launches
+            == ensrf_fused.launches == ensrf_fused.enkf_launches
+            == ensrf_grid.b3_launches == ensrf_grid.b4_launches
+            == ensrf_grid.b4e_launches == 0)
 
 
 @pytest.mark.parametrize("kw,err,match", [

@@ -37,6 +37,7 @@ from efa_xray_tpu_torch.assimilation import ensrf_core as core
 from efa_xray_tpu_torch.ops import (
     ensrf_fused,
     ensrf_grid,
+    newton_schulz,
     precision_probe,
     tail_solve,
 )
@@ -137,14 +138,16 @@ def test_the_tail_is_solved_once_per_update(monkeypatch, devices):
     the mesh's first device, however many distinct devices the mesh
     has."""
     calls = collections.Counter()
+    # The EnKF's tail is tail_scan_blocked with its draws (eps); the
+    # EnSRF's reaches it through _kernel_tail, without.
     for owner, name in ((ensrf.KernelRoute, "_kernel_tail"),
-                        (enkf, "enkf_tail_scan")):
+                        (core, "tail_scan_blocked")):
         orig = getattr(owner, name)
 
         def spy(*a, _orig=orig, _name=name, **k):
             out = _orig(*a, **k)
-            tail = out if _name == "_kernel_tail" else out[0]
-            calls[_name, str(tail.ye.device)] += 1
+            if _name == "_kernel_tail" or k.get("eps") is not None:
+                calls[_name, str(out.ye.device)] += 1
             return out
         monkeypatch.setattr(owner, name, spy)
     state, batch = _port_problem()
@@ -153,7 +156,8 @@ def test_the_tail_is_solved_once_per_update(monkeypatch, devices):
           verbose=False, mesh=mesh).update()
     EnKF(state, batch, config=FilterConfig(localization="GC", block_size=4),
          verbose=False, seed=3, mesh=mesh).update()
-    assert calls == {("_kernel_tail", "cpu"): 1, ("enkf_tail_scan", "cpu"): 1}
+    assert calls == {("_kernel_tail", "cpu"): 1,
+                     ("tail_scan_blocked", "cpu"): 1}
 
 
 def test_tail_copies_keep_their_types():
@@ -183,10 +187,16 @@ def _bump_read():
 
 
 COUNTERS = {
-    "B1": (lambda: tail_solve._count(False),
+    "B1": (lambda: tail_solve._count("B1"),
            lambda: (tail_solve.launches,)),
-    "B1h": (lambda: tail_solve._count(True),
+    "B1h": (lambda: tail_solve._count("B1h"),
             lambda: (tail_solve.hybrid_launches,)),
+    "B1e": (lambda: tail_solve._count("B1e"),
+            lambda: (tail_solve.enkf_launches,)),
+    "B2e": (ensrf_fused._count_enkf, lambda: (ensrf_fused.enkf_launches,)),
+    "B4e": (ensrf_grid._count_enkf, lambda: (ensrf_grid.b4e_launches,)),
+    "NS": (lambda: newton_schulz._count(1),
+           lambda: (newton_schulz.launches,)),
     "B2": (lambda: ensrf_fused._count(False, "ieee"),
            lambda: (ensrf_fused.launches,
                     ensrf_fused.launches_by_mode["B2"]["ieee"])),
@@ -214,10 +224,11 @@ def test_counters_stay_exact_under_threads(monkeypatch, name):
     """4 threads bump a counter 10,000 times each, with the interpreter
     switching threads as often as it can: no update is lost."""
     for mod, attrs in (
-            (tail_solve, ("launches", "hybrid_launches")),
-            (ensrf_fused, ("launches", "hybrid_launches")),
-            (ensrf_grid, ("b3_launches", "b4_launches")),
+            (tail_solve, ("launches", "hybrid_launches", "enkf_launches")),
+            (ensrf_fused, ("launches", "hybrid_launches", "enkf_launches")),
+            (ensrf_grid, ("b3_launches", "b4_launches", "b4e_launches")),
             (precision_probe, ("launches",)),
+            (newton_schulz, ("launches",)),
             (letkf_core, ("ns_calls", "ns_iterations", "ns_max_iterations",
                           "host_syncs"))):
         for attr in attrs:
