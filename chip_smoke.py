@@ -119,16 +119,24 @@ Phases, each printing one line of results:
     unlocalized EnSRF (mean and per-row variance), and NS against the
     plain Newton-Schulz loop on config 6's first chunk and on 64
     systems of 200 members (the device-memory variant; the same
-    iterations, timed); then config 9 (config 3's 80 level variables, 30
-    members, 5,000 obs, 300 hPa vertical).  For each: seconds split into
+    iterations, timed), LG against its plain version on config 6's first
+    and padded last chunk; then config 9 (config 3's 80 level variables,
+    30 members, 5,000 obs, 300 hPa vertical), LG on its first chunk and
+    on it with a cross-variable table.  For each: seconds split into
     select, solve and apply, Newton-Schulz iterations per chunk, host
-    syncs per update (none where NS runs) and peak memory;
+    syncs per update (none where NS runs), peak memory, LG and NS once
+    a chunk, and where NS runs the aten operations and host ms a chunk
+    and the device's busy seconds (NS's and LG's shares) under
+    ``torch.profiler``;
 20. the LETKF at BASELINE config 7's full size through
     ``letkf_core.letkf_update``: 4,194,304 scattered points x 80 members x
     10,000 obs in the port's Hilbert order, top-k exact and host (the same
-    analysis), seconds, obs x points per second and peak memory, NS's
-    launches, no host read and no synchronizing call inside the update;
-    NS against the plain loop on the first chunk;
+    analysis), seconds, obs x points per second and peak memory, LG's
+    and NS's launches (one each a chunk), no host read and no
+    synchronizing call inside the update; the aten operations and host
+    ms a chunk and the device's busy seconds of one warm update (NS's and
+    LG's shares); NS and LG against their plain versions on the first
+    chunk;
 21. BASELINE config 1 through the port's ``CyclingHarness``
     (``benchmarks/run_benchmarks.py:195-253``: Lorenz-96, 40 variables, 20
     members, 4 steps a cycle, obs at every 2nd variable, 8000 km, float32,
@@ -269,7 +277,10 @@ where those exist, with the mode kernels' parts compiled out
 (``-DEFA_FUSED_SKIP``, ``-DEFA_GRID_SKIP``: the rounding of L, D0, the
 apply; ``-DEFA_MMA_PROBE``: the mma instructions, the fragment loads),
 each kernel's modes at both tiles, and whether the fp32
-instantiations compile to the parent's machine code.  Put the parent
+instantiations compile to the parent's machine code; then NS on config
+6's and 7's first chunks and at 200 members beside the plain loop and the
+kernel of ``build/efa_xray_tpu_torch/parent/newton_schulz.cu`` where that
+exists (``ns_steps_phase``).  Put the parent
 commit's sources there with ``git show
 <commit>:efa_xray_tpu_torch/csrc/<file>`` (``mma_modes.cuh`` too; the
 directory is git-ignored).
@@ -323,6 +334,24 @@ def compare(name: str, got, want) -> float:
     return float(err.max())
 
 
+def compare_sum(name: str, got, want, scale) -> float:
+    """:func:`compare` for entries that are sums of terms which cancel:
+    each entry within atol 2e-4 + rtol 2e-5 x (its value + ``scale``, the
+    summed magnitude of its terms).  Returns the max abs error."""
+    import torch
+
+    g, w = got.double(), want.double()
+    check(bool(torch.equal(torch.isnan(g), torch.isnan(w))),
+          f"{name}: NaN pattern differs")
+    err = (g - w).abs().nan_to_num(0.0)
+    bad = err > ATOL + RTOL * (w.abs().nan_to_num(0.0) + scale.double())
+    check(not bool(bad.any()),
+          f"{name}: {int(bad.sum())} elements outside atol {ATOL} + rtol "
+          f"{RTOL} x (|value| + the terms' magnitude); max abs err "
+          f"{float(err.max()):.3e}")
+    return float(err.max())
+
+
 def cuda_ms(fn, reps: int, inner: int = 1) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events;
     each run is ``inner`` calls back to back (for calls so short that one
@@ -333,6 +362,29 @@ def cuda_ms(fn, reps: int, inner: int = 1) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int, inner: int = 10) -> float:
+    """Median device milliseconds of one ``fn()`` over ``reps`` runs of
+    ``inner`` calls, each run queued behind a spin of the card
+    (``torch.cuda._sleep``) so that the host has issued all of its calls
+    before the card starts on them: the events time the card alone, not
+    the host's pace (for kernels shorter than their own issue)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
         start.record()
         for _ in range(inner):
             fn()
@@ -1110,6 +1162,7 @@ def _reset_counts():
     from efa_xray_tpu_torch.ops import (
         ensrf_fused,
         ensrf_grid,
+        letkf_gram,
         newton_schulz,
         precision_probe,
         tail_solve,
@@ -1125,6 +1178,7 @@ def _reset_counts():
     ensrf_grid.b4_launches = 0
     ensrf_grid.b4e_launches = 0
     newton_schulz.launches = 0
+    letkf_gram.launches = 0
     for by_mode in (ensrf_fused.launches_by_mode,
                     ensrf_grid.launches_by_mode):
         for counts in by_mode.values():
@@ -1140,6 +1194,7 @@ def _counts() -> dict:
     from efa_xray_tpu_torch.ops import (
         ensrf_fused,
         ensrf_grid,
+        letkf_gram,
         newton_schulz,
         precision_probe,
         tail_solve,
@@ -1150,7 +1205,8 @@ def _counts() -> dict:
             "B2h": ensrf_fused.hybrid_launches,
             "B2e": ensrf_fused.enkf_launches, "B3": ensrf_grid.b3_launches,
             "B4": ensrf_grid.b4_launches, "B4e": ensrf_grid.b4e_launches,
-            "NS": newton_schulz.launches, "P": precision_probe.launches}
+            "NS": newton_schulz.launches, "LG": letkf_gram.launches,
+            "P": precision_probe.launches}
 
 
 def _mode_counts() -> dict:
@@ -2966,23 +3022,109 @@ def _letkf_split():
 
     return [(tl, "_select_chunk", "select"),
             (tl, "select_local_obs", "select"),
-            (tl, "_local_precision", "solve"), (tl, "_solve_chunk", "solve"),
+            (tl._ChunkSolver, "__call__", "solve"),
             (tl, "_apply_chunk", "apply"),
             (tl, "host_select_candidates", "host_build")]
+
+
+def _aten_ops(fn):
+    """``fn()`` under a dispatch mode that counts the aten operations it
+    issues (factories, views and copies included): ``(result, count)``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, seen[0]
+
+
+# Kernel names of NS and LG in a profiler trace.
+KERNEL_NAMES = {"NS": r"(^|[^A-Za-z0-9])ns_[a-z_0-9]*kernel",
+                "LG": r"(^|[^A-Za-z0-9])lg_[a-z_0-9]*kernel"}
+
+
+def _device_events(fn, sync):
+    """One run of ``fn`` under ``torch.profiler`` with CUDA activity (CPU
+    and CUDA where that traces no device event): ``(the activities traced,
+    [(card, start us, end us, name)] of every device event)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for acts in ([ProfilerActivity.CUDA],
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        sync()
+        with profile(activities=acts) as prof:
+            fn()
+            sync()
+        events = [(e.device_index, e.time_range.start, e.time_range.end,
+                   e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    check(bool(events), "no device time was traced")
+    return [a.name for a in acts], events
+
+
+def _device_busy(fn, sync) -> dict:
+    """The device's busy seconds of one run of ``fn`` (the union of its
+    kernel, copy and set intervals on every card), the device window, and
+    the summed seconds of NS's and LG's kernels with their shares of the
+    busy seconds."""
+    import re
+
+    _, events = _device_events(fn, sync)
+    spans = [(b, e) for _, b, e, _ in events]
+    by = {key: sum(e - b for _, b, e, name in events if re.search(pat, name))
+          / 1e6 for key, pat in KERNEL_NAMES.items()}
+    busy = _union_us(spans) / 1e6
+    window = (max(e for _, e in spans) - min(b for b, _ in spans)) / 1e6
+    return dict(busy_s=busy, window_s=window,
+                **{f"{k}_s": v for k, v in by.items()},
+                **{f"{k}_share": v / busy for k, v in by.items()})
+
+
+def _chunk_numbers(run, sync, chunks: int, cuda: bool) -> dict:
+    """Host and device numbers of a warm LETKF update ``run()`` of
+    ``chunks`` chunks: the aten operations it issues per chunk, the host's
+    seconds per chunk to issue it (until the call returns, nothing
+    synchronized inside; the wall once the card is done beside it), and
+    on the card the device's busy seconds under ``torch.profiler`` with
+    NS's and LG's shares."""
+    _, ops = _aten_ops(run)
+    sync()
+    t0 = time.perf_counter()
+    run()
+    issue = time.perf_counter() - t0
+    sync()
+    wall = time.perf_counter() - t0
+    r = dict(chunks=chunks, aten_ops=ops, ops_per_chunk=ops / max(chunks, 1),
+             issue_s=issue, issue_ms_per_chunk=1e3 * issue / max(chunks, 1),
+             wall_s=wall)
+    if cuda:
+        r["profile"] = _device_busy(run, sync)
+    return r
 
 
 def _letkf_runs(label, state, batch, cfg, sync, prior_var_check=True):
     """``LETKF(state, batch, config=cfg).update()`` cold, warm (wall, peak
     memory, Newton-Schulz iterations per chunk, host syncs: none where the
     kernel NS runs, float32 Newton-Schulz on the card), and warm again
-    split into select / solve / apply.  Returns ``(post, numbers)``."""
+    split into select / solve / apply, its launches checked: LG once a
+    chunk in float32 on the card, and NS once a chunk where it runs.
+    Returns ``(post, numbers)``."""
     import torch
 
     from efa_xray_tpu_torch import LETKF
     from efa_xray_tpu_torch.assimilation import letkf_core as tl
 
-    kernel = (state.device.type == "cuda" and cfg.dtype == "float32"
-              and cfg.letkf_sqrt == "newton_schulz")
+    lg_kernel = state.device.type == "cuda" and cfg.dtype == "float32"
+    kernel = lg_kernel and cfg.letkf_sqrt == "newton_schulz"
     run = lambda: LETKF(state, batch, config=cfg).update()
     _reset_counts()
     _, cold, cold_spent = _spans(run, [(tl, "host_select_candidates",
@@ -3002,12 +3144,20 @@ def _letkf_runs(label, state, batch, cfg, sync, prior_var_check=True):
     _reset_counts()
     _, wall_split, spent = _spans(run, _letkf_split(), sync)
     counts = _counts()
-    check((_only(NS=None) if kernel else _only())(counts),
-          f"{label}: launches {counts}")
+    chunks = n["calls"]
+    check((_only(NS=chunks, LG=chunks) if kernel
+           else _only(LG=None) if lg_kernel else _only())(counts),
+          f"{label}: launches {counts} ({chunks} Newton-Schulz solves)")
     inn = _innovations(label, batch, obs, var_shrinks=prior_var_check)
+    # Operations and busy seconds per chunk where NS runs (on the CPU the
+    # plain loop).
+    chunks = (_chunk_numbers(run, sync, n["calls"],
+                             state.device.type == "cuda")
+              if cfg.letkf_sqrt == "newton_schulz" and cfg.localize
+              else None)
     return post, dict(cold_s=cold, host_build_s=cold_spent["host_build"],
                       warm_s=wall, peak_gb=peak, newton_schulz=ns,
-                      launches=counts,
+                      launches=counts, chunks=chunks,
                       split_wall_s=wall_split,
                       **{f"{k}_s": v for k, v in spent.items()
                          if k != "host_build"},
@@ -3015,58 +3165,162 @@ def _letkf_runs(label, state, batch, cfg, sync, prior_var_check=True):
 
 
 def _first_ns_input(run, got=None):
-    """``run()`` with a spy on ``letkf_core._invsqrt_newton_schulz``: the
-    first chunk's ``A [C, M, M]`` (a copy) and the cap it was given, which
-    are also appended to the list ``got``; ``run``'s result is that list's
-    first entry then."""
+    """``run()`` with a spy on ``letkf_core._newton_schulz_weights``: the
+    first chunk's ``A [C, M, M]``, the cap it was given and its ``b [C,
+    M]`` (copies), which are also appended to the list ``got``; ``run``'s
+    result is that list's first entry then."""
     from efa_xray_tpu_torch.assimilation import letkf_core as tl
 
-    real, seen = tl._invsqrt_newton_schulz, []
+    real, seen = tl._newton_schulz_weights, []
 
-    def spy(a, iters):
+    def spy(a, b, iters, **kw):
         if not seen:
-            seen.append((a.clone(), iters))
-        return real(a, iters)
+            seen.append((a.clone(), iters, b.clone()))
+        return real(a, b, iters, **kw)
 
-    tl._invsqrt_newton_schulz = spy
+    tl._newton_schulz_weights = spy
     try:
         out = run()
     finally:
-        tl._invsqrt_newton_schulz = real
+        tl._newton_schulz_weights = real
     if got is not None:
         got[:] = [out, seen[0]]
     return seen[0]
 
 
-def _ns_hold(label, a, iters):
-    """NS against its plain version (the loop that reads each error back)
-    on one chunk's ``A``: the same iteration count, ``A^{-1/2}`` and
-    ``A^{-1}`` at the f32 gate; kernel and plain ms, the bound (the
-    iterations this batch runs: three products of 2 M^3 each, and the
-    final product).  Returns the kernels-line numbers."""
+def _lg_calls(run, keep=lambda i, args: True):
+    """``run()`` with a spy on ``letkf_gram.local_gram``: ``(result,
+    [(args, kwargs) of each chunk's call that ``keep(i, args)`` takes])``
+    (the tensors as given: the chunk's indices are its own, the rest views
+    of the update's inputs)."""
+    from efa_xray_tpu_torch.ops import letkf_gram
+
+    real, seen, n = letkf_gram.local_gram, [], [0]
+
+    def spy(*a, **kw):
+        if keep(n[0], a):
+            seen.append((a, {k: v for k, v in kw.items()
+                             if k not in ("amat", "b")}))
+        n[0] += 1
+        return real(*a, **kw)
+
+    letkf_gram.local_gram = spy
+    try:
+        out = run()
+    finally:
+        letkf_gram.local_gram = real
+    return out, seen
+
+
+def _lg_hold(label, args, kw):
+    """LG against its plain version on one chunk's inputs (a call that
+    :func:`_lg_calls` saw): ``A`` and ``b`` at the f32 gate; kernel and
+    plain ms, the bound (per (unit, ob) the symmetric Gram's M (M + 1)
+    operations, one triangle of ``A``, the right-hand side's 2 M and ~60
+    for the weights; the rows of ye the chunk selects, the indices, the
+    centroids and the outputs once).  Returns the kernels-line numbers."""
     import torch
 
-    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+    from efa_xray_tpu_torch.ops import letkf_gram
+
+    ye, innov, rinv, oxyz, orad, px, ii = args
+    opts = dict(localize=kw["localize"], pv=kw["pv"], vlm_t=kw["vlm_t"],
+                uv=kw["uv"], obs_var=kw["obs_var"])
+    launch = lambda: letkf_gram.local_gram_cuda(ye, kw["table"], px, ii,
+                                                **opts)
+    plain = lambda: letkf_gram.local_gram_plain(
+        ye, innov, rinv, oxyz, orad, px, ii, obs_verts=kw["obs_verts"],
+        obs_vert_radii=kw["obs_vert_radii"], **opts)
+    got = launch()
+    want, plain_ms = cuda_timed(plain)
+    # Each entry of A and b sums K terms a_k y_km y_kn (a_k y_km d_k) that
+    # cancel: the kernel's and cuBLAS's float32 sums differ by a share of
+    # the terms' magnitude, not of the sum's, so the f32 gate's relative
+    # part is taken on that magnitude (float64: |a| |y|^T |y|, |a| |y|^T
+    # |d|).
+    a = letkf_gram.local_precision_plain(
+        kw["table"][:, 4], oxyz, orad, px, ii, kw["localize"], pv=kw["pv"],
+        obs_verts=kw["obs_verts"], obs_vert_radii=kw["obs_vert_radii"],
+        vlm_t=kw["vlm_t"], uv=kw["uv"], obs_var=kw["obs_var"]).double()
+    yl = ye[ii].double().abs()
+    ya = yl * a.abs()[..., None]
+    scale = (ya.transpose(1, 2) @ yl,
+             (ya.transpose(1, 2) @ innov[ii].double().abs()[..., None])[
+                 ..., 0])
+    torch.cuda.synchronize()
+    err = max(compare_sum(f"LG {label} A", got[0], want[0], scale[0]),
+              compare_sum(f"LG {label} b", got[1], want[1], scale[1]))
+    c, k = ii.shape
+    m = ye.shape[1]
+    rows = int(torch.unique(ii).numel())
+    r = dict(units=c, k=k, nmems=m, max_abs_err=err,
+             ms=device_ms(launch, 5, 20), plain_ms=plain_ms,
+             **bound(float(c) * k * (m * (m + 1) + 2 * m + 60),
+                     rows * (m * 4 + 32) + nbytes(ii, px, kw["pv"],
+                                                  kw["uv"], *got)))
+    log(f"phase LG {label}: [{c} units x {k} obs x {m} members]: err "
+        f"{err:.3e} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return r
+
+
+def _ns_launch(a, iters, b):
+    """NS as the update issues it (``letkf_core._newton_schulz_weights``):
+    one launch writing ``W = sqrt(M - 1) A^{-1/2}`` and ``wbar = A^{-1}
+    b`` into given buffers, its work buffers kept.  Returns ``f() -> (W,
+    wbar, iterations [1])``."""
+    import torch
+
     from efa_xray_tpu_torch.ops import newton_schulz
 
-    got = newton_schulz.invsqrt_newton_schulz_cuda(a, iters)
-    want = tl._invsqrt_newton_schulz_plain(a, iters)
+    m = a.shape[-1]
+    scale = float(np.sqrt(np.float32(m - 1)))
+    w, wbar, ws = torch.empty_like(a), torch.empty_like(b), {}
+    return lambda: newton_schulz.solve(a, iters, b=b, scale=scale, out=w,
+                                       wbar_out=wbar, ws=ws)
+
+
+def _ns_plain(a, iters, b):
+    """NS's plain version on the card: the loop that reads each error back,
+    then ``W = sqrt(M - 1) A^{-1/2}`` and ``wbar = A^{-1} b`` in the JAX
+    package's order.  Returns ``(W, wbar, iterations)``."""
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+
+    m = a.shape[-1]
+    s, inv, n = tl._invsqrt_newton_schulz_plain(a, iters)
+    return (float(np.sqrt(np.float32(m - 1))) * s,
+            (inv @ b[..., None])[..., 0], n)
+
+
+def _ns_hold(label, a, iters, b=None):
+    """NS against its plain version on one chunk's ``A`` and ``b`` (random
+    where not given), as the update launches it (:func:`_ns_launch`): the
+    same iteration count, ``W`` and ``wbar`` at the f32 gate; kernel and
+    plain ms, the bound (the iterations this batch runs: three products of
+    2 M^3 each; the end's two products with a vector; A, b, W and wbar
+    once).  Returns the kernels-line numbers."""
+    import torch
+
+    c, m = a.shape[0], a.shape[-1]
+    if b is None:
+        gen = torch.Generator(device=a.device).manual_seed(m)
+        b = torch.randn((c, m), generator=gen, device=a.device)
+    launch = _ns_launch(a, iters, b)
+    got = launch()
+    want = _ns_plain(a, iters, b)
     torch.cuda.synchronize()
-    n = int(got[2])
+    n = int(got[2][0])
     check(n == want[2], f"NS {label}: {n} iterations, the plain loop "
           f"{want[2]}")
     check(all(bool(torch.isfinite(x).all()) for x in got[:2] + want[:2]),
           f"NS {label}: not finite")
-    err = max(compare(f"NS {label} inverse sqrt", got[0], want[0]),
-              compare(f"NS {label} inverse", got[1], want[1]))
-    c, m = a.shape[0], a.shape[-1]
+    err = max(compare(f"NS {label} W", got[0], want[0]),
+              compare(f"NS {label} wbar", got[1], want[1]))
     r = dict(
-        iterations=n, max_abs_err=err,
-        ms=cuda_ms(lambda: newton_schulz.invsqrt_newton_schulz_cuda(
-            a, iters), 5),
-        plain_ms=cuda_ms(lambda: tl._invsqrt_newton_schulz_plain(a, iters),
-                         3),
-        **bound(float(c) * m ** 3 * (6 * n + 2), nbytes(a, *got[:2])))
+        iterations=n, max_abs_err=err, ms=device_ms(launch, 5),
+        plain_ms=cuda_ms(lambda: _ns_plain(a, iters, b), 3),
+        **bound(float(c) * (6 * n * m ** 3 + 4 * m * m),
+                nbytes(a, b, *got[:2])))
     log(f"phase NS {label}: [{c}, {m}, {m}] x {n} iterations: err "
         f"{err:.3e} kernel {r['ms']:.3f} ms plain (host reads) "
         f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.4f} ms "
@@ -3208,8 +3462,15 @@ def phase19(dev="cuda", c6=None, c9=None):
     if torch.device(dev).type == "cuda":
         out["ns"] = _ns_hold("config 6 chunk", *_first_ns_input(
             lambda: LETKF(state, batch, config=cfg).update()))
-        # Past 136 members NS keeps Y, Z and T in device memory (two
-        # launches an iteration over 64 x 64 tiles).
+        # LG on config 6's first chunk and on its padded last one.
+        padded = lambda i, a: bool((a[5] == 0).all(dim=1).any())
+        _, calls = _lg_calls(lambda: LETKF(state, batch, config=cfg)
+                             .update(), lambda i, a: i == 0 or padded(i, a))
+        out["lg"] = _lg_hold("config 6 first chunk", *calls[0])
+        out["lg_padded"] = _lg_hold("config 6 padded last chunk", *next(
+            c for c in calls if padded(0, c[0])))
+        # Past 136 members NS keeps Y, Z and T in device memory (every
+        # system's 64 x 64 tiles dealt over the grid).
         out["ns_wide"] = _ns_hold("200 members", _letkf_like_spd(
             NS_WIDE["nmems"], NS_WIDE["chunk"], NS_WIDE["k"],
             NS_WIDE["seed"]), NS_WIDE["iters"])
@@ -3226,6 +3487,24 @@ def phase19(dev="cuda", c6=None, c9=None):
     c9r.update(nstate=state9.structure.nstate, nobs=batch9.nobs,
                obs_points_per_sec=batch9.nobs * state9.structure.nstate
                / c9r["warm_s"])
+    if torch.device(dev).type == "cuda":
+        # LG on config 9's first chunk (vertical), and on it with a
+        # cross-variable table (3 observed variables against the units'
+        # 80).
+        _, calls = _lg_calls(lambda: LETKF(state9, batch9, config=cfg9)
+                             .update(), lambda i, a: i == 0)
+        args, kw = calls[0]
+        c9r["lg"] = _lg_hold("config 9 first chunk (vertical)", args, kw)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        nvars = state9.structure.nvars * state9.structure.ntimes
+        vkw = dict(kw, vlm_t=torch.rand((nvars, 3), generator=gen,
+                                        device=dev),
+                   uv=torch.randint(0, nvars, (args[6].shape[0],),
+                                    generator=gen, device=dev),
+                   obs_var=torch.randint(0, 3, (args[0].shape[0],),
+                                         generator=gen, device=dev))
+        c9r["lg_varloc"] = _lg_hold("config 9 first chunk with varloc",
+                                    args, vkw)
     log("phase 19: LETKF config 9 " + json.dumps(c9r))
     return dict(config6=out, config9=c9r)
 
@@ -3294,7 +3573,7 @@ def phase20(dev="cuda", **cut):
     out["host_group"] = int(geff)
     sel = dict(sel_cand=torch.from_numpy(cand).to(dev),
                sel_mask=torch.from_numpy(mask).to(dev), sel_group=geff)
-    res, first = {}, []
+    res, first, lg_first = {}, [], []
     cuda = torch.device(dev).type == "cuda"
     for topk, extra in (("exact", {}), ("host", sel)):
         def update(topk=topk, extra=extra):
@@ -3302,8 +3581,15 @@ def phase20(dev="cuda", **cut):
                                           topk_method=topk, **kw, **extra)
             if topk != "exact":
                 return run()
-            # The exact run also hands NS's first chunk to the hold below.
-            _first_ns_input(run, first)
+            # The exact run also hands NS's and LG's first chunk to the
+            # holds below.
+
+            def run_lg():
+                out, calls = _lg_calls(run, lambda i, a: i == 0)
+                lg_first[:] = calls
+                return out
+
+            _first_ns_input(run_lg, first)
             return first[0]
 
         tl.reset_counts()
@@ -3317,8 +3603,9 @@ def phase20(dev="cuda", **cut):
         check(bool(torch.isfinite(res[topk][1]).all()),
               f"phase 20 {topk}: posterior not finite")
         counts, ns = _counts(), tl.ns_counts()
-        check((_only(NS=None) if cuda else _only())(counts),
-              f"phase 20 {topk}: launches {counts}")
+        check((_only(NS=ns["calls"], LG=ns["calls"]) if cuda
+               else _only())(counts),
+              f"phase 20 {topk}: launches {counts} ({ns['calls']} chunks)")
         check(not cuda or ns["host_syncs"] == 0,
               f"phase 20 {topk}: {ns['host_syncs']} host reads")
         check(not syncs, f"phase 20 {topk}: the update waited on the card: "
@@ -3329,9 +3616,18 @@ def phase20(dev="cuda", **cut):
                      if cuda else None),
             ns_per_chunk=ns["iterations"] / max(ns["calls"], 1),
             ns_max=ns["max_iterations"], host_syncs=ns["host_syncs"],
-            ns_launches=counts["NS"], syncs_in_update=len(syncs))
+            ns_launches=counts["NS"], lg_launches=counts["LG"],
+            syncs_in_update=len(syncs))
+        if topk == "exact":
+            # Torch operations, host seconds per chunk and the device's
+            # busy seconds of one warm update.
+            out[topk]["chunks"] = _chunk_numbers(
+                lambda: tl.letkf_update(bm, bp, tm, tp, lat, lon, obs,
+                                        topk_method="exact", **kw),
+                sync, ns["calls"], cuda)
     if cuda:
         out["ns"] = _ns_hold("config 7 chunk", *first[1])
+        out["lg"] = _lg_hold("config 7 first chunk", *lg_first[0])
     incr = float(torch.sqrt(torch.mean((res["exact"][0] - bm) ** 2)))
     gap = float((res["host"][0] - res["exact"][0]).abs().max())
     pgap = float((res["host"][1] - res["exact"][1]).abs().max())
@@ -3551,7 +3847,8 @@ def phase21(dev="cuda", **cut):
               f"{statistics.mean(free_rmse):.4f}")
         # The harness's LETKF runs NS on the card; its EnKF is the serial
         # loop, as the JAX harness's.
-        want = _only(NS=None) if (cuda and solver == "letkf") else _only()
+        want = (_only(NS=None, LG=None) if (cuda and solver == "letkf")
+                else _only())
         check(want(_counts()), f"phase 21 {solver}: launched {_counts()}")
         solvers[solver] = dict(rmse=r, mean_rmse=statistics.mean(r))
 
@@ -4354,7 +4651,8 @@ def phase25(dev="cuda", api=None, c11=None, c6=None):
     builds = tletkf.sel_build_count
     out["d_letkf"] = _mesh_vs_single(
         "phase 25 (d) LETKF", lambda mesh: LETKF(
-            state, batch, config=cfg, mesh=mesh), n, dev, _only(NS=None))
+            state, batch, config=cfg, mesh=mesh), n, dev,
+            _only(NS=None, LG=None))
     out["d_letkf"]["host_selection_builds"] = tletkf.sel_build_count - builds
     check(out["d_letkf"]["host_selection_builds"] == 2,
           "phase 25 (d): the host selection was not rebuilt for the mesh")
@@ -5006,15 +5304,15 @@ def phase26(dev="cuda", **cut):
 # steps launch on the card (as :func:`_only` takes them: None at least
 # once, every kernel not named never).  The float64 examples (sensitivity
 # targeting, the Lorenz-96 cyclers) take the plain torch route, the LETKF
-# NS and the EnKF B1e + B2e; the unlocalized point update of efa_demo
+# LG and NS and the EnKF B1e + B2e; the unlocalized point update of efa_demo
 # takes B2's body.
 EXAMPLES27 = (
     ("gridded_assimilation", [], dict(B1=None, B4=None)),
-    ("gridded_assimilation", ["--solver", "letkf"], dict(NS=None)),
+    ("gridded_assimilation", ["--solver", "letkf"], dict(NS=None, LG=None)),
     ("gridded_assimilation", ["--mesh"], dict(B1=None, B4=None)),
     ("obs_pipeline", [], dict(B1=None, B2=None)),
     ("obs_pipeline", ["--solver", "enkf"], dict(B1e=None, B2e=None)),
-    ("obs_pipeline", ["--solver", "letkf"], dict(NS=None)),
+    ("obs_pipeline", ["--solver", "letkf"], dict(NS=None, LG=None)),
     ("sensitivity_targeting", [], {}),
     ("cycling_adaptive", [], {}),
     ("cycling_smoother", [], {}),
@@ -5326,7 +5624,7 @@ def phase27(dev="cuda", c2=None, names=None):
     posts = {}
     for key, extra, kernels, warm in (
             ("ensrf", [], dict(B1=None, B4=None), True),
-            ("letkf", ["--solver", "letkf"], dict(NS=None), False),
+            ("letkf", ["--solver", "letkf"], dict(NS=None, LG=None), False),
             ("mesh", ["--mesh"], dict(B1=None, B4=None), True)):
         args = mod.parse_args(base + extra)
         run_inp = dict(inp, mesh=mod.make_mesh(args))
@@ -5436,34 +5734,20 @@ def _union_us(spans) -> float:
 
 
 def _card_overlap(fn, sync) -> dict:
-    """One run of ``fn`` under ``torch.profiler`` with CUDA activity (CPU
-    and CUDA where that traces no device event): each card's busy seconds
-    (the union of its kernel and copy intervals), the device window (the
-    first start to the last end over every card) and the effective
+    """One run of ``fn`` traced (:func:`_device_events`): each card's busy
+    seconds (the union of its kernel and copy intervals), the device window
+    (the first start to the last end over every card) and the effective
     parallelism, the cards' busy seconds summed over the window (1.0
     serial, the card count perfect)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for acts in ([ProfilerActivity.CUDA],
-                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        sync()
-        with profile(activities=acts) as prof:
-            fn()
-            sync()
-        spans = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                spans.setdefault(e.device_index, []).append(
-                    (e.time_range.start, e.time_range.end))
-        if spans:
-            break
-    check(bool(spans), "phase 28: no device time was traced")
+    traced, events = _device_events(fn, sync)
+    spans = {}
+    for card, b, e, _ in events:
+        spans.setdefault(card, []).append((b, e))
     busy = {card: _union_us(s) / 1e6 for card, s in sorted(spans.items())}
     every = [t for s in spans.values() for t in s]
     t0 = min(b for b, _ in every)
     window = (max(e for _, e in every) - t0) / 1e6
-    return dict(traced=[a.name for a in acts], busy_s=busy, window_s=window,
+    return dict(traced=traced, busy_s=busy, window_s=window,
                 parallelism=sum(busy.values()) / window,
                 first_last_s={card: ((min(b for b, _ in s) - t0) / 1e6,
                                      (max(e for _, e in s) - t0) / 1e6)
@@ -5619,7 +5903,7 @@ def phase28(dev="cuda", c4=None, c11=None, c6=None, c7=None):
             f"phase 28 (b) LETKF config 6, top-k {topk}",
             lambda m, c=c: (LETKF(state, batch, config=c,
                                   mesh=m).update()[0].data,), dev, mesh,
-            _only(NS=None))
+            _only(NS=None, LG=None))
         log(f"phase 28 (b): config 6 LETKF, top-k {topk} "
             + json.dumps(out[key]))
     del state, batch
@@ -5635,7 +5919,7 @@ def phase28(dev="cuda", c4=None, c11=None, c6=None, c7=None):
                                             m, **kw)[:2]
 
     out["b_letkf7"] = _mesh_overlap("phase 28 (b) LETKF config 7", config7,
-                                    dev, mesh, _only(NS=None))
+                                    dev, mesh, _only(NS=None, LG=None))
     log("phase 28 (b): config 7 LETKF " + json.dumps(out["b_letkf7"]))
     return out
 
@@ -6462,10 +6746,135 @@ def mode_steps_phase():
         del c, ops, wts, args
 
 
+PARENT_NS_SOURCE = os.path.join("build", "efa_xray_tpu_torch", "parent",
+                                "newton_schulz.cu")
+
+
+def _parent_ns(lib):
+    """A chunk's solve by the parent commit's NS (one launch an iteration
+    up to the cap, its C entry ``efa_newton_schulz`` of 16 arguments), as
+    the parent's update made it: ``f(a, iters, b) -> (W, wbar, iterations
+    as a device scalar)``, its buffers set up and ``A^{-1}`` formed as its
+    wrapper did, ``W = sqrt(M - 1) A^{-1/2}`` and ``wbar = A^{-1} b`` as
+    its ``_solve_chunk`` did."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import newton_schulz
+
+    def solve(a, iters, b):
+        ns_, m = a.shape[0], a.shape[-1]
+        mp = -(-m // 4) * 4
+        c = torch.clamp(torch.amax(torch.sum(torch.abs(a), dim=-1), dim=-1),
+                        min=1e-30)
+        y0 = (a / c[:, None, None]).contiguous()
+        e = lambda *shape, dtype=torch.float32: torch.empty(
+            shape, dtype=dtype, device=a.device)
+        out, yw, zw = e(ns_, m, m), e(ns_, mp, mp), e(ns_, mp, mp)
+        tw = None if 3 * mp * (mp + 4) * 4 <= 232448 else e(3, ns_, mp, mp)
+        err, run = e(iters + 2), e(iters + 1, dtype=torch.int32)
+        count = e(1, dtype=torch.int64)
+        tol, quad = newton_schulz.exit_thresholds(a.dtype)
+        rc = lib.efa_newton_schulz(
+            y0.data_ptr(), c.data_ptr(), out.data_ptr(), yw.data_ptr(),
+            zw.data_ptr(), None if tw is None else tw.data_ptr(),
+            err.data_ptr(), run.data_ptr(), count.data_ptr(), None, ns_, m,
+            iters, tol, quad, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"steps: the parent's NS failed ({rc})")
+        return (float(np.sqrt(m - 1)) * out, ((out @ out) @ b[..., None])[..., 0],
+                count[0])
+
+    return solve
+
+
+def ns_steps_phase():
+    """NS beside the parent commit's kernel (built from
+    ``PARENT_NS_SOURCE`` where that file exists) and the plain loop, on
+    config 6's and config 7's first chunks and on :data:`NS_WIDE`, each as
+    its update issues the solve (``W`` and ``wbar``): the iterations of
+    each, the parent's result against the new one, and ms in turns
+    (parent, new, new, parent)."""
+    import ctypes
+
+    import torch
+
+    from efa_xray_tpu_torch import LETKF, FilterConfig
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+    from efa_xray_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(root, PARENT_NS_SOURCE)
+    parent = None
+    if os.path.exists(src):
+        out = os.path.join(root, "build", "efa_xray_tpu_torch", "variants",
+                           "libns_parent.so")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                              "-o", out, src], capture_output=True, text=True)
+        check(res.returncode == 0, "steps: nvcc failed for the parent's NS:"
+              f"\n{res.stdout}{res.stderr}")
+        lib = ctypes.CDLL(out)
+        P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.efa_newton_schulz.argtypes = [P_] * 10 + [I_] * 3 + [F_] * 2 + [P_]
+        lib.efa_newton_schulz.restype = ctypes.c_int
+        parent = _parent_ns(lib)
+    else:
+        log(f"steps: no {PARENT_NS_SOURCE}; the parent's NS is not timed")
+    cases = {}
+    p = CONFIG6
+    state, batch = _half_degree_workload("cuda", **p)
+    cfg = FilterConfig(localization="GC", letkf_patch_size=p["patch"],
+                       letkf_k_obs=p["k"], letkf_chunk=p["chunk"])
+    cases["config 6 chunk"] = _first_ns_input(
+        lambda: LETKF(state, batch, config=cfg).update())
+    del state, batch
+    p = CONFIG7
+    bm, bp, tm, tp, lat, lon, obs = _config7("cuda", p)
+    cases["config 7 chunk"] = _first_ns_input(lambda: tl.letkf_update(
+        bm, bp, tm, tp, lat, lon, obs, ngrid=p["npts"],
+        patch_size=p["patch"], k_obs=p["k"], chunk=p["chunk"]))
+    del bm, bp, tm, tp, lat, lon, obs
+    m = NS_WIDE["nmems"]
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    cases["200 members"] = (_letkf_like_spd(
+        m, NS_WIDE["chunk"], NS_WIDE["k"], NS_WIDE["seed"]),
+        NS_WIDE["iters"], torch.randn((NS_WIDE["chunk"], m), generator=gen,
+                                      device="cuda"))
+    res = {}
+    for label, (a, iters, b) in cases.items():
+        new = _ns_launch(a, iters, b)
+        got = [x.clone() for x in new()]
+        want = _ns_plain(a, iters, b)
+        r = dict(shape=list(a.shape), iterations=int(got[2][0]),
+                 plain_iterations=want[2],
+                 err_vs_plain=max(
+                     compare(f"steps NS {label} W", got[0], want[0]),
+                     compare(f"steps NS {label} wbar", got[1], want[1])))
+        check(r["iterations"] == want[2], f"steps NS {label}: {r}")
+        timings = {"new": [], "parent": []}
+        order = ["parent", "new", "new", "parent"] if parent else ["new"] * 2
+        for who in order:
+            fn = (lambda: parent(a, iters, b)) if who == "parent" else new
+            timings[who].append(device_ms(fn, 5))
+        r["ms"] = timings["new"]
+        r["plain_ms"] = cuda_ms(lambda: _ns_plain(a, iters, b), 3)
+        if parent:
+            old = parent(a, iters, b)
+            r["parent_iterations"] = int(old[2])
+            r["parent_ms"] = timings["parent"]
+            r["new_vs_parent"] = max(
+                compare(f"steps NS {label} W vs the parent", got[0], old[0]),
+                compare(f"steps NS {label} wbar vs the parent", got[1],
+                        old[1]))
+        res[label] = r
+        log(f"steps NS {label}: " + json.dumps(r))
+    return res
+
+
 def steps_phase():
     """What the parts of B1's and B2's design buy: B1 at each sub-panel
     and cluster, then B2 on phase 3's workload and on the headline body,
-    then the grid kernel."""
+    then the grid kernel, the product modes, and NS beside the parent's
+    kernel."""
     b1_steps_phase()
     w = _b2_workload()
     _b2_variants("262,144 x 80 x 2048 obs", w["bm"], w["bp"], w["lat"],
@@ -6477,6 +6886,7 @@ def steps_phase():
     del tail_phase, w
     grid_steps_phase()
     mode_steps_phase()
+    ns_steps_phase()
 
 
 def main() -> int:
@@ -6526,8 +6936,9 @@ def main() -> int:
     timed(phase27)
     timed(phase28)
     # No single PyTorch call computes B1-B4, B1h, B2h, B1e, B2e, B4e (a
-    # serial filter, a localized recurrence), in any product mode, or NS
-    # (an iteration with an exit test): their library_ms is null.
+    # serial filter, a localized recurrence), in any product mode, NS (an
+    # iteration with an exit test) or LG (gathered, weighted Grams): their
+    # library_ms is null.
     kernels = [
         dict(name="B1 tail panel solve", route="cuda",
              source="efa_xray_tpu_torch/csrc/tail_solve.cu",
@@ -6584,6 +6995,17 @@ def main() -> int:
              replaces="efa_xray_tpu/assimilation/letkf_core.py:406",
              launches=letkf7["exact"]["ns_launches"], library_ms=None,
              **{k: letkf7["ns"][k] for k in NS_KEYS}),
+        dict(name="LG local precision and Gram (config 6 chunk)",
+             route="cuda", source="efa_xray_tpu_torch/csrc/letkf_gram.cu",
+             replaces="efa_xray_tpu/assimilation/letkf_core.py:592",
+             launches=letkf["config6"]["exact"]["launches"]["LG"],
+             library_ms=None,
+             **{k: letkf["config6"]["lg"][k] for k in NS_KEYS}),
+        dict(name="LG local precision and Gram (config 7 chunk)",
+             route="cuda", source="efa_xray_tpu_torch/csrc/letkf_gram.cu",
+             replaces="efa_xray_tpu/assimilation/letkf_core.py:592",
+             launches=letkf7["exact"]["lg_launches"], library_ms=None,
+             **{k: letkf7["lg"][k] for k in NS_KEYS}),
     ] + [
         dict(name=f"{name} ({mode} products)", route="cuda", source=source,
              replaces=replaces,

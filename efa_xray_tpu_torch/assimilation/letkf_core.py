@@ -28,12 +28,18 @@ and so does the port as torch operations:
   neighbours by hundreds of km.)
 * :func:`_top_k` keeps ``jax.lax.top_k``'s order: descending, and on a
   tie the lower index first (``torch.topk`` alone does not promise it).
-* Newton-Schulz keeps ``jax.lax.while_loop``'s exit rule exactly.  On
-  CUDA float32 tensors it runs as the kernel NS
-  (:mod:`efa_xray_tpu_torch.ops.newton_schulz`), the exit test on the
-  card, so an update reads nothing back to the host; the plain version,
-  on CPU tensors and in float64, reads each iteration's error back,
-  counted in :data:`host_syncs`.
+* A chunk's solve (:class:`_ChunkSolver`) on CUDA float32 tensors is two
+  kernels: LG (:mod:`efa_xray_tpu_torch.ops.letkf_gram`: the weights
+  ``rho / R``, ``A`` and ``b`` of every unit) and NS
+  (:mod:`efa_xray_tpu_torch.ops.newton_schulz`: Newton-Schulz with
+  ``jax.lax.while_loop``'s exit rule kept exactly, the exit test on the
+  card, its end writing ``W`` and ``wbar``), so an update reads nothing
+  back to the host.  On CPU tensors and in float64 LG's plain version
+  runs, then the plain Newton-Schulz loop, which reads each iteration's
+  error back, counted in :data:`host_syncs`.
+* The sweep applies a chunk's weights with two batched products written
+  into the posterior (horizontal mode: each patch's rows of every (var,
+  time) group side by side, the JAX package's transpose).
 * ``solve_precision`` is validated and runs true fp32 (or float64) for
   every setting, as the JAX package runs it off the TPU: the LETKF has no
   body kernel, and every product outside the body kernels stays fp32
@@ -61,11 +67,7 @@ from efa_xray_tpu_torch.assimilation.ensrf_core import (
     ObsDiagnostics,
     _empty_diags,
 )
-from efa_xray_tpu_torch.observation.localization import (
-    chordal_gc_weights,
-    gaspari_cohn,
-    latlon_to_unit,
-)
+from efa_xray_tpu_torch.observation.localization import latlon_to_unit
 
 ns_calls = 0
 ns_iterations = 0
@@ -358,18 +360,10 @@ def _read(x: torch.Tensor) -> float:
 
 
 def _invsqrt_newton_schulz(a: torch.Tensor, iters: int):
-    """Batched ``(A^{-1/2}, A^{-1})`` for SPD ``A [..., M, M]``: the kernel
-    NS on CUDA float32 tensors (its iterations tallied on the device), else
-    :func:`_invsqrt_newton_schulz_plain`."""
-    if not (a.is_cuda and a.dtype == torch.float32):
-        return _invsqrt_newton_schulz_plain(a, iters)[:2]
-    from efa_xray_tpu_torch.ops.newton_schulz import (
-        invsqrt_newton_schulz_cuda,
-    )
-
-    inv_sqrt, inv, _ = invsqrt_newton_schulz_cuda(a, iters,
-                                                  tally=_tally(a.device))
-    return inv_sqrt, inv
+    """Batched ``(A^{-1/2}, A^{-1})`` for SPD ``A [..., M, M]`` by
+    :func:`_invsqrt_newton_schulz_plain` (the update's solve goes through
+    :func:`_newton_schulz_weights`, which launches NS on the card)."""
+    return _invsqrt_newton_schulz_plain(a, iters)[:2]
 
 
 def _tally(device) -> torch.Tensor:
@@ -452,43 +446,93 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((n,) + tuple(x.shape[1:]))])
 
 
-def _local_precision(rinv, obs_xyz, obs_radii, px, ii, localize: bool,
-                     pv=None, obs_verts=None, obs_vert_radii=None,
-                     vlm_t=None, uv=None, obs_var=None):
-    """``rho / R`` of each patch's local obs ``[C, K]``: chordal
-    Gaspari-Cohn at the patch centroid, times the vertical factor when
-    ``pv`` is given, times the cross-variable factor
-    ``varloc[obs_var[ob], unit_var]`` when ``vlm_t`` (``varloc.T``) is."""
-    a = rinv[ii]
-    if localize:
-        rho = chordal_gc_weights(px[:, None, :], obs_xyz[ii],
-                                 obs_radii[ii]).to(a.dtype)
-        if pv is not None:
-            rho = rho * gaspari_cohn(torch.abs(pv[:, None] - obs_verts[ii]),
-                                     obs_vert_radii[ii]).to(a.dtype)
-        a = a * rho
-    if vlm_t is not None:
-        a = a * torch.gather(vlm_t[uv], 1, obs_var[ii])
-    return a
+class _ChunkSolver:
+    """One update's ensemble-space analysis, chunk by chunk (Hunt et al.
+    2007, eqs. 20-23): for each unit over its local obs ``ii``, ``A = (M-1)
+    I + Y^T diag(a) Y``, ``wbar = A^{-1} Y^T diag(a) d``, ``W = sqrt(M-1)
+    A^{-1/2}``, ``a = rho / R``.
+
+    On CUDA float32 tensors a chunk is one LG launch (``a``, ``A`` and
+    ``b``; the obs packed once per update) and, with Newton-Schulz, one NS
+    launch, whose end writes ``W`` and ``wbar``; with ``reuse`` their
+    outputs live in buffers that every chunk of the update writes again
+    (each chunk's weights are applied before the next chunk's launches, in
+    stream order).  Elsewhere the plain versions run: LG's, then the plain
+    Newton-Schulz loop (or eigh) and the two products."""
+
+    def __init__(self, ye, innov, rinv, obs_xyz, obs_radii, *, localize,
+                 sqrt_method: str, ns_iters: int, obs_verts=None,
+                 obs_vert_radii=None, varloc=None, obs_var=None,
+                 reuse: bool = False):
+        from efa_xray_tpu_torch.ops import letkf_gram
+
+        self.ye, self.innov, self.rinv = ye, innov, rinv
+        self.obs_xyz, self.obs_radii = obs_xyz, obs_radii
+        self.obs_verts, self.obs_vert_radii = obs_verts, obs_vert_radii
+        self.localize, self.sqrt_method = localize, sqrt_method
+        self.ns_iters = ns_iters
+        self.vlm_t = self.ovar = None
+        if varloc is not None:
+            self.vlm_t = varloc.to(ye.dtype).T.contiguous()
+            self.ovar = obs_var.long()
+        self.kernel = ye.is_cuda and ye.dtype == torch.float32
+        self.table = None
+        if self.kernel:
+            self.table = letkf_gram.obs_table(obs_xyz, obs_radii, rinv, innov,
+                                              obs_verts, obs_vert_radii)
+        self.bufs = {} if reuse else None
+
+    def _buf(self, name, shape):
+        """A reused output buffer of the kernels (None without ``reuse``
+        and off the kernel route)."""
+        if self.bufs is None or not self.kernel:
+            return None
+        t = self.bufs.get(name)
+        if t is None or tuple(t.shape) != tuple(shape):
+            t = self.bufs[name] = torch.empty(shape, dtype=self.ye.dtype,
+                                              device=self.ye.device)
+        return t
+
+    def __call__(self, px, ii, pv=None, uv=None):
+        """``(wbar [C, M], W [C, M, M])`` of the chunk's units: centroids
+        ``px [C, 3]``, local obs ``ii [C, K]``, levels ``pv [C]`` (vertical
+        factor) and variables ``uv [C]`` (varloc)."""
+        from efa_xray_tpu_torch.ops import letkf_gram
+
+        c, m = ii.shape[0], self.ye.shape[1]
+        amat, b = letkf_gram.local_gram(
+            self.ye, self.innov, self.rinv, self.obs_xyz, self.obs_radii, px,
+            ii, localize=self.localize, pv=pv, obs_verts=self.obs_verts,
+            obs_vert_radii=self.obs_vert_radii, vlm_t=self.vlm_t, uv=uv,
+            obs_var=self.ovar, table=self.table,
+            amat=self._buf("amat", (c, m, m)), b=self._buf("b", (c, m)))
+        if self.sqrt_method == "eigh":
+            inv_sqrt, inv = _invsqrt_eigh(amat)
+            return (inv @ b[..., None])[..., 0], math.sqrt(m - 1) * inv_sqrt
+        return _newton_schulz_weights(
+            amat, b, self.ns_iters, w_out=self._buf("w", (c, m, m)),
+            wbar_out=self._buf("wbar", (c, m)), ws=self.bufs)
 
 
-def _solve_chunk(ye, innov, a, ii, sqrt_method: str, ns_iters: int):
-    """The ensemble-space analysis of one chunk (Hunt et al. 2007, eqs.
-    20-23): ``A = (M-1) I + Y^T diag(a) Y``, ``wbar = A^{-1} Y^T diag(a)
-    d``, ``W = sqrt(M-1) A^{-1/2}``.  Returns ``(wbar [C, M], W [C, M,
-    M])``."""
-    nens = ye.shape[1]
-    yl = ye[ii]  # [C, K, M]
-    ya = yl * a[..., None]
-    amat = (nens - 1) * torch.eye(nens, dtype=ye.dtype, device=ye.device) \
-        + ya.transpose(1, 2) @ yl
-    if sqrt_method == "eigh":
-        inv_sqrt, inv = _invsqrt_eigh(amat)
-    else:
-        inv_sqrt, inv = _invsqrt_newton_schulz(amat, ns_iters)
-    b = (ya.transpose(1, 2) @ innov[ii][..., None])[..., 0]
-    wbar = (inv @ b[..., None])[..., 0]
-    return wbar, math.sqrt(nens - 1) * inv_sqrt
+def _newton_schulz_weights(amat, b, iters: int, w_out=None, wbar_out=None,
+                           ws=None):
+    """``(wbar = A^{-1} b, W = sqrt(M-1) A^{-1/2})`` by Newton-Schulz: on
+    CUDA float32 one NS launch (its iterations tallied on the device; ``W``
+    into ``w_out`` and ``wbar`` into ``wbar_out`` where given, its work
+    buffers kept in the dict ``ws``), else
+    :func:`_invsqrt_newton_schulz_plain` and the two products."""
+    m = amat.shape[-1]
+    if not (amat.is_cuda and amat.dtype == torch.float32):
+        inv_sqrt, inv = _invsqrt_newton_schulz_plain(amat, iters)[:2]
+        return (inv @ b[..., None])[..., 0], math.sqrt(m - 1) * inv_sqrt
+    from efa_xray_tpu_torch.ops import newton_schulz
+
+    scale = np.sqrt(np.float32(m - 1))
+    w, wbar, _ = newton_schulz.solve(
+        amat, iters, b=b, scale=scale, out=w_out,
+        wbar_out=(torch.empty_like(b) if wbar_out is None else wbar_out),
+        tally=_tally(amat.device), ws=ws)
+    return wbar, w
 
 
 def solve_patch_weights(ye, innov, rinv, obs_xyz, obs_radii, patch_xyz, idx,
@@ -512,22 +556,18 @@ def solve_patch_weights(ye, innov, rinv, obs_xyz, obs_radii, patch_xyz, idx,
     pvert = None if patch_verts is None else _pad_rows(
         patch_verts.to(ye.dtype), pad)
     use_vl = varloc is not None
-    if use_vl:
-        vlm_t = varloc.to(ye.dtype).T
-        ovar = obs_var.long()
-        pvar = _pad_rows(patch_var.long(), pad)
+    pvar = _pad_rows(patch_var.long(), pad) if use_vl else None
+    solver = _ChunkSolver(ye, innov, rinv, obs_xyz, obs_radii,
+                          localize=localize, sqrt_method=sqrt_method,
+                          ns_iters=ns_iters, obs_verts=obs_verts,
+                          obs_vert_radii=obs_vert_radii, varloc=varloc,
+                          obs_var=obs_var)
     wbars, ws = [], []
     for s in range(0, nchunks * chunk, chunk):
         sl = slice(s, s + chunk)
-        ii = idx[sl]
-        a = _local_precision(
-            rinv, obs_xyz, obs_radii, pxyz[sl], ii, localize,
-            pv=None if pvert is None else pvert[sl], obs_verts=obs_verts,
-            obs_vert_radii=obs_vert_radii,
-            vlm_t=vlm_t if use_vl else None,
-            uv=pvar[sl] if use_vl else None,
-            obs_var=ovar if use_vl else None)
-        wbar, w = _solve_chunk(ye, innov, a, ii, sqrt_method, ns_iters)
+        wbar, w = solver(pxyz[sl], idx[sl],
+                         pv=None if pvert is None else pvert[sl],
+                         uv=pvar[sl] if use_vl else None)
         wbars.append(wbar)
         ws.append(w)
     return PatchWeights(wbar=torch.cat(wbars)[:npatch],
@@ -587,14 +627,13 @@ def _select_chunk(px, obs_xyz, k: int, topk_method: str, cand=None,
     return ii.reshape(ngroups * group, k)
 
 
-def _apply_chunk(xm_c, xp_c, wbar, w, vertical: bool):
-    """One chunk's posterior: ``xm + Xp wbar`` and ``Xp W``, on
-    ``[C, S(, M)]`` units (vertical mode) or ``[VT, C, S(, M)]`` rows that
-    share their patch's weights."""
-    if vertical:
-        return (xm_c + (xp_c @ wbar[..., None])[..., 0], xp_c @ w)
-    return (xm_c + torch.einsum("vcsm,cm->vcs", xp_c, wbar),
-            torch.einsum("vcsm,cmk->vcsk", xp_c, w))
+def _apply_chunk(xm_c, xp_c, wbar, w, pm_c, pp_c) -> None:
+    """One chunk's posterior, written into ``pm_c`` and ``pp_c``: ``xm +
+    Xp wbar`` and ``Xp W`` on the rows ``[C, R(, M)]`` of each unit (its
+    patch's ``R = S`` rows in vertical mode, its ``R = VT S`` rows in every
+    group otherwise), two batched products."""
+    torch.baddbmm(xm_c, xp_c, wbar[:, :, None], out=pm_c)
+    torch.bmm(xp_c, w, out=pp_c)
 
 
 def _analyze_body_chunked(body_mean, body_perts, ye, innov, rinv, obs_xyz,
@@ -645,16 +684,21 @@ def _analyze_body_chunked(body_mean, body_perts, ye, innov, rinv, obs_xyz,
             "localization is active (letkf_update does this)")
     if vertical:
         nunits = vt * npatch
-        xm = xm.reshape(nunits, patch_size)
+        xm = xm.reshape(nunits, patch_size, 1)
         xp = xp.reshape(nunits, patch_size, nens)
         pxyz = pxyz.repeat(vt, 1)
         pvert = group_vert.to(dtype).repeat_interleave(npatch)
         uvar = (group_var.long().repeat_interleave(npatch) if use_vl
                 else None)
     else:
+        # One unit per patch: its rows in every (var, time) group side by
+        # side, [P, VT * S(, M)] (the JAX package's transpose; a copy only
+        # where VT > 1).
         nunits = npatch
-        xm = xm.reshape(vt, npatch, patch_size)
-        xp = xp.reshape(vt, npatch, patch_size, nens)
+        xm = xm.reshape(vt, npatch, patch_size).transpose(0, 1).reshape(
+            npatch, vt * patch_size, 1)
+        xp = xp.reshape(vt, npatch, patch_size, nens).transpose(0, 1).reshape(
+            npatch, vt * patch_size, nens)
         pvert = uvar = None
 
     chunk = int(min(chunk, nunits))
@@ -667,8 +711,6 @@ def _analyze_body_chunked(body_mean, body_perts, ye, innov, rinv, obs_xyz,
         pvert = _pad_rows(pvert, upad)
         if use_vl:
             uvar = _pad_rows(uvar, upad)
-            vlm_t = varloc.to(dtype).T
-            ovar = obs_var.long()
 
     host_sel = topk_method == "host"
     if host_sel:
@@ -694,6 +736,10 @@ def _analyze_body_chunked(body_mean, body_perts, ye, innov, rinv, obs_xyz,
             raise ValueError(f"candidate width {sel_cand.shape[-1]} < k {k}")
         sel_cand = sel_cand.long()
 
+    solver = _ChunkSolver(ye, innov, rinv, obs_xyz, obs_radii, localize=True,
+                          sqrt_method=sqrt_method, ns_iters=ns_iters,
+                          obs_verts=obs_verts, obs_vert_radii=obs_vert_radii,
+                          varloc=varloc, obs_var=obs_var, reuse=True)
     pm = torch.empty_like(xm)
     pp = torch.empty_like(xp)
     for c in range(nchunks):
@@ -705,21 +751,15 @@ def _analyze_body_chunked(body_mean, body_perts, ye, innov, rinv, obs_xyz,
                                sel_mask[gsl], sel_group)
         else:
             ii = _select_chunk(px, obs_xyz, k, topk_method)
-        a = _local_precision(
-            rinv, obs_xyz, obs_radii, px, ii, True,
-            pv=pvert[sl] if vertical else None, obs_verts=obs_verts,
-            obs_vert_radii=obs_vert_radii,
-            vlm_t=vlm_t if use_vl else None, uv=uvar[sl] if use_vl else None,
-            obs_var=ovar if use_vl else None)
-        wbar, w = _solve_chunk(ye, innov, a, ii, sqrt_method, ns_iters)
+        wbar, w = solver(px, ii, pv=pvert[sl] if vertical else None,
+                         uv=uvar[sl] if use_vl else None)
         real = min(chunk, nunits - c * chunk)
         usl = slice(c * chunk, c * chunk + real)
-        if vertical:
-            pm[usl], pp[usl] = _apply_chunk(xm[usl], xp[usl], wbar[:real],
-                                            w[:real], True)
-        else:
-            pm[:, usl], pp[:, usl] = _apply_chunk(
-                xm[:, usl], xp[:, usl], wbar[:real], w[:real], False)
+        _apply_chunk(xm[usl], xp[usl], wbar[:real], w[:real], pm[usl],
+                     pp[usl])
+    if not vertical:
+        pm = pm.reshape(npatch, vt, patch_size).transpose(0, 1)
+        pp = pp.reshape(npatch, vt, patch_size, nens).transpose(0, 1)
     pm = pm.reshape(vt, npatch * patch_size)[:, :ngrid]
     pp = pp.reshape(vt, npatch * patch_size, nens)[:, :ngrid]
     return pm.reshape(nrows), pp.reshape(nrows, nens)

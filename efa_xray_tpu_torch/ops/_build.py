@@ -48,9 +48,13 @@ _SIGNATURES = {
     "efa_grid_ctas_per_sm": [_I] * 4,
     "efa_grid_abi": [],
     "efa_precision_mm": [_P] * 5 + [_I] * 4 + [_P],
-    "efa_newton_schulz": [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P],
+    "efa_newton_schulz": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_P],
     "efa_ns_in_smem": [_I],
+    "efa_ns_work_floats": [_I, _I],
+    "efa_letkf_gram": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 4 + [_P],
 }
+# Entry points whose result is not a C int.
+_RESTYPES = {"efa_ns_work_floats": ctypes.c_longlong}
 
 
 def sources():
@@ -125,7 +129,7 @@ def lib() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(handle, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return handle
 
 

@@ -1,24 +1,28 @@
 """NS: the LETKF's batched Newton-Schulz inverse square root, its exit test
-on the device.
+on the device, in one launch a solve.
 
 Counterpart of the ``jax.lax.while_loop`` of
 ``efa_xray_tpu/assimilation/letkf_core.py`` (``_invsqrt_newton_schulz``
 :340, loop :406), which is no Pallas kernel: on the TPU the exit test never
-leaves the device.  :func:`invsqrt_newton_schulz_cuda` launches the CUDA
-kernel of ``efa_xray_tpu_torch/csrc/newton_schulz.cu`` on CUDA float32
-tensors (one launch per iteration up to the cap, two past 136 members, each
-reading the previous iteration's error from device scalars, none read by
-the host).  The plain
-version is ``letkf_core._invsqrt_newton_schulz_plain`` (the loop that
-reads each iteration's error back), which
-``letkf_core._invsqrt_newton_schulz`` runs on CPU tensors and in float64.
-Both return ``(A^{-1/2}, A^{-1}, iterations)``, the count a host int from
-the plain version and a device scalar from the kernel.
+leaves the device.  :func:`solve` launches the CUDA kernel of
+``efa_xray_tpu_torch/csrc/newton_schulz.cu`` on CUDA float32 tensors: one
+cooperative launch a solve, whose CTAs fold each iteration's error into a
+device slot and read it back after a grid-wide barrier, so none of them
+runs an iteration past the exit and the host reads nothing.  Its end
+writes ``scale A^{-1/2}`` and, on request, ``A^{-1} b``: what the LETKF's
+solve uses (``W = sqrt(M - 1) A^{-1/2}``, ``wbar = A^{-1} b``).  It forms
+``wbar`` as ``S (S b)`` (``S = A^{-1/2}``), where the JAX package forms
+``(S S) b``: the same value, rounded in another order.  The plain version
+is ``letkf_core._invsqrt_newton_schulz_plain`` (the loop that reads each
+iteration's error back) and the two products after it, which
+``letkf_core._newton_schulz_weights`` runs on CPU tensors and in
+float64.
 
-:func:`newton_schulz_device_exit` is the kernel's control flow in torch,
-every iteration up to the cap run and masked by the device-side test, with
-no host read: the CPU's view of the kernel, which the tests hold against
-the JAX package's ``while_loop``.
+:func:`newton_schulz_device_exit` is the kernel's control flow in torch:
+every iteration up to the cap, each taking effect only where the test on
+the previous errors holds (the kernel stops there instead), with no host
+read: the CPU's view of the kernel, which the tests hold against the JAX
+package's ``while_loop``.
 """
 
 from __future__ import annotations
@@ -30,16 +34,15 @@ import torch
 
 from efa_xray_tpu_torch.ops import _build
 
-# Largest ensemble the kernel takes (B1's bound), and the largest padded
-# width whose Y, Z and T fit one CTA's shared memory (csrc/newton_schulz.cu
-# smem_bytes); beyond it they stay in device memory, and each iteration is
-# two launches over 64 x 64 tiles.
+# Largest ensemble the kernel takes (B1's bound), and the shared memory a
+# CTA may use (csrc/newton_schulz.cu): where Y, Z and T of one system do not
+# fit, they stay in device memory.
 MAX_MEMBERS = 256
 MAX_SMEM_BYTES = 232448
 
-# Launches of the CUDA kernels (the start, one or two per iteration up to
-# the cap, the end), not of the plain version, and the lock that guards
-# the count.
+# Launches of the CUDA kernel (one a solve: LAUNCHES_PER_SOLVE), not of the
+# plain version, and the lock that guards the count.
+LAUNCHES_PER_SOLVE = 1
 launches = 0
 _count_lock = threading.Lock()
 
@@ -52,10 +55,14 @@ def exit_thresholds(dtype: torch.dtype):
 
 
 def smem_bytes(m: int) -> int:
-    """Shared memory of one CTA holding Y, Z and T of ``m`` members
-    (mirrors ``smem_bytes`` in ``csrc/newton_schulz.cu``)."""
-    mp = -(-m // 4) * 4
-    return 3 * mp * (mp + 4) * 4
+    """Shared memory of one CTA holding Y, Z and T of ``m`` members, rows
+    ``mq + 4`` floats apart, ``mq`` the width padded to 4 (to 8 past 128):
+    ``make_plan``'s in ``csrc/newton_schulz.cu``, whose ``efa_ns_in_smem``
+    picks the variant."""
+    mq = -(-m // 4) * 4
+    if mq > 128:
+        mq = -(-m // 8) * 8
+    return 12 * mq * (mq + 4)
 
 
 def _scaled(a: torch.Tensor):
@@ -73,10 +80,11 @@ def _finish(z: torch.Tensor, c: torch.Tensor):
 
 
 def newton_schulz_device_exit(a: torch.Tensor, iters: int):
-    """The kernel's control flow in torch: ``iters`` iterations, each run
-    only where the device-side exit test holds (the JAX package's rule),
-    with no host read.  Returns ``(A^{-1/2}, A^{-1}, iterations)``, the
-    count a 0-dim tensor."""
+    """The kernel's control flow in torch: the exit test of iteration
+    ``i`` on the errors of the two before it, the same in every CTA, and
+    the iteration taking effect only where it holds (the kernel's CTAs
+    leave their loop there), with no host read.  Returns ``(A^{-1/2},
+    A^{-1}, iterations)``, the count a 0-dim tensor."""
     tol, quad = exit_thresholds(a.dtype)
     c, y, z = _scaled(a)
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
@@ -97,57 +105,95 @@ def newton_schulz_device_exit(a: torch.Tensor, iters: int):
     return (*_finish(z, c), count)
 
 
-def invsqrt_newton_schulz_cuda(a: torch.Tensor, iters: int, tally=None):
-    """Launch NS on a CUDA float32 batch ``a [C, M, M]`` (SPD): a start
-    kernel, ``iters`` launches (twice as many where Y, Z and T do not fit
-    one CTA's shared memory) and an end kernel, from one C call.  Returns
-    ``(A^{-1/2}, A^{-1}, iterations)``, the count a device scalar (int64);
-    ``tally`` (int64 ``[2]`` on the same card: summed, most) takes the
-    count too, on the card.  Raises on what the kernel does not take,
-    before any launch."""
+def check(a: torch.Tensor, b=None) -> None:
+    """Raise on what the kernel does not take (before any launch)."""
     if a.dtype != torch.float32 or not a.is_cuda:
         raise ValueError("NS takes float32 tensors on a CUDA device")
     m = a.shape[-1]
-    if a.shape[-2] != m or not 1 <= m <= MAX_MEMBERS:
-        raise ValueError(f"NS takes square systems of 1 to {MAX_MEMBERS} "
-                         f"members, not {tuple(a.shape[-2:])}")
-    batch = a.shape[:-2]
-    a3 = a.reshape(-1, m, m)
-    ns = a3.shape[0]
+    if a.dim() != 3 or a.shape[-2] != m or not 1 <= m <= MAX_MEMBERS:
+        raise ValueError(f"NS takes [C, M, M] systems of 1 to {MAX_MEMBERS} "
+                         f"members, not {tuple(a.shape)}")
+    if b is not None and (b.dtype != a.dtype or b.device != a.device
+                          or tuple(b.shape) != tuple(a.shape[:2])):
+        raise ValueError("NS takes b as float32 [C, M] beside A")
+
+
+def _scratch(ws, name: str, n: int, dtype, dev) -> torch.Tensor:
+    """A flat scratch tensor of ``n`` elements: fresh, or kept in the dict
+    ``ws`` under ``name`` and used again by the next solve of that size."""
+    if ws is None:
+        return torch.empty(n, dtype=dtype, device=dev)
+    t = ws.get(name)
+    if t is None or t.numel() != n or t.dtype != dtype:
+        t = ws[name] = torch.empty(n, dtype=dtype, device=dev)
+    return t
+
+
+def solve(a: torch.Tensor, iters: int, *, b=None, scale: float = 1.0,
+          out=None, wbar_out=None, tally=None, ws=None):
+    """One NS launch on a CUDA float32 batch ``a [C, M, M]`` (SPD,
+    contiguous): writes ``scale A^{-1/2}`` into ``out`` and, when given,
+    ``A^{-1} b`` into ``wbar_out`` (``b [C, M]``).  ``out`` is allocated
+    where not given.  ``scale`` is rounded to float32 (``sqrt(M - 1)`` of
+    the float32 ``M - 1``, as the JAX package takes it, for ``W``).
+    Returns ``(out, wbar_out, count)``, ``count`` the iterations run (int64
+    ``[1]`` on the card); ``tally`` (int64 ``[2]`` on the same card:
+    summed, most) takes the count too, on the card.  ``ws``, a dict, keeps
+    the work buffers for the next solve on the same stream.  Raises on
+    what the kernel does not take, before any launch."""
+    check(a, b)
+    ns, m = a.shape[0], a.shape[-1]
     dev = a.device
-    mp = -(-m // 4) * 4
-    tol, quad = exit_thresholds(a.dtype)
-    # _scaled's c and A / c, without its identity.
-    c = torch.clamp(torch.amax(torch.sum(torch.abs(a3), dim=-1), dim=-1),
-                    min=1e-30)
-    y0 = (a3 / c[:, None, None]).contiguous()
-    empty = lambda *shape, dtype=a.dtype: torch.empty(shape, dtype=dtype,
-                                                      device=dev)
-    out = empty(ns, m, m)
-    yw, zw = empty(ns, mp, mp), empty(ns, mp, mp)
-    in_smem = smem_bytes(m) <= MAX_SMEM_BYTES
-    # T, then the second buffers of Y and Z (device-memory variant).
-    tw = None if in_smem else empty(3, ns, mp, mp)
-    err, run = empty(iters + 2), empty(iters + 1, dtype=torch.int32)
-    count = empty(1, dtype=torch.int64)
     if tally is not None and (tally.device != dev
                               or tally.dtype != torch.int64
-                              or tally.shape != (2,)):
+                              or tuple(tally.shape) != (2,)):
         raise ValueError("NS's tally is int64 [2] on the batch's card")
-    if ns:
-        with torch.cuda.device(dev):
-            rc = _build.lib().efa_newton_schulz(
-                y0.data_ptr(), c.data_ptr(), out.data_ptr(), yw.data_ptr(),
-                zw.data_ptr(), None if tw is None else tw.data_ptr(),
-                err.data_ptr(), run.data_ptr(), count.data_ptr(),
-                None if tally is None else tally.data_ptr(), ns, m, iters,
-                tol, quad, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(rc, "NS newton_schulz launch")
-        _count((1 if in_smem else 2) * iters + 2)
-    else:
+    if wbar_out is not None and b is None:
+        raise ValueError("NS writes A^{-1} b only where b is given")
+    for t, shape in ((out, (ns, m, m)), (wbar_out, (ns, m))):
+        if t is not None and (t.dtype != torch.float32 or t.device != dev
+                              or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"NS writes contiguous float32 {shape} outputs "
+                             "on the batch's card")
+    out = (torch.empty((ns, m, m), dtype=torch.float32, device=dev)
+           if out is None else out)
+    count = _scratch(ws, "count", 1, torch.int64, dev)
+    if not ns:
         count.zero_()
-    inv_sqrt = out.reshape(*batch, m, m)
-    return inv_sqrt, inv_sqrt @ inv_sqrt, count[0]
+        return out, wbar_out, count
+    tol, quad = exit_thresholds(a.dtype)
+    a = a.contiguous()
+    b = None if b is None else b.contiguous()
+    lib = _build.lib()
+    work = _scratch(ws, "work", lib.efa_ns_work_floats(ns, m), torch.float32,
+                    dev)
+    cbuf = _scratch(ws, "c", ns, torch.float32, dev)
+    scratch = _scratch(ws, "scratch", 2 + iters, torch.int32, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        rc = lib.efa_newton_schulz(
+            a.data_ptr(), ptr(b), out.data_ptr(), ptr(wbar_out),
+            work.data_ptr(), cbuf.data_ptr(), scratch.data_ptr(),
+            count.data_ptr(), ptr(tally), ns, m, iters, tol, quad,
+            float(np.float32(scale)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "NS newton_schulz launch")
+    _count(LAUNCHES_PER_SOLVE)
+    return out, wbar_out, count
+
+
+def invsqrt_newton_schulz_cuda(a: torch.Tensor, iters: int, tally=None):
+    """NS on a CUDA float32 batch ``a [..., M, M]`` (SPD): one launch, then
+    ``A^{-1} = S S`` in torch.  Returns ``(A^{-1/2}, A^{-1}, iterations)``,
+    the count a device scalar (int64); ``tally`` as :func:`solve` takes it.
+    Raises on what the kernel does not take, before any launch."""
+    m = a.shape[-1]
+    batch = a.shape[:-2]
+    a3 = a.reshape(-1, *a.shape[-2:]) if a.dim() != 3 else a
+    s, _, count = solve(a3, iters, tally=tally)
+    s = s.reshape(*batch, m, m)
+    return s, s @ s, count[0]
 
 
 def _count(n: int) -> None:
