@@ -292,6 +292,7 @@ non-zero before doing anything.  It never imports JAX.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -435,14 +436,16 @@ def bound(flop: float, nbyte: float, peak: str = "fp32") -> dict:
 
 
 def body_flop(rows: int, nblocks: int, bsz: int, nmems: int,
-              part: str = "all") -> float:
+              part: str = "all", sub: int | None = None) -> float:
     """Operations of the dense body sweep (B3, B4) over ``rows`` rows and
     ``nblocks`` blocks of ``bsz`` obs: D0 and the rank-B apply (4 M per
-    (ob, row); ``part="products"``), the forward substitution (B per (ob,
-    row) on average) and the weight and mean terms (3 per (ob, row);
-    ``part="rest"``)."""
-    per_pair = {"all": 4 * nmems + bsz + 3, "products": 4 * nmems,
-                "rest": bsz + 3}[part]
+    (ob, row); ``part="products"``), the forward substitution (S per (ob,
+    row) on average, S the ``sub`` obs a launch solves at a time: the
+    block, or the plan's sub-block of it) and the weight and mean terms
+    (3 per (ob, row); ``part="rest"``)."""
+    s = bsz if sub is None else min(sub, bsz)
+    per_pair = {"all": 4 * nmems + s + 3, "products": 4 * nmems,
+                "rest": s + 3}[part]
     return float(rows) * nblocks * bsz * per_pair
 
 
@@ -463,11 +466,11 @@ def mode_bound(products: float, rest: float, nbyte: float,
 
 
 def b2_flop(ops: dict, nrows: int, nmems: int, localize: bool,
-            hybrid: bool, part: str = "all") -> float:
+            hybrid: bool, part: str = "all", sub: int | None = None) -> float:
     """Operations B2/B2h need on prepared operands ``ops``: as
-    :func:`body_flop` (and its ``part``), but only over the 8-ob panels
-    the cull keeps alive, plus the per-pair weight chain (and B2h's static
-    column) in the rest."""
+    :func:`body_flop` (and its ``part`` and ``sub``), but only over the
+    8-ob panels the cull keeps alive, plus the per-pair weight chain (and
+    B2h's static column) in the rest."""
     import torch
 
     from efa_xray_tpu_torch.ops import ensrf_fused
@@ -483,8 +486,9 @@ def b2_flop(ops: dict, nrows: int, nmems: int, localize: bool,
         alive = sum(int(((bits >> q) & 1).sum()) for q in range(npanels))
     pair = ((B2_PAIR_OPS if localize or hybrid else 0)
             + (B2H_PAIR_OPS if hybrid else 0))
-    per_pair = {"all": 4 * nmems + bsz + 3 + pair, "products": 4 * nmems,
-                "rest": bsz + 3 + pair}[part]
+    s = bsz if sub is None else min(sub, bsz)
+    per_pair = {"all": 4 * nmems + s + 3 + pair, "products": 4 * nmems,
+                "rest": s + 3 + pair}[part]
     return alive * ensrf_fused.PANEL * (nrows / gtiles) * per_pair
 
 
@@ -558,6 +562,10 @@ B1_CASES = (
      0.9),
     ("512 x 80 all obs skipped", 512, 80, "chordal", False, False, False,
      False, 0.0),
+    ("1024 x 512, slab in device memory", 1024, 512, "chordal", False,
+     False, False, False, 0.9),
+    ("1024 x 512 hybrid (B1h), slab in device memory", 1024, 512,
+     "haversine", False, False, True, False, 0.9),
 )
 
 
@@ -627,7 +635,9 @@ def phase2():
                             11 + n)
         c = tail_solve.pick_cluster(p, m, tail_solve.DEFAULT_SUB, hybrid)
         pp = tail_solve.padded_panel(p, tail_solve.DEFAULT_SUB, c)
-        planned = tail_solve.smem_bytes(pp // c, m, hybrid=hybrid)
+        planned = tail_solve.smem_bytes(
+            pp // c, m, hybrid=hybrid, device_slab=tail_solve.in_device_memory(
+                pp, m, tail_solve.DEFAULT_SUB, c, hybrid))
         built = _build.lib().efa_tail_solve_smem(
             pp // c, m, tail_solve.DEFAULT_SUB, int(hybrid))
         check(planned == built, f"B1 {label}: the wrapper plans {planned} B "
@@ -690,6 +700,8 @@ B1E_CASES = (
      True, 0.9),
     ("512 x 40 all obs skipped", 512, 40, "chordal", False, False, False,
      0.0),
+    ("1024 x 512, slab in device memory", 1024, 512, "chordal", False,
+     False, False, 0.9),
 )
 
 
@@ -712,7 +724,9 @@ def _b1e_cases():
         eps = (eps - eps.mean(1, keepdim=True)) * torch.sqrt(args[3])[:, None]
         c = tail_solve.pick_cluster(p, m, enkf=True)
         pp = tail_solve.padded_panel(p, tail_solve.DEFAULT_SUB, c)
-        planned = tail_solve.smem_bytes(pp // c, m, enkf=True)
+        planned = tail_solve.smem_bytes(
+            pp // c, m, enkf=True, device_slab=tail_solve.in_device_memory(
+                pp, m, tail_solve.DEFAULT_SUB, c, enkf=True))
         built = _build.lib().efa_tail_solve_smem(
             pp // c, m, tail_solve.DEFAULT_SUB, 2)
         check(planned == built, f"B1e {label}: the wrapper plans {planned} "
@@ -1080,12 +1094,14 @@ def _api_workload(nmems=80, nobs=10_000, seed=1, ny=1024):
     return {"T2m": field}, coords, batch
 
 
-def _plain_update(state, batch, cfg, inflation=None):
+def _plain_update(state, batch, cfg, inflation=None, rows=None):
     """The plain blocked update (``ensrf_core.ensrf_blocked``) of what
     ``EnSRF(state, batch, inflation=inflation, config=cfg).update()``
     computes, on the same tensors, the outlier check included: ``(prior
     mean, prior perturbations, posterior mean, posterior
-    perturbations)``."""
+    perturbations)``.  ``rows`` (indices) restricts the body to those
+    state rows, the tail whole: the body is row-local, so they are the
+    whole update's rows."""
     import torch
 
     from efa_xray_tpu_torch import EnSRF
@@ -1099,11 +1115,20 @@ def _plain_update(state, batch, cfg, inflation=None):
     vertical = cfg.localize and ref._vertical_active()
     bvert = (torch.tensor(state.structure.row_vert(), dtype=torch.float32,
                           device=dev) if vertical else None)
+    vkw, hkw = ref.varloc_kwargs(), ref._hybrid_kwargs(bm)
+    if rows is not None:
+        take = lambda x: None if x is None else x[rows]
+        bm, bp, blat, blon, bvert = (take(x) for x in (bm, bp, blat, blon,
+                                                       bvert))
+        if "row_var" in vkw:
+            vkw["row_var"] = take(vkw["row_var"])
+        if "body_sigma" in hkw and hkw["body_sigma"].dim() > 0:
+            hkw["body_sigma"] = take(hkw["body_sigma"])
     pbm, pbp, *_ = core.ensrf_blocked(
         bm, bp, tm, tp, blat, blon, oa, localize=cfg.localize,
         block_size=cfg.block_size, fast_geometry=cfg.fast_geometry,
         body_vert=bvert, vertical=vertical, tail_panel=cfg.tail_panel,
-        **ref.varloc_kwargs(), **ref._hybrid_kwargs(bm))
+        **vkw, **hkw)
     return bm, bp, pbm, pbp
 
 
@@ -1125,16 +1150,19 @@ def _plain_kept(key, state, batch, cfg):
 
 
 def _check_api(label, state, batch, cfg, post, obs, inflation=None,
-               plain=None):
+               plain=None, rows=None):
     """Hold an ``EnSRF.update()`` result against the plain blocked update
     (:func:`_plain_update`, or ``plain`` when it is given) on the same
-    tensors, and check its diagnostics: every ob assimilated but those the
-    outlier check flagged.  Returns ``(mean_err, incr_rms, inn_prior,
-    inn_post)``."""
+    tensors (on the state rows ``rows`` where given), and check its
+    diagnostics: every ob assimilated but those the outlier check flagged.
+    Returns ``(mean_err, incr_rms, inn_prior, inn_post)``."""
     import torch
 
-    bm, _, pbm, _ = plain or _plain_update(state, batch, cfg, inflation)
+    bm, _, pbm, _ = plain or _plain_update(state, batch, cfg, inflation,
+                                           rows=rows)
     post_mean = post.to_vect().mean(dim=1)
+    if rows is not None:
+        post_mean = post_mean[rows]
     incr_rms = float(torch.sqrt(torch.mean((pbm - bm) ** 2)))
     mean_err = float((post_mean - pbm).abs().max())
     check(torch.isfinite(post.data).all().item(), f"{label}: posterior not "
@@ -1962,12 +1990,13 @@ def _config3_runs(names):
                           variable_localization=spec), "B3")]
 
 
-def _api_phase(label, state, batch, cfg, route, expect):
+def _api_phase(label, state, batch, cfg, route, expect, plain=None):
     """Drive ``EnSRF.update()`` once on the card along ``route``, timed
     with its tail/body split (the kernels are built and the device is warm
     from the phases before), check the launch counts (:func:`_counts`)
-    with ``expect`` and hold the result against the plain blocked update.
-    Returns a dict of the numbers."""
+    with ``expect`` and hold the result against the plain blocked update
+    (``plain``, :func:`_plain_update`'s tuple, where given).  Returns a
+    dict of the numbers."""
     from efa_xray_tpu_torch import EnSRF
 
     filt = EnSRF(state, batch, config=cfg, verbose=False)
@@ -1979,7 +2008,7 @@ def _api_phase(label, state, batch, cfg, route, expect):
     counts = _counts()
     check(expect(counts), f"{label}: launches {counts}")
     mean_err, incr_rms, inn_prior, inn_post = _check_api(
-        label, state, batch, cfg, post, obs)
+        label, state, batch, cfg, post, obs, plain=plain)
     return dict(counts=counts, mean_err=mean_err, incr_rms=incr_rms,
                 inn=(inn_prior, inn_post), wall=wall, **spent)
 
@@ -2025,8 +2054,12 @@ def phase9():
     state, batch = _api_state(torch.device("cuda"))
     nblocks = -(-batch.nobs // 128)
     tail = _tail_counts(batch.nobs, 512, True)
-    r = _api_phase("phase 9", state, batch, FilterConfig(localization="GC"),
-                   "B4", _only(B1=tail["panels"], B4=nblocks + tail["b4"]))
+    cfg = FilterConfig(localization="GC")
+    # Its plain update is kept for phase 29 (b).
+    r = _api_phase("phase 9", state, batch, cfg, "B4",
+                   _only(B1=tail["panels"], B4=nblocks + tail["b4"]),
+                   plain=_plain_kept(("api default", 1024, 10_000, 80),
+                                     state, batch, cfg))
     log(f"phase 9: EnSRF.update() 1024x1024x80, {batch.nobs} obs at the "
         f"default FilterConfig: " + _api_line(r))
     return dict(b4=r["counts"]["B4"], b1=r["counts"]["B1"])
@@ -2747,11 +2780,14 @@ CONFIG7 = dict(npts=4_194_304, nmems=80, nobs=10_000, radius=2000.0, seed=4,
 SOLVER_GATE = 1e-3
 
 
-def _half_degree_workload(dev, ny, nx, nmems, nobs, radius, seed, **_):
+def _half_degree_workload(dev, ny, nx, nmems, nobs, radius, seed,
+                          region=False, **_):
     """Configs 6 and 11 as a user builds them: the prior N(280, 5) drawn
     on the device, ``nobs`` obs at grid points drawn with replacement
     (duplicates give equal chord dots), each the ensemble mean there plus
-    N(0, 1), R = 1.  Returns ``(state, batch)``."""
+    N(0, 1), R = 1.  ``region``: ``ny`` x ``nx`` points of the
+    half-degree grid from 16 S, 200 E instead of the global ``ny`` x
+    ``nx`` one.  Returns ``(state, batch)``."""
     import torch
 
     from efa_xray_tpu_torch import EnsembleState
@@ -2761,6 +2797,9 @@ def _half_degree_workload(dev, ny, nx, nmems, nobs, radius, seed, **_):
     rng = np.random.default_rng(seed)
     lon, lat = np.meshgrid(np.arange(nx) * (360.0 / nx),
                            np.linspace(-90.0, 90.0, ny))
+    if region:
+        lon, lat = np.meshgrid(200.0 + 0.5 * np.arange(nx),
+                               -16.0 + 0.5 * np.arange(ny))
     times = np.array([np.datetime64("2026-08-01T00")])
     gen = torch.Generator(device=dev).manual_seed(seed)
     data = 280.0 + 5.0 * torch.randn((1, ny, nx, nmems), generator=gen,
@@ -3164,6 +3203,25 @@ def _letkf_runs(label, state, batch, cfg, sync, prior_var_check=True):
                       mean_abs_innov=inn)
 
 
+def _letkf_once(label, state, batch, cfg, sync, prior_var_check=True):
+    """``LETKF(state, batch, config=cfg).update()`` once (an eigh update,
+    for the comparison that needs it): its posterior, and its wall, its
+    launches (LG once a chunk in float32 on the card, no NS) and its
+    innovations."""
+    from efa_xray_tpu_torch import LETKF
+
+    lg_kernel = state.device.type == "cuda" and cfg.dtype == "float32"
+    _reset_counts()
+    (post, obs), wall, _ = _spans(
+        lambda: LETKF(state, batch, config=cfg).update(), [], sync)
+    counts = _counts()
+    check((_only(LG=None) if lg_kernel else _only())(counts),
+          f"{label}: launches {counts}")
+    return post, dict(wall_s=wall, launches=counts,
+                      mean_abs_innov=_innovations(
+                          label, batch, obs, var_shrinks=prior_var_check))
+
+
 def _first_ns_input(run, got=None):
     """``run()`` with a spy on ``letkf_core._newton_schulz_weights``: the
     first chunk's ``A [C, M, M]``, the cap it was given and its ``b [C,
@@ -3292,13 +3350,14 @@ def _ns_plain(a, iters, b):
             (inv @ b[..., None])[..., 0], n)
 
 
-def _ns_hold(label, a, iters, b=None):
+def _ns_hold(label, a, iters, b=None, inner: int = 10):
     """NS against its plain version on one chunk's ``A`` and ``b`` (random
     where not given), as the update launches it (:func:`_ns_launch`): the
     same iteration count, ``W`` and ``wbar`` at the f32 gate; kernel and
     plain ms, the bound (the iterations this batch runs: three products of
     2 M^3 each; the end's two products with a vector; A, b, W and wbar
-    once).  Returns the kernels-line numbers."""
+    once; the kernel over 5 runs of ``inner`` launches).  Returns the
+    kernels-line numbers."""
     import torch
 
     c, m = a.shape[0], a.shape[-1]
@@ -3317,7 +3376,7 @@ def _ns_hold(label, a, iters, b=None):
     err = max(compare(f"NS {label} W", got[0], want[0]),
               compare(f"NS {label} wbar", got[1], want[1]))
     r = dict(
-        iterations=n, max_abs_err=err, ms=device_ms(launch, 5),
+        iterations=n, max_abs_err=err, ms=device_ms(launch, 5, inner),
         plain_ms=cuda_ms(lambda: _ns_plain(a, iters, b), 3),
         **bound(float(c) * (6 * n * m ** 3 + 4 * m * m),
                 nbytes(a, b, *got[:2])))
@@ -3402,7 +3461,7 @@ def phase19(dev="cuda", c6=None, c9=None):
         "phase 19 host vs exact", post_h, post, state)
     out["host"]["bitwise_equal_to_exact"] = bool(
         (post_h.data == post.data).all())
-    post_e, out["eigh"] = _letkf_runs(
+    post_e, out["eigh"] = _letkf_once(
         "phase 19 config 6 eigh", state, batch,
         dataclasses.replace(cfg, letkf_sqrt="eigh"), sync)
     out["eigh"]["gap_vs_newton_schulz"] = _posterior_gap(
@@ -3435,7 +3494,7 @@ def phase19(dev="cuda", c6=None, c9=None):
                           letkf_k_obs=p["nobs"], letkf_sqrt="eigh",
                           dtype=dtype)
         st = state if dtype == "float32" else _as_float64(state)
-        pl, nl = _letkf_runs(f"phase 19 unlocalized LETKF {dtype}", st,
+        pl, nl = _letkf_once(f"phase 19 unlocalized LETKF {dtype}", st,
                              batch, cu, sync)
         (pe, _), we, _ = _spans(lambda: EnSRF(st, batch, config=cu,
                                               verbose=False).update(),
@@ -3456,7 +3515,7 @@ def phase19(dev="cuda", c6=None, c9=None):
               f"gap {vgap:.3e} (posterior variance {vscale:.3e}), gate "
               f"{gate}")
         out[f"unlocalized_{dtype}"] = dict(
-            letkf_s=nl["warm_s"], ensrf_s=we, gate=gate, mean_gap=mgap,
+            letkf_s=nl["wall_s"], ensrf_s=we, gate=gate, mean_gap=mgap,
             mean_incr_rms=incr, var_gap=vgap, post_var_mean=vscale)
     out["gate"] = SOLVER_GATE
     if torch.device(dev).type == "cuda":
@@ -4819,13 +4878,16 @@ def hold_mode(label, launch, plain, bm, bp, nblocks: int, mode: str,
     column (the comment above ``FLIP_UNIT``), beside the planted faults of
     ``GATE_A_RUNS`` (``OPERAND_FAULTS`` only with ``operand_faults``),
     each of which must fail.  Also reads the plain version in fp32 the
-    same way (not gated).  Returns the readings, the whole launch's output
-    under ``"out"``."""
+    same way (not gated), whose summed milliseconds over the blocks are
+    the plain version's time in the mode (``"plain_ms"``).  Returns the
+    readings, the whole launch's output under ``"out"``."""
     import torch
 
     from efa_xray_tpu_torch.ops.precision import round_inputs
 
     runs = GATE_A_RUNS if operand_faults else GATE_A_RUNS[:3]
+    sync = _syncer(bp.device)
+    plain_s = 0.0
     full = launch(bm, bp, slice(None), mode)
     x = (bm, bp)
     bad = dict.fromkeys(runs, 0)
@@ -4838,13 +4900,19 @@ def hold_mode(label, launch, plain, bm, bp, nblocks: int, mode: str,
         x64 = (x[0].double(), x[1].double())
         ops = []
         want = plain(*x64, s, mode, ops)
-        (left, y), = ops
-        allow = FLIP_UNIT[mode] * (left.abs()
-                                   @ round_inputs(y, mode).abs())
-        del ops, left
+        # One apply a block, or one a sub-block where the block is swept
+        # in sub-blocks.
+        allow = FLIP_UNIT[mode] * sum(left.abs()
+                                      @ round_inputs(y, mode).abs()
+                                      for left, y in ops)
+        del ops
         ref = plain(*x64, s, "ieee", None)
         effect = effect + ((want[1] - ref[1]) ** 2).sum(0)
+        sync()
+        t0 = time.perf_counter()
         ref = plain(*x, s, mode, None)
+        sync()
+        plain_s += time.perf_counter() - t0
         sq32 = sq32 + ((ref[1].double() - want[1]) ** 2).sum(0)
         del ref
         for run in runs:
@@ -4884,6 +4952,7 @@ def hold_mode(label, launch, plain, bm, bp, nblocks: int, mode: str,
               f"passes gate (a) ({bad[run]} entries outside, column share "
               f"{share[run]:.3f})")
     return dict(max_abs_err=err["kernel"], beyond_f32_gate=past_f32,
+                plain_ms=plain_s * 1e3,
                 flip_allowance=allowed, share=share["kernel"],
                 fp32_plain_share=share["fp32_plain"],
                 controls={run: dict(entries_outside=bad[run],
@@ -4910,9 +4979,9 @@ def _b2_block_fns(args):
     def launch(bm, bp, s, mode):
         # The kernel in a mode runs at that mode's tile (the cull bits are
         # computed at it).
-        check(mode == "ieee" or rest[0] == ensrf_fused.pick_tile(
-            bsz, nmems, rest[4], mode), f"B2 at {nmems} members: the tile "
-            f"{rest[0]} is not the one of mode {mode}")
+        check(mode == "ieee" or rest[0] == ensrf_fused.plan(
+            bsz, nmems, rest[4], mode).tile, f"B2 at {nmems} members: the "
+            f"tile {rest[0]} is not the one of mode {mode}")
         return ensrf_fused.fused_apply(bm, bp, *sliced(s, bp.dtype),
                                        precision=mode)
 
@@ -4960,8 +5029,8 @@ def _modes_case(label, fns, bm, bp, products, rest, nbyte, dev):
     :func:`_b2_block_fns` or :func:`_grid_block_fns`) against its plain
     version, in fp32 at the f32 gate and in each tensor-core mode at gate
     (a), each tensor-core output unlike the fp32 one; kernel ms (3 runs),
-    plain ms (the fp32 plain version over every block) and the bound.  Returns ``{mode:
-    dict}``."""
+    plain ms (the plain version over every block: in a mode, timed inside
+    gate (a)) and the bound.  Returns ``{mode: dict}``."""
     from efa_xray_tpu_torch.ops.precision import MODES
 
     launch, plain, nblocks = fns
@@ -4982,13 +5051,10 @@ def _modes_case(label, fns, bm, bp, products, rest, nbyte, dev):
                                                want)))
             del want
         else:
+            # plain_ms: the mode's plain version over every block, timed
+            # inside the gate's runs.
             r = hold_mode(f"phase 26 {label}", launch, plain, bm, bp,
                           nblocks, mode)
-            sync()
-            t0 = time.perf_counter()
-            plain(bm, bp, every, mode, None)
-            sync()
-            r["plain_ms"] = (time.perf_counter() - t0) * 1e3
             got = r.pop("out")
             r["vs_ieee"] = max(float((g - f).abs().max())
                                for g, f in zip(got, ieee))
@@ -5930,6 +5996,717 @@ P_INNER = 20
 NS_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
 
+# ---------------------------------------------------------------------------
+# Any ensemble and any block on the card (ROADMAP queue C, fault C5)
+# ---------------------------------------------------------------------------
+
+# Phase 29: the members of its full-width updates (no member cut), the
+# blocks of its 80-member ones and of config 4's headline, the rows and
+# blocks each body kernel is held on beside its plain version, and the
+# LETKF's region (``region``: rows x columns of config 6's half-degree
+# grid, about four chunks of its units: a depth cut).  (a) takes the
+# first 2,048 of phase 4's 10,000 obs and (c) 2,000 of config 3's 5,000:
+# depth cuts, because the plain references' per-ob tail takes ~2 ms an ob
+# whatever the ensemble, and at the full counts the whole script ran past
+# its 1200 s (1215.5 s on an H100; PERF.md section 6).
+PHASE29 = dict(nmems=512, ny=1024, nobs=2048, blocks=(256, 512, 1024),
+               headline_block=512, hold_rows=16_384, hold_blocks=8,
+               mode_hold_blocks=2, plain_rows=65_536,
+               c3=dict(nmems=512, nobs=2000), c11=dict(nmems=512),
+               c6=dict(nmems=512, ny=64, nx=128, region=True))
+
+
+class _KernelCalls:
+    """While open, a spy on the CUDA entries of B1 (``tail_panel_solve_
+    cuda``), B2 (``fused_apply_cuda``) and B3/B4 (``grid_apply_cuda``):
+    ``calls[key]`` is the first call of each kernel ("B1", "B1h", "B1e",
+    "B2", "B2h", "B2e", "B3", "B4", "B4e"; a tensor-core mode appended as
+    in "B2 tf32") at each row count (the key "B2 (10000 rows)": a tail's
+    out-of-panel apply and the body are two), as ``(entry, args,
+    kwargs)``, its tensors cloned before the call (the bodies update their
+    inputs in place)."""
+
+    def __enter__(self):
+        import torch
+
+        from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid, tail_solve
+
+        mode = lambda m: "" if m == "ieee" else f" {m}"
+        kinds = (
+            (tail_solve, "tail_panel_solve_cuda", lambda a, k: (
+                "B1e" if a[10] is not None else
+                "B1h" if a[7] < 1.0 else "B1")),
+            (ensrf_fused, "fused_apply_cuda", lambda a, k: (
+                "B2e" if k.get("z_b") is not None else
+                ("B2h" if a[11] else "B2") + mode(a[13]))),
+            (ensrf_grid, "grid_apply_cuda", lambda a, k: (
+                "B4e" if k.get("z_b") is not None else
+                a[0] + mode(k.get("precision", "ieee")))))
+        copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+        self.calls, self.saved = {}, []
+        for mod, name, kind_of in kinds:
+            real = getattr(mod, name)
+
+            def spy(*a, _real=real, _kind=kind_of, **k):
+                rows = a[2 if isinstance(a[0], str) else 1].shape[0]
+                kind = f"{_kind(a, k)} ({rows} rows)"
+                if kind not in self.calls:
+                    self.calls[kind] = (_real, tuple(copy(x) for x in a),
+                                        {n: copy(v) for n, v in k.items()})
+                return _real(*a, **k)
+
+            self.saved.append((mod, name, real))
+            setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def _sample(n: int, k: int, seed: int, dev):
+    """``k`` sorted indices of ``range(n)`` (all of them where ``k >=
+    n``)."""
+    import torch
+
+    if k >= n:
+        return torch.arange(n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randperm(n, generator=gen, device=dev)[:k].sort().values
+
+
+def _hold_call(kind, call, rows: int, blocks: int,
+               mode_blocks: int) -> dict:
+    """One captured launch (:class:`_KernelCalls`) against its plain version
+    on its own operands: B1 on the whole panel; the body kernels on
+    ``rows`` of its rows (B3, B4: every group at a sample of the grid
+    points) and its first ``blocks`` blocks, without the cull (exact), at
+    the f32 gate in fp32 and on its first ``mode_blocks`` blocks at gate
+    (a) (:func:`hold_mode`) in a tensor-core mode.  Kernel ms (the whole
+    launch, 3 runs where one is under 50 ms), plain ms (the held cut), the
+    whole launch's bound, and its plan."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid, tail_solve
+
+    fn, a, k = call
+    label = f"phase 29 {kind}"
+    if kind.startswith("B1"):
+        got = fn(*a)
+        want, p_ms = cuda_timed(lambda: tail_solve.tail_panel_solve_plain(
+            *a[:11]))
+        torch.cuda.synchronize()
+        err = max(compare(f"{label} out{i}", g, w)
+                  for i, (g, w) in enumerate(zip(got, want)))
+        p, m = a[1].shape
+        c = tail_solve.pick_cluster(p, m, hybrid=a[7] < 1.0,
+                                    enkf=a[10] is not None)
+        pp = tail_solve.padded_panel(p, tail_solve.DEFAULT_SUB, c)
+        return dict(
+            max_abs_err=err, ms=_launch_ms(lambda: fn(*a)), plain_ms=p_ms,
+            shape=f"{p} x {m}", cluster=c,
+            device_slab=tail_solve.in_device_memory(
+                pp, m, tail_solve.DEFAULT_SUB, c, a[7] < 1.0,
+                a[10] is not None),
+            **bound(b1_flop(p, m, a[7] < 1.0),
+                    nbytes(*(x for x in a if isinstance(x, torch.Tensor)))
+                    + nbytes(*got)))
+    if kind.startswith("B2"):
+        (bm, bp, geom, y_b, ggt_b, tab_b, bits, tile, loc, vert, series,
+         hybrid, _, prec) = a
+        z_b = k.get("z_b")
+        nrows, m = bp.shape
+        nb, bsz, _ = y_b.shape
+        full = lambda: fn(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile, loc,
+                          vert, series, hybrid, False, prec, z_b=z_b)
+        plan = ensrf_fused.plan(bsz, m, hybrid, prec, tile)
+        ops = dict(y_b=y_b, tile=tile, bits=bits)
+        nbyte = nbytes(bm, bp, geom, y_b, ggt_b, tab_b, bits, z_b, bm, bp)
+        b = mode_bound(
+            b2_flop(ops, nrows, m, loc, hybrid, "products"),
+            b2_flop(ops, nrows, m, loc, hybrid, "rest", plan.sub), nbyte,
+            prec)
+        s = _sample(nrows, rows, 29, bp.device)
+        nbk = min(blocks if prec == "ieee" else mode_blocks, nb)
+        cut = (geom[:, s], y_b[:nbk], ggt_b[:nbk], tab_b[:nbk], None, tile,
+               loc, vert, series, hybrid)
+        zc = None if z_b is None else z_b[:nbk]
+        if prec == "ieee":
+            got = fn(bm[s], bp[s], *cut, False, prec, z_b=zc)
+            want, p_ms = cuda_timed(lambda: ensrf_fused.fused_apply_plain(
+                bm[s], bp[s], *cut, precision=prec, z_b=zc))
+            torch.cuda.synchronize()
+            r = dict(max_abs_err=max(compare(f"{label} mean", got[0],
+                                             want[0]),
+                                     compare(f"{label} perts", got[1],
+                                             want[1])))
+        else:
+            launch, plain, nbk = _b2_block_fns(cut)
+            r = hold_mode(label, launch, plain, bm[s], bp[s], nbk, prec,
+                          operand_faults=False)
+            r.pop("out")
+            p_ms = r.pop("plain_ms")
+        return dict(r, ms=_launch_ms(full), plain_ms=p_ms,
+                    shape=f"{nrows} x {m}, {nb} blocks of {bsz}",
+                    plan=plan._asdict(), held=f"{len(s)} rows x {nbk} "
+                    "blocks", **b)
+    entry, bm, bp, w, table, y_b, ggt_b, coef_b, vt, _ = a
+    prec = k.get("precision", "ieee")
+    z_b = k.get("z_b")
+    nrows, m = bp.shape
+    nb, bsz, _ = y_b.shape
+    g = nrows // vt
+    full = lambda: fn(entry, bm, bp, w, table, y_b, ggt_b, coef_b, vt, False,
+                      precision=prec, z_b=z_b)
+    nbyte = nbytes(bm, bp, w, table, y_b, ggt_b, coef_b, z_b, bm, bp)
+    plan = ensrf_grid.plan(bsz, m, prec)
+    b = mode_bound(body_flop(nrows, nb, bsz, m, "products"),
+                   body_flop(nrows, nb, bsz, m, "rest", plan.sub), nbyte,
+                   prec)
+    pts = _sample(g, max(1, rows // vt), 29, bp.device)
+    idx = (torch.arange(vt, device=bp.device)[:, None] * g
+           + pts[None, :]).reshape(-1)
+    nbk = min(blocks if prec == "ieee" else mode_blocks, nb)
+    cut = (None if w is None else w[:nbk][:, :, pts].contiguous(),
+           None if table is None else table[:, :nbk].contiguous(),
+           y_b[:nbk], ggt_b[:nbk], coef_b[:nbk])
+    zc = None if z_b is None else z_b[:nbk]
+    if prec == "ieee":
+        got = fn(entry, bm[idx], bp[idx], *cut, vt, False, precision=prec,
+                 z_b=zc)
+        want, p_ms = cuda_timed(lambda: ensrf_grid.grid_apply_plain(
+            bm[idx], bp[idx], *cut, vt, z_b=zc))
+        torch.cuda.synchronize()
+        r = dict(max_abs_err=max(compare(f"{label} mean", got[0], want[0]),
+                                 compare(f"{label} perts", got[1], want[1])))
+    else:
+        launch, plain, nbk = _grid_block_fns(entry, *cut, vt)
+        r = hold_mode(label, launch, plain, bm[idx], bp[idx], nbk, prec,
+                      operand_faults=False)
+        r.pop("out")
+        p_ms = r.pop("plain_ms")
+    return dict(r, ms=_launch_ms(full), plain_ms=p_ms,
+                shape=f"{vt} x {g} x {m}, {nb} blocks of {bsz}",
+                plan=plan._asdict(),
+                held=f"{len(idx)} rows x {nbk} blocks", **b)
+
+
+def _launch_ms(fn) -> float:
+    """:func:`cuda_ms` of ``fn``, over 3 runs where one takes under 50 ms
+    (else that one)."""
+    ms = cuda_ms(fn, 1)
+    return cuda_ms(fn, 3) if ms < 50.0 else ms
+
+
+def _hold_all(label, spy, p) -> dict:
+    """:func:`_hold_call` of every launch ``spy`` caught; logs one line a
+    kernel.  Returns ``{kind: numbers}``."""
+    out = {}
+    for kind, call in spy.calls.items():
+        r = out[kind] = _hold_call(kind, call, p["hold_rows"],
+                                   p["hold_blocks"], p["mode_hold_blocks"])
+        log(f"phase 29 {label}: {kind} [{r['shape']}] matches plain "
+            f"({r.get('held', 'whole launch')}): err {r['max_abs_err']:.3e} "
+            f"kernel {r['ms']:.3f} ms plain {r['plain_ms']:.1f} ms bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f" plan {r['plan']}" if "plan" in r else
+               f" cluster {r['cluster']}, slab in "
+               f"{'device' if r['device_slab'] else 'shared'} memory"))
+    return out
+
+
+def _wide_api_state(dev, nmems, ny=1024, nobs=2048, seed=1):
+    """Phase 4's grid at ``nmems`` members, its field N(280, 5) drawn on
+    ``dev`` (``nmems`` x ``ny``^2 normals; the host draws phase 4's 80),
+    and the first ``nobs`` of phase 4's obs (:func:`_api_draws`, kept from
+    phase 4).  Returns ``(state, batch)``."""
+    import torch
+
+    from efa_xray_tpu_torch import EnsembleState
+    from efa_xray_tpu_torch.observation.observation import ObservationBatch
+
+    _, coords, full = _api_workload(seed=seed, ny=ny)
+    keep = lambda x: np.asarray(x)[:nobs]
+    batch = ObservationBatch(
+        values=keep(full.values), errors=keep(full.errors),
+        lats=keep(full.lats), lons=keep(full.lons),
+        times_s=keep(full.times_s), obtypes=list(full.obtypes)[:nobs],
+        localize_radius=keep(full.localize_radius),
+        assimilate_flags=keep(full.assimilate_flags),
+        verts=keep(full.verts), descriptions=[None] * nobs)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    field = 280.0 + 5.0 * torch.randn((1, ny, ny, nmems), generator=gen,
+                                      device=dev)
+    coords = dict(coords, mem=np.arange(nmems))
+    return EnsembleState.from_vardict({"T2m": field}, coords,
+                                      dtype="float32", device=dev), batch
+
+
+def _wide_update(label, state, batch, cfg, route, expect, p, plain=None,
+                 warm=True):
+    """``EnSRF(state, batch, config=cfg).update()`` on ``route`` once with
+    every kernel's first launch caught and held (:func:`_hold_all`), its
+    launches checked with ``expect``, and the posterior held against the
+    plain blocked update (``plain``: :func:`_plain_update`'s tuple, made
+    here when None on ``p["plain_rows"]`` of the state's rows; ``False``:
+    not held, a mode's update); then, with ``warm``, once more for the
+    wall (tail and body split) and the peak memory.  Returns
+    ``(posterior mean, numbers)``."""
+    import torch
+
+    from efa_xray_tpu_torch import EnSRF
+
+    filt = lambda: EnSRF(state, batch, config=cfg, verbose=False)
+    nstate = state.structure.nstate
+    check(filt()._route(nstate) == route,
+          f"phase 29 {label}: routed to {filt()._route(nstate)}, not {route}")
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _KernelCalls() as spy:
+        post, obs = filt().update()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = _counts()
+    check(expect(counts), f"phase 29 {label}: launches {counts}")
+    r = dict(launches={k: v for k, v in counts.items() if v},
+             first_wall_s=first,
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    t0 = time.perf_counter()
+    if plain is not False:
+        rows = (None if plain is not None else
+                _sample(nstate, p["plain_rows"], 7, state.device))
+        r["mean_err"], r["incr_rms"], *inn = _check_api(
+            f"phase 29 {label}", state, batch, cfg, post, obs, plain=plain,
+            rows=rows)
+        r["mean_abs_innov"] = inn
+    r["check_s"] = time.perf_counter() - t0
+    post_mean = post.to_vect().mean(dim=1)
+    del post, obs
+    if warm:
+        torch.cuda.reset_peak_memory_stats()
+        (post, _), wall, spent = _timed_update(filt)
+        r.update(warm_wall_s=wall, tail_s=spent["tail"],
+                 body_s=spent["body"],
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del post
+    t0 = time.perf_counter()
+    r["kernels"] = _hold_all(label, spy, p)
+    r["holds_s"] = time.perf_counter() - t0
+    del spy
+    log(f"phase 29 {label}: " + json.dumps(
+        {k: v for k, v in r.items() if k != "kernels"}))
+    return post_mean, r
+
+
+def _phase29_api(p) -> dict:
+    """Phase 29 (a): ``EnSRF.update()`` at ``p["nmems"]`` members on phase
+    4's grid and the first ``p["nobs"]`` of its obs: the default config (B1
+    + B4), ``fast_geometry`` (B1 + B2), hybrid (B1h + B2h), and TF32 and
+    bf16 on B2 and on B4 (each against the fp32 update of its route at
+    phase 26's gate (b))."""
+    import dataclasses
+
+    import torch
+
+    from efa_xray_tpu_torch import FilterConfig
+
+    dev = torch.device("cuda")
+    state, batch = _wide_api_state(dev, p["nmems"], p["ny"], p["nobs"])
+    nobs = batch.nobs
+    tail = _tail_counts(nobs, 512, True)
+    nblocks = -(-nobs // 128)
+    runs = {
+        "default (B1 + B4)": (FilterConfig(localization="GC"), "B4",
+                              _only(B1=tail["panels"],
+                                    B4=nblocks + tail["b4"])),
+        "fast_geometry (B1 + B2)": (
+            FilterConfig(localization="GC", fast_geometry=True), "B2",
+            _only(B1=tail["panels"], B2=None)),
+        "hybrid (B1h + B2h)": (
+            _hybrid_config(state.structure.nstate, 29), "B2h",
+            _only(B1h=tail["panels"], B2h=1)),
+    }
+    out, means = {}, {}
+    prior = state.to_vect().mean(dim=1)
+    for label, (cfg, route, expect) in runs.items():
+        means[route], out[label] = _wide_update(
+            f"(a) {p['nmems']} members {label}", state, batch, cfg, route,
+            expect, p)
+    for route, base in (("B2", runs["fast_geometry (B1 + B2)"]),
+                        ("B4", runs["default (B1 + B4)"])):
+        for mode in ("tf32", "bf16"):
+            cfg = dataclasses.replace(base[0],
+                                      matmul_precision=MODE_SETTING[mode])
+            label = f"{route} {mode}"
+            mean, r = _wide_update(f"(a) {p['nmems']} members {label}",
+                                   state, batch, cfg, route, base[2], p,
+                                   plain=False, warm=False)
+            r["mean_err_share"] = _rms_share(mean, means[route], prior)
+            check(0.0 < r["mean_err_share"] <= API_MODE_GATE[mode],
+                  f"phase 29 {label}: posterior mean {r['mean_err_share']:.3e}"
+                  f" of the fp32 increment RMS (gate {API_MODE_GATE[mode]};"
+                  " 0: the mode took no effect)")
+            out[label] = r
+    return out
+
+
+def _phase29_blocks(p) -> dict:
+    """Phase 29 (b): phase 4's 80-member workload at each block of
+    ``p["blocks"]`` through B2 (``fast_geometry``) and B4 (the default
+    config), each held against the plain update at blocks of 128 (the
+    blocked update is exact for any block: the same algebra, rounded in
+    another order); then config 4's headline body at
+    ``p["headline_block"]`` (the JAX package culls no block over 256 obs),
+    timed and held on a 20k-row sample."""
+    import torch
+
+    from efa_xray_tpu_torch import FilterConfig
+    from efa_xray_tpu_torch.ops import ensrf_fused
+
+    dev = torch.device("cuda")
+    state, batch = _api_state(dev)
+    nobs = batch.nobs
+    tail = _tail_counts(nobs, 512, True)
+    out = {}
+    for route, fast in (("B2", True), ("B4", False)):
+        # The plain updates of phases 4 (B2) and 9 (B4), kept.
+        cfg128 = (FilterConfig(localization="GC", dtype="float32",
+                               fast_geometry=True) if fast else
+                  FilterConfig(localization="GC"))
+        plain = _plain_kept(("api", 1024, 10_000, 80) if fast else
+                            ("api default", 1024, 10_000, 80), state, batch,
+                            cfg128)
+        for bsz in p["blocks"]:
+            cfg = FilterConfig(localization="GC", fast_geometry=fast,
+                               block_size=bsz)
+            expect = (_only(B1=tail["panels"], B2=None) if fast else
+                      _only(B1=tail["panels"],
+                            B4=-(-nobs // bsz) + tail["b4"]))
+            _, out[f"{route} block {bsz}"] = _wide_update(
+                f"(b) 80 members {route} block {bsz}", state, batch, cfg,
+                route, expect, p, plain=plain, warm=False)
+    del state
+    tail_phase, _, w = _headline()
+    bsz = p["headline_block"]
+    body = lambda t: ensrf_fused.fused_body(
+        w["bm"], w["bp"], w["lat"], w["lon"], t, w["obs"], localize=True,
+        block_size=bsz, max_radius_km=w["radius"])
+    body(tail_phase())  # the new shape's first launches
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    t = tail_phase()
+    ev[1].record()
+    bm2, bp2 = body(t)
+    ev[2].record()
+    ev[2].synchronize()
+    counts = _counts()
+    check(_only(B1=None, B2=None)(counts),
+          f"phase 29 headline: launches {counts}")
+    s = _sample(w["nstate"], 20_000, 5, dev)
+    ops = ensrf_fused.prepare(w["bp"][s], w["lat"][s], w["lon"][s], t,
+                              w["obs"], block_size=bsz,
+                              max_radius_km=w["radius"])
+    pm, pp = ensrf_fused.fused_apply_plain(
+        w["bm"][s], w["bp"][s], ops["geom"], ops["y_b"], ops["ggt_b"],
+        ops["tab_b"], None, ops["tile"], True, False, ops["series"])
+    err = max(compare("phase 29 headline sample mean", bm2[s], pm),
+              compare("phase 29 headline sample perts", bp2[s], pp))
+    out["headline"] = dict(
+        block=bsz, plan=ensrf_fused.plan(bsz, 80)._asdict(),
+        update_s=ev[0].elapsed_time(ev[2]) / 1e3,
+        tail_s=ev[0].elapsed_time(ev[1]) / 1e3,
+        body_s=ev[1].elapsed_time(ev[2]) / 1e3,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        sample_max_abs_err=err, launches=counts)
+    log(f"phase 29 (b) config 4 headline 1e7 x 80 x 10k obs at blocks of "
+        f"{bsz}: " + json.dumps(out["headline"]))
+    return out
+
+
+def _phase29_config3(p) -> dict:
+    """Phase 29 (c): BASELINE config 3's gridded state at ``p["nmems"]``
+    members through phase 8's two configurations (B4 at the defaults, B3
+    with ``fast_geometry`` and varloc)."""
+    state, batch, names = _config3_workload(**p["c3"])
+    nblocks = -(-batch.nobs // 128)
+    tail = _tail_counts(batch.nobs, 512, True)
+    expects = {"B4": _only(B1=tail["panels"], B4=nblocks + tail["b4"]),
+               "B3": _only(B1=tail["panels"], B4=tail["b4"], B3=None)}
+    return {route: _wide_update(
+        f"(c) config 3 at {p['c3']['nmems']} members {label}", state, batch,
+        cfg, route, expects[route], p, warm=False)[1]
+        for label, cfg, route in _config3_runs(names)}
+
+
+def _phase29_enkf(p) -> dict:
+    """Phase 29 (d): ``EnKF.update()`` at config 11 with ``p["c11"]``
+    (B1e + B2e with ``fast_geometry``; the default config, B1e + B4e):
+    launches, no synchronizing call inside the update, held against the
+    plain route (its per-ob tail and plain body) with the same draws, each
+    kernel's first launch held."""
+    import torch
+
+    from efa_xray_tpu_torch import EnKF, FilterConfig
+    from efa_xray_tpu_torch.assimilation import enkf as tenkf
+
+    q = dict(CONFIG11, **p["c11"])
+    sync = _syncer("cuda")
+    state, batch = _half_degree_workload("cuda", **q)
+    run = lambda c: (lambda: EnKF(state, batch, config=c, verbose=False,
+                                  seed=q["seed"]).update())
+    out = {}
+    for route, cfg in (
+            ("B2", FilterConfig(localization="GC", fast_geometry=True,
+                                block_size=q["block"])),
+            ("B4", FilterConfig(localization="GC", block_size=q["block"]))):
+        real, seen = tenkf.enkf_kernel_update, {}
+
+        def capture(*a, **k):
+            seen.setdefault("call", (a, k))
+            return real(*a, **k)
+
+        tenkf.enkf_kernel_update = capture
+        try:
+            _reset_counts()
+            with _KernelCalls() as spy:
+                (post, obs), first, _ = _spans(run(cfg), [], sync)
+            counts = _counts()
+        finally:
+            tenkf.enkf_kernel_update = real
+        check(_enkf_only(q["nobs"], route, block=q["block"])(counts),
+              f"phase 29 (d) EnKF {route}: launches {counts}")
+        a, k = seen["call"]
+        syncs = _sync_free(lambda: real(*a, **k))[1]
+        check(not syncs, f"phase 29 (d) EnKF {route}: the update waited on "
+              f"the card: {syncs}")
+        del a, k, seen
+        torch.cuda.reset_peak_memory_stats()
+        _, wall, _ = _spans(run(cfg), [], sync)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        plain_route = tenkf.enkf_route
+        tenkf.enkf_route = lambda *a: "plain"
+        try:
+            (post_p, _), wall_p, _ = _spans(run(cfg), [], sync)
+        finally:
+            tenkf.enkf_route = plain_route
+        r = out[f"EnKF {route}"] = dict(
+            launches={n: v for n, v in counts.items() if v},
+            first_wall_s=first, warm_wall_s=wall, plain_s=wall_p,
+            peak_gb=peak, syncs_in_update=len(syncs),
+            kernel_vs_plain=_posterior_gap(
+                f"phase 29 (d) EnKF {route} vs the plain route", post,
+                post_p, state),
+            mean_abs_innov=_innovations(f"phase 29 (d) EnKF {route}", batch,
+                                        obs, var_shrinks=False))
+        del post, post_p
+        log(f"phase 29 (d) EnKF config 11 at {q['nmems']} members, route "
+            f"{route}: " + json.dumps(r))
+        r["kernels"] = _hold_all(f"(d) EnKF {route}", spy, p)
+    return out
+
+
+@contextlib.contextmanager
+def _letkf_plain_route():
+    """The LETKF's chunk solve with LG's and NS's plain versions (the
+    weights and Grams in torch, the Newton-Schulz loop that reads each
+    error back, then the two products) in place of the kernels."""
+    import math
+
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+    from efa_xray_tpu_torch.ops import letkf_gram
+
+    real_lg, real_ns = letkf_gram.local_gram, tl._newton_schulz_weights
+
+    def lg_plain(*a, table=None, amat=None, b=None, **kw):
+        return letkf_gram.local_gram_plain(*a, **kw)
+
+    def ns_plain(amat, b, iters, **_):
+        inv_sqrt, inv = tl._invsqrt_newton_schulz_plain(amat, iters)[:2]
+        m = amat.shape[-1]
+        return (inv @ b[..., None])[..., 0], math.sqrt(m - 1) * inv_sqrt
+
+    letkf_gram.local_gram, tl._newton_schulz_weights = lg_plain, ns_plain
+    try:
+        yield
+    finally:
+        letkf_gram.local_gram, tl._newton_schulz_weights = real_lg, real_ns
+
+
+def _phase29_letkf(p) -> dict:
+    """Phase 29 (e): ``LETKF.update()`` at ``p["c6"]`` members on a region
+    of config 6's half-degree grid (its obs, patches, k and chunks): LG and
+    NS once a chunk, no synchronizing call inside the analysis, held
+    against the plain route; LG and NS held against their plain versions
+    on the first chunk."""
+    import torch
+
+    from efa_xray_tpu_torch import FilterConfig, LETKF
+    from efa_xray_tpu_torch.assimilation import letkf_core as tl
+
+    q = dict(CONFIG6, **p["c6"])
+    sync = _syncer("cuda")
+    state, batch = _half_degree_workload("cuda", **q)
+    cfg = FilterConfig(localization="GC", letkf_patch_size=q["patch"],
+                       letkf_k_obs=q["k"], letkf_chunk=q["chunk"])
+    run = lambda: LETKF(state, batch, config=cfg).update()
+    real, seen = tl.letkf_update, {}
+
+    def capture(*a, **k):
+        seen.setdefault("call", (a, k))
+        return real(*a, **k)
+
+    first, lg_first = [], []
+
+    def run_lg():
+        out, calls = _lg_calls(run, lambda i, a: i == 0)
+        lg_first[:] = calls
+        return out
+
+    tl.letkf_update = capture
+    try:
+        _reset_counts()
+        tl.reset_counts()
+        (_, first_s, _) = _spans(lambda: _first_ns_input(run_lg, first), [],
+                                 sync)
+        counts, ns = _counts(), tl.ns_counts()
+    finally:
+        tl.letkf_update = real
+    chunks = ns["calls"]
+    check(chunks >= 1 and _only(NS=chunks, LG=chunks)(counts),
+          f"phase 29 (e) LETKF: launches {counts} ({chunks} chunks)")
+    a, k = seen.pop("call")
+    syncs = _sync_free(lambda: real(*a, **k))[1]
+    check(not syncs, f"phase 29 (e) LETKF: the analysis waited on the card: "
+          f"{syncs}")
+    del a, k
+    torch.cuda.reset_peak_memory_stats()
+    (post, obs), wall, _ = _spans(run, [], sync)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with _letkf_plain_route():
+        (post_p, _), wall_p, _ = _spans(run, [], sync)
+    r = dict(grid=f"{q['ny']} x {q['nx']} at 0.5 degrees (a region: depth "
+             f"cut of config 6's 361 x 720)", nmems=q["nmems"],
+             nobs=q["nobs"], chunks=chunks, launches={
+                 n: v for n, v in counts.items() if v},
+             ns_per_chunk=ns["iterations"] / max(chunks, 1),
+             first_wall_s=first_s, warm_wall_s=wall, plain_s=wall_p,
+             peak_gb=peak, syncs_in_update=len(syncs),
+             kernel_vs_plain=_posterior_gap(
+                 "phase 29 (e) LETKF vs the plain route", post, post_p,
+                 state),
+             mean_abs_innov=_innovations("phase 29 (e) LETKF", batch, obs))
+    del post, post_p
+    log(f"phase 29 (e) LETKF: " + json.dumps(r))
+    # NS's launch at 512 members takes ~0.2 s: one a run.
+    r["kernels"] = dict(NS=_ns_hold(f"{q['nmems']} members, first chunk",
+                                    *first[1], inner=1),
+                        LG=_lg_hold(f"{q['nmems']} members, first chunk",
+                                    *lg_first[0]))
+    return r
+
+
+# The kernels line's entries of phase 29: (name, held kernel, phase 29's
+# part and run, source, TPU kernel).
+FUSED_CU = "efa_xray_tpu_torch/csrc/ensrf_fused.cu"
+GRID_CU = "efa_xray_tpu_torch/csrc/ensrf_grid.cu"
+TAIL_CU = "efa_xray_tpu_torch/csrc/tail_solve.cu"
+WIDE_KERNELS = (
+    ("B1 tail panel solve (512 members)", "B1", "api",
+     "default (B1 + B4)", TAIL_CU, "efa_xray_tpu/ops/tail_solve_pallas.py:46"),
+    ("B1h tail panel solve, hybrid (512 members)", "B1h", "api",
+     "hybrid (B1h + B2h)", TAIL_CU,
+     "efa_xray_tpu/ops/tail_solve_pallas.py:46"),
+    ("B1e tail panel solve, EnKF (config 11, 512 members)", "B1e", "enkf",
+     "EnKF B2", TAIL_CU, "efa_xray_tpu/ops/tail_solve_pallas.py:46"),
+    ("B2 fused body (512 members)", "B2", "api", "fast_geometry (B1 + B2)",
+     FUSED_CU, "efa_xray_tpu/ops/ensrf_pallas_fused.py:117"),
+    ("B2 fused body (tf32 products, 512 members)", "B2 tf32", "api",
+     "B2 tf32", FUSED_CU, "efa_xray_tpu/ops/ensrf_pallas_fused.py:117"),
+    ("B2 fused body (bf16 products, 512 members)", "B2 bf16", "api",
+     "B2 bf16", FUSED_CU, "efa_xray_tpu/ops/ensrf_pallas_fused.py:117"),
+    ("B2 fused body (80 members, blocks of 1024)", "B2", "blocks",
+     "B2 block 1024", FUSED_CU, "efa_xray_tpu/ops/ensrf_pallas_fused.py:117"),
+    ("B2h fused body, hybrid (512 members)", "B2h", "api",
+     "hybrid (B1h + B2h)", FUSED_CU,
+     "efa_xray_tpu/ops/ensrf_pallas_fused.py:208"),
+    ("B2e fused body, EnKF (config 11, 512 members)", "B2e", "enkf",
+     "EnKF B2", FUSED_CU, "efa_xray_tpu/ops/ensrf_pallas_fused.py:117"),
+    ("B3 grid body (config 3, 512 members)", "B3", "config3", "B3", GRID_CU,
+     "efa_xray_tpu/ops/ensrf_pallas_fused.py:784"),
+    ("B4 block apply (512 members)", "B4", "api", "default (B1 + B4)",
+     GRID_CU, "efa_xray_tpu/ops/ensrf_pallas.py:68"),
+    ("B4 block apply (tf32 products, 512 members)", "B4 tf32", "api",
+     "B4 tf32", GRID_CU, "efa_xray_tpu/ops/ensrf_pallas.py:68"),
+    ("B4 block apply (bf16 products, 512 members)", "B4 bf16", "api",
+     "B4 bf16", GRID_CU, "efa_xray_tpu/ops/ensrf_pallas.py:68"),
+    ("B4 block apply (80 members, blocks of 1024)", "B4", "blocks",
+     "B4 block 1024", GRID_CU, "efa_xray_tpu/ops/ensrf_pallas.py:68"),
+    ("B4e block apply, EnKF (config 11, 512 members)", "B4e", "enkf",
+     "EnKF B4", GRID_CU, "efa_xray_tpu/ops/ensrf_pallas.py:68"),
+)
+
+
+def _wide_rows(wide) -> list:
+    """The kernels line's entries of phase 29's results ``wide``: each
+    kernel's held launch with the most rows (the body's, not a tail's
+    out-of-panel apply) and its run's launches, NS and LG on the LETKF's
+    first chunk."""
+    rows = []
+    for name, kind, part, run, source, replaces in WIDE_KERNELS:
+        r = wide[part][run]
+        held = [v for k, v in r["kernels"].items()
+                if k.rsplit(" (", 1)[0] == kind]
+        check(bool(held), f"phase 29 {run}: no {kind} launch was held")
+        best = max(held, key=lambda v: v["bound_ms"])
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces,
+                         launches=r["launches"][kind.split()[0]],
+                         library_ms=None,
+                         **{k: best[k] for k in NS_KEYS}))
+    letkf = wide["letkf"]
+    for name, source, replaces in (
+            ("NS", "efa_xray_tpu_torch/csrc/newton_schulz.cu",
+             "efa_xray_tpu/assimilation/letkf_core.py:406"),
+            ("LG", "efa_xray_tpu_torch/csrc/letkf_gram.cu",
+             "efa_xray_tpu/assimilation/letkf_core.py:592")):
+        rows.append(dict(name=f"{name} (512 members, LETKF first chunk)",
+                         route="cuda", source=source, replaces=replaces,
+                         launches=letkf["launches"][name], library_ms=None,
+                         **{k: letkf["kernels"][name][k] for k in NS_KEYS}))
+    return rows
+
+
+def phase29(**cut):
+    """Any ensemble and any block on the card (fault C5 of ROADMAP queue
+    C): (a) ``EnSRF.update()`` at 512 members on phase 4's grid and the
+    first 2,048 of its obs through B1 + B4, B1 + B2, B1h + B2h and TF32 /
+    bf16 on B2 and B4; (b) phase 4's workload at 80 members at blocks of
+    256, 512 and 1024 through B2 and B4, and config 4's headline at
+    blocks of 512; (c) config 3 at 512 members (2,000 obs) through B4 and
+    B3 + varloc; (d) the EnKF at config 11 with 512 members (B1e + B2e,
+    B1e + B4e); (e) the LETKF at 512 members on a region of config 6's
+    grid.  Every update: its launches, held against the plain route (on
+    sampled rows; a mode's against the fp32 update), each kernel's first
+    launch at each row count against its plain version on its own
+    operands, its walls (a warm second run for (a)'s three routes, (d) and
+    (e); the first run, after the earlier phases' warm-up, elsewhere) and
+    peak memory.  ``cut`` overrides :data:`PHASE29`.  Returns the
+    numbers."""
+    p = dict(PHASE29, **cut)
+    out = {}
+    for key, part in (("api", _phase29_api), ("blocks", _phase29_blocks),
+                      ("config3", _phase29_config3),
+                      ("enkf", _phase29_enkf), ("letkf", _phase29_letkf)):
+        t0 = time.perf_counter()
+        out[key] = part(p)
+        log(f"phase 29 {key} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _library_mm_ms(a, b, mode: str) -> float:
     """Milliseconds of the ``torch.matmul`` that computes what P's mode
     ``mode`` does: float32 with TF32 off ("ieee") or on ("tf32"), or on
@@ -6172,6 +6949,93 @@ PARENT_GRID_SOURCE = os.path.join("build", "efa_xray_tpu_torch", "parent",
 PARENT_GRID_TILE = 64
 
 
+def _with_lib(lib, fn):
+    """``fn()`` with ``lib`` as the kernel library the wrappers call."""
+    from efa_xray_tpu_torch.ops import _build
+
+    saved = _build.lib
+    _build.lib = lambda: lib
+    try:
+        return fn()
+    finally:
+        _build.lib = saved
+
+
+# The C entries of the parent commit's B1, B2 and B3/B4 (the sources of
+# before the one-entry launches), bound only where --steps times them.
+_P_, _I_, _F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PARENT_ENTRIES = {
+    "efa_tail_solve": [_P_] * 8 + [_F_] + [_I_] * 5 + [_P_] * 12,
+    "efa_tail_solve_enkf": [_P_] * 7 + [_I_] * 4 + [_P_] * 11,
+    "efa_fused_body": [_P_] * 7 + [_I_] * 10 + [_P_] * 3,
+    "efa_fused_body_enkf": [_P_] * 8 + [_I_] * 8 + [_P_] * 3,
+    "efa_grid_body": [_P_] * 7 + [_I_] * 7 + [_P_] * 3,
+    "efa_block_apply_enkf": [_P_] * 8 + [_I_] * 5 + [_P_] * 3,
+}
+
+
+class _ParentEntries:
+    """A library built from the parent commit's source, seen through this
+    source's entries (``efa_tail_launch``, ``efa_fused_launch``,
+    ``efa_grid_launch``) at the shapes it took: the slab in the cluster,
+    every member at once.  Its grid entry takes the product mode where
+    its ``efa_grid_abi`` is 1 (0: a source from before the modes)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        abi = lib.efa_grid_abi() if hasattr(lib, "efa_grid_abi") else 0
+        check(abi in (0, 1), f"steps: the parent's grid ABI is {abi}")
+        self.grid_mode = abi == 1
+        for name, argtypes in PARENT_ENTRIES.items():
+            if hasattr(lib, name):
+                if name == "efa_grid_body" and not self.grid_mode:
+                    argtypes = argtypes[:-4] + argtypes[-3:]
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = ctypes.c_int
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def efa_tail_launch(self, tm, tp, vals, errs, assim, w, gc, sig, eps,
+                        ring, alpha, p, m, unbiased, sub, cluster, *outs):
+        (tm_o, tp_o, ye_o, z_o, gain_o, sqrt_o, pm_o, pv_o, om_o, ov_o,
+         sg_o, ss_o, stream) = outs
+        check(ring is None, "steps: the parent's B1 holds its slab in the "
+              "cluster")
+        if eps is None:
+            return self.lib.efa_tail_solve(
+                tm, tp, vals, errs, assim, w, gc, sig, alpha, p, m, unbiased,
+                sub, cluster, tm_o, tp_o, ye_o, gain_o, sqrt_o, pm_o, pv_o,
+                om_o, ov_o, sg_o, ss_o, stream)
+        return self.lib.efa_tail_solve_enkf(
+            tm, tp, vals, errs, assim, w, eps, p, m, unbiased, cluster, tm_o,
+            tp_o, ye_o, z_o, gain_o, sqrt_o, pm_o, pv_o, om_o, ov_o, stream)
+
+    def efa_fused_launch(self, bm, bp, geom, y, z, ggt, tab, bits, n, m, ms,
+                         b, nb, t, loc, vert, series, hybrid, mode, *outs):
+        check(ms == m, "steps: the parent's B2 stages every member")
+        if z is None:
+            return self.lib.efa_fused_body(bm, bp, geom, y, ggt, tab, bits, n,
+                                           m, b, nb, t, loc, vert, series,
+                                           hybrid, mode, *outs)
+        return self.lib.efa_fused_body_enkf(bm, bp, geom, y, z, ggt, tab,
+                                            bits, n, m, b, nb, t, loc, vert,
+                                            series, *outs)
+
+    def efa_grid_launch(self, bm, bp, w, table, y, z, ggt, coef, vt, g, m,
+                        ms, b, nb, t, mode, *outs):
+        check(ms == m and (mode == 0 or self.grid_mode),
+              "steps: the parent's grid kernel stages every member (and "
+              "takes a mode from ABI 1 on)")
+        if z is not None:
+            check(nb == 1, "steps: the parent's B4e takes one block")
+            return self.lib.efa_block_apply_enkf(bm, bp, w, table, y, z, ggt,
+                                                 coef, vt, g, m, b, t, *outs)
+        return self.lib.efa_grid_body(
+            bm, bp, w, table, y, ggt, coef, vt, g, m, b, nb, t,
+            *((mode,) if self.grid_mode else ()), *outs)
+
+
 # Parts of the grid kernel that a build with -DEFA_GRID_SKIP=<bits> leaves
 # out (csrc/ensrf_grid.cu), so that --steps can time what each costs.
 GRID_PARTS = {"the in-panel chain": 1, "the trailing update": 2,
@@ -6180,19 +7044,13 @@ GRID_PARTS = {"the in-panel chain": 1, "the trailing update": 2,
 
 
 def _grid_libs():
-    """Builds of the grid kernel beside the port's own, one ``nvcc`` each,
-    all started together, in ``build/efa_xray_tpu_torch/variants``: one
-    per entry of ``GRID_PARTS`` and, under the name "parent", the source
-    at ``PARENT_GRID_SOURCE`` where that file exists.  Returns ``{name:
-    (library, whether its entries take a product mode)}``: sources from
-    before the modes take none."""
-    import ctypes
-
+    """Builds of the grid kernel beside the port's own
+    (:func:`_build_variants`): one per entry of ``GRID_PARTS`` and, under
+    the name "parent", the source at ``PARENT_GRID_SOURCE`` where that
+    file exists (:class:`_ParentEntries`).  Returns ``{name: library}``."""
     from efa_xray_tpu_torch.ops import _build
 
     root = os.path.dirname(os.path.abspath(__file__))
-    out_dir = os.path.join(root, "build", "efa_xray_tpu_torch", "variants")
-    os.makedirs(out_dir, exist_ok=True)
     own = str(_build.CSRC / "ensrf_grid.cu")
     specs = {name: (own, [f"-DEFA_GRID_SKIP={bits}"])
              for name, bits in GRID_PARTS.items()}
@@ -6201,31 +7059,9 @@ def _grid_libs():
     else:
         log(f"steps: no {PARENT_GRID_SOURCE}; the parent's kernel is not "
             "compared")
-    procs = {}
-    for i, (name, (src, flags)) in enumerate(specs.items()):
-        out = os.path.join(out_dir, f"libgrid_{i}.so")
-        procs[name] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o", out,
-             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for name, (out, proc) in procs.items():
-        text, _ = proc.communicate()
-        check(proc.returncode == 0, f"steps: nvcc failed for {name}:\n{text}")
-        lib = ctypes.CDLL(out)
-        # The version of the entries' signatures (csrc/ensrf_grid.cu
-        # efa_grid_abi; 0 where the source predates it).
-        abi = lib.efa_grid_abi() if hasattr(lib, "efa_grid_abi") else 0
-        check(abi in (0, 1), f"steps: {name}: unknown grid ABI {abi}")
-        takes_mode = abi == 1
-        for fn_name in ("efa_grid_body", "efa_block_apply"):
-            fn = getattr(lib, fn_name)
-            argtypes = list(_build._SIGNATURES[fn_name])
-            if not takes_mode:  # the int before the three pointers
-                del argtypes[-4]
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        libs[name] = (lib, takes_mode)
+    libs = _build_variants(specs, "libgrid")
+    if "parent" in libs:
+        libs["parent"] = _ParentEntries(libs["parent"])
     return libs
 
 
@@ -6241,23 +7077,11 @@ def _grid_variants(label, entry, libs, bm, bp, w, table, y_b, ggt_b, coef_b,
 
     from efa_xray_tpu_torch.ops import ensrf_grid
 
-    nblocks, bsz, nmems = y_b.shape
+    _, bsz, nmems = y_b.shape
     ops = (w, table, y_b, ggt_b, coef_b)
 
     def run(tile):
         return ensrf_grid.grid_apply_cuda(entry, bm, bp, *ops, vt, tile=tile)
-
-    def run_lib(entry_lib, tile):
-        lib, takes_mode = entry_lib
-        out_m, out_p = torch.empty_like(bm), torch.empty_like(bp)
-        ptrs = [None if t is None else t.data_ptr() for t in (bm, bp, *ops)]
-        dims = (vt, bp.shape[0] // vt, nmems, bsz)
-        tail = (tile, *((0,) if takes_mode else ()), out_m.data_ptr(),
-                out_p.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        err = (lib.efa_grid_body(*ptrs, *dims, nblocks, *tail)
-               if entry == "B3" else lib.efa_block_apply(*ptrs, *dims, *tail))
-        check(err == 0, f"steps {label}: CUDA error {err}")
-        return out_m, out_p
 
     want = run(None)
     out = []
@@ -6266,7 +7090,8 @@ def _grid_variants(label, entry, libs, bm, bp, w, table, y_b, ggt_b, coef_b,
             if ensrf_grid.ctas_per_sm(t, bsz, nmems) >= 1]
     if "parent" in libs:
         runs.append((f"the parent's kernel (tile {PARENT_GRID_TILE})",
-                     lambda: run_lib(libs["parent"], PARENT_GRID_TILE)))
+                     lambda: _with_lib(libs["parent"],
+                                       lambda: run(PARENT_GRID_TILE))))
     for name, fn in runs + runs[::-1]:
         got = fn()
         torch.cuda.synchronize()
@@ -6278,7 +7103,8 @@ def _grid_variants(label, entry, libs, bm, bp, w, table, y_b, ggt_b, coef_b,
     log(f"steps {label} ({entry}, the wrapper takes tile {tile}): "
         + "; ".join(f"{name}: {ms:.3f} ms" for name, ms in out))
     whole = cuda_ms(lambda: run(None), reps)
-    parts = [(name, cuda_ms(lambda: run_lib(libs[name], tile), reps))
+    parts = [(name, _with_lib(libs[name],
+                              lambda: cuda_ms(lambda: run(tile), reps)))
              for name in GRID_PARTS]
     log(f"steps {label} ({entry}) at tile {tile}, {whole:.3f} ms whole; "
         "without " + "; without ".join(
@@ -6336,29 +7162,15 @@ PARENT_TAIL_SOURCE = os.path.join("build", "efa_xray_tpu_torch", "parent",
 
 
 def _parent_tail_lib():
-    """The parent commit's B1 built from ``PARENT_TAIL_SOURCE`` (one
-    ``nvcc``), or None where that file does not exist."""
-    import ctypes
-
-    from efa_xray_tpu_torch.ops import _build
-
+    """The parent commit's B1 built from ``PARENT_TAIL_SOURCE``
+    (:class:`_ParentEntries`), or None where that file does not exist."""
     root = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(root, PARENT_TAIL_SOURCE)
     if not os.path.exists(src):
         log(f"steps: no {PARENT_TAIL_SOURCE}; the parent's B1 is not timed")
         return None
-    out = os.path.join(root, "build", "efa_xray_tpu_torch", "variants",
-                       "libtail_parent.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                          out, src], capture_output=True, text=True)
-    check(res.returncode == 0, f"steps: nvcc failed for the parent's B1:\n"
-          f"{res.stdout}{res.stderr}")
-    lib = ctypes.CDLL(out)
-    P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.efa_tail_solve.argtypes = [P_] * 6 + [I_] * 3 + [P_] * 10
-    lib.efa_tail_solve.restype = ctypes.c_int
-    return lib
+    return _ParentEntries(_build_variants({"parent": (src, [])},
+                                          "libtail_parent")["parent"])
 
 
 # Parts of B1 that a build with -DEFA_TAIL_SKIP=<bits> leaves out
@@ -6370,34 +7182,15 @@ TAIL_PARTS = {"the warp's serial steps": 1, "the Gram pass": 2,
 
 def _tail_part_libs():
     """Builds of B1 with each entry of ``TAIL_PARTS`` left out, and one
-    with sub-panels of 16 (``"sub 16"``), one ``nvcc`` each, all started
-    together.  Returns ``{name: library}``."""
-    import ctypes
-
+    with sub-panels of 16 (``"sub 16"``), by :func:`_build_variants`.
+    Returns ``{name: library}``."""
     from efa_xray_tpu_torch.ops import _build
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    out_dir = os.path.join(root, "build", "efa_xray_tpu_torch", "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    flags = {name: f"-DEFA_TAIL_SKIP={bits}"
+    src = str(_build.CSRC / "tail_solve.cu")
+    specs = {name: (src, [f"-DEFA_TAIL_SKIP={bits}"])
              for name, bits in TAIL_PARTS.items()}
-    flags["sub 16"] = "-DEFA_TAIL_SUB16=1"
-    for i, (name, flag) in enumerate(flags.items()):
-        out = os.path.join(out_dir, f"libtail_{i}.so")
-        procs[name] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, flag, "-shared", "-o", out,
-             str(_build.CSRC / "tail_solve.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (out, proc) in procs.items():
-        text, _ = proc.communicate()
-        check(proc.returncode == 0, f"steps: nvcc failed for {name}:\n{text}")
-        libs[name] = ctypes.CDLL(out)
-        libs[name].efa_tail_solve.argtypes = _build._SIGNATURES[
-            "efa_tail_solve"]
-        libs[name].efa_tail_solve.restype = ctypes.c_int
-    return libs
+    specs["sub 16"] = (src, ["-DEFA_TAIL_SUB16=1"])
+    return _build_variants(specs, "libtail")
 
 
 def b1_steps_phase():
@@ -6408,19 +7201,11 @@ def b1_steps_phase():
     (``TAIL_PARTS``; wrong results, timed only)."""
     import torch
 
-    from efa_xray_tpu_torch.ops import _build, tail_solve
+    from efa_xray_tpu_torch.ops import tail_solve
 
     parent = _parent_tail_lib()
     parts = _tail_part_libs()
     sub16 = parts.pop("sub 16")
-
-    def with_lib(lib, fn):
-        saved = _build.lib
-        _build.lib = lambda: lib
-        try:
-            return fn()
-        finally:
-            _build.lib = saved
 
     for label, p, m in (("512 x 80 chordal", 512, 80),
                         ("1024 x 256 chordal", 1024, 256)):
@@ -6435,26 +7220,14 @@ def b1_steps_phase():
                     run = (lambda sub=sub, c=c: tail_solve
                            .tail_panel_solve_cuda(*args, sub=sub, cluster=c))
                     if sub != tail_solve.DEFAULT_SUB:
-                        run = lambda run=run: with_lib(sub16, run)
+                        run = lambda run=run: _with_lib(sub16, run)
                     runs.append((f"sub {sub}, {c} CTA{'s' if c > 1 else ''}",
                                  run))
-        # The parent's kernel held the whole slab in one CTA.
-        if parent is not None and 4 * (p * (m | 1) + p + m) <= 232448:
-
-            def run_parent():
-                outs = [torch.empty_like(args[0]), torch.empty_like(args[1]),
-                        torch.empty_like(args[1])] + [
-                            torch.empty_like(args[0]) for _ in range(6)]
-                am = args[4].to(torch.uint8)
-                err = parent.efa_tail_solve(
-                    *(t.data_ptr() for t in args[:4]), am.data_ptr(),
-                    args[5].data_ptr(), p, m, 0,
-                    *(t.data_ptr() for t in outs),
-                    torch.cuda.current_stream().cuda_stream)
-                check(err == 0, f"steps: the parent's B1: CUDA error {err}")
-                return outs
-
-            runs.append(("the parent's kernel", run_parent))
+        # The parent's kernel took up to 256 members, its slab in the
+        # cluster.
+        if parent is not None and m <= 256:
+            runs.append(("the parent's kernel", lambda: _with_lib(
+                parent, lambda: tail_solve.tail_panel_solve_cuda(*args))))
         out = []
         for name, fn in runs + runs[::-1]:
             got = fn()
@@ -6471,7 +7244,7 @@ def b1_steps_phase():
                     *args, cluster=c)
                 whole = cuda_ms(run, 10)
                 timed_parts = [
-                    (name, with_lib(lib, lambda: cuda_ms(run, 10)))
+                    (name, _with_lib(lib, lambda: cuda_ms(run, 10)))
                     for name, lib in parts.items()]
                 log(f"steps B1 {label} at sub {tail_solve.DEFAULT_SUB}, {c} "
                     f"CTA{'s' if c > 1 else ''}: {whole:.3f} ms whole; "
@@ -6499,13 +7272,13 @@ IEEE_KERNELS = {"ensrf_fused.cu": ("fused_body_kernelILb0ELi0E",
                                   "grid_body_kernelILi3ELi0E")}
 
 
-def _build_variants(specs):
+def _build_variants(specs, prefix: str = "libmode"):
     """Builds ``{name: (source, flags)}``, one ``nvcc`` each, all started
-    together, into ``build/efa_xray_tpu_torch/variants``; binds each
-    library's entries as :mod:`~efa_xray_tpu_torch.ops._build` does.
-    Returns ``{name: library}``."""
-    import ctypes
-
+    together, into ``build/efa_xray_tpu_torch/variants/<prefix>_<i>.so``
+    (a prefix of its own for each caller: a loaded library is never
+    rewritten); binds each library's entries as
+    :mod:`~efa_xray_tpu_torch.ops._build` does.  Returns ``{name:
+    library}``."""
     from efa_xray_tpu_torch.ops import _build
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -6513,7 +7286,7 @@ def _build_variants(specs):
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for i, (name, (src, flags)) in enumerate(specs.items()):
-        out = os.path.join(out_dir, f"libmode_{i}.so")
+        out = os.path.join(out_dir, f"{prefix}_{i}.so")
         procs[name] = (out, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o", out,
              src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -6526,7 +7299,8 @@ def _build_variants(specs):
         for fn, argtypes in _build._SIGNATURES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = _build._RESTYPES.get(
+                    fn, ctypes.c_int)
         libs[name] = lib
     return libs
 
@@ -6591,7 +7365,6 @@ def mode_steps_phase():
 
     from efa_xray_tpu_torch.observation.localization import latlon_to_unit
     from efa_xray_tpu_torch.ops import _build, ensrf_fused, ensrf_grid
-    from efa_xray_tpu_torch.ops import precision as prec
 
     root = os.path.dirname(os.path.abspath(__file__))
     log(f"steps modes: fp32 machine code against the parent's: "
@@ -6611,18 +7384,9 @@ def mode_steps_phase():
         else:
             log(f"steps modes: no {src}; the parent's {key} is not timed")
     libs = _build_variants(specs)
-
-    def with_lib(lib, fn, parent=False):
-        """``fn()`` with ``lib`` as the kernel library; the parent's
-        kernels round their own Y, so they get it unrounded."""
-        saved = _build.lib, prec.staged_y
-        _build.lib = lambda: lib
-        if parent:
-            prec.staged_y = lambda y, mode: y
-        try:
-            return fn()
-        finally:
-            _build.lib, prec.staged_y = saved
+    for key in libs:
+        if key[1] == "parent":
+            libs[key] = _ParentEntries(libs[key])
 
     def report(label, run, key, tiles, reps):
         """``run(mode, tile)`` -> outputs; ``tiles(mode)``: the tiles to
@@ -6633,8 +7397,8 @@ def mode_steps_phase():
             timed = [(f"tile {t}", lambda t=t: run(mode, t))
                      for t in tiles(mode)]
             if (key, "parent") in libs:
-                timed.append(("parent", lambda: with_lib(
-                    libs[(key, "parent")], lambda: run(mode, None), True)))
+                timed.append(("parent", lambda: _with_lib(
+                    libs[(key, "parent")], lambda: run(mode, None))))
             ms = {}
             for name, fn in timed + timed[::-1]:
                 got = fn()
@@ -6649,7 +7413,7 @@ def mode_steps_phase():
             parts = {}
             if mode != "ieee" or key == "grid":
                 for part in MODE_PARTS:
-                    parts[part] = with_lib(
+                    parts[part] = _with_lib(
                         libs[(key, part)],
                         lambda: cuda_ms(lambda: run(mode, tiles(mode)[0]),
                                         reps))
@@ -6870,11 +7634,133 @@ def ns_steps_phase():
     return res
 
 
+# The shapes the two levers are timed at (members, block): past the member
+# bound at the default block and at 256, the slice-only width, and the
+# block bound at config 4's and config 3's ensembles; and the sub-blocks
+# timed at each.
+LEVER_SHAPES = ((300, 128), (512, 128), (512, 256), (1024, 128), (80, 256),
+                (80, 512), (80, 1024), (30, 1024))
+LEVER_SUB_BLOCKS = (256, 128, 64, 32)
+
+
+def _lever_plans(smem, tile, bsz, m):
+    """The stagings to time at ``tile``: ``{lever: (sub, mslice)}`` for
+    sub-blocks alone (each of ``LEVER_SUB_BLOCKS`` below the block that
+    fits with every member), member slices alone (the caller's block, the
+    widest slice that fits) and both (blocks of 64 obs, the widest slice),
+    where each fits; ``smem(tile, block, members)``."""
+    from efa_xray_tpu_torch.ops import ensrf_fused as ef
+
+    fits = lambda b, k: smem(tile, b, k) <= ef.MAX_SMEM_BYTES
+    widest = lambda b: max((k for k in range(ef.SLICE_UNIT, m, ef.SLICE_UNIT)
+                            if fits(b, k)), default=None)
+    out = {f"sub-blocks of {b}": (b, m) for b in LEVER_SUB_BLOCKS
+           if b < bsz and fits(b, m)}
+    if widest(bsz):
+        out["member slices"] = (bsz, widest(bsz))
+    b = min(bsz, 64)
+    if widest(b):
+        out["both"] = (b, widest(b))
+    return out
+
+
+@contextlib.contextmanager
+def _forced_plan(mod, sub: int, mslice: int):
+    """``mod``'s wrapper (:mod:`ensrf_fused` or :mod:`ensrf_grid`) staged
+    as blocks of ``sub`` obs and slices of ``mslice`` members, at the tile
+    its ``plan`` picks."""
+    real = mod.plan
+    mod.plan = lambda *a, **k: real(*a, **k)._replace(sub=sub, mslice=mslice)
+    try:
+        yield
+    finally:
+        mod.plan = real
+
+
+def lever_steps_phase(n: int = 262_144, nobs: int = 2048):
+    """The two levers of any ensemble and any block, timed on the card: B2
+    on ``n`` scattered rows and ``nobs`` obs at 2000 km, and B4 over one
+    block on ``n`` points, at each shape of :data:`LEVER_SHAPES` in fp32,
+    under the plan's staging and under each lever of
+    :func:`_lever_plans`, each result held against the plan's at the f32
+    gate."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid
+
+    rows = []
+    for m, bsz in LEVER_SHAPES:
+        w = _b2_workload(n=n, m=m, nobs=nobs)
+        ops = ensrf_fused.prepare(w["bp"], w["lat"], w["lon"], w["tail"],
+                                  w["obs"], block_size=bsz,
+                                  max_radius_km=2000.0)
+        args = (w["bm"], w["bp"], ops["geom"], ops["y_b"], ops["ggt_b"],
+                ops["tab_b"], ops["bits"], ops["tile"], True, False,
+                ops["series"])
+        tile = ops["tile"]
+        planned = ensrf_fused.plan(bsz, m, tile=tile)
+        def run(sub, ms):
+            with _forced_plan(ensrf_fused, sub, ms):
+                return ensrf_fused.fused_apply_cuda(*args)
+
+        want = run(planned.sub, planned.mslice)
+        levers = _lever_plans(lambda t, b, k: ensrf_fused.smem_bytes(t, b, k),
+                              tile, bsz, m)
+        r = dict(kernel="B2", nmems=m, block=bsz, tile=tile,
+                 plan=(planned.sub, planned.mslice),
+                 plan_ms=cuda_ms(lambda: run(planned.sub, planned.mslice), 3))
+        for lever, (sub, ms) in levers.items():
+            got = run(sub, ms)
+            compare(f"levers B2 {m} x {bsz} {lever} mean", got[0], want[0])
+            compare(f"levers B2 {m} x {bsz} {lever} perts", got[1], want[1])
+            r[lever] = dict(sub=sub, mslice=ms,
+                            ms=cuda_ms(lambda: run(sub, ms), 3))
+        rows.append(r)
+        del w, ops, args, want
+        gen = torch.Generator(device="cuda").manual_seed(m + bsz)
+        bp = torch.randn(n, m, generator=gen, device="cuda")
+        bm = torch.randn(n, generator=gen, device="cuda")
+        y = 0.3 * torch.randn(1, bsz, m, generator=gen, device="cuda")
+        sq = 0.01 * torch.rand(1, bsz, generator=gen, device="cuda")
+        ggt = ensrf_grid._gram_tables(y, sq)
+        coef = torch.stack([0.01 * torch.rand(1, bsz, generator=gen,
+                                               device="cuda"), sq], 1)
+        wt = torch.rand(1, bsz, n, generator=gen, device="cuda")
+        planned = ensrf_grid.plan(bsz, m)
+        def grun(sub, ms, tile=planned.tile):
+            with _forced_plan(ensrf_grid, sub, ms):
+                return ensrf_grid.grid_apply_cuda(
+                    "B4", bm, bp, wt, None, y, ggt, coef, 1, tile=tile)
+
+        want = grun(planned.sub, planned.mslice)
+        r = dict(kernel="B4", nmems=m, block=bsz, tile=planned.tile,
+                 plan=(planned.sub, planned.mslice),
+                 plan_ms=cuda_ms(lambda: grun(planned.sub, planned.mslice),
+                                 5))
+        levers = _lever_plans(lambda t, b, k: ensrf_grid.smem_bytes(t, b, k),
+                              planned.tile, bsz, m)
+        for lever, (sub, ms) in levers.items():
+            got = grun(sub, ms)
+            compare(f"levers B4 {m} x {bsz} {lever} mean", got[0], want[0])
+            compare(f"levers B4 {m} x {bsz} {lever} perts", got[1], want[1])
+            r[lever] = dict(sub=sub, mslice=ms,
+                            ms=cuda_ms(lambda: grun(sub, ms), 5))
+        rows.append(r)
+        del bp, bm, y, ggt, coef, wt, want
+    for r in rows:
+        log(f"levers {r['kernel']} {r['nmems']} members, blocks of "
+            f"{r['block']} (tile {r['tile']}): plan (sub-block, slice) "
+            f"{r['plan']} {r['plan_ms']:.3f} ms; " + "; ".join(
+                f"{k}: ({v['sub']}, {v['mslice']}) {v['ms']:.3f} ms"
+                for k, v in r.items() if isinstance(v, dict)))
+    return rows
+
+
 def steps_phase():
     """What the parts of B1's and B2's design buy: B1 at each sub-panel
     and cluster, then B2 on phase 3's workload and on the headline body,
-    then the grid kernel, the product modes, and NS beside the parent's
-    kernel."""
+    then the grid kernel, the product modes, NS beside the parent's
+    kernel, and the levers of any ensemble and any block."""
     b1_steps_phase()
     w = _b2_workload()
     _b2_variants("262,144 x 80 x 2048 obs", w["bm"], w["bp"], w["lat"],
@@ -6887,6 +7773,7 @@ def steps_phase():
     grid_steps_phase()
     mode_steps_phase()
     ns_steps_phase()
+    lever_steps_phase()
 
 
 def main() -> int:
@@ -6935,6 +7822,7 @@ def main() -> int:
     modes = timed(phase26)
     timed(phase27)
     timed(phase28)
+    c5 = timed(phase29)
     # No single PyTorch call computes B1-B4, B1h, B2h, B1e, B2e, B4e (a
     # serial filter, a localized recurrence), in any product mode, NS (an
     # iteration with an exit test) or LG (gathered, weighted Grams): their
@@ -7022,7 +7910,7 @@ def main() -> int:
         dict(name=f"P precision probe ({mode})", route="cuda",
              source="efa_xray_tpu_torch/csrc/precision_probe.cu",
              replaces="benchmarks/precision_probe.py:29", **o)
-        for mode, o in p.items()]
+        for mode, o in p.items()] + _wide_rows(c5)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -101,12 +101,28 @@
 // (make_mode_layout) is the fp32 one with U's rows T + 4 words apart and
 // the X and Y rows at least the staged K wide.
 //
+// Any ensemble and any block (the two levers; ops/ensrf_fused.py plan
+// picks, the same at every shape whose layout fits as before).  The
+// layout holds X [T, M] and the block's rows [B, M], so it grows with both.
+// 1. Sub-blocks: a block over what fits is handed over as several blocks
+//    of fewer obs (the wrapper cuts y_b, the ggt tables' diagonal blocks,
+//    the table and the cull bits), swept in order by this launch.  That is
+//    exact: a sub-block's D0 reads the X the sub-blocks before it left,
+//    which is what the corrections against their obs would subtract.
+// 2. Member slices (Ms < M): X stays in bp_out and each pass over the
+//    members (D0, then the apply) stages one slice of Ms members of X and
+//    of the block's rows at a time, D0 summing over the slices in order
+//    (on the tensor cores a slice is a K range of D0 and an N range of the
+//    apply).  The substitution reads only D0, ggt and the table, so it is
+//    the same.  The state crosses device memory three times a block
+//    instead of twice an update, and the staging copies are synchronous.
+//
 // Shared memory (floats; make_layout below, mirrored by ops/ensrf_fused.py
-// smem_bytes): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp, T], partial sums
-// [16 x 256], ggt ring [2][8, Bp], weights [8, T] (B2h: + static columns
-// [8, T]), table [kTab B], geometry [kGeo, T], mean [T], mean
-// increment [T], alive-panel lists [2][Bp / 8]; Ys = 4 (ceil(M / 4) | 1),
-// Bp = B rounded up to 8.
+// smem_bytes, with M the slice Ms): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp,
+// T], partial sums [16 x 256], ggt ring [2][8, Bp], weights [8, T] (B2h: +
+// static columns [8, T]), table [kTab B], geometry [kGeo, T], mean [T],
+// mean increment [T], alive-panel lists [2][Bp / 8]; Ys = 4 (ceil(M / 4) |
+// 1), Bp = B rounded up to 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -391,6 +407,7 @@ __device__ __forceinline__ void apply_tiles(float* Xs, const float* Ysm,
 // own rows before the block loop and writes only those rows after it.
 // kMode: the two large products' mode (efa_mma::kIeee, kTf32, kBf16).
 // kZ: B2e (fp32, pure ensemble), the apply reads z_b instead of y_b.
+// Ms: the members staged at a time (M: all, X resident for the launch).
 template <bool kHybrid, int kMode, bool kZ>
 __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     const float* bm_in,  // [N]
@@ -402,15 +419,18 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     const float* __restrict__ ggt_b,  // [nb, B, B]; B2h: the raw Gram
     const float* __restrict__ tab_b,  // [nb, kTab, B]
     const int* __restrict__ bits,     // [gtiles, nb] or nullptr (no cull)
-    int N, int M, int B, int nb, int T, int vec, int localize,
+    int N, int M, int Ms, int B, int nb, int T, int vec, int localize,
     int vertical, int series, float* bm_out, float* bp_out) {
   constexpr int kTab = kHybrid ? kTabHybrid : kTabPure;
   constexpr int kGeo = kHybrid ? 5 : 4;
   extern __shared__ __align__(16) float smem[];
   const Layout L = kMode == efa_mma::kIeee
-                       ? make_layout(T, B, M, kHybrid)
-                       : make_mode_layout(T, B, M, kHybrid, kMode);
+                       ? make_layout(T, B, Ms, kHybrid)
+                       : make_mode_layout(T, B, Ms, kHybrid, kMode);
   const int Ys = L.Ys, Bp = L.Bp;
+  // Member slices: X lives in bp_out, a slice at a time in Xs.
+  const bool sliced = Ms < M;
+  const int nslice = (M + Ms - 1) / Ms;
   float* Xs = smem + L.x;      // [T, Ys]
   float* Ysm = smem + L.y;     // [Bp rows, skewed]
   float* U = smem + L.u;       // [Bp, T]  d0 columns, then u (B2h: v)
@@ -432,7 +452,6 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
   const long r0 = (long)tile * T;
   const int nrows = (int)min((long)T, (long)N - r0);
   const int npanels = Bp / kPanel;
-  const int Mp = round4(M);
   const int tsh = T == 64 ? 6 : 5;  // T is 32 or 64 (the launcher checks)
 
   // Zero everything once: the pad columns of X and Y, the Y rows past B and
@@ -440,9 +459,14 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
   for (int idx = tid; idx < (L.total >> 2); idx += nth)
     reinterpret_cast<float4*>(smem)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
-  for (int idx = tid; idx < nrows * M; idx += nth) {
-    const int r = idx / M, m = idx - r * M;
-    Xs[r * Ys + m] = bp_in[(r0 + r) * M + m];
+  if (!sliced) {
+    for (int idx = tid; idx < nrows * M; idx += nth) {
+      const int r = idx / M, m = idx - r * M;
+      Xs[r * Ys + m] = bp_in[(r0 + r) * M + m];
+    }
+  } else if (bp_out != bp_in) {
+    for (long idx = tid; idx < (long)nrows * M; idx += nth)
+      bp_out[r0 * M + idx] = bp_in[r0 * M + idx];
   }
   for (int r = tid; r < nrows; r += nth) {
     xm[r] = bm_in[r0 + r];
@@ -476,23 +500,63 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
       }
     }
   };
-  // Y and the table of block b, asynchronously.
+  // Y (unless sliced: stage does) and the table of block b,
+  // asynchronously.
   auto fetch = [&](int b) {
-    if constexpr (kMode == efa_mma::kBf16) {
-      // Rows of round16(M) bf16 values from the wrapper: whole 16 bytes.
-      const int kw = efa_mma::staged_words(kMode, M), c4 = kw >> 2;
-      const float* yw = y_b + (long)b * B * kw;
-      for (int idx = tid; idx < B * c4; idx += nth) {
-        const int j = idx / c4, c = idx - j * c4;
-        cp_async16(Ysm + yrow(j, Ys) + 4 * c, yw + (long)j * kw + 4 * c);
+    if (!sliced) {
+      if constexpr (kMode == efa_mma::kBf16) {
+        // Rows of round16(M) bf16 values from the wrapper: whole 16 bytes.
+        const int kw = efa_mma::staged_words(kMode, M), c4 = kw >> 2;
+        const float* yw = y_b + (long)b * B * kw;
+        for (int idx = tid; idx < B * c4; idx += nth) {
+          const int j = idx / c4, c = idx - j * c4;
+          cp_async16(Ysm + yrow(j, Ys) + 4 * c, yw + (long)j * kw + 4 * c);
+        }
+      } else {
+        fetch_rows(y_b, b);
       }
-      copy_async(tab, tab_b + (long)b * kTab * B, kTab * B, vec & kVecTab,
-                 tid, nth);
-      return;
     }
-    fetch_rows(y_b, b);
     copy_async(tab, tab_b + (long)b * kTab * B, kTab * B,
                vec & kVecTab, tid, nth);
+  };
+  // Member slice s: X's rows from bp_out and block b's rows of `src` (y_b,
+  // or B2e's z_b), synchronously, zero past the slice's end up to the
+  // columns the products read.  Returns the slice's members.
+  auto stage = [&](int s, const float* src, int b) {
+    const int m0 = s * Ms, msz = min(Ms, M - m0);
+    const int kc = kMode == efa_mma::kIeee
+                       ? round4(msz)
+                       : efa_mma::staged_values(kMode, msz);
+    for (int idx = tid; idx < T * kc; idx += nth) {
+      const int r = idx / kc, c = idx - r * kc;
+      Xs[r * Ys + c] =
+          r < nrows && c < msz ? bp_out[(r0 + r) * M + m0 + c] : 0.f;
+    }
+    if constexpr (kMode == efa_mma::kBf16) {
+      // The wrapper's rows are zero from M to round16(M); m0 is even.
+      const int kw = efa_mma::staged_words(kMode, M);
+      const int sw = efa_mma::staged_words(kMode, msz);
+      const float* yw = src + (long)b * B * kw + m0 / 2;
+      for (int idx = tid; idx < B * sw; idx += nth) {
+        const int j = idx / sw, c = idx - j * sw;
+        Ysm[yrow(j, Ys) + c] = yw[(long)j * kw + c];
+      }
+    } else {
+      const float* yb = src + (long)b * B * M + m0;
+      for (int idx = tid; idx < B * kc; idx += nth) {
+        const int j = idx / kc, c = idx - j * kc;
+        Ysm[yrow(j, Ys) + c] = c < msz ? yb[(long)j * M + c] : 0.f;
+      }
+    }
+    return msz;
+  };
+  // Member slice s of X back to bp_out.
+  auto store = [&](int s, int msz) {
+    const int m0 = s * Ms;
+    for (int idx = tid; idx < nrows * msz; idx += nth) {
+      const int r = idx / msz, c = idx - r * msz;
+      bp_out[(r0 + r) * M + m0 + c] = Xs[r * Ys + c];
+    }
   };
   // Rows of panel q of block b's ggt, columns up to the panel's end, into
   // ring slot `slot`, asynchronously.
@@ -546,60 +610,72 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
     if (tid < T) macc[tid] = 0.0f;
 
     // D0 = X Y^T over the alive panels: 4 rows x 4 obs per thread, or on
-    // the tensor cores a warp per 8 rows over every alive panel.
-    if constexpr (kMode != efa_mma::kIeee) {
-      if (warp < (T >> 3) && !skips(kSkipD0))
-        efa_mma::d0t_warp<kMode, 12, 4, 2>(
-            Xs, Ys, Ysm,
-            [pl, Ys](int p, int i) { return yrow(kPanel * pl[p] + i, Ys); },
-            [pl](int p) { return kPanel * pl[p]; }, na,
-            efa_mma::staged_words(kMode, M) * 4 / efa_mma::kStepBytes, U, Us,
-            8 * warp, lane);
-    }
-    for (int task = tid; kMode == efa_mma::kIeee && task < RG * 2 * na;
-         task += nth) {
-      const int rgi = task & (RG - 1), h = task >> rgsh;
-      const int j0 = kPanel * pl[h >> 1] + 4 * (h & 1);
-      const float* xp = Xs + rgi * Ys;
-      const float* yp = Ysm + yrow(j0, Ys);
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
-      for (int m = 0; m < Mp; m += 4) {
-        float4 xv[4], yv[4];
+    // the tensor cores a warp per 8 rows over every alive panel; slice by
+    // slice of the members where sliced, each adding to the last.
+    for (int sl = 0; sl < nslice; ++sl) {
+      const int msz = sliced ? stage(sl, y_b, b) : M;
+      if (sliced) __syncthreads();
+      const int Mp = round4(msz);
+      if constexpr (kMode != efa_mma::kIeee) {
+        if (warp < (T >> 3) && !skips(kSkipD0))
+          efa_mma::d0t_warp<kMode, 12, 4, 2>(
+              Xs, Ys, Ysm,
+              [pl, Ys](int p, int i) { return yrow(kPanel * pl[p] + i, Ys); },
+              [pl](int p) { return kPanel * pl[p]; }, na,
+              efa_mma::staged_words(kMode, msz) * 4 / efa_mma::kStepBytes, U,
+              Us, 8 * warp, lane, sl > 0);
+      }
+      for (int task = tid; kMode == efa_mma::kIeee && task < RG * 2 * na;
+           task += nth) {
+        const int rgi = task & (RG - 1), h = task >> rgsh;
+        const int j0 = kPanel * pl[h >> 1] + 4 * (h & 1);
+        const float* xp = Xs + rgi * Ys;
+        const float* yp = Ysm + yrow(j0, Ys);
+        float acc[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          xv[i] = *reinterpret_cast<const float4*>(xp + i * RG * Ys + m);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+        for (int m = 0; m < Mp; m += 4) {
+          float4 xv[4], yv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            xv[i] = *reinterpret_cast<const float4*>(xp + i * RG * Ys + m);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            yv[jj] = *reinterpret_cast<const float4*>(yp + jj * Ys + m);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              float s = acc[i][jj];
+              s = fmaf(xv[i].x, yv[jj].x, s);
+              s = fmaf(xv[i].y, yv[jj].y, s);
+              s = fmaf(xv[i].z, yv[jj].z, s);
+              s = fmaf(xv[i].w, yv[jj].w, s);
+              acc[i][jj] = s;
+            }
+        }
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj)
-          yv[jj] = *reinterpret_cast<const float4*>(yp + jj * Ys + m);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            float s = acc[i][jj];
-            s = fmaf(xv[i].x, yv[jj].x, s);
-            s = fmaf(xv[i].y, yv[jj].y, s);
-            s = fmaf(xv[i].z, yv[jj].z, s);
-            s = fmaf(xv[i].w, yv[jj].w, s);
-            acc[i][jj] = s;
+          for (int i = 0; i < 4; ++i) {
+            float* up = U + (j0 + jj) * T + rgi + i * RG;
+            *up = sl > 0 ? *up + acc[i][jj] : acc[i][jj];
           }
       }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          U[(j0 + jj) * T + rgi + i * RG] = acc[i][jj];
+      if (sliced) __syncthreads();  // read before the next slice lands
     }
     cp_async_wait_all();
     __syncthreads();  // D0 is in U; the first panel's ggt rows have landed
     if constexpr (kZ) {
       // D0 has read Y: the apply's rows Z take its place, landing under the
-      // first panel's solve (whose wait covers this group too).
-      fetch_rows(z_b, b);
-      cp_async_commit();
+      // first panel's solve (whose wait covers this group too); sliced,
+      // the apply stages them.
+      if (!sliced) {
+        fetch_rows(z_b, b);
+        cp_async_commit();
+      }
     }
 
     for (int a = 0; a < na; ++a) {
@@ -713,14 +789,23 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
             [tab, B](int j) { return kHybrid ? 1.0f : tab[B + j]; }, tid,
             nth);
       __syncthreads();
-      if (!skips(kSkipApply))
-        efa_mma::apply_warp<kMode, 4, 2>(
-            Xs, Ys, U, [pl, Us](int a, int i) {
-              return (kPanel * pl[a] + i) * Us;
-            }, Us, Ysm,
-            [pl, Ys](int a, int i) { return yrow(kPanel * pl[a] + i, Ys); },
-            na, M, 16 * (warp % RT), warp / RT, nwarps / RT, (M + 7) >> 3,
-            lane);
+      for (int sl = 0; sl < nslice; ++sl) {
+        const int msz = sliced ? stage(sl, y_b, b) : M;
+        if (sliced) __syncthreads();
+        if (!skips(kSkipApply))
+          efa_mma::apply_warp<kMode, 4, 2>(
+              Xs, Ys, U, [pl, Us](int a, int i) {
+                return (kPanel * pl[a] + i) * Us;
+              }, Us, Ysm,
+              [pl, Ys](int a, int i) { return yrow(kPanel * pl[a] + i, Ys); },
+              na, msz, 16 * (warp % RT), warp / RT, nwarps / RT,
+              (msz + 7) >> 3, lane);
+        if (sliced) {
+          __syncthreads();
+          store(sl, msz);
+          __syncthreads();
+        }
+      }
     } else {
       if (!kHybrid) {
         // U <- g o U on the alive panels, so that the apply is X -= U^T Y in
@@ -738,16 +823,26 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
         }
         __syncthreads();
       }
-      if (Mp <= 32)
-        apply_tiles<2>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
-      else if (Mp <= 64)
-        apply_tiles<4>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
-      else if (Mp <= 80)
-        apply_tiles<5>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
-      else if (Mp <= 128)
-        apply_tiles<8>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
-      else
-        apply_tiles<16>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+      for (int sl = 0; sl < nslice; ++sl) {
+        const int msz = sliced ? stage(sl, kZ ? z_b : y_b, b) : M;
+        if (sliced) __syncthreads();
+        const int Mp = round4(msz);
+        if (Mp <= 32)
+          apply_tiles<2>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+        else if (Mp <= 64)
+          apply_tiles<4>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+        else if (Mp <= 80)
+          apply_tiles<5>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+        else if (Mp <= 128)
+          apply_tiles<8>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+        else
+          apply_tiles<16>(Xs, Ysm, U, pl, na, T, Ys, Mp, tid, nth);
+        if (sliced) {
+          __syncthreads();
+          store(sl, msz);
+          __syncthreads();
+        }
+      }
     }
     if (tid < T) xm[tid] += macc[tid];
 
@@ -762,7 +857,7 @@ __global__ void __launch_bounds__(kThreads) fused_body_kernel(
   cp_async_wait_all();
   __syncthreads();
 
-  for (int idx = tid; idx < nrows * M; idx += nth) {
+  for (int idx = tid; !sliced && idx < nrows * M; idx += nth) {
     const int r = idx / M, m = idx - r * M;
     bp_out[(r0 + r) * M + m] = Xs[r * Ys + m];
   }
@@ -773,15 +868,17 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// Ms: members a slice (M, or a multiple of 32 below it).
 template <bool kHybrid, int kMode, bool kZ = false>
 int launch(const float* bm_in, const float* bp_in, const float* geom,
            const float* y_b, const float* z_b, const float* ggt_b,
-           const float* tab_b, const int* bits, int N, int M, int B, int nb,
-           int T, int localize, int vertical, int series, float* bm_out,
-           float* bp_out, cudaStream_t stream) {
+           const float* tab_b, const int* bits, int N, int M, int Ms, int B,
+           int nb, int T, int localize, int vertical, int series,
+           float* bm_out, float* bp_out, cudaStream_t stream) {
   const int npanels = (B + kPanel - 1) / kPanel;
-  if ((T != 32 && T != 64) || N <= 0 ||
-      M <= 0 || B <= 0 || nb <= 0 || (bits && npanels > 32))
+  if ((T != 32 && T != 64) || N <= 0 || M <= 0 || B <= 0 || nb <= 0 ||
+      (bits && npanels > 32) || Ms <= 0 || Ms > M ||
+      (Ms < M && Ms % 32 != 0))
     return (int)cudaErrorInvalidValue;
   // bf16: Y arrives as rows of round16(M) bf16 values, copied 16 bytes at a
   // time.
@@ -789,8 +886,8 @@ int launch(const float* bm_in, const float* bp_in, const float* geom,
     return (int)cudaErrorInvalidValue;
   const int smem =
       (int)sizeof(float) * (kMode == efa_mma::kIeee
-                                ? make_layout(T, B, M, kHybrid)
-                                : make_mode_layout(T, B, M, kHybrid, kMode))
+                                ? make_layout(T, B, Ms, kHybrid)
+                                : make_mode_layout(T, B, Ms, kHybrid, kMode))
                                .total;
   cudaError_t e = cudaFuncSetAttribute(fused_body_kernel<kHybrid, kMode, kZ>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -802,8 +899,8 @@ int launch(const float* bm_in, const float* bp_in, const float* geom,
                   (B % 4 == 0 && aligned16(ggt_b) ? kVecG : 0);
   const int tiles = (N + T - 1) / T;
   fused_body_kernel<kHybrid, kMode, kZ><<<tiles, kThreads, smem, stream>>>(
-      bm_in, bp_in, geom, y_b, z_b, ggt_b, tab_b, bits, N, M, B, nb, T, vec,
-      localize, vertical, series, bm_out, bp_out);
+      bm_in, bp_in, geom, y_b, z_b, ggt_b, tab_b, bits, N, M, Ms, B, nb, T,
+      vec, localize, vertical, series, bm_out, bp_out);
   return (int)cudaGetLastError();
 }
 
@@ -822,33 +919,27 @@ decltype(&launch<kHybrid, efa_mma::kIeee>) launcher(int mode) {
 
 extern "C" {
 
-// T: rows per CTA (32 or 64).  mode: 0 fp32 FMA, 1 TF32, 2 bf16 tensor
-// cores for D0 and the apply.
-int efa_fused_body(const float* bm_in, const float* bp_in, const float* geom,
-                   const float* y_b, const float* ggt_b, const float* tab_b,
-                   const int* bits, int N, int M, int B, int nb, int T,
-                   int localize, int vertical, int series, int hybrid,
-                   int mode, float* bm_out, float* bp_out, void* stream) {
+// Every instantiation behind one entry: B2 (hybrid 0), B2h (hybrid 1) or,
+// with z_b, B2e (fp32, pure); Ms members a slice (M: unsliced).  T: rows
+// per CTA (32 or 64).  mode: 0 fp32 FMA, 1 TF32, 2 bf16 tensor cores for
+// D0 and the apply.
+int efa_fused_launch(const float* bm_in, const float* bp_in,
+                     const float* geom, const float* y_b, const float* z_b,
+                     const float* ggt_b, const float* tab_b, const int* bits,
+                     int N, int M, int Ms, int B, int nb, int T, int localize,
+                     int vertical, int series, int hybrid, int mode,
+                     float* bm_out, float* bp_out, void* stream) {
+  if (z_b) {
+    if (hybrid || mode != efa_mma::kIeee) return (int)cudaErrorInvalidValue;
+    return launch<false, efa_mma::kIeee, true>(
+        bm_in, bp_in, geom, y_b, z_b, ggt_b, tab_b, bits, N, M, Ms, B, nb, T,
+        localize, vertical, series, bm_out, bp_out, (cudaStream_t)stream);
+  }
   const auto run = hybrid ? launcher<true>(mode) : launcher<false>(mode);
   if (!run) return (int)cudaErrorInvalidValue;
-  return run(bm_in, bp_in, geom, y_b, nullptr, ggt_b, tab_b, bits, N, M, B,
-             nb, T, localize, vertical, series, bm_out, bp_out,
+  return run(bm_in, bp_in, geom, y_b, nullptr, ggt_b, tab_b, bits, N, M, Ms,
+             B, nb, T, localize, vertical, series, bm_out, bp_out,
              (cudaStream_t)stream);
-}
-
-// B2e: B2 in fp32 with the apply's rows z_b [nb, B, M] (ggt_b built from
-// them: (z_i . y_j) g_i).
-int efa_fused_body_enkf(const float* bm_in, const float* bp_in,
-                        const float* geom, const float* y_b,
-                        const float* z_b, const float* ggt_b,
-                        const float* tab_b, const int* bits, int N, int M,
-                        int B, int nb, int T, int localize, int vertical,
-                        int series, float* bm_out, float* bp_out,
-                        void* stream) {
-  if (!z_b) return (int)cudaErrorInvalidValue;
-  return launch<false, efa_mma::kIeee, true>(
-      bm_in, bp_in, geom, y_b, z_b, ggt_b, tab_b, bits, N, M, B, nb, T,
-      localize, vertical, series, bm_out, bp_out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -7,15 +7,15 @@
 // Replaces:
 //   B3: efa_xray_tpu/ops/ensrf_pallas_fused.py, _make_fused_grid_kernel
 //       (launched by _fused_grid_impl): every obs block in one launch while
-//       a grid tile of one group stays on chip.  Entry point efa_grid_body.
+//       a grid tile of one group stays on chip.  Entry point efa_grid_launch.
 //   B4: efa_xray_tpu/ops/ensrf_pallas.py, _make_block_kernel (launched by
 //       apply_obs_block_pallas, scanned by ensrf_blocked_body_pallas): one
-//       obs block per launch.  Entry point efa_block_apply.
+//       obs block per launch.  Entry point efa_grid_launch (nb 1).
 // Both run the same kernel: B3 over all blocks, B4 over one.
 //   B4e: the stochastic EnKF's instantiation of B4 (template flag kZ, fp32;
 //       no TPU kernel: the JAX package runs the EnKF's body in plain XLA,
 //       efa_xray_tpu/assimilation/ensrf_core.py apply_obs_block with
-//       apply_rows).  Entry point efa_block_apply_enkf.
+//       apply_rows).  Entry point efa_grid_launch with z_b.
 //
 // What it computes, for a tile of rows X [T, M] (perturbations) and xm [T]
 // (mean) of group v, for each block of B pre-solved obs with rows Y [B, M]:
@@ -92,10 +92,21 @@
 // staged K wide: at 30 members and 64 points it still fits three CTAs on
 // an SM, at 80 members two.
 //
+// Any ensemble and any block, by the two levers of B2 (csrc/ensrf_fused.cu;
+// ops/ensrf_grid.py plan picks, the same at every shape whose layout fits
+// as before): sub-blocks, which the wrapper cuts from the caller's blocks
+// (Y, the ggt tables' diagonal blocks, the weights, the table and the
+// per-ob rows) and this launch sweeps in order, exact as a smaller block
+// is; and member slices (Ms < M), where X stays in bp_out and D0 and the
+// apply stage Ms members of X and of the block's rows at a time, D0 summed
+// over the slices in order.  The weight ring and the per-(group, ob) table
+// have no member term.
+//
 // Shared memory (floats; make_layout below, mirrored by ops/ensrf_grid.py
-// smem_bytes): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp, T], ring [kSlots] of
-// ggt columns [Bp, 8] and of weight rows [8, T], per-ob rows [kCoef B], mean
-// [T]; Ys = 4 (ceil(M / 4) | 1), Bp = B rounded up to 8.
+// smem_bytes, with M the slice Ms): X [T, Ys], Y [Bp Ys + Bp / 2], U [Bp,
+// T], ring [kSlots] of ggt columns [Bp, 8] and of weight rows [8, T],
+// per-ob rows [kCoef B], mean [T]; Ys = 4 (ceil(M / 4) | 1), Bp = B rounded
+// up to 8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -321,7 +332,8 @@ __device__ __forceinline__ void apply_tiles(float* Xs, const float* Ysm,
 // own rows before the block loop and writes only those rows after it.
 // kCtas: the CTAs per SM the register count is held to; kMode: the two
 // large products' mode (efa_mma::kIeee, kTf32, kBf16).
-// kZ: B4e (fp32), the apply reads z_b instead of y_b.
+// kZ: B4e (fp32), the apply reads z_b instead of y_b.  Ms: the members
+// staged at a time (M: all, X resident for the launch).
 template <int kCtas, int kMode, bool kZ>
 __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     const float* bm_in,  // [VT * G]
@@ -332,12 +344,15 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     const float* __restrict__ z_b,    // [nb, B, M] B4e, else nullptr
     const float* __restrict__ ggt_b,  // [nb, B, B]
     const float* __restrict__ coef_b, // [nb, 2, B]: gain, sqrt_coef
-    int VT, int G, int M, int B, int nb, int T, int vec, float* bm_out,
-    float* bp_out) {
+    int VT, int G, int M, int Ms, int B, int nb, int T, int vec,
+    float* bm_out, float* bp_out) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L = kMode == efa_mma::kIeee ? make_layout(T, B, M)
-                                           : make_mode_layout(T, B, M, kMode);
+  const Layout L = kMode == efa_mma::kIeee ? make_layout(T, B, Ms)
+                                           : make_mode_layout(T, B, Ms, kMode);
   const int Ys = L.Ys, Bp = L.Bp;
+  // Member slices: X lives in bp_out, a slice at a time in Xs.
+  const bool sliced = Ms < M;
+  const int nslice = (M + Ms - 1) / Ms;
   float* Xs = smem + L.x;     // [T, Ys]
   float* Ysm = smem + L.y;    // [Bp rows, skewed]
   float* U = smem + L.u;      // [Bp, T]  d0 columns, then u columns
@@ -363,7 +378,6 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
   const long row0 = (long)v * G + g0;
   const int npanels = Bp / kPanel;
   const int total_panels = nb * npanels;
-  const int Mp = round4(M);
   const int tsh = T == 64 ? 6 : 5;  // T is 32 or 64 (the launcher checks)
   const bool localize = w != nullptr;
 
@@ -374,25 +388,72 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
   __syncthreads();
   if (!table)
     for (int j = tid; j < B; j += kThreads) cf[2 * B + j] = 1.0f;
-  copy_rows_async(Xs, [Ys](int r) { return r * Ys; }, bp_in + row0 * M, M,
-                  npts, M, vec & kVecX, tid);
+  if (!sliced) {
+    copy_rows_async(Xs, [Ys](int r) { return r * Ys; }, bp_in + row0 * M, M,
+                    npts, M, vec & kVecX, tid);
+  } else if (bp_out != bp_in) {
+    for (long idx = tid; idx < (long)npts * M; idx += kThreads)
+      bp_out[row0 * M + idx] = bp_in[row0 * M + idx];
+  }
   for (int r = tid; r < npts; r += kThreads) xm[r] = bm_in[row0 + r];
 
-  // Y, the per-ob rows and the table row of block b, asynchronously.
+  // Y (unless sliced: stage does), the per-ob rows and the table row of
+  // block b, asynchronously.
   auto fetch_block = [&](int b) {
-    if constexpr (kMode == efa_mma::kBf16) {
-      // Rows of round16(M) bf16 values from the wrapper: whole 16 bytes.
-      const int kw = efa_mma::staged_words(kMode, M);
-      copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
-                      y_b + (long)b * B * kw, kw, B, kw, true, tid);
-    } else {
-      copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
-                      y_b + (long)b * B * M, M, B, M, vec & kVecY, tid);
+    if (!sliced) {
+      if constexpr (kMode == efa_mma::kBf16) {
+        // Rows of round16(M) bf16 values from the wrapper: whole 16 bytes.
+        const int kw = efa_mma::staged_words(kMode, M);
+        copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
+                        y_b + (long)b * B * kw, kw, B, kw, true, tid);
+      } else {
+        copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
+                        y_b + (long)b * B * M, M, B, M, vec & kVecY, tid);
+      }
     }
     copy_async(cf, coef_b + (long)b * 2 * B, 2 * B, vec & kVecC, tid);
     if (table)
       copy_async(cf + 2 * B, table + ((long)v * nb + b) * B, B, vec & kVecT,
                  tid);
+  };
+  // Member slice s: X's points from bp_out and block b's rows of `src`
+  // (y_b, or B4e's z_b), synchronously, zero past the slice's end up to the
+  // columns the products read.  Returns the slice's members.
+  auto stage = [&](int s, const float* src, int b) {
+    const int m0 = s * Ms, msz = min(Ms, M - m0);
+    const int kc = kMode == efa_mma::kIeee
+                       ? round4(msz)
+                       : efa_mma::staged_values(kMode, msz);
+    for (int idx = tid; idx < T * kc; idx += kThreads) {
+      const int r = idx / kc, c = idx - r * kc;
+      Xs[r * Ys + c] =
+          r < npts && c < msz ? bp_out[(row0 + r) * M + m0 + c] : 0.f;
+    }
+    if constexpr (kMode == efa_mma::kBf16) {
+      // The wrapper's rows are zero from M to round16(M); m0 is even.
+      const int kw = efa_mma::staged_words(kMode, M);
+      const int sw = efa_mma::staged_words(kMode, msz);
+      const float* yw = src + (long)b * B * kw + m0 / 2;
+      for (int idx = tid; idx < B * sw; idx += kThreads) {
+        const int j = idx / sw, c = idx - j * sw;
+        Ysm[yrow(j, Ys) + c] = yw[(long)j * kw + c];
+      }
+    } else {
+      const float* yb = src + (long)b * B * M + m0;
+      for (int idx = tid; idx < B * kc; idx += kThreads) {
+        const int j = idx / kc, c = idx - j * kc;
+        Ysm[yrow(j, Ys) + c] = c < msz ? yb[(long)j * M + c] : 0.f;
+      }
+    }
+    return msz;
+  };
+  // Member slice s of X back to bp_out.
+  auto store = [&](int s, int msz) {
+    const int m0 = s * Ms;
+    for (int idx = tid; idx < npts * msz; idx += kThreads) {
+      const int r = idx / msz, c = idx - r * msz;
+      bp_out[(row0 + r) * M + m0 + c] = Xs[r * Ys + c];
+    }
   };
   // Panel q of block b into ring slot `slot`, asynchronously, by threads
   // ft = 0 .. nft - 1: the panel's ggt columns from its own rows down (row j
@@ -503,58 +564,69 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     __syncthreads();
 
     // D0 = X Y^T: 4 rows x 4 obs per thread, or on the tensor cores a warp
-    // per 8 points over every panel.
-    if constexpr (kMode != efa_mma::kIeee) {
-      if (warp < (T >> 3) && !skips(kSkipD0))
-        efa_mma::d0t_warp<kMode, kModeSteps, kModeTiles, kModeSplit>(
-            Xs, Ys, Ysm, ypanel, [](int p) { return kPanel * p; }, npanels,
-            efa_mma::staged_words(kMode, M) * 4 / efa_mma::kStepBytes, U, Us,
-            8 * warp, lane);
-    }
-    for (int task = tid; kMode == efa_mma::kIeee &&
-                         task < RG * 2 * npanels && !skips(kSkipD0);
-         task += kThreads) {
-      const int rgi = task & (RG - 1), j0 = 4 * (task >> rgsh);
-      const float* xp = Xs + rgi * Ys;
-      const float* yp = Ysm + yrow(j0, Ys);
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
-      for (int m = 0; m < Mp; m += 4) {
-        float4 xv[4], yv[4];
+    // per 8 points over every panel; slice by slice of the members where
+    // sliced, each adding to the last.
+    for (int sl = 0; sl < nslice; ++sl) {
+      const int msz = sliced ? stage(sl, y_b, b) : M;
+      if (sliced) __syncthreads();
+      const int Mp = round4(msz);
+      if constexpr (kMode != efa_mma::kIeee) {
+        if (warp < (T >> 3) && !skips(kSkipD0))
+          efa_mma::d0t_warp<kMode, kModeSteps, kModeTiles, kModeSplit>(
+              Xs, Ys, Ysm, ypanel, [](int p) { return kPanel * p; }, npanels,
+              efa_mma::staged_words(kMode, msz) * 4 / efa_mma::kStepBytes, U,
+              Us, 8 * warp, lane, sl > 0);
+      }
+      for (int task = tid; kMode == efa_mma::kIeee &&
+                           task < RG * 2 * npanels && !skips(kSkipD0);
+           task += kThreads) {
+        const int rgi = task & (RG - 1), j0 = 4 * (task >> rgsh);
+        const float* xp = Xs + rgi * Ys;
+        const float* yp = Ysm + yrow(j0, Ys);
+        float acc[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          xv[i] = *reinterpret_cast<const float4*>(xp + i * RG * Ys + m);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+        for (int m = 0; m < Mp; m += 4) {
+          float4 xv[4], yv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            xv[i] = *reinterpret_cast<const float4*>(xp + i * RG * Ys + m);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            yv[jj] = *reinterpret_cast<const float4*>(yp + jj * Ys + m);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              float s = acc[i][jj];
+              s = fmaf(xv[i].x, yv[jj].x, s);
+              s = fmaf(xv[i].y, yv[jj].y, s);
+              s = fmaf(xv[i].z, yv[jj].z, s);
+              s = fmaf(xv[i].w, yv[jj].w, s);
+              acc[i][jj] = s;
+            }
+        }
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj)
-          yv[jj] = *reinterpret_cast<const float4*>(yp + jj * Ys + m);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            float s = acc[i][jj];
-            s = fmaf(xv[i].x, yv[jj].x, s);
-            s = fmaf(xv[i].y, yv[jj].y, s);
-            s = fmaf(xv[i].z, yv[jj].z, s);
-            s = fmaf(xv[i].w, yv[jj].w, s);
-            acc[i][jj] = s;
+          for (int i = 0; i < 4; ++i) {
+            float* up = U + (j0 + jj) * T + rgi + i * RG;
+            *up = sl > 0 ? *up + acc[i][jj] : acc[i][jj];
           }
       }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          U[(j0 + jj) * T + rgi + i * RG] = acc[i][jj];
+      if (sliced) __syncthreads();  // read before the next slice lands
     }
     __syncthreads();
     if constexpr (kZ) {
       // D0 has read Y: the apply's rows Z take its place, landing by the
-      // first panel's wait.
-      copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
-                      z_b + (long)b * B * M, M, B, M, vec & kVecY, tid);
-      cp_async_commit();
+      // first panel's wait; sliced, the apply stages them.
+      if (!sliced) {
+        copy_rows_async(Ysm, [Ys](int j) { return yrow(j, Ys); },
+                        z_b + (long)b * B * M, M, B, M, vec & kVecY, tid);
+        cp_async_commit();
+      }
     }
 
     // The forward substitution, panel by panel.  U holds, for the obs not
@@ -632,12 +704,20 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
         macc = 0.0f;
       }
       __syncthreads();
-      if (!skips(kSkipApply))
-        efa_mma::apply_warp<kMode, kModeTiles, kModeSplit>(
-            Xs, Ys, U, [Us](int a, int i) { return (kPanel * a + i) * Us; },
-            Us, Ysm, ypanel, npanels, M, 16 * (warp % RT), warp / RT,
-            kWarps / RT, (M + 7) >> 3, lane);
-      __syncthreads();
+      for (int sl = 0; sl < nslice; ++sl) {
+        const int msz = sliced ? stage(sl, y_b, b) : M;
+        if (sliced) __syncthreads();
+        if (!skips(kSkipApply))
+          efa_mma::apply_warp<kMode, kModeTiles, kModeSplit>(
+              Xs, Ys, U, [Us](int a, int i) { return (kPanel * a + i) * Us; },
+              Us, Ysm, ypanel, npanels, msz, 16 * (warp % RT), warp / RT,
+              kWarps / RT, (msz + 7) >> 3, lane);
+        __syncthreads();
+        if (sliced) {
+          store(sl, msz);
+          __syncthreads();
+        }
+      }
     } else {
       // U <- sqrt_coef o U, so that the apply is X -= U^T Y.
       for (int idx = tid; idx < Bp * RG; idx += kThreads) {
@@ -655,10 +735,18 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
         macc = 0.0f;
       }
       __syncthreads();
-      if (skips(kSkipApply))
-        __syncthreads();
-      else
-        apply_tiles(Xs, Ysm, U, Bp, T, Ys, Mp, tid);
+      for (int sl = 0; sl < nslice; ++sl) {
+        const int msz = sliced ? stage(sl, kZ ? z_b : y_b, b) : M;
+        if (sliced) __syncthreads();
+        if (skips(kSkipApply))
+          __syncthreads();
+        else
+          apply_tiles(Xs, Ysm, U, Bp, T, Ys, round4(msz), tid);
+        if (sliced) {
+          store(sl, msz);
+          __syncthreads();
+        }
+      }
     }
     // The apply ended on a barrier: Y and the per-ob rows are free.
     if (b + 1 < nb) fetch_block(b + 1);
@@ -667,7 +755,7 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
   cp_async_wait<0>();
   __syncthreads();
 
-  for (int r = warp; r < npts; r += kWarps) {
+  for (int r = warp; !sliced && r < npts; r += kWarps) {
     const float* xs = Xs + r * Ys;
     float* out = bp_out + (row0 + r) * M;
     if (vec & kVecX) {
@@ -689,8 +777,8 @@ template <int kCtas, int kMode, bool kZ = false>
 int launch_as(const float* bm_in, const float* bp_in, const float* w,
               const float* table, const float* y_b, const float* z_b,
               const float* ggt_b, const float* coef_b, int VT, int G, int M,
-              int B, int nb, int T, int smem, unsigned ctas, float* bm_out,
-              float* bp_out, cudaStream_t stream) {
+              int Ms, int B, int nb, int T, int smem, unsigned ctas,
+              float* bm_out, float* bp_out, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       grid_body_kernel<kCtas, kMode, kZ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -708,8 +796,8 @@ int launch_as(const float* bm_in, const float* bp_in, const float* w,
       (G % 4 == 0 && aligned16(w) ? kVecW : 0) |
       (M % 4 == 0 && aligned16(bp_in) && aligned16(bp_out) ? kVecX : 0);
   grid_body_kernel<kCtas, kMode, kZ><<<ctas, kThreads, smem, stream>>>(
-      bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M, B, nb, T,
-      vec, bm_out, bp_out);
+      bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M, Ms, B, nb,
+      T, vec, bm_out, bp_out);
   return (int)cudaGetLastError();
 }
 
@@ -734,19 +822,21 @@ const void* kernel_of(int mode) {
   return (const void*)grid_body_kernel<kCtas, efa_mma::kIeee, false>;
 }
 
+// Ms: members a slice (M, or a multiple of 32 below it).
 int launch(const float* bm_in, const float* bp_in, const float* w,
            const float* table, const float* y_b, const float* z_b,
            const float* ggt_b, const float* coef_b, int VT, int G, int M,
-           int B, int nb, int T, int mode, float* bm_out, float* bp_out,
-           void* stream) {
+           int Ms, int B, int nb, int T, int mode, float* bm_out,
+           float* bp_out, void* stream) {
   if ((T != 32 && T != 64) || VT <= 0 || G <= 0 || M <= 0 || B <= 0 ||
-      nb <= 0 || nb > 0x7fffffff / ((B + kPanel - 1) / kPanel))
+      nb <= 0 || nb > 0x7fffffff / ((B + kPanel - 1) / kPanel) || Ms <= 0 ||
+      Ms > M || (Ms < M && Ms % 32 != 0))
     return (int)cudaErrorInvalidValue;
   // bf16: Y arrives as rows of round16(M) bf16 values, copied 16 bytes at a
   // time.
   if (mode == efa_mma::kBf16 && !aligned16(y_b))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(float) * layout_of(T, B, M, mode).total;
+  const int smem = (int)sizeof(float) * layout_of(T, B, Ms, mode).total;
   const long ctas = (long)VT * ((G + T - 1) / T);
   if (ctas > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
   if (z_b) {  // B4e: fp32 only
@@ -754,15 +844,15 @@ int launch(const float* bm_in, const float* bp_in, const float* w,
     const auto run = ctas_per_sm(smem) >= 3
                          ? &launch_as<3, efa_mma::kIeee, true>
                          : &launch_as<2, efa_mma::kIeee, true>;
-    return run(bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M, B,
-               nb, T, smem, (unsigned)ctas, bm_out, bp_out,
+    return run(bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M, Ms,
+               B, nb, T, smem, (unsigned)ctas, bm_out, bp_out,
                (cudaStream_t)stream);
   }
   const auto run =
       ctas_per_sm(smem) >= 3 ? launcher<3>(mode) : launcher<2>(mode);
   if (!run) return (int)cudaErrorInvalidValue;
   return run(bm_in, bp_in, w, table, y_b, nullptr, ggt_b, coef_b, VT, G, M,
-             B, nb, T, smem, (unsigned)ctas, bm_out, bp_out,
+             Ms, B, nb, T, smem, (unsigned)ctas, bm_out, bp_out,
              (cudaStream_t)stream);
 }
 
@@ -770,42 +860,25 @@ int launch(const float* bm_in, const float* bp_in, const float* w,
 
 extern "C" {
 
-// B3: all nb blocks in one launch.  T: grid points per CTA (32 or 64).
-// mode: 0 fp32 FMA, 1 TF32, 2 bf16 tensor cores for D0 and the apply.
-int efa_grid_body(const float* bm_in, const float* bp_in, const float* w,
-                  const float* table, const float* y_b, const float* ggt_b,
-                  const float* coef_b, int VT, int G, int M, int B, int nb,
-                  int T, int mode, float* bm_out, float* bp_out,
-                  void* stream) {
-  return launch(bm_in, bp_in, w, table, y_b, nullptr, ggt_b, coef_b, VT, G,
-                M, B, nb, T, mode, bm_out, bp_out, stream);
+// Every entry behind one: nb blocks in one launch (B3; B4 over the
+// sub-blocks of its block), B4e with z_b; Ms members a slice (M:
+// unsliced).  T: grid points per CTA (32 or 64).  mode: 0 fp32 FMA, 1
+// TF32, 2 bf16 tensor cores for D0 and the apply (B4e: 0).
+int efa_grid_launch(const float* bm_in, const float* bp_in, const float* w,
+                    const float* table, const float* y_b, const float* z_b,
+                    const float* ggt_b, const float* coef_b, int VT, int G,
+                    int M, int Ms, int B, int nb, int T, int mode,
+                    float* bm_out, float* bp_out, void* stream) {
+  return launch(bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M,
+                Ms, B, nb, T, mode, bm_out, bp_out, stream);
 }
 
-// B4: one block per launch.
-int efa_block_apply(const float* bm_in, const float* bp_in, const float* w,
-                    const float* table, const float* y, const float* ggt,
-                    const float* coef, int VT, int G, int M, int B, int T,
-                    int mode, float* bm_out, float* bp_out, void* stream) {
-  return launch(bm_in, bp_in, w, table, y, nullptr, ggt, coef, VT, G, M, B,
-                1, T, mode, bm_out, bp_out, stream);
-}
-
-// B4e: one block in fp32 with the apply's rows z [B, M] (ggt built from
-// them: (z_i . y_j) sqrt_coef_i).
-int efa_block_apply_enkf(const float* bm_in, const float* bp_in,
-                         const float* w, const float* table, const float* y,
-                         const float* z, const float* ggt, const float* coef,
-                         int VT, int G, int M, int B, int T, float* bm_out,
-                         float* bp_out, void* stream) {
-  if (!z) return (int)cudaErrorInvalidValue;
-  return launch(bm_in, bp_in, w, table, y, z, ggt, coef, VT, G, M, B, 1, T,
-                efa_mma::kIeee, bm_out, bp_out, stream);
-}
-
-// The version of the two entries' C signatures above, so that a build of
-// another commit's source can be bound right: 1 takes the product mode
-// before the outputs.  A source without this entry predates the modes.
-int efa_grid_abi() { return 1; }
+// The version of the entries' C signatures, so that a build of another
+// commit's source can be bound right: 2 is efa_grid_launch alone; 1 had
+// efa_grid_body (B3) and efa_block_apply (B4, one block), the product
+// mode before the outputs.  A source without this entry predates the
+// modes.
+int efa_grid_abi() { return 2; }
 
 // CTAs of the kernel in product mode `mode` that the card holds on one SM
 // at this shape (by the occupancy calculator, registers and shared memory

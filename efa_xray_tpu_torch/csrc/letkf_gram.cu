@@ -35,6 +35,16 @@
 // float4 loads of the same row k per 16 FMAs (one FMA chain an entry in
 // ascending k); the first Mp threads also sum b.  Past M = 128 the tiles
 // outnumber 1024 threads and the CTA makes several passes over the obs.
+// Past kSmallMembers (256) members, where one CTA would hold 2 x 32 x M
+// floats and make M^2 / 16384 passes, a unit's A is dealt in blocks of
+// 128 x 128 over CTAs of their own (lg_gram_tiles_kernel, one grid
+// dimension over (unit, block)): each gathers a slice's rows of Y at its
+// block's rows (as a_k y) and columns (as y), 32 KB of shared memory at
+// any M, and evaluates the slice's a_k itself from the packed table (the
+// same operations in the same order, so every block of a unit sees the
+// same bits; K x 60 operations against the block's K x 2 x 128^2 FMAs);
+// the blocks of the first column also sum b.  Each entry of A and b is
+// the same FMA chain in ascending k as in the one-CTA kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,7 +54,8 @@ namespace {
 
 constexpr int kSlice = 32;
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxMembers = 256;
+constexpr int kSmallMembers = 256;
+constexpr int kBlk = 128;
 constexpr int kObsCols = 8;
 constexpr float kEarthRadiusKm = 6371.0f;
 
@@ -193,6 +204,84 @@ __global__ void __launch_bounds__(kMaxThreads) lg_gram_kernel(
   }
 }
 
+// One 128 x 128 block of a unit's A (and, in the first block column, its
+// rows of b): CTA blockIdx.x = unit x nbk^2 + block, 1024 threads of 4 x
+// 4 tiles.
+__global__ void __launch_bounds__(kMaxThreads) lg_gram_tiles_kernel(
+    const float* ye, const float* obs, const long long* obs_var,
+    const float* vl, int nv, const float* px, const float* pv,
+    const long long* uv, const long long* ii, float* amat, float* b, int K,
+    int M, int nbk, int localize) {
+  __shared__ __align__(16) float Ya[kSlice][kBlk];  // a_k y_k, block rows
+  __shared__ __align__(16) float Yl[kSlice][kBlk];  // y_k, block columns
+  __shared__ float as[kSlice], ds[kSlice];
+  __shared__ long long os[kSlice];
+  const int nblk = nbk * nbk;
+  const long bid = blockIdx.x;
+  const int c = (int)(bid / nblk), blk = (int)(bid - (long)c * nblk);
+  const int r0 = kBlk * (blk / nbk), c0 = kBlk * (blk - (blk / nbk) * nbk);
+  const int tid = threadIdx.x, rg = tid >> 5, cg = tid & 31;
+  const bool first = c0 == 0;
+  const float cx = px[3 * c], cy = px[3 * c + 1], cz = px[3 * c + 2];
+  const float cv = pv ? pv[c] : 0.0f;
+  const float* vrow = vl ? vl + uv[c] * nv : nullptr;
+  const long long* idx = ii + (long)c * K;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float bacc = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kSlice) {
+    const int kn = K - k0 < kSlice ? K - k0 : kSlice;
+    if (tid < kn) {
+      const long long o = idx[k0 + tid];
+      const float* ob = obs + o * kObsCols;
+      float a = weight(ob, cx, cy, cz, cv, localize, pv != nullptr);
+      if (vrow) a = __fmul_rn(a, vrow[obs_var[o]]);
+      as[tid] = a;
+      ds[tid] = ob[5];
+      os[tid] = o;
+    }
+    __syncthreads();
+    for (int e = tid; e < kn * kBlk; e += blockDim.x) {
+      const int k = e / kBlk, m = e - k * kBlk;
+      const float* yrow = ye + os[k] * M;
+      const float yr = r0 + m < M ? yrow[r0 + m] : 0.0f;
+      Ya[k][m] = __fmul_rn(as[k], yr);
+      Yl[k][m] = c0 + m < M ? yrow[c0 + m] : 0.0f;
+    }
+    __syncthreads();
+    for (int k = 0; k < kn; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&Ya[k][4 * rg]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Yl[k][4 * cg]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] = fmaf(ar[i], bv.x, acc[i][0]);
+        acc[i][1] = fmaf(ar[i], bv.y, acc[i][1]);
+        acc[i][2] = fmaf(ar[i], bv.z, acc[i][2]);
+        acc[i][3] = fmaf(ar[i], bv.w, acc[i][3]);
+      }
+    }
+    if (first && tid < kBlk)
+      for (int k = 0; k < kn; ++k) bacc = fmaf(Ya[k][tid], ds[k], bacc);
+    __syncthreads();
+  }
+  float* out = amat + (long)c * M * M;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + 4 * rg + i, col = c0 + 4 * cg + j;
+      if (r < M && col < M)
+        out[(long)r * M + col] =
+            r == col ? __fadd_rn((float)(M - 1), acc[i][j]) : acc[i][j];
+    }
+  if (first && tid < kBlk && r0 + tid < M)
+    b[(long)c * M + r0 + tid] = bacc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,9 +296,18 @@ int efa_letkf_gram(const float* ye, const float* obs, const long long* obs_var,
                    const long long* uv, const long long* ii, float* amat,
                    float* b, int C, int K, int M, int localize,
                    void* stream) {
-  if (M < 1 || M > kMaxMembers || C <= 0 || K < 0 ||
-      (vl && (!uv || !obs_var || nv < 1)))
+  if (M < 1 || C <= 0 || K < 0 || (vl && (!uv || !obs_var || nv < 1)))
     return (int)cudaErrorInvalidValue;
+  if (M > kSmallMembers) {
+    const int nbk = (M + kBlk - 1) / kBlk;
+    const long ctas = (long)C * nbk * nbk;
+    if (ctas > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
+    lg_gram_tiles_kernel<<<(unsigned)ctas, kMaxThreads, 0,
+                           (cudaStream_t)stream>>>(
+        ye, obs, obs_var, vl, nv, px, pv, uv, ii, amat, b, K, M, nbk,
+        localize);
+    return (int)cudaGetLastError();
+  }
   const int Mp = round4(M);
   const int smem = smem_bytes(Mp);
   cudaError_t e = cudaFuncSetAttribute(

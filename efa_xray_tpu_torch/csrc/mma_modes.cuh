@@ -220,13 +220,14 @@ __device__ __forceinline__ void round_left(float* U, int Us, int T, int nobs,
 // 2m + 1 == np), kM m-tiles a pass, ksteps k-steps in all, each tile's
 // k-steps dealt over kSplit accumulators (independent mma chains); d0 of
 // ob job(p) + i and row r written to U[(job(p) + i) * Us + r] (a later
-// chunk of k-steps adds to it).
+// chunk of k-steps adds to it; so does the first where `add`: a later
+// member slice of X and Y).
 template <int kMode, int kSteps, int kM, int kSplit, typename YRow,
           typename JOb>
 __device__ __forceinline__ void d0t_warp(const float* Xs, int Ys,
                                          const float* Y, YRow yrow, JOb job,
                                          int np, int ksteps, float* U, int Us,
-                                         int r0, int lane) {
+                                         int r0, int lane, bool add = false) {
   const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
   const int nmt = (np + 1) >> 1;
   const float* x = Xs + (r0 + g) * Ys;
@@ -294,7 +295,7 @@ __device__ __forceinline__ void d0t_warp(const float* Xs, int Ys,
 #pragma unroll
               for (int k = 0; k < kSplit; ++k)
                 v.x += acc[i][k][2 * h], v.y += acc[i][k][2 * h + 1];
-              if (k0 > 0) {
+              if (k0 > 0 || add) {
                 const float2 w = *u;
                 v.x += w.x, v.y += w.y;
               }

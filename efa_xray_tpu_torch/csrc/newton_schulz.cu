@@ -49,10 +49,12 @@
 //   FMA chain in ascending k (the chain of the plain loop's products).
 //   Tiles 8 columns wide (half of B's loads per FMA, half the warps) were
 //   measured slower at M = 80 and 136.
-// * Device-memory variant (136 < round4(M), up to the 256 members B1
-//   takes): Y and Z in pairs of buffers, T in a third, every system's 64 x
-//   64 output tiles dealt over the grid; two grid barriers an iteration
-//   (T and the error, then Y T and T Z into the other buffer of each pair).
+// * Device-memory variant (136 < round4(M), any ensemble): Y and Z in
+//   pairs of buffers, T in a third (5 C M^2 floats: 2.7 GB at 512 systems
+//   of 512 members), every system's 64 x 64 output tiles dealt over the
+//   grid of the CTAs that fit the card at once (4 an SM: no shared memory
+//   grows with M); two grid barriers an iteration (T and the error, then
+//   Y T and T Z into the other buffer of each pair).
 // * The end writes what the LETKF's solve uses: scale S (W = sqrt(M - 1)
 //   A^{-1/2}, or A^{-1/2} itself) and wbar = S (S b) = A^{-1} b, so the
 //   host issues a chunk's solve in one C call.
@@ -70,7 +72,6 @@
 namespace {
 
 constexpr int kMaxSmemBytes = 232448;
-constexpr int kMaxMembers = 256;
 constexpr int kWideThreads = 256;
 constexpr long long kSpinNs = 5000000000LL;
 
@@ -686,9 +687,9 @@ cudaError_t cooperative(K kernel, int threads, int smem, long tasks,
 extern "C" {
 
 // Whether a system of M members runs in shared memory (1) or in device
-// memory (0); -1 for an M the kernel does not take.
+// memory (0); -1 for an M the kernel does not take (below 1).
 int efa_ns_in_smem(int M) {
-  if (M < 1 || M > kMaxMembers) return -1;
+  if (M < 1) return -1;
   return in_smem(M) ? 1 : 0;
 }
 
@@ -696,7 +697,7 @@ int efa_ns_in_smem(int M) {
 // Z of every system padded (shared-memory variant), or the two pairs and T
 // (device-memory variant); -1 for an M the kernel does not take.
 long long efa_ns_work_floats(int C, int M) {
-  if (M < 1 || M > kMaxMembers || C < 0) return -1;
+  if (M < 1 || C < 0) return -1;
   if (in_smem(M)) {
     const long long mq = make_plan(M).mq;
     return 2LL * C * mq * mq;

@@ -55,12 +55,10 @@
 //    whole sub-panels (the wrapper pads the panel).  The owner of a
 //    sub-panel writes its Y rows, G and coefficients into every CTA's
 //    shared memory (distributed shared memory), and each step ends at a
-//    cluster barrier.  Each CTA holds only its share of the slab, so every
-//    panel the JAX package takes to its kernel (P <= 1024) runs at every
-//    ensemble up to 256 members (the bound of the warp's solve, 8 members
-//    per lane): 1024 x 256 x 4 B is 128 KB a CTA at 8.  The wrapper picks
-//    the smallest cluster that fits (ops/tail_solve.py pick_cluster, from
-//    MIN_CLUSTER on); a shape none holds is refused there, before a launch.
+//    cluster barrier.  Each CTA holds only its share of the slab: 1024 x
+//    256 x 4 B is 128 KB a CTA at 8.  The wrapper picks the smallest
+//    cluster that fits (ops/tail_solve.py pick_cluster, from MIN_CLUSTER
+//    on).
 // 3. The weight rows w[i0:i0+kSub, own rows] (and B1h's static rows)
 //    stream through a two-slot cp.async ring, one sub-panel ahead.
 // 4. Where a CTA has fewer rows than threads, 2, 4 or 8 threads share a row
@@ -68,7 +66,19 @@
 // 5. The warp's steps issue every member slot of the sub-panel's rows, so
 //    the solve is built for 3 slots a lane (up to 96 members) as well as 8:
 //    at 80 members that took B1 from 0.50 to 0.40 of the one-CTA kernel's
-//    time (PERF.md).
+//    time (PERF.md).  Past 256 members the wide instantiation (kWide)
+//    takes each step's sums over chunks of 256 members, 8 a lane, then
+//    reads the row again chunk by chunk for its writes: any ensemble.
+// 6. Where no cluster of 8 holds its shares of the slab (512 members at
+//    panels of 1024, or any ensemble past about 440 members at panels of
+//    512), the wide instantiation keeps the rows in tp_out in device
+//    memory (L2-resident: 2 MB at 1024 x 512), each CTA's own, and the
+//    sub-panel's Y (Z), G and coefficients in a device scratch ring that
+//    every CTA of the cluster reads after the cluster barrier (L2 loads,
+//    __ldcg) instead of pushing them into each CTA (`global`, a runtime
+//    flag of the wide instantiation, so that one build serves both).
+//    Shared memory then holds the weight rings and the per-row scalars
+//    only, so any ensemble runs at any panel.
 // Plain fp32 FMA throughout; no tensor cores.
 //
 // Shared memory (floats; make_layout below, mirrored by ops/tail_solve.py
@@ -76,7 +86,8 @@
 // [kSub] (transposed, so a row's kSub values are float4 loads), (B1e: Z
 // [2][M][kSub] likewise), G [2][kSub][kSub], coefficients [2][4][kSub], the
 // rows X [Pc][M | 1] (odd stride: one thread per row reads 32 banks), tm,
-// (sigma), value, error, flag [Pc].
+// (sigma), value, error, flag [Pc]; a `global` launch keeps the rings and
+// the rows in device memory instead.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,11 +98,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// Members per lane in the warp's solve, and so the largest ensemble; and
-// the fewer slots the solve is also built for (ensembles up to 96 members
-// then issue no work for empty slots).
+// Members per lane in the warp's solve (a chunk of 256 members at a time
+// past 256), and the fewer slots the solve is also built for (ensembles up
+// to 96 members then issue no work for empty slots).
 constexpr int kMaxLanes = 8;
-constexpr int kMaxMembers = 32 * kMaxLanes;
+constexpr int kChunk = 32 * kMaxLanes;
 constexpr int kFewLanes = 3;
 constexpr int kSlots = 2;
 // Per-ob scalars of a sub-panel: gain, sqrt_coef, static gain, static sqrt.
@@ -119,24 +130,29 @@ struct Layout {
   int wring, gring, yt, zt, g, coef, x, tm, sig, vals, errs, flags, total;
 };
 
+// In shared memory (global = false), or with the rows and the rings in
+// device memory (global: their offsets index the scratch ring, X none).
 __host__ __device__ inline Layout make_layout(int Pc, int M, int sub,
-                                              bool hybrid, bool enkf) {
+                                              bool hybrid, bool enkf,
+                                              bool global = false) {
   Layout L;
   int o = 0;
   L.wring = o;
   o += kSlots * sub * Pc;
   L.gring = o;
   o += hybrid ? kSlots * sub * Pc : 0;
-  L.yt = o;
-  o += kSlots * M * sub;
-  L.zt = o;
-  o += enkf ? kSlots * M * sub : 0;
-  L.g = o;
-  o += kSlots * sub * sub;
-  L.coef = o;
-  o += kSlots * kCoef * sub;
+  int r = 0;  // the ring's offsets
+  int& ro = global ? r : o;
+  L.yt = ro;
+  ro += kSlots * M * sub;
+  L.zt = ro;
+  ro += enkf ? kSlots * M * sub : 0;
+  L.g = ro;
+  ro += kSlots * sub * sub;
+  L.coef = ro;
+  ro += kSlots * kCoef * sub;
   L.x = o;
-  o += Pc * (M | 1);
+  o += global ? 0 : Pc * (M | 1);
   L.tm = o;
   o += Pc;
   L.sig = o;
@@ -151,8 +167,25 @@ __host__ __device__ inline Layout make_layout(int Pc, int M, int sub,
   return L;
 }
 
-int smem_bytes(int Pc, int M, int sub, bool hybrid, bool enkf) {
-  return (int)sizeof(float) * make_layout(Pc, M, sub, hybrid, enkf).total;
+long long smem_bytes(int Pc, int M, int sub, bool hybrid, bool enkf,
+                     bool global = false) {
+  return (long long)sizeof(float) *
+         make_layout(Pc, M, sub, hybrid, enkf, global).total;
+}
+
+// Whether the slab stays in device memory: its shares do not fit a CTA.
+bool in_global(int Pc, int M, int sub, bool hybrid, bool enkf) {
+  return smem_bytes(Pc, M, sub, hybrid, enkf) > kMaxSmemBytes;
+}
+
+// A scratch-ring word (global: written by another CTA of the cluster
+// before the cluster barrier, read from L2) or a shared one.
+__device__ __forceinline__ float ld(const float* p, bool global) {
+  return global ? __ldcg(p) : *p;
+}
+__device__ __forceinline__ float4 ld4(const float* p, bool global) {
+  return global ? __ldcg(reinterpret_cast<const float4*>(p))
+                : *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -185,6 +218,7 @@ struct Args {
   const float* gc;              // [P, P] static correlation (B1h)
   const float* sig;             // [P] static std (B1h)
   const float* eps;             // [P, M] perturbed-ob draws (B1e)
+  float* ring;                  // global: the scratch ring
   float alpha;
   int P, M, unbiased, cluster, tpr;
   float* tm_out;                // [P]
@@ -218,10 +252,12 @@ __device__ __forceinline__ void cluster_sync(int C) {
 // Warp 0 of the owning CTA: the serial solve of sub-panel k (obs and rows
 // k kSub .. k kSub + kSub - 1, local rows il0 ..), then its Gram matrix,
 // and the sub-panel's Y (B1e: and Z), G and coefficients pushed into every
-// CTA.
-template <bool kHybrid, bool kEnkf, int kSub, int kLanes>
+// CTA (global: left in the device ring).  kChunked: the members in chunks
+// of kLanes a lane, any M.
+template <bool kHybrid, bool kEnkf, int kSub, int kLanes, bool kChunked>
 __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
-                               int slot, int Pc, int S, int rank) {
+                               int slot, int Pc, int S, int rank,
+                               bool global) {
   const int lane = threadIdx.x & 31;
   const int M = a.M;
   const float vden = a.unbiased ? (float)(M - 1) : (float)M;
@@ -247,6 +283,7 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
   // one block of straight-line code.
   const float inv_m = 1.f / (float)M, inv_vden = 1.f / vden;
   const float inv_m1 = 1.f / (float)(M - 1);
+  const int nchunk = kChunked ? (M + 32 * kLanes - 1) / (32 * kLanes) : 1;
 #pragma unroll
   for (int t = 0; t < (skips(kSkipSteps) ? 0 : kSub); ++t) {
     const int gi = k * kSub + t;
@@ -256,28 +293,35 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
     __syncwarp();
     const float* yt = rows + t * S;
     float ye[kLanes], z[kLanes];
+    // Row t's members m0 + q 32 + lane (and B1e's departures).
+    const auto load = [&](int m0) {
 #pragma unroll
-    for (int q = 0; q < kLanes; ++q) {
-      const int m = q * 32 + lane;
-      ye[q] = (m < M) ? yt[m] : 0.f;
-      // B1e: the departure row z = ye - eps[gi, :]; the square root
-      // applies ye itself.
-      z[q] = kEnkf ? ((m < M) ? ye[q] - a.eps[(long)gi * M + m] : 0.f)
-                   : ye[q];
-    }
+      for (int q = 0; q < kLanes; ++q) {
+        const int m = m0 + q * 32 + lane;
+        ye[q] = (m < M) ? yt[m] : 0.f;
+        // B1e: the departure row z = ye - eps[gi, :]; the square root
+        // applies ye itself.
+        z[q] = kEnkf ? ((m < M) ? ye[q] - a.eps[(long)gi * M + m] : 0.f)
+                     : ye[q];
+      }
+    };
     const float c0 = yt[0];
     float red[kSub + 2];
 #pragma unroll
     for (int v = 0; v < kSub + 2; ++v) red[v] = 0.f;
+    for (int ch = 0; ch < nchunk; ++ch) {
+      const int m0 = ch * 32 * kLanes;
+      load(m0);
 #pragma unroll
-    for (int q = 0; q < kLanes; ++q) {
-      const int m = q * 32 + lane;
-      if (m < M) {
-        const float dv = ye[q] - c0;
-        red[kSub] += dv;
-        red[kSub + 1] += dv * dv;
+      for (int q = 0; q < kLanes; ++q) {
+        const int m = m0 + q * 32 + lane;
+        if (m < M) {
+          const float dv = ye[q] - c0;
+          red[kSub] += dv;
+          red[kSub + 1] += dv * dv;
 #pragma unroll
-        for (int r = 0; r < kSub; ++r) red[r] += rows[r * S + m] * ye[q];
+          for (int r = 0; r < kSub; ++r) red[r] += rows[r * S + m] * ye[q];
+        }
       }
     }
 #pragma unroll
@@ -328,21 +372,26 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
     // B1e: the sums of row t after its own ob, about its first member.
     float post[2] = {0.f, 0.f};
     const float c1 = kEnkf ? c0 - crt * (c0 - a.eps[(long)gi * M]) : 0.f;
+    for (int ch = 0; ch < nchunk; ++ch) {
+      const int m0 = ch * 32 * kLanes;
+      // Chunked, the row is read again (its chunk is not yet written).
+      if (kChunked) load(m0);
 #pragma unroll
-    for (int q = 0; q < kLanes; ++q) {
-      const int m = q * 32 + lane;
-      if (m < M) {
-        a.ye_out[(long)gi * M + m] = ye[q];
-        ys[m * kSub + t] = ye[q];
-        if (kEnkf) {
-          a.z_out[(long)gi * M + m] = z[q];
-          zs[m * kSub + t] = z[q];
-          const float dv = ye[q] - crt * z[q] - c1;
-          post[0] += dv;
-          post[1] += dv * dv;
+      for (int q = 0; q < kLanes; ++q) {
+        const int m = m0 + q * 32 + lane;
+        if (m < M) {
+          a.ye_out[(long)gi * M + m] = ye[q];
+          ys[m * kSub + t] = ye[q];
+          if (kEnkf) {
+            a.z_out[(long)gi * M + m] = z[q];
+            zs[m * kSub + t] = z[q];
+            const float dv = ye[q] - crt * z[q] - c1;
+            post[0] += dv;
+            post[1] += dv * dv;
+          }
+#pragma unroll
+          for (int r = 0; r < kSub; ++r) rows[r * S + m] -= cr[r] * z[q];
         }
-#pragma unroll
-        for (int r = 0; r < kSub; ++r) rows[r * S + m] -= cr[r] * z[q];
       }
     }
     if (kEnkf) {
@@ -395,13 +444,16 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
     for (; m + 4 <= M; m += 4) {
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        acc[u] += as_[(m + u) * kSub + p] * ys[(m + u) * kSub + t];
+        acc[u] += ld(as_ + (m + u) * kSub + p, global) *
+                  ld(ys + (m + u) * kSub + t, global);
     }
-    for (; m < M; ++m) acc[0] += as_[m * kSub + p] * ys[m * kSub + t];
+    for (; m < M; ++m)
+      acc[0] += ld(as_ + m * kSub + p, global) *
+                ld(ys + m * kSub + t, global);
     g[p * kSub + t] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
   __syncwarp();
-  if (a.cluster > 1 && !skips(kSkipPush)) {
+  if (!global && a.cluster > 1 && !skips(kSkipPush)) {
     cg::cluster_group cl = cg::this_cluster();
     const float4* y4 = reinterpret_cast<const float4*>(ys);
     const float4* z4 = reinterpret_cast<const float4*>(zs);
@@ -425,9 +477,11 @@ __device__ void solve_subpanel(const Args& a, const Smem& s, int k, int il0,
 
 // Every row of this CTA outside the sub-panel: one rank-kSub update (B1e:
 // X -= V Z).
-template <bool kHybrid, bool kEnkf, int kSub>
+// kWide: `global` (else shared rings) is the launch's.
+template <bool kHybrid, bool kEnkf, int kSub, bool kWide>
 __device__ void rank_update(const Args& a, const Smem& s, int skip0,
-                            int slot, int Pc, int S) {
+                            int slot, int Pc, int S, bool wide_global) {
+  const bool global = kWide && wide_global;
   const int M = a.M;
   const int tpr = a.tpr;
   const int tid = threadIdx.x;
@@ -450,10 +504,9 @@ __device__ void rank_update(const Args& a, const Smem& s, int skip0,
     if (mine) {
       for (int m = q; m < M; m += tpr) {
         const float xv = x[m];
-        const float4* y4 = reinterpret_cast<const float4*>(ys + m * kSub);
 #pragma unroll
         for (int t4 = 0; t4 < kSub / 4; ++t4) {
-          const float4 y = y4[t4];
+          const float4 y = ld4(ys + m * kSub + 4 * t4, global);
           d[4 * t4] += xv * y.x;
           d[4 * t4 + 1] += xv * y.y;
           d[4 * t4 + 2] += xv * y.z;
@@ -474,23 +527,22 @@ __device__ void rank_update(const Args& a, const Smem& s, int skip0,
     for (int t = 0; t < kSub; ++t) {
       float dt = d[t];
 #pragma unroll
-      for (int p = 0; p < t; ++p) dt -= v[p] * g[p * kSub + t];
+      for (int p = 0; p < t; ++p) dt -= v[p] * ld(g + p * kSub + t, global);
       const float u = a.w ? wslot[t * Pc + jl] * dt : dt;
-      v[t] = coef[kSub + t] * u;
-      mean += coef[t] * u;
+      v[t] = ld(coef + kSub + t, global) * u;
+      mean += ld(coef + t, global) * u;
       if (kHybrid) {
         const float col = sj * gslot[t * Pc + jl];
-        v[t] += coef[3 * kSub + t] * col;
-        mean += coef[2 * kSub + t] * col;
+        v[t] += ld(coef + 3 * kSub + t, global) * col;
+        mean += ld(coef + 2 * kSub + t, global) * col;
       }
     }
     if (q == 0) s.tm[jl] += mean;
     for (int m = q; m < M; m += tpr) {
       float acc = x[m];
-      const float4* y4 = reinterpret_cast<const float4*>(as_ + m * kSub);
 #pragma unroll
       for (int t4 = 0; t4 < kSub / 4; ++t4) {
-        const float4 y = y4[t4];
+        const float4 y = ld4(as_ + m * kSub + 4 * t4, global);
         acc -= v[4 * t4] * y.x;
         acc -= v[4 * t4 + 1] * y.y;
         acc -= v[4 * t4 + 2] * y.z;
@@ -501,18 +553,25 @@ __device__ void rank_update(const Args& a, const Smem& s, int skip0,
   }
 }
 
-template <bool kHybrid, bool kEnkf, int kSub>
+// kWide: the chunked solve (any M) and, where a.ring is given (global),
+// the rows in tp_out and the rings in a.ring (device memory).
+template <bool kHybrid, bool kEnkf, int kSub, bool kWide>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     tail_solve_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   const int C = a.cluster;
   const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  const int P = a.P, M = a.M, S = M | 1, Pc = P / C, row0 = rank * Pc;
+  const bool global = kWide && a.ring != nullptr;
+  const int P = a.P, M = a.M, S = global ? M : M | 1, Pc = P / C;
+  const int row0 = rank * Pc;
   const int tid = threadIdx.x, nth = blockDim.x;
-  const Layout L = make_layout(Pc, M, kSub, kHybrid, kEnkf);
-  const Smem s{smem + L.wring, smem + L.gring, smem + L.yt,  smem + L.zt,
-               smem + L.g,     smem + L.coef,  smem + L.x,   smem + L.tm,
-               smem + L.sig,   smem + L.vals,  smem + L.errs, smem + L.flags};
+  const Layout L = make_layout(Pc, M, kSub, kHybrid, kEnkf, global);
+  float* ring = global ? a.ring : smem;
+  const Smem s{smem + L.wring, smem + L.gring, ring + L.yt,  ring + L.zt,
+               ring + L.g,     ring + L.coef,
+               global ? a.tp_out + (long)row0 * M : smem + L.x,
+               smem + L.tm,    smem + L.sig,   smem + L.vals, smem + L.errs,
+               smem + L.flags};
 
   // The weight rows of sub-panel k (and B1h's static rows) at this CTA's
   // rows, into ring slot `slot`.
@@ -554,30 +613,33 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const int owner = k / per_cta;
     const int il0 = (k - owner * per_cta) * kSub;
     if (rank == owner && tid < 32) {
-      if (M <= 32 * kFewLanes)
-        solve_subpanel<kHybrid, kEnkf, kSub, kFewLanes>(a, s, k, il0, slot,
-                                                        Pc, S, rank);
+      if (kWide)
+        solve_subpanel<kHybrid, kEnkf, kSub, kMaxLanes, true>(
+            a, s, k, il0, slot, Pc, S, rank, global);
+      else if (M <= 32 * kFewLanes)
+        solve_subpanel<kHybrid, kEnkf, kSub, kFewLanes, false>(
+            a, s, k, il0, slot, Pc, S, rank, false);
       else
-        solve_subpanel<kHybrid, kEnkf, kSub, kMaxLanes>(a, s, k, il0, slot,
-                                                        Pc, S, rank);
+        solve_subpanel<kHybrid, kEnkf, kSub, kMaxLanes, false>(
+            a, s, k, il0, slot, Pc, S, rank, false);
     }
     cluster_sync(C);
     if (!skips(kSkipUpdate))
-      rank_update<kHybrid, kEnkf, kSub>(a, s, rank == owner ? il0 : Pc, slot,
-                                        Pc, S);
+      rank_update<kHybrid, kEnkf, kSub, kWide>(
+          a, s, rank == owner ? il0 : Pc, slot, Pc, S, global);
   }
   __syncthreads();
-  for (int idx = tid; idx < Pc * M; idx += nth) {
+  for (int idx = tid; !global && idx < Pc * M; idx += nth) {
     const int j = idx / M, m = idx - j * M;
     a.tp_out[(long)row0 * M + idx] = s.x[j * S + m];
   }
   for (int j = tid; j < Pc; j += nth) a.tm_out[row0 + j] = s.tm[j];
 }
 
-template <bool kHybrid, bool kEnkf, int kSub>
+template <bool kHybrid, bool kEnkf, int kSub, bool kWide = false>
 cudaError_t launch(const Args& a, int threads, int smem,
                    cudaStream_t stream) {
-  auto kernel = tail_solve_kernel<kHybrid, kEnkf, kSub>;
+  auto kernel = tail_solve_kernel<kHybrid, kEnkf, kSub, kWide>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -598,8 +660,9 @@ cudaError_t launch(const Args& a, int threads, int smem,
 
 // The launch of one panel (P a multiple of sub x cluster: the wrapper
 // pads): threads per CTA and per row, then the instantiation.
+// wide: past kChunk members, or with the slab in device memory (a.ring).
 cudaError_t run(Args a, int sub, int smem, cudaStream_t s, bool hybrid,
-                bool enkf) {
+                bool enkf, bool wide) {
   const int Pc = a.P / a.cluster;
   // One thread per row up to 512 rows; below 256 rows a CTA keeps 256
   // threads and shares each row among 2, 4 or 8 of them.
@@ -608,10 +671,16 @@ cudaError_t run(Args a, int sub, int smem, cudaStream_t s, bool hybrid,
   while (tpr < 8 && Pc * tpr * 2 <= threads) tpr *= 2;
   a.tpr = tpr;
   cudaError_t e;
-  if (sub == 8) {
+  if (sub == 8 && wide) {
+    e = enkf     ? launch<false, true, 8, true>(a, threads, smem, s)
+        : hybrid ? launch<true, false, 8, true>(a, threads, smem, s)
+                 : launch<false, false, 8, true>(a, threads, smem, s);
+  } else if (sub == 8) {
     e = enkf     ? launch<false, true, 8>(a, threads, smem, s)
         : hybrid ? launch<true, false, 8>(a, threads, smem, s)
                  : launch<false, false, 8>(a, threads, smem, s);
+  } else if (wide) {
+    return cudaErrorInvalidValue;
   } else {
 #if EFA_TAIL_SUB16
     e = hybrid ? launch<true, false, 16>(a, threads, smem, s)
@@ -627,63 +696,58 @@ cudaError_t run(Args a, int sub, int smem, cudaStream_t s, bool hybrid,
 bool bad_shape(int P, int M, int sub, int cluster) {
   return (sub != 8 && sub != 16) ||
          (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
-         P <= 0 || P % (sub * cluster) != 0 || M < 2 || M > kMaxMembers;
+         P <= 0 || P % (sub * cluster) != 0 || M < 2;
+}
+
+// The launch of either instantiation (eps given: B1e; gc and sig: B1h),
+// the slab in shared memory where its shares fit, else in device memory
+// with the scratch ring `ring` (make_layout's ring offsets, global).
+int launch_panel(Args a, int sub, void* stream) {
+  const bool hybrid = a.gc != nullptr, enkf = a.eps != nullptr;
+  if (bad_shape(a.P, a.M, sub, a.cluster) || hybrid != (a.sig != nullptr) ||
+      (hybrid && (!a.sg_out || !a.ss_out)) || (hybrid && enkf) ||
+      (enkf && (sub != 8 || !a.z_out)))
+    return (int)cudaErrorInvalidValue;
+  const int Pc = a.P / a.cluster;
+  const bool global = in_global(Pc, a.M, sub, hybrid, enkf);
+  const long long smem = smem_bytes(Pc, a.M, sub, hybrid, enkf, global);
+  if (smem > kMaxSmemBytes || global != (a.ring != nullptr))
+    return (int)cudaErrorInvalidValue;
+  return (int)run(a, sub, (int)smem, (cudaStream_t)stream, hybrid, enkf,
+                  global || a.M > kChunk);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one CTA owning `rows` rows (for the wrapper's check);
-// kind 0 B1, 1 B1h, 2 B1e.
+// Shared memory of one CTA owning `rows` rows (for the wrapper's check),
+// the slab's shares in it where they fit; kind 0 B1, 1 B1h, 2 B1e.
 int efa_tail_solve_smem(int rows, int M, int sub, int kind) {
-  return smem_bytes(rows, M, sub, kind == 1, kind == 2);
+  return (int)smem_bytes(rows, M, sub, kind == 1, kind == 2,
+                         in_global(rows, M, sub, kind == 1, kind == 2));
 }
 
-// P must be a multiple of sub x cluster (the wrapper pads), gc and sig are
-// given exactly for B1h; returns a cudaError_t.
-int efa_tail_solve(const float* tm_in, const float* tp_in, const float* vals,
-                   const float* errs, const unsigned char* assim,
-                   const float* w, const float* gc, const float* sig,
-                   float alpha, int P, int M, int unbiased, int sub,
-                   int cluster, float* tm_out, float* tp_out, float* ye_out,
-                   float* gain_out, float* sqrt_out, float* pm_out,
-                   float* pv_out, float* om_out, float* ov_out,
-                   float* sg_out, float* ss_out, void* stream) {
-  const bool hybrid = gc != nullptr;
-  if (bad_shape(P, M, sub, cluster) || hybrid != (sig != nullptr) ||
-      (hybrid && (!sg_out || !ss_out)))
-    return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(P / cluster, M, sub, hybrid, false);
-  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  Args a{tm_in,  tp_in,   vals,     errs,     assim,  w,      gc,
-         sig,    nullptr, alpha,    P,        M,      unbiased,
-         cluster, 0,      tm_out,   tp_out,   ye_out, gain_out,
-         sqrt_out, pm_out, pv_out,  om_out,   ov_out, sg_out,
-         ss_out, nullptr};
-  return (int)run(a, sub, smem, (cudaStream_t)stream, hybrid, false);
-}
-
-// B1e: the stochastic EnKF's panel solve, with the draws eps [P, M] and
-// the departure rows z_out [P, M]; sub-panels of 8 only.
-int efa_tail_solve_enkf(const float* tm_in, const float* tp_in,
-                        const float* vals, const float* errs,
-                        const unsigned char* assim, const float* w,
-                        const float* eps, int P, int M, int unbiased,
-                        int cluster, float* tm_out, float* tp_out,
-                        float* ye_out, float* z_out, float* gain_out,
-                        float* sqrt_out, float* pm_out, float* pv_out,
-                        float* om_out, float* ov_out, void* stream) {
-  if (bad_shape(P, M, 8, cluster) || !eps || !z_out)
-    return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(P / cluster, M, 8, false, true);
-  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  Args a{tm_in,  tp_in,   vals,     errs,     assim,  w,      nullptr,
-         nullptr, eps,    1.f,      P,        M,      unbiased,
-         cluster, 0,      tm_out,   tp_out,   ye_out, gain_out,
-         sqrt_out, pm_out, pv_out,  om_out,   ov_out, nullptr,
-         nullptr, z_out};
-  return (int)run(a, 8, smem, (cudaStream_t)stream, false, true);
+// Every instantiation behind one entry: B1, B1h (gc and sig given) or B1e
+// (eps and z_out given; sub-panels of 8); ring: the scratch ring of
+// make_layout's global offsets in device memory where the slab's shares
+// do not fit the cluster's shared memory (in_global), else nullptr.  P must be a
+// multiple of sub x cluster (the wrapper pads).  Returns a cudaError_t.
+int efa_tail_launch(const float* tm_in, const float* tp_in,
+                    const float* vals, const float* errs,
+                    const unsigned char* assim, const float* w,
+                    const float* gc, const float* sig, const float* eps,
+                    float* ring, float alpha, int P, int M, int unbiased,
+                    int sub, int cluster, float* tm_out, float* tp_out,
+                    float* ye_out, float* z_out, float* gain_out,
+                    float* sqrt_out, float* pm_out, float* pv_out,
+                    float* om_out, float* ov_out, float* sg_out,
+                    float* ss_out, void* stream) {
+  Args a{tm_in,  tp_in,   vals,    errs,     assim,  w,        gc,
+         sig,    eps,     ring,    alpha,    P,      M,        unbiased,
+         cluster, 0,      tm_out,  tp_out,   ye_out, gain_out, sqrt_out,
+         pm_out, pv_out,  om_out,  ov_out,   sg_out, ss_out,   z_out};
+  return launch_panel(a, sub, stream);
 }
 
 }  // extern "C"

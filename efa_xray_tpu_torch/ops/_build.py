@@ -37,14 +37,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argtypes of every C entry point; pointers and the stream as c_void_p.
 _SIGNATURES = {
-    "efa_tail_solve": [_P] * 8 + [_F] + [_I] * 5 + [_P] * 12,
-    "efa_tail_solve_enkf": [_P] * 7 + [_I] * 4 + [_P] * 11,
     "efa_tail_solve_smem": [_I] * 4,
-    "efa_fused_body": [_P] * 7 + [_I] * 10 + [_P] * 3,
-    "efa_fused_body_enkf": [_P] * 8 + [_I] * 8 + [_P] * 3,
-    "efa_grid_body": [_P] * 7 + [_I] * 7 + [_P] * 3,
-    "efa_block_apply": [_P] * 7 + [_I] * 6 + [_P] * 3,
-    "efa_block_apply_enkf": [_P] * 8 + [_I] * 5 + [_P] * 3,
+    "efa_tail_launch": [_P] * 10 + [_F] + [_I] * 5 + [_P] * 13,
+    "efa_fused_launch": [_P] * 8 + [_I] * 11 + [_P] * 3,
+    "efa_grid_launch": [_P] * 8 + [_I] * 8 + [_P] * 3,
     "efa_grid_ctas_per_sm": [_I] * 4,
     "efa_grid_abi": [],
     "efa_precision_mm": [_P] * 5 + [_I] * 4 + [_P],

@@ -27,6 +27,14 @@ Y^T`` as before, ``ggt[j, i] = (z_i . y_j) g_i`` and ``X -= (g o U)^T Z``
 (``ensrf_core.apply_obs_block(apply_rows=z)``, which the JAX package runs
 in plain XLA).  Its tile and cull bits are B2's.
 
+Any ensemble and any block run (:func:`plan`): where a CTA's layout, a
+row tile of X and the block's rows ``[tile + block, M]``, does not fit its
+shared memory, the kernel sweeps sub-blocks of the block in order
+(:func:`sub_blocks`; exact, as a smaller block is), or, where no
+sub-block of 32 obs fits either, stages the members a slice at a time
+(D0 summed over the slices).  Every shape whose layout fits runs as it
+always did.  The cull bits stay those of the block the caller set.
+
 ``precision`` (:mod:`efa_xray_tpu_torch.ops.precision`) is the mode of the
 two large products, D0 = X Y^T and the apply: ``"ieee"`` (fp32), or
 ``"tf32"`` / ``"bf16"``, where the kernel runs them on the tensor cores and
@@ -39,6 +47,7 @@ mean update and everything else stay fp32.
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -70,6 +79,19 @@ MAX_SMEM_BYTES = 232448
 TWO_CTA_SMEM_BYTES = 233472 // 2 - 1024
 # Threads of a CTA (csrc/ensrf_fused.cu kThreads).
 THREADS = 256
+# Where a whole block does not fit a CTA: the sub-blocks the plan tries,
+# in order (whole panels, so that a block's cull bits split between them),
+# the block a member-sliced launch sweeps, and the unit of a member slice
+# (whole bf16 k-steps: csrc/ensrf_fused.cu launch).  Measured on the card
+# (PERF.md section 6, ``chip_smoke.lever_steps_phase``): sub-blocks of 64
+# obs took B2 and B4 1.4-1.9x less time than sub-blocks of 256, and
+# 1.1-1.6x less than 128, at 30 and 80 members (a sub-block's
+# substitution is B^2 / 2 against its 2 B M products), and 1.1-1.3x less
+# than 32 at 300 and 512 members; where 32 obs do not hold every member,
+# slices in blocks of 128 matched or beat blocks of 64 (1024 members).
+SUB_BLOCKS = (64, 32)
+SLICED_BLOCK = 128
+SLICE_UNIT = 32
 # The series angle form is valid while every angle the kernel evaluates
 # stays within 90 degrees: GC supports of 2 x 5000 km at most.
 SERIES_MAX_RADIUS_KM = 5000.0
@@ -163,6 +185,98 @@ def pick_tile(block_size: int, nmems: int, hybrid: bool = False,
     if smem(32) <= TWO_CTA_SMEM_BYTES:
         return 32
     return 64 if smem(64) <= MAX_SMEM_BYTES else 32
+
+
+class Plan(NamedTuple):
+    """How one launch stages its operands: ``tile`` rows a CTA, blocks of
+    ``sub`` obs swept in order (the caller's block, or sub-blocks of it),
+    ``mslice`` members staged at a time (all of them: unsliced)."""
+    tile: int
+    sub: int
+    mslice: int
+
+
+def plan(block_size: int, nmems: int, hybrid: bool = False,
+         precision: str = "ieee", tile=None) -> Plan:
+    """B2's :class:`Plan` at ``tile`` rows (:func:`pick_tile`'s when
+    None): :func:`staging_plan` of its layout."""
+    return staging_plan(
+        lambda t, b, m: smem_bytes(t, b, m, hybrid, precision),
+        lambda b: pick_tile(b, nmems, hybrid, precision), block_size, nmems,
+        tile)
+
+
+def staging_plan(smem, pick, block_size: int, nmems: int,
+                 tile=None) -> Plan:
+    """A body kernel's :class:`Plan` at ``tile`` (``pick(block)`` when
+    None; ``smem(tile, block, members)`` the bytes of a CTA): the whole
+    block with every member where that layout fits (the tile, layout and
+    launch of every shape the kernel always took); else the first of
+    ``SUB_BLOCKS`` below the block that fits with every member; else
+    blocks of at most ``SLICED_BLOCK`` obs and the widest slice of
+    ``SLICE_UNIT`` members that fits."""
+    t = 32 if tile is None else tile
+    fits = lambda b, m: smem(t, b, m) <= MAX_SMEM_BYTES
+    if tile is not None:
+        pick = lambda b: tile
+    if fits(block_size, nmems):
+        return Plan(pick(block_size), block_size, nmems)
+    for sub in SUB_BLOCKS:
+        if sub < block_size and fits(sub, nmems):
+            return Plan(pick(sub), sub, nmems)
+    sub = min(block_size, SLICED_BLOCK)
+    m = SLICE_UNIT
+    while m + SLICE_UNIT < nmems and fits(sub, m + SLICE_UNIT):
+        m += SLICE_UNIT
+    return Plan(t, sub, m)
+
+
+def sub_blocks(y_b, ggt_b, tab_b, bits, z_b, sub: int):
+    """Blocks of ``B`` obs (``y_b [nb, B, M]``, ``ggt_b [nb, B, B]``,
+    ``tab_b [nb, ntab, B]``, ``bits [gtiles, nb]`` or None, ``z_b`` or
+    None) as blocks of ``sub`` obs, swept in the same order: each block
+    padded to whole sub-blocks with zero obs (exact no-ops), the Gram
+    tables' diagonal blocks, and sub-block ``i``'s cull word the bits of
+    its panels in the block's word (``sub`` a multiple of the panel)."""
+    nb, bsz, _ = y_b.shape
+    if sub >= bsz:
+        return y_b, ggt_b, tab_b, bits, z_b
+    k = -(-bsz // sub)
+    pad = k * sub - bsz
+    pad_obs = lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad))
+    rows = lambda t: pad_obs(t).reshape(nb * k, sub, t.shape[-1])
+    if bits is not None:
+        per = sub // PANEL
+        word = bits.to(torch.int64) & 0xFFFFFFFF
+        shifts = torch.arange(k, device=bits.device) * per
+        parts = (word[:, :, None] >> shifts) & ((1 << per) - 1)
+        parts = torch.where(parts >= 2**31, parts - 2**32, parts)
+        bits = parts.reshape(bits.shape[0], nb * k).to(torch.int32)
+    return (rows(y_b).contiguous(), diagonal_blocks(ggt_b, sub),
+            per_ob_blocks(tab_b, sub), bits,
+            None if z_b is None else rows(z_b).contiguous())
+
+
+def diagonal_blocks(ggt_b, sub: int):
+    """``[nb, B, B]`` tables as the ``[nb k, sub, sub]`` blocks on their
+    diagonals, ``B`` padded with zeros to ``k`` whole sub-blocks."""
+    nb, bsz, _ = ggt_b.shape
+    k = -(-bsz // sub)
+    pad = k * sub - bsz
+    g = torch.nn.functional.pad(ggt_b, (0, pad, 0, pad)).reshape(
+        nb, k, sub, k, sub)
+    g = torch.diagonal(g, dim1=1, dim2=3).permute(0, 3, 1, 2)
+    return g.reshape(nb * k, sub, sub).contiguous()
+
+
+def per_ob_blocks(tab_b, sub: int):
+    """``[nb, rows, B]`` per-ob rows as ``[nb k, rows, sub]``, ``B`` padded
+    with zeros to ``k`` whole sub-blocks."""
+    nb, nrow, bsz = tab_b.shape
+    k = -(-bsz // sub)
+    tab = torch.nn.functional.pad(tab_b, (0, k * sub - bsz))
+    return tab.reshape(nb, nrow, k, sub).transpose(1, 2).reshape(
+        nb * k, nrow, sub).contiguous()
 
 
 def series_form(max_radius_km, static_length=None) -> bool:
@@ -290,22 +404,31 @@ def _weights_plain(tab, geom, lo, hi, dist, vertical: bool, series: int):
 def fused_apply_plain(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                       localize: bool, vertical: bool, series: bool,
                       hybrid: bool = False, precision: str = "ieee",
-                      operands: list | None = None, z_b=None):
+                      operands: list | None = None, z_b=None, sub=None,
+                      mslice=None):
     """Plain-torch B2 (B2h with ``hybrid``, B2e with the apply rows
     ``z_b``) on prepared operands; returns ``(bm, bp)``.  In hybrid mode
     ``u`` holds the V columns.  The two large products round their
     operands as mode ``precision`` does.  A list ``operands`` receives each
-    block's apply operands before rounding: ``(g o U or V [rows, B], Y (B2e:
-    Z) [B, M])``."""
+    (sub-)block's apply operands before rounding: ``(g o U or V [rows, B],
+    Y (B2e: Z) [B, M])``.  ``sub``/``mslice`` (:func:`plan`'s at ``tile``
+    when None) are the kernel's order: sub-blocks swept in turn, D0 summed
+    over slices of ``mslice`` members."""
     rnd = lambda x: round_inputs(x, precision)
-    nrows = bp.shape[0]
+    nrows, nmems = bp.shape
+    if sub is None or mslice is None:
+        _, sub, mslice = plan(y_b.shape[1], nmems, hybrid, precision, tile)
+    y_b, ggt_b, tab_b, bits, z_b = sub_blocks(y_b, ggt_b, tab_b, bits, z_b,
+                                              sub)
     nblocks, bsz, _ = y_b.shape
     if bits is not None:
         row_tile = torch.arange(nrows, device=bp.device) // tile
     for b in range(nblocks):
         y = y_b[b]
         tab = tab_b[b]
-        d0 = rnd(bp) @ rnd(y).T
+        d0 = rnd(bp) @ rnd(y).T if mslice >= nmems else sum(
+            rnd(bp[:, m0:m0 + mslice]) @ rnd(y[:, m0:m0 + mslice]).T
+            for m0 in range(0, nmems, mslice))
         u = torch.zeros_like(d0)
         if hybrid:
             mean = torch.zeros_like(bm)
@@ -362,7 +485,8 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                      hybrid: bool = False, donate: bool = False,
                      precision: str = "ieee", z_b=None):
     """Launch B2 (B2h with ``hybrid``, B2e with ``z_b``) on CUDA float32
-    tensors, its two large products in mode ``precision``.
+    tensors, its two large products in mode ``precision``, staged as
+    :func:`plan` says at ``tile``.
     ``donate=True`` updates ``bm``/``bp`` in place (the JAX package donates
     these buffers)."""
     if precision not in MODES:
@@ -390,11 +514,10 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
         raise ValueError("B2 cull bits must be int32 [gtiles, nblocks]")
     if tile not in (32, 64):
         raise ValueError(f"B2 takes a tile of 32 or 64 rows, not {tile}")
-    smem = smem_bytes(tile, bsz, nmems, hybrid, precision)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"B2 tile {tile} x block {bsz} x {nmems} members needs {smem} B "
-            f"of shared memory (> {MAX_SMEM_BYTES} B)")
+    _, sub, mslice = plan(bsz, nmems, hybrid, precision, tile)
+    y_b, ggt_b, tab_b, bits, z_b = sub_blocks(y_b, ggt_b, tab_b, bits, z_b,
+                                              sub)
+    nblocks, bsz, _ = y_b.shape
     if donate and bm.is_contiguous() and bp.is_contiguous():
         out_m, out_p = bm, bp
     else:
@@ -406,27 +529,21 @@ def fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
     cbits = bits.contiguous() if bits is not None else None
     # The C entry sets its attributes on, and launches onto, the current
     # device: make it the tensors' one.
-    if z_b is not None:
-        with torch.cuda.device(dev):
-            err = _build.lib().efa_fused_body_enkf(
-                *(t.data_ptr() for t in ins[:4]), z_b.contiguous().data_ptr(),
-                *(t.data_ptr() for t in ins[4:]),
-                None if cbits is None else cbits.data_ptr(),
-                nrows, nmems, bsz, nblocks, tile, int(localize),
-                int(vertical), int(series), out_m.data_ptr(),
-                out_p.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "B2e ensrf_fused launch")
-        _count_enkf()
-        return out_m, out_p
     with torch.cuda.device(dev):
-        err = _build.lib().efa_fused_body(
-            *(t.data_ptr() for t in ins),
+        err = _build.lib().efa_fused_launch(
+            *(t.data_ptr() for t in ins[:4]),
+            None if z_b is None else z_b.contiguous().data_ptr(),
+            *(t.data_ptr() for t in ins[4:]),
             None if cbits is None else cbits.data_ptr(),
-            nrows, nmems, bsz, nblocks, tile, int(localize),
+            nrows, nmems, mslice, bsz, nblocks, tile, int(localize),
             int(vertical), int(series), int(hybrid), MODES.index(precision),
             out_m.data_ptr(), out_p.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
+    if z_b is not None:
+        _build.check(err, "B2e ensrf_fused launch")
+        _count_enkf()
+        return out_m, out_p
     _build.check(err, f"B2 ensrf_fused launch ({precision})")
     _count(hybrid, precision)
     return out_m, out_p
@@ -455,7 +572,7 @@ def fused_apply(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                 hybrid: bool = False, donate: bool = False,
                 precision: str = "ieee", z_b=None):
     """B2 dispatch: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors, both in :func:`plan`'s order at ``tile``."""
     if bp.is_cuda:
         return fused_apply_cuda(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile,
                                 localize, vertical, series, hybrid, donate,
@@ -537,7 +654,7 @@ def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
         geo_rows.append(sigma_rows(body_sigma, bvert))
     geom = torch.stack(geo_rows)
 
-    tile = pick_tile(bsz, nmems, hybrid, precision)
+    tile = plan(bsz, nmems, hybrid, precision).tile
     npanels = -(-bsz // PANEL)
     # An int32 holds 32 panel bits (block_size 256); larger blocks run
     # without culling, as in the JAX package.

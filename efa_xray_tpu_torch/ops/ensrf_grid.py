@@ -21,6 +21,12 @@ schedule and weight source:
   package runs in plain XLA).  :func:`blocked_body` also takes
   ``varloc`` on a flat state, as a per-(ob, row) factor.
 
+Any ensemble and any block run, by B2's two levers (:func:`plan`,
+:func:`sub_blocks`; :mod:`efa_xray_tpu_torch.ops.ensrf_fused`): sub-blocks
+swept in order where the block's layout does not fit a CTA, member slices
+where no sub-block of 32 obs fits either.  Every shape whose layout fits
+runs as it always did.
+
 The weights and tables are built outside the kernel with torch ops, as the
 JAX package builds them with XLA outside Pallas.  :func:`grid_apply` and
 :func:`block_apply` launch the CUDA kernel of
@@ -63,7 +69,15 @@ from efa_xray_tpu_torch.observation.localization import (
     latlon_to_unit,
 )
 from efa_xray_tpu_torch.ops import _build
-from efa_xray_tpu_torch.ops.ensrf_fused import MAX_SMEM_BYTES, PANEL, _gc_poly
+from efa_xray_tpu_torch.ops.ensrf_fused import (
+    MAX_SMEM_BYTES,
+    PANEL,
+    Plan,
+    _gc_poly,
+    diagonal_blocks,
+    per_ob_blocks,
+    staging_plan,
+)
 from efa_xray_tpu_torch.ops import precision as prec
 from efa_xray_tpu_torch.ops.precision import MODES, round_inputs
 
@@ -130,6 +144,36 @@ def pick_tile(block_size: int, nmems: int, precision: str = "ieee") -> int:
             else 32)
 
 
+def plan(block_size: int, nmems: int, precision: str = "ieee",
+         tile=None) -> Plan:
+    """The launch's :class:`~efa_xray_tpu_torch.ops.ensrf_fused.Plan` at
+    ``tile`` points (:func:`pick_tile`'s when None): ``ensrf_fused.
+    staging_plan`` of this kernel's layout."""
+    return staging_plan(
+        lambda t, b, m: smem_bytes(t, b, m, precision),
+        lambda b: pick_tile(b, nmems, precision), block_size, nmems, tile)
+
+
+def sub_blocks(y_b, ggt_b, coef_b, w, table, z_b, sub: int):
+    """Blocks of ``B`` obs (``y_b [nb, B, M]``, ``ggt_b [nb, B, B]``,
+    ``coef_b [nb, 2, B]``, ``w [nb, B, G]`` or None, ``table [VT, nb, B]``
+    or None, ``z_b`` or None) as blocks of ``sub`` obs, swept in the same
+    order: each block padded to whole sub-blocks with zero obs (exact
+    no-ops) and the Gram tables' diagonal blocks."""
+    nb, bsz, _ = y_b.shape
+    if sub >= bsz:
+        return y_b, ggt_b, coef_b, w, table, z_b
+    k = -(-bsz // sub)
+    pad = k * sub - bsz
+    rows = lambda t: None if t is None else torch.nn.functional.pad(
+        t, (0, 0, 0, pad)).reshape(nb * k, sub, t.shape[-1]).contiguous()
+    if table is not None:
+        table = torch.nn.functional.pad(table, (0, pad)).reshape(
+            table.shape[0], nb * k, sub).contiguous()
+    return (rows(y_b), diagonal_blocks(ggt_b, sub),
+            per_ob_blocks(coef_b, sub), rows(w), table, rows(z_b))
+
+
 def _gram_tables(y_b, sqrtc_b, z_b=None):
     """``ggt[blk, j, i] = (a_i . y_j) sqrt_coef_i`` for ``y_b [nb, B, M]``,
     the rows ``a`` being ``y_b`` or B4e's ``z_b``."""
@@ -144,9 +188,11 @@ def _gram_tables(y_b, sqrtc_b, z_b=None):
 
 def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
                      precision: str = "ieee", operands: list | None = None,
-                     z_b=None):
+                     z_b=None, sub=None, mslice=None):
     """Plain-torch body on prepared operands; returns ``(bm, bp)``.
     ``z_b [nb, B, M]`` (B4e): the rows the apply reads instead of Y.
+    ``sub``/``mslice`` (:func:`plan`'s when None) are the kernel's order:
+    sub-blocks swept in turn, D0 summed over slices of ``mslice`` members.
 
     ``bm [VT*G]``, ``bp [VT*G, M]``; ``w [nb, B, G]`` or None
     (unlocalized); ``table [VT, nb, B]`` or None (ones); ``y_b [nb, B,
@@ -158,12 +204,18 @@ def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
     rnd = lambda x: round_inputs(x, precision)
     nrows, nmems = bp.shape
     g = nrows // vt
+    if sub is None or mslice is None:
+        _, sub, mslice = plan(y_b.shape[1], nmems, precision)
+    y_b, ggt_b, coef_b, w, table, z_b = sub_blocks(y_b, ggt_b, coef_b, w,
+                                                   table, z_b, sub)
     nblocks, bsz, _ = y_b.shape
     x = bp.reshape(vt, g, nmems)
     xm = bm.reshape(vt, g)
     for b in range(nblocks):
         y = y_b[b]
-        d0 = rnd(x) @ rnd(y).T  # [VT, G, B]
+        d0 = rnd(x) @ rnd(y).T if mslice >= nmems else sum(  # [VT, G, B]
+            rnd(x[..., m0:m0 + mslice]) @ rnd(y[:, m0:m0 + mslice]).T
+            for m0 in range(0, nmems, mslice))
         u = torch.zeros_like(d0)
         for base in range(0, bsz, PANEL):
             width = min(PANEL, bsz - base)
@@ -195,11 +247,11 @@ def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
 def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
                     vt: int, donate: bool = False, tile=None,
                     precision: str = "ieee", z_b=None):
-    """Launch the kernel of ``csrc/ensrf_grid.cu`` through ``entry`` ("B3"
+    """Launch the kernel of ``csrc/ensrf_grid.cu`` for ``entry`` ("B3"
     or "B4"; "B4" with ``z_b`` is B4e) on CUDA float32 tensors, at
-    ``tile`` grid points per CTA (:func:`pick_tile`'s when None), its two
-    large products in mode ``precision``.  ``donate=True`` updates
-    ``bm``/``bp`` in place."""
+    ``tile`` grid points per CTA (:func:`pick_tile`'s when None), staged
+    as :func:`plan` says there, its two large products in mode
+    ``precision``.  ``donate=True`` updates ``bm``/``bp`` in place."""
     if precision not in MODES:
         raise ValueError(f"unknown mode {precision!r}; expected one of "
                          f"{MODES}")
@@ -224,13 +276,10 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
             or (table is not None and table.shape != (vt, nblocks, bsz))
             or (z_b is not None and z_b.shape != y_b.shape)):
         raise ValueError(f"{entry} operand shapes disagree")
-    if tile is None:
-        tile = pick_tile(bsz, nmems, precision)
-    smem = smem_bytes(tile, bsz, nmems, precision)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"{entry}: tile {tile} x block {bsz} x {nmems} members needs "
-            f"{smem} B of shared memory (> {MAX_SMEM_BYTES} B)")
+    tile, sub, mslice = plan(bsz, nmems, precision, tile)
+    y_b, ggt_b, coef_b, w, table, z_b = sub_blocks(y_b, ggt_b, coef_b, w,
+                                                   table, z_b, sub)
+    nblocks, bsz, _ = y_b.shape
     if donate and bm.is_contiguous() and bp.is_contiguous():
         out_m, out_p = bm, bp
     else:
@@ -245,20 +294,11 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
     # The C entries set their attributes on, and launch onto, the current
     # device: make it the tensors' one.
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        mode = MODES.index(precision)
-        if entry == "B3":
-            err = lib.efa_grid_body(*ptrs, vt, g, nmems, bsz, nblocks, tile,
-                                    mode, out_m.data_ptr(), out_p.data_ptr(),
-                                    stream)
-        elif z_b is not None:
-            err = lib.efa_block_apply_enkf(
-                *ptrs[:5], z_b.contiguous().data_ptr(), *ptrs[5:], vt, g,
-                nmems, bsz, tile, out_m.data_ptr(), out_p.data_ptr(), stream)
-        else:
-            err = lib.efa_block_apply(*ptrs, vt, g, nmems, bsz, tile, mode,
-                                      out_m.data_ptr(), out_p.data_ptr(),
-                                      stream)
+        err = lib.efa_grid_launch(
+            *ptrs[:5], None if z_b is None else z_b.contiguous().data_ptr(),
+            *ptrs[5:], vt, g, nmems, mslice, bsz, nblocks, tile,
+            MODES.index(precision), out_m.data_ptr(), out_p.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if z_b is not None:
         _build.check(err, "B4e ensrf_grid launch")
         _count_enkf()

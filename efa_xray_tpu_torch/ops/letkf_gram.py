@@ -17,8 +17,10 @@ launch a chunk); :func:`local_gram_plain` is the same function in torch
 (:func:`local_precision_plain`, the weights, then the two products), which
 runs on CPU tensors and in float64, and against which ``chip_smoke.py``
 holds the kernel.  :func:`local_gram` picks between them by the tensors'
-device and dtype.  The per-update inputs of the kernel (the obs table) are
-packed once by :func:`obs_table`.
+device and dtype.  Any ensemble runs: past 256 members the kernel deals
+each unit's ``A`` in blocks of 128 x 128 over CTAs of their own, with the
+same sums in the same order.  The per-update inputs of the kernel (the
+obs table) are packed once by :func:`obs_table`.
 """
 
 from __future__ import annotations
@@ -33,14 +35,26 @@ from efa_xray_tpu_torch.observation.localization import (
 )
 from efa_xray_tpu_torch.ops import _build
 
-# Largest ensemble the kernel takes (NS's bound).
-MAX_MEMBERS = 256
-
 # Launches of the CUDA kernel (one a chunk), not of the plain version, and
 # the lock that guards the count.
 LAUNCHES_PER_CHUNK = 1
 launches = 0
 _count_lock = threading.Lock()
+
+# Past this many members a unit's A is dealt in BLOCK x BLOCK blocks over
+# CTAs of their own (csrc/letkf_gram.cu kSmallMembers, kBlk); a slice of
+# SLICE obs at a time.
+SMALL_MEMBERS = 256
+BLOCK = 128
+SLICE = 32
+
+
+def smem_bytes(m: int) -> int:
+    """Shared memory of one LG CTA at ``m`` members (mirrors
+    ``csrc/letkf_gram.cu``): a slice's rows of Y twice, ``m`` rounded up
+    to 4 wide, or one block's wide past ``SMALL_MEMBERS``."""
+    width = -(-m // 4) * 4 if m <= SMALL_MEMBERS else BLOCK
+    return 2 * SLICE * width * 4
 
 
 def local_precision_plain(rinv, obs_xyz, obs_radii, px, ii, localize: bool,
@@ -104,9 +118,9 @@ def check(ye: torch.Tensor) -> None:
     """Raise on what the kernel does not take (before any launch)."""
     if ye.dtype != torch.float32 or not ye.is_cuda:
         raise ValueError("LG takes float32 tensors on a CUDA device")
-    if ye.dim() != 2 or not 1 <= ye.shape[1] <= MAX_MEMBERS:
-        raise ValueError(f"LG takes ye [No, M] of 1 to {MAX_MEMBERS} "
-                         f"members, not {tuple(ye.shape)}")
+    if ye.dim() != 2 or ye.shape[1] < 1:
+        raise ValueError(f"LG takes ye [No, M] of 1 member or more, not "
+                         f"{tuple(ye.shape)}")
 
 
 def local_gram_cuda(ye, table, px, ii, *, localize: bool = True, pv=None,

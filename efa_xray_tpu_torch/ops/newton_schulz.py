@@ -34,10 +34,8 @@ import torch
 
 from efa_xray_tpu_torch.ops import _build
 
-# Largest ensemble the kernel takes (B1's bound), and the shared memory a
-# CTA may use (csrc/newton_schulz.cu): where Y, Z and T of one system do not
-# fit, they stay in device memory.
-MAX_MEMBERS = 256
+# The shared memory a CTA may use (csrc/newton_schulz.cu): where Y, Z and
+# T of one system do not fit, they stay in device memory (any ensemble).
 MAX_SMEM_BYTES = 232448
 
 # Launches of the CUDA kernel (one a solve: LAUNCHES_PER_SOLVE), not of the
@@ -63,6 +61,22 @@ def smem_bytes(m: int) -> int:
     if mq > 128:
         mq = -(-m // 8) * 8
     return 12 * mq * (mq + 4)
+
+
+# Static shared memory of the device-memory variant: two slices of 16
+# rows of A and B, 68 floats apart (csrc/newton_schulz.cu tile64).
+DEVICE_VARIANT_SMEM_BYTES = 2 * 2 * 16 * 68 * 4
+# What efa_ns_in_smem keeps free beside the shared-memory variant's plan.
+STATIC_RESERVE = 1024
+
+
+def launch_smem_bytes(m: int) -> int:
+    """Shared memory of one NS CTA at ``m`` members: the shared-memory
+    variant's where it fits with ``STATIC_RESERVE`` beside it, else the
+    device-memory variant's, which no ensemble grows."""
+    if smem_bytes(m) + STATIC_RESERVE <= MAX_SMEM_BYTES:
+        return smem_bytes(m)
+    return DEVICE_VARIANT_SMEM_BYTES
 
 
 def _scaled(a: torch.Tensor):
@@ -110,9 +124,9 @@ def check(a: torch.Tensor, b=None) -> None:
     if a.dtype != torch.float32 or not a.is_cuda:
         raise ValueError("NS takes float32 tensors on a CUDA device")
     m = a.shape[-1]
-    if a.dim() != 3 or a.shape[-2] != m or not 1 <= m <= MAX_MEMBERS:
-        raise ValueError(f"NS takes [C, M, M] systems of 1 to {MAX_MEMBERS} "
-                         f"members, not {tuple(a.shape)}")
+    if a.dim() != 3 or a.shape[-2] != m or m < 1:
+        raise ValueError(f"NS takes [C, M, M] systems of 1 member or more, "
+                         f"not {tuple(a.shape)}")
     if b is not None and (b.dtype != a.dtype or b.device != a.device
                           or tuple(b.shape) != tuple(a.shape[:2])):
         raise ValueError("NS takes b as float32 [C, M] beside A")

@@ -34,12 +34,17 @@ instead: one warp runs the serial problem on the sub-panel's own rows in
 registers and shuffles, and every other row takes one rank-``sub`` update
 (``_block_recurrence`` of ``ensrf_core`` inside the panel).  The rows are
 dealt over a thread-block cluster of 1, 2, 4 or 8 CTAs (8 unless the
-caller asks: :func:`pick_cluster`), so any panel up to
-``MAX_PANEL`` obs runs at any ensemble up to ``MAX_MEMBERS``; the owner of
-a sub-panel writes its ``ye`` rows, Gram matrix and coefficients into every
-CTA's shared memory.  :func:`tail_panel_solve_subpanel_plain` mirrors that
-order of operations in plain torch (the tests hold it against the serial
-plain version).  :func:`smem_bytes` mirrors the kernel's ``make_layout``.
+caller asks: :func:`pick_cluster`); the owner of a sub-panel writes its
+``ye`` rows, Gram matrix and coefficients into every CTA's shared memory.
+Any panel up to ``MAX_PANEL`` obs runs at any ensemble: past 256 members
+the warp's solve takes its sums over chunks of 256 members, and where no
+cluster holds its shares of the slab (:func:`in_device_memory`) the rows
+stay in device memory, each CTA's own, and the sub-panel's rows, Gram
+matrix and coefficients go through a scratch ring there
+(:func:`ring_floats`) instead of into every CTA.
+:func:`tail_panel_solve_subpanel_plain` mirrors that order of operations
+in plain torch (the tests hold it against the serial plain version).
+:func:`smem_bytes` mirrors the kernel's ``make_layout``.
 """
 
 from __future__ import annotations
@@ -61,11 +66,9 @@ _count_lock = threading.Lock()
 
 # Largest dynamic shared memory a CTA may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
-# Largest panel and ensemble the kernel takes: the JAX package's panel
-# bound (``ensrf_core.py:659``), and 8 members per lane in the warp's
-# solve (csrc/tail_solve.cu kMaxLanes).
+# Largest panel the kernel takes: the JAX package's panel bound
+# (``ensrf_core.py:659``).
 MAX_PANEL = 1024
-MAX_MEMBERS = 256
 # Sub-panel widths the kernel's source has, the one the library is built
 # for (16 only in a build with -DEFA_TAIL_SUB16=1, which chip_smoke.py
 # --steps times: slower than 8 at every shape measured), and the cluster
@@ -225,17 +228,38 @@ def tail_panel_solve_subpanel_plain(tail_mean, tail_perts, values, errors,
 
 
 def smem_bytes(rows: int, m: int, sub: int = DEFAULT_SUB,
-               hybrid: bool = False, enkf: bool = False) -> int:
+               hybrid: bool = False, enkf: bool = False,
+               device_slab: bool = False) -> int:
     """Shared memory of one CTA that owns ``rows`` rows of the panel
     (mirrors ``make_layout`` in ``csrc/tail_solve.cu``): the weight ring
     (and B1h's static ring), the sub-panel's ``ye`` rows (and B1e's ``z``
     rows), Gram matrix and coefficients (two slots each), the rows at an
-    odd stride, and the per-row mean, value, error, flag (and sigma)."""
+    odd stride, and the per-row mean, value, error, flag (and sigma);
+    ``device_slab``: the rings and the rows in device memory instead."""
     h = int(bool(hybrid))
     e = int(bool(enkf))
-    return 4 * (SLOTS * sub * rows * (1 + h) + SLOTS * m * sub * (1 + e)
-                + SLOTS * sub * sub + SLOTS * COEF_ROWS * sub
-                + rows * (m | 1) + rows * (4 + h))
+    per_row = SLOTS * sub * rows * (1 + h) + rows * (4 + h)
+    if device_slab:
+        return 4 * per_row
+    return 4 * (per_row + SLOTS * m * sub * (1 + e) + SLOTS * sub * sub
+                + SLOTS * COEF_ROWS * sub + rows * (m | 1))
+
+
+def in_device_memory(p: int, m: int, sub: int, cluster: int,
+                     hybrid: bool = False, enkf: bool = False) -> bool:
+    """Whether the kernel keeps the slab of a padded panel of ``p`` obs in
+    device memory: its shares do not fit a CTA of ``cluster``."""
+    return (smem_bytes(p // cluster, m, sub, hybrid, enkf)
+            > MAX_SMEM_BYTES)
+
+
+def ring_floats(m: int, sub: int = DEFAULT_SUB, enkf: bool = False) -> int:
+    """Floats of the device scratch ring of a launch whose slab is in
+    device memory: two slots of the sub-panel's rows (and B1e's ``z``
+    rows), Gram matrix and coefficients (the ring offsets of
+    ``make_layout`` in ``csrc/tail_solve.cu``)."""
+    return SLOTS * (m * sub * (2 if enkf else 1) + sub * sub
+                    + COEF_ROWS * sub)
 
 
 def padded_panel(p: int, sub: int, cluster: int) -> int:
@@ -249,23 +273,19 @@ def pick_cluster(p: int, m: int, sub: int = DEFAULT_SUB,
                  hybrid: bool = False, enkf: bool = False) -> int:
     """CTAs the panel's rows are dealt over: the smallest cluster of
     ``CLUSTERS``, from ``MIN_CLUSTER`` on, whose CTAs' shares of the slab
-    fit in shared memory.  Raises ``ValueError`` beyond ``MAX_PANEL`` obs,
-    ``MAX_MEMBERS`` members, or where no cluster holds the slab."""
+    fit in shared memory, else the largest (the slab then stays in device
+    memory).  Raises ``ValueError`` beyond ``MAX_PANEL`` obs or below 2
+    members."""
     if sub not in SUBS:
         raise ValueError(f"B1 sub-panels are {SUBS} obs wide, not {sub}")
     if not 1 <= p <= MAX_PANEL:
         raise ValueError(f"B1 takes panels of 1 to {MAX_PANEL} obs, not {p}")
-    if not 2 <= m <= MAX_MEMBERS:
-        raise ValueError(f"B1 takes 2 to {MAX_MEMBERS} members, not {m}")
-    for c in CLUSTERS:
-        if c < MIN_CLUSTER:
-            continue
-        rows = padded_panel(p, sub, c) // c
-        if smem_bytes(rows, m, sub, hybrid, enkf) <= MAX_SMEM_BYTES:
-            return c
-    raise ValueError(
-        f"tail panel [{p}, {m}] does not fit the shared memory of "
-        f"{CLUSTERS[-1]} CTAs at sub-panels of {sub}")
+    if m < 2:
+        raise ValueError(f"B1 takes 2 members or more, not {m}")
+    fit = [c for c in CLUSTERS if c >= MIN_CLUSTER
+           and not in_device_memory(padded_panel(p, sub, c), m, sub, c,
+                                    hybrid, enkf)]
+    return fit[0] if fit else CLUSTERS[-1]
 
 
 def _pad_square(x, n):
@@ -300,11 +320,10 @@ def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
     if c not in CLUSTERS:
         raise ValueError(f"B1 clusters are {CLUSTERS} CTAs, not {c}")
     pp = padded_panel(p, sub, c)
-    need = smem_bytes(pp // c, m, sub, hybrid, enkf)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"tail panel [{p}, {m}] over {c} CTAs needs {need} B of shared "
-            f"memory per CTA, more than the {MAX_SMEM_BYTES} B a CTA may use")
+    device_slab = in_device_memory(pp, m, sub, c, hybrid, enkf)
+    if device_slab and sub != DEFAULT_SUB:
+        raise ValueError(f"B1 keeps a slab in device memory at sub-panels "
+                         f"of {DEFAULT_SUB} obs only")
     ins = [tail_mean, tail_perts, values, errors]
     ins += [t for t in (weights, sigma, static_gc, eps) if t is not None]
     for t in ins:
@@ -335,34 +354,27 @@ def tail_panel_solve_cuda(tail_mean, tail_perts, values, errors, assim,
     vec = [torch.empty(pp, dtype=f32, device=dev)
            for _ in range(8 if hybrid else 6)]
     ptr = lambda t: None if t is None else t.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    e_in = _pad(eps, pad).contiguous() if enkf else None
+    z = torch.empty((pp, m), dtype=f32, device=dev) if enkf else None
+    ring = (torch.empty(ring_floats(m, sub, enkf), dtype=f32, device=dev)
+            if device_slab else None)
     # The C entry sets its attributes on, and launches onto, the current
     # device: make it the tensors' one.
-    if enkf:
-        e_in = _pad(eps, pad).contiguous()
-        z = torch.empty((pp, m), dtype=f32, device=dev)
-        with torch.cuda.device(dev):
-            err = _build.lib().efa_tail_solve_enkf(
-                tm_in.data_ptr(), tp_in.data_ptr(), vals.data_ptr(),
-                errs.data_ptr(), am.data_ptr(), ptr(w), e_in.data_ptr(), pp,
-                m, int(bool(unbiased)), c, tm.data_ptr(), tp.data_ptr(),
-                ye.data_ptr(), z.data_ptr(), *(v.data_ptr() for v in vec),
-                stream)
-        _build.check(err, "B1e tail_solve launch")
-        _count("B1e")
-        return tuple(t[:p] for t in (tm, tp, ye, *vec, z))
     with torch.cuda.device(dev):
-        err = _build.lib().efa_tail_solve(
+        err = _build.lib().efa_tail_launch(
             tm_in.data_ptr(), tp_in.data_ptr(), vals.data_ptr(),
             errs.data_ptr(), am.data_ptr(), ptr(w), ptr(gc), ptr(sig),
-            float(alpha), pp, m, int(bool(unbiased)), sub, c, tm.data_ptr(),
-            tp.data_ptr(), ye.data_ptr(), *(v.data_ptr() for v in vec[:6]),
+            ptr(e_in), ptr(ring), float(alpha), pp, m, int(bool(unbiased)),
+            sub, c, tm.data_ptr(), tp.data_ptr(), ye.data_ptr(), ptr(z),
+            *(v.data_ptr() for v in vec[:6]),
             *(ptr(v) for v in (vec[6:] if hybrid else (None, None))),
-            stream,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check(err, "B1h tail_solve launch" if hybrid
-                 else "B1 tail_solve launch")
-    _count("B1h" if hybrid else "B1")
+    kind = "B1e" if enkf else "B1h" if hybrid else "B1"
+    _build.check(err, f"{kind} tail_solve launch")
+    _count(kind)
+    if enkf:
+        return tuple(t[:p] for t in (tm, tp, ye, *vec, z))
     return tuple(t[:p] for t in (tm, tp, ye, *vec))
 
 

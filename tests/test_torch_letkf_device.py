@@ -92,15 +92,16 @@ def test_kernel_tallies_fold_in_when_asked():
 
 def test_ns_wrapper_refuses_before_building(monkeypatch):
     """The kernel's wrapper raises on what the kernel does not take
-    (float64, CPU tensors, more than 256 members) without asking for the
-    library."""
+    (float64, CPU tensors; 257 members on the CPU for the device alone)
+    without asking for the library; past 136 members the systems run in
+    device memory, whose width no shared memory bounds."""
     def no_build():
         raise AssertionError("the kernel library was asked for")
 
     monkeypatch.setattr(newton_schulz._build, "lib", no_build)
     for a in (torch.eye(4, dtype=torch.float64)[None],
               torch.eye(4)[None], torch.eye(257)[None]):
-        with pytest.raises(ValueError, match="NS takes"):
+        with pytest.raises(ValueError, match="on a CUDA device"):
             newton_schulz.invsqrt_newton_schulz_cuda(a, 30)
     assert newton_schulz.launches == 0
     assert newton_schulz.smem_bytes(136) <= newton_schulz.MAX_SMEM_BYTES

@@ -257,29 +257,62 @@ def no_library(monkeypatch):
     monkeypatch.setattr(ns._build, "lib", no_build)
 
 
-def test_lg_wrapper_refuses_before_building(no_library):
-    """LG's wrapper raises on a CPU tensor, on float64 and on more than
-    256 members before it asks for the library."""
+def test_lg_wrapper_refuses_before_building(no_library, monkeypatch):
+    """LG's wrapper raises on a CPU tensor and on float64 before it asks
+    for the library (at 257 members for the device alone); past that check
+    an ensemble of 257 or 1024 members is planned: the C call gets it as
+    given, with outputs of its size."""
     before = lg.launches
     for m, dtype in ((8, torch.float32), (8, torch.float64),
                      (257, torch.float32)):
         ye = torch.zeros((10, m), dtype=dtype)
         tab = torch.zeros((10, 8))
-        with pytest.raises(ValueError, match="LG takes"):
+        with pytest.raises(ValueError, match="on a CUDA device"):
             lg.local_gram_cuda(ye, tab, torch.zeros((4, 3)),
                                torch.zeros((4, 3), dtype=torch.int64))
     assert lg.launches == before
+    fake = _FakeLib()
+    monkeypatch.setattr(lg._build, "lib", lambda: fake)
+    monkeypatch.setattr(lg, "launches", lg.launches)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(lg, "check", lambda ye: None)
+    for m in (257, 1024):
+        amat, b = lg.local_gram_cuda(torch.zeros((10, m)), tab,
+                                     torch.zeros((4, 3)),
+                                     torch.zeros((4, 3), dtype=torch.int64))
+        assert tuple(amat.shape) == (4, m, m) and tuple(b.shape) == (4, m)
+        (name, args), = fake.calls[-1:]
+        assert name == "efa_letkf_gram" and args[11:15] == (4, 3, m, 1)
 
 
-def test_ns_solve_refuses_before_building(no_library):
-    """NS's ``solve`` raises on a CPU tensor, on float64 and on more than
-    256 members before it asks for the library."""
+def test_ns_solve_refuses_before_building(no_library, monkeypatch):
+    """NS's ``solve`` raises on a CPU tensor and on float64 before it asks
+    for the library (at 257 members for the device alone); past that
+    check 257 and 1024 members are planned: the work buffer and the C call
+    take the ensemble as given."""
     before = ns.launches
     for a in (torch.eye(4, dtype=torch.float64)[None], torch.eye(4)[None],
               torch.eye(257)[None]):
-        with pytest.raises(ValueError, match="NS takes"):
+        with pytest.raises(ValueError, match="on a CUDA device"):
             ns.solve(a, 30, b=torch.zeros(a.shape[:2], dtype=a.dtype))
     assert ns.launches == before
+    fake = _FakeLib()
+    monkeypatch.setattr(ns._build, "lib", lambda: fake)
+    monkeypatch.setattr(ns, "launches", ns.launches)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(ns, "check", lambda a, b=None: None)
+    for m in (257, 1024):
+        a = torch.eye(m)[None]
+        ns.solve(a, 30, b=torch.zeros((1, m)))
+        assert fake.calls[-2] == ("efa_ns_work_floats", (1, m))
+        assert fake.calls[-1][0] == "efa_newton_schulz"
+        assert fake.calls[-1][1][9:12] == (1, m, 30)
 
 
 class _FakeLib:

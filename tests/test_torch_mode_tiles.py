@@ -91,16 +91,20 @@ def test_b2_mode_layout_by_hand():
 @pytest.mark.parametrize("nmems", [12, 30, 50, 80, 128, 256])
 def test_grid_mode_tile_fits_the_card(nmems, bsz, mode):
     """64 points exactly where two CTAs of the mode's layout fit an SM;
-    the CTAs planned fit it (the one shape no tile holds, 200 obs x 256
-    members in TF32 or bf16, plans none and the wrapper refuses it)."""
-    tile = ensrf_grid.pick_tile(bsz, nmems, mode)
-    smem = ensrf_grid.smem_bytes(tile, bsz, nmems, mode)
-    ctas = ensrf_grid.ctas_per_sm(tile, bsz, nmems, mode)
-    assert tile == (64 if ensrf_grid.ctas_per_sm(64, bsz, nmems, mode) >= 2
+    the CTAs planned fit it.  The one shape whose whole block fits no tile,
+    200 obs x 256 members in TF32 or bf16, is planned as sub-blocks of 64
+    obs at 32 points (the wrapper refused it before)."""
+    tile, sub, mslice = ensrf_grid.plan(bsz, nmems, mode)
+    smem = ensrf_grid.smem_bytes(tile, sub, mslice, mode)
+    ctas = ensrf_grid.ctas_per_sm(tile, sub, mslice, mode)
+    assert tile == (64 if ensrf_grid.ctas_per_sm(64, sub, nmems, mode) >= 2
                     else 32)
-    if smem > ensrf_grid.MAX_SMEM_BYTES:
-        assert (bsz, nmems, ctas) == (200, 256, 0)
-        return
+    if ensrf_grid.smem_bytes(32, bsz, nmems, mode) > ensrf_grid.MAX_SMEM_BYTES:
+        assert (bsz, nmems, tile, sub, mslice) == (200, 256, 32, 64, 256)
+    else:
+        assert (sub, mslice) == (bsz, nmems)
+        assert tile == ensrf_grid.pick_tile(bsz, nmems, mode)
+    assert smem <= ensrf_grid.MAX_SMEM_BYTES
     assert 1 <= ctas <= 3
     assert ctas * (smem + CTA_RESERVED) <= SM_BYTES
 

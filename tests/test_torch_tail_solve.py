@@ -2,6 +2,9 @@
 kernel in interpret mode, in float64 (the CPU counterpart of
 ``efa_xray_tpu_torch.ops.tail_solve``'s CUDA kernel)."""
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -89,26 +92,56 @@ def test_b1_sizing_takes_every_reference_panel(monkeypatch):
     """The JAX package takes panels up to 1024 obs to its kernel at any
     ensemble; the cluster sizing holds 1024 x 80, 512 x 256 and 1024 x
     256 (B1 and B1h, sub-panels of 8 and 16) within a CTA's shared memory,
-    and the CUDA path refuses more than 256 members, or a panel over 1024,
-    before it launches anything."""
-    for p, m in ((1024, 80), (512, 256), (1024, 256)):
+    plans 512 x 257 (the shape the kernel refused before) in shared memory
+    and 1024 x 512 with its slab in device memory, and the CUDA path
+    refuses a panel over 1024 obs before it asks for the library, and
+    launches 512 x 257 and 1024 x 512 (the latter with its device ring)."""
+    for p, m in ((1024, 80), (512, 256), (1024, 256), (512, 257)):
         for sub in tail_solve.SUBS:
             for hybrid in (False, True):
                 c = tail_solve.pick_cluster(p, m, sub, hybrid)
                 pp = tail_solve.padded_panel(p, sub, c)
                 assert pp == p and c in tail_solve.CLUSTERS
+                assert not tail_solve.in_device_memory(pp, m, sub, c, hybrid)
                 assert (tail_solve.smem_bytes(pp // c, m, sub, hybrid)
                         <= tail_solve.MAX_SMEM_BYTES)
     assert tail_solve.smem_bytes(1024, 80) > tail_solve.MAX_SMEM_BYTES
     assert tail_solve.pick_cluster(1024, 80) > 1
+    c = tail_solve.pick_cluster(1024, 512)
+    assert c == tail_solve.CLUSTERS[-1]
+    assert tail_solve.in_device_memory(1024, 512, 8, c)
+    assert (tail_solve.smem_bytes(1024 // c, 512, device_slab=True)
+            <= tail_solve.MAX_SMEM_BYTES)
 
     def no_build():
         raise AssertionError("the kernel library was asked for")
 
     monkeypatch.setattr(tail_solve._build, "lib", no_build)
-    for p, m in ((512, 257), (1025, 80)):
-        x = torch.zeros(p, m)
-        with pytest.raises(ValueError, match="B1 takes"):
-            tail_solve.tail_panel_solve_cuda(x[:, 0], x, x[:, 0], x[:, 0],
-                                             x[:, 0] > 0)
+    x = torch.zeros(1025, 80)
+    with pytest.raises(ValueError, match="B1 takes"):
+        tail_solve.tail_panel_solve_cuda(x[:, 0], x, x[:, 0], x[:, 0],
+                                         x[:, 0] > 0)
     assert tail_solve.launches == 0
+    # The wrapper's path past its checks, on a library that records.
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(tail_solve._build, "lib", lambda: Library())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    monkeypatch.setattr(tail_solve, "launches", 0)
+    for p, m, ring in ((512, 257, False), (1024, 512, True)):
+        x = torch.zeros(p, m)
+        out = tail_solve.tail_panel_solve_cuda(x[:, 0], x, x[:, 0],
+                                               x[:, 0], x[:, 0] > 0)
+        (name, args), = calls[-1:]
+        assert name == "efa_tail_launch" and args[11:16] == (p, m, 0, 8, 8)
+        assert (args[9] is not None) == ring
+        assert tuple(out[1].shape) == (p, m)
+    assert tail_solve.launches == 2
