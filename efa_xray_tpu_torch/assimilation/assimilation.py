@@ -40,6 +40,7 @@ from efa_xray_tpu_torch.observation.observation import (
     ObservationBatch,
 )
 from efa_xray_tpu_torch.state.ensemble import EnsembleState, _torch_dtype
+from efa_xray_tpu_torch.utils import profiling
 from efa_xray_tpu_torch.utils.validation import ValidationError
 
 InflationSpec = Union[None, float, str, dict, "AdaptiveInflation"]
@@ -133,6 +134,7 @@ class Assimilation:
     """Base driver: holds the prior and obs, computes obs-space priors,
     formats the state for the solver and back."""
 
+    @profiling.spanned(profiling.ENTRY_INIT)
     def __init__(self, state: EnsembleState, obs, nproc: int = 1,
                  inflation: InflationSpec = None, verbose: bool = False,
                  config: Optional[FilterConfig] = None, device=None,
@@ -183,6 +185,7 @@ class Assimilation:
         finite = r[np.isfinite(r)]
         return float(finite.max()) if finite.size else None
 
+    @profiling.spanned(profiling.OBS_TAPS)
     def build_taps(self) -> _fwd.ObsTaps:
         if self._taps is None:
             cfg, b = self.config, self._batch
@@ -196,6 +199,7 @@ class Assimilation:
             )
         return self._taps
 
+    @profiling.spanned(profiling.ENTRY_OBS_ARRAYS)
     def obs_arrays(self) -> ObsArrays:
         """Per-ob tensors on the filter's device, in one transfer.
         QC-failed obs (out of the state's time range) are masked out."""
@@ -225,6 +229,7 @@ class Assimilation:
                          radii=f[4], assim=p[7] != 0, verts=f[5],
                          vert_radii=f[6])
 
+    @profiling.spanned(profiling.ENTRY_OUTLIER_CHECK)
     def apply_outlier_check(self, oa: ObsArrays, tail_mean, tail_perts):
         """Innovation-based gross-error QC (``FilterConfig.outlier_threshold``):
         flag obs with ``innov^2 > t^2 (var(ye) + R)`` under the forecast
@@ -261,6 +266,7 @@ class Assimilation:
         verts = np.asarray(self._batch.verts, dtype=np.float64)
         return bool(np.any(np.isfinite(vr) & np.isfinite(verts)))
 
+    @profiling.spanned(profiling.OBS_PRIORS)
     def compute_ob_priors(self, state: Optional[EnsembleState] = None):
         """Obs-space priors ``(means [No], perts [No, M])`` of ``state``
         (the prior by default), in the assimilation order: one gather
@@ -298,6 +304,7 @@ class Assimilation:
                                    verbose=self.verbose)
         self.is_inflated = True
 
+    @profiling.spanned(profiling.ENTRY_FORMAT_PRIOR)
     def format_prior_state(self):
         """``(body_mean [Ns], body_perts [Ns, M], tail_mean [No],
         tail_perts [No, M])`` in the config dtype: the state vector split
@@ -317,6 +324,7 @@ class Assimilation:
         return (body_mean.to(self.dtype), body_perts,
                 tail_mean.to(self.dtype), tail_perts)
 
+    @profiling.spanned(profiling.ENTRY_FORMAT_POSTERIOR)
     def format_posterior_state(self, body_mean, body_perts):
         """Rebuild an EnsembleState (prior dtype) from posterior mean and
         perturbations."""
@@ -360,6 +368,7 @@ class Assimilation:
             ob_var=torch.from_numpy(ob_var).to(dev),
         )
 
+    @profiling.spanned(profiling.ENTRY_INFLATION)
     def maybe_update_adaptive_inflation(self) -> None:
         """Learn the ``AdaptiveInflation`` fields from this batch's
         innovations (Anderson 2009) on the filter's device, when
@@ -382,6 +391,7 @@ class Assimilation:
             evolve_sd=cfg.adaptive_sd_evolve, sd_min=cfg.adaptive_sd_min,
             damp=cfg.adaptive_damp, device=self.device)
 
+    @profiling.spanned(profiling.ENTRY_DIAGNOSTICS)
     def record_diagnostics(self, diags: ObsDiagnostics) -> None:
         """Write the per-ob diagnostics onto the ObservationBatch as host
         NumPy (one transfer), hand it back in the caller's order as

@@ -59,6 +59,7 @@ from efa_xray_tpu_torch.assimilation.ensrf_core import (
 from efa_xray_tpu_torch.config import FilterConfig
 from efa_xray_tpu_torch.observation.localization import latlon_to_unit
 from efa_xray_tpu_torch.ops import ensrf_fused, ensrf_grid
+from efa_xray_tpu_torch.utils import profiling
 
 
 def draw_ob_perturbations(seed: int, errors: torch.Tensor, nmems: int,
@@ -268,6 +269,7 @@ class EnKF(Assimilation):
         self.seed = int(seed)
         self.scale_perturbations = bool(scale_perturbations)
 
+    @profiling.spanned(profiling.ENTRY_UPDATE)
     def update(self):
         """Assimilate all observations; return ``(posterior,
         observations)`` with the observations in the caller's order."""

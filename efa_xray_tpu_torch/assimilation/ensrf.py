@@ -88,6 +88,7 @@ from efa_xray_tpu_torch.ops import ensrf_grid
 from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
 from efa_xray_tpu_torch.ops.precision import product_mode
 from efa_xray_tpu_torch.state.ensemble import EnsembleState
+from efa_xray_tpu_torch.utils import profiling
 
 
 class KernelRoute:
@@ -183,6 +184,7 @@ class KernelRoute:
             **{k: v for k, v in hkw.items() if k != "body_sigma"},
             **({k: vl[k] for k in ("varloc", "ob_var")} if vl else {}))
 
+    @profiling.spanned(profiling.ROUTE_SOLVE)
     def solve(self, body_mean, body_perts, tail_mean, tail_perts, body_lat,
               body_lon, obs, body_vert=None, vertical: bool = False,
               hkw: Optional[dict] = None, vl: Optional[dict] = None):
@@ -216,6 +218,7 @@ class KernelRoute:
                                   hkw, vl)
         return bm, bp, tail.tail_mean, tail.tail_perts, tail.diags
 
+    @profiling.spanned(profiling.ROUTE_BODY)
     def _body_apply(self, route: str, bm, bp, body_lat, body_lon, tail, obs,
                     body_vert, vertical: bool, hkw: dict, vl: dict):
         """Phase 2: apply a pre-solved obs sequence to the state body along
@@ -323,6 +326,7 @@ class EnSRF(Assimilation, KernelRoute):
                     tail_sigma=tsig,
                     static_length=float(cfg.static_b_length))
 
+    @profiling.spanned(profiling.ENTRY_UPDATE)
     def update(self) -> Tuple[EnsembleState, ObservationBatch]:
         """Assimilate all observations; return ``(posterior, observations)``
         with the observations in the caller's order."""

@@ -37,6 +37,7 @@ from efa_xray_tpu_torch.observation.localization import (
     haversine,
     latlon_to_unit,
 )
+from efa_xray_tpu_torch.utils import profiling
 
 
 class ObsArrays(NamedTuple):
@@ -499,6 +500,7 @@ def enkf_tail_scan(tail_mean, tail_perts, obs: ObsArrays, eps,
         apply_rows=z), z
 
 
+@profiling.spanned(profiling.OPS_PANEL_WEIGHTS)
 def panel_weights(pxyz, pob: ObsArrays, vertical: bool, dtype,
                   localize: bool = True, varloc=None, ob_var=None):
     """Ob-ob weight matrix of one panel, ``w[i, j]`` = weight of ob i at
@@ -605,6 +607,7 @@ def tail_apply_route(localize: bool, fast_geometry: bool, use_vl: bool,
     return "B2"
 
 
+@profiling.spanned(profiling.ROUTE_TAIL)
 def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                       localize: bool = True, unbiased: bool = False,
                       fast_geometry: bool = False, vertical: bool = False,
@@ -667,28 +670,30 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                               vertical=vertical, **kw)[0]
 
     if nobs == 0 or nobs <= panel:
-        if not (solve_kernel and nobs > 0):
-            return plain_solve(tail_mean, tail_perts, obs, eps,
-                               **(dict(tail_sigma=tail_sigma, **hkw)
-                                  if hybrid else {}), **vkw)
-        # One panel covers the batch: pad it to the full panel width
-        # (padded obs have assim=False and are exact no-ops) and slice
-        # every output back.
-        pad1 = panel - nobs
-        obs1 = _pad_obs(obs, pad1, dtype)
-        sol = _panel_solve_kernel(
-            _pad(tail_mean, pad1), _pad(tail_perts, pad1), obs1,
-            latlon_to_unit(obs1.lats, obs1.lons).to(dtype)
-            if chordal else None,
-            localize=localize, unbiased=unbiased, vertical=vertical,
-            dtype=dtype,
-            **(dict(varloc=varloc, ob_var=_pad(ob_var.long(), pad1, 0))
-               if use_vl else {}),
-            **(dict(tail_sigma=_pad(sigma_rows(tail_sigma,
-                                               tail_mean.to(dtype)), pad1),
-                    **hkw) if hybrid else {}),
-            eps=_pad(eps.to(dtype), pad1) if enkf else None)
-        return _cut(sol, nobs)
+        # One panel (an empty batch: one empty panel).
+        with profiling.annotate(profiling.ROUTE_TAIL_PANEL):
+            if not (solve_kernel and nobs > 0):
+                return plain_solve(tail_mean, tail_perts, obs, eps,
+                                   **(dict(tail_sigma=tail_sigma, **hkw)
+                                      if hybrid else {}), **vkw)
+            # One panel covers the batch: pad it to the full panel width
+            # (padded obs have assim=False and are exact no-ops) and slice
+            # every output back.
+            pad1 = panel - nobs
+            obs1 = _pad_obs(obs, pad1, dtype)
+            sol = _panel_solve_kernel(
+                _pad(tail_mean, pad1), _pad(tail_perts, pad1), obs1,
+                latlon_to_unit(obs1.lats, obs1.lons).to(dtype)
+                if chordal else None,
+                localize=localize, unbiased=unbiased, vertical=vertical,
+                dtype=dtype,
+                **(dict(varloc=varloc, ob_var=_pad(ob_var.long(), pad1, 0))
+                   if use_vl else {}),
+                **(dict(tail_sigma=_pad(
+                    sigma_rows(tail_sigma, tail_mean.to(dtype)), pad1),
+                        **hkw) if hybrid else {}),
+                eps=_pad(eps.to(dtype), pad1) if enkf else None)
+            return _cut(sol, nobs)
 
     npanels = -(-nobs // panel)
     pad = npanels * panel - nobs
@@ -713,96 +718,100 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
 
     outs = []
     for p in range(npanels):
-        base = p * panel
-        sl = slice(base, base + panel)
-        pob = ObsArrays(*(x[sl] for x in allo))
-        pvkw = dict(varloc=vl, ob_var=ovarr[sl]) if use_vl else {}
-        pe = eps_all[sl] if enkf else None
-        if solve_kernel:
-            sol = _panel_solve_kernel(
-                tm[sl], tp[sl], pob, all_xyz[sl] if chordal else None,
-                localize=localize, unbiased=unbiased, vertical=vertical,
-                dtype=dtype, **pvkw,
-                **(dict(tail_sigma=tsig_all[sl], **hkw) if hybrid else {}),
-                eps=pe)
-        else:
-            sol = plain_solve(tm[sl], tp[sl], pob, pe,
-                              **(dict(tail_sigma=tsig_all[sl], **hkw)
-                                 if hybrid else {}), **pvkw)
-        if apply == "B2":
-            from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
-
-            # The in-panel rows are overwritten right below, so the B2
-            # apply may touch them freely (no out-of-panel mask).
-            tm2, tp2 = fused_body(
-                tm, tp, allo.lats, allo.lons, sol, pob,
-                body_vert=allo.verts if (localize and vertical) else None,
-                localize=localize, block_size=min(128, panel),
-                vertical=localize and vertical, max_radius_km=max_radius_km,
-                apply_rows=sol.apply_rows,
-            )
-        elif apply == "B4":
-            from efa_xray_tpu_torch.ops import ensrf_grid
-
-            # As with B2, no out-of-panel mask: the tail rows are a flat
-            # state (vt = 1) with the obs' own places and levels.
-            tm2, tp2 = tm, tp
-            for lo in range(0, panel, TAIL_APPLY_BLOCK):
-                bl = slice(lo, min(panel, lo + TAIL_APPLY_BLOCK))
-                tm2, tp2 = ensrf_grid.apply_obs_block(
-                    tm2, tp2, allo.lats, allo.lons, sol.ye[bl],
-                    sol.gain_coef[bl], sol.sqrt_coef[bl], pob.lats[bl],
-                    pob.lons[bl], pob.radii[bl], localize=localize,
-                    fast_geometry=fast_geometry, body_vert=allo.verts,
-                    ob_vert=pob.verts[bl], ob_vrad=pob.vert_radii[bl],
-                    vertical=localize and vertical, ngrid=None,
-                    ob_row_factor=(vl[ovarr[sl][bl]][:, ovarr] if use_vl
-                                   else None),
-                    donate=owned,
-                    apply_rows=None if not enkf else sol.apply_rows[bl])
-                owned = True
-        else:
-            outside = ((row_idx < base) | (row_idx >= base + panel)).to(dtype)
-            if chordal:
-                w = chordal_gc_weights(all_xyz[:, None, :],
-                                       all_xyz[sl][None, :, :],
-                                       pob.radii[None, :]).to(dtype)
-            elif localize:
-                w = gaspari_cohn(
-                    haversine((allo.lats[:, None], allo.lons[:, None]),
-                              (pob.lats[None, :], pob.lons[None, :])),
-                    pob.radii[None, :]).to(dtype)
+        with profiling.annotate(profiling.ROUTE_TAIL_PANEL):
+            base = p * panel
+            sl = slice(base, base + panel)
+            pob = ObsArrays(*(x[sl] for x in allo))
+            pvkw = dict(varloc=vl, ob_var=ovarr[sl]) if use_vl else {}
+            pe = eps_all[sl] if enkf else None
+            if solve_kernel:
+                sol = _panel_solve_kernel(
+                    tm[sl], tp[sl], pob, all_xyz[sl] if chordal else None,
+                    localize=localize, unbiased=unbiased, vertical=vertical,
+                    dtype=dtype, **pvkw,
+                    **(dict(tail_sigma=tsig_all[sl], **hkw) if hybrid else {}),
+                    eps=pe)
             else:
-                w = torch.ones((ntot, panel), dtype=dtype, device=tm.device)
-            if localize and vertical:
-                w = w * gaspari_cohn(
-                    torch.abs(allo.verts[:, None] - pob.verts[None, :]),
-                    pob.vert_radii[None, :]).to(dtype)
-            if use_vl:
-                # factor[r, j] = vl[panel_ob_var_j, row_ob_var_r]
-                w = w * vl[ovarr[sl]][:, ovarr].T
-            w = w * outside[:, None]
-            static_mean = static_tilde = None
-            if hybrid:
-                # Static columns toward the out-of-panel obs rows (the
-                # panel's own rows were solved exactly above), at exact
-                # haversine distance: part of the covariance model.
-                gc = gaspari_cohn(
-                    haversine((allo.lats[:, None], allo.lons[:, None]),
-                              (pob.lats[None, :], pob.lons[None, :])),
-                    slen).to(dtype) * outside[:, None]
-                static_mean = tsig_all * (gc @ sol.static_gain)
-                static_tilde = (tsig_all[:, None] * gc
-                                * sol.static_sqrt[None, :])
-            tm2, tp2 = apply_obs_block(tm, tp, sol.ye, sol.gain_coef,
-                                       sol.sqrt_coef, w,
-                                       static_mean=static_mean,
-                                       static_tilde=static_tilde,
-                                       apply_rows=sol.apply_rows)
-        tm2[sl] = sol.tail_mean
-        tp2[sl] = sol.tail_perts
-        tm, tp = tm2, tp2
-        outs.append(sol)
+                sol = plain_solve(tm[sl], tp[sl], pob, pe,
+                                  **(dict(tail_sigma=tsig_all[sl], **hkw)
+                                     if hybrid else {}), **pvkw)
+            if apply == "B2":
+                from efa_xray_tpu_torch.ops.ensrf_fused import fused_body
+
+                # The in-panel rows are overwritten right below, so the B2
+                # apply may touch them freely (no out-of-panel mask).
+                tm2, tp2 = fused_body(
+                    tm, tp, allo.lats, allo.lons, sol, pob,
+                    body_vert=allo.verts if (localize and vertical) else None,
+                    localize=localize, block_size=min(128, panel),
+                    vertical=localize and vertical,
+                    max_radius_km=max_radius_km,
+                    apply_rows=sol.apply_rows,
+                )
+            elif apply == "B4":
+                from efa_xray_tpu_torch.ops import ensrf_grid
+
+                # As with B2, no out-of-panel mask: the tail rows are a flat
+                # state (vt = 1) with the obs' own places and levels.
+                tm2, tp2 = tm, tp
+                for lo in range(0, panel, TAIL_APPLY_BLOCK):
+                    bl = slice(lo, min(panel, lo + TAIL_APPLY_BLOCK))
+                    tm2, tp2 = ensrf_grid.apply_obs_block(
+                        tm2, tp2, allo.lats, allo.lons, sol.ye[bl],
+                        sol.gain_coef[bl], sol.sqrt_coef[bl], pob.lats[bl],
+                        pob.lons[bl], pob.radii[bl], localize=localize,
+                        fast_geometry=fast_geometry, body_vert=allo.verts,
+                        ob_vert=pob.verts[bl], ob_vrad=pob.vert_radii[bl],
+                        vertical=localize and vertical, ngrid=None,
+                        ob_row_factor=(vl[ovarr[sl][bl]][:, ovarr] if use_vl
+                                       else None),
+                        donate=owned,
+                        apply_rows=None if not enkf else sol.apply_rows[bl])
+                    owned = True
+            else:
+                outside = ((row_idx < base)
+                           | (row_idx >= base + panel)).to(dtype)
+                if chordal:
+                    w = chordal_gc_weights(all_xyz[:, None, :],
+                                           all_xyz[sl][None, :, :],
+                                           pob.radii[None, :]).to(dtype)
+                elif localize:
+                    w = gaspari_cohn(
+                        haversine((allo.lats[:, None], allo.lons[:, None]),
+                                  (pob.lats[None, :], pob.lons[None, :])),
+                        pob.radii[None, :]).to(dtype)
+                else:
+                    w = torch.ones((ntot, panel), dtype=dtype,
+                                   device=tm.device)
+                if localize and vertical:
+                    w = w * gaspari_cohn(
+                        torch.abs(allo.verts[:, None] - pob.verts[None, :]),
+                        pob.vert_radii[None, :]).to(dtype)
+                if use_vl:
+                    # factor[r, j] = vl[panel_ob_var_j, row_ob_var_r]
+                    w = w * vl[ovarr[sl]][:, ovarr].T
+                w = w * outside[:, None]
+                static_mean = static_tilde = None
+                if hybrid:
+                    # Static columns toward the out-of-panel obs rows (the
+                    # panel's own rows were solved exactly above), at exact
+                    # haversine distance: part of the covariance model.
+                    gc = gaspari_cohn(
+                        haversine((allo.lats[:, None], allo.lons[:, None]),
+                                  (pob.lats[None, :], pob.lons[None, :])),
+                        slen).to(dtype) * outside[:, None]
+                    static_mean = tsig_all * (gc @ sol.static_gain)
+                    static_tilde = (tsig_all[:, None] * gc
+                                    * sol.static_sqrt[None, :])
+                tm2, tp2 = apply_obs_block(tm, tp, sol.ye, sol.gain_coef,
+                                           sol.sqrt_coef, w,
+                                           static_mean=static_mean,
+                                           static_tilde=static_tilde,
+                                           apply_rows=sol.apply_rows)
+            tm2[sl] = sol.tail_mean
+            tp2[sl] = sol.tail_perts
+            tm, tp = tm2, tp2
+            outs.append(sol)
 
     cat = lambda xs: torch.cat(xs)[:nobs]
     return TailSolution(

@@ -41,6 +41,7 @@ from efa_xray_tpu_torch.assimilation.assimilation import Assimilation
 from efa_xray_tpu_torch.config import FilterConfig
 from efa_xray_tpu_torch.observation.observation import ObservationBatch
 from efa_xray_tpu_torch.state.ensemble import EnsembleState
+from efa_xray_tpu_torch.utils import profiling
 
 _SEL_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 SEL_CACHE_MAX_PER_STRUCTURE = 8
@@ -135,6 +136,7 @@ class LETKF(Assimilation):
         super().__init__(state, obs, inflation=inflation, verbose=verbose,
                          config=config, device=device, mesh=mesh)
 
+    @profiling.spanned(profiling.ENTRY_UPDATE)
     def update(self) -> Tuple[EnsembleState, ObservationBatch]:
         """Assimilate all observations simultaneously; return
         ``(posterior, observations)`` with the observations in the

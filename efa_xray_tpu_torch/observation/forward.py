@@ -36,6 +36,7 @@ from efa_xray_tpu_torch.observation.localization import (
     haversine,
 )
 from efa_xray_tpu_torch.state.structure import StateStructure
+from efa_xray_tpu_torch.utils import profiling
 
 EXACT_MATCH_KM = 1.0  # reference: efa_xray/state/ensemble.py:195
 # The separable search's second window, for the obs its first one cannot
@@ -354,6 +355,7 @@ def _time_weights(
     return idx, w, ok
 
 
+@profiling.spanned(profiling.OBS_TAPS_BUILD)
 def build_taps(structure: StateStructure, lats, lons, times_s, var_idx,
                npt: int = 4, exact_match_km: float = EXACT_MATCH_KM,
                metric: str = "haversine", time_weighting: str = "linear",

@@ -65,6 +65,7 @@ from efa_xray_tpu_torch.observation.localization import (
 from efa_xray_tpu_torch.ops import _build
 from efa_xray_tpu_torch.ops import precision as prec
 from efa_xray_tpu_torch.ops.precision import MODES, round_inputs
+from efa_xray_tpu_torch.utils import profiling
 
 PANEL = 8
 # Rows of the per-ob table handed to the kernel (csrc/ensrf_fused.cu kTab);
@@ -584,6 +585,7 @@ def fused_apply(bm, bp, geom, y_b, ggt_b, tab_b, bits, tile: int,
                              z_b=z_b)
 
 
+@profiling.spanned(profiling.OPS_PREPARE)
 def prepare(body_perts, body_lat, body_lon, tail: TailSolution,
             obs: ObsArrays, body_vert=None, localize: bool = True,
             block_size: int = 128, cull: bool = True, max_radius_km=None,

@@ -80,6 +80,7 @@ from efa_xray_tpu_torch.ops.ensrf_fused import (
 )
 from efa_xray_tpu_torch.ops import precision as prec
 from efa_xray_tpu_torch.ops.precision import MODES, round_inputs
+from efa_xray_tpu_torch.utils import profiling
 
 # Per-ob rows in the kernel's shared memory (csrc/ensrf_grid.cu kCoef).
 COEF_ROWS = 3
@@ -478,6 +479,7 @@ def grid_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
 # ---------------------------------------------------------------------------
 
 
+@profiling.spanned(profiling.OPS_BLOCK_OPERANDS)
 def block_operands(body_lat, body_lon, ye_block, sqrt_coef, ob_lat, ob_lon,
                    radii, nrows: int, localize: bool = True,
                    fast_geometry: bool = False, body_vert=None, ob_vert=None,
