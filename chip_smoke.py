@@ -423,7 +423,10 @@ B2H_PAIR_OPS = 25
 
 
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    """Bytes of the tensors, None skipped, a tuple (B4's ``Geometry``)
+    by its tensors."""
+    return sum(nbytes(*t) if isinstance(t, tuple) else
+               t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def bound(flop: float, nbyte: float, peak: str = "fp32") -> dict:
@@ -1205,6 +1208,8 @@ def _reset_counts():
     ensrf_grid.b3_launches = 0
     ensrf_grid.b4_launches = 0
     ensrf_grid.b4e_launches = 0
+    for source in ensrf_grid.b4_weight_source:
+        ensrf_grid.b4_weight_source[source] = 0
     newton_schulz.launches = 0
     letkf_gram.launches = 0
     for by_mode in (ensrf_fused.launches_by_mode,
@@ -1235,6 +1240,36 @@ def _counts() -> dict:
             "B4": ensrf_grid.b4_launches, "B4e": ensrf_grid.b4e_launches,
             "NS": newton_schulz.launches, "LG": letkf_gram.launches,
             "P": precision_probe.launches}
+
+
+def _weight_sources() -> dict:
+    """B4 and B4e launches by the source of their weights ("kernel": from
+    the geometry, "w", "none") since the last :func:`_reset_counts`."""
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    return dict(ensrf_grid.b4_weight_source)
+
+
+def _weights_in_kernel(label: str, counts: dict, sources: dict) -> None:
+    """Every B4 and B4e launch of ``counts`` computed its weights in the
+    kernel (``sources``: :func:`_weight_sources`)."""
+    n = counts["B4"] + counts["B4e"]
+    check(sources == dict(kernel=n, w=0, none=0),
+          f"{label}: B4 weights by source {sources}, not all {n} in the "
+          "kernel")
+
+
+def _torch_weights(lat, lon, ob_lat, ob_lon, radii):
+    """B4's exact haversine weights ``[B, G]`` as torch built them before
+    the kernel computed them: ``gaspari_cohn(haversine(...))``."""
+    from efa_xray_tpu_torch.observation.localization import (
+        gaspari_cohn,
+        haversine,
+    )
+
+    return gaspari_cohn(haversine((ob_lat[:, None], ob_lon[:, None]),
+                                  (lat[None, :], lon[None, :])),
+                        radii[:, None])
 
 
 def _mode_counts() -> dict:
@@ -1683,14 +1718,47 @@ def _grid_edge_inputs(dev="cuda"):
                          ops["coef_b"]), vt, donate
 
 
+def _first_block_places(c, bsz: int):
+    """``(lat, lon, ob_lat, ob_lon, radii)``: the grid of
+    :func:`_grid_case`'s ``c`` and its first ``bsz`` obs, padded as
+    ``blocked_body`` pads (latitude and longitude 0, infinite
+    halfwidth)."""
+    import torch
+
+    obs, g = c["obs"], c["ngrid"]
+    n = min(bsz, obs.lats.shape[0])
+    pad = lambda x, v=0.0: torch.nn.functional.pad(x[:n], (0, bsz - n),
+                                                   value=v)
+    return (c["lat"][:g], c["lon"][:g], pad(obs.lats), pad(obs.lons),
+            pad(obs.radii, float("inf")))
+
+
+def _first_block_geometry(c, bsz: int):
+    """The ``Geometry`` of :func:`_first_block_places`."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    lat, lon, olat, olon, rad = _first_block_places(c, bsz)
+    f32 = torch.float32
+    return ensrf_grid.Geometry(
+        ensrf_grid.point_geometry(lat, lon, f32),
+        ensrf_grid.point_geometry(olat, olon, f32, rad))
+
+
 def _first_block(args):
     """B4's operands for the first block of :func:`_grid_edge_inputs`'s
-    ``(w, table, y_b, ggt_b, coef_b)``: ``(for block_apply, for
-    grid_apply_plain)``."""
-    return (tuple(None if t is None else (t[:, 0] if i == 1 else t[0])
-                  for i, t in enumerate(args)),
-            tuple(None if t is None else (t[:, :1] if i == 1 else t[:1])
-                  for i, t in enumerate(args)))
+    ``(w, table, y_b, ggt_b, coef_b)`` (``w`` may be a ``Geometry``):
+    ``(for block_apply, for grid_apply_plain)``."""
+    from efa_xray_tpu_torch.ops import ensrf_grid
+
+    def block(t, i, s):
+        if isinstance(t, ensrf_grid.Geometry):
+            return ensrf_grid.Geometry(t.points, t.obs[s])
+        return None if t is None else (t[:, s] if i == 1 else t[s])
+
+    return (tuple(block(t, i, 0) for i, t in enumerate(args)),
+            tuple(block(t, i, slice(0, 1)) for i, t in enumerate(args)))
 
 
 def _grid_edge_cases(entry: str):
@@ -1710,6 +1778,7 @@ def _grid_edge_cases(entry: str):
              "128 members": 32, "256 members": 32, "blocks of 256": 32}
     worst = 0.0
     labels = []
+    geo_cases, geo_bitwise = 0, 0
     for label, c, args, vt, donate in _grid_edge_inputs():
         bsz, m = args[2].shape[1:]
         tile = ensrf_grid.pick_tile(bsz, m)
@@ -1738,8 +1807,31 @@ def _grid_edge_cases(entry: str):
         worst = max(worst, compare(f"{name} mean", got[0], want[0]),
                     compare(f"{name} perts", got[1], want[1]))
         labels.append(label)
+        if entry == "B4" and args[0] is not None:
+            # The first block's exact haversine weights computed in the
+            # kernel, against the plain version and the launch that reads
+            # the same weights as torch builds them.
+            geo = _first_block_geometry(c, bsz)
+            wt = _torch_weights(*_first_block_places(c, bsz))
+            want = ensrf_grid.grid_apply_plain(c["bm"], c["bp"], wt[None],
+                                               *plain[1:], vt)
+            got = ensrf_grid.block_apply(c["bm"], c["bp"], geo, *args[1:],
+                                         vt)
+            read = ensrf_grid.block_apply(c["bm"], c["bp"], wt, *args[1:],
+                                          vt)
+            torch.cuda.synchronize()
+            worst = max(worst,
+                        compare(f"{name} in-kernel weights mean", got[0],
+                                want[0]),
+                        compare(f"{name} in-kernel weights perts", got[1],
+                                want[1]))
+            geo_cases += 1
+            geo_bitwise += int(torch.equal(got[0], read[0])
+                               and torch.equal(got[1], read[1]))
     if entry == "B4":
-        return worst, labels
+        return worst, labels + [
+            f"in-kernel exact haversine weights at {geo_cases} of them "
+            f"({geo_bitwise} bit for bit the launch reading them from w)"]
 
     # grid_body building its weights over chunks of two blocks.
     ops = ensrf_grid.grid_prepare(c["bp"], c["body_vert"], c["tail"],
@@ -1851,6 +1943,13 @@ def phase7():
         c = _grid_case(**dims)
         tail, obs = c["tail"], c["obs"]
         nrows = c["bp"].shape[0]
+        # The weights' source as blocked_body chooses it: computed in the
+        # kernel at vt 1, read from w at vt 80.
+        g = c["ngrid"]
+        pgeo = ensrf_grid.points_for_kernel(
+            c["lat"][:g], c["lon"][:g], torch.float32, on_card=True,
+            localize=True, fast_geometry=False, vertical=vertical,
+            vt=nrows // g)
         got = want = (c["bm"], c["bp"])
         for b in range(nblk):
             sl = slice(b * bsz, (b + 1) * bsz)
@@ -1859,12 +1958,13 @@ def phase7():
                 obs.lats[sl], obs.lons[sl], obs.radii[sl], nrows,
                 body_vert=c["body_vert"], ob_vert=obs.verts[sl],
                 ob_vrad=obs.vert_radii[sl], vertical=vertical,
-                ngrid=c["ngrid"])
+                ngrid=c["ngrid"], point_geo=pgeo)
             coef = torch.stack([tail.gain_coef[sl], tail.sqrt_coef[sl]])
             ops = (w, table, tail.ye[sl].contiguous(), ggt.contiguous(), coef)
             got = ensrf_grid.block_apply(*got, *ops, vt)
             want = ensrf_grid.grid_apply_plain(
-                *want, w[None], None if table is None else table[:, None],
+                *want, ensrf_grid.as_blocks(w),
+                None if table is None else table[:, None],
                 ops[2][None], ops[3][None], coef[None], vt)
         torch.cuda.synchronize()
         err = max(compare(f"B4 {label} mean", got[0], want[0]),
@@ -1878,10 +1978,10 @@ def phase7():
             obs.lats[sl], obs.lons[sl], obs.radii[sl], nrows,
             body_vert=c["body_vert"], ob_vert=obs.verts[sl],
             ob_vrad=obs.vert_radii[sl], vertical=vertical,
-            ngrid=c["ngrid"]), 3)
+            ngrid=c["ngrid"], point_geo=pgeo), 3)
         tile = ensrf_grid.pick_tile(bsz, dims["nmems"])
         p_ms = cuda_ms(lambda: ensrf_grid.grid_apply_plain(
-            c["bm"], c["bp"], w[None],
+            c["bm"], c["bp"], ensrf_grid.as_blocks(w),
             None if table is None else table[:, None], ops[2][None],
             ops[3][None], coef[None], vt), 1)
         results.append(dict(
@@ -1900,12 +2000,13 @@ def phase7():
                 obs.lats[sl], obs.lons[sl], obs.radii[sl], nrows,
                 body_vert=c["body_vert"], ob_vert=obs.verts[sl],
                 ob_vrad=obs.vert_radii[sl], vertical=vertical,
-                ngrid=c["ngrid"], apply_rows=z)
+                ngrid=c["ngrid"], apply_rows=z, point_geo=pgeo)
             coef = torch.stack([tail.gain_coef[sl], tail.sqrt_coef[sl]])
             ops = (w, table, tail.ye[sl].contiguous(), ggt.contiguous(), coef)
             got = ensrf_grid.block_apply(*got, *ops, vt, z=z)
             want = ensrf_grid.grid_apply_plain(
-                *want, w[None], None if table is None else table[:, None],
+                *want, ensrf_grid.as_blocks(w),
+                None if table is None else table[:, None],
                 ops[2][None], ops[3][None], coef[None], vt, z_b=z[None])
         torch.cuda.synchronize()
         results[-1]["b4e_max_abs_err"] = max(
@@ -2005,12 +2106,13 @@ def _api_phase(label, state, batch, cfg, route, expect, plain=None):
           f"{route}")
     _reset_counts()
     (post, obs), wall, spent = _timed_update(lambda: filt)
-    counts = _counts()
+    counts, weights = _counts(), _weight_sources()
     check(expect(counts), f"{label}: launches {counts}")
     mean_err, incr_rms, inn_prior, inn_post = _check_api(
         label, state, batch, cfg, post, obs, plain=plain)
-    return dict(counts=counts, mean_err=mean_err, incr_rms=incr_rms,
-                inn=(inn_prior, inn_post), wall=wall, **spent)
+    return dict(counts=counts, weights=weights, mean_err=mean_err,
+                incr_rms=incr_rms, inn=(inn_prior, inn_post), wall=wall,
+                **spent)
 
 
 def _api_line(r):
@@ -2021,8 +2123,8 @@ def _api_line(r):
             f"{r['inn'][1]:.4f}; update wall {r['wall']:.3f} s (tail "
             f"{r['tail']:.3f} s, body {r['body']:.3f} s"
             + (f", of which the blocks' torch operands {r['operands']:.3f} s "
-               f"and the B4 launches {r['kernel']:.3f} s"
-               if r["counts"]["B4"] else "") + ")")
+               f"and the B4 launches {r['kernel']:.3f} s; B4 weights by "
+               f"source {r['weights']}" if r["counts"]["B4"] else "") + ")")
 
 
 def phase8():
@@ -2038,6 +2140,13 @@ def phase8():
     for label, cfg, route in _config3_runs(names):
         r = _api_phase(f"phase 8 {label}", state, batch, cfg, route,
                        expects[route])
+        # Every B4 reads w: the body's over 80 groups, the tail's with
+        # levels per row (or varloc).
+        want = dict(kernel=0, w=tail["b4"] + (nblocks if route == "B4"
+                                              else 0), none=0)
+        check(r["weights"] == want,
+              f"phase 8 {label}: B4 weights by source {r['weights']}, not "
+              f"{want}")
         log(f"phase 8: EnSRF.update() config 3 (80 level variables x 90x180 "
             f"x 30 members, {batch.nobs} obs, vertical 300 hPa) {label}, "
             f"route {route}: " + _api_line(r))
@@ -2060,9 +2169,11 @@ def phase9():
                    _only(B1=tail["panels"], B4=nblocks + tail["b4"]),
                    plain=_plain_kept(("api default", 1024, 10_000, 80),
                                      state, batch, cfg))
+    _weights_in_kernel("phase 9", r["counts"], r["weights"])
     log(f"phase 9: EnSRF.update() 1024x1024x80, {batch.nobs} obs at the "
         f"default FilterConfig: " + _api_line(r))
-    return dict(b4=r["counts"]["B4"], b1=r["counts"]["B1"])
+    return dict(b4=r["counts"]["B4"], b1=r["counts"]["B1"],
+                b4_weights_in_kernel=r["weights"]["kernel"])
 
 
 def phase10():
@@ -3027,15 +3138,19 @@ def _enkf_holds(seen):
                                   **tkw(k))
     sl = slice(0, k["block_size"])
     z = tail.apply_rows[sl].contiguous()
+    # The default config's body: a flat state, weights in the kernel.
     vt, w, table, ggt = ensrf_grid.block_operands(
         lat, lon, tail.ye[sl], tail.sqrt_coef[sl], obs.lats[sl],
-        obs.lons[sl], obs.radii[sl], bp.shape[0], apply_rows=z)
+        obs.lons[sl], obs.radii[sl], bp.shape[0], apply_rows=z,
+        point_geo=ensrf_grid.points_for_kernel(
+            lat[:len(bp)], lon[:len(bp)], bp.dtype, on_card=True,
+            localize=True, fast_geometry=False, vertical=False, vt=1))
     coef = torch.stack([tail.gain_coef[sl], tail.sqrt_coef[sl]])
     ops = (w, table, tail.ye[sl].contiguous(), ggt.contiguous(), coef)
     got = ensrf_grid.block_apply(bm, bp, *ops, vt, z=z)
-    want = ensrf_grid.grid_apply_plain(bm, bp, w[None], None, ops[2][None],
-                                       ops[3][None], coef[None], vt,
-                                       z_b=z[None])
+    want = ensrf_grid.grid_apply_plain(bm, bp, ensrf_grid.as_blocks(w), None,
+                                       ops[2][None], ops[3][None], coef[None],
+                                       vt, z_b=z[None])
     torch.cuda.synchronize()
     err = max(compare("B4e config 11 mean", got[0], want[0]),
               compare("B4e config 11 perts", got[1], want[1]))
@@ -3043,8 +3158,8 @@ def _enkf_holds(seen):
         max_abs_err=err,
         ms=cuda_ms(lambda: ensrf_grid.block_apply(bm, bp, *ops, vt, z=z), 5),
         plain_ms=cuda_ms(lambda: ensrf_grid.grid_apply_plain(
-            bm, bp, w[None], None, ops[2][None], ops[3][None], coef[None],
-            vt, z_b=z[None]), 1),
+            bm, bp, ensrf_grid.as_blocks(w), None, ops[2][None], ops[3][None],
+            coef[None], vt, z_b=z[None]), 1),
         **bound(body_flop(bp.shape[0], 1, k["block_size"], bp.shape[1]),
                 nbytes(bm, bp, w, *ops[2:], z) + nbytes(*got)))
     log("phase 18: B2e (the body) and B4e (one block of the default "
@@ -4994,9 +5109,13 @@ def _b2_block_fns(args):
 def _grid_block_fns(entry, w, table, y_b, ggt_b, coef_b, vt):
     """``(launch, plain, nblocks)`` for :func:`hold_mode` from the grid
     kernel's operands: B3 over the blocks of ``y_b``, or B4 over its one
-    block (``entry``)."""
+    block (``entry``).  A ``Geometry`` ``w`` reaches the kernel as it is
+    and the plain version as its weights built in torch in fp32."""
     from efa_xray_tpu_torch.ops import ensrf_grid
 
+    geo = w if isinstance(w, ensrf_grid.Geometry) else None
+    if geo is not None:
+        w = ensrf_grid.geometry_weights(*geo)
     by_dtype = {}
 
     def sliced(s, dtype):
@@ -5009,12 +5128,13 @@ def _grid_block_fns(entry, w, table, y_b, ggt_b, coef_b, vt):
                 coef_[s])
 
     def launch(bm, bp, s, mode):
+        ops = sliced(s, bp.dtype)
+        if geo is not None:
+            ops = (ensrf_grid.Geometry(geo.points, geo.obs[s]),) + ops[1:]
         if entry == "B4":
             return ensrf_grid.block_apply(
-                bm, bp, *_first_block(sliced(s, bp.dtype))[0], vt,
-                precision=mode)
-        return ensrf_grid.grid_apply(bm, bp, *sliced(s, bp.dtype), vt,
-                                     precision=mode)
+                bm, bp, *_first_block(ops)[0], vt, precision=mode)
+        return ensrf_grid.grid_apply(bm, bp, *ops, vt, precision=mode)
 
     check(entry == "B3" or y_b.shape[0] == 1, "B4 takes one block")
     return (launch,
@@ -5129,6 +5249,9 @@ def _phase26_kernels(dev, cut):
             body_vert=c["body_vert"], ob_vert=obs.verts[sl],
             ob_vrad=obs.vert_radii[sl], vertical=vertical, ngrid=c["ngrid"])
         coef = torch.stack([tail.gain_coef[sl], tail.sqrt_coef[sl]])
+        # The launch reads the weights built in torch; the same block
+        # computing them in the kernel is held against it below.
+        geo = _first_block_geometry(c, bsz)
         ops = (None if wts is None else wts[None],
                None if table is None else table[:, None],
                tail.ye[sl].contiguous()[None], ggt.contiguous()[None],
@@ -5138,8 +5261,65 @@ def _phase26_kernels(dev, cut):
             c["bp"], body_flop(rows, 1, bsz, mm, "products"),
             body_flop(rows, 1, bsz, mm, "rest"),
             2 * nbytes(c["bm"], c["bp"]) + nbytes(*ops), dev)
-        del c, tail, obs, ops, wts
+        res[key + " in-kernel weights"] = _geometry_case(
+            f"{key} (one block)", geo, ops, vt, c["bm"], c["bp"], res[key],
+            dev)
+        del c, tail, obs, ops, wts, geo
     return res
+
+
+def _geometry_case(label, geo, ops, vt, bm, bp, read, dev) -> dict:
+    """Phase 26 (a) for B4 computing its exact haversine weights (the
+    ``Geometry`` ``geo``) against the launch that reads them (``ops``,
+    :func:`_phase26_kernels`' operands with the torch weights; ``read``
+    its numbers), in each mode: whether the two are equal bit for bit
+    and, where not, the in-kernel launch at the f32 gate in fp32 and at
+    gate (a) in a tensor-core mode against the plain version fed the
+    torch weights; both launches timed.  Returns ``{mode: dict}``."""
+    import torch
+
+    from efa_xray_tpu_torch.ops import ensrf_grid
+    from efa_xray_tpu_torch.ops.precision import MODES
+
+    launch_w, plain, _ = _grid_block_fns("B4", *ops, vt)
+    args = (geo,) + tuple(None if t is None else t[:, 0] if i == 0 else t[0]
+                          for i, t in enumerate(ops[1:]))
+
+    def launch(bm_, bp_, s, mode):
+        return ensrf_grid.block_apply(bm_, bp_, *args, vt, precision=mode)
+
+    out = {}
+    every = slice(None)
+    for mode in MODES:
+        got = launch(bm, bp, every, mode)
+        want = launch_w(bm, bp, every, mode)
+        r = dict(bitwise=bool(all(torch.equal(g, w)
+                                  for g, w in zip(got, want))),
+                 vs_w=max(float((g - w).abs().max())
+                          for g, w in zip(got, want)))
+        if not r["bitwise"]:
+            if mode == "ieee":
+                ref = plain(bm, bp, every, mode, None)
+                r["max_abs_err"] = max(
+                    compare(f"phase 26 {label} in-kernel weights {part}", g,
+                            w) for part, g, w in zip(("mean", "perts"), got,
+                                                     ref))
+            else:
+                h = hold_mode(f"phase 26 {label} in-kernel weights", launch,
+                              plain, bm, bp, 1, mode, operand_faults=False)
+                h.pop("out")
+                r.update(max_abs_err=h["max_abs_err"], share=h["share"])
+        del got, want
+        r.update(ms=_ms(lambda: launch(bm, bp, every, mode), 3, dev),
+                 read_ms=read[mode]["ms"])
+        out[mode] = r
+    log(f"phase 26 (a): {label}, weights in the kernel against the launch "
+        "that reads them: " + "; ".join(
+            f"{mode} bit for bit {r['bitwise']} (max diff {r['vs_w']:.3e}"
+            + (f", err {r['max_abs_err']:.3e}" if "max_abs_err" in r else "")
+            + f"), {r['ms']:.3f} ms against {r['read_ms']:.3f} ms"
+            for mode, r in out.items()))
+    return out
 
 
 def _phase26_edges(dev, cut):
@@ -5295,6 +5475,8 @@ def phase26(dev="cuda", **cut):
     p = {k: dict(v, **cut.get(k, {})) for k, v in PHASE26.items()}
     a = _phase26_kernels(dev, p)
     for key, modes in a.items():
+        if key.endswith("in-kernel weights"):  # logged where measured
+            continue
         log(f"phase 26 (a): {key}: " + "; ".join(
             f"{mode} err {r['max_abs_err']:.3e}" + (
                 "" if mode == "ieee" else
@@ -6167,7 +6349,10 @@ def _hold_call(kind, call, rows: int, blocks: int,
     idx = (torch.arange(vt, device=bp.device)[:, None] * g
            + pts[None, :]).reshape(-1)
     nbk = min(blocks if prec == "ieee" else mode_blocks, nb)
-    cut = (None if w is None else w[:nbk][:, :, pts].contiguous(),
+    geo = w if isinstance(w, ensrf_grid.Geometry) else None
+    cut = (ensrf_grid.Geometry(geo.points[:, pts].contiguous(), geo.obs[:nbk])
+           if geo is not None else
+           None if w is None else w[:nbk][:, :, pts].contiguous(),
            None if table is None else table[:, :nbk].contiguous(),
            y_b[:nbk], ggt_b[:nbk], coef_b[:nbk])
     zc = None if z_b is None else z_b[:nbk]
@@ -6185,6 +6370,17 @@ def _hold_call(kind, call, rows: int, blocks: int,
                       operand_faults=False)
         r.pop("out")
         p_ms = r.pop("plain_ms")
+    if geo is not None:
+        # The whole launch against the one that reads the same weights
+        # built in torch.
+        wts = ensrf_grid.geometry_weights(*geo)
+        read = lambda: fn(entry, bm, bp, wts, table, y_b, ggt_b, coef_b, vt,
+                          False, precision=prec, z_b=z_b)
+        got, want = full(), read()
+        r.update(bitwise_vs_w=bool(torch.equal(got[0], want[0])
+                                   and torch.equal(got[1], want[1])),
+                 read_ms=_launch_ms(read))
+        del got, want, wts
     return dict(r, ms=_launch_ms(full), plain_ms=p_ms,
                 shape=f"{vt} x {g} x {m}, {nb} blocks of {bsz}",
                 plan=plan._asdict(),
@@ -6207,7 +6403,11 @@ def _hold_all(label, spy, p) -> dict:
                                    p["hold_blocks"], p["mode_hold_blocks"])
         log(f"phase 29 {label}: {kind} [{r['shape']}] matches plain "
             f"({r.get('held', 'whole launch')}): err {r['max_abs_err']:.3e} "
-            f"kernel {r['ms']:.3f} ms plain {r['plain_ms']:.1f} ms bound "
+            f"kernel {r['ms']:.3f} ms"
+            + (f" (weights in the kernel; bit for bit the launch reading "
+               f"them from w: {r['bitwise_vs_w']}, which takes "
+               f"{r['read_ms']:.3f} ms)" if "read_ms" in r else "")
+            + f" plain {r['plain_ms']:.1f} ms bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
             + (f" plan {r['plan']}" if "plan" in r else
                f" cluster {r['cluster']}, slab in "
@@ -7022,8 +7222,10 @@ class _ParentEntries:
                                             bits, n, m, b, nb, t, loc, vert,
                                             series, *outs)
 
-    def efa_grid_launch(self, bm, bp, w, table, y, z, ggt, coef, vt, g, m,
-                        ms, b, nb, t, mode, *outs):
+    def efa_grid_launch(self, bm, bp, w, table, y, z, ggt, coef, pg, og, vt,
+                        g, m, ms, b, nb, t, mode, *outs):
+        check(pg is None and og is None,
+              "steps: the parent's grid kernel reads its weights from w")
         check(ms == m and (mode == 0 or self.grid_mode),
               "steps: the parent's grid kernel stages every member (and "
               "takes a mode from ABI 1 on)")

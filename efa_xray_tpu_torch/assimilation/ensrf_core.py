@@ -713,6 +713,15 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
     eps_all = _pad(eps.to(dtype), pad) if enkf else None
     apply = (tail_apply_route(localize, fast_geometry, use_vl, hybrid)
              if kernels else "plain")
+    tail_geo = None
+    if apply == "B4":
+        from efa_xray_tpu_torch.ops import ensrf_grid
+
+        # The tail rows' geometry, once, where B4 computes its weights.
+        tail_geo = ensrf_grid.points_for_kernel(
+            allo.lats, allo.lons, dtype, on_card=tm.is_cuda,
+            localize=localize, fast_geometry=fast_geometry,
+            vertical=localize and vertical, vt=1, row_factor=use_vl)
     # The B4 apply updates the tail in place once this call owns it.
     owned = False
 
@@ -749,8 +758,6 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                     apply_rows=sol.apply_rows,
                 )
             elif apply == "B4":
-                from efa_xray_tpu_torch.ops import ensrf_grid
-
                 # As with B2, no out-of-panel mask: the tail rows are a flat
                 # state (vt = 1) with the obs' own places and levels.
                 tm2, tp2 = tm, tp
@@ -766,7 +773,8 @@ def tail_scan_blocked(tail_mean, tail_perts, obs: ObsArrays,
                         ob_row_factor=(vl[ovarr[sl][bl]][:, ovarr] if use_vl
                                        else None),
                         donate=owned,
-                        apply_rows=None if not enkf else sol.apply_rows[bl])
+                        apply_rows=None if not enkf else sol.apply_rows[bl],
+                        point_geo=tail_geo)
                     owned = True
             else:
                 outside = ((row_idx < base)

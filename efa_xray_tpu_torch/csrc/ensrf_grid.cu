@@ -23,10 +23,13 @@
 //   u_j = w[j, g_r] table[v, j] o (d0_j - sum_{i<j} ggt[j, i] u_i)
 //   xm += U^T gain;  X -= (sqrt_coef o U)^T Y
 // with ggt[j, i] = (y_i . y_j) sqrt_coef_i, w the block's weights [B, G]
-// (absent: unlocalized) and the table absent meaning 1.  B4e takes the
-// departure rows Z [B, M] as well: D0 still reads Y, ggt[j, i] = (z_i .
-// y_j) sqrt_coef_i, and X -= (sqrt_coef o U)^T Z; Z is copied into the Y
-// buffer once D0 has read Y, under the first panel's solve.
+// (absent: unlocalized) and the table absent meaning 1.  B4's exact
+// haversine weights may instead be computed here, per (ob, point), from the
+// geometry of the points and of the obs (gc_haversine), bit for bit the
+// weights that the wrapper's torch ops build: no [B, G] operand then.  B4e
+// takes the departure rows Z [B, M] as well: D0 still reads Y, ggt[j, i] =
+// (z_i . y_j) sqrt_coef_i, and X -= (sqrt_coef o U)^T Z; Z is copied into
+// the Y buffer once D0 has read Y, under the first panel's solve.
 //
 // What bounds it on an H100: with plain fp32 FMA, arithmetic.  Per (tile,
 // block) the two products take 2 T B M FMAs and the substitution T B^2 / 2:
@@ -64,11 +67,14 @@
 //    and those below) and its 8 weight rows arrive through a ring of slots
 //    (cp.async), fetched kAhead panels ahead and across block boundaries by
 //    the warps that the in-panel chain leaves idle: the weights come from
-//    device memory, so their latency is this kernel's own to hide.  Y, the
-//    per-ob rows and the table row of the next block are fetched once this
-//    block's apply has read them.  Copies are 16 bytes wide where sizes and
-//    addresses allow (the vec flags), 4 bytes otherwise, so any G, B and M
-//    is exact without padding by the caller.
+//    device memory, so their latency is this kernel's own to hide.  Where
+//    the kernel computes the weights, the same threads write them into the
+//    same slot, reading the geometry through the read-only cache: the
+//    trigonometry runs beside the chain, in no shared memory of its own.
+//    Y, the per-ob rows and the table row of the next block are fetched
+//    once this block's apply has read them.  Copies are 16 bytes wide where
+//    sizes and addresses allow (the vec flags), 4 bytes otherwise, so any
+//    G, B and M is exact without padding by the caller.
 // 4. Several CTAs per SM: with no [B, B] table a CTA of 64 points takes 75
 //    KB at 30 members (three fit an SM) and 112 KB at 80 (two fit); the
 //    register limit follows the CTA count (the kCtas template parameter).
@@ -197,6 +203,52 @@ __device__ __forceinline__ void copy_rows_async(float* dst, DstOffset doff,
       for (int c = lane; c < n; c += 32) cp_async4(d + c, s + c);
     }
   }
+}
+
+// The Gaspari-Cohn weight of an ob (latitude in radians, longitude in
+// degrees, cos(latitude), halfwidth in km) at a point (the same three) at
+// exact haversine distance: observation/localization.py haversine (ob
+// first) and gaspari_cohn op for op, each op rounded once as torch's
+// kernels on the card round it (no contraction into FMAs; a division by a
+// Python float is a product with its float reciprocal there, a Python float
+// over a tensor the tensor's reciprocal times it), so that the weights are
+// the wrapper's torch weights bit for bit.  An infinite halfwidth gives 1.
+__device__ __forceinline__ float gc_haversine(float olat, float olon,
+                                              float ocos, float hw,
+                                              float plat, float plon,
+                                              float pcos) {
+  constexpr float kDegToRad = static_cast<float>(
+      0.017453292519943295769236907684886127134428718885417);
+  constexpr float kEarthKm = 6371.0f;
+  constexpr float kFiveThirds = static_cast<float>(5.0 / 3.0);
+  const float dlat = __fsub_rn(plat, olat);
+  // Weight 0 without the trigonometry where latitude alone puts the pair
+  // past two halfwidths: with the cosines' product >= 0, a >= sin(dlat/2)^2
+  // and so d >= R |dlat| for |dlat| <= 3, every rounding below within 1e-5
+  // of it; R |dlat| >= 2.002 |hw| then gives r >= 2, as torch computes it.
+  if (__fmul_rn(ocos, pcos) >= 0.0f && fabsf(dlat) <= 3.0f &&
+      __fmul_rn(fabsf(dlat), kEarthKm) >= __fmul_rn(fabsf(hw), 2.002f))
+    return 0.0f;
+  const float dlon = __fmul_rn(__fsub_rn(plon, olon), kDegToRad);
+  const float sl = sinf(__fmul_rn(dlat, 0.5f));
+  const float sn = sinf(__fmul_rn(dlon, 0.5f));
+  const float a = __fadd_rn(
+      __fmul_rn(sl, sl), __fmul_rn(__fmul_rn(ocos, pcos), __fmul_rn(sn, sn)));
+  const float c = __fmul_rn(atan2f(sqrtf(a), sqrtf(__fsub_rn(1.0f, a))), 2.0f);
+  const float r = __fdiv_rn(__fmul_rn(c, kEarthKm), fabsf(hw));
+  if (r <= 1.0f) {
+    float p = __fadd_rn(__fmul_rn(r, -0.25f), 0.5f);
+    p = __fadd_rn(__fmul_rn(p, r), 0.625f);
+    p = __fsub_rn(__fmul_rn(p, r), kFiveThirds);
+    return __fadd_rn(__fmul_rn(p, __fmul_rn(r, r)), 1.0f);
+  }
+  if (!(r < 2.0f)) return 0.0f;  // NaN too, as torch.where gives
+  float p = __fsub_rn(__fmul_rn(r, 1.0f / 12.0f), 0.5f);
+  p = __fadd_rn(__fmul_rn(p, r), 0.625f);
+  p = __fadd_rn(__fmul_rn(p, r), kFiveThirds);
+  p = __fsub_rn(__fmul_rn(p, r), 5.0f);
+  p = __fadd_rn(__fmul_rn(p, r), 4.0f);
+  return __fsub_rn(p, __fmul_rn(__fdiv_rn(1.0f, __fmul_rn(r, 3.0f)), 2.0f));
 }
 
 // Which operands may be copied 16 bytes at a time: Y rows (M), ggt rows
@@ -344,6 +396,9 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
     const float* __restrict__ z_b,    // [nb, B, M] B4e, else nullptr
     const float* __restrict__ ggt_b,  // [nb, B, B]
     const float* __restrict__ coef_b, // [nb, 2, B]: gain, sqrt_coef
+    // Where w is nullptr and these are not, the weights are computed here:
+    const float* __restrict__ pgeo,   // [3, G] lat (rad), lon (deg), cos lat
+    const float* __restrict__ ogeo,   // [nb, 4, B] the same, halfwidth (km)
     int VT, int G, int M, int Ms, int B, int nb, int T, int vec,
     float* bm_out, float* bp_out) {
   extern __shared__ __align__(16) float smem[];
@@ -379,7 +434,7 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
   const int npanels = Bp / kPanel;
   const int total_panels = nb * npanels;
   const int tsh = T == 64 ? 6 : 5;  // T is 32 or 64 (the launcher checks)
-  const bool localize = w != nullptr;
+  const bool localize = w != nullptr || pgeo != nullptr;
 
   // Zero everything once: the pad columns of X and Y, the Y rows past B, the
   // rows and weights of the ragged last tile are never written again.
@@ -458,7 +513,9 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
   // Panel q of block b into ring slot `slot`, asynchronously, by threads
   // ft = 0 .. nft - 1: the panel's ggt columns from its own rows down (row j
   // of the slot is ggt[j, base : base + 8]) and the weight rows of this
-  // tile's points.
+  // tile's points, copied from w or computed from the geometry (a plain
+  // store, seen by the readers after the barrier that follows the copies'
+  // wait).
   auto fetch_panel = [&](int b, int q, int slot, int ft, int nft) {
     const int base = q * kPanel;
     const int width = min(kPanel, B - base), rows = B - base;
@@ -476,9 +533,19 @@ __global__ void __launch_bounds__(kThreads, kCtas) grid_body_kernel(
         if (c < width) cp_async4(gd + jr * kPanel + c, gb + (long)jr * B + c);
       }
     }
-    if (localize) {
+    float* wd = Wr + slot * kPanel * T;
+    if (pgeo) {  // consecutive threads take consecutive points of one ob
+      const float* og = ogeo + (long)b * 4 * B + base;
+      for (int idx = ft; idx < (width << tsh); idx += nft) {
+        const int t = idx >> tsh, r = idx & (T - 1);
+        if (r < npts)
+          wd[t * T + r] = gc_haversine(
+              __ldg(og + t), __ldg(og + B + t), __ldg(og + 2 * B + t),
+              __ldg(og + 3 * B + t), __ldg(pgeo + g0 + r),
+              __ldg(pgeo + G + g0 + r), __ldg(pgeo + 2L * G + g0 + r));
+      }
+    } else if (localize) {
       const float* wb = w + ((long)b * B + base) * G + g0;
-      float* wd = Wr + slot * kPanel * T;
       if (vec & kVecW) {  // G, and so npts, is a multiple of 4
         for (int idx = ft; idx < (width << (tsh - 2)); idx += nft) {
           const int t = idx >> (tsh - 2), c = 4 * (idx & ((T >> 2) - 1));
@@ -776,9 +843,10 @@ bool aligned16(const void* p) {
 template <int kCtas, int kMode, bool kZ = false>
 int launch_as(const float* bm_in, const float* bp_in, const float* w,
               const float* table, const float* y_b, const float* z_b,
-              const float* ggt_b, const float* coef_b, int VT, int G, int M,
-              int Ms, int B, int nb, int T, int smem, unsigned ctas,
-              float* bm_out, float* bp_out, cudaStream_t stream) {
+              const float* ggt_b, const float* coef_b, const float* pgeo,
+              const float* ogeo, int VT, int G, int M, int Ms, int B, int nb,
+              int T, int smem, unsigned ctas, float* bm_out, float* bp_out,
+              cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       grid_body_kernel<kCtas, kMode, kZ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -796,8 +864,8 @@ int launch_as(const float* bm_in, const float* bp_in, const float* w,
       (G % 4 == 0 && aligned16(w) ? kVecW : 0) |
       (M % 4 == 0 && aligned16(bp_in) && aligned16(bp_out) ? kVecX : 0);
   grid_body_kernel<kCtas, kMode, kZ><<<ctas, kThreads, smem, stream>>>(
-      bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M, Ms, B, nb,
-      T, vec, bm_out, bp_out);
+      bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, pgeo, ogeo, VT, G, M,
+      Ms, B, nb, T, vec, bm_out, bp_out);
   return (int)cudaGetLastError();
 }
 
@@ -822,15 +890,17 @@ const void* kernel_of(int mode) {
   return (const void*)grid_body_kernel<kCtas, efa_mma::kIeee, false>;
 }
 
-// Ms: members a slice (M, or a multiple of 32 below it).
+// Ms: members a slice (M, or a multiple of 32 below it).  The weights come
+// from w or from the geometry (pgeo and ogeo), never both.
 int launch(const float* bm_in, const float* bp_in, const float* w,
            const float* table, const float* y_b, const float* z_b,
-           const float* ggt_b, const float* coef_b, int VT, int G, int M,
-           int Ms, int B, int nb, int T, int mode, float* bm_out,
-           float* bp_out, void* stream) {
+           const float* ggt_b, const float* coef_b, const float* pgeo,
+           const float* ogeo, int VT, int G, int M, int Ms, int B, int nb,
+           int T, int mode, float* bm_out, float* bp_out, void* stream) {
   if ((T != 32 && T != 64) || VT <= 0 || G <= 0 || M <= 0 || B <= 0 ||
       nb <= 0 || nb > 0x7fffffff / ((B + kPanel - 1) / kPanel) || Ms <= 0 ||
-      Ms > M || (Ms < M && Ms % 32 != 0))
+      Ms > M || (Ms < M && Ms % 32 != 0) || (!pgeo != !ogeo) ||
+      (w && pgeo))
     return (int)cudaErrorInvalidValue;
   // bf16: Y arrives as rows of round16(M) bf16 values, copied 16 bytes at a
   // time.
@@ -844,15 +914,15 @@ int launch(const float* bm_in, const float* bp_in, const float* w,
     const auto run = ctas_per_sm(smem) >= 3
                          ? &launch_as<3, efa_mma::kIeee, true>
                          : &launch_as<2, efa_mma::kIeee, true>;
-    return run(bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M, Ms,
-               B, nb, T, smem, (unsigned)ctas, bm_out, bp_out,
+    return run(bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, pgeo, ogeo,
+               VT, G, M, Ms, B, nb, T, smem, (unsigned)ctas, bm_out, bp_out,
                (cudaStream_t)stream);
   }
   const auto run =
       ctas_per_sm(smem) >= 3 ? launcher<3>(mode) : launcher<2>(mode);
   if (!run) return (int)cudaErrorInvalidValue;
-  return run(bm_in, bp_in, w, table, y_b, nullptr, ggt_b, coef_b, VT, G, M,
-             Ms, B, nb, T, smem, (unsigned)ctas, bm_out, bp_out,
+  return run(bm_in, bp_in, w, table, y_b, nullptr, ggt_b, coef_b, pgeo, ogeo,
+             VT, G, M, Ms, B, nb, T, smem, (unsigned)ctas, bm_out, bp_out,
              (cudaStream_t)stream);
 }
 
@@ -863,22 +933,26 @@ extern "C" {
 // Every entry behind one: nb blocks in one launch (B3; B4 over the
 // sub-blocks of its block), B4e with z_b; Ms members a slice (M:
 // unsliced).  T: grid points per CTA (32 or 64).  mode: 0 fp32 FMA, 1
-// TF32, 2 bf16 tensor cores for D0 and the apply (B4e: 0).
+// TF32, 2 bf16 tensor cores for D0 and the apply (B4e: 0).  pgeo [3, G]
+// and ogeo [nb, 4, B] in place of w: B4's exact haversine weights
+// computed in the kernel.
 int efa_grid_launch(const float* bm_in, const float* bp_in, const float* w,
                     const float* table, const float* y_b, const float* z_b,
-                    const float* ggt_b, const float* coef_b, int VT, int G,
+                    const float* ggt_b, const float* coef_b,
+                    const float* pgeo, const float* ogeo, int VT, int G,
                     int M, int Ms, int B, int nb, int T, int mode,
                     float* bm_out, float* bp_out, void* stream) {
-  return launch(bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, VT, G, M,
-                Ms, B, nb, T, mode, bm_out, bp_out, stream);
+  return launch(bm_in, bp_in, w, table, y_b, z_b, ggt_b, coef_b, pgeo, ogeo,
+                VT, G, M, Ms, B, nb, T, mode, bm_out, bp_out, stream);
 }
 
 // The version of the entries' C signatures, so that a build of another
-// commit's source can be bound right: 2 is efa_grid_launch alone; 1 had
+// commit's source can be bound right: 3 is efa_grid_launch with the
+// geometry pointers after coef_b; 2 was it without them; 1 had
 // efa_grid_body (B3) and efa_block_apply (B4, one block), the product
 // mode before the outputs.  A source without this entry predates the
 // modes.
-int efa_grid_abi() { return 2; }
+int efa_grid_abi() { return 3; }
 
 // CTAs of the kernel in product mode `mode` that the card holds on one SM
 // at this shape (by the occupancy calculator, registers and shared memory

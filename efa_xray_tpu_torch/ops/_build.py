@@ -40,7 +40,7 @@ _SIGNATURES = {
     "efa_tail_solve_smem": [_I] * 4,
     "efa_tail_launch": [_P] * 10 + [_F] + [_I] * 5 + [_P] * 13,
     "efa_fused_launch": [_P] * 8 + [_I] * 11 + [_P] * 3,
-    "efa_grid_launch": [_P] * 8 + [_I] * 8 + [_P] * 3,
+    "efa_grid_launch": [_P] * 10 + [_I] * 8 + [_P] * 3,
     "efa_grid_ctas_per_sm": [_I] * 4,
     "efa_grid_abi": [],
     "efa_precision_mm": [_P] * 5 + [_I] * 4 + [_P],

@@ -28,7 +28,12 @@ where no sub-block of 32 obs fits either.  Every shape whose layout fits
 runs as it always did.
 
 The weights and tables are built outside the kernel with torch ops, as the
-JAX package builds them with XLA outside Pallas.  :func:`grid_apply` and
+JAX package builds them with XLA outside Pallas, except B4's exact
+haversine weights of a flat state on the card: where nothing else
+multiplies them (:func:`points_for_kernel`), B4 and B4e compute them per
+(ob, point) from a :class:`Geometry` (``csrc/ensrf_grid.cu``
+``gc_haversine``), bit for bit the torch weights, and no ``[B, G]`` weight
+tensor is built.  :func:`grid_apply` and
 :func:`block_apply` launch the CUDA kernel of
 ``efa_xray_tpu_torch/csrc/ensrf_grid.cu`` on CUDA tensors, or run
 :func:`grid_apply_plain`, the same computation in plain torch, on CPU
@@ -54,6 +59,7 @@ substitution, the weights and the mean stay fp32.
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -63,6 +69,7 @@ from efa_xray_tpu_torch.assimilation.ensrf_core import (
     _pad,
 )
 from efa_xray_tpu_torch.observation.localization import (
+    EARTH_RADIUS_KM,
     chordal_gc_weights,
     gaspari_cohn,
     haversine,
@@ -101,6 +108,9 @@ b4_launches = 0
 launches_by_mode = {k: dict.fromkeys(MODES, 0) for k in ("B3", "B4")}
 # Launches of B4e (fp32 only).
 b4e_launches = 0
+# Launches of B4 and B4e by where their weights came from: computed in the
+# kernel from a Geometry, read from a w operand, none (unlocalized).
+b4_weight_source = dict.fromkeys(("kernel", "w", "none"), 0)
 # Guards the counters against launches from several threads.
 _count_lock = threading.Lock()
 
@@ -155,12 +165,86 @@ def plan(block_size: int, nmems: int, precision: str = "ieee",
         lambda b: pick_tile(b, nmems, precision), block_size, nmems, tile)
 
 
+class Geometry(NamedTuple):
+    """What B4 computes its exact haversine weights from, in place of
+    ``w``: ``points [3, G]``, the grid points' latitude (radians),
+    longitude (degrees) and cos(latitude); ``obs [nb, 4, B]`` (one block's
+    ``[4, B]`` from :func:`block_operands`), the same three of each ob and
+    its halfwidth (km) (both rows from :func:`point_geometry`).
+    :func:`geometry_weights` gives the weights."""
+
+    points: torch.Tensor
+    obs: torch.Tensor
+
+
+def point_geometry(lat, lon, dtype, radii=None) -> torch.Tensor:
+    """:class:`Geometry`'s rows for places at ``lat``, ``lon`` (degrees):
+    ``[3, n]`` for points, ``[4, n]`` with the obs' halfwidths
+    ``radii``."""
+    rad = torch.deg2rad(lat.to(dtype))
+    return torch.stack([rad, lon.to(dtype), torch.cos(rad)]
+                       + ([] if radii is None else [radii.to(dtype)]))
+
+
+def geometry_weights(points, obs) -> torch.Tensor:
+    """The weights ``[..., B, G]`` of a :class:`Geometry`'s ``points``
+    and ``obs [..., 4, B]``, in torch, in the kernel's order of operations
+    (``csrc/ensrf_grid.cu`` ``gc_haversine``), which is ``haversine``'s
+    and ``gaspari_cohn``'s: on the same device and dtype, the weights
+    :func:`block_operands` builds otherwise, bit for bit."""
+    olat, olon, ocos, hw = (obs[..., i, :, None] for i in range(4))
+    sl = torch.sin((points[0] - olat) / 2.0)
+    sn = torch.sin(torch.deg2rad(points[1] - olon) / 2.0)
+    a = sl ** 2 + ocos * points[2] * sn ** 2
+    c = 2.0 * torch.atan2(torch.sqrt(a), torch.sqrt(1.0 - a))
+    return gaspari_cohn(EARTH_RADIUS_KM * c, hw)
+
+
+def points_for_kernel(lat, lon, dtype, *, on_card: bool, localize: bool,
+                      fast_geometry: bool, vertical: bool, vt: int,
+                      row_factor: bool = False):
+    """The grid points' :func:`point_geometry` (``lat``, ``lon``: the
+    ``G`` points') where B4 computes its blocks' weights itself, else None
+    (the blocks read a ``w`` operand built in torch).  B4 computes them on
+    the card for the exact haversine weights of a flat state (VT = 1) that
+    nothing else multiplies: no per-(ob, row) factor (``row_factor``), no
+    per-row vertical factor.  At VT > 1 each group's CTA over a grid tile
+    would compute the tile's weights again, where torch builds them once
+    for every group, so those blocks read ``w``; so does the CPU (the
+    parity path)."""
+    if not (on_card and localize and vt == 1 and not fast_geometry
+            and not vertical and not row_factor):
+        return None
+    return point_geometry(lat, lon, dtype)
+
+
+def as_blocks(w):
+    """One block's weight operand (``[B, G]``, a :class:`Geometry` with
+    ``obs [4, B]``, or None) as the blocks' (``nb`` = 1)."""
+    if isinstance(w, Geometry):
+        return Geometry(w.points, w.obs[None])
+    return None if w is None else w[None]
+
+
+def _sub_geometry(obs, sub: int):
+    """``obs [nb, 4, B]`` as ``[nb * k, 4, sub]``, each block padded to
+    whole sub-blocks with obs of infinite halfwidth (weight 1: the zero
+    obs stay exact no-ops)."""
+    nb, _, bsz = obs.shape
+    k = -(-bsz // sub)
+    fill = obs.new_zeros((nb, 4, k * sub - bsz))
+    fill[:, 2] = 1.0
+    fill[:, 3] = float("inf")
+    return (torch.cat([obs, fill], dim=2).reshape(nb, 4, k, sub)
+            .transpose(1, 2).reshape(nb * k, 4, sub).contiguous())
+
+
 def sub_blocks(y_b, ggt_b, coef_b, w, table, z_b, sub: int):
     """Blocks of ``B`` obs (``y_b [nb, B, M]``, ``ggt_b [nb, B, B]``,
-    ``coef_b [nb, 2, B]``, ``w [nb, B, G]`` or None, ``table [VT, nb, B]``
-    or None, ``z_b`` or None) as blocks of ``sub`` obs, swept in the same
-    order: each block padded to whole sub-blocks with zero obs (exact
-    no-ops) and the Gram tables' diagonal blocks."""
+    ``coef_b [nb, 2, B]``, ``w [nb, B, G]``, a :class:`Geometry` or None,
+    ``table [VT, nb, B]`` or None, ``z_b`` or None) as blocks of ``sub``
+    obs, swept in the same order: each block padded to whole sub-blocks
+    with zero obs (exact no-ops) and the Gram tables' diagonal blocks."""
     nb, bsz, _ = y_b.shape
     if sub >= bsz:
         return y_b, ggt_b, coef_b, w, table, z_b
@@ -171,8 +255,10 @@ def sub_blocks(y_b, ggt_b, coef_b, w, table, z_b, sub: int):
     if table is not None:
         table = torch.nn.functional.pad(table, (0, pad)).reshape(
             table.shape[0], nb * k, sub).contiguous()
+    w = (Geometry(w.points, _sub_geometry(w.obs, sub))
+         if isinstance(w, Geometry) else rows(w))
     return (rows(y_b), diagonal_blocks(ggt_b, sub),
-            per_ob_blocks(coef_b, sub), rows(w), table, rows(z_b))
+            per_ob_blocks(coef_b, sub), w, table, rows(z_b))
 
 
 def _gram_tables(y_b, sqrtc_b, z_b=None):
@@ -195,7 +281,8 @@ def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
     ``sub``/``mslice`` (:func:`plan`'s when None) are the kernel's order:
     sub-blocks swept in turn, D0 summed over slices of ``mslice`` members.
 
-    ``bm [VT*G]``, ``bp [VT*G, M]``; ``w [nb, B, G]`` or None
+    ``bm [VT*G]``, ``bp [VT*G, M]``; ``w [nb, B, G]``, a
+    :class:`Geometry` (its weights built here in torch) or None
     (unlocalized); ``table [VT, nb, B]`` or None (ones); ``y_b [nb, B,
     M]``; ``ggt_b [nb, B, B]``; ``coef_b [nb, 2, B]`` (gain, sqrt_coef).
     The two large products round their operands as mode ``precision``
@@ -205,6 +292,8 @@ def grid_apply_plain(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
     rnd = lambda x: round_inputs(x, precision)
     nrows, nmems = bp.shape
     g = nrows // vt
+    if isinstance(w, Geometry):
+        w = geometry_weights(*w)
     if sub is None or mslice is None:
         _, sub, mslice = plan(y_b.shape[1], nmems, precision)
     y_b, ggt_b, coef_b, w, table, z_b = sub_blocks(y_b, ggt_b, coef_b, w,
@@ -252,18 +341,24 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
     or "B4"; "B4" with ``z_b`` is B4e) on CUDA float32 tensors, at
     ``tile`` grid points per CTA (:func:`pick_tile`'s when None), staged
     as :func:`plan` says there, its two large products in mode
-    ``precision``.  ``donate=True`` updates ``bm``/``bp`` in place."""
+    ``precision``; ``w`` a :class:`Geometry` (B4): the kernel computes the
+    weights.  ``donate=True`` updates ``bm``/``bp`` in place."""
     if precision not in MODES:
         raise ValueError(f"unknown mode {precision!r}; expected one of "
                          f"{MODES}")
     if z_b is not None and (entry != "B4" or precision != "ieee"):
         raise ValueError("apply rows run through B4 in fp32 only (B4e)")
+    geo = w if isinstance(w, Geometry) else None
+    if geo is not None:
+        if entry != "B4":
+            raise ValueError("only B4 computes its weights in the kernel")
+        w = None
     nrows, nmems = bp.shape
     nblocks, bsz, _ = y_b.shape
     dev = bp.device
     f32 = torch.float32
-    ops = [t for t in (bm, bp, w, table, y_b, ggt_b, coef_b, z_b)
-           if t is not None]
+    ops = [t for t in (bm, bp, w, table, y_b, ggt_b, coef_b, z_b,
+                       *(geo or ())) if t is not None]
     for t in ops:
         if t.device != dev or t.dtype != f32:
             raise ValueError(f"{entry} takes float32 tensors on one CUDA "
@@ -275,11 +370,15 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
             or coef_b.shape != (nblocks, 2, bsz)
             or (w is not None and w.shape != (nblocks, bsz, g))
             or (table is not None and table.shape != (vt, nblocks, bsz))
-            or (z_b is not None and z_b.shape != y_b.shape)):
+            or (z_b is not None and z_b.shape != y_b.shape)
+            or (geo is not None and (geo.points.shape != (3, g) or
+                                     geo.obs.shape != (nblocks, 4, bsz)))):
         raise ValueError(f"{entry} operand shapes disagree")
     tile, sub, mslice = plan(bsz, nmems, precision, tile)
-    y_b, ggt_b, coef_b, w, table, z_b = sub_blocks(y_b, ggt_b, coef_b, w,
-                                                   table, z_b, sub)
+    y_b, ggt_b, coef_b, w, table, z_b = sub_blocks(
+        y_b, ggt_b, coef_b, geo or w, table, z_b, sub)
+    if geo is not None:  # the geometry, cut as the blocks are
+        geo, w = w, None
     nblocks, bsz, _ = y_b.shape
     if donate and bm.is_contiguous() and bp.is_contiguous():
         out_m, out_p = bm, bp
@@ -289,23 +388,26 @@ def grid_apply_cuda(entry: str, bm, bp, w, table, y_b, ggt_b, coef_b,
     if precision != "ieee":  # Y rounded once for every CTA
         y_b = prec.staged_y(y_b, precision)
     ins = [None if t is None else t.contiguous()
-           for t in (bm, bp, w, table, y_b, ggt_b, coef_b)]
+           for t in (bm, bp, w, table, y_b, z_b, ggt_b, coef_b,
+                     *(geo or (None, None)))]
     ptrs = [None if t is None else t.data_ptr() for t in ins]
     lib = _build.lib()
     # The C entries set their attributes on, and launch onto, the current
     # device: make it the tensors' one.
     with torch.cuda.device(dev):
         err = lib.efa_grid_launch(
-            *ptrs[:5], None if z_b is None else z_b.contiguous().data_ptr(),
-            *ptrs[5:], vt, g, nmems, mslice, bsz, nblocks, tile,
+            *ptrs, vt, g, nmems, mslice, bsz, nblocks, tile,
             MODES.index(precision), out_m.data_ptr(), out_p.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if z_b is not None:
         _build.check(err, "B4e ensrf_grid launch")
         _count_enkf()
-        return out_m, out_p
-    _build.check(err, f"{entry} ensrf_grid launch ({precision})")
-    _count(entry, precision)
+    else:
+        _build.check(err, f"{entry} ensrf_grid launch ({precision})")
+        _count(entry, precision)
+    if entry == "B4":
+        _count_weights("kernel" if geo is not None else
+                       "none" if w is None else "w")
     return out_m, out_p
 
 
@@ -314,6 +416,13 @@ def _count_enkf() -> None:
     global b4e_launches
     with _count_lock:
         b4e_launches += 1
+
+
+def _count_weights(source: str) -> None:
+    """One launch of B4 or B4e, its weights from ``source`` (a key of
+    :data:`b4_weight_source`)."""
+    with _count_lock:
+        b4_weight_source[source] += 1
 
 
 def _count(entry: str, precision: str) -> None:
@@ -361,10 +470,11 @@ def grid_apply(bm, bp, w, table, y_b, ggt_b, coef_b, vt: int,
 
 def block_apply(bm, bp, w, table, y, ggt, coef, vt: int,
                 donate: bool = False, precision: str = "ieee", z=None):
-    """B4 dispatch for one block: ``w [B, G]`` or None, ``table [VT, B]``
-    or None, ``y [B, M]``, ``ggt [B, B]``, ``coef [2, B]``; B4e with the
-    apply rows ``z [B, M]``."""
-    return _dispatch("B4", bm, bp, None if w is None else w[None],
+    """B4 dispatch for one block: ``w [B, G]``, a :class:`Geometry` (its
+    ``obs [4, B]``) or None, ``table [VT, B]`` or None, ``y [B, M]``,
+    ``ggt [B, B]``, ``coef [2, B]``; B4e with the apply rows ``z [B,
+    M]``."""
+    return _dispatch("B4", bm, bp, as_blocks(w),
                      None if table is None else table[:, None, :], y[None],
                      ggt[None], coef[None], vt, donate, precision,
                      z_b=None if z is None else z[None])
@@ -479,24 +589,32 @@ def grid_body(body_mean, body_perts, body_lat, body_lon, tail: TailSolution,
 # ---------------------------------------------------------------------------
 
 
+def _grid_of(nrows: int, ngrid):
+    """``(G, VT)`` of ``nrows`` rows over a grid of ``ngrid`` points; an
+    ``ngrid`` that does not divide the rows means a flat state (VT = 1)."""
+    if ngrid is None or ngrid <= 0 or nrows % ngrid:
+        return nrows, 1
+    return ngrid, nrows // ngrid
+
+
 @profiling.spanned(profiling.OPS_BLOCK_OPERANDS)
 def block_operands(body_lat, body_lon, ye_block, sqrt_coef, ob_lat, ob_lon,
                    radii, nrows: int, localize: bool = True,
                    fast_geometry: bool = False, body_vert=None, ob_vert=None,
                    ob_vrad=None, vertical: bool = False, ngrid=None,
-                   ob_row_factor=None, apply_rows=None):
+                   ob_row_factor=None, apply_rows=None, point_geo=None):
     """One block's operands, as ``apply_obs_block_pallas`` :176-245 builds
-    them: ``(vt, w [B, G] or None, table [VT, B] or None, ggt [B, B])``,
-    ``ggt`` from B4e's ``apply_rows [B, M]`` where given.
-    ``ngrid`` that does not divide the rows means a flat state (VT = 1).
-    ``ob_row_factor [B, rows]`` (flat states only) multiplies the weights
-    per (ob, row), as cross-variable localization does on the tail rows;
-    it is the weights when nothing else localizes."""
+    them: ``(vt, w, table [VT, B] or None, ggt [B, B])``, ``ggt`` from
+    B4e's ``apply_rows [B, M]`` where given.  ``w`` is the weights ``[B,
+    G]``, or None (unlocalized), or, where the caller gives the grid's
+    ``point_geo`` (:func:`points_for_kernel`), the :class:`Geometry` that
+    B4 computes them from.  ``ngrid`` that does not divide the rows means a
+    flat state (VT = 1).  ``ob_row_factor [B, rows]`` (flat states only)
+    multiplies the weights per (ob, row), as cross-variable localization
+    does on the tail rows; it is the weights when nothing else
+    localizes."""
     dtype = ye_block.dtype
-    if ngrid is None or ngrid <= 0 or nrows % ngrid:
-        g, vt = nrows, 1
-    else:
-        g, vt = ngrid, nrows // ngrid
+    g, vt = _grid_of(nrows, ngrid)
     ggt = _gram_tables(ye_block[None], sqrt_coef[None].to(dtype),
                        None if apply_rows is None
                        else apply_rows[None].to(dtype))[0]
@@ -505,7 +623,9 @@ def block_operands(body_lat, body_lon, ye_block, sqrt_coef, ob_lat, ob_lon,
         grid_lat = body_lat[:g].to(dtype)
         grid_lon = body_lon[:g].to(dtype)
         rad = radii.to(dtype)
-        if fast_geometry:
+        if point_geo is not None:
+            w = Geometry(point_geo, point_geometry(ob_lat, ob_lon, dtype, rad))
+        elif fast_geometry:
             w = grid_weights(latlon_to_unit(grid_lat, grid_lon),
                              latlon_to_unit(ob_lat, ob_lon).to(dtype), rad)
         else:
@@ -536,12 +656,13 @@ def apply_obs_block(body_mean, body_perts, body_lat, body_lon, ye_block,
                     body_vert=None, ob_vert=None, ob_vrad=None,
                     vertical: bool = False, ngrid=None,
                     ob_row_factor=None, donate: bool = False,
-                    precision: str = "ieee", apply_rows=None):
+                    precision: str = "ieee", apply_rows=None,
+                    point_geo=None):
     """Apply one pre-solved obs block to the state body through B4 (the
     counterpart of ``apply_obs_block_pallas``), or through B4e against the
-    stochastic EnKF's ``apply_rows [B, M]``; ``ob_row_factor`` as in
-    :func:`block_operands`; ``precision``: the mode of the two large
-    products."""
+    stochastic EnKF's ``apply_rows [B, M]``; ``ob_row_factor`` and
+    ``point_geo`` as in :func:`block_operands`; ``precision``: the mode of
+    the two large products."""
     dtype = body_perts.dtype
     y = ye_block.to(dtype)
     z = None if apply_rows is None else apply_rows.to(dtype)
@@ -550,7 +671,7 @@ def apply_obs_block(body_mean, body_perts, body_lat, body_lon, ye_block,
         body_perts.shape[0], localize=localize, fast_geometry=fast_geometry,
         body_vert=body_vert, ob_vert=ob_vert, ob_vrad=ob_vrad,
         vertical=localize and vertical, ngrid=ngrid,
-        ob_row_factor=ob_row_factor, apply_rows=z)
+        ob_row_factor=ob_row_factor, apply_rows=z, point_geo=point_geo)
     coef = torch.stack([gain_coef.to(dtype), sqrt_coef.to(dtype)])
     return block_apply(body_mean.to(dtype), body_perts, w, table, y,
                        ggt.contiguous(), coef, vt, donate=donate,
@@ -570,11 +691,20 @@ def blocked_body(body_mean, body_perts, body_lat, body_lon,
     departure rows, through B4e.  ``varloc``/``row_var``/``ob_var`` (a
     flat state only) enter each block as the factor ``varloc[ob_var_j,
     row_var_r]`` on its weights (:func:`block_operands`'
-    ``ob_row_factor``)."""
+    ``ob_row_factor``).  Where B4 computes the weights
+    (:func:`points_for_kernel`), the grid's geometry is built once for
+    every block."""
     nobs = tail.ye.shape[0]
     if nobs == 0:
         return body_mean, body_perts
     dtype = body_perts.dtype
+    if varloc is not None:
+        ngrid = None
+    g, vt = _grid_of(body_perts.shape[0], ngrid)
+    pgeo = points_for_kernel(
+        body_lat[:g], body_lon[:g], dtype, on_card=body_perts.is_cuda,
+        localize=localize, fast_geometry=fast_geometry,
+        vertical=localize and vertical, vt=vt, row_factor=varloc is not None)
     nblocks = -(-nobs // block_size)
     pad = nblocks * block_size - nobs
     obs = obs.with_default_verts()
@@ -602,9 +732,9 @@ def blocked_body(body_mean, body_perts, body_lat, body_lon,
             lon[sl], radii[sl], localize=localize,
             fast_geometry=fast_geometry, body_vert=body_vert,
             ob_vert=overt[sl], ob_vrad=ovrad[sl], vertical=vertical,
-            ngrid=None if varloc is not None else ngrid,
+            ngrid=ngrid,
             ob_row_factor=(None if varloc is None
                            else vl[ovar[sl]][:, rvar]),
             donate=donate or b > 0, precision=precision,
-            apply_rows=None if z is None else z[sl])
+            apply_rows=None if z is None else z[sl], point_geo=pgeo)
     return bm, bp

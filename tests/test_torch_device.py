@@ -4,6 +4,7 @@ caller asks for another device; without a card and without
 kernel wrappers make the tensors' device current around each C entry,
 which sets its attributes on, and launches onto, the current device."""
 
+import contextlib
 import os
 import tempfile
 import types
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from efa_xray_tpu_torch import AdaptiveInflation, EnsembleState, cli, interop
+from efa_xray_tpu_torch.assimilation import ensrf_core
 from efa_xray_tpu_torch.models import swe
 from efa_xray_tpu_torch.models.cycling import CyclingHarness
 from efa_xray_tpu_torch.ops import (
@@ -173,6 +175,26 @@ def _launch(wrapper):
         precision_probe.mm_cuda(a, a, "ieee")
 
 
+def _keep_counts(monkeypatch):
+    """The launch counters come back as they were: other tests read
+    them."""
+    for mod, names in ((tail_solve, ("launches", "hybrid_launches")),
+                       (ensrf_fused, ("launches", "hybrid_launches")),
+                       (ensrf_grid, ("b3_launches", "b4_launches",
+                                     "b4e_launches")),
+                       (precision_probe, ("launches",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, getattr(mod, name))
+    monkeypatch.setattr(precision_probe, "launches_by_mode",
+                        dict(precision_probe.launches_by_mode))
+    monkeypatch.setattr(ensrf_grid, "b4_weight_source",
+                        dict(ensrf_grid.b4_weight_source))
+    for mod in (ensrf_fused, ensrf_grid):
+        monkeypatch.setattr(mod, "launches_by_mode",
+                            {k: dict(v) for k, v in
+                             mod.launches_by_mode.items()})
+
+
 @pytest.mark.parametrize("wrapper", ["B1", "B2", "B3", "B4", "occupancy",
                                      "P"])
 def test_kernel_wrappers_enter_the_tensors_device(wrapper, monkeypatch):
@@ -204,19 +226,64 @@ def test_kernel_wrappers_enter_the_tensors_device(wrapper, monkeypatch):
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=None))
     monkeypatch.setattr(_build, "lib", lambda: Library())
-    # the counts come back as they were: other tests read them
-    for mod, names in ((tail_solve, ("launches", "hybrid_launches")),
-                       (ensrf_fused, ("launches", "hybrid_launches")),
-                       (ensrf_grid, ("b3_launches", "b4_launches")),
-                       (precision_probe, ("launches",))):
-        for name in names:
-            monkeypatch.setattr(mod, name, getattr(mod, name))
-    monkeypatch.setattr(precision_probe, "launches_by_mode",
-                        dict(precision_probe.launches_by_mode))
-    for mod in (ensrf_fused, ensrf_grid):
-        monkeypatch.setattr(mod, "launches_by_mode",
-                            {k: dict(v) for k, v in
-                             mod.launches_by_mode.items()})
+    _keep_counts(monkeypatch)
     _launch(wrapper)
     assert len(calls) == 1 and not current
     assert calls[0][1] == [torch.device("cpu")], calls
+
+
+@pytest.mark.parametrize("config,enkf", [("default", False),
+                                         ("default", True),
+                                         ("fast_geometry", False),
+                                         ("unlocalized", False),
+                                         ("default, VT > 1", False)])
+def test_b4_block_reaches_the_entry_with_its_weight_source(config, enkf,
+                                                           monkeypatch):
+    """A default-config B4 (and B4e) block of ``blocked_body`` on the card
+    reaches ``efa_grid_launch`` with a null ``w`` and the geometry
+    pointers; a ``fast_geometry`` block, or one over VT > 1 groups, with
+    ``w`` and no geometry, an unlocalized one with neither;
+    ``b4_weight_source`` counts each launch by its source."""
+    calls = []
+
+    class Library:
+        def efa_grid_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    monkeypatch.setattr(_build, "lib", lambda: Library())
+    _keep_counts(monkeypatch)
+    before = dict(ensrf_grid.b4_weight_source)
+    f = lambda *shape: torch.rand(shape, dtype=torch.float32,
+                                  generator=torch.Generator().manual_seed(
+                                      len(shape))).as_subclass(_OnCard)
+    rows, b, m = 40, 8, 4
+    vt = 2 if config == "default, VT > 1" else 1
+    tail = ensrf_core.TailSolution(ye=f(b, m), gain_coef=f(b),
+                                   sqrt_coef=f(b), tail_mean=None,
+                                   tail_perts=None, diags=None)
+    obs = ensrf_core.ObsArrays(
+        values=f(b), errors=f(b), lats=90.0 * f(b), lons=360.0 * f(b),
+        radii=1000.0 + f(b), assim=torch.ones(b, dtype=torch.bool))
+    ensrf_grid.blocked_body(
+        f(rows), f(rows, m), 90.0 * f(rows), 360.0 * f(rows), tail, obs,
+        localize=config != "unlocalized",
+        fast_geometry=config == "fast_geometry", block_size=b,
+        ngrid=rows // vt, apply_rows=f(b, m) if enkf else None)
+    assert len(calls) == 1
+    args = calls[0]
+    w, pgeo, ogeo = args[2], args[8], args[9]
+    source = {"default": "kernel", "fast_geometry": "w",
+              "unlocalized": "none", "default, VT > 1": "w"}[config]
+    assert (w is not None) == (source == "w")
+    assert (pgeo is not None) == (ogeo is not None) == (source == "kernel")
+    assert (args[5] is not None) == enkf  # B4e's apply rows
+    assert args[10:13] == (vt, rows // vt, m)  # VT, G, M
+    counted = {k: v - before[k]
+               for k, v in ensrf_grid.b4_weight_source.items()}
+    assert counted == {k: int(k == source) for k in counted}

@@ -209,6 +209,8 @@ COUNTERS = {
     "B4": (lambda: ensrf_grid._count("B4", "ieee"),
            lambda: (ensrf_grid.b4_launches,
                     ensrf_grid.launches_by_mode["B4"]["ieee"])),
+    "B4 weight source": (lambda: ensrf_grid._count_weights("kernel"),
+                         lambda: (ensrf_grid.b4_weight_source["kernel"],)),
     "P": (lambda: precision_probe._count("ieee"),
           lambda: (precision_probe.launches,
                    precision_probe.launches_by_mode["ieee"])),
@@ -238,6 +240,8 @@ def test_counters_stay_exact_under_threads(monkeypatch, name):
             k: dict.fromkeys(v, 0) for k, v in mod.launches_by_mode.items()})
     monkeypatch.setattr(precision_probe, "launches_by_mode",
                         dict.fromkeys(precision_probe.launches_by_mode, 0))
+    monkeypatch.setattr(ensrf_grid, "b4_weight_source",
+                        dict.fromkeys(ensrf_grid.b4_weight_source, 0))
     bump, read = COUNTERS[name]
     nthreads, reps = 4, 10_000
 

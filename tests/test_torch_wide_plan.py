@@ -116,7 +116,7 @@ def _body_plan(kernel, mode, bsz, m, calls):
             1, precision=mode, z_b=z)
         (name, a), = calls
         assert name == "efa_grid_launch"
-        at = (10, 11, 12, 13, 14)
+        at = (12, 13, 14, 15, 16)
     got = [a[i] for i in at]
     assert got[0] == m
     return got[4], got[2], got[1], got[3]
