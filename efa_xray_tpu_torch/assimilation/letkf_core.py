@@ -51,6 +51,13 @@ solves, :data:`ns_iterations` their iterations summed,
 values read back.  The kernel's iterations are tallied on its device and
 folded into the two iteration counters when asked (:func:`ns_counts`),
 never inside an update.
+
+Spans (:mod:`efa_xray_tpu_torch.utils.profiling`, recorded only while a
+``torch.profiler`` session records): ``efa.route.letkf`` around
+:func:`letkf_update`, ``efa.ops.letkf_select`` around each chunk's
+selection and the obs-space :func:`select_local_obs`, and
+``efa.ops.letkf_solve`` around each chunk's solve (LG and NS issued); the
+apply stays under the route's span.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from efa_xray_tpu_torch.assimilation.ensrf_core import (
     _empty_diags,
 )
 from efa_xray_tpu_torch.observation.localization import latlon_to_unit
+from efa_xray_tpu_torch.utils import profiling
 
 ns_calls = 0
 ns_iterations = 0
@@ -156,6 +164,7 @@ def _top_k(dots: torch.Tensor, k: int, method: str = "exact") -> torch.Tensor:
     return torch.topk(key | rev, k, dim=-1).indices
 
 
+@profiling.spanned(profiling.OPS_LETKF_SELECT)
 def select_local_obs(patch_xyz, obs_xyz, k: int, chunk: int = 4096,
                      topk_method: str = "exact") -> torch.Tensor:
     """Indices of the k nearest observations per patch, ``[P, k]``:
@@ -493,6 +502,7 @@ class _ChunkSolver:
                                               device=self.ye.device)
         return t
 
+    @profiling.spanned(profiling.OPS_LETKF_SOLVE)
     def __call__(self, px, ii, pv=None, uv=None):
         """``(wbar [C, M], W [C, M, M])`` of the chunk's units: centroids
         ``px [C, 3]``, local obs ``ii [C, K]``, levels ``pv [C]`` (vertical
@@ -611,6 +621,7 @@ def apply_patch_weights(body_mean, body_perts, weights: PatchWeights,
 # ---------------------------------------------------------------------------
 
 
+@profiling.spanned(profiling.OPS_LETKF_SELECT)
 def _select_chunk(px, obs_xyz, k: int, topk_method: str, cand=None,
                   mask=None, group: int = 0) -> torch.Tensor:
     """The ``k`` nearest obs of each patch centroid ``px [C, 3]``: over
@@ -770,6 +781,7 @@ def _analyze_body_chunked(body_mean, body_perts, ye, innov, rinv, obs_xyz,
 # ---------------------------------------------------------------------------
 
 
+@profiling.spanned(profiling.ROUTE_LETKF)
 def letkf_update(body_mean, body_perts, tail_mean, tail_perts, grid_lat,
                  grid_lon, obs: ObsArrays, *, ngrid: int,
                  patch_size: int = 1, k_obs: int = 64, localize: bool = True,

@@ -27,9 +27,13 @@ efa.route.solve              route        KernelRoute.solve
 efa.route.tail               route        ensrf_core.tail_scan_blocked
 efa.route.tail_panel         route        each panel of the tail
 efa.route.body               route        KernelRoute._body_apply
+efa.route.letkf              route        letkf_core.letkf_update (the LETKF's route)
 efa.ops.panel_weights        ops          ensrf_core.panel_weights
 efa.ops.prepare              ops          ensrf_fused.prepare (B2's operands)
 efa.ops.block_operands       ops          ensrf_grid.block_operands (one B4 block)
+efa.ops.letkf_select         ops          a chunk's local obs (letkf_core._select_chunk),
+                                          the obs-space letkf_core.select_local_obs
+efa.ops.letkf_solve          ops          a chunk's solve (letkf_core._ChunkSolver: LG, NS)
 
 A span never synchronizes, reads a tensor or allocates on the card, and
 with no profiler recording it costs one check and a shared no-op.
@@ -58,9 +62,12 @@ ROUTE_SOLVE = "efa.route.solve"
 ROUTE_TAIL = "efa.route.tail"
 ROUTE_TAIL_PANEL = "efa.route.tail_panel"
 ROUTE_BODY = "efa.route.body"
+ROUTE_LETKF = "efa.route.letkf"
 OPS_PANEL_WEIGHTS = "efa.ops.panel_weights"
 OPS_PREPARE = "efa.ops.prepare"
 OPS_BLOCK_OPERANDS = "efa.ops.block_operands"
+OPS_LETKF_SELECT = "efa.ops.letkf_select"
+OPS_LETKF_SOLVE = "efa.ops.letkf_solve"
 
 _NOOP = contextlib.nullcontext()
 _recording = torch.autograd._profiler_enabled
